@@ -23,26 +23,39 @@ Run from the repository root with no arguments::
    and CUDA versions.
 2. Build: every ``kubeflow_tpu_torch/csrc/*.cu`` at once, one ``nvcc``
    each, timed.
-3. Kernels vs their plain versions on the card, at the main path's
-   shapes and three variants; each kernel's time (median of CUDA-event
-   timed calls), its plain version's, the one-call PyTorch yardstick
-   (``library_ms``, never used by the port) and the card's bound.
-4. The slice: ``llama3-8b`` at full width with random weights from seed
-   0, served through ``LoadedModel.run``: predict [2, 2048], classify
-   [1, 2048], and greedy generate of two left-padded prompts (300 and
-   512 tokens, 32 new tokens). Launch counts are zeroed just before and
-   read just after; every kernel must have run on that path. The
-   predict logits are held against the same forward on the plain
-   attention, and a small fp32 model against the CPU.
-5. One JSON line of kernel numbers, then the result line.
+3. Flash attention vs its plain version on the card, at the Llama
+   path's shapes and three variants; each kernel's time (median of
+   CUDA-event timed calls), its plain version's, the one-call PyTorch
+   yardstick (``library_ms``, never used by the port) and the card's
+   bound.
+4. The Llama slice: ``llama3-8b`` at full width with random weights
+   from seed 0, served through ``LoadedModel.run``: predict [2, 2048],
+   classify [1, 2048], and greedy generate of two left-padded prompts
+   (300 and 512 tokens, 32 new tokens). The predict logits are held
+   against the same forward on the plain attention, and a small fp32
+   model against the CPU. Its params are freed before the next phases.
+5. The BN forward kernel vs its plain version at the ResNet-50 b256
+   shapes (C = 64 to 2048), one ghost-statistics case and one ragged
+   fp32 case, timed as in 3 (the yardstick is ``F.batch_norm``).
+6. ``resnet-test`` fp32: one train step on the card (the kernel)
+   against the CPU (the plain version).
+7. The ResNet slice: ``run_benchmark`` trains ``resnet50`` at 224², b256,
+   bf16, SGD-Nesterov, twice: the ``bench.py`` headline
+   (``bn_stat_rows=32``, 3 warmup + 20 timed steps) and the CLI default
+   (exact BN, 1 + 5). The first step's logits through the kernel are
+   held against the plain BN, beside the bf16 floor.
+8. One JSON line of kernel numbers, then the result line.
 
-Any failure ends the run with a nonzero exit and no result line. Needs
-one GPU; fails without one.
+Each path's launch counts are zeroed just before it and read just
+after; every kernel must have run on its path. Any failure ends the run
+with a nonzero exit and no result line. Needs one GPU; fails without
+one.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -54,11 +67,17 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.inference.generate import generate
-from kubeflow_tpu_torch.models.convert import init_params
+from kubeflow_tpu_torch.models import resnet
+from kubeflow_tpu_torch.models.convert import init_params, init_resnet
 from kubeflow_tpu_torch.models.llama import apply, llama_test
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import dense_attention
+from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
+from kubeflow_tpu_torch.ops.bn_fused import (
+    fused_bn_train_forward,
+    reference_bn_train_forward,
+)
 from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -68,6 +87,16 @@ from kubeflow_tpu_torch.serving.signature import (
     ModelMetadata,
     Signature,
     TensorSpec,
+)
+from kubeflow_tpu_torch.training.benchmark import (
+    BenchConfig,
+    run_benchmark,
+    synthetic_batch,
+)
+from kubeflow_tpu_torch.training.train import (
+    create_train_state,
+    make_train_step,
+    sgd,
 )
 from kubeflow_tpu_torch.utils.device import resolve_device
 
@@ -89,6 +118,27 @@ KERNEL_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
 #: by 0.051 on this forward, so twice that floor. A wrong mask or head
 #: mapping gives differences of order 1.
 LOGITS_REL_RMS_TOL = 0.1
+
+#: BN kernel vs plain version, both on the card. Statistics: fp32 sums
+#: of up to 3.2 M values of variance ~4 in another order (hierarchical
+#: partials vs PyTorch's reduction), so a few 1e-6; 1e-4 absolute. y: the
+#: two agree on mean and mul to an fp32 ulp or so and then round op by
+#: op alike, so an output can differ by one step of its type: 2**-7 of
+#: max(1, |y|) in bf16, 1e-5 of it in fp32.
+BN_STAT_TOL = 1e-4
+BN_Y_REL_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+
+#: resnet-test fp32, one train step on the card vs the CPU: the CPU
+#: tests' tolerance for the trainer.
+TRAIN_TOL = 1e-4
+
+#: ResNet-50's BN layers: one per conv (the stem, three per bottleneck
+#: block, one per projection shortcut).
+RESNET50_BN_LAYERS = 53
+#: (name, batch, warmup, timed steps, bn_stat_rows): the bench.py
+#: headline and the benchmark CLI's default.
+RESNET_RUNS = (("b256 bn_stat_rows=32", 256, 3, 20, 32),
+               ("b256 exact BN", 256, 1, 5, 0))
 
 LLAMA = "llama3-8b"
 PREDICT_SHAPE = (2, 2048)
@@ -354,6 +404,199 @@ def serve_llama(card):
     return launches
 
 
+def bn_bound(m, m_stat, c, dtype):
+    """Least time (ms) the card could take for one BN forward, and what
+    bounds it: the stat rows and x read once, y written once (scale,
+    bias, mean and var besides), against a few fp32 operations per
+    element (square and two adds for the stats, subtract, multiply and
+    add to normalize)."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (m_stat + 2 * m) * c * elem + 4 * c * 4
+    flops = 3.0 * m_stat * c + 3.0 * m * c
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def check_bn(name, nhw, c, dtype, stat_images=None):
+    """The BN kernel vs its plain version on one [N·H·W, C] shape, with
+    ``stat_images`` leading images feeding the statistics (all when
+    None); the ``F.batch_norm`` yardstick only where it computes the
+    same function (all rows)."""
+    n, h, w = nhw
+    m = n * h * w
+    stat_rows = None if stat_images is None else stat_images * h * w
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    scale = torch.rand(c, device="cuda", generator=gen)
+    bias = torch.randn(c, device="cuda", generator=gen)
+    run = functools.partial(fused_bn_train_forward, x, scale, bias,
+                            stat_rows=stat_rows)
+    plain = functools.partial(reference_bn_train_forward, x, scale, bias,
+                              stat_rows=stat_rows)
+    y, mean, var = run()
+    torch.cuda.synchronize()
+    y_ref, mean_ref, var_ref = plain()
+    dt = str(dtype).replace("torch.", "")
+    err = float((y.float() - y_ref.float()).abs().max())
+    y_tol = BN_Y_REL_TOL[dt] * max(1.0, float(y_ref.float().abs().max()))
+    stat_err = max(float((mean - mean_ref).abs().max()),
+                   float((var - var_ref).abs().max()))
+    # Bits: the partials are summed in a fixed order, no atomics.
+    y2, mean2, var2 = run()
+    deterministic = (torch.equal(y, y2) and torch.equal(mean, mean2)
+                     and torch.equal(var, var2))
+    if (not torch.isfinite(y).all() or err > y_tol
+            or stat_err > BN_STAT_TOL or not deterministic):
+        raise AssertionError(
+            f"bn {name}: y max |Δ| {err} (tol {y_tol}), stats max |Δ| "
+            f"{stat_err} (tol {BN_STAT_TOL}), deterministic {deterministic}")
+    library_ms = None
+    if stat_rows is None:
+        nchw = x.view(n, h, w, c).permute(0, 3, 1, 2)  # channels-last
+        library_ms = time_ms(functools.partial(
+            F.batch_norm, nchw, None, None, weight=scale, bias=bias,
+            training=True, momentum=0.0, eps=1e-5))
+    bound, bound_by = bn_bound(m, m if stat_rows is None else stat_rows, c,
+                               dtype)
+    row = {"shape": name, "dtype": dt, "max_abs_err": err, "tol": y_tol,
+           "stats_max_abs_err": stat_err, "stats_tol": BN_STAT_TOL,
+           "ms": time_ms(run), "plain_ms": time_ms(plain, reps=10),
+           "library_ms": library_ms, "bound_ms": bound,
+           "bound_by": bound_by}
+    log(f"bn {name}: {json.dumps(row)}")
+    return row
+
+
+def bn_layers(model) -> int:
+    return sum(isinstance(m, GhostBatchNorm) for m in model.modules())
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].detach().cpu() - b[k].detach().cpu()).abs().max())
+               for k in a)
+
+
+def resnet_test_agreement():
+    """``resnet-test`` fp32, one train step: on the card (the BN kernel
+    in fp32) and on the CPU (its plain version) from the same variables
+    and batch — loss, grad_norm, params and batch_stats within
+    TRAIN_TOL. 64² images keep the last stage's BN off the 1×1,
+    near-zero-variance inputs that amplify any summation order."""
+    rng = np.random.default_rng(0)
+    batch = {"inputs": torch.from_numpy(rng.standard_normal(
+                 (16, 64, 64, 3), dtype=np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 16))}
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = get_model("resnet-test").make(dtype="float32")
+        params, stats = init_resnet(model, seed=0, device="cpu")
+        state = create_train_state(
+            model, sgd(0.1, 0.9), {k: v.to(device) for k, v in params.items()},
+            {k: v.to(device) for k, v in stats.items()})
+        fused_bn_train_forward.launches = 0
+        state, metrics = make_train_step()(
+            state, {k: v.to(device) for k, v in batch.items()})
+        out[device] = (state, {k: float(v) for k, v in metrics.items()},
+                       fused_bn_train_forward.launches)
+    (cpu, m_cpu, n_cpu), (gpu, m_gpu, n_gpu) = out["cpu"], out["cuda"]
+    errs = {"loss": abs(m_cpu["loss"] - m_gpu["loss"]),
+            "grad_norm": abs(m_cpu["grad_norm"] - m_gpu["grad_norm"]),
+            "params": _max_abs(gpu.params, cpu.params),
+            "batch_stats": _max_abs(gpu.batch_stats, cpu.batch_stats)}
+    if (n_cpu != 0 or n_gpu != bn_layers(gpu.model)
+            or max(errs.values()) > TRAIN_TOL):
+        raise AssertionError(f"resnet-test train step cuda vs cpu: {errs}; "
+                             f"BN launches cpu {n_cpu}, cuda {n_gpu}")
+    log(f"resnet-test fp32 train step cuda vs cpu: max |Δ| "
+        f"{json.dumps(errs)} (tol {TRAIN_TOL}); {n_gpu} BN kernel launches")
+
+
+def bn_fp64_stats(x, scale, bias, *, eps=1e-5, stat_rows=None):
+    """Another plain BN: the statistics summed in fp64, then the same
+    fp32 formula. Against the plain version it gives the bf16 noise
+    floor of the ResNet forward."""
+    xs = (x if stat_rows is None else x[:stat_rows]).double()
+    mean = xs.mean(0)
+    var = torch.clamp(xs.square().mean(0) - mean.square(), min=0.0)
+    mean, var = mean.float(), var.float()
+    y = (x.float() - mean) * (torch.rsqrt(var + eps) * scale) + bias
+    return y.to(x.dtype), mean, var
+
+
+def resnet50_first_step_agreement(config, entry, params, stats):
+    """The first step's forward (train mode) through the BN kernel vs
+    through the plain BN, from the benchmark's params and batch:
+    relative RMS of the logits, within twice the bf16 floor measured
+    beside it (plain BN vs plain BN with fp64 statistics)."""
+    batch = synthetic_batch(config, entry.num_classes_or_vocab,
+                            entry.input_spec[0], torch.device("cuda"))
+    logits, losses = {}, {}
+    for label, norm_fn in (("kernel", None),
+                           ("plain", reference_bn_train_forward),
+                           ("fp64_stats", bn_fp64_stats)):
+        model = entry.make(norm_fn=norm_fn, **config.model_kwargs)
+        with torch.no_grad():
+            out = resnet.apply(model, params,
+                               {k: v.clone() for k, v in stats.items()},
+                               batch["inputs"], train=True)
+        logits[label] = out
+        losses[label] = float(F.cross_entropy(out, batch["labels"]))
+    err = rel_rms(logits["kernel"], logits["plain"])
+    floor = rel_rms(logits["fp64_stats"], logits["plain"])
+    tol = 2 * floor
+    row = {"logits_rel_rms": err, "floor_rel_rms": floor, "tol": tol,
+           "loss_kernel": losses["kernel"], "loss_plain": losses["plain"],
+           "loss_fp64_stats": losses["fp64_stats"]}
+    log(f"resnet50 first step, kernel vs plain BN: {json.dumps(row)}")
+    if not all(torch.isfinite(v).all() for v in logits.values()):
+        raise AssertionError("resnet50 logits are not finite")
+    if err > tol:
+        raise AssertionError(f"resnet50 logits differ: relative RMS {err} > "
+                             f"{tol} (twice the floor {floor})")
+    return row
+
+
+def train_resnet50(card):
+    """The ResNet slice at full width: run_benchmark in both
+    configurations, launch counts zeroed just before each and read just
+    after. Returns the BN kernel's launches over both."""
+    entry = get_model("resnet50")
+    if bn_layers(entry.make()) != RESNET50_BN_LAYERS:
+        raise AssertionError("resnet50 does not have 53 BN layers")
+    total = 0
+    for name, batch, warmup, steps, stat_rows in RESNET_RUNS:
+        config = BenchConfig(model="resnet50", batch_size=batch, steps=steps,
+                             warmup_steps=warmup, learning_rate=0.1,
+                             momentum=0.9, seed=0,
+                             model_kwargs={"bn_stat_rows": stat_rows})
+        torch.cuda.reset_peak_memory_stats()
+        fused_bn_train_forward.launches = 0
+        result = run_benchmark(config)
+        launches = fused_bn_train_forward.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        total += launches
+        losses = result.pop("losses")
+        result.update(card=card, peak_memory_gb=peak_gb,
+                      bn_launches=launches, losses=losses)
+        log(f"resnet50 {name}: {json.dumps(result)}")
+        expected = RESNET50_BN_LAYERS * (warmup + steps)
+        if launches != expected:
+            raise AssertionError(f"resnet50 {name}: {launches} BN kernel "
+                                 f"launches, expected {expected}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"resnet50 {name}: loss did not fall on "
+                                 f"the fixed batch: {losses}")
+        if peak_gb >= 80:
+            raise AssertionError(f"resnet50 {name}: peak {peak_gb} GB")
+        if stat_rows:
+            params, stats = init_resnet(entry.make(), seed=0)
+            resnet50_first_step_agreement(config, entry, params, stats)
+            del params, stats
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -395,6 +638,27 @@ def main() -> int:
     rows = [check_flash(*s) for s in shapes]
     small_model_agreement()
     launches = serve_llama(card)
+    gc.collect()  # the Llama params go before the ResNet's peak
+    torch.cuda.empty_cache()
+
+    bn_shapes = [
+        # The bn_pallas_bench.py shapes, ResNet-50 at b256.
+        ("[802816,256] bf16", (256, 56, 56), 256, bf16),
+        ("[200704,512] bf16", (256, 28, 28), 512, bf16),
+        ("[50176,1024] bf16", (256, 14, 14), 1024, bf16),
+        ("[12544,2048] bf16", (256, 7, 7), 2048, bf16),
+        # The stem: C = 64, 3.2 M rows.
+        ("[3211264,64] bf16", (256, 112, 112), 64, bf16),
+        # Ghost statistics over 32 of 256 images.
+        ("[802816,256] bf16 stat_rows=32*56*56", (256, 56, 56), 256, bf16,
+         32),
+        # Ragged: M and C multiples of no tile (the scalar path).
+        ("[100003,99] fp32", (100003, 1, 1), 99, fp32),
+    ]
+    bn_rows = [check_bn(*s) for s in bn_shapes]
+    resnet_test_agreement()
+    launches["bn_forward"] = train_resnet50(card)
+    log(f"resnet path launches: bn_forward {launches['bn_forward']}")
 
     main_row = rows[0]
     kernels = [{
@@ -409,6 +673,18 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "bn_forward",
+        "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/bn_forward.cu",
+        "replaces": "kubeflow_tpu/ops/bn_pallas.py:49",
+        "launches": launches["bn_forward"],
+        "max_abs_err": max(r["max_abs_err"] for r in bn_rows),
+        "ms": bn_rows[0]["ms"],
+        "plain_ms": bn_rows[0]["plain_ms"],
+        "bound_ms": bn_rows[0]["bound_ms"],
+        "bound_by": bn_rows[0]["bound_by"],
+        "library_ms": bn_rows[0]["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

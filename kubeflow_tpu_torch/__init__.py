@@ -12,8 +12,7 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""kubeflow_tpu_torch — the serving engine of ``kubeflow_tpu`` in PyTorch,
-on an NVIDIA H100.
+"""kubeflow_tpu_torch — ``kubeflow_tpu`` in PyTorch, on an NVIDIA H100.
 
 The layout mirrors the JAX package module for module
 (``kubeflow_tpu/models/llama.py`` ↔ ``kubeflow_tpu_torch/models/llama.py``),
@@ -21,11 +20,14 @@ so each counterpart is easy to find. The package imports ``torch`` and
 never ``jax``, ``flax`` or ``kubeflow_tpu``: what it needs from the JAX
 package it keeps as its own copy.
 
-- ``models``: the model registry and the dense Llama family.
-- ``ops``: attention in plain PyTorch, and ``flash_attention``, whose
-  CUDA path is the hand-written Hopper kernel in ``csrc/``.
+- ``models``: the model registry, the dense Llama family and ResNet.
+- ``ops``: attention and ghost batch norm in plain PyTorch, and
+  ``flash_attention`` and ``fused_bn_train_forward``, whose CUDA paths
+  are the hand-written Hopper kernels in ``csrc/``.
 - ``inference``: greedy KV-cache generation.
 - ``serving``: model signatures and ``LoadedModel``.
+- ``training``: the vision train step, the ``tpu-cnn`` benchmark,
+  evaluation and synthetic data.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -12,6 +12,7 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Model zoo of the port: the registry and the dense Llama family."""
+"""Model zoo of the port: the registry, the dense Llama family and the
+ResNet family."""
 
 from kubeflow_tpu_torch.models.registry import get_model, register_model  # noqa: F401

@@ -12,15 +12,17 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Llama weights for the port: carried across from Flax, or drawn.
+"""Model weights for the port: carried across from Flax, or drawn.
 
 Dtypes. Flax keeps every param in fp32 and casts it to the module's
 ``dtype`` at the op (``nn.Dense(dtype=bf16)`` multiplies by
-``kernel.astype(bf16)``). The port stores each weight in the dtype its
-op consumes instead: bf16 everywhere for a bf16 model, except
-``lm_head``, which the reference runs in fp32. The arithmetic is the
-same — the cast happens once, here, instead of at every op — and the
-weights take half the memory.
+``kernel.astype(bf16)``). For serving, the port stores each Llama
+weight in the dtype its op consumes instead: bf16 everywhere for a bf16
+model, except ``lm_head``, which the reference runs in fp32. The
+arithmetic is the same — the cast happens once, here, instead of at
+every op — and the weights take half the memory. For training, the
+ResNet keeps fp32 master params, as Flax does, and casts at each conv.
+A param takes the dtype of the module's template.
 
 Names. Flax's flat ``"/"``-keyed tree maps onto the port's parameter
 names one to one::
@@ -28,17 +30,22 @@ names one to one::
     tok_embed/embedding                 tok_embed.weight
     layer_{i}/attention/q_proj/kernel   layers.{i}.attention.q_proj.weight
     layer_{i}/attn_norm/scale           layers.{i}.attn_norm.scale
-    layer_{i}/gate_proj/kernel          layers.{i}.gate_proj.weight
     final_norm/scale                    final_norm.scale
     lm_head/kernel                      lm_head.weight
+    conv_init/kernel                    conv_init.weight
+    stage{s}_block{b}/conv1/kernel      stage{s}_block{b}.conv1.weight
+    stage{s}_block{b}/bn1/scale         stage{s}_block{b}.bn1.scale
+    head/kernel, head/bias              head.weight, head.bias
 
-Dense kernels are ``[in, out]`` in Flax and ``[out, in]`` in
-``nn.Linear``, so they are transposed.
+and the ``batch_stats`` collection (``bn_init/mean``, ``…/bn1/var``)
+onto the BN modules' buffers of the same path. Kernels change layout:
+a Dense kernel is ``[in, out]`` in Flax and ``[out, in]`` in
+``nn.Linear``; a conv kernel is HWIO in Flax and OIHW in PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +64,18 @@ def _flax_key(name: str) -> str:
     return "/".join(parts)
 
 
+def _kernel_to_torch(key: str, arr: np.ndarray) -> np.ndarray:
+    """A Flax kernel in PyTorch's layout: Dense ``[in, out]`` →
+    ``[out, in]``; conv HWIO → OIHW. Any other rank raises: reversing
+    all axes would swap a conv's spatial taps unseen."""
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    raise ValueError(f"{key}: a rank-{arr.ndim} kernel {arr.shape} has no "
+                     "PyTorch layout here (2: Dense, 4: conv HWIO)")
+
+
 def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Port params from a flat ``"/"``-keyed dict of Flax params (as
@@ -72,7 +91,7 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
             raise KeyError(f"Flax params have no {key!r} (for {name})")
         arr = np.array(flat[key], dtype=np.float32)  # a writable copy
         if key.endswith("/kernel"):
-            arr = arr.T
+            arr = _kernel_to_torch(key, arr)
         if tuple(arr.shape) != tuple(template.shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit "
                              f"{name} {tuple(template.shape)}")
@@ -104,3 +123,66 @@ def init_params(config: nn.Module, seed: int = 0,
             t.normal_(0.0, 0.02, generator=gen)
         out[name] = t
     return out
+
+
+def batch_stats_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
+                          device: DeviceLike = None
+                          ) -> Dict[str, torch.Tensor]:
+    """The BN running statistics from a flat ``"/"``-keyed Flax
+    ``batch_stats`` dict, keyed by the port's buffer names; every
+    buffer of ``config`` must be present, and no other key may be."""
+    device = resolve_device(device)
+    out = {}
+    for name, template in config.named_buffers():
+        key = name.replace(".", "/")
+        if key not in flat:
+            raise KeyError(f"Flax batch_stats have no {key!r} (for {name})")
+        arr = np.array(flat[key], dtype=np.float32)
+        if tuple(arr.shape) != tuple(template.shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit "
+                             f"{name} {tuple(template.shape)}")
+        out[name] = torch.from_numpy(arr).to(device)
+    extra = set(flat) - {n.replace(".", "/") for n in out}
+    if extra:
+        raise ValueError(f"Flax batch_stats the port model has no place "
+                         f"for: {sorted(extra)[:5]}")
+    return out
+
+
+#: Flax's lecun_normal: a normal truncated at two standard deviations,
+#: scaled so the truncated draw has variance 1 / fan_in (this is the
+#: standard deviation of the unit normal truncated to [-2, 2]).
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def init_resnet(config: nn.Module, seed: int = 0, device: DeviceLike = None
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Random ``(params, batch_stats)`` for a ResNet, drawn on
+    ``device`` from a ``torch.Generator`` seeded with ``seed``, by the
+    reference's initializers: lecun-normal (truncated) conv and head
+    kernels, zero head bias, BN scale 1 (0 where the template says so:
+    each block's ``bn3``) and bias 0, running mean 0 and var 1. All
+    fp32. (The numbers differ from ``jax.random``'s; to compare with the
+    reference, carry its variables across instead.)"""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {}
+    for name, template in config.named_parameters():
+        t = torch.empty(template.shape, dtype=torch.float32, device=device)
+        if name.endswith(".weight"):
+            # OIHW or [out, in]: fan_in is everything but dim 0.
+            std = (template[0].numel() ** -0.5) / _TRUNCATED_STD
+            nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                  generator=gen)
+        elif name.endswith(".scale"):
+            module = config.get_submodule(name.rsplit(".", 1)[0])
+            t.fill_(module.scale_init)
+        else:  # BN and head biases
+            t.zero_()
+        params[name] = t
+    batch_stats = {
+        name: (torch.zeros if name.endswith(".mean") else torch.ones)(
+            template.shape, dtype=torch.float32, device=device)
+        for name, template in config.named_buffers()}
+    return params, batch_stats

@@ -23,7 +23,7 @@ weights travel separately as a ``params`` dict (models/convert.py).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +33,11 @@ class ModelEntry:
     make: Callable[..., Any]  # returns a torch.nn.Module
     input_spec: Tuple[Tuple[int, ...], str]  # (shape sans batch, dtype)
     num_classes_or_vocab: int
+    # Benchmark sgd lr override for models whose training dynamics
+    # reject the family default (the reference's no-norm classic CNNs
+    # diverge at the BN-era 0.1); recorded next to the model, so new
+    # registrations carry the fact with them.
+    bench_lr: Optional[float] = None
     # Causal decoder with a generate/decode path (KV cache).
     decoder: bool = False
 
@@ -49,7 +54,8 @@ def register_model(entry: ModelEntry) -> None:
 def _ensure_loaded() -> None:
     import importlib
 
-    for mod in ("kubeflow_tpu_torch.models.llama",):
+    for mod in ("kubeflow_tpu_torch.models.llama",
+                "kubeflow_tpu_torch.models.resnet"):
         importlib.import_module(mod)
 
 

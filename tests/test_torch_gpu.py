@@ -24,7 +24,9 @@ with PyTorch and CUDA alone; tests/conftest.py imports JAX, so skip it::
 import pytest
 import torch
 
+from kubeflow_tpu_torch.ops import bn_fused
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 
 pytestmark = pytest.mark.gpu
 
@@ -117,3 +119,88 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         fa.flash_attention(q, k, v, kv_segment_valid=mask)
     assert fa.flash_attention.launches == before
+
+
+#: BN kernel vs plain version: the statistics are fp32 sums in another
+#: order; y may differ by one step of its type (2**-7 relative in bf16).
+BN_Y_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+
+
+def _bn_inputs(cuda, m, c, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(m, c, device=cuda, generator=gen) * 2 + 0.5).to(dtype)
+    return (x, torch.rand(c, device=cuda, generator=gen),
+            torch.randn(c, device=cuda, generator=gen))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c,stat_rows", [
+    (50176, 64, None),     # C = 64: two channel vectors per warp row
+    (12544, 2048, None),   # many C tiles
+    (20000, 256, 3136),    # ghost statistics over the leading rows
+    (10007, 99, None),     # ragged M, C off the vector width: scalar path
+    (1, 8, None),          # one row
+])
+def test_bn_kernel_matches_plain_version(cuda, dtype, m, c, stat_rows):
+    x, scale, bias = _bn_inputs(cuda, m, c, dtype)
+    before = bn_fused.fused_bn_train_forward.launches
+    y, mean, var = bn_fused.fused_bn_train_forward(x, scale, bias,
+                                                   stat_rows=stat_rows)
+    torch.cuda.synchronize()
+    assert bn_fused.fused_bn_train_forward.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    y_ref, mean_ref, var_ref = bn_fused.reference_bn_train_forward(
+        x, scale, bias, stat_rows=stat_rows)
+    torch.testing.assert_close(mean, mean_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(var, var_ref, atol=1e-4, rtol=1e-5)
+    diff = (y.float() - y_ref.float()).abs()
+    assert float(diff.max()) <= BN_Y_TOL[dtype] * max(
+        1.0, float(y_ref.float().abs().max()))
+
+
+def test_bn_kernel_gives_the_same_bits_every_run(cuda):
+    x, scale, bias = _bn_inputs(cuda, 200704, 128, torch.bfloat16)
+    first = bn_fused.fused_bn_train_forward(x, scale, bias)
+    for _ in range(3):
+        again = bn_fused.fused_bn_train_forward(x, scale, bias)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("stat_rows", [None, 64])
+def test_bn_kernel_gradient_is_the_plain_versions(cuda, stat_rows):
+    x, scale, bias = _bn_inputs(cuda, 256, 32, torch.float32)
+    gy = torch.randn(256, 32, device=cuda)
+    grads = []
+    for fn in (bn_fused.fused_bn_train_forward,
+               bn_fused.reference_bn_train_forward):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        y, mean, _ = fn(*leaves, stat_rows=stat_rows)
+        (y * gy).sum().add(mean.sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["strided", "float16", "stat_rows"])
+def test_bn_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
+    x, scale, bias = _bn_inputs(cuda, 64, 16, torch.bfloat16)
+    kw = {}
+    if bad == "strided":
+        x = x.t().contiguous().t()
+    elif bad == "float16":
+        x = x.half()
+    elif bad == "stat_rows":
+        kw["stat_rows"] = 65
+    before = bn_fused.fused_bn_train_forward.launches
+    with pytest.raises(ValueError):
+        bn_fused.fused_bn_train_forward(x, scale, bias, **kw)
+    assert bn_fused.fused_bn_train_forward.launches == before
+
+
+def test_ghost_batch_norm_refuses_a_copy_on_the_card(cuda):
+    bn = GhostBatchNorm(16, dtype="bfloat16", device=cuda)
+    nchw = torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        bn(nchw)
+    y = bn(nchw.contiguous(memory_format=torch.channels_last))
+    assert y.is_contiguous(memory_format=torch.channels_last)
