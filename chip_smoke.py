@@ -22,12 +22,17 @@ Run from the repository root with no arguments::
 1. Environment: the card (``nvidia-smi`` name and power limit), torch
    and CUDA versions.
 2. Build: every ``kubeflow_tpu_torch/csrc/*.cu`` at once, one ``nvcc``
-   each, timed.
+   each, timed, with the compiler's registers and spills per kernel;
+   ``launch_plan``'s shared memory held to the library's own figure for
+   every flash instantiation.
 3. Flash attention vs its plain version on the card, at the Llama
-   path's shapes and three variants; each kernel's time (median of
-   CUDA-event timed calls), its plain version's, the one-call PyTorch
-   yardstick (``library_ms``, never used by the port) and the card's
-   bound.
+   path's shapes, a long sequence and three variants, and the same bits
+   on a second call; each kernel's time (CUDA events around 20
+   back-to-back calls, median of 7 such runs; ``ms_one_call``: one call
+   per event pair, median of 30, as the BN kernel is timed), its plain
+   version's, the one-call PyTorch yardstick (``library_ms``, never
+   used by the port, timed as the kernel), the card's bound, the share
+   of it reached and the instantiation's registers and spills.
 4. The Llama slice: ``llama3-8b`` at full width with random weights
    from seed 0, served through ``LoadedModel.run``: predict [2, 2048],
    classify [1, 2048], and greedy generate of two left-padded prompts
@@ -57,6 +62,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,8 +85,11 @@ from kubeflow_tpu_torch.ops.bn_fused import (
     reference_bn_train_forward,
 )
 from kubeflow_tpu_torch.ops.flash_attention import (
+    HEAD_DIMS,
     flash_attention,
     flash_attention_reference,
+    kernel_smem_bytes,
+    launch_plan,
 )
 from kubeflow_tpu_torch.serving.model import LoadedModel
 from kubeflow_tpu_torch.serving.signature import (
@@ -151,8 +160,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
-    """Median of ``reps`` calls, each timed with CUDA events."""
+def time_ms(fn, reps: int = 30, warmup: int = 3, calls: int = 1) -> float:
+    """Median over ``reps`` runs of ``calls`` back-to-back calls, each
+    run timed with CUDA events and divided by ``calls``. With many calls
+    the host's launch work overlaps the device's, so a kernel's time is
+    its device time; one call also counts the host's work before it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -161,11 +173,47 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+#: Flash kernel and SDPA timings: 7 runs of 20 calls, so the wrapper's
+#: host work (about 0.03 ms a call) overlaps the device's.
+KERNEL_TIMING = {"reps": 7, "calls": 20}
+
+
+def compiler_report(report: str) -> dict:
+    """``{kernel entry: {"registers", "spill_stores", "spill_loads"}}``
+    from ``nvcc -Xptxas -v``'s report (registers at launch: a kernel
+    that raises its own with ``setmaxnreg`` runs with more)."""
+    kernels, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+        elif name and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            kernels[name].update(spill_stores=int(m.group(1)),
+                                 spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[name]["registers"] = int(m.group(1))
+    return kernels
+
+
+def flash_instantiation(kernels: dict, dtype, d: int) -> dict:
+    """The report's entry for the kernel that takes (dtype, head_dim)."""
+    key = (f"flash_fwd_kernel_wgmmaILi{d}E" if dtype == torch.bfloat16
+           else "flash_fwd_kernel_fma")
+    found = [v for k, v in kernels.items() if key in k]
+    if len(found) != 1:
+        raise AssertionError(f"compiler report: {len(found)} entries for "
+                             f"{key}")
+    return found[0]
 
 
 def rel_rms(a, b) -> float:
@@ -197,7 +245,7 @@ def attention_bound(q, k, v, mask, causal):
                                  else "bytes")
 
 
-def check_flash(name, b, l, h, hkv, d, dtype, causal, masked):
+def check_flash(kernels, name, b, l, h, hkv, d, dtype, causal, masked):
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(b, l, h, d, device="cuda", generator=gen).to(dtype)
     k = torch.randn(b, l, hkv, d, device="cuda", generator=gen).to(dtype)
@@ -219,6 +267,8 @@ def check_flash(name, b, l, h, hkv, d, dtype, causal, masked):
     tol = KERNEL_TOL[dt]
     if not torch.isfinite(out).all() or err > tol:
         raise AssertionError(f"flash {name}: max |Δ| {err} > {tol}")
+    if not torch.equal(run(), out):
+        raise AssertionError(f"flash {name}: a second call gave other bits")
     # The yardstick: one PyTorch call for the same function, on
     # [B, H, L, D] views with the KV heads repeated beforehand.
     rep = h // hkv
@@ -229,10 +279,14 @@ def check_flash(name, b, l, h, hkv, d, dtype, causal, masked):
     library = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
                                 attn_mask=attn_mask, is_causal=causal)
     bound, bound_by = attention_bound(q, k, v, mask, causal)
+    ms = time_ms(run, **KERNEL_TIMING)
     row = {"shape": name, "dtype": dt, "max_abs_err": err, "tol": tol,
-           "ms": time_ms(run), "plain_ms": time_ms(plain, reps=20),
-           "library_ms": time_ms(library), "bound_ms": bound,
-           "bound_by": bound_by}
+           "ms": ms, "ms_one_call": time_ms(run),
+           "plain_ms": time_ms(plain, reps=20),
+           "library_ms": time_ms(library, **KERNEL_TIMING),
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_share": bound / ms,
+           **flash_instantiation(kernels, dtype, d)}
     log(f"flash {name}: {json.dumps(row)}")
     return row
 
@@ -619,6 +673,16 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    kernels = compiler_report(reports["flash_attention"])
+    for dtype, dims in HEAD_DIMS.items():
+        for d in dims:
+            plan, built = launch_plan(dtype, d, 1).smem_bytes, \
+                kernel_smem_bytes(dtype, d)
+            if plan != built:
+                raise AssertionError(f"flash {dtype} D={d}: launch_plan "
+                                     f"says {plan} bytes, the kernel {built}")
+    log(f"flash launch_plan shared memory = the kernel's for "
+        f"{ {str(k): v for k, v in HEAD_DIMS.items()} }")
 
     bf16, fp32 = torch.bfloat16, torch.float32
     shapes = [
@@ -634,8 +698,12 @@ def main() -> int:
          True),
         ("d: B2 L256 H8/2 D64 causal fp32", 2, 256, 8, 2, 64, fp32, True,
          False),
+        # Llama-3-8B's full context, where the kernel runs at its
+        # steady rate.
+        ("e: B1 L8192 H32/8 D128 causal", 1, 8192, 32, 8, 128, bf16, True,
+         False),
     ]
-    rows = [check_flash(*s) for s in shapes]
+    rows = [check_flash(kernels, *s) for s in shapes]
     small_model_agreement()
     launches = serve_llama(card)
     gc.collect()  # the Llama params go before the ResNet's peak

@@ -98,14 +98,23 @@ def _finish(name: str, started) -> str:
     return out
 
 
+def _report(name: str) -> str:
+    """The compiler report kept beside a library built earlier."""
+    log = _target(name)[1] + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()
+
+
 def build_all() -> Dict[str, str]:
     """Build every ``csrc/*.cu`` in parallel, one ``nvcc`` each.
-    Returns ``{name: compiler report}`` (empty for a source already
-    built)."""
+    Returns ``{name: compiler report}``, the kept one for a source
+    already built."""
     started = {name: _start(name) for name in sources()}
     reports = {}
     for name, s in started.items():
-        reports[name] = "" if s is None else _finish(name, s)
+        reports[name] = _report(name) if s is None else _finish(name, s)
     return reports
 
 

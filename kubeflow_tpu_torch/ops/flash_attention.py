@@ -18,13 +18,28 @@ Source note. The kernel (``csrc/flash_attention.cu``) replaces the TPU
 kernel ``kubeflow_tpu/ops/flash_attention.py::_flash_kernel``. At the
 serving shapes (L = 2048, head_dim 128) attention does hundreds of
 operations per byte it must read, so on the H100 it is bound by
-operations, not by memory. The design keeps the L x L scores out of
-device memory (a 64 x 64 fp32 score tile per block in shared memory),
-runs QKᵀ and PV on the tensor cores (WMMA ``mma.sync``, bf16 in, fp32
-accumulate), reads q/k/v through their ``[B, L, H, D]`` strides, and
-indexes the KV head ``h / (H / Hkv)`` so GQA never materialises the
-repeat. The TPU block sizes and the reference's divisibility fallback
-do not carry over: ragged lengths are masked inside the kernel.
+operations: the tensor cores' rate, which only ``wgmma`` reaches. The
+bf16 kernel is warp-specialised: a producer warp keeps a 2-stage ring
+of K and V tiles in flight with TMA (tensor maps over q/k/v's own
+``[B, L, H, D]`` strides, 128-byte swizzle, ``mbarrier`` full/empty
+pairs), and two consumer warpgroups of 64 q rows each run QKᵀ and PV
+as ``wgmma`` chains. The scores, the online softmax (scale·log2 e
+folded into one FMA before ``exp2`` when scale > 0; any other scale
+multiplies the scores before the max, as the plain version does), P and
+the O accumulator stay in registers: P's accumulator layout is
+``wgmma``'s register-A layout.
+Each consumer runs the softmax of tile t while its PV of tile t-1 is on
+the tensor cores, and the two take turns to issue (ping-pong). GQA
+indexes the KV head ``h / (H / Hkv)``; ragged lengths are masked in the
+kernel (TMA zero-fills past Lq and Lk; keys ≥ Lk are masked from a
+per-tile bitmask). fp32 takes plain FMA loops, for parity checks only.
+The design it replaces (WMMA ``mma.sync`` with S, P and O in shared
+memory, synchronous loads) took 1.08–1.18 ms at B1 L2048 H32/8 D128
+causal and 2.10–2.21 ms at B2 (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+
+:func:`launch_plan` mirrors the kernel's instantiations, tiles, grid
+and shared memory in Python, so the CPU tests reach them; the library's
+``kft_flash_attention_smem_bytes`` lets the card check the mirror.
 
 Dispatch. A CPU tensor goes to :func:`flash_attention_reference`, the
 plain PyTorch version (the kernel's online softmax, written with torch
@@ -35,7 +50,7 @@ no fallback. ``flash_attention.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,13 +61,61 @@ from kubeflow_tpu_torch.ops.attention import (
     attention_init_carry,
 )
 
-#: kv tile of the plain version; the kernel's tiles are 64 x 64 too.
+#: kv tile of the plain version.
 BLOCK_K = 64
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Largest head_dim per dtype whose tiles fit a block's 227 KB of
-#: shared memory (the layout is in csrc/flash_attention.cu).
-_MAX_HEAD_DIM = {torch.float32: 128, torch.bfloat16: 256}
+#: Head dims the kernel is instantiated for: the bf16 wgmma kernel is a
+#: template over D; the fp32 FMA kernel takes D at run time.
+HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128, 256),
+             torch.float32: tuple(range(16, 129, 16))}
+#: A block's shared memory on Hopper.
+MAX_SMEM_BYTES = 232448
+
+
+class LaunchPlan(NamedTuple):
+    route: str                 # "wgmma" (bf16) or "fma" (fp32)
+    block_q: int               # q rows per block
+    block_k: int               # keys per kv tile
+    threads: int
+    grid: Tuple[int, int]      # (batch * heads, q tiles)
+    smem_bytes: int            # dynamic shared memory per block
+
+
+def _align(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def launch_plan(dtype: torch.dtype, d: int, lq: int,
+                batch_heads: int = 1) -> LaunchPlan:
+    """The kernel launch for (dtype, head_dim) over ``lq`` queries, as
+    ``csrc/flash_attention.cu`` makes it; raises ValueError where no
+    kernel is instantiated.
+
+    bf16: 384 threads (a producer warpgroup and two consumer warpgroups
+    of 64 q rows), 128-row q tiles, 128-key kv tiles (64 at D = 256,
+    where O takes 128 registers a thread), shared memory for Q, two
+    K/V stages, their key bitmasks and nine mbarriers, plus 1 KB to
+    align the swizzled tiles. fp32: 128 threads over 64 x 64 tiles."""
+    if d not in HEAD_DIMS.get(dtype, ()):
+        raise ValueError(
+            f"head_dim {d} in {dtype}: the kernel takes "
+            f"{HEAD_DIMS.get(dtype, ())}")
+    if dtype == torch.bfloat16:
+        block_q, block_k, stages = 128, (128 if d <= 128 else 64), 2
+        smem = (1024 + block_q * d * 2 + stages * 2 * block_k * d * 2
+                + stages * (block_k // 32) * 4 + (1 + 4 * stages) * 8)
+        return LaunchPlan("wgmma", block_q, block_k, 384,
+                          (batch_heads, -(-lq // block_q)), smem)
+    block, pitch = 64, d + 4  # fp32 rows padded by 4 floats
+    tile = block * pitch * 4
+    k_off = _align(tile, 128)
+    v_off = _align(k_off + tile, 128)
+    s_off = _align(v_off + tile, 128)
+    o_off = _align(s_off + block * (block + 4) * 4, 128)
+    stat_off = _align(o_off + tile, 128)
+    return LaunchPlan("fma", block, block, 128,
+                      (batch_heads, -(-lq // block)), stat_off + 3 * block * 4)
 
 
 def flash_attention_reference(
@@ -93,8 +156,16 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.c_longlong] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.kft_flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.kft_flash_attention_smem_bytes.restype = ctypes.c_int
         lib._kft_bound = True
     return lib
+
+
+def kernel_smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """The built kernel's own shared memory for (dtype, head_dim), or
+    -1 where none is instantiated: what :func:`launch_plan` mirrors."""
+    return _library().kft_flash_attention_smem_bytes(_DTYPES[dtype], d)
 
 
 def _check_inputs(q, k, v, kv_segment_valid):
@@ -113,9 +184,7 @@ def _check_inputs(q, k, v, kv_segment_valid):
                          "takes float32 or bfloat16, all three alike")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k, v must be on one device")
-    if d % 16 or d > _MAX_HEAD_DIM[q.dtype]:
-        raise ValueError(f"head_dim {d} in {q.dtype}: the kernel takes "
-                         f"multiples of 16 up to {_MAX_HEAD_DIM[q.dtype]}")
+    launch_plan(q.dtype, d, q.shape[1])
     elem = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
@@ -141,6 +210,8 @@ def _launch(q, k, v, causal, scale, kv_segment_valid):
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if lk == 0:  # no keys: every row is fully masked
+        return out.zero_()
     mask = None
     if kv_segment_valid is not None:
         mask = (kv_segment_valid != 0).to(torch.int32).contiguous()

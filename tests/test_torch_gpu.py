@@ -21,11 +21,16 @@ with PyTorch and CUDA alone; tests/conftest.py imports JAX, so skip it::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
 
+import functools
+
 import pytest
 import torch
 
+from kubeflow_tpu_torch.models.convert import init_params
+from kubeflow_tpu_torch.models.llama import apply, llama_test
 from kubeflow_tpu_torch.ops import bn_fused
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 
 pytestmark = pytest.mark.gpu
@@ -97,8 +102,115 @@ def test_strided_views_are_read_in_place(cuda):
                                rtol=1e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,causal,masked", [
+    (1, 128, 200, 4, 2, 128, False, False),  # Lk off the kv tile: TMA zero rows
+    (2, 100, 333, 4, 4, 64, False, True),    # ragged Lk under a key mask
+    (1, 1, 300, 4, 1, 128, True, False),     # one query row, causal
+    (2, 300, 130, 8, 2, 128, True, False),   # Lq > Lk, causal
+    (1, 129, 129, 2, 2, 128, True, False),   # one row past a q tile
+])
+def test_kernel_matches_plain_version_at_the_edges(cuda, dtype, b, lq, lk, h,
+                                                   hkv, d, causal, masked):
+    test_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, hkv, d,
+                                      causal, masked)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS[torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_every_bf16_head_dim(cuda, d, causal):
+    test_kernel_matches_plain_version(cuda, torch.bfloat16, 2, 200, 200, 4, 2,
+                                      d, causal, True)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS[torch.bfloat16])
+def test_fully_masked_row_gives_zero_at_every_head_dim(cuda, d):
+    q, k, v = _qkv(cuda, 2, 130, 130, 4, 2, d, torch.bfloat16)
+    mask = torch.ones((2, 130), dtype=torch.int32, device=cuda)
+    mask[1] = 0
+    for causal in (False, True):
+        out = fa.flash_attention(q, k, v, causal=causal, kv_segment_valid=mask)
+        assert torch.all(out[1] == 0)
+        assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_fused_projection_slices_through_the_tensor_maps(cuda, d):
+    # q/k/v as slices of one fused [B, L, H + 2 Hkv, D] projection, GQA
+    # 4:1 and a ragged length: the tensor maps carry the strides.
+    fused = torch.randn(2, 300, 8 + 2 * 2, d, device=cuda).bfloat16()
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    out = fa.flash_attention(q, k, v, causal=True)
+    ref = fa.flash_attention_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
+def test_no_keys_gives_zero_as_the_plain_version_does(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 0, 4, 2, 128, torch.bfloat16)
+    out = fa.flash_attention(q, k, v)
+    ref = fa.flash_attention_reference(q, k, v)
+    assert torch.equal(out, ref) and torch.all(out == 0)
+
+
+def test_same_bits_every_call(cuda):
+    q, k, v = _qkv(cuda, 2, 1000, 1000, 8, 2, 128, torch.bfloat16)
+    first = fa.flash_attention(q, k, v, causal=True)
+    for _ in range(3):
+        assert torch.equal(fa.flash_attention(q, k, v, causal=True), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale", [0.0, -0.3])
+def test_zero_and_negative_scale_match_the_plain_version(cuda, dtype, scale):
+    # The max is taken over the scaled scores: a negative scale favours
+    # the lowest score, and a zero scale weighs every valid key alike.
+    q, k, v = _qkv(cuda, 2, 200, 200, 4, 2, 64, dtype)
+    mask = (torch.arange(200, device=cuda)[None, :]
+            < torch.tensor([[130], [200]], device=cuda)).to(torch.int32)
+    out = fa.flash_attention(q, k, v, causal=True, scale=scale,
+                             kv_segment_valid=mask)
+    ref = fa.flash_attention_reference(q, k, v, causal=True, scale=scale,
+                                       kv_segment_valid=mask)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_llama_test_bf16_forward_goes_through_the_kernel(cuda):
+    # llama-test at its default dtype, bf16, has head_dim 16: its
+    # cache-free forward launches the kernel once per layer. Logits
+    # through the kernel vs through the plain attention, relative RMS
+    # within twice the bf16 floor between two plain attentions.
+    model = llama_test()
+    assert (model.dtype, model.head_dim) == (torch.bfloat16, 16)
+    params = init_params(model, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ids = torch.randint(0, 512, (2, 300), device=cuda, generator=gen,
+                        dtype=torch.int32)
+
+    def logits(attention=None):
+        m = model if attention is None else llama_test(
+            attention_fn=functools.partial(attention, causal=True))
+        with torch.inference_mode():
+            return apply(m, params, ids)
+
+    before = fa.flash_attention.launches
+    out = logits()
+    assert fa.flash_attention.launches == before + model.num_layers
+    plain = logits(fa.flash_attention_reference)
+    floor = _rel_rms(logits(dense_attention), plain)
+    assert torch.isfinite(out).all()
+    assert _rel_rms(out, plain) <= max(2 * floor, 1e-3)
+
+
+def _rel_rms(a, b):
+    return float((a - b).norm() / b.norm())
+
+
 @pytest.mark.parametrize("bad", ["float16", "head_dim_8", "head_dim_512",
-                                 "last_dim_strided", "heads", "mask_shape"])
+                                 "last_dim_strided", "heads", "mask_shape",
+                                 "head_dim_96"])
 def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
     q, k, v = _qkv(cuda, 1, 32, 32, 4, 2, 64, torch.bfloat16)
     mask = None
@@ -108,6 +220,8 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(cuda, bad):
         q, k, v = (t[..., :8] for t in (q, k, v))
     elif bad == "head_dim_512":
         q, k, v = (t.repeat(1, 1, 1, 8) for t in (q, k, v))
+    elif bad == "head_dim_96":  # a multiple of 16, but not instantiated
+        q, k, v = (torch.cat([t, t[..., :32]], dim=-1) for t in (q, k, v))
     elif bad == "last_dim_strided":
         q = q.transpose(1, 3).contiguous().transpose(1, 3)
     elif bad == "heads":
