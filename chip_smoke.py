@@ -19,6 +19,10 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py
 
+``--bn_only`` builds the kernels and runs phase 5 alone, with no result
+line; copied into another checkout's root and run there, it times that
+checkout's BN kernel by the same code (a parent commit's, say).
+
 1. Environment: the card (``nvidia-smi`` name and power limit), torch
    and CUDA versions.
 2. Build: every ``kubeflow_tpu_torch/csrc/*.cu`` at once, one ``nvcc``
@@ -29,7 +33,7 @@ Run from the repository root with no arguments::
    path's shapes, a long sequence and three variants, and the same bits
    on a second call; each kernel's time (CUDA events around 20
    back-to-back calls, median of 7 such runs; ``ms_one_call``: one call
-   per event pair, median of 30, as the BN kernel is timed), its plain
+   per event pair, median of 30, which adds the wrapper's host work), its plain
    version's, the one-call PyTorch yardstick (``library_ms``, never
    used by the port, timed as the kernel), the card's bound, the share
    of it reached and the instantiation's registers and spills.
@@ -39,9 +43,14 @@ Run from the repository root with no arguments::
    (300 and 512 tokens, 32 new tokens). The predict logits are held
    against the same forward on the plain attention, and a small fp32
    model against the CPU. Its params are freed before the next phases.
-5. The BN forward kernel vs its plain version at the ResNet-50 b256
-   shapes (C = 64 to 2048), one ghost-statistics case and one ragged
-   fp32 case, timed as in 3 (the yardstick is ``F.batch_norm``).
+5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
+   shape from the card's own limits (the smallest layers must take the
+   on-chip route), then the kernel vs its plain version at each of the
+   12 distinct shapes (read off the model), exact and with
+   ``bn_stat_rows=32``, and one ragged fp32 case; timed as the flash
+   kernel in 3 (the yardstick is ``F.batch_norm``), against the
+   one-read bound (x read once, y written once) with the two-read
+   figure beside it, and summed over the 53 layers of a step.
 6. ``resnet-test`` fp32: one train step on the card (the kernel)
    against the CPU (the plain version).
 7. The ResNet slice: ``run_benchmark`` trains ``resnet50`` at 224², b256,
@@ -59,9 +68,12 @@ one.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -77,7 +89,7 @@ from kubeflow_tpu_torch.models import resnet
 from kubeflow_tpu_torch.models.convert import init_params, init_resnet
 from kubeflow_tpu_torch.models.llama import apply, llama_test
 from kubeflow_tpu_torch.models.registry import get_model
-from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import _build, bn_fused
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 from kubeflow_tpu_torch.ops.bn_fused import (
@@ -144,10 +156,11 @@ TRAIN_TOL = 1e-4
 #: ResNet-50's BN layers: one per conv (the stem, three per bottleneck
 #: block, one per projection shortcut).
 RESNET50_BN_LAYERS = 53
+RESNET_BATCH = 256
 #: (name, batch, warmup, timed steps, bn_stat_rows): the bench.py
 #: headline and the benchmark CLI's default.
-RESNET_RUNS = (("b256 bn_stat_rows=32", 256, 3, 20, 32),
-               ("b256 exact BN", 256, 1, 5, 0))
+RESNET_RUNS = (("b256 bn_stat_rows=32", RESNET_BATCH, 3, 20, 32),
+               ("b256 exact BN", RESNET_BATCH, 1, 5, 0))
 
 LLAMA = "llama3-8b"
 PREDICT_SHAPE = (2, 2048)
@@ -181,9 +194,26 @@ def time_ms(fn, reps: int = 30, warmup: int = 3, calls: int = 1) -> float:
     return statistics.median(times)
 
 
-#: Flash kernel and SDPA timings: 7 runs of 20 calls, so the wrapper's
-#: host work (about 0.03 ms a call) overlaps the device's.
+#: Kernel and yardstick timings: 7 runs of 20 calls, so the wrapper's
+#: host work (about 0.03 ms a call for flash) overlaps the device's.
 KERNEL_TIMING = {"reps": 7, "calls": 20}
+
+
+def profiled_ms(fn, calls: int = 20) -> float:
+    """Device time per call from the profiler's kernel records (CUPTI):
+    the kernels that ``calls`` calls of fn launch, summed, over calls.
+    Unlike the event-timed runs it holds no host work and no gap between
+    kernels, so it stays the device's where a call's host work outlasts
+    its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / calls / 1e3
 
 
 def compiler_report(report: str) -> dict:
@@ -459,28 +489,63 @@ def serve_llama(card):
 
 
 def bn_bound(m, m_stat, c, dtype):
-    """Least time (ms) the card could take for one BN forward, and what
-    bounds it: the stat rows and x read once, y written once (scale,
-    bias, mean and var besides), against a few fp32 operations per
-    element (square and two adds for the stats, subtract, multiply and
-    add to normalize)."""
+    """Least time (ms) the card could take for one BN forward, what
+    bounds it, and the two-read figure beside it. The bound: x read
+    once and y written once (scale and bias read, mean and var written),
+    against a few fp32 operations per element (square and two adds for
+    the stats, subtract, multiply and add to normalize). ``two_read_ms``
+    also reads the stat rows a second time: the traffic of a design
+    that streams x twice."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (m_stat + 2 * m) * c * elem + 4 * c * 4
+    nbytes = 2 * m * c * elem + 4 * c * 4
     flops = 3.0 * m_stat * c + 3.0 * m * c
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                 else "bytes")
+    two_read = (nbytes + m_stat * c * elem) / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "two_read_ms": max(t_ops, two_read)}
 
 
-def check_bn(name, nhw, c, dtype, stat_images=None):
+def resnet50_bn_shapes(batch: int = RESNET_BATCH) -> list:
+    """``[(M, C, layers)]``: each distinct [M, C] that ResNet-50's BN
+    layers hand the kernel in a training forward at ``batch``, 224²,
+    with the number of layers at it, in order of first use. From a
+    forward on the meta device whose BN layers record their rows view
+    (meta convolutions return NCHW strides, so each BN input is made
+    channels-last first, as on the card)."""
+    seen = {}
+
+    def record(x, scale, bias, eps=1e-5, stat_rows=None):
+        seen[tuple(x.shape)] = seen.get(tuple(x.shape), 0) + 1
+        c = x.shape[1]
+        return (torch.empty_like(x), x.new_empty(c, dtype=torch.float32),
+                x.new_empty(c, dtype=torch.float32))
+
+    entry = get_model("resnet50")
+    model = entry.make(norm_fn=record)
+    for mod in model.modules():
+        if isinstance(mod, GhostBatchNorm):
+            mod.register_forward_pre_hook(lambda _, args: (
+                args[0].contiguous(memory_format=torch.channels_last),
+                *args[1:]))
+    x = torch.empty(batch, *entry.input_spec[0], device="meta")
+    with torch.no_grad():
+        model(x, train=True)
+    return [(m, c, n) for (m, c), n in seen.items()]
+
+
+def check_bn(name, nhw, c, dtype, stat_rows=None, layers=0):
     """The BN kernel vs its plain version on one [N·H·W, C] shape, with
-    ``stat_images`` leading images feeding the statistics (all when
-    None); the ``F.batch_norm`` yardstick only where it computes the
-    same function (all rows)."""
+    ``stat_rows`` leading rows feeding the statistics (all when None):
+    y, the stats and the same bits on a second call; then the kernel's
+    time (20 back-to-back calls per event pair, median of 7), its kernel
+    time from the profiler (``device_ms``: at the small shapes a call's
+    host work outlasts its kernel), one call per pair, the plain
+    version's, and ``F.batch_norm``'s timed both ways, only where it
+    computes the same function (all rows)."""
     n, h, w = nhw
     m = n * h * w
-    stat_rows = None if stat_images is None else stat_images * h * w
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
     scale = torch.rand(c, device="cuda", generator=gen)
@@ -501,26 +566,72 @@ def check_bn(name, nhw, c, dtype, stat_images=None):
     y2, mean2, var2 = run()
     deterministic = (torch.equal(y, y2) and torch.equal(mean, mean2)
                      and torch.equal(var, var2))
+    del y_ref, y2
     if (not torch.isfinite(y).all() or err > y_tol
             or stat_err > BN_STAT_TOL or not deterministic):
         raise AssertionError(
             f"bn {name}: y max |Δ| {err} (tol {y_tol}), stats max |Δ| "
             f"{stat_err} (tol {BN_STAT_TOL}), deterministic {deterministic}")
-    library_ms = None
+    # Event timings first: the profiler runs after them.
+    ms, ms_one_call = time_ms(run, **KERNEL_TIMING), time_ms(run)
+    library_ms = library_device_ms = None
     if stat_rows is None:
         nchw = x.view(n, h, w, c).permute(0, 3, 1, 2)  # channels-last
-        library_ms = time_ms(functools.partial(
+        library = functools.partial(
             F.batch_norm, nchw, None, None, weight=scale, bias=bias,
-            training=True, momentum=0.0, eps=1e-5))
-    bound, bound_by = bn_bound(m, m if stat_rows is None else stat_rows, c,
-                               dtype)
-    row = {"shape": name, "dtype": dt, "max_abs_err": err, "tol": y_tol,
+            training=True, momentum=0.0, eps=1e-5)
+        library_ms = time_ms(library, **KERNEL_TIMING)
+        library_device_ms = profiled_ms(library)
+    bound = bn_bound(m, m if stat_rows is None else stat_rows, c, dtype)
+    row = {"shape": name, "dtype": dt, "layers": layers,
+           "max_abs_err": err, "tol": y_tol,
            "stats_max_abs_err": stat_err, "stats_tol": BN_STAT_TOL,
-           "ms": time_ms(run), "plain_ms": time_ms(plain, reps=10),
-           "library_ms": library_ms, "bound_ms": bound,
-           "bound_by": bound_by}
+           "ms": ms, "device_ms": profiled_ms(run),
+           "ms_one_call": ms_one_call,
+           # The plain version makes fp32 copies of x: few reps where
+           # x is hundreds of MB.
+           "plain_ms": time_ms(plain, reps=3 if m * c > 5e7 else 10,
+                               warmup=1),
+           "library_ms": library_ms, "library_device_ms": library_device_ms,
+           **bound,
+           "bound_share": bound["bound_ms"] / ms,
+           "two_read_share": bound["two_read_ms"] / ms}
     log(f"bn {name}: {json.dumps(row)}")
     return row
+
+
+def bn_kernel_table():
+    """The BN kernel at every distinct BN shape of ResNet-50 at b256,
+    exact and with ``bn_stat_rows=32`` (the leading 32 of 256 images),
+    plus a ragged fp32 case off the vector width (the scalar path); the
+    per-step sums Σ layers·ms and Σ layers·bound of both runs."""
+    shapes = resnet50_bn_shapes()
+    if (sum(n for *_, n in shapes) != RESNET50_BN_LAYERS
+            or len(shapes) != len(set((m, c) for m, c, _ in shapes))):
+        raise AssertionError(f"resnet50 BN shapes {shapes}")
+    rows = []
+    for stat_images in (None, 32):
+        for m, c, n in shapes:
+            stat_rows = None if stat_images is None else (
+                m * stat_images // RESNET_BATCH)
+            name = f"[{m},{c}] bf16" + (
+                "" if stat_rows is None else f" stat_rows={stat_rows}")
+            side = math.isqrt(m // RESNET_BATCH)
+            rows.append(check_bn(name, (RESNET_BATCH, side, side), c,
+                                 torch.bfloat16, stat_rows, n))
+    # Ragged: M and C multiples of no tile (the scalar path).
+    rows.append(check_bn("[100003,99] fp32", (100003, 1, 1), 99,
+                         torch.float32))
+    for label, ghost in (("exact BN", False), ("bn_stat_rows=32", True)):
+        step = [r for r in rows if r["layers"] and
+                ("stat_rows" in r["shape"]) == ghost]
+        sums = {k: sum(r["layers"] * r[k] for r in step)
+                for k in ("ms", "device_ms", "ms_one_call", "bound_ms",
+                          "two_read_ms")}
+        log(f"bn per ResNet-50 step, {label}: Σ layers·ms "
+            f"{json.dumps(sums)} over {sum(r['layers'] for r in step)} "
+            f"layers")
+    return rows
 
 
 def bn_layers(model) -> int:
@@ -651,12 +762,36 @@ def train_resnet50(card):
     return total
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script drives the "
-              "port on a GPU", file=sys.stderr)
-        return 1
+def bn_routes(shapes) -> None:
+    """The BN launch plan at each shape, from the card's own limits:
+    the route, the rows a block keeps in shared memory and the grid.
+    The layers whose stat slab fits in shared memory must take the
+    on-chip route, which reads x from device memory once."""
+    lib = bn_fused._library()
+    coresident, slab = bn_fused.device_limits(
+        lib, torch.device("cuda", torch.cuda.current_device()), 1, 8)
+    log(f"bn limits: {coresident} co-resident blocks, {slab} bytes of x a "
+        f"block may keep")
+    for m, c, n in shapes:
+        for stat_rows in (None, m // 8):
+            plan = bn_fused.launch_plan(m, c, 8, 2, stat_rows,
+                                        coresident=coresident,
+                                        slab_bytes=slab)
+            log(f"bn plan [{m},{c}] stat_rows={stat_rows}: "
+                f"{json.dumps(dataclasses.asdict(plan))}")
+            fits = plan.stat_per * min(plan.tx * 8, c) * 2 <= slab
+            if (plan.route == "onchip") != fits or plan.grid > coresident:
+                raise AssertionError(f"bn plan [{m},{c}]: {plan}")
+    onchip = [(m, c) for m, c, _ in shapes if bn_fused.launch_plan(
+        m, c, 8, 2, coresident=coresident, slab_bytes=slab).route == "onchip"]
+    log(f"bn on-chip route (exact BN): {onchip}")
+    if not {(12544, 512), (50176, 256)} <= set(onchip):
+        raise AssertionError("the smallest ResNet-50 BN layers do not take "
+                             "the on-chip route")
 
+
+def environment() -> str:
+    """The card's name and power limit, and the versions."""
     resolve_device()  # TF32 off for the fp32 head and the fp32 checks
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -665,7 +800,23 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    return card
 
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--bn_only", action="store_true",
+        help="build, then only hold and time the BN kernel at every "
+        "ResNet-50 BN shape (no result line); run from another checkout's "
+        "root, it times that checkout's kernel")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script drives the "
+              "port on a GPU", file=sys.stderr)
+        return 1
+
+    card = environment()
     t0 = time.monotonic()
     reports = _build.build_all()
     log(f"built {sorted(reports)} in {time.monotonic() - t0:.1f} s")
@@ -673,6 +824,9 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  {name}: {line.strip()}")
+    if args.bn_only:
+        bn_kernel_table()
+        return 0
     kernels = compiler_report(reports["flash_attention"])
     for dtype, dims in HEAD_DIMS.items():
         for d in dims:
@@ -709,26 +863,15 @@ def main() -> int:
     gc.collect()  # the Llama params go before the ResNet's peak
     torch.cuda.empty_cache()
 
-    bn_shapes = [
-        # The bn_pallas_bench.py shapes, ResNet-50 at b256.
-        ("[802816,256] bf16", (256, 56, 56), 256, bf16),
-        ("[200704,512] bf16", (256, 28, 28), 512, bf16),
-        ("[50176,1024] bf16", (256, 14, 14), 1024, bf16),
-        ("[12544,2048] bf16", (256, 7, 7), 2048, bf16),
-        # The stem: C = 64, 3.2 M rows.
-        ("[3211264,64] bf16", (256, 112, 112), 64, bf16),
-        # Ghost statistics over 32 of 256 images.
-        ("[802816,256] bf16 stat_rows=32*56*56", (256, 56, 56), 256, bf16,
-         32),
-        # Ragged: M and C multiples of no tile (the scalar path).
-        ("[100003,99] fp32", (100003, 1, 1), 99, fp32),
-    ]
-    bn_rows = [check_bn(*s) for s in bn_shapes]
+    bn_routes(resnet50_bn_shapes())
+    bn_rows = bn_kernel_table()
     resnet_test_agreement()
     launches["bn_forward"] = train_resnet50(card)
     log(f"resnet path launches: bn_forward {launches['bn_forward']}")
 
     main_row = rows[0]
+    # [802816, 256], exact BN: the row every PR has reported.
+    bn_main = next(r for r in bn_rows if r["shape"] == "[802816,256] bf16")
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -748,11 +891,11 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/bn_pallas.py:49",
         "launches": launches["bn_forward"],
         "max_abs_err": max(r["max_abs_err"] for r in bn_rows),
-        "ms": bn_rows[0]["ms"],
-        "plain_ms": bn_rows[0]["plain_ms"],
-        "bound_ms": bn_rows[0]["bound_ms"],
-        "bound_by": bn_rows[0]["bound_by"],
-        "library_ms": bn_rows[0]["library_ms"],
+        "ms": bn_main["ms"],
+        "plain_ms": bn_main["plain_ms"],
+        "bound_ms": bn_main["bound_ms"],
+        "bound_by": bn_main["bound_by"],
+        "library_ms": bn_main["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

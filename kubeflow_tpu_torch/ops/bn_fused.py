@@ -17,12 +17,22 @@
 Counterpart of ``kubeflow_tpu/ops/bn_pallas.py``. Source note: the
 kernel (``csrc/bn_forward.cu``) replaces the TPU kernel
 ``kubeflow_tpu/ops/bn_pallas.py::_bn_fwd_kernel``. It is bound by bytes
-(a few operations per element); it moves the least traffic the
-function allows — read the stat rows, read x, write y — in 16-byte
-vector loads, with hierarchical fp32 partial sums finished in a fixed
-order (no atomics), so the same shape gives the same bits on every
-run. The TPU's ``C % 128`` and ``M % block_m`` limits do not carry
-over: tails are masked in the kernel.
+(a few operations per element): the least traffic is x read once and y
+written once. It is ONE cooperative launch of a persistent grid, every
+block co-resident, in three phases split by grid-wide barriers: (a)
+partial sums of x and x² over the stat rows, (b) a finalize spread over
+the grid, each block finishing a slice of the channels in a fixed order
+(double across blocks, no atomics, so the same shape gives the same
+bits on every run), (c) normalize. Where a block's share of the stat
+rows (its slab) fits in shared memory, 16-byte ``cp.async`` loads it
+once, and phase (c) normalizes it from there: x is read from device memory
+once (the "onchip" route). Elsewhere the block keeps as much of its
+slab as fits, streams the rest with several 16-byte loads in flight a
+thread, and normalizes the streamed rows in the reverse of the order it
+summed them, so the last tens of MB are still in L2 (the "stream"
+route). The TPU's ``C % 128`` and ``M % block_m`` limits do not carry
+over: tails are masked in the kernel, and a C off the vector width or
+an unaligned x takes the scalar path (stream route only).
 
 On the ResNet path this is the training forward of every
 ``GhostBatchNorm`` layer (ops/batch_norm.py): 53 launches per
@@ -32,14 +42,15 @@ formula; a backward kernel is later work.
 
 Dispatch. A CPU tensor goes to :func:`reference_bn_train_forward`, the
 plain PyTorch version. A CUDA tensor goes to the kernel, or the call
-raises: there is no fallback. ``fused_bn_train_forward.launches``
-counts kernel launches.
+raises: there is no fallback, and a grid too large to be co-resident
+raises too. ``fused_bn_train_forward.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -47,12 +58,10 @@ from torch.profiler import record_function
 from kubeflow_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: Threads per block, and the blocks a launch aims for: eight waves
-#: over the H100's 132 SMs.
-THREADS = 256
-TARGET_BLOCKS = 132 * 8
-#: Fewest rows a thread sums or normalizes per chunk.
-MIN_ROWS_PER_THREAD = 4
+#: Threads per block (tx channel-vectors wide, ty rows deep), and the
+#: widest tx: a warp reads 32 × 16 contiguous bytes of a row.
+THREADS = 512
+TX_MAX = 64
 
 BNOutputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -83,21 +92,63 @@ def vector_width(x: torch.Tensor) -> int:
     return 1
 
 
-def launch_plan(rows: int, c: int, vec: int) -> Tuple[int, int, int, int, int]:
-    """Block and grid for one pass over ``rows`` rows of C channels:
-    ``(tx, ty, c_tiles, chunks, rows_per_chunk)``. A block is tx
-    channel-vectors wide (a power of two up to 32, so a warp reads
-    whole rows even at C = 64) and ty = THREADS / tx rows deep; the
-    grid is C tiles × row chunks, about TARGET_BLOCKS blocks, with at
-    least MIN_ROWS_PER_THREAD rows per thread and no empty chunk."""
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's geometry, as ``csrc/bn_forward.cu`` takes it."""
+
+    tx: int          # channel vectors a block spans (a power of two)
+    ty: int          # row lanes: tx * ty = THREADS
+    c_tiles: int     # blocks across C
+    chunks: int      # blocks down the rows
+    stat_per: int    # stat rows [0, m_stat) per chunk
+    rest_per: int    # non-stat rows [m_stat, M) per chunk
+    keep: int        # stat rows a block holds in shared memory
+    smem_bytes: int  # dynamic shared memory a block takes
+    route: str       # "onchip": every block keeps all its stat rows
+
+    @property
+    def grid(self) -> int:
+        return self.c_tiles * self.chunks
+
+
+def scratch_bytes(vec: int) -> int:
+    """The kernel's shared memory besides the kept rows: the reduction
+    tree's scratch, half the threads' fp32 sums of x and x²."""
+    return (THREADS // 2) * vec * 2 * 4
+
+
+def launch_plan(m: int, c: int, vec: int, elem_size: int,
+                stat_rows: Optional[int] = None, *, coresident: int,
+                slab_bytes: int) -> Plan:
+    """The kernel's geometry for an [m, c] x, from the shape alone and
+    the card's two limits: ``coresident`` blocks (SMs × blocks per SM
+    at the most shared memory a launch may take) and ``slab_bytes``,
+    the bytes of x one block may hold in shared memory.
+
+    A block is tx channel-vectors wide (a power of two up to TX_MAX, so
+    a warp reads whole rows even at C = 64) and ty = THREADS / tx rows
+    deep. The grid is C tiles × row chunks, as many chunks as fit
+    co-resident (at least ty rows each, none empty); chunk k sums stat rows
+    [k·stat_per, (k+1)·stat_per) and also normalizes its share of the
+    non-stat rows. A block keeps the last ``keep`` of its stat rows in
+    shared memory, as many as fit (none on the scalar path); the route
+    is "onchip" when that is all of them, so x is read once."""
+    m_stat = m if stat_rows is None else stat_rows
     groups = -(-c // vec)
-    tx = min(32, 1 << (groups - 1).bit_length())
+    tx = min(TX_MAX, 1 << (groups - 1).bit_length())
     ty = THREADS // tx
     c_tiles = -(-groups // tx)
-    chunks = max(1, min(-(-TARGET_BLOCKS // c_tiles),
-                        -(-rows // (ty * MIN_ROWS_PER_THREAD))))
-    per_chunk = -(-rows // chunks)
-    return tx, ty, c_tiles, -(-rows // per_chunk), per_chunk
+    chunks = max(1, min(coresident // c_tiles, -(-m // ty)))
+    stat_per = -(-m_stat // chunks)
+    rest_per = -(-(m - m_stat) // chunks)
+    # No chunk without a row: the rounding may leave the last ones empty.
+    chunks = max(-(-m_stat // stat_per),
+                 -(-(m - m_stat) // rest_per) if rest_per else 0)
+    width = min(tx * vec, c) * elem_size
+    keep = min(stat_per, slab_bytes // width) if vec > 1 else 0
+    return Plan(tx, ty, c_tiles, chunks, stat_per, rest_per, keep,
+                scratch_bytes(vec) + keep * width,
+                "onchip" if keep == stat_per else "stream")
 
 
 def _check_inputs(x, scale, bias, stat_rows):
@@ -122,47 +173,102 @@ def _check_inputs(x, scale, bias, stat_rows):
         raise ValueError(f"stat_rows {stat_rows} outside [1, {m}]")
 
 
+class _Geometry(ctypes.Structure):
+    """A plan as ``csrc/bn_forward.cu``'s ``Geometry`` takes it."""
+
+    _fields_ = ([(k, ctypes.c_longlong) for k in (
+        "m", "m_stat", "stat_per", "rest_per", "smem_bytes")]
+        + [(k, ctypes.c_int) for k in (
+            "dtype", "vec", "c", "tx", "ty", "c_tiles", "chunks", "keep")])
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("bn_forward")
     if not getattr(lib, "_kft_bound", False):
-        fn = lib.kft_bn_forward
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int,
-                                                ctypes.c_longlong,
-                                                ctypes.c_int,
-                                                ctypes.c_longlong,
-                                                ctypes.c_float]
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        lib.kft_bn_forward.argtypes = ([ctypes.c_void_p] * 6
+                                       + [ctypes.c_float, ctypes.c_void_p])
+        lib.kft_bn_forward.restype = ctypes.c_int
+        lib.kft_bn_limits.argtypes = [ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_void_p] * 3
+        lib.kft_bn_limits.restype = ctypes.c_int
         lib._kft_bound = True
     return lib
 
 
+#: (device index, dtype code, vec) → (co-resident blocks, slab bytes).
+_limits: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
+
+
+def device_limits(lib: ctypes.CDLL, device: torch.device, dtype: int,
+                  vec: int) -> Tuple[int, int]:
+    """The card's limits for one instantiation of the kernel, asked of
+    the card at first use: co-resident blocks (SMs × blocks per SM at
+    the most shared memory a launch takes) and the bytes of x a block
+    may keep in shared memory."""
+    key = (device.index, dtype, vec)
+    if key not in _limits:
+        sms, per_sm = ctypes.c_int(), ctypes.c_int()
+        slab = ctypes.c_longlong()
+        with torch.cuda.device(device):
+            err = lib.kft_bn_limits(dtype, vec, ctypes.byref(sms),
+                                    ctypes.byref(per_sm), ctypes.byref(slab))
+        _build.check(lib, err, "bn_forward limits")
+        if per_sm.value < 1:
+            raise RuntimeError("bn_forward: no block of the kernel fits on "
+                               "an SM")
+        _limits[key] = (sms.value * per_sm.value, slab.value)
+    return _limits[key]
+
+
+#: Plans by (device, dtype code, vec, M, C, stat_rows), each with its
+#: _Geometry: a training step asks for the same few shapes every time.
+_plans: Dict[tuple, Tuple[Plan, _Geometry]] = {}
+
+
+def _plan_for(lib, x, dtype, vec, stat_rows) -> Tuple[Plan, _Geometry]:
+    key = (x.device.index, dtype, vec, *x.shape, stat_rows)
+    found = _plans.get(key)
+    if found is None:
+        m, c = x.shape
+        coresident, slab = device_limits(lib, x.device, dtype, vec)
+        plan = launch_plan(m, c, vec, x.element_size(), stat_rows,
+                           coresident=coresident, slab_bytes=slab)
+        geometry = _Geometry(
+            m, m if stat_rows is None else stat_rows, plan.stat_per,
+            plan.rest_per, plan.smem_bytes, dtype, vec, c, plan.tx, plan.ty,
+            plan.c_tiles, plan.chunks, plan.keep)
+        found = _plans[key] = (plan, geometry)
+    return found
+
+
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
 def _launch(x, scale, bias, eps, stat_rows) -> BNOutputs:
     lib = _library()
-    m, c = x.shape
-    m_stat = m if stat_rows is None else stat_rows
-    scale = scale.detach().float().contiguous()
-    bias = bias.detach().float().contiguous()
-    vec = vector_width(x)
-    tx, ty, c_tiles, stat_chunks, stat_per = launch_plan(m_stat, c, vec)
-    _, _, _, norm_chunks, norm_per = launch_plan(m, c, vec)
+    c = x.shape[1]
+    scale, bias = _fp32(scale), _fp32(bias)
+    dtype = _DTYPES[x.dtype]
+    plan, geometry = _plan_for(lib, x, dtype, vector_width(x), stat_rows)
     y = torch.empty_like(x)
-    mean = torch.empty(c, dtype=torch.float32, device=x.device)
-    var = torch.empty(c, dtype=torch.float32, device=x.device)
-    work = torch.empty((stat_chunks * 2 + 1) * c, dtype=torch.float32,
-                       device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.kft_bn_forward(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), var.data_ptr(), work.data_ptr(), _DTYPES[x.dtype],
-            m, c, m_stat, float(eps), vec, tx, ty, c_tiles, stat_chunks,
-            stat_per, norm_chunks, norm_per, stream)
+    # Rows: mean, var, then the work buffer (chunk partials and mul).
+    stats = torch.empty((2 * plan.chunks + 3, c), dtype=torch.float32,
+                        device=x.device)
+    dev = x.device.index
+    args = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            stats.data_ptr(), ctypes.addressof(geometry), eps,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = lib.kft_bn_forward(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.kft_bn_forward(*args)
     _build.check(lib, err, "bn_forward launch")
     fused_bn_train_forward.launches += 1
-    return y, mean, var
+    return y, stats[0], stats[1]
 
 
 class _BNTrainForward(torch.autograd.Function):
@@ -217,7 +323,10 @@ def fused_bn_train_forward(x: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_bn_train_forward runs on cuda or cpu, not "
                          f"{x.device}")
-    return _BNTrainForward.apply(x, scale, bias, eps, stat_rows)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _BNTrainForward.apply(x, scale, bias, eps, stat_rows)
+    return _launch(x, scale, bias, eps, stat_rows)
 
 
 #: Kernel launches since the count was last set to 0.

@@ -36,8 +36,7 @@ ANNOTATIONS = (
 )
 #: Substrings of a kernel's name → its class, first match wins.
 CLASSES = (
-    ("bn_forward_kernel", ("bn_partial_sums", "bn_finalize",
-                           "bn_normalize")),
+    ("bn_forward_kernel", ("bn_train_forward",)),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("convolution", ("conv", "cudnn", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "matmul", "cublas")),

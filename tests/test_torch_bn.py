@@ -21,6 +21,9 @@ Flax module — output, running statistics and gradients (``jax.vjp``)
 within 1e-5 in fp32, where only summation order differs.
 """
 
+import importlib.util
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +42,8 @@ from kubeflow_tpu_torch.ops.bn_fused import (
     launch_plan,
     reference_bn_train_forward,
 )
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _inputs(m, c, seed=0):
@@ -132,15 +137,103 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch(monkeypatch):
     assert fused_bn_train_forward.launches == 0
 
 
-@pytest.mark.parametrize("rows,c,vec", [
-    (3211264, 64, 8), (802816, 256, 8), (100352, 256, 8),
-    (12544, 2048, 8), (100003, 99, 1), (7, 3, 1), (1, 4, 4)])
-def test_launch_plan_covers_every_row_and_channel(rows, c, vec):
-    tx, ty, c_tiles, chunks, per_chunk = launch_plan(rows, c, vec)
-    assert tx * ty == bn_fused.THREADS and ty & (ty - 1) == 0
-    assert tx * c_tiles * vec >= c > tx * (c_tiles - 1) * vec
-    assert chunks * per_chunk >= rows > (chunks - 1) * per_chunk
-    assert 1 <= chunks <= 65535  # the grid's y limit
+#: ResNet-50 at b256, 224²: each distinct [M, C] its BN layers give the
+#: kernel, and how many layers (v1.5: each stage's first bn1 runs at the
+#: previous stage's resolution).
+RESNET50_BN_SHAPES = [
+    (3211264, 64, 1), (802816, 64, 6), (802816, 256, 4), (802816, 128, 1),
+    (200704, 128, 7), (200704, 512, 5), (200704, 256, 1), (50176, 256, 11),
+    (50176, 1024, 7), (50176, 512, 1), (12544, 512, 5), (12544, 2048, 4)]
+#: The H100's limits as the card reports them: 132 SMs, one block of
+#: the kernel each at the opt-in 227 KB of shared memory.
+H100_CORESIDENT = 132
+H100_OPTIN_SMEM = 232448
+#: (M, C, vec, element bytes, stat_rows): every ResNet-50 shape exact
+#: and with the leading 32 of 256 images as stat rows, then ragged and
+#: tiny cases.
+PLAN_CASES = ([(m, c, 8, 2, None) for m, c, _ in RESNET50_BN_SHAPES]
+              + [(m, c, 8, 2, m // 8) for m, c, _ in RESNET50_BN_SHAPES]
+              + [(100003, 99, 1, 4, None), (100003, 99, 1, 4, 4099),
+                 (7, 3, 1, 4, None), (1, 4, 4, 4, None),
+                 (4099, 256, 8, 2, 1)])
+
+
+def _plan(m, c, vec, elem, stat_rows, coresident=H100_CORESIDENT,
+          slab=None):
+    if slab is None:
+        slab = H100_OPTIN_SMEM - bn_fused.scratch_bytes(vec)
+    return launch_plan(m, c, vec, elem, stat_rows, coresident=coresident,
+                       slab_bytes=slab), slab
+
+
+def test_resnet50_bn_shapes_are_the_models():
+    # chip_smoke.py reads the shapes off the model (a meta-device
+    # forward); they are the table above, 53 layers.
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.resnet50_bn_shapes() == RESNET50_BN_SHAPES
+    assert sum(n for *_, n in RESNET50_BN_SHAPES) == 53
+
+
+@pytest.mark.parametrize("m,c,vec,elem,stat_rows", PLAN_CASES)
+def test_launch_plan_covers_every_row_and_channel(m, c, vec, elem,
+                                                  stat_rows):
+    plan, slab = _plan(m, c, vec, elem, stat_rows)
+    m_stat = m if stat_rows is None else stat_rows
+    assert plan.tx * plan.ty == bn_fused.THREADS
+    assert plan.ty & (plan.ty - 1) == 0 and plan.tx <= bn_fused.TX_MAX
+    assert plan.tx * plan.c_tiles * vec >= c > plan.tx * (plan.c_tiles
+                                                          - 1) * vec
+    # Chunk k sums stat rows [k·stat_per, …) and normalizes them and
+    # its share of the rest: every row once.
+    assert plan.chunks * plan.stat_per >= m_stat
+    assert plan.chunks * plan.rest_per >= m - m_stat
+    # ... and no chunk is left without a row.
+    last = plan.chunks - 1
+    assert last * plan.stat_per < m_stat or last * plan.rest_per < m - m_stat
+    width = min(plan.tx * vec, c) * elem
+    assert 0 <= plan.keep <= plan.stat_per and plan.keep * width <= slab
+    assert plan.smem_bytes == bn_fused.scratch_bytes(vec) + plan.keep * width
+    assert plan.smem_bytes <= H100_OPTIN_SMEM
+    assert plan.grid <= H100_CORESIDENT
+    if vec == 1:  # the scalar path streams: no 16-byte cp.async
+        assert plan.keep == 0 and plan.route == "stream"
+
+
+@pytest.mark.parametrize("m,c,vec,elem,stat_rows", PLAN_CASES)
+def test_launch_plan_takes_the_onchip_route_exactly_when_the_slab_fits(
+        m, c, vec, elem, stat_rows):
+    plan, slab = _plan(m, c, vec, elem, stat_rows)
+    slab_bytes = plan.stat_per * min(plan.tx * vec, c) * elem
+    fits = vec > 1 and slab_bytes <= slab
+    assert (plan.route == "onchip") == fits
+    assert plan.keep == (plan.stat_per if fits else plan.keep)
+    if vec > 1:  # at the edge: one byte less and the slab streams
+        assert _plan(m, c, vec, elem, stat_rows,
+                     slab=slab_bytes)[0].route == "onchip"
+        assert _plan(m, c, vec, elem, stat_rows,
+                     slab=slab_bytes - 1)[0].route == "stream"
+
+
+def test_the_smallest_resnet50_layers_read_x_once():
+    # Exact BN on the H100: the 16 layers of 12.8 and 25.7 MB fit on
+    # chip; every other layer streams, keeping what fits.
+    onchip = [(m, c, n) for m, c, n in RESNET50_BN_SHAPES
+              if _plan(m, c, 8, 2, None)[0].route == "onchip"]
+    assert onchip == [(50176, 256, 11), (12544, 512, 5)]
+
+
+@pytest.mark.parametrize("coresident", [1, 3, 7, 66, 132, 264, 1056])
+@pytest.mark.parametrize("m,c,vec,elem,stat_rows", PLAN_CASES[::3])
+def test_launch_plan_grid_never_exceeds_the_coresident_count(
+        coresident, m, c, vec, elem, stat_rows):
+    plan, _ = _plan(m, c, vec, elem, stat_rows, coresident=coresident)
+    if plan.c_tiles <= coresident:
+        assert plan.grid <= coresident
+    else:  # no plan fits: one chunk, and the launch refuses the grid
+        assert plan.chunks == 1
 
 
 def _ghost_pair(stat_rows, n=8, h=4, w=4, c=16):

@@ -247,16 +247,47 @@ def _bn_inputs(cuda, m, c, dtype, seed=0):
             torch.randn(c, device=cuda, generator=gen))
 
 
+def _limit_slab(monkeypatch, x, slab_rows=None, coresident=None):
+    """Make the wrapper plan x's launches with a slab of ``slab_rows``
+    rows of a C tile (so the stream route, keeping a few rows, runs at
+    small shapes) or with ``coresident`` blocks; None keeps the card's
+    own figure."""
+    lib = bn_fused._library()
+    dtype, vec = bn_fused._DTYPES[x.dtype], bn_fused.vector_width(x)
+    real_coresident, real_slab = bn_fused.device_limits(lib, x.device, dtype,
+                                                        vec)
+    slab = real_slab
+    if slab_rows is not None:
+        tx = bn_fused.launch_plan(x.shape[0], x.shape[1], vec,
+                                  x.element_size(), coresident=1,
+                                  slab_bytes=0).tx
+        slab = slab_rows * min(tx * vec, x.shape[1]) * x.element_size()
+    monkeypatch.setitem(bn_fused._limits, (x.device.index, dtype, vec),
+                        (coresident or real_coresident, slab))
+    monkeypatch.setattr(bn_fused, "_plans", {})  # plans of the real limits
+
+
+#: The card's own limits, and a slab of 3 rows: the stream route with a
+#: few kept rows even at small shapes.
+ROUTES = {"card": None, "slab3": 3}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,c,stat_rows", [
-    (50176, 64, None),     # C = 64: two channel vectors per warp row
+    (50176, 64, None),     # C = 64: a warp spans four rows
     (12544, 2048, None),   # many C tiles
     (20000, 256, 3136),    # ghost statistics over the leading rows
-    (10007, 99, None),     # ragged M, C off the vector width: scalar path
+    (10007, 99, None),     # prime M, C off the vector width: scalar path
     (1, 8, None),          # one row
+    (4099, 256, 1),        # one stat row
+    (4099, 256, 17),       # fewer stat rows than one block's share
+    (4099, 256, 4099),     # every row a stat row, given explicitly
 ])
-def test_bn_kernel_matches_plain_version(cuda, dtype, m, c, stat_rows):
+def test_bn_kernel_matches_plain_version(cuda, monkeypatch, route, dtype, m,
+                                         c, stat_rows):
     x, scale, bias = _bn_inputs(cuda, m, c, dtype)
+    _limit_slab(monkeypatch, x, ROUTES[route])
     before = bn_fused.fused_bn_train_forward.launches
     y, mean, var = bn_fused.fused_bn_train_forward(x, scale, bias,
                                                    stat_rows=stat_rows)
@@ -272,17 +303,41 @@ def test_bn_kernel_matches_plain_version(cuda, dtype, m, c, stat_rows):
         1.0, float(y_ref.float().abs().max()))
 
 
-def test_bn_kernel_gives_the_same_bits_every_run(cuda):
-    x, scale, bias = _bn_inputs(cuda, 200704, 128, torch.bfloat16)
-    first = bn_fused.fused_bn_train_forward(x, scale, bias)
+def test_bn_both_routes_run_at_the_test_shapes(cuda, monkeypatch):
+    x, _, _ = _bn_inputs(cuda, 20000, 256, torch.bfloat16)
+    routes = {}
+    for route, rows in ROUTES.items():
+        _limit_slab(monkeypatch, x, rows)
+        coresident, slab = bn_fused._limits[(x.device.index, 1, 8)]
+        plan = bn_fused.launch_plan(20000, 256, 8, 2, coresident=coresident,
+                                    slab_bytes=slab)
+        routes[route] = (plan.route, plan.keep)
+    assert routes == {"card": ("onchip", routes["card"][1]),
+                      "slab3": ("stream", 3)}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("m,c,stat_rows", [(200704, 128, None),
+                                           (50176, 256, None),
+                                           (50176, 256, 6272)])
+def test_bn_kernel_gives_the_same_bits_every_run(cuda, monkeypatch, route, m,
+                                                 c, stat_rows):
+    x, scale, bias = _bn_inputs(cuda, m, c, torch.bfloat16)
+    _limit_slab(monkeypatch, x, ROUTES[route])
+    first = bn_fused.fused_bn_train_forward(x, scale, bias,
+                                            stat_rows=stat_rows)
     for _ in range(3):
-        again = bn_fused.fused_bn_train_forward(x, scale, bias)
+        again = bn_fused.fused_bn_train_forward(x, scale, bias,
+                                                stat_rows=stat_rows)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+@pytest.mark.parametrize("route", sorted(ROUTES))
 @pytest.mark.parametrize("stat_rows", [None, 64])
-def test_bn_kernel_gradient_is_the_plain_versions(cuda, stat_rows):
+def test_bn_kernel_gradient_is_the_plain_versions(cuda, monkeypatch, route,
+                                                  stat_rows):
     x, scale, bias = _bn_inputs(cuda, 256, 32, torch.float32)
+    _limit_slab(monkeypatch, x, ROUTES[route])
     gy = torch.randn(256, 32, device=cuda)
     grads = []
     for fn in (bn_fused.fused_bn_train_forward,
@@ -293,6 +348,19 @@ def test_bn_kernel_gradient_is_the_plain_versions(cuda, stat_rows):
         grads.append([t.grad for t in leaves])
     for got, ref in zip(*grads):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_bn_grid_too_large_to_be_coresident_raises(cuda, monkeypatch):
+    # Planned for four times the blocks the card holds at once: the
+    # cooperative launch refuses it, and the wrapper raises (no hang).
+    x, scale, bias = _bn_inputs(cuda, 802816, 64, torch.bfloat16)
+    real = bn_fused.device_limits(bn_fused._library(), x.device, 1, 8)[0]
+    _limit_slab(monkeypatch, x, coresident=4 * real)
+    before = bn_fused.fused_bn_train_forward.launches
+    with pytest.raises(RuntimeError, match="bn_forward launch"):
+        bn_fused.fused_bn_train_forward(x, scale, bias)
+    torch.cuda.synchronize()
+    assert bn_fused.fused_bn_train_forward.launches == before
 
 
 @pytest.mark.parametrize("bad", ["strided", "float16", "stat_rows"])

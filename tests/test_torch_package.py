@@ -16,7 +16,8 @@
 
 - Every module imports with ``jax``, ``flax`` and ``kubeflow_tpu``
   blocked, and no source line of the package or of its GPU scripts
-  (``chip_smoke.py``, ``scripts/profile_torch_llama.py``) names them.
+  (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
+  ``scripts/bn_phase_times.py``) names them.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
 - On a CPU tensor the flash wrapper takes the plain version and counts
   no launch.
@@ -60,6 +61,7 @@ def _sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "profile_torch_llama.py")
+    yield os.path.join(ROOT, "scripts", "bn_phase_times.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():

@@ -255,7 +255,7 @@ def test_profile_summary_charges_kernels_to_their_annotation(tmp_path):
          "dur": 30},
         {"ph": "X", "cat": "kernel", "name": "vectorized_add", "ts": 305,
          "dur": 10},
-        {"ph": "X", "cat": "kernel", "name": "bn_normalize<bf16, 8>",
+        {"ph": "X", "cat": "kernel", "name": "bn_train_forward_kernel<bf16, 8>",
          "ts": 10, "dur": 20},
         {"ph": "X", "cat": "kernel",
          "name": "sm90_xmma_fprop_implicit_gemm_bf16", "ts": 40,
