@@ -42,7 +42,21 @@ checkout's BN kernel by the same code (a parent commit's, say).
    classify [1, 2048], and greedy generate of two left-padded prompts
    (300 and 512 tokens, 32 new tokens). The predict logits are held
    against the same forward on the plain attention, and a small fp32
-   model against the CPU. Its params are freed before the next phases.
+   model against the CPU; ``llama-test`` goes through the port's
+   ``export_model`` and back through ``load_version`` to bit-equal
+   predict logits. On the same ``llama3-8b`` params, ``:generate``
+   through the continuous-batching engine (4 slots, pages of 16,
+   4-token slices): six requests at once (prompts 300, 512, 77, 410,
+   200, 512; budgets 32, 8, 32, 16, 32, 24), greedy and sampled
+   (temperature 0.7, top-k 40, top-p 0.9, keys ``PRNGKey(100 + i)``).
+   Every stream ends with its budget of in-vocab tokens, each first
+   token equals B=1 ``generate``'s, the pool ends clean; whole-stream
+   agreement with B=1 is reported (bf16 GEMMs at M = 4 and M = 1 may
+   round apart). Requests 1 and 3 through a 1-slot engine must equal
+   B=1 ``generate`` token for token. Then a sampled ``LoadedModel.run``
+   of two left-padded rows with their own keys. Time to first token,
+   inter-token ms, tokens/s, slices and peak memory are printed. The
+   params are freed before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -74,19 +88,27 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.generate import generate
 from kubeflow_tpu_torch.models import resnet
-from kubeflow_tpu_torch.models.convert import init_params, init_resnet
+from kubeflow_tpu_torch.models.convert import (
+    init_params,
+    init_resnet,
+    params_to_flax,
+    unflatten_tree,
+)
 from kubeflow_tpu_torch.models.llama import apply, llama_test
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.ops import _build, bn_fused
@@ -103,7 +125,9 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     kernel_smem_bytes,
     launch_plan,
 )
-from kubeflow_tpu_torch.serving.model import LoadedModel
+from kubeflow_tpu_torch.obs.tracing import TRACER
+from kubeflow_tpu_torch.serving.export import export_model
+from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
 from kubeflow_tpu_torch.serving.signature import (
     ModelMetadata,
     Signature,
@@ -161,6 +185,8 @@ RESNET_BATCH = 256
 #: headline and the benchmark CLI's default.
 RESNET_RUNS = (("b256 bn_stat_rows=32", RESNET_BATCH, 3, 20, 32),
                ("b256 exact BN", RESNET_BATCH, 1, 5, 0))
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 LLAMA = "llama3-8b"
 PREDICT_SHAPE = (2, 2048)
@@ -485,7 +511,251 @@ def serve_llama(card):
         "plain_vs_dense_rel_rms": floor,
     }
     log(f"{LLAMA} serving: {json.dumps(metrics)}")
+    del predict_model, gen_model
+    # The engine slice on the same params, made once.
+    serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
+                 decode_ms_b2=decode_ms)
     return launches
+
+
+#: The engine slice (phases 4b-4d): ``EngineConfig(max_new_tokens=32,
+#: max_prompt_len=512, num_slots=4, page_size=16, slice_tokens=4)``;
+#: six requests submitted at once, with budgets that retire slots at
+#: different slices, so the two queued requests join mid-decode.
+ENGINE_GENERATE_CONFIG = {"max_new_tokens": 32, "engine_slots": 4,
+                          "engine_page_size": 16, "engine_slice_tokens": 4}
+ENGINE_PROMPTS = (300, 512, 77, 410, 200, 512)
+ENGINE_BUDGETS = (32, 8, 32, 16, 32, 24)
+#: Requests 1 and 3 (0-based 0 and 2) through a 1-slot engine.
+STRICT_REQUESTS = (0, 2)
+SAMPLING = {"temperature": 0.7, "top_k": 40, "top_p": 0.9}
+#: The engine's cache: the longest prompt bucket plus the budget, a
+#: whole number of 16-token pages, so the engine's logical cache and
+#: the B=1 reference's cache have one length.
+ENGINE_CACHE = 512 + 32
+
+
+def engine_model(registry, params, kwargs, max_prompt, generate_config,
+                 device):
+    """A generate-method ``LoadedModel`` for the engine phases."""
+    meta = ModelMetadata(
+        model_name=registry, registry_name=registry, model_kwargs=kwargs,
+        signatures={"serving_default": Signature(
+            method="generate",
+            inputs={"input_ids": TensorSpec("int32", (-1, max_prompt))},
+            outputs={"tokens": TensorSpec(
+                "int32", (-1, generate_config["max_new_tokens"]))})},
+        generate_config=generate_config)
+    return LoadedModel(meta, 1, params, max_batch=2, device=device)
+
+
+def b1_reference(loaded, prompt, key, budget, sampling):
+    """The B=1 ground truth for one engine request: ``generate`` at the
+    engine's shapes (the prompt left-padded to the engine's bucket, the
+    same cache length) with the request's key."""
+    engine = loaded.engine
+    width = engine._prompt_width(len(prompt))
+    ids = np.zeros((1, width), np.int32)
+    ids[0, width - len(prompt):] = prompt
+    device = loaded.device
+    tokens, _ = generate(
+        loaded._module, loaded.params, torch.from_numpy(ids).to(device),
+        max_new_tokens=budget, rng=key[None],
+        prompt_lengths=torch.tensor([len(prompt)], device=device),
+        **sampling)
+    return tokens[0].cpu().numpy()
+
+
+def run_engine(engine, requests):
+    """Submit every request at once; wait for all. Returns the token
+    arrays and the timings: each request's time to first token (from
+    its submit to the engine emitting token 0), the engine_slice spans'
+    inter-token ms, the aggregate tokens/s and the slices run."""
+    TRACER.clear()
+    firsts = {}
+    streams = []
+    t0 = time.monotonic()
+    for i, (prompt, budget, key) in enumerate(requests):
+        submitted = time.monotonic()
+        stream = engine.submit(prompt, rng=key, max_new_tokens=budget)
+
+        def on_emit(i=i, stream=stream, submitted=submitted):
+            if i not in firsts and stream.tokens_so_far:
+                firsts[i] = (time.monotonic() - submitted) * 1e3
+
+        stream.set_notify(on_emit)
+        on_emit()  # in case token 0 was emitted before the hook
+        streams.append(stream)
+    results = [s.result(timeout=600) for s in streams]
+    wall = time.monotonic() - t0
+    slices = [e for e in TRACER.snapshot() if e["name"] == "engine_slice"]
+    inter = [e["dur"] / 1e3 / e["args"]["steps"] for e in slices]
+    timing = {
+        "ttft_ms": [firsts[i] for i in range(len(requests))],
+        "inter_token_ms": (statistics.median(inter) if inter else None),
+        "inter_token_ms_range": ([min(inter), max(inter)] if inter
+                                 else None),
+        "tokens_per_s": sum(len(r) for r in results) / wall,
+        "wall_s": wall,
+        "slices": engine.stats()["slices"],
+    }
+    return results, timing
+
+
+def check_engine_pool(engine, admitted):
+    stats = engine.stats()
+    engine.kv.allocator.check_invariants()
+    if (stats["admitted"] != admitted
+            or stats["retired"] != {"budget": admitted}
+            or stats["free_pages"] != stats["total_pages"]
+            or stats["reserved_pages"] or stats["active_slots"]
+            or stats["queue_depth"]):
+        raise AssertionError(f"engine pool not clean: {stats}")
+    return stats
+
+
+def first_divergence(a, b):
+    diff = np.nonzero(np.asarray(a) != np.asarray(b))[0]
+    return int(diff[0]) if diff.size else None
+
+
+def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
+                 budgets=ENGINE_BUDGETS, generate_config=None,
+                 cache_size=ENGINE_CACHE, device=None,
+                 decode_ms_b2=None):
+    """Phases 4b-4d on ``params``: ``:generate`` through the
+    continuous-batching engine, greedy and sampled, 4 slots then 1;
+    then sampled ``LoadedModel.run`` with per-row keys."""
+    config = dict(ENGINE_GENERATE_CONFIG if generate_config is None
+                  else generate_config)
+    vocab = get_model(registry).num_classes_or_vocab
+    max_prompt = max(prompts)
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, vocab, n).astype(np.int32), budget,
+                 prng.PRNGKey(100 + i))
+                for i, (n, budget) in enumerate(zip(prompts, budgets))]
+    kwargs = dict(kwargs, cache_size=cache_size)
+    report = {"card": card}
+    for mode, sampling in (("greedy", {"temperature": 0.0}),
+                           ("sampled", SAMPLING)):
+        loaded = engine_model(registry, params, kwargs, max_prompt,
+                              dict(config, **sampling), device)
+        engine = loaded.ensure_engine(name=f"smoke-{mode}")
+        if engine.kv.logical_len != cache_size:
+            raise AssertionError(f"engine logical cache "
+                                 f"{engine.kv.logical_len} != {cache_size}")
+        flash_attention.launches = 0
+        if device is None:
+            torch.cuda.reset_peak_memory_stats()
+        results, timing = run_engine(engine, requests)
+        if device is None:
+            timing["peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+        timing["flash_launches"] = flash_attention.launches
+        check_engine_pool(engine, len(requests))
+        refs = [b1_reference(loaded, p, k, b, sampling)
+                for p, b, k in requests]
+        for i, ((prompt, budget, _), got, want) in enumerate(
+                zip(requests, results, refs)):
+            if got.shape != (budget,) or not ((got >= 0)
+                                              & (got < vocab)).all():
+                raise AssertionError(f"engine {mode} request {i}: tokens "
+                                     f"{got.shape}, budget {budget}")
+            if got[0] != want[0]:
+                raise AssertionError(
+                    f"engine {mode} request {i}: first token {got[0]} != "
+                    f"B=1 generate's {want[0]}")
+        timing["streams_equal_b1"] = sum(
+            np.array_equal(g, w) for g, w in zip(results, refs))
+        timing["first_divergence"] = [first_divergence(g, w)
+                                      for g, w in zip(results, refs)]
+        loaded.close()
+
+        # The strict check: a 1-slot engine runs the B=1 shapes.
+        one = engine_model(registry, params, kwargs, max_prompt,
+                           dict(config, engine_slots=1, **sampling), device)
+        engine = one.ensure_engine(name=f"smoke-{mode}-1slot")
+        strict = [requests[i] for i in STRICT_REQUESTS]
+        got, _ = run_engine(engine, strict)
+        check_engine_pool(engine, len(strict))
+        for i, g in zip(STRICT_REQUESTS, got):
+            if not np.array_equal(g, refs[i]):
+                raise AssertionError(
+                    f"1-slot engine {mode} request {i} differs from B=1 "
+                    f"generate at step {first_divergence(g, refs[i])}: "
+                    f"{g.tolist()} vs {refs[i].tolist()}")
+        one.close()
+        timing["one_slot_streams_equal_b1"] = len(strict)
+        report[mode] = timing
+        log(f"engine {mode}, {len(requests)} requests, "
+            f"{config['engine_slots']} slots: {json.dumps(timing)}")
+    report["generate_decode_ms_per_token_b2"] = decode_ms_b2
+    log(f"{registry} engine: {json.dumps(report)}")
+
+    # Sampled LoadedModel.run: two left-padded rows with their own keys.
+    loaded = engine_model(registry, params, kwargs, max_prompt,
+                          dict(config, **SAMPLING), device)
+    x = np.zeros((2, max_prompt), np.int32)
+    lengths = np.asarray(prompts[:2], np.int32)
+    for i, (prompt, _, _) in enumerate(requests[:2]):
+        x[i, max_prompt - len(prompt):] = prompt
+    keys = np.stack([prng.PRNGKey(200), prng.PRNGKey(201)])
+    out = loaded.run({"input_ids": x}, prompt_lengths=lengths,
+                     row_rngs=keys)["tokens"]
+    budget = config["max_new_tokens"]
+    agree = []
+    for i in range(2):
+        ids = torch.from_numpy(x[i:i + 1]).to(loaded.device)
+        want, _ = generate(loaded._module, loaded.params, ids,
+                           max_new_tokens=budget, rng=keys[i:i + 1],
+                           prompt_lengths=torch.tensor(
+                               [int(lengths[i])], device=loaded.device),
+                           **SAMPLING)
+        want = want[0].cpu().numpy()
+        if out.shape != (2, budget) or not ((out >= 0)
+                                            & (out < vocab)).all():
+            raise AssertionError(f"sampled run tokens {out.shape}")
+        if out[i, 0] != want[0]:
+            raise AssertionError(f"sampled run row {i}: first token "
+                                 f"{out[i, 0]} != B=1's {want[0]}")
+        agree.append(first_divergence(out[i], want))
+    log(f"sampled LoadedModel.run, 2 rows with row_rngs: first tokens "
+        f"equal B=1; first divergence per row {agree} (None: the whole "
+        f"row equals B=1)")
+    return report
+
+
+def export_round_trip(device=None):
+    """Phase 4e: ``llama-test`` (fp32 and bf16) through the port's
+    ``export_model`` and back through ``load_version``, on the disk of
+    the machine, inside the checkout: predict logits equal the in-memory
+    model's bit for bit."""
+    x = np.random.default_rng(0).integers(0, 512, (2, 16)).astype(np.int32)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".export-") as base:
+        for version, dtype in ((1, "float32"), (2, "bfloat16")):
+            meta = ModelMetadata(
+                model_name="llama-test", registry_name="llama-test",
+                model_kwargs={"dtype": dtype},
+                signatures={"serving_default": Signature(
+                    method="predict",
+                    inputs={"input_ids": TensorSpec("int32", (-1, 16))},
+                    outputs={})})
+            params = init_params(llama_test(dtype=dtype), seed=0,
+                                 device=device)
+            memory = LoadedModel(meta, version, params, max_batch=2,
+                                 device=device)
+            path = export_model(base, version, meta, {"params": (
+                unflatten_tree(params_to_flax(params)))})
+            loaded = load_version(str(path), max_batch=2, device=device)
+            a = memory.run({"input_ids": x})["logits"]
+            b = loaded.run({"input_ids": x})["logits"]
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"llama-test {dtype} export round trip: logits max "
+                    f"|Δ| {np.abs(a - b).max()}")
+            log(f"export round trip llama-test {dtype}: "
+                f"{os.path.getsize(os.path.join(path, 'params.msgpack'))} "
+                f"bytes, predict logits bit-equal")
 
 
 def bn_bound(m, m_stat, c, dtype):
@@ -859,6 +1129,7 @@ def main() -> int:
     ]
     rows = [check_flash(kernels, *s) for s in shapes]
     small_model_agreement()
+    export_round_trip()
     launches = serve_llama(card)
     gc.collect()  # the Llama params go before the ResNet's peak
     torch.cuda.empty_cache()

@@ -1,0 +1,1074 @@
+# Copyright 2026 The kubeflow-tpu Authors.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""The continuous-batching decode engine (the plain lane).
+
+Port of ``kubeflow_tpu/inference/engine/engine.py``. One persistent
+decode loop over N slots: decode runs in K-token slices; BETWEEN slices
+finished rows retire (EOS, token budget, deadline, cancel) and queued
+requests admit — a B=1 prefill into a free slot plus a page adoption.
+Tokens stream back per slot as they are sampled.
+
+Decode is weight-streaming bound, so a decode step costs about the same
+whether 1 or N slots are live: every slot kept full multiplies tokens/s.
+
+Output contract: every slot's stream equals the same request run alone
+through :func:`inference.generate.generate` at B=1 with the same key —
+the per-row decode reuses the same step math, per-row step keys and
+left-pad masking. In torch the rows of a product at M = N and at M = 1
+may differ in their last bits (cuBLAS, and the CPU's BLAS, pick kernels
+by shape), so across slot counts the contract is equal tokens up to a
+near-tie; a 1-slot engine runs the B=1 shapes and is held token for
+token (tests/test_torch_engine.py).
+
+Deadlines are checked at submit (shed), at admission (expired in queue)
+and at every slice boundary (mid-decode eviction frees the slot's
+pages). Observability: the reference's metric families, span names
+(``engine_prefill``, ``engine_slice``, ``engine_request``,
+``engine_compile``) and ``stats()`` keys.
+
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP A6-A7):
+the prefix cache, chunked prefill, speculative decoding with a draft,
+KV handoff, mid-stream resume and the host KV tier.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import logging
+import threading
+import time
+from collections import deque
+from typing import (Any, Callable, Deque, Dict, Iterator, List, Optional,
+                    Sequence)
+
+import numpy as np
+import torch
+
+from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine.paged_kv import (
+    PagedKVCache,
+    _gather_logical,
+    _scatter_token_range,
+)
+from kubeflow_tpu_torch.inference.engine.slots import Slot, SlotScheduler
+from kubeflow_tpu_torch.inference.generate import (
+    _device_keys,
+    _prefill,
+    _sample_logits,
+    init_cache,
+    prompt_bucket,
+)
+from kubeflow_tpu_torch.models.llama import LayerCache, apply
+from kubeflow_tpu_torch.obs import metrics as obs_metrics
+from kubeflow_tpu_torch.obs.tracing import TRACER, span_args
+from kubeflow_tpu_torch.serving import tenancy
+from kubeflow_tpu_torch.serving.overload import (
+    DeadlineExceededError,
+    LatencyEstimator,
+    OverloadedError,
+)
+from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["DecodeEngine", "EngineConfig", "GenerateStream",
+           "TokenEvent"]
+
+#: Admission safety factor (same rationale as the micro-batcher's):
+#: shed unless the estimated time-to-first-token fits inside this
+#: fraction of the remaining budget.
+ADMISSION_SAFETY = 0.8
+
+# Engine observability families (bound per engine name; the gauges use
+# render-time callbacks with owner-checked clears).
+_M_SLOTS = obs_metrics.Gauge(
+    "kft_engine_active_slots",
+    "Decode slots currently bound to a request", ("model",))
+_M_QUEUE = obs_metrics.Gauge(
+    "kft_engine_queue_depth",
+    "Requests admitted by submit() but not yet bound to a slot",
+    ("model",))
+_M_FREE_PAGES = obs_metrics.Gauge(
+    "kft_engine_free_pages",
+    "KV-cache pages neither allocated nor reserved", ("model",))
+_M_TOKENS = obs_metrics.Counter(
+    "kft_engine_tokens_total",
+    "Tokens sampled and delivered to streams", ("model",))
+_M_ADMITTED = obs_metrics.Counter(
+    "kft_engine_admitted_total",
+    "Requests prefillled into a slot", ("model",))
+_M_RETIRED = obs_metrics.Counter(
+    "kft_engine_retired_total",
+    "Slots retired, by reason", ("model", "reason"))
+_M_SHED = obs_metrics.Counter(
+    "kft_engine_shed_total",
+    "Requests shed at submit (estimated TTFT over the remaining "
+    "deadline budget)", ("model",))
+_M_TTFT = obs_metrics.Histogram(
+    "kft_serving_ttft_seconds",
+    "Submit to first streamed token (queue wait + prefill)",
+    ("model",), exemplars=True)
+_M_INTER = obs_metrics.Histogram(
+    "kft_serving_inter_token_seconds",
+    "Per-token decode pacing (slice wall time / slice tokens)",
+    ("model",))
+# Prefix-cache families (registered for the exposition; the prefix
+# lane that feeds them is not ported yet): hit/miss/evict counters plus the
+# saved-prefill-tokens histogram the TTFT win is made of. Evicted and
+# cached-pages ride render-time callbacks off the live cache (one
+# source of truth, owner-checked clears at stop()).
+_M_PREFIX_HITS = obs_metrics.Counter(
+    "kft_engine_prefix_hits_total",
+    "Admissions that matched a cached prompt prefix", ("model",))
+_M_PREFIX_MISSES = obs_metrics.Counter(
+    "kft_engine_prefix_misses_total",
+    "Admissions with no cached prefix match", ("model",))
+_M_PREFIX_EVICTED = obs_metrics.Counter(
+    "kft_engine_prefix_evicted_pages_total",
+    "Cached prefix pages evicted under page pressure (LRU over "
+    "zero-ref pages)", ("model",))
+_M_PREFIX_SAVED = obs_metrics.Histogram(
+    "kft_engine_prefix_saved_tokens",
+    "Prefill tokens skipped per prefix-cache hit",
+    ("model",),
+    buckets=(1.0, 4.0, 16.0, 64.0, 256.0, 1024.0, 4096.0))
+_M_PREFIX_PAGES = obs_metrics.Gauge(
+    "kft_engine_prefix_cached_pages",
+    "Resident pages indexed by the prefix cache", ("model",))
+_M_PAGE_OCC = obs_metrics.Gauge(
+    "kft_engine_page_occupancy",
+    "Fraction of the KV page pool allocated or reserved "
+    "(cached-idle pages count as headroom)", ("model",))
+# Speculative-decode families (registered; lane not ported yet): the acceptance economics
+# the draft lane is judged by. drafted = k per live slot per round;
+# accepted = drafted tokens actually emitted (each one a verifier
+# forward NOT paid); the rate gauge is lifetime accepted/drafted via
+# a render-time callback off the engine's counters.
+_M_SPEC_DRAFTED = obs_metrics.Counter(
+    "kft_engine_spec_drafted_tokens_total",
+    "Draft-model tokens proposed to the verifier", ("model",))
+_M_SPEC_ACCEPTED = obs_metrics.Counter(
+    "kft_engine_spec_accepted_tokens_total",
+    "Drafted tokens accepted and emitted (verifier forwards saved)",
+    ("model",))
+_M_SPEC_REJECTED = obs_metrics.Counter(
+    "kft_engine_spec_rejected_tokens_total",
+    "Drafted tokens discarded at verification", ("model",))
+_M_SPEC_RATE = obs_metrics.Gauge(
+    "kft_engine_spec_acceptance_rate",
+    "Lifetime drafted-token acceptance rate", ("model",))
+# Tiered KV memory families (registered; lane not ported yet): the host tier's block flow
+# (spill in, re-adopt out, LRU eviction) plus the fleet pull-through
+# counters. All ride render-time callbacks off the live tier — one
+# source of truth, owner-checked clears at stop(), same discipline as
+# the prefix-cache families above.
+_M_HOST_SPILLED = obs_metrics.Counter(
+    "kft_engine_kv_host_spilled_blocks_total",
+    "Prefix KV blocks evicted from HBM into the host-RAM tier",
+    ("model",))
+_M_HOST_READOPTED = obs_metrics.Counter(
+    "kft_engine_kv_host_readopted_blocks_total",
+    "Host-tier KV blocks spliced back HBM-ward on a prefix match",
+    ("model",))
+_M_HOST_EVICTED = obs_metrics.Counter(
+    "kft_engine_kv_host_evicted_blocks_total",
+    "Host-tier KV blocks dropped by the byte-budget LRU", ("model",))
+_M_HOST_BYTES = obs_metrics.Gauge(
+    "kft_engine_kv_host_resident_bytes",
+    "Bytes of KV blocks resident in the host-RAM tier", ("model",))
+_M_HOST_BLOCKS = obs_metrics.Gauge(
+    "kft_engine_kv_host_resident_blocks",
+    "KV blocks resident in the host-RAM tier", ("model",))
+_M_KV_FETCH = obs_metrics.Counter(
+    "kft_engine_kv_fetch_total",
+    "Fleet KV pull-through fetches, by outcome (a 'miss' or 'error' "
+    "outcome always falls back to local prefill — never an error)",
+    ("model", "outcome"))
+_M_KV_FETCH_BLOCKS = obs_metrics.Counter(
+    "kft_engine_kv_fetched_blocks_total",
+    "KV blocks imported from fleet peers into the host tier",
+    ("model",))
+
+
+@dataclasses.dataclass
+class TokenEvent:
+    """One streamed event: a sampled token, or the terminal marker
+    (``final=True``; ``error`` set when the request failed
+    mid-stream)."""
+
+    token: Optional[int]
+    index: int
+    final: bool = False
+    error: Optional[BaseException] = None
+
+
+class GenerateStream:
+    """The caller's handle on one request: an incremental token-event
+    queue plus the collected result. Engine thread emits; any number
+    of consumer threads may drain (SSE handler, gRPC stream, a plain
+    ``result()`` waiter)."""
+
+    def __init__(self, max_new_tokens: int, obs_ctx: Any = None):
+        self.max_new_tokens = max_new_tokens
+        self.obs_ctx = obs_ctx
+        self._cv = threading.Condition()
+        self._queue: Deque[TokenEvent] = deque()
+        self._tokens: List[int] = []
+        self._result: Optional[np.ndarray] = None
+        self._error: Optional[BaseException] = None
+        self._final = False
+        self._notify: Optional[Callable[[], None]] = None
+        self.cancelled = False
+
+    # -- engine side -----------------------------------------------------
+
+    def _emit(self, event: TokenEvent) -> None:
+        with self._cv:
+            if self._final:
+                return
+            self._queue.append(event)
+            if not event.final and event.token is not None:
+                self._tokens.append(event.token)
+            if event.final:
+                self._final = True
+                self._error = event.error
+                if event.error is None and self._result is None:
+                    self._result = np.asarray(self._tokens, np.int32)
+            self._cv.notify_all()
+        cb = self._notify
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — a consumer bug must
+                logger.exception("stream notify callback failed")
+
+    def _finish(self, tokens: np.ndarray) -> None:
+        with self._cv:
+            self._result = np.asarray(tokens, np.int32)
+        self._emit(TokenEvent(token=None, index=len(self._tokens),
+                              final=True))
+
+    def _fail(self, error: BaseException) -> None:
+        self._emit(TokenEvent(token=None, index=len(self._tokens),
+                              final=True, error=error))
+
+    # -- consumer side ---------------------------------------------------
+
+    def set_notify(self, cb: Optional[Callable[[], None]]) -> None:
+        """Called (from the ENGINE thread) after each emit — the hook
+        async transports use to schedule a drain on their own loop."""
+        self._notify = cb
+
+    def next_event(self, timeout: float) -> Optional[TokenEvent]:
+        """Pop the next event, waiting up to ``timeout``; None on
+        timeout. The terminal event stays poppable exactly once."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: bool(self._queue),
+                                     timeout=timeout):
+                return None
+            return self._queue.popleft()
+
+    def drain(self) -> List[TokenEvent]:
+        """Pop everything queued right now (non-blocking)."""
+        with self._cv:
+            out = list(self._queue)
+            self._queue.clear()
+            return out
+
+    def events(self, timeout_per_event: float = 60.0
+               ) -> Iterator[TokenEvent]:
+        """Iterate events up to AND including the terminal one.
+        Raises TimeoutError if the engine stalls past the per-event
+        timeout (bounded waits — serving discipline)."""
+        while True:
+            ev = self.next_event(timeout_per_event)
+            if ev is None:
+                raise TimeoutError(
+                    f"no token event within {timeout_per_event}s")
+            yield ev
+            if ev.final:
+                return
+
+    @property
+    def done(self) -> bool:
+        with self._cv:
+            return self._final
+
+    @property
+    def tokens_so_far(self) -> List[int]:
+        with self._cv:
+            return list(self._tokens)
+
+    def result(self, timeout: float = 120.0) -> np.ndarray:
+        """Block for the full token array (padded to the request's
+        ``max_new_tokens`` with the EOS id on early retirement — the
+        same latched shape the monolithic generate returns)."""
+        with self._cv:
+            if not self._cv.wait_for(lambda: self._final,
+                                     timeout=timeout):
+                raise TimeoutError(
+                    f"generation did not finish within {timeout}s")
+            if self._error is not None:
+                raise self._error
+            return np.array(self._result)
+
+    def cancel(self) -> None:
+        """Client hung up: the engine retires the slot at the next
+        slice boundary and frees its pages."""
+        self.cancelled = True
+
+
+@dataclasses.dataclass(eq=False)  # identity equality: the queued-
+# cancel sweep removes by instance, and the generated field-wise eq
+# compares numpy prompts
+class _Request:
+    prompt: np.ndarray  # [L] int32
+    step_keys: np.ndarray  # [max_new_tokens, 2] uint32 sampling keys
+    max_new_tokens: int
+    deadline: Optional[float]
+    stream: GenerateStream
+    submitted_at: float
+    request_id: str = ""
+    #: Tenant identity: names this request's weighted-fair sub-queue
+    #: and tags its TTFT/usage metrics. Empty = the default tenant.
+    tenant: str = ""
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Static decode configuration (mirrors generate_config) + the
+    engine's capacity knobs. Every field of the reference's; the
+    prefix-cache, chunked-prefill and host-tier knobs raise in
+    :class:`DecodeEngine` until their lanes are ported."""
+
+    max_new_tokens: int
+    max_prompt_len: int
+    temperature: float = 0.0
+    eos_id: Optional[int] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    seed: int = 0
+    #: decode slots (the persistent batch width).
+    num_slots: int = 4
+    #: KV-cache page granularity (cache slots per page).
+    page_size: int = 16
+    #: decode steps per slice — the admit/retire cadence AND the
+    #: streaming granularity (tokens reach the host per slice).
+    slice_tokens: int = 4
+    #: prompt length buckets (None = powers of two); each bucket is
+    #: one prefill shape.
+    prompt_buckets: Optional[Sequence[int]] = None
+    #: physical page-pool size (None = every slot can go full length).
+    num_pages: Optional[int] = None
+    #: admission-queue depth bound: deadline-free submits past it shed
+    #: with OverloadedError (the queue_capacity invariant — without
+    #: it a flood of deadline-free requests grows pending without
+    #: limit while the deadline gate never fires).
+    queue_capacity: int = 4096
+    #: cross-request prefix KV cache: admissions switch to
+    #: the pad-0 (right-padded) prompt layout so prompt token i always
+    #: lands at cache position i, prompt pages are content-indexed by
+    #: a radix of token-block hashes, and a matching prefix is shared
+    #: copy-on-write instead of re-prefilled. Output stays bitwise
+    #: equal to cold prefill (greedy + sampled).
+    prefix_cache: bool = False
+    #: speculative decoding: draft tokens per verify round
+    #: (0 = vanilla decode). Takes effect only when the engine is
+    #: built with a draft model; output stays bitwise vanilla either
+    #: way.
+    speculate_tokens: int = 0
+    #: chunked prefill: page-aligned prompt tokens fed per
+    #: engine lap for prompts whose unmatched tail exceeds one chunk
+    #: (0 = one-shot prefill). Prefix-cache mode only — chunks
+    #: accumulate in the pad-0 layout.
+    prefill_chunk: int = 0
+    #: tiered KV memory: byte budget for the host-RAM
+    #: prefix tier (0 = off). With a budget, LRU eviction of zero-ref
+    #: retained pages becomes evict-to-host, matches continue past
+    #: the HBM chain into host blocks (spliced back bitwise), and the
+    #: fleet pull-through endpoint (:kvfetch) can import blocks from
+    #: peer replicas. Prefix-cache mode only.
+    host_cache_bytes: int = 0
+
+    @staticmethod
+    def from_generate_config(cfg: dict, max_prompt_len: int,
+                             queue_capacity: Optional[int] = None
+                             ) -> "EngineConfig":
+        """Build from an export's ``generate_config`` (the ``engine_*``
+        keys are the serving-side capacity knobs, docs/streaming.md)."""
+        return EngineConfig(
+            max_new_tokens=int(cfg.get("max_new_tokens", 32)),
+            max_prompt_len=max_prompt_len,
+            temperature=float(cfg.get("temperature", 0.0)),
+            eos_id=cfg.get("eos_id"),
+            top_k=cfg.get("top_k"),
+            top_p=cfg.get("top_p"),
+            seed=int(cfg.get("seed", 0)),
+            num_slots=int(cfg.get("engine_slots", 4)),
+            page_size=int(cfg.get("engine_page_size", 16)),
+            slice_tokens=int(cfg.get("engine_slice_tokens", 4)),
+            prompt_buckets=cfg.get("prompt_buckets"),
+            num_pages=cfg.get("engine_num_pages"),
+            queue_capacity=(4096 if queue_capacity is None
+                            else int(queue_capacity)),
+            prefix_cache=bool(cfg.get("engine_prefix_cache", False)),
+            speculate_tokens=int(cfg.get("engine_draft_tokens", 0)),
+            prefill_chunk=int(cfg.get("engine_prefill_chunk", 0)),
+            host_cache_bytes=int(
+                cfg.get("engine_host_cache_bytes", 0)),
+        )
+
+
+def _decode_slice(model, params, physical: List[LayerCache],
+                  tables: torch.Tensor, write_pos: torch.Tensor,
+                  pad_lens: torch.Tensor, tokens: torch.Tensor,
+                  done: torch.Tensor, step_rngs: Optional[torch.Tensor],
+                  *, num_steps: int, temperature: float,
+                  eos_id: Optional[int], top_k: Optional[int],
+                  top_p: Optional[float]):
+    """One K-token slice over the slot batch: gather the logical cache
+    from pages ONCE, run the per-row decode step K times over it,
+    scatter the K newly written token positions back. The step math is
+    the same sample → EOS-latch → advance as generate's
+    ``_make_decode_step``; only the cache write is per-row
+    (``decode_positions``) instead of the shared scalar index — that
+    is what lets rows sit at different sequence positions.
+    ``step_rngs`` is ``[K, N, 2]`` (None when greedy). Returns
+    ``(tokens [N, K] int32, last tokens [N], done [N])``."""
+    logical = _gather_logical(physical, tables)
+    tok, wpos, dn = tokens, write_pos, done
+    out = []
+    for k in range(num_steps):
+        positions = (wpos - pad_lens)[:, None]
+        logits = apply(model, params, tok[:, None], positions,
+                       pad_lengths=pad_lens, decode_positions=wpos,
+                       cache=logical)[:, 0]
+        tok = _sample_logits(logits, None if step_rngs is None
+                             else step_rngs[k], temperature, top_k, top_p)
+        if eos_id is not None:
+            tok = torch.where(dn, torch.full_like(tok, eos_id), tok)
+            dn = dn | (tok == eos_id)
+        out.append(tok)
+        wpos = wpos + 1
+    _scatter_token_range(physical, logical, tables, write_pos,
+                         num_steps=num_steps)
+    return torch.stack(out, dim=1), tok, dn
+
+
+def _unported(option: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} is not ported yet (ROADMAP {item}); the port's engine "
+        f"runs the plain lane only")
+
+
+class DecodeEngine:
+    """Slot-based continuous-batching decode over one model.
+
+    ``submit()`` is thread-safe and returns a :class:`GenerateStream`;
+    all device work happens on the single engine thread (started
+    lazily), which enters ``torch.inference_mode`` and the engine's CUDA
+    device itself: both are per thread. ``model`` must be built with a
+    ``cache_size >= max_prompt_len + max_new_tokens``; ``params`` must
+    live on ``device`` (``None`` → cuda; ``"cpu"`` on request).
+
+    The plain lane: left-padded B=1 prefills, paged KV, K-token slices.
+    The prefix cache, chunked prefill, speculative decoding, KV handoff,
+    stream resume and the host tier raise ``NotImplementedError``.
+    """
+
+    def __init__(self, model: Any, params: Dict[str, torch.Tensor],
+                 config: EngineConfig, *, name: str = "engine",
+                 device: DeviceLike = None, draft_model: Any = None,
+                 draft_params: Any = None):
+        if model.cache_size < config.max_prompt_len + \
+                config.max_new_tokens:
+            raise ValueError(
+                f"cache_size {model.cache_size} < max_prompt_len "
+                f"{config.max_prompt_len} + max_new_tokens "
+                f"{config.max_new_tokens}")
+        if config.speculate_tokens < 0:
+            raise ValueError(
+                f"speculate_tokens {config.speculate_tokens} < 0")
+        if draft_model is not None or draft_params is not None:
+            raise _unported("speculative decoding with a draft model",
+                            "A7")
+        if config.speculate_tokens > 0:
+            # The knob survived export without a draft model: vanilla
+            # decode, as the reference does — the output is the same
+            # either way, only the verifier-forward count differs.
+            logger.warning(
+                "engine %s: engine_draft_tokens=%d but no draft "
+                "model — speculative decoding disabled, decoding "
+                "vanilla", name, config.speculate_tokens)
+        if config.prefix_cache:
+            raise _unported("engine_prefix_cache", "A6")
+        if config.prefill_chunk:
+            raise _unported("engine_prefill_chunk", "A7")
+        if config.host_cache_bytes < 0:
+            raise ValueError(
+                f"engine_host_cache_bytes {config.host_cache_bytes} "
+                f"< 0 (0 disables the host tier)")
+        if config.host_cache_bytes:
+            raise _unported("engine_host_cache_bytes", "A7")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # The engine thread sets this device as its own current one.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        off = [k for k, v in params.items() if v.device != self.device]
+        if off:
+            raise ValueError(
+                f"params {off[:3]} are not on the engine's device "
+                f"{self.device}")
+        # A module of its own: apply() swaps weights into the module it
+        # is given, so the engine thread and a caller's thread must not
+        # share one (a meta-device template copies for free).
+        self._model = copy.deepcopy(model)
+        self._params = params
+        self.config = config
+        self.name = name
+        with torch.inference_mode():
+            self.kv = PagedKVCache(
+                init_cache(model, params, 1), num_slots=config.num_slots,
+                page_size=config.page_size, cache_size=model.cache_size,
+                num_pages=config.num_pages)
+        self.scheduler = SlotScheduler(config.num_slots,
+                                       self.kv.allocator)
+        self._cv = threading.Condition()
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+        self._rng_counter = 0
+        # TTFT/pacing estimators feed the submit-side admission gate.
+        self._prefill_est = LatencyEstimator(prior_s=0.05)
+        self._token_est = LatencyEstimator(prior_s=0.01)
+        # First-seen (program, shape) keys: the reference's compile
+        # events. In the port the first run of a shape is where cuBLAS
+        # picks its algorithms; the count is the engine_compile spans.
+        self._compile_seen: set = set()
+        self._slices = 0
+        self._sample_kw = dict(
+            temperature=config.temperature, eos_id=config.eos_id,
+            top_k=config.top_k, top_p=config.top_p)
+        # Metric children (owner-checked gauge callbacks).
+        self._m_tokens = _M_TOKENS.labels(name)
+        self._m_admitted = _M_ADMITTED.labels(name)
+        self._m_shed = _M_SHED.labels(name)
+        self._m_ttft = _M_TTFT.labels(name)
+        self._m_inter = _M_INTER.labels(name)
+        self._g_slots = _M_SLOTS.labels(name)
+        self._g_slots.set_function(self.scheduler.occupancy)
+        self._g_queue = _M_QUEUE.labels(name)
+        self._g_queue.set_function(self.scheduler.queue_depth)
+        self._g_pages = _M_FREE_PAGES.labels(name)
+        self._g_pages.set_function(self.kv.allocator.available)
+        self._g_occupancy = _M_PAGE_OCC.labels(name)
+        self._g_occupancy.set_function(self.page_occupancy)
+
+    # -- submit side -----------------------------------------------------
+
+    def _next_key(self) -> np.ndarray:
+        base = prng.PRNGKey(self.config.seed)
+        with self._cv:
+            self._rng_counter += 1
+            counter = self._rng_counter
+        return prng.fold_in(base, counter)
+
+    def estimated_ttft_s(self) -> float:
+        """Submit-time TTFT estimate: queue-ahead prefills plus the
+        slice currently occupying the executor. Deliberately simple —
+        it gates deadline shedding, not scheduling."""
+        queued = self.scheduler.queue_depth()
+        prefill = self._prefill_est.estimate_s()
+        slice_s = self._token_est.estimate_s() * \
+            self.config.slice_tokens
+        return (queued + 1) * prefill + slice_s * (
+            1.0 + queued / max(1, self.config.num_slots))
+
+    def page_occupancy(self) -> float:
+        """Fraction of the pool allocated to live slots or spoken for
+        by reservations — the page-pressure number /healthz and the
+        autoscaler read."""
+        alloc = self.kv.allocator
+        total = alloc.num_pages - 1
+        return (total - alloc.available()) / total if total else 1.0
+
+    def submit(self, prompt: Optional[np.ndarray] = None, *,
+               rng: Optional[np.ndarray] = None,
+               max_new_tokens: Optional[int] = None,
+               deadline: Optional[float] = None,
+               obs_ctx: Any = None,
+               request_id: str = "",
+               tenant: str = "",
+               handoff: Any = None,
+               step_keys: Optional[np.ndarray] = None
+               ) -> GenerateStream:
+        """Queue one request; tokens stream on the returned handle.
+
+        ``max_new_tokens`` may be LESS than the engine's configured
+        budget (a short request retires early and frees its slot);
+        ``rng`` is the request's sampling key ([2] uint32 — the same
+        key reproduces the same tokens at B=1 through generate()).
+        ``handoff`` (KV handoff) and ``step_keys`` (stream resume) are
+        not ported and raise.
+
+        Raises :class:`OverloadedError` /
+        :class:`DeadlineExceededError` synchronously when admission
+        control sheds the request."""
+        if handoff is not None:
+            raise _unported("submit(handoff=)", "A7")
+        if step_keys is not None:
+            raise _unported("submit(step_keys=)", "A7")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
+            raise ValueError(
+                f"prompt length {prompt.shape[0]} outside "
+                f"[1, {self.config.max_prompt_len}]")
+        budget = (self.config.max_new_tokens
+                  if max_new_tokens is None else int(max_new_tokens))
+        if not 1 <= budget <= self.config.max_new_tokens:
+            raise ValueError(
+                f"max_new_tokens {budget} outside "
+                f"[1, {self.config.max_new_tokens}]")
+        if self._closed:
+            raise RuntimeError("engine is stopped")
+        # A worst-case reservation that can NEVER fit the pool would
+        # sit at the FIFO head forever (admission holds the line for
+        # the head) — fail it at submit, not by hanging the queue.
+        width = self._prompt_width(int(prompt.shape[0]))
+        need = self.kv.pages_for(width + budget)
+        usable = self.kv.allocator.num_pages - 1
+        if need > usable:
+            raise ValueError(
+                f"request needs {need} pages worst-case "
+                f"(prompt bucket {width} + "
+                f"{budget} new tokens at page_size "
+                f"{self.kv.page_size}) but the pool has only "
+                f"{usable} — raise engine_num_pages or lower the "
+                f"request budget")
+        tenant = tenant or tenancy.DEFAULT_TENANT
+        if self.scheduler.queue_depth() >= self.config.queue_capacity:
+            # Attributable shed: name the submitting tenant's own depth
+            # and the top queue holder, so the 503 points at the noisy
+            # neighbor, not just at "full".
+            depths = self.scheduler.tenant_depths()
+            top = max(depths.items(), key=lambda kv: kv[1],
+                      default=(tenant, 0))
+            self._m_shed.inc()
+            tenancy.note_shed(tenant, "overload")
+            raise OverloadedError(
+                f"engine queue full "
+                f"({self.config.queue_capacity} pending; tenant "
+                f"{tenant!r} holds {depths.get(tenant, 0)}, top "
+                f"holder {top[0]!r} with {top[1]})",
+                retry_after_s=self.estimated_ttft_s())
+        now = time.monotonic()
+        if deadline is not None:
+            remaining = deadline - now
+            if remaining <= 0:
+                raise DeadlineExceededError(
+                    "deadline expired before submit")
+            est = self.estimated_ttft_s()
+            if est > remaining * ADMISSION_SAFETY:
+                self._m_shed.inc()
+                tenancy.note_shed(tenant, "overload")
+                raise OverloadedError(
+                    f"engine overloaded: estimated time-to-first-"
+                    f"token {est * 1e3:.0f}ms exceeds remaining "
+                    f"budget {remaining * 1e3:.0f}ms",
+                    retry_after_s=est)
+        key = self._next_key() if rng is None else np.asarray(rng)
+        step_keys = prng.split(np.asarray(key, np.uint32), budget)
+        stream = GenerateStream(budget, obs_ctx=obs_ctx)
+        req = _Request(prompt=prompt, step_keys=step_keys,
+                       max_new_tokens=budget, deadline=deadline,
+                       stream=stream, submitted_at=now,
+                       request_id=request_id, tenant=tenant)
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("engine is stopped")
+            self.scheduler.pending.append(req)
+            self._cv.notify_all()
+        self._ensure_thread()
+        return stream
+
+    def _ensure_thread(self) -> None:
+        with self._cv:
+            if self._thread is None and not self._closed:
+                self._thread = threading.Thread(
+                    target=self._loop, name=f"engine-{self.name}",
+                    daemon=True)
+                self._thread.start()
+
+    def stop(self) -> None:
+        with self._cv:
+            self._closed = True
+            thread, self._thread = self._thread, None
+            self._cv.notify_all()
+        still_running = False
+        if thread is not None:
+            thread.join(timeout=10)
+            still_running = thread.is_alive()
+        err = RuntimeError("engine shutting down")
+        if still_running:
+            # The engine thread is mid-slice and still owns the slot/
+            # allocator state — racing _retire against it corrupts the
+            # free list. Fail the streams (their locks are per-stream,
+            # safe from any thread) and leave the device-side
+            # bookkeeping to die with the object.
+            logger.warning(
+                "engine %s thread still busy at stop(); failing "
+                "streams without touching slot state", self.name)
+            for slot in self.scheduler.active_slots():
+                slot.request.stream._fail(err)
+        else:
+            for slot in self.scheduler.active_slots():
+                self._retire(slot, "shutdown", error=err)
+        for req in list(self.scheduler.pending):
+            req.stream._fail(err)
+        self.scheduler.pending.clear()
+        self._g_slots.clear_function(self.scheduler)
+        self._g_queue.clear_function(self.scheduler)
+        self._g_pages.clear_function(self.kv.allocator)
+        self._g_occupancy.clear_function(self)
+
+    def stats(self) -> dict:
+        alloc = self.kv.allocator
+        return {
+            "slots": self.config.num_slots,
+            "active_slots": self.scheduler.occupancy(),
+            "queue_depth": self.scheduler.queue_depth(),
+            "admitted": self.scheduler.admitted,
+            "retired": dict(self.scheduler.retired_by),
+            "free_pages": alloc.free_pages,
+            "reserved_pages": alloc.reserved_pages,
+            "retained_pages": alloc.retained_pages,
+            "total_pages": alloc.num_pages - 1,
+            "page_size": self.kv.page_size,
+            "page_occupancy": round(self.page_occupancy(), 4),
+            "est_ttft_ms": round(self.estimated_ttft_s() * 1e3, 3),
+            # Decode slices run, and distinct (program, shape) keys
+            # seen (a growing count at steady state is shape churn).
+            "slices": self._slices,
+            "compiled_programs": len(self._compile_seen),
+            # Per-tenant queue depths, capped: top-K + 'other'.
+            "tenant_queue_depths": tenancy.cap_depths(
+                self.scheduler.tenant_depths()),
+        }
+
+    # -- engine thread ---------------------------------------------------
+
+    def _loop(self) -> None:
+        # inference_mode and the current CUDA device are per thread:
+        # this thread does every device op of the engine.
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        with torch.inference_mode():
+            self._run_loop()
+
+    def _run_loop(self) -> None:
+        while True:
+            with self._cv:
+                if self._closed:
+                    return
+                if (not self.scheduler.pending
+                        and not self.scheduler.active_slots()):
+                    self._cv.wait(timeout=0.05)
+                    continue
+            try:
+                self._expire()
+                self._admit()
+                if self.scheduler.decoding_slots():
+                    self._run_plain_slice()
+                else:
+                    # Queued-but-unadmittable head with nothing
+                    # decoding: bounded nap instead of a hot spin
+                    # (only expiry/cancel can change the picture, and
+                    # _expire reruns each lap).
+                    with self._cv:
+                        if not self._closed:
+                            self._cv.wait(timeout=0.05)
+            except Exception as e:  # noqa: BLE001 — fail the streams,
+                # keep the engine alive for later requests.
+                logger.exception("engine slice failed")
+                for slot in self.scheduler.active_slots():
+                    self._retire(slot, "error", error=e)
+
+    def _note_compile(self, program: str, shapes: str,
+                      start_s: float, dur_s: float,
+                      link: Optional[dict] = None) -> None:
+        """Record the engine_compile span for a first-seen program/
+        shape key. ``link`` (a span_args dict) attributes a
+        request-triggered first run to THAT request's trace; slice
+        first runs (no single owner) stay documented roots."""
+        key = (program, shapes)
+        if key in self._compile_seen:
+            return
+        self._compile_seen.add(key)
+        if TRACER.enabled:
+            args = {"model": self.name, "program": program,
+                    "shapes": shapes}
+            for k in ("request_id", "trace_id", "parent_id", "leg"):
+                if link and k in link:
+                    args[k] = link[k]
+            TRACER.record("engine_compile", "engine", start_s, dur_s,
+                          args)
+
+    def _bucket(self, n: int) -> int:
+        return prompt_bucket(n, self.config.max_prompt_len,
+                             self.config.prompt_buckets)
+
+    def _prompt_width(self, length: int) -> int:
+        """Prefill block width for a ``length``-token prompt: the
+        shared prompt-bucket policy (a left-padded prompt)."""
+        return self._bucket(length)
+
+    def _budget_pages(self, req: _Request) -> int:
+        width = self._prompt_width(len(req.prompt))
+        return self.kv.pages_for(width + req.max_new_tokens)
+
+    def _device_keys(self, keys: np.ndarray) -> Optional[torch.Tensor]:
+        """Step keys on the engine's device; None when greedy (no key
+        is read)."""
+        if self.config.temperature <= 0.0:
+            return None
+        return _device_keys(keys, self.device)
+
+    def _expire(self) -> None:
+        # Under _cv: expired_pending() rebuilds the pending sub-queues,
+        # and submit() appends under _cv.
+        with self._cv:
+            expired = self.scheduler.expired_pending()
+            dead = self.scheduler.pending.remove_if(
+                lambda r: r.stream.cancelled)
+        for req in expired:
+            req.stream._fail(DeadlineExceededError(
+                "deadline expired while queued for a slot"))
+            _M_RETIRED.labels(self.name, "expired_queued").inc()
+            tenancy.note_expired(req.tenant or tenancy.DEFAULT_TENANT)
+        for req in dead:
+            # Client hung up while still queued: never burn a prefill
+            # or a slot on it.
+            req.stream._fail(RuntimeError(
+                "stream cancelled by the client"))
+            _M_RETIRED.labels(self.name, "cancelled_queued").inc()
+        for slot in self.scheduler.expired_slots():
+            self._retire(slot, "deadline", error=DeadlineExceededError(
+                f"deadline expired mid-decode after "
+                f"{slot.emitted} token(s)"))
+        for slot in self.scheduler.active_slots():
+            if slot.request.stream.cancelled:
+                self._retire(slot, "cancelled", error=RuntimeError(
+                    "stream cancelled by the client"))
+
+    def _admit(self) -> None:
+        while True:
+            req = self.scheduler.next_admittable(self._budget_pages)
+            if req is None:
+                return
+            self._prefill_and_bind(req)
+
+    def _prefill_and_bind(self, req: _Request) -> None:
+        t0 = time.monotonic()
+        length = len(req.prompt)
+        width = self._prompt_width(length)
+        pad = width - length
+        prompt = np.zeros((1, width), np.int32)
+        prompt[0, pad:] = req.prompt
+        try:
+            # A fresh zero cache per admission: the prefill writes it
+            # in place, and adopt copies it into the slot's pages.
+            carry, _ = _prefill(
+                self._model, self._params,
+                torch.from_numpy(prompt).to(self.device),
+                self._device_keys(req.step_keys[0:1]),
+                init_cache(self._model, self._params, 1),
+                torch.tensor([pad], dtype=torch.int32, device=self.device),
+                **self._sample_kw)
+            prefill_cache, first, _, done = carry
+            first = int(first[0])
+            done = bool(done[0])
+        except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
+            # The request was popped WITH a reservation
+            # (next_admittable); letting this propagate to _loop's
+            # handler would leak that reservation forever, leave the
+            # stream with no terminal event, and retire every
+            # innocent in-flight slot with this error.
+            logger.exception("prefill failed; shedding the request")
+            self.kv.allocator.unreserve(self._budget_pages(req))
+            _M_RETIRED.labels(self.name, "error").inc()
+            req.stream._fail(e)
+            return
+        budget_pages = self._budget_pages(req)
+        slot = self.scheduler.bind(
+            req, prompt_width=width, pad_len=pad, first_token=first,
+            done=done, budget_pages=budget_pages,
+            deadline=req.deadline)
+        slot.allocated_pages = self.kv.adopt(
+            slot.index, prefill_cache, width, budget_pages)
+        t1 = time.monotonic()
+        slot.queue_s = max(0.0, t0 - req.submitted_at)
+        slot.prefill_s = t1 - t0
+        self._note_compile("prefill", f"tokens[1,{width}]", t0, t1 - t0,
+                           link=self._span_args(req))
+        self._prefill_est.observe(t1 - t0)
+        self._m_admitted.inc()
+        ctx = req.stream.obs_ctx
+        self._m_ttft.observe(t1 - req.submitted_at,
+                             trace_id=ctx.trace_id if ctx else None)
+        tenancy.observe_ttft(req.tenant or tenancy.DEFAULT_TENANT,
+                             t1 - req.submitted_at)
+        if TRACER.enabled:
+            TRACER.record("engine_prefill", "engine", t0, t1 - t0,
+                          self._span_args(req, slot=slot.index,
+                                          prompt_len=length))
+        self._emit_token(slot, first)
+        if slot.done or slot.remaining == 0:
+            self._retire(slot, "eos" if slot.done else "budget")
+
+    def _emit_token(self, slot: Slot, token: int) -> None:
+        slot.emitted += 1
+        slot.request.stream._emit(
+            TokenEvent(token=token, index=slot.emitted - 1))
+        self._m_tokens.inc()
+        # Billing-grade per-tenant usage: tokens actually DELIVERED
+        # (capped label — spraying tenants can't grow /metrics).
+        tenancy.note_tokens(slot.request.tenant
+                            or tenancy.DEFAULT_TENANT)
+        if self.config.eos_id is not None and \
+                token == self.config.eos_id:
+            slot.done = True
+
+    def _run_plain_slice(self) -> None:
+        active = self.scheduler.decoding_slots()
+        num_steps = min(self.config.slice_tokens,
+                        max(s.remaining for s in active))
+        n = self.config.num_slots
+        for s in active:
+            s.allocated_pages = self.kv.extend_slot(
+                s.index, s.allocated_pages, s.write_pos + num_steps,
+                s.budget_pages)
+        tokens = np.zeros((n,), np.int32)
+        wpos = np.zeros((n,), np.int32)
+        pads = np.zeros((n,), np.int32)
+        done = np.ones((n,), bool)  # inactive rows ride latched
+        rngs = np.zeros((num_steps, n, 2), np.uint32)
+        for s in active:
+            tokens[s.index] = s.last_token
+            wpos[s.index] = s.write_pos
+            pads[s.index] = s.pad_len
+            done[s.index] = s.done
+            rngs[:, s.index] = SlotScheduler.slice_keys(s, num_steps)
+        dev = self.device
+        t0 = time.monotonic()
+        out, last_tok, _ = _decode_slice(
+            self._model, self._params, self.kv.physical,
+            self.kv.device_tables(), torch.from_numpy(wpos).to(dev),
+            torch.from_numpy(pads).to(dev), torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(done).to(dev), self._device_keys(rngs),
+            num_steps=num_steps, **self._sample_kw)
+        # The executor yield point (decode-slicing contract): the copy
+        # to the host waits for THIS slice, so admissions interleave
+        # instead of queueing behind back-to-back slices.
+        out = out.cpu().numpy()
+        last_tok = last_tok.cpu().numpy()
+        t_slice = time.monotonic() - t0
+        self._token_est.observe(t_slice / num_steps)
+        per_token = t_slice / num_steps
+        self._slices += 1
+        self._note_compile("decode_slice",
+                           f"steps={num_steps} slots={n}", t0, t_slice)
+        if TRACER.enabled:
+            # Per-slice structured profile record: occupancy collapses
+            # and page pressure show up HERE. Documented root span (no
+            # single request owns a slice; requests join it via their
+            # own decode_ms).
+            alloc = self.kv.allocator
+            TRACER.record(
+                "engine_slice", "engine", t0, t_slice, {
+                    "model": self.name,
+                    "slice": self._slices,
+                    "slots": len(active),
+                    "steps": num_steps,
+                    "tokens": sum(min(num_steps, s.remaining)
+                                  for s in active),
+                    "free_pages": alloc.available(),
+                    "retained_pages": alloc.retained_pages,
+                    "occupancy": round(self.page_occupancy(), 4),
+                    "admitted": self.scheduler.admitted,
+                    "retired": self.scheduler.retired,
+                    "queue_depth": self.scheduler.queue_depth(),
+                    "prefix_hits": 0,
+                })
+        for s in active:
+            # Every live slot waited this whole slice — that IS its
+            # decode share (per-request attribution, engine_request).
+            s.decode_s += t_slice
+        for s in active:
+            take = min(num_steps, s.remaining)
+            for k in range(take):
+                if s.done:
+                    break  # post-EOS steps are latched padding
+                s.steps_done += 1
+                self._emit_token(s, int(out[s.index, k]))
+                self._m_inter.observe(per_token)
+            s.write_pos += num_steps
+            s.last_token = int(last_tok[s.index])
+            if s.done:
+                self._retire(s, "eos")
+            elif s.remaining == 0:
+                self._retire(s, "budget")
+
+    def _retire(self, slot: Slot, reason: str,
+                error: Optional[BaseException] = None) -> None:
+        req = slot.request
+        self.kv.release_slot(
+            slot.index, slot.allocated_pages,
+            slot.budget_pages - slot.allocated_pages)
+        self.scheduler.retire(slot, reason)
+        _M_RETIRED.labels(self.name, reason).inc()
+        if TRACER.enabled:
+            TRACER.record(
+                "engine_request", "engine", req.submitted_at,
+                time.monotonic() - req.submitted_at,
+                self._span_args(
+                    req, slot=slot.index, reason=reason,
+                    tokens=slot.emitted,
+                    # The per-request attribution triple (queue wait →
+                    # a slot, prefill, decode-slice share).
+                    queue_ms=round(slot.queue_s * 1e3, 3),
+                    prefill_ms=round(slot.prefill_s * 1e3, 3),
+                    decode_ms=round(slot.decode_s * 1e3, 3)))
+        if error is not None:
+            req.stream._fail(error)
+            return
+        tokens = req.stream.tokens_so_far
+        if len(tokens) < req.max_new_tokens and \
+                self.config.eos_id is not None:
+            # Early EOS: pad to the request budget with the latched
+            # EOS id — byte-for-byte the monolithic generate() shape.
+            tokens = tokens + [self.config.eos_id] * (
+                req.max_new_tokens - len(tokens))
+        req.stream._finish(np.asarray(tokens, np.int32))
+
+    def _span_args(self, req: _Request, **extra) -> dict:
+        # span_args adds trace linkage (trace id + parent_id = the
+        # transport hop's span id + leg); the capped tenant label lets
+        # waterfalls filter by tenant.
+        args = span_args(req.stream.obs_ctx, model=self.name, **extra)
+        if req.request_id:
+            args["request_id"] = req.request_id
+        if req.tenant and req.tenant != tenancy.DEFAULT_TENANT:
+            args.setdefault("tenant", tenancy.tenant_label(req.tenant))
+        return args

@@ -12,32 +12,38 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Autoregressive generation: prefill + KV-cache decode loop (greedy).
+"""Autoregressive generation: prefill + KV-cache decode loop.
 
 Port of ``kubeflow_tpu/inference/generate.py``:
 
 - The KV cache is a static-size buffer per layer (``cache_size`` on the
   Llama family), written in place at a running index.
-- Prefill runs the full prompt once and fills the cache; decode steps
+- Prefill runs the full prompt once and fills the cache
+  (:func:`_prefill`, the head the decode engine calls too); decode steps
   run in a Python loop under ``torch.inference_mode()`` (the
   reference's ``lax.scan``), each through the one decode-step function.
+- Greedy (``temperature=0``) or temperature sampling with ``top_k`` /
+  ``top_p`` truncation. Sampling draws from ``inference/prng.py``, a
+  threefry that matches ``jax.random`` bit for bit, so a key gives the
+  reference's tokens (up to Gumbel noise rounded differently by about
+  1e-6, which flips only a near-tie).
 - Batched decode: mixed-length prompts ride one decode via LEFT-padding
   + ``prompt_lengths`` (per-row position offsets and a cache-slot mask
-  keep each row identical to its B=1 run).
-
-Only greedy decoding is ported. Sampling (``temperature > 0``, with
-``top_k``/``top_p``) must reproduce ``jax.random``'s threefry2x32 bit
-for bit and waits for that port; such a call raises
-``NotImplementedError`` rather than return different tokens.
+  keep each row identical to its B=1 run), and ``rng`` takes per-row
+  keys ``[B, 2]`` so a sampled row reproduces its B=1 stream.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.models.llama import LayerCache, apply
+
+KeyArray = Union[np.ndarray, torch.Tensor]
 
 
 def prompt_bucket(n: int, max_len: int,
@@ -79,20 +85,77 @@ def _prompt_positions(b: int, prompt_len: int,
     return torch.clamp_min(ar - pad_lengths[:, None], 0)
 
 
-def _sample_logits(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy: the first index of the largest logit, int32."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def _truncate_logits(logits: torch.Tensor, top_k: Optional[int],
+                     top_p: Optional[float]) -> torch.Tensor:
+    """Mask logits outside the top-k set and/or the top-p (nucleus)
+    set to -inf. Top-k keeps every logit at or above the k-th largest;
+    top-p sorts descending, keeps the smallest prefix whose softmax
+    mass reaches ``top_p`` and turns it into a value threshold. The top
+    token is always kept, so ``top_p <= 0`` is greedy rather than an
+    all -inf row (over which categorical would emit token 0)."""
+    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
+                           device=logits.device)
+    # top_k in (None, 0) and top_p in (None, >= 1.0) mean "disabled";
+    # top_k >= vocab is a no-op.
+    if top_k is not None and 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p is not None and top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < top_p
+        keep[..., 0] = True
+        threshold = torch.where(
+            keep, sorted_logits,
+            torch.tensor(float("inf"), dtype=logits.dtype,
+                         device=logits.device)).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < threshold, neg_inf, logits)
+    return logits
 
 
-def _make_decode_step(model, params, eos_id, pad_lengths=None):
+def _split_step_rngs(rng: KeyArray, n: int) -> np.ndarray:
+    """Per-step keys from one shared key (``[2]`` → ``[n, 2]``, one
+    stream for the whole batch) or per-row keys (``[B, 2]`` →
+    ``[n, B, 2]``, one stream per row, so a row sampled inside a batch
+    equals the same request at B=1 with its own key). Host uint32."""
+    rng = np.asarray(rng.cpu() if isinstance(rng, torch.Tensor) else rng,
+                     np.uint32)
+    if rng.ndim == 2:
+        return np.stack([prng.split(k, n) for k in rng], axis=1)
+    return prng.split(rng, n)
+
+
+def _sample_logits(logits: torch.Tensor, step_rng: Optional[torch.Tensor],
+                   temperature: float, top_k: Optional[int],
+                   top_p: Optional[float]) -> torch.Tensor:
+    """One token per row, int32: the first index of the largest logit
+    when ``temperature <= 0``; else a categorical draw from the
+    truncated, tempered fp32 logits with ``step_rng`` (one ``[2]`` key
+    for the batch, or ``[B, 2]`` per-row keys, on the logits' device)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = _truncate_logits(logits.float() / temperature, top_k, top_p)
+    return prng.categorical(step_rng, logits).to(torch.int32)
+
+
+def _device_keys(keys: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host uint32 keys as int64 on ``device`` (one copy per call)."""
+    return torch.from_numpy(np.asarray(keys, np.uint32).astype(
+        np.int64)).to(device)
+
+
+def _make_decode_step(model, params, temperature, eos_id, top_k, top_p,
+                      pad_lengths=None):
     """THE one-token decode step (cache write + sample + EOS latch),
     shared by the monolithic and the chunked loops."""
 
-    def decode_step(carry):
+    def decode_step(carry, step_rng):
         cache, token, position, done = carry
         logits = apply(model, params, token[:, None], position[:, None],
                        pad_lengths=pad_lengths, cache=cache)[:, 0]
-        next_token = _sample_logits(logits)
+        next_token = _sample_logits(logits, step_rng, temperature, top_k,
+                                    top_p)
         if eos_id is not None:
             next_token = torch.where(done, torch.full_like(next_token, eos_id),
                                      next_token)
@@ -102,6 +165,30 @@ def _make_decode_step(model, params, eos_id, pad_lengths=None):
     return decode_step
 
 
+def _prefill(model, params, prompt_ids: torch.Tensor,
+             first_rng: Optional[torch.Tensor], cache: List[LayerCache],
+             pad_lengths: Optional[torch.Tensor], *, temperature: float,
+             eos_id: Optional[int], top_k: Optional[int],
+             top_p: Optional[float]):
+    """Prompt pass + first sampled token: ``((cache, first, position,
+    done), last_logits)``, ``cache`` filled in place. The head of
+    :func:`generate` and of the decode engine's admission."""
+    b, prompt_len = prompt_ids.shape
+    positions = _prompt_positions(b, prompt_len, pad_lengths,
+                                  prompt_ids.device)
+    last_logits = apply(model, params, prompt_ids, positions,
+                        pad_lengths=pad_lengths, cache=cache)[:, -1]
+    first = _sample_logits(last_logits, first_rng, temperature, top_k, top_p)
+    done = (first == eos_id if eos_id is not None
+            else torch.zeros((b,), dtype=torch.bool, device=first.device))
+    if pad_lengths is None:
+        position = torch.full((b,), prompt_len, dtype=torch.int32,
+                              device=first.device)
+    else:
+        position = (prompt_len - pad_lengths).to(torch.int32)
+    return (cache, first, position, done), last_logits
+
+
 def generate(
     model: Any,
     params: Dict[str, torch.Tensor],
@@ -109,31 +196,34 @@ def generate(
     *,
     max_new_tokens: int,
     temperature: float = 0.0,
+    rng: Optional[KeyArray] = None,
     eos_id: Optional[int] = None,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
     chunk_tokens: Optional[int] = None,
     prompt_lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Generate ``max_new_tokens`` greedy continuations of
-    ``prompt_ids`` ([B, L] int, on the params' device).
+    """Generate ``max_new_tokens`` continuations of ``prompt_ids``
+    ([B, L] int, on the params' device).
 
     ``model`` must be built with ``cache_size >= prompt_len +
     max_new_tokens``. Returns ``(tokens [B, max_new_tokens] int32,
     logits [B, max_new_tokens, V] fp32)``. With ``eos_id``, tokens after
-    the first EOS are replaced by EOS. ``top_k``/``top_p`` only apply
-    when ``temperature > 0``, which is not ported yet.
+    the first EOS are replaced by EOS. ``top_k``/``top_p`` truncate the
+    sampling distribution; both only apply when ``temperature > 0``.
 
     ``prompt_lengths`` — ``[B]`` true per-row token counts, with
     ``prompt_ids`` LEFT-padded; row i of the batch then equals the same
     prompt run alone at B=1.
 
+    ``rng`` — one threefry key (``[2]`` uint32: the batch shares one
+    per-step stream) or per-row keys (``[B, 2]``: row i samples from
+    ``rng[i]``'s stream, as it would alone). Default ``PRNGKey(0)``.
+
     ``chunk_tokens`` — decode in K-token slices with a device sync
     between them (the serving yield point for a shared device). Tokens
-    are identical to the monolithic loop.
+    are identical to the monolithic loop (the same step keys).
     """
-    if temperature > 0.0:
-        raise NotImplementedError("sampling needs the threefry port")
     b, prompt_len = prompt_ids.shape
     if model.cache_size < prompt_len + max_new_tokens:
         raise ValueError(
@@ -156,27 +246,25 @@ def generate(
                 f"prompt_lengths must be in [1, {prompt_len}] "
                 f"(the padded prompt width); got range [{lo}, {hi}]")
         pad_lengths = prompt_len - prompt_lengths
+    step_rngs = [None] * max_new_tokens
+    if temperature > 0.0:
+        keys = prng.PRNGKey(0) if rng is None else rng
+        step_rngs = _device_keys(_split_step_rngs(keys, max_new_tokens),
+                                 device)
+    sample_kw = dict(temperature=temperature, eos_id=eos_id, top_k=top_k,
+                     top_p=top_p)
     with torch.inference_mode():
-        cache = init_cache(model, params, b)
-        positions = _prompt_positions(b, prompt_len, pad_lengths, device)
-        last_logits = apply(model, params, prompt_ids, positions,
-                            pad_lengths=pad_lengths, cache=cache)[:, -1]
-        first = _sample_logits(last_logits)
-        done = (first == eos_id if eos_id is not None
-                else torch.zeros((b,), dtype=torch.bool, device=device))
-        if pad_lengths is None:
-            position = torch.full((b,), prompt_len, dtype=torch.int32,
-                                  device=device)
-        else:
-            position = (prompt_len - pad_lengths).to(torch.int32)
-        carry = (cache, first, position, done)
-        step = _make_decode_step(model, params, eos_id, pad_lengths)
-        tokens, logits = [first], [last_logits]
+        carry, last_logits = _prefill(
+            model, params, prompt_ids, step_rngs[0],
+            init_cache(model, params, b), pad_lengths, **sample_kw)
+        step = _make_decode_step(model, params, temperature, eos_id, top_k,
+                                 top_p, pad_lengths)
+        tokens, logits = [carry[1]], [last_logits]
         n_decode = max_new_tokens - 1
         chunk = chunk_tokens if chunk_tokens else max(n_decode, 1)
         for start in range(0, n_decode, chunk):
-            for _ in range(min(chunk, n_decode - start)):
-                carry, (token, step_logits) = step(carry)
+            for i in range(start, min(start + chunk, n_decode)):
+                carry, (token, step_logits) = step(carry, step_rngs[i + 1])
                 tokens.append(token)
                 logits.append(step_logits)
             if chunk_tokens and device.type == "cuda":

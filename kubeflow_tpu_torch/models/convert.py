@@ -89,7 +89,10 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
         key = _flax_key(name)
         if key not in flat:
             raise KeyError(f"Flax params have no {key!r} (for {name})")
-        arr = np.array(flat[key], dtype=np.float32)  # a writable copy
+        leaf = flat[key]
+        if isinstance(leaf, torch.Tensor):  # a bf16 leaf of an export
+            leaf = leaf.float().numpy()
+        arr = np.array(leaf, dtype=np.float32)  # a writable copy
         if key.endswith("/kernel"):
             arr = _kernel_to_torch(key, arr)
         if tuple(arr.shape) != tuple(template.shape):
@@ -101,6 +104,48 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
     if extra:
         raise ValueError(f"Flax params the port model has no place for: "
                          f"{sorted(extra)[:5]}")
+    return out
+
+
+def params_to_flax(params: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_flax`: a flat ``"/"``-keyed
+    dict of fp32 numpy arrays in Flax's layout (kernels back to
+    ``[in, out]`` / HWIO), as Flax keeps params. A bf16 weight widens to
+    fp32 exactly, so a round trip through an export gives its bits
+    back."""
+    out = {}
+    for name, t in params.items():
+        key = _flax_key(name)
+        arr = t.detach().float().cpu().numpy()
+        if key.endswith("/kernel"):
+            arr = (arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0))
+        out[key] = np.ascontiguousarray(arr)
+    return out
+
+
+def flatten_tree(tree: Mapping, sep: str = "/") -> Dict[str, object]:
+    """A nested dict as a flat dict keyed by ``sep``-joined paths
+    (``flax.traverse_util.flatten_dict(tree, sep=sep)``)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            for sub, leaf in flatten_tree(v, sep).items():
+                out[f"{k}{sep}{sub}"] = leaf
+        else:
+            out[k] = v
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, object], sep: str = "/") -> Dict:
+    """The inverse of :func:`flatten_tree`."""
+    out: Dict = {}
+    for key, leaf in flat.items():
+        node = out
+        *parents, last = key.split(sep)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
     return out
 
 

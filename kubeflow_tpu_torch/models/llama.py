@@ -108,14 +108,17 @@ class LlamaAttention(nn.Module):
         self.o_proj = _linear(num_heads * head_dim, d_model, dtype, device)
 
     def forward(self, x, positions, pad_lengths=None,
-                cache: Optional[LayerCache] = None):
+                cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
         q = self.q_proj(x).reshape(b, l, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
-        if cache is not None:
+        if cache is not None and decode_positions is not None:
+            out = self._decode_rows(q, k, v, cache, decode_positions,
+                                    pad_lengths)
+        elif cache is not None:
             # Decode path: write this call's K/V at the cache index and
             # attend over the valid prefix.
             start = cache.index
@@ -138,6 +141,33 @@ class LlamaAttention(nn.Module):
             out = flash_attention(q, k, v, causal=True)
         return self.o_proj(out.reshape(b, l, self.num_heads * self.head_dim))
 
+    def _decode_rows(self, q, k, v, cache: LayerCache, start, pad_lengths):
+        """The slot engine's decode step: every row sits at its own
+        cache position ``start[b]`` (rows joined the batch at different
+        times), so the write is per row and the scalar ``index`` is left
+        alone. Validity (``slot <= start``, and ``>= pad_lengths``) is
+        the whole mask: the new token may attend to every valid slot, so
+        the masked score set equals the scalar path's causal + valid
+        one. A start past the cache end is clamped for the write, as
+        XLA's ``dynamic_update_slice`` clamps it; only an overshooting
+        row, whose tokens are discarded, gets there."""
+        b, l = q.shape[:2]
+        if l != 1:
+            raise NotImplementedError(
+                "decode_positions with more than one token per row (the "
+                "speculative verify, unrolled per query) is not ported yet")
+        slots = cache.k.shape[1]
+        rows = torch.arange(b, device=q.device)
+        write = torch.clamp(start.long(), 0, slots - 1)
+        cache.k[rows, write] = k[:, 0].to(self.dtype)
+        cache.v[rows, write] = v[:, 0].to(self.dtype)
+        pos = torch.arange(slots, device=q.device)[None, :]
+        valid = pos <= start[:, None]
+        if pad_lengths is not None:
+            valid = valid & (pos >= pad_lengths[:, None])
+        return dense_attention(q, cache.k, cache.v, causal=False,
+                               kv_segment_valid=valid)
+
 
 class LlamaBlock(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
@@ -154,9 +184,10 @@ class LlamaBlock(nn.Module):
         self.up_proj = _linear(d_model, mlp_dim, dtype, device)
         self.down_proj = _linear(mlp_dim, d_model, dtype, device)
 
-    def forward(self, x, positions, pad_lengths=None, cache=None):
+    def forward(self, x, positions, pad_lengths=None, cache=None,
+                decode_positions=None):
         x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
-                               cache)
+                               cache, decode_positions)
         h = self.mlp_norm(x)
         h = F.silu(self.gate_proj(h)) * self.up_proj(h)
         return x + self.down_proj(h)
@@ -216,12 +247,14 @@ class Llama(nn.Module):
                 cache: Optional[List[LayerCache]] = None) -> torch.Tensor:
         """``pad_lengths`` ([B], cache models only): per-row count of
         LEFT-pad cache slots, masked out of attention.
-        ``decode_positions`` is the continuous-batching engine's per-row
-        cache index; that engine is not ported yet."""
-        if decode_positions is not None:
-            raise NotImplementedError(
-                "decode_positions (the slot-based decode engine) is not "
-                "ported yet")
+        ``decode_positions`` ([B], cache models only): the
+        continuous-batching engine's per-row cache write position; the
+        caches' scalar ``index`` is then left as it is."""
+        if decode_positions is not None and not self.cache_size:
+            raise ValueError(
+                "decode_positions requires a cache_size model (the "
+                "slot-based decode engine writes each row's K/V into its "
+                "own cache slot)")
         if self.cache_size:
             if cache is None or len(cache) != self.num_layers:
                 raise ValueError(
@@ -240,7 +273,7 @@ class Llama(nn.Module):
         x = self.tok_embed(input_ids)
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, pad_lengths,
-                      None if cache is None else cache[i])
+                      None if cache is None else cache[i], decode_positions)
         x = self.final_norm(x)
         return self.lm_head(x.float())
 
@@ -249,7 +282,11 @@ def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,
           **kwargs):
     """``model(*args, **kwargs)`` with ``params`` as its weights — the
     port's ``model.apply({"params": params}, ...)``. Every parameter
-    must be given."""
+    must be given. ``functional_call`` swaps the weights into ``model``
+    for the call, so one module object must not be applied from two
+    threads at once: a thread of its own (the decode engine's) takes a
+    ``copy.deepcopy`` of the template, which on the meta device costs
+    nothing."""
     return torch.func.functional_call(model, params, args, kwargs,
                                       strict=True)
 

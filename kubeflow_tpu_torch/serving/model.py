@@ -22,25 +22,39 @@ Port of ``kubeflow_tpu/serving/model.py``'s ``LoadedModel``:
   oversized requests are split.
 - ``predict`` returns fp32 logits; ``classify`` is predict + fp32
   softmax + top-k; ``generate`` left-pads prompts to a length bucket
-  and decodes greedily (inference/generate.py).
+  and decodes, greedy or sampled, with one threefry key per row
+  (inference/generate.py), so a request's tokens do not depend on
+  where a batch placed it.
+- ``ensure_engine`` builds the continuous-batching decode engine
+  (inference/engine/) from the export's ``generate_config``, the path
+  ``:generate`` is served through.
 
 The model is built from a registry name and the params of
-``models/convert.py``. Reading an export directory (Flax msgpack
-params) and the continuous-batching engine are not ported yet.
+``models/convert.py``; :func:`load_version` reads an export directory
+(``serving/export.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.generate import generate, prompt_bucket
+from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.llama import apply
 from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.serving.export import (
+    read_metadata,
+    read_variables,
+    unbox,
+)
 from kubeflow_tpu_torch.serving.signature import ModelMetadata, Signature
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -76,6 +90,12 @@ class LoadedModel:
         entry = get_model(self.metadata.registry_name)
         self._module = entry.make(**self.metadata.model_kwargs)
         self.params = {k: v.to(self.device) for k, v in self.params.items()}
+        self._gen_counter = 0  # per-request rng fold for sampling
+        self._gen_lock = threading.Lock()
+        # Continuous-batching decode engine (inference/engine/): built
+        # on demand by ensure_engine(); None otherwise.
+        self._engine = None
+        self._engine_lock = threading.Lock()
         # Execution time of one full max_batch bucket, measured by
         # warmup(); None until warmup runs.
         self.warmup_batch_seconds: Optional[float] = None
@@ -131,15 +151,85 @@ class LoadedModel:
             scores, classes = torch.topk(probs, self.top_k, dim=-1)
             return {"classes": classes.to(torch.int32), "scores": scores}
 
+    def request_rngs(self, n: int) -> np.ndarray:
+        """Per-row sampling keys ``[n, 2]`` for one request's rows:
+        row i gets ``fold_in(base, i)``, where base folds a process-
+        wide request counter (fresh completions per request) unless the
+        export pins ``deterministic: true`` (replayable serving). Keys
+        are per ROW so a request's outputs don't depend on where the
+        batcher placed it inside a coalesced batch."""
+        cfg = self.metadata.generate_config
+        base = prng.PRNGKey(int(cfg.get("seed", 0)))
+        if not cfg.get("deterministic", False):
+            with self._gen_lock:
+                self._gen_counter += 1
+                counter = self._gen_counter
+            base = prng.fold_in(base, counter)
+        return prng.fold_in(base, np.arange(n))
+
+    def ensure_engine(self, name: Optional[str] = None,
+                      queue_capacity: Optional[int] = None):
+        """The version's continuous-batching decode engine, built once
+        per LoadedModel. Generate-method signatures only. Capacity
+        knobs ride the export's ``generate_config`` (``engine_slots`` /
+        ``engine_page_size`` / ``engine_slice_tokens`` /
+        ``engine_num_pages``). The prefix cache, chunked prefill and a
+        draft model for speculative decoding are not ported and
+        raise."""
+        with self._engine_lock:
+            if self._engine is not None:
+                return self._engine
+            sig = self.signature()
+            if sig.method != "generate":
+                raise ValueError(
+                    f"model {self.metadata.model_name!r} has a "
+                    f"{sig.method!r} signature; the decode engine "
+                    f"serves generate-method exports only")
+            from kubeflow_tpu_torch.inference.engine import (
+                DecodeEngine,
+                EngineConfig,
+            )
+
+            cfg = self.metadata.generate_config
+            if cfg.get("engine_draft_export") and \
+                    int(cfg.get("engine_draft_tokens", 0) or 0):
+                raise NotImplementedError(
+                    "engine_draft_export (speculative decoding with a "
+                    "draft model) is not ported yet (ROADMAP A7)")
+            (_, spec), = sig.inputs.items()
+            config = EngineConfig.from_generate_config(
+                cfg, spec.shape[1], queue_capacity=queue_capacity)
+            self._engine = DecodeEngine(
+                self._module, self.params, config,
+                name=name or self.metadata.model_name,
+                device=self.device)
+            return self._engine
+
+    @property
+    def engine(self):
+        """The built engine or None (never builds)."""
+        return self._engine
+
+    def close(self) -> None:
+        """Release background resources (the decode engine's thread
+        and page pool). Idempotent."""
+        with self._engine_lock:
+            engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.stop()
+
     def run(self, inputs: Dict[str, np.ndarray],
             signature_name: Optional[str] = None,
             method: Optional[str] = None, *,
-            prompt_lengths: Optional[np.ndarray] = None
+            prompt_lengths: Optional[np.ndarray] = None,
+            row_rngs: Optional[np.ndarray] = None
             ) -> Dict[str, np.ndarray]:
         """Execute one (possibly already micro-batched) request batch.
 
-        Generate-method extra: ``prompt_lengths`` [n] true token counts
-        of LEFT-padded rows (None = every row is full-width)."""
+        Generate-method extras (the batcher's coalescing contract):
+        ``prompt_lengths`` [n] true token counts of LEFT-padded rows
+        (None = every row is full-width), ``row_rngs`` [n, 2] per-row
+        sampling keys (None = mint fresh ones via request_rngs)."""
         sig = self.signature(signature_name)
         method = method or sig.method
         if (method == "generate") != (sig.method == "generate"):
@@ -159,6 +249,8 @@ class LoadedModel:
                     raise ValueError(
                         f"prompt_lengths shape {prompt_lengths.shape} "
                         f"!= ({n},)")
+            row_rngs = (self.request_rngs(n) if row_rngs is None
+                        else np.asarray(row_rngs, np.uint32))
         if n > self.max_batch:
             # Split oversized requests; concatenate results.
             outs: List[Dict[str, np.ndarray]] = []
@@ -168,11 +260,13 @@ class LoadedModel:
                     {next(iter(sig.inputs)): x[sl]}, signature_name,
                     method,
                     prompt_lengths=(None if prompt_lengths is None
-                                    else prompt_lengths[sl])))
+                                    else prompt_lengths[sl]),
+                    row_rngs=None if row_rngs is None else row_rngs[sl]))
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         bucket = _bucket(n, self.max_batch)
         if method == "generate":
-            return self._run_generate(sig, x, n, bucket, prompt_lengths)
+            return self._run_generate(sig, x, n, bucket, prompt_lengths,
+                                      row_rngs)
         if n < bucket:
             pad = np.zeros((bucket - n, *x.shape[1:]), dtype=x.dtype)
             x = np.concatenate([x, pad])
@@ -180,8 +274,8 @@ class LoadedModel:
         return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
     def _run_generate(self, sig: Signature, x: np.ndarray, n: int,
-                      bucket: int, prompt_lengths: np.ndarray
-                      ) -> Dict[str, np.ndarray]:
+                      bucket: int, prompt_lengths: np.ndarray,
+                      row_rngs: np.ndarray) -> Dict[str, np.ndarray]:
         """One coalesced decode: pad the prompt axis (LEFT) to a length
         bucket and the batch axis to its power-of-two bucket, generate
         once, trim both paddings."""
@@ -190,19 +284,24 @@ class LoadedModel:
         if x.shape[1] < target_len:
             x = np.pad(x, ((0, 0), (target_len - x.shape[1], 0)))
         if n < bucket:
-            # Pad rows are full-length zero prompts; their tokens are
-            # trimmed below.
+            # Pad rows are full-length zero prompts with throwaway
+            # keys; their tokens are trimmed below.
             x = np.concatenate(
                 [x, np.zeros((bucket - n, x.shape[1]), x.dtype)])
             prompt_lengths = np.concatenate(
                 [prompt_lengths,
                  np.full((bucket - n,), x.shape[1], np.int32)])
+            row_rngs = np.concatenate(
+                [row_rngs,
+                 np.zeros((bucket - n, *row_rngs.shape[1:]),
+                          row_rngs.dtype)])
         cfg = self.metadata.generate_config
         chunk = cfg.get("decode_chunk_tokens")
         tokens, _ = generate(
             self._module, self.params, torch.from_numpy(x).to(self.device),
             max_new_tokens=int(cfg.get("max_new_tokens", 32)),
             temperature=float(cfg.get("temperature", 0.0)),
+            rng=row_rngs,
             eos_id=cfg.get("eos_id"),
             top_k=cfg.get("top_k"),
             top_p=cfg.get("top_p"),
@@ -243,3 +342,38 @@ class LoadedModel:
         t0 = time.monotonic()
         self.run({name: x}, method=methods[0])  # ends in a host copy
         self.warmup_batch_seconds = time.monotonic() - t0
+
+
+def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
+                 warmup: bool = False,
+                 device: DeviceLike = None) -> LoadedModel:
+    """Load one version dir written by either package: its signature,
+    then its Flax params, carried across to the port's layout and
+    dtypes (``models/convert.py``) on ``device`` (``None`` → cuda).
+    Exports with a shard manifest (``metadata.sharding``) raise until
+    parallelism is ported (ROADMAP A14); so do collections besides
+    ``params`` (a vision model's ``batch_stats``: the port serves the
+    Llama family)."""
+    metadata = read_metadata(version_dir)
+    if metadata.sharding and int(metadata.sharding.get("num_shards",
+                                                       1)) > 1:
+        raise NotImplementedError(
+            "sharded exports are not ported yet (ROADMAP A14)")
+    variables = read_variables(version_dir)
+    extra = sorted(set(variables) - {"params"})
+    if extra:
+        raise NotImplementedError(
+            f"export {version_dir} carries collections {extra}; the "
+            f"port serves params-only (Llama) exports")
+    template = get_model(metadata.registry_name).make(
+        **metadata.model_kwargs)
+    params = convert.params_from_flax(
+        convert.flatten_tree(unbox(variables["params"])), template,
+        device=device)
+    del variables
+    version = int(os.path.basename(os.path.normpath(version_dir)))
+    loaded = LoadedModel(metadata=metadata, version=version, params=params,
+                         max_batch=max_batch, top_k=top_k, device=device)
+    if warmup:
+        loaded.warmup()
+    return loaded

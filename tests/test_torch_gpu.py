@@ -13,7 +13,8 @@
 # limitations under the License.
 
 """kubeflow_tpu_torch's CUDA kernels on the card, against their plain
-versions. Every test here needs a GPU and skips without one.
+versions, and the decode engine on the card against B=1 generate. Every
+test here needs a GPU and skips without one.
 
 The file imports neither JAX nor the reference, so it runs on a machine
 with PyTorch and CUDA alone; tests/conftest.py imports JAX, so skip it::
@@ -23,9 +24,13 @@ with PyTorch and CUDA alone; tests/conftest.py imports JAX, so skip it::
 
 import functools
 
+import numpy as np
 import pytest
 import torch
 
+from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from kubeflow_tpu_torch.inference.generate import generate
 from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.models.llama import apply, llama_test
 from kubeflow_tpu_torch.ops import bn_fused
@@ -386,3 +391,79 @@ def test_ghost_batch_norm_refuses_a_copy_on_the_card(cuda):
         bn(nchw)
     y = bn(nchw.contiguous(memory_format=torch.channels_last))
     assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+# -- the continuous-batching engine on the card (llama-test bf16) ----------
+#
+# Twins of chip_smoke.py's engine phases at llama-test size: six requests
+# of mixed prompts and budgets through a 4-slot engine (every stream its
+# budget of in-vocab tokens, each first token B=1 generate's, the pool
+# clean), and two of them through a 1-slot engine, token for token B=1.
+
+ENGINE_PROMPTS = (30, 64, 7, 41, 20, 64)
+ENGINE_BUDGETS = (12, 4, 12, 8, 12, 10)
+ENGINE_SAMPLING = {"greedy": {"temperature": 0.0},
+                   "sampled": {"temperature": 0.7, "top_k": 40,
+                               "top_p": 0.9}}
+
+
+def _engine_case(cuda, slots, sampling):
+    cache = max(ENGINE_PROMPTS) + 16  # whole pages: one logical length
+    model = llama_test(cache_size=cache)
+    params = init_params(model, seed=0, device=cuda)
+    engine = DecodeEngine(model, params, EngineConfig(
+        max_new_tokens=max(ENGINE_BUDGETS),
+        max_prompt_len=max(ENGINE_PROMPTS), num_slots=slots, page_size=16,
+        slice_tokens=4, **sampling), device=cuda)
+    rng = np.random.default_rng(0)
+    requests = [(rng.integers(0, 512, n).astype(np.int32), b,
+                 prng.PRNGKey(100 + i))
+                for i, (n, b) in enumerate(zip(ENGINE_PROMPTS,
+                                               ENGINE_BUDGETS))]
+    return model, params, engine, requests
+
+
+def _b1(model, params, engine, prompt, key, budget, sampling, cuda):
+    width = engine._prompt_width(len(prompt))
+    ids = np.zeros((1, width), np.int32)
+    ids[0, width - len(prompt):] = prompt
+    tokens, _ = generate(model, params, torch.from_numpy(ids).to(cuda),
+                         max_new_tokens=budget, rng=key[None],
+                         prompt_lengths=torch.tensor([len(prompt)],
+                                                     device=cuda),
+                         **sampling)
+    return tokens[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_engine_four_slots_first_tokens_and_pool(cuda, mode):
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, engine, requests = _engine_case(cuda, 4, sampling)
+    try:
+        streams = [engine.submit(p, rng=k, max_new_tokens=b)
+                   for p, b, k in requests]
+        results = [s.result(timeout=300) for s in streams]
+        for (p, b, k), got in zip(requests, results):
+            want = _b1(model, params, engine, p, k, b, sampling, cuda)
+            assert got.shape == (b,) and ((got >= 0) & (got < 512)).all()
+            assert got[0] == want[0]
+        stats = engine.stats()
+        assert stats["admitted"] == 6 and stats["retired"] == {"budget": 6}
+        assert stats["free_pages"] == stats["total_pages"]
+        engine.kv.allocator.check_invariants()
+    finally:
+        engine.stop()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_engine_one_slot_equals_b1_generate(cuda, mode):
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, engine, requests = _engine_case(cuda, 1, sampling)
+    try:
+        for p, b, k in (requests[0], requests[2]):
+            got = engine.submit(p, rng=k, max_new_tokens=b).result(
+                timeout=300)
+            want = _b1(model, params, engine, p, k, b, sampling, cuda)
+            np.testing.assert_array_equal(got, want)
+    finally:
+        engine.stop()

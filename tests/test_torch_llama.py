@@ -165,7 +165,14 @@ def test_unported_options_raise():
     model = llama_test(dtype="float32")
     params = convert.init_params(model, seed=0, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    # The per-row cache write is ported for one token a row; the
+    # multi-token verify of speculative decoding is not.
+    with pytest.raises(ValueError, match="decode_positions"):
         apply(model, params, ids, decode_positions=torch.zeros(1))
+    cache_model = llama_test(dtype="float32", cache_size=8)
+    cache = init_cache(cache_model, params, 1)
+    with pytest.raises(NotImplementedError, match="verify"):
+        apply(cache_model, params, ids, ids.long(), cache=cache,
+              decode_positions=torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="pad_lengths"):
         apply(model, params, ids, pad_lengths=torch.zeros(1))

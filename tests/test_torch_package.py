@@ -14,10 +14,11 @@
 
 """kubeflow_tpu_torch stands alone, and runs on the GPU unless told not to.
 
-- Every module imports with ``jax``, ``flax`` and ``kubeflow_tpu``
-  blocked, and no source line of the package or of its GPU scripts
-  (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
-  ``scripts/bn_phase_times.py``) names them.
+- Every module imports with ``jax``, ``flax``, ``msgpack`` and
+  ``kubeflow_tpu`` blocked, and no source line of the package or of its
+  GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
+  ``scripts/bn_phase_times.py``) names them: the GPU machine has no
+  ``msgpack``, so the export reader is the port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
 - On a CPU tensor the flash wrapper takes the plain version and counts
   no launch.
@@ -67,8 +68,11 @@ def _sources():
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert "kubeflow_tpu_torch.ops.flash_attention" in mods
+    assert "kubeflow_tpu_torch.inference.engine.engine" in mods
+    assert "kubeflow_tpu_torch.serving.export" in mods
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'kubeflow_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+            "             'kubeflow_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
@@ -81,7 +85,8 @@ def test_every_module_imports_without_jax_or_the_reference():
 
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax)\b|from\s+(jax|flax)\b)|\bkubeflow_tpu\.",
+    r"^\s*(import\s+(jax|flax|msgpack)\b|from\s+(jax|flax|msgpack)\b)"
+    r"|\bkubeflow_tpu\.",
     re.MULTILINE)
 
 

@@ -17,8 +17,12 @@
 Both are built in the test from the same ``llama-test`` fp32 params
 (the reference's, carried across). Predict logits and classify scores
 agree within 1e-4 (the Llama parity tolerance); classify classes and
-greedy generate tokens are identical.
+greedy and sampled generate tokens are identical, and so are the
+per-row keys ``request_rngs`` mints. The continuous-batching engine
+that ``ensure_engine`` builds streams the tokens ``run`` gives at B=1.
 """
+
+import dataclasses
 
 import flax.linen as nn
 import jax
@@ -29,6 +33,7 @@ from flax.traverse_util import flatten_dict
 
 from kubeflow_tpu.serving.model import LoadedModel as JaxLoadedModel
 from kubeflow_tpu.serving.signature import ModelMetadata as JaxMetadata
+from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.serving.model import LoadedModel
@@ -65,8 +70,11 @@ def flax_params():
     return nn.meta.unbox(variables["params"])
 
 
-def _pair(flax_params, method, kwargs, seq, out, max_batch=4):
+def _pair(flax_params, method, kwargs, seq, out, max_batch=4,
+          generate_config=None):
     meta = _metadata(method, kwargs, seq, out)
+    if generate_config is not None:
+        meta = dataclasses.replace(meta, generate_config=generate_config)
     jax_meta = JaxMetadata.loads(meta.dumps())  # the same JSON both ways
     jax_model = JaxLoadedModel(jax_meta, 1, {"params": flax_params},
                                max_batch=max_batch, top_k=3)
@@ -143,3 +151,76 @@ def test_signature_json_round_trips_with_reference():
     assert JaxMetadata.loads(meta.dumps()).to_json() == meta.to_json()
     assert ModelMetadata.loads(
         JaxMetadata.loads(meta.dumps()).dumps()) == meta
+
+
+GEN_KWARGS = {"dtype": "float32", "cache_size": CACHE}
+GEN_OUT = {"tokens": TensorSpec("int32", (-1, NEW))}
+SAMPLED = {"max_new_tokens": NEW, "temperature": 0.8, "top_k": 50,
+           "top_p": 0.95, "seed": 3}
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_request_rngs_match_reference(flax_params, deterministic):
+    jax_model, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                             GEN_OUT, generate_config=dict(
+                                 SAMPLED, deterministic=deterministic))
+    for n in (1, 3, 3):
+        got = model.request_rngs(n)
+        assert got.dtype == np.uint32 and got.shape == (n, 2)
+        np.testing.assert_array_equal(got, jax_model.request_rngs(n))
+
+
+@pytest.mark.parametrize("row_rngs", [False, True])
+def test_sampled_generate_matches_reference(flax_params, row_rngs):
+    jax_model, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                             GEN_OUT, generate_config=SAMPLED)
+    x = {"input_ids": _ids(9, 3, 6)}
+    lengths = np.array([6, 3, 5], np.int32)
+    kw = {}
+    if row_rngs:
+        kw["row_rngs"] = np.stack([prng.PRNGKey(40 + i) for i in range(3)])
+    ref = jax_model.run(x, prompt_lengths=lengths, **kw)
+    out = model.run(x, prompt_lengths=lengths, **kw)
+    np.testing.assert_array_equal(out["tokens"], ref["tokens"])
+
+
+@pytest.mark.parametrize("generate_config", [
+    {"max_new_tokens": NEW, "temperature": 0.0}, SAMPLED],
+    ids=["greedy", "sampled"])
+def test_engine_streams_equal_run(flax_params, generate_config):
+    _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                     GEN_OUT, generate_config=dict(
+                         generate_config, engine_slots=2, engine_page_size=4,
+                         engine_slice_tokens=2))
+    engine = model.ensure_engine()
+    try:
+        assert model.engine is engine and model.ensure_engine() is engine
+        assert engine.config.num_slots == 2 and engine.kv.page_size == 4
+        prompts = [_ids(20 + i, 1, n)[0] for i, n in enumerate((3, 8, 5))]
+        keys = [prng.PRNGKey(60 + i) for i in range(3)]
+        streams = [engine.submit(p, rng=k) for p, k in zip(prompts, keys)]
+        for p, k, s in zip(prompts, keys, streams):
+            want = model.run({"input_ids": p[None]},
+                             row_rngs=k[None])["tokens"][0]
+            np.testing.assert_array_equal(s.result(timeout=120.0), want)
+    finally:
+        model.close()
+    assert model.engine is None
+    model.close()  # idempotent
+
+
+def test_ensure_engine_refuses_what_it_cannot_serve(flax_params):
+    _, predict = _pair(flax_params, "predict", {"dtype": "float32"}, SEQ,
+                       {"logits": TensorSpec("float32", (-1, SEQ, 512))})
+    with pytest.raises(ValueError, match="generate-method"):
+        predict.ensure_engine()
+    for extra, item in (({"engine_prefix_cache": True}, "A6"),
+                        ({"engine_prefill_chunk": 8}, "A7"),
+                        ({"engine_draft_tokens": 2,
+                          "engine_draft_export": "/nowhere"}, "A7")):
+        _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                         GEN_OUT, generate_config=dict(SAMPLED, **extra))
+        with pytest.raises(NotImplementedError, match=item):
+            model.ensure_engine()
+        assert model.engine is None
+
