@@ -36,7 +36,20 @@ checkout's BN kernel by the same code (a parent commit's, say).
    per event pair, median of 30, which adds the wrapper's host work), its plain
    version's, the one-call PyTorch yardstick (``library_ms``, never
    used by the port, timed as the kernel), the card's bound, the share
-   of it reached and the instantiation's registers and spills.
+   of it reached and the instantiation's registers and spills. Then
+   the flash gradient: dq, dk and dv through the kernel's
+   ``autograd.Function`` against the plain version's, bf16 and fp32,
+   causal and key-masked.
+3b. The decode step's kernels (decode GEMM at each llama3-8b decode
+   product, RMSNorm at [M, 4096], decode attention over a 544-slot
+   cache) against their plain twins at M = 1 and 4: one step of the
+   output type, the same bits on a second call, and every row at M in
+   (2, 3, 4, 8, 16) equal to the row computed alone; times as the flash
+   kernel's (weights and caches cycled through copies larger than L2,
+   as a decode step reads them), the profiler's device time, the bound,
+   and the PyTorch call computing the same function (``F.linear``,
+   ``F.rms_norm``, ``scaled_dot_product_attention`` with the mask and
+   ``enable_gqa``).
 4. The Llama slice: ``llama3-8b`` at full width with random weights
    from seed 0, served through ``LoadedModel.run``: predict [2, 2048],
    classify [1, 2048], and greedy generate of two left-padded prompts
@@ -49,14 +62,20 @@ checkout's BN kernel by the same code (a parent commit's, say).
    4-token slices): six requests at once (prompts 300, 512, 77, 410,
    200, 512; budgets 32, 8, 32, 16, 32, 24), greedy and sampled
    (temperature 0.7, top-k 40, top-p 0.9, keys ``PRNGKey(100 + i)``).
-   Every stream ends with its budget of in-vocab tokens, each first
-   token equals B=1 ``generate``'s, the pool ends clean; whole-stream
-   agreement with B=1 is reported (bf16 GEMMs at M = 4 and M = 1 may
-   round apart). Requests 1 and 3 through a 1-slot engine must equal
-   B=1 ``generate`` token for token. Then a sampled ``LoadedModel.run``
-   of two left-padded rows with their own keys. Time to first token,
-   inter-token ms, tokens/s, slices and peak memory are printed. The
-   params are freed before the next phases.
+   Every stream equals B=1 ``generate``'s, token for token, and the
+   pool ends clean; requests 1 and 3 through a 1-slot engine too. Then
+   a sampled ``LoadedModel.run`` of two left-padded rows with their own
+   keys, each row equal to B=1. Time to first token, inter-token ms,
+   tokens/s, slices and peak memory are printed. Each generate decode
+   step and each engine decode step must launch the decode GEMM 225
+   times and decode attention 32 times (RMSNorm 65), and no CUDA tensor
+   may reach a plain twin. Then the prefix lane (``engine_prefix_cache``,
+   4 slots, the same cache): 8 requests sharing a 360-token prefix,
+   one cold, then 7 at once, greedy and sampled: 7 hits and 1 miss, a
+   clean pool, TTFTs, and each hit stream beside its own cold run and
+   B=1 ``generate`` (reported). Then one decode step's kernel launches
+   through the decode kernels and through the plain ops. The params are
+   freed before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -75,7 +94,9 @@ checkout's BN kernel by the same code (a parent commit's, say).
 8. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
-after; every kernel must have run on its path. Any failure ends the run
+after; every kernel must have run on its path. The kernels line lists
+the decode kernels' figures summed over one llama3-8b decode step at
+4 slots. Any failure ends the run
 with a nonzero exit and no result line. Needs one GPU; fails without
 one.
 """
@@ -83,9 +104,11 @@ one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import os
@@ -101,7 +124,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.inference import prng
-from kubeflow_tpu_torch.inference.generate import generate
+from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
 from kubeflow_tpu_torch.models import resnet
 from kubeflow_tpu_torch.models.convert import (
     init_params,
@@ -109,9 +132,13 @@ from kubeflow_tpu_torch.models.convert import (
     params_to_flax,
     unflatten_tree,
 )
-from kubeflow_tpu_torch.models.llama import apply, llama_test
+from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models.llama import LayerCache, apply, llama_test
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.ops import _build, bn_fused
+from kubeflow_tpu_torch.ops import decode_attention as da
+from kubeflow_tpu_torch.ops import decode_gemm as dg
+from kubeflow_tpu_torch.ops import rms_norm as rn
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 from kubeflow_tpu_torch.ops.bn_fused import (
@@ -347,6 +374,297 @@ def check_flash(kernels, name, b, l, h, hkv, d, dtype, causal, masked):
     return row
 
 
+def flash_gradient_rows():
+    """dq, dk and dv through the kernel's autograd.Function against the
+    plain version's autograd, bf16 and fp32, causal and key-masked. Both
+    backwards recompute through the plain version, so they agree to
+    flash's gradient tolerance (5e-4) or better."""
+    rows = []
+    for name, b, l, h, hkv, d, dtype, causal in (
+            ("B1 L512 H32/8 D128 causal bf16", 1, 512, 32, 8, 128,
+             torch.bfloat16, True),
+            ("B2 L256 H12 D64 key mask bf16", 2, 256, 12, 12, 64,
+             torch.bfloat16, False),
+            ("B2 L256 H8/2 D64 causal fp32", 2, 256, 8, 2, 64,
+             torch.float32, True),
+            ("B2 L256 H8 D64 key mask fp32", 2, 256, 8, 8, 64,
+             torch.float32, False)):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        qkv = [torch.randn(b, l, n, d, device="cuda", generator=gen).to(dtype)
+               for n in (h, hkv, hkv)]
+        mask = None if causal else (torch.arange(l, device="cuda")[None, :]
+                                    < torch.tensor([[l * 3 // 4], [l]],
+                                                   device="cuda")[:b]).int()
+        gout = torch.randn(b, l, h, d, device="cuda", generator=gen)
+        grads = []
+        for fn in (flash_attention, flash_attention_reference):
+            leaves = [t.clone().requires_grad_(True) for t in qkv]
+            out = fn(*leaves, causal=causal, kv_segment_valid=mask)
+            (out.float() * gout).sum().backward()
+            grads.append([t.grad.float() for t in leaves])
+        errs = [float((g - r).abs().max()) for g, r in zip(*grads)]
+        row = {"shape": name, "max_abs_err_dq_dk_dv": errs, "tol": 5e-4}
+        log(f"flash gradient {name}: {json.dumps(row)}")
+        if max(errs) > 5e-4:
+            raise AssertionError(f"flash gradient {name}: {errs}")
+        rows.append(row)
+    return rows
+
+
+#: The decode step's kernels hold against their plain twins to one step
+#: of the output type: 2**-7 of max(1, |y|) in bf16 (fp32 sums in
+#: another order, then one rounding), 1e-5 of it in fp32; attention to
+#: flash's tolerances (1e-2 bf16, 2e-5 fp32).
+DECODE_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+#: Row counts whose every row must equal that row computed alone.
+INVARIANCE_ROWS = (2, 3, 4, 8, 16)
+#: llama3-8b's decode-step products: (name, K, N, dtype, launches a
+#: step). 7 a layer over 32 layers, and the fp32 head.
+DECODE_GEMMS = (
+    ("q_proj/o_proj [4096→4096] bf16", 4096, 4096, torch.bfloat16, 64),
+    ("k_proj/v_proj [4096→1024] bf16", 4096, 1024, torch.bfloat16, 64),
+    ("gate_proj/up_proj [4096→14336] bf16", 4096, 14336, torch.bfloat16, 64),
+    ("down_proj [14336→4096] bf16", 14336, 4096, torch.bfloat16, 32),
+    ("lm_head [4096→128256] fp32", 4096, 128256, torch.float32, 1),
+)
+#: The decode rows' cache positions in the engine mix's shapes.
+DECODE_POSITIONS = (300, 511, 77, 410)
+
+
+def cold_cycle(tensors, at_least=256 << 20):
+    """Copies of ``tensors`` (a tuple) enough to exceed the 50 MB L2
+    several times over, handed out in turn: a decode step reads each
+    layer's weights (and each layer's cache) once, from device memory."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(1, -(-at_least // size)) if size < at_least else 1
+    copies = [tensors] + [tuple(t.clone() for t in tensors)
+                          for _ in range(n - 1)]
+    return itertools.cycle(copies)
+
+
+def bound(nbytes, flops, dtype):
+    """Least time (ms) for the work and what bounds it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def hold_rows(name, fn, plain, inputs, dtype, tol=None):
+    """``fn`` vs ``plain`` on a 16-row batch's leading rows: max |Δ|
+    within one step of the type (or ``tol``) at M = 1 and 4, the same
+    bits on a second call, and every row at M in INVARIANCE_ROWS equal
+    to itself computed alone. ``inputs(m)`` gives the call's args."""
+    errs = {}
+    for m in (1, 4):
+        got = fn(*inputs(m))
+        torch.cuda.synchronize()
+        want = plain(*inputs(m))
+        err = float((got.float() - want.float()).abs().max())
+        limit = (tol if tol is not None else DECODE_TOL[dtype]
+                 * max(1.0, float(want.float().abs().max())))
+        if not torch.isfinite(got).all() or err > limit:
+            raise AssertionError(f"{name} M={m}: max |Δ| {err} > {limit}")
+        if not torch.equal(fn(*inputs(m)), got):
+            raise AssertionError(f"{name} M={m}: a second call gave other "
+                                 "bits")
+        errs[m] = (err, limit)
+    for m in INVARIANCE_ROWS:
+        whole = fn(*inputs(m))
+        for i in range(m):
+            alone = fn(*[t[i:i + 1] if t.shape[0] == m else t
+                         for t in inputs(m)])
+            if not torch.equal(alone, whole[i:i + 1]):
+                raise AssertionError(
+                    f"{name}: row {i} of M={m} differs from the row alone")
+    return errs
+
+
+def decode_gemm_rows():
+    """The decode GEMM at each llama3-8b decode shape, M = 1 and 4."""
+    rows = []
+    for name, k, n, dtype, per_step in DECODE_GEMMS:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(dtype)
+        x = torch.randn(16, 1, k, device="cuda", generator=gen).to(dtype)
+        errs = hold_rows(f"decode_gemm {name}", dg.decode_linear,
+                         dg.decode_linear_reference,
+                         lambda m: (x[:m], w), dtype)
+        for m in (1, 4):
+            xs = x[:m]
+            ws = cold_cycle((w,))
+
+            def run():
+                return dg.decode_linear(xs, next(ws)[0])
+
+            def plain():
+                return dg.decode_linear_reference(xs, next(ws)[0])
+
+            def library():
+                return F.linear(xs, next(ws)[0])
+
+            elem = w.element_size()
+            b_ms, b_by = bound((n * k + m * k + m * n) * elem,
+                               2.0 * m * n * k, dtype)
+            ms = time_ms(run, **KERNEL_TIMING)
+            row = {"shape": f"{name} M={m}", "m": m,
+                   "launches_per_step": per_step,
+                   "max_abs_err": errs[m][0], "tol": errs[m][1],
+                   "ms": ms, "device_ms": profiled_ms(run),
+                   "plain_ms": time_ms(plain, reps=5),
+                   "library_ms": time_ms(library, **KERNEL_TIMING),
+                   "library_device_ms": profiled_ms(library),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms}
+            log(f"decode_gemm {json.dumps(row)}")
+            rows.append(row)
+        del w, x, ws
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rms_norm_rows():
+    """RMSNorm at the decode step's [M, 4096] (M = 1, 4) and the
+    prefill's [1024, 4096], bf16."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = (torch.randn(1024, 4096, device="cuda", generator=gen) * 2).to(
+        torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(4096, device="cuda", generator=gen)).to(
+        torch.bfloat16)
+    errs = hold_rows("rms_norm [M, 4096] bf16",
+                     lambda t, s: rn.rms_norm(t, s, 1e-5),
+                     lambda t, s: rn.rms_norm_reference(t, s, 1e-5),
+                     lambda m: (x[:m], scale), torch.bfloat16)
+    for m, per_step in ((1, 65), (4, 65), (1024, 0)):
+        xs = x[:m]
+        run = functools.partial(rn.rms_norm, xs, scale, 1e-5)
+        plain = functools.partial(rn.rms_norm_reference, xs, scale, 1e-5)
+        library = functools.partial(F.rms_norm, xs, (4096,), scale, 1e-5)
+        if m not in errs:
+            got, want = run(), plain()
+            err = float((got.float() - want.float()).abs().max())
+            errs[m] = (err, DECODE_TOL[torch.bfloat16]
+                       * max(1.0, float(want.float().abs().max())))
+            if err > errs[m][1]:
+                raise AssertionError(f"rms_norm M={m}: max |Δ| {err}")
+        b_ms, b_by = bound((2 * m * 4096 + 4096) * 2, 4.0 * m * 4096,
+                           torch.bfloat16)
+        ms = time_ms(run, **KERNEL_TIMING)
+        row = {"shape": f"[{m}, 4096] bf16", "m": m,
+               "launches_per_step": per_step,
+               "max_abs_err": errs[m][0], "tol": errs[m][1], "ms": ms,
+               "device_ms": profiled_ms(run),
+               "plain_ms": time_ms(plain, **KERNEL_TIMING),
+               "library_ms": time_ms(library, **KERNEL_TIMING),
+               "library_device_ms": profiled_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        log(f"rms_norm {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def decode_attention_rows():
+    """Decode attention at llama3-8b's heads over the engine's 544-slot
+    cache, bf16, rows at the engine mix's positions (M = 1, 4)."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    bf = torch.bfloat16
+    q = torch.randn(16, 1, 32, 128, device="cuda", generator=gen).to(bf)
+    k = torch.randn(16, ENGINE_CACHE, 8, 128, device="cuda",
+                    generator=gen).to(bf)
+    v = torch.randn(16, ENGINE_CACHE, 8, 128, device="cuda",
+                    generator=gen).to(bf)
+    pos = torch.tensor(DECODE_POSITIONS * 4, device="cuda")
+    valid = (torch.arange(ENGINE_CACHE, device="cuda")[None, :]
+             <= pos[:, None])
+    errs = hold_rows("decode_attention", da.decode_attention,
+                     lambda *a: dense_attention(*a[:3],
+                                                kv_segment_valid=a[3]),
+                     lambda m: (q[:m], k[:m], v[:m], valid[:m]), bf,
+                     tol=KERNEL_TOL["bfloat16"])
+    for m in (1, 4):
+        qs, ms_ = q[:m], valid[:m]
+        caches = cold_cycle((k[:m].contiguous(), v[:m].contiguous()))
+
+        def run():
+            kk, vv = next(caches)
+            return da.decode_attention(qs, kk, vv, ms_)
+
+        def plain():
+            kk, vv = next(caches)
+            return dense_attention(qs, kk, vv, kv_segment_valid=ms_)
+
+        def library():
+            kk, vv = next(caches)
+            return F.scaled_dot_product_attention(
+                qs.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
+                attn_mask=ms_[:, None, None, :], enable_gqa=True)
+
+        n_valid = int(ms_.sum())
+        nbytes = (2 * n_valid * 8 * 128 + 2 * m * 32 * 128) * 2 + ms_.numel()
+        b_ms, b_by = bound(nbytes, 4.0 * 128 * 32 * n_valid, bf)
+        t = time_ms(run, **KERNEL_TIMING)
+        row = {"shape": f"B{m} S{ENGINE_CACHE} H32/8 D128 bf16", "m": m,
+               "launches_per_step": 32,
+               "max_abs_err": errs[m][0], "tol": errs[m][1], "ms": t,
+               "device_ms": profiled_ms(run),
+               "plain_ms": time_ms(plain, **KERNEL_TIMING),
+               "library_ms": time_ms(library, **KERNEL_TIMING),
+               "library_device_ms": profiled_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
+        log(f"decode_attention {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+def per_step(rows, key):
+    """Σ over the decode step's launches of ``key``, from the M = 4
+    rows (a row's launches a step times its figure)."""
+    return sum(r["launches_per_step"] * r[key] for r in rows if r["m"] == 4)
+
+
+#: Every kernel's launch counter, by the name the kernels line gives it.
+COUNTERS = {"flash_attention": flash_attention,
+            "decode_gemm": dg.decode_linear,
+            "rms_norm": rn.rms_norm,
+            "decode_attention": da.decode_attention}
+#: llama3-8b's launches a decode step: 7 products a layer and the head;
+#: two norms a layer and the final one; attention once a layer.
+STEP_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1,
+                 "decode_attention": 32}
+
+
+def zero_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+@contextlib.contextmanager
+def twin_calls():
+    """Count calls of the decode GEMM's and RMSNorm's plain twins: on
+    the card's routes a CUDA tensor must never reach them."""
+    calls = {"decode_linear_reference": 0, "rms_norm_reference": 0}
+    saved = (dg.decode_linear_reference, rn.rms_norm_reference)
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    dg.decode_linear_reference = counted("decode_linear_reference", saved[0])
+    rn.rms_norm_reference = counted("rms_norm_reference", saved[1])
+    try:
+        yield calls
+    finally:
+        dg.decode_linear_reference, rn.rms_norm_reference = saved
+
+
 def llama_metadata(method, seq, kwargs, generate_config=None):
     out = ({"tokens": TensorSpec("int32", (-1, NEW_TOKENS))}
            if method == "generate" else {})
@@ -414,25 +732,39 @@ def serve_llama(card):
     predict_model.run({"input_ids": x_cls}, method="predict")
 
     # The main path, with every launch count zeroed just before it.
-    flash_attention.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    t0 = time.monotonic()
-    pred = predict_model.run({"input_ids": x_pred}, method="predict")
-    predict_s = time.monotonic() - t0
-    after_predict = flash_attention.launches
-    cls = predict_model.run({"input_ids": x_cls}, method="classify")
-    t0 = time.monotonic()
-    gen = gen_model.run({"input_ids": x_gen}, prompt_lengths=lengths)
-    generate_s = time.monotonic() - t0
-    launches = {"flash_attention": flash_attention.launches}
+    with twin_calls() as twins:
+        zero_counts()
+        t0 = time.monotonic()
+        pred = predict_model.run({"input_ids": x_pred}, method="predict")
+        predict_s = time.monotonic() - t0
+        after_predict = read_counts()
+        cls = predict_model.run({"input_ids": x_cls}, method="classify")
+        before_generate = read_counts()
+        t0 = time.monotonic()
+        gen = gen_model.run({"input_ids": x_gen}, prompt_lengths=lengths)
+        generate_s = time.monotonic() - t0
+        launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path launches: {json.dumps(launches)}")
+    log(f"main path launches: {json.dumps(launches)}; plain twins called "
+        f"{json.dumps(twins)}")
 
     layers = entry.make().num_layers
-    if after_predict < layers:
-        raise AssertionError(f"predict launched flash {after_predict} "
-                             f"times, fewer than its {layers} layers")
+    if after_predict["flash_attention"] < layers:
+        raise AssertionError(f"predict launched flash "
+                             f"{after_predict['flash_attention']} times, "
+                             f"fewer than its {layers} layers")
+    # generate: one prefill (norms only), then NEW_TOKENS - 1 decode
+    # steps, each through the three decode kernels.
+    steps = NEW_TOKENS - 1
+    in_generate = {k: launches[k] - before_generate[k] for k in launches}
+    want = {k: steps * n for k, n in STEP_LAUNCHES.items()}
+    want["rms_norm"] += STEP_LAUNCHES["rms_norm"]
+    if any(in_generate[k] != n for k, n in want.items()) or any(
+            twins.values()):
+        raise AssertionError(f"generate launched {in_generate}, expected "
+                             f"{want}; plain twins called {twins}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
@@ -512,9 +844,11 @@ def serve_llama(card):
     }
     log(f"{LLAMA} serving: {json.dumps(metrics)}")
     del predict_model, gen_model
-    # The engine slice on the same params, made once.
+    # The engine slice and the prefix lane on the same params, made once.
     serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
                  decode_ms_b2=decode_ms)
+    serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
+    decode_step_launches(card, LLAMA, params)
     return launches
 
 
@@ -598,6 +932,7 @@ def run_engine(engine, requests):
         "tokens_per_s": sum(len(r) for r in results) / wall,
         "wall_s": wall,
         "slices": engine.stats()["slices"],
+        "decode_steps": sum(e["args"]["steps"] for e in slices),
     }
     return results, timing
 
@@ -644,14 +979,28 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         if engine.kv.logical_len != cache_size:
             raise AssertionError(f"engine logical cache "
                                  f"{engine.kv.logical_len} != {cache_size}")
-        flash_attention.launches = 0
         if device is None:
             torch.cuda.reset_peak_memory_stats()
-        results, timing = run_engine(engine, requests)
+        with twin_calls() as twins:
+            zero_counts()
+            results, timing = run_engine(engine, requests)
+            counts = read_counts()
         if device is None:
             timing["peak_memory_gb"] = \
                 torch.cuda.max_memory_allocated() / 1e9
-        timing["flash_launches"] = flash_attention.launches
+        # Every decode step of every slice went through the kernels.
+        steps = timing.pop("decode_steps")
+        timing["launches"] = counts
+        timing["decode_steps"] = steps
+        want = {k: steps * n for k, n in STEP_LAUNCHES.items()
+                if k != "rms_norm"}
+        if (counts["flash_attention"] or any(
+                counts[k] != n for k, n in want.items())
+                or counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"]
+                or any(twins.values())):
+            raise AssertionError(f"engine {mode}: launches {counts} over "
+                                 f"{steps} decode steps, expected {want}; "
+                                 f"plain twins called {twins}")
         check_engine_pool(engine, len(requests))
         refs = [b1_reference(loaded, p, k, b, sampling)
                 for p, b, k in requests]
@@ -669,6 +1018,11 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
             np.array_equal(g, w) for g, w in zip(results, refs))
         timing["first_divergence"] = [first_divergence(g, w)
                                       for g, w in zip(results, refs)]
+        if timing["streams_equal_b1"] != len(requests):
+            raise AssertionError(
+                f"engine {mode}: {timing['streams_equal_b1']} of "
+                f"{len(requests)} streams equal B=1 generate; first "
+                f"divergent steps {timing['first_divergence']}")
         loaded.close()
 
         # The strict check: a 1-slot engine runs the B=1 shapes.
@@ -689,6 +1043,9 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         report[mode] = timing
         log(f"engine {mode}, {len(requests)} requests, "
             f"{config['engine_slots']} slots: {json.dumps(timing)}")
+        log(f"engine {mode}: inter-token {timing['inter_token_ms']} ms, "
+            f"{timing['tokens_per_s']} tokens/s (this mix before the decode "
+            f"kernels, NVIDIA H100 80GB HBM3, 700 W: 65.6-78.5 ms)")
     report["generate_decode_ms_per_token_b2"] = decode_ms_b2
     log(f"{registry} engine: {json.dumps(report)}")
 
@@ -703,7 +1060,6 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
     out = loaded.run({"input_ids": x}, prompt_lengths=lengths,
                      row_rngs=keys)["tokens"]
     budget = config["max_new_tokens"]
-    agree = []
     for i in range(2):
         ids = torch.from_numpy(x[i:i + 1]).to(loaded.device)
         want, _ = generate(loaded._module, loaded.params, ids,
@@ -715,14 +1071,198 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         if out.shape != (2, budget) or not ((out >= 0)
                                             & (out < vocab)).all():
             raise AssertionError(f"sampled run tokens {out.shape}")
-        if out[i, 0] != want[0]:
-            raise AssertionError(f"sampled run row {i}: first token "
-                                 f"{out[i, 0]} != B=1's {want[0]}")
-        agree.append(first_divergence(out[i], want))
-    log(f"sampled LoadedModel.run, 2 rows with row_rngs: first tokens "
-        f"equal B=1; first divergence per row {agree} (None: the whole "
-        f"row equals B=1)")
+        if not np.array_equal(out[i], want):
+            raise AssertionError(
+                f"sampled run row {i} differs from B=1 at step "
+                f"{first_divergence(out[i], want)}")
+    log("sampled LoadedModel.run, 2 rows with row_rngs: each row equals "
+        "B=1 generate")
     return report
+
+
+#: The prefix-lane phase: 8 requests sharing a 360-token prefix (22
+#: full pages of 16 and 8 tokens of a 23rd), tails of 20-140 tokens,
+#: budgets 16-32. Every prompt runs past the 23rd page, so a hit shares
+#: the 22 full pages; the copy-on-write fork of a partly matched page
+#: runs only against a prompt that ends inside one (the CPU twins and
+#: tests/test_torch_gpu.py run it).
+PREFIX_SHARED = 360
+PREFIX_REQUESTS = 8
+PREFIX_GENERATE_CONFIG = dict(ENGINE_GENERATE_CONFIG,
+                              engine_prefix_cache=True)
+
+
+def prefix_requests(vocab):
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, vocab, PREFIX_SHARED).astype(np.int32)
+    tails = rng.integers(20, 141, PREFIX_REQUESTS)
+    budgets = rng.integers(16, 33, PREFIX_REQUESTS)
+    return [(np.concatenate([shared, rng.integers(0, vocab, int(n)).astype(
+                np.int32)]), int(b), prng.PRNGKey(300 + i))
+            for i, (n, b) in enumerate(zip(tails, budgets))]
+
+
+def b1_unpadded(loaded, prompt, key, budget, sampling):
+    """B=1 ``generate`` of the prompt as the pad-0 layout holds it."""
+    device = loaded.device
+    tokens, _ = generate(
+        loaded._module, loaded.params,
+        torch.from_numpy(prompt[None]).to(device), max_new_tokens=budget,
+        rng=key[None], prompt_lengths=torch.tensor([len(prompt)],
+                                                   device=device),
+        **sampling)
+    return tokens[0].cpu().numpy()
+
+
+def serve_prefix(card, registry, params, kwargs, *,
+                 cache_size=ENGINE_CACHE, device=None):
+    """The prefix-cache lane through ``LoadedModel.ensure_engine``:
+    request 0 alone (cold), then the other 7 at once (hits on the shared
+    pages), greedy and sampled. Asserts 7 hits and 1 miss, saved prefill
+    tokens, a clean pool and both invariant checks; prints the TTFTs;
+    compares each hit stream with its own cold run and with B=1
+    ``generate``. A tail prefill runs the prompt's last rows in a
+    narrower block than the cold prefill, and cuBLAS rounds some of
+    those rows apart at the two widths (scripts/decode_invariance.py,
+    ``tail``), so the agreement is reported, not asserted."""
+    vocab = get_model(registry).num_classes_or_vocab
+    requests = prefix_requests(vocab)
+    kwargs = dict(kwargs, cache_size=cache_size)
+    max_prompt = 512
+    report = {"card": card}
+    for mode, sampling in (("greedy", {"temperature": 0.0}),
+                           ("sampled", SAMPLING)):
+        loaded = engine_model(registry, params, kwargs, max_prompt,
+                              dict(PREFIX_GENERATE_CONFIG, **sampling),
+                              device)
+        engine = loaded.ensure_engine(name=f"smoke-prefix-{mode}")
+        if engine.prefix is None:
+            raise AssertionError("engine_prefix_cache did not reach the "
+                                 "engine")
+        with twin_calls() as twins:
+            zero_counts()
+            cold, cold_timing = run_engine(engine, requests[:1])
+            hits, timing = run_engine(engine, requests[1:])
+            counts = read_counts()
+        # Tokens each hit took from the cache (not a multiple of the
+        # page size where it forked a boundary page).
+        matched = [e["args"]["prefix_matched"] for e in TRACER.snapshot()
+                   if e["name"] == "engine_prefill"]
+        stats = engine.stats()
+        px = stats["prefix_cache"]
+        engine.kv.allocator.check_invariants()
+        engine.prefix.check_invariants()
+        if (px["hits"] != PREFIX_REQUESTS - 1 or px["misses"] != 1
+                or px["saved_prefill_tokens"] <= 0
+                or stats["active_slots"] or stats["queue_depth"]
+                or stats["reserved_pages"]
+                or stats["free_pages"] + stats["retained_pages"]
+                != stats["total_pages"] or any(twins.values())
+                or counts["decode_gemm"] != STEP_LAUNCHES["decode_gemm"] * (
+                    cold_timing["decode_steps"] + timing["decode_steps"])):
+            raise AssertionError(f"prefix {mode}: stats {stats}, launches "
+                                 f"{counts}, plain twins called {twins}")
+        results = cold + hits
+        for (prompt, budget, _), got in zip(requests, results):
+            if got.shape != (budget,) or not ((got >= 0)
+                                              & (got < vocab)).all():
+                raise AssertionError(f"prefix {mode}: tokens {got.shape}, "
+                                     f"budget {budget}")
+        # Each hit request again, alone and cold.
+        recold = []
+        for prompt, budget, key in requests[1:]:
+            engine.clear_prefix_cache()
+            recold.append(engine.submit(prompt, rng=key,
+                                        max_new_tokens=budget).result(600))
+        engine.clear_prefix_cache()
+        if engine.stats()["free_pages"] != engine.stats()["total_pages"]:
+            raise AssertionError(f"prefix {mode}: pages leaked after clear: "
+                                 f"{engine.stats()}")
+        refs = [b1_unpadded(loaded, p, k, b, sampling)
+                for p, b, k in requests]
+        row = {
+            "ttft_ms_cold": cold_timing["ttft_ms"][0],
+            "ttft_ms_hits": timing["ttft_ms"],
+            "inter_token_ms": timing["inter_token_ms"],
+            "tokens_per_s_hits": timing["tokens_per_s"],
+            "prefix_cache": px,
+            "prefix_matched": matched,
+            "launches": counts,
+            "hit_equals_own_cold_run": sum(
+                np.array_equal(h, c) for h, c in zip(hits, recold)),
+            "hit_vs_cold_first_divergence": [
+                first_divergence(h, c) for h, c in zip(hits, recold)],
+            "streams_equal_b1": sum(
+                np.array_equal(g, w) for g, w in zip(results, refs)),
+            "b1_first_divergence": [first_divergence(g, w)
+                                    for g, w in zip(results, refs)],
+            "cold_runs_equal_b1": sum(
+                np.array_equal(c, w) for c, w in zip(recold, refs[1:])),
+        }
+        report[mode] = row
+        log(f"prefix lane {mode}, 1 cold + {PREFIX_REQUESTS - 1} hits, "
+            f"4 slots: {json.dumps(row)}")
+        loaded.close()
+    return report
+
+
+def decode_step_launches(card, registry, params):
+    """Kernel launches of one engine-shaped decode step (llama3-8b, 4
+    rows over a 544-slot cache, greedy), from the profiler: through the
+    port's decode kernels, and through the plain ops the port ran
+    before them (cuBLAS linears, the RMSNorm formula, dense_attention)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    model = get_model(registry).make(dtype="bfloat16",
+                                     cache_size=ENGINE_CACHE)
+    n = len(DECODE_POSITIONS)
+    shape = (n, ENGINE_CACHE, model.num_kv_heads, model.head_dim)
+    cache = [LayerCache(torch.zeros(shape, dtype=torch.bfloat16,
+                                    device="cuda"),
+                        torch.zeros(shape, dtype=torch.bfloat16,
+                                    device="cuda"))
+             for _ in range(model.num_layers)]
+    pos = torch.tensor(DECODE_POSITIONS, device="cuda")
+    tok = torch.zeros((n, 1), dtype=torch.long, device="cuda")
+    pads = torch.zeros(n, dtype=torch.int32, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            logits = apply(model, params, tok, pos[:, None],
+                           pad_lengths=pads, decode_positions=pos,
+                           cache=cache)[:, 0]
+            return _sample_logits(logits, None, 0.0, None, None)
+
+    def count():
+        step()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) * 1e3
+        rows = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA]
+        return {"launches": sum(r.count for r in rows),
+                "device_ms": sum(r.self_device_time_total
+                                 for r in rows) / 1e3,
+                "wall_ms_profiled": wall}
+
+    out = {"card": card, "port": count()}
+    saved = (llama.decode_linear, llama.rms_norm, llama.decode_attention)
+    llama.decode_linear = F.linear
+    llama.rms_norm = rn.rms_norm_reference
+    llama.decode_attention = lambda q, k, v, valid: dense_attention(
+        q, k, v, kv_segment_valid=valid)
+    try:
+        out["plain_ops"] = count()
+    finally:
+        llama.decode_linear, llama.rms_norm, llama.decode_attention = saved
+    log(f"decode step launches (4 rows, cache {ENGINE_CACHE}): "
+        f"{json.dumps(out)} (generate's decode profiled before the decode "
+        f"kernels: ~3,400 a step)")
+    return out
 
 
 def export_round_trip(device=None):
@@ -1128,6 +1668,10 @@ def main() -> int:
          False),
     ]
     rows = [check_flash(kernels, *s) for s in shapes]
+    flash_gradient_rows()
+    gemm_rows = decode_gemm_rows()
+    norm_rows = rms_norm_rows()
+    attn_rows = decode_attention_rows()
     small_model_agreement()
     export_round_trip()
     launches = serve_llama(card)
@@ -1155,7 +1699,27 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-    }, {
+    }]
+    # The decode kernels: sums over one llama3-8b decode step's launches
+    # at M = 4 (4 slots), each shape's figure times its launches a step.
+    for name, source, replaces, krows in (
+            ("decode_gemm", "decode_gemm.cu",
+             "kubeflow_tpu/models/llama.py:72", gemm_rows),
+            ("rms_norm", "rms_norm.cu", "kubeflow_tpu/models/llama.py:46",
+             norm_rows),
+            ("decode_attention", "decode_attention.cu",
+             "kubeflow_tpu/ops/attention.py:57", attn_rows)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in krows),
+            **{k: per_step(krows, k) for k in ("ms", "plain_ms",
+                                               "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+        })
+    kernels += [{
         "name": "bn_forward",
         "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/bn_forward.cu",

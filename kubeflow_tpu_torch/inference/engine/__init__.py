@@ -19,8 +19,8 @@ persistent decode loop over N slots where finished rows retire and
 queued requests admit *between* K-token slices (prefill into a free
 slot), with the KV cache page-managed (:mod:`paged_kv`) instead of
 rebuilt per batch, and tokens streamed back incrementally as they are
-sampled. The port runs the plain lane; the prefix cache and the other
-lanes of the reference come later.
+sampled. The port runs the plain lane and the prefix-cache lane
+(:mod:`prefix_cache`); the other lanes of the reference come later.
 """
 
 from kubeflow_tpu_torch.inference.engine.engine import (  # noqa: F401
@@ -32,6 +32,10 @@ from kubeflow_tpu_torch.inference.engine.engine import (  # noqa: F401
 from kubeflow_tpu_torch.inference.engine.paged_kv import (  # noqa: F401
     PageAllocator,
     PagedKVCache,
+)
+from kubeflow_tpu_torch.inference.engine.prefix_cache import (  # noqa: F401
+    PrefixCache,
+    PrefixMatch,
 )
 from kubeflow_tpu_torch.inference.engine.slots import (  # noqa: F401
     Slot,

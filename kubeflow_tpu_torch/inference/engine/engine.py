@@ -12,7 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""The continuous-batching decode engine (the plain lane).
+"""The continuous-batching decode engine: the plain lane and the
+prefix-cache lane.
 
 Port of ``kubeflow_tpu/inference/engine/engine.py``. One persistent
 decode loop over N slots: decode runs in K-token slices; BETWEEN slices
@@ -24,13 +25,17 @@ Decode is weight-streaming bound, so a decode step costs about the same
 whether 1 or N slots are live: every slot kept full multiplies tokens/s.
 
 Output contract: every slot's stream equals the same request run alone
-through :func:`inference.generate.generate` at B=1 with the same key —
-the per-row decode reuses the same step math, per-row step keys and
-left-pad masking. In torch the rows of a product at M = N and at M = 1
-may differ in their last bits (cuBLAS, and the CPU's BLAS, pick kernels
-by shape), so across slot counts the contract is equal tokens up to a
-near-tie; a 1-slot engine runs the B=1 shapes and is held token for
-token (tests/test_torch_engine.py).
+through :func:`inference.generate.generate` at B=1 with the same key,
+bitwise — the per-row decode reuses the same step math, per-row step
+keys and left-pad masking, and every op of a decode step gives a row
+the bits it has alone (models/llama.py: the decode kernels, whose
+reductions do not depend on the row count; a row-wise top-p cumsum).
+
+With ``EngineConfig.prefix_cache`` admissions switch to the pad-0
+(right-padded) layout, prompt pages are indexed by a radix of
+token-block hashes (``prefix_cache.py``), and a matched prefix is
+shared copy-on-write instead of re-prefilled: only the unmatched tail
+runs, as a continuation prefill at the tail's bucket width.
 
 Deadlines are checked at submit (shed), at admission (expired in queue)
 and at every slice boundary (mid-decode eviction frees the slot's
@@ -38,9 +43,9 @@ pages). Observability: the reference's metric families, span names
 (``engine_prefill``, ``engine_slice``, ``engine_request``,
 ``engine_compile``) and ``stats()`` keys.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP A6-A7):
-the prefix cache, chunked prefill, speculative decoding with a draft,
-KV handoff, mid-stream resume and the host KV tier.
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP A7):
+chunked prefill, speculative decoding with a draft, KV handoff,
+mid-stream resume and the host KV tier.
 """
 
 from __future__ import annotations
@@ -62,6 +67,10 @@ from kubeflow_tpu_torch.inference.engine.paged_kv import (
     PagedKVCache,
     _gather_logical,
     _scatter_token_range,
+)
+from kubeflow_tpu_torch.inference.engine.prefix_cache import (
+    PrefixCache,
+    PrefixMatch,
 )
 from kubeflow_tpu_torch.inference.engine.slots import Slot, SlotScheduler
 from kubeflow_tpu_torch.inference.generate import (
@@ -125,8 +134,7 @@ _M_INTER = obs_metrics.Histogram(
     "kft_serving_inter_token_seconds",
     "Per-token decode pacing (slice wall time / slice tokens)",
     ("model",))
-# Prefix-cache families (registered for the exposition; the prefix
-# lane that feeds them is not ported yet): hit/miss/evict counters plus the
+# Prefix-cache families: hit/miss/evict counters plus the
 # saved-prefill-tokens histogram the TTFT win is made of. Evicted and
 # cached-pages ride render-time callbacks off the live cache (one
 # source of truth, owner-checked clears at stop()).
@@ -351,8 +359,8 @@ class _Request:
 class EngineConfig:
     """Static decode configuration (mirrors generate_config) + the
     engine's capacity knobs. Every field of the reference's; the
-    prefix-cache, chunked-prefill and host-tier knobs raise in
-    :class:`DecodeEngine` until their lanes are ported."""
+    chunked-prefill and host-tier knobs raise in :class:`DecodeEngine`
+    until their lanes are ported."""
 
     max_new_tokens: int
     max_prompt_len: int
@@ -382,8 +390,11 @@ class EngineConfig:
     #: the pad-0 (right-padded) prompt layout so prompt token i always
     #: lands at cache position i, prompt pages are content-indexed by
     #: a radix of token-block hashes, and a matching prefix is shared
-    #: copy-on-write instead of re-prefilled. Output stays bitwise
-    #: equal to cold prefill (greedy + sampled).
+    #: copy-on-write instead of re-prefilled. The same tokens at the
+    #: same positions as a cold prefill; on the card the tail prefill's
+    #: products may round rows apart from the cold prefill's, whose
+    #: block is wider (ROADMAP C3), so a hit's stream can leave its cold
+    #: run's.
     prefix_cache: bool = False
     #: speculative decoding: draft tokens per verify round
     #: (0 = vanilla decode). Takes effect only when the engine is
@@ -468,10 +479,39 @@ def _decode_slice(model, params, physical: List[LayerCache],
     return torch.stack(out, dim=1), tok, dn
 
 
+def _prefill_ctx(model, params, token_block: torch.Tensor,
+                 cache: List[LayerCache], start: int, last_col: int,
+                 first_rng: Optional[torch.Tensor], *, temperature: float,
+                 eos_id: Optional[int], top_k: Optional[int],
+                 top_p: Optional[float]):
+    """Pad-0 (right-padded) prompt pass for prefix-cache mode, cold AND
+    continuation: ``token_block`` [1, W] holds prompt tokens ``[start,
+    start + real)`` right-padded to a bucket width, and ``cache``
+    carries the already-resident prefix at positions ``[0, start)``
+    with its ``index`` at ``start`` (a zero cache for a cold prefill).
+    The model's scalar append path writes the block at ``[start, start
+    + W)`` in place and attends causally from ``start``, so the
+    right-pad garbage never reaches a real token's attention, and its
+    K/V lands only where the decode overwrites or masks. Next-token
+    logits are read at the last real column ``last_col``. Returns
+    ``(cache, first [1], done [1])``."""
+    b, width = token_block.shape
+    positions = start + torch.arange(
+        width, device=token_block.device)[None].expand(b, width)
+    for layer in cache:
+        layer.index = start
+    logits = apply(model, params, token_block, positions, cache=cache)
+    first = _sample_logits(logits[:, last_col], first_rng, temperature,
+                           top_k, top_p)
+    done = (first == eos_id if eos_id is not None
+            else torch.zeros((b,), dtype=torch.bool, device=first.device))
+    return cache, first, done
+
+
 def _unported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported yet (ROADMAP {item}); the port's engine "
-        f"runs the plain lane only")
+        f"runs the plain and prefix-cache lanes only")
 
 
 class DecodeEngine:
@@ -484,9 +524,11 @@ class DecodeEngine:
     ``cache_size >= max_prompt_len + max_new_tokens``; ``params`` must
     live on ``device`` (``None`` → cuda; ``"cpu"`` on request).
 
-    The plain lane: left-padded B=1 prefills, paged KV, K-token slices.
-    The prefix cache, chunked prefill, speculative decoding, KV handoff,
-    stream resume and the host tier raise ``NotImplementedError``.
+    The plain lane: left-padded B=1 prefills, paged KV, K-token slices;
+    with ``prefix_cache``, the prefix lane (pad-0 prefills, shared
+    prefix pages, a copy-on-write fork of a partly matched page).
+    Chunked prefill, speculative decoding, KV handoff, stream resume
+    and the host tier raise ``NotImplementedError``.
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
@@ -513,8 +555,6 @@ class DecodeEngine:
                 "engine %s: engine_draft_tokens=%d but no draft "
                 "model — speculative decoding disabled, decoding "
                 "vanilla", name, config.speculate_tokens)
-        if config.prefix_cache:
-            raise _unported("engine_prefix_cache", "A6")
         if config.prefill_chunk:
             raise _unported("engine_prefill_chunk", "A7")
         if config.host_cache_bytes < 0:
@@ -546,6 +586,12 @@ class DecodeEngine:
                 num_pages=config.num_pages)
         self.scheduler = SlotScheduler(config.num_slots,
                                        self.kv.allocator)
+        #: Cross-request prefix cache (prefix_cache.py) or None. Built
+        #: here so the allocator's retained-page custody is wired
+        #: before the first admission.
+        self.prefix: Optional[PrefixCache] = None
+        if config.prefix_cache:
+            self.prefix = PrefixCache(config.page_size, self.kv.allocator)
         self._cv = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._closed = False
@@ -575,6 +621,16 @@ class DecodeEngine:
         self._g_pages.set_function(self.kv.allocator.available)
         self._g_occupancy = _M_PAGE_OCC.labels(name)
         self._g_occupancy.set_function(self.page_occupancy)
+        if self.prefix is not None:
+            self._m_prefix_hits = _M_PREFIX_HITS.labels(name)
+            self._m_prefix_misses = _M_PREFIX_MISSES.labels(name)
+            self._m_prefix_saved = _M_PREFIX_SAVED.labels(name)
+            self._m_prefix_evicted = _M_PREFIX_EVICTED.labels(name)
+            self._m_prefix_evicted.set_function(
+                self._prefix_evicted_total)
+            self._g_prefix_pages = _M_PREFIX_PAGES.labels(name)
+            self._g_prefix_pages.set_function(
+                self.prefix.resident_pages)
 
     # -- submit side -----------------------------------------------------
 
@@ -603,6 +659,32 @@ class DecodeEngine:
         alloc = self.kv.allocator
         total = alloc.num_pages - 1
         return (total - alloc.available()) / total if total else 1.0
+
+    def _prefix_evicted_total(self) -> float:
+        return float(self.prefix.evicted_pages) if self.prefix \
+            else 0.0
+
+    def probe_prefix(self, prompt: np.ndarray) -> int:
+        """Cheap, lock-free estimate of how many prompt tokens this
+        engine could serve from its prefix cache. Dict reads off the
+        engine thread — a torn read costs one suboptimal routing
+        decision, never correctness (the authoritative match runs at
+        admission). 0 when prefix caching is off."""
+        if self.prefix is None:
+            return 0
+        try:
+            return self.prefix.match(
+                np.asarray(prompt, np.int32).reshape(-1)).matched
+        except Exception:  # noqa: BLE001 — benign-race probe
+            return 0
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every cached prefix (idle pages return to the free
+        list immediately; pinned ones when their slot retires).
+        QUIESCED callers only — warmup teardown and tests: the index
+        is engine-thread state, and this must not race a live
+        admission."""
+        return self.prefix.clear() if self.prefix is not None else 0
 
     def submit(self, prompt: Optional[np.ndarray] = None, *,
                rng: Optional[np.ndarray] = None,
@@ -738,6 +820,18 @@ class DecodeEngine:
         for req in list(self.scheduler.pending):
             req.stream._fail(err)
         self.scheduler.pending.clear()
+        if self.prefix is not None:
+            if not still_running:
+                # Drain the cache so the pool releases cleanly (a
+                # stopped engine holds zero resident pages). A busy
+                # thread still owns the allocator — leave custody to
+                # die with the object.
+                self.prefix.clear()
+            # Callback clears are pure registry ops — run them even
+            # when the thread is busy, or the gauges pin the dead
+            # engine (params + page pool).
+            self._m_prefix_evicted.clear_function(self)
+            self._g_prefix_pages.clear_function(self.prefix)
         self._g_slots.clear_function(self.scheduler)
         self._g_queue.clear_function(self.scheduler)
         self._g_pages.clear_function(self.kv.allocator)
@@ -745,7 +839,7 @@ class DecodeEngine:
 
     def stats(self) -> dict:
         alloc = self.kv.allocator
-        return {
+        out = {
             "slots": self.config.num_slots,
             "active_slots": self.scheduler.occupancy(),
             "queue_depth": self.scheduler.queue_depth(),
@@ -766,6 +860,9 @@ class DecodeEngine:
             "tenant_queue_depths": tenancy.cap_depths(
                 self.scheduler.tenant_depths()),
         }
+        if self.prefix is not None:
+            out["prefix_cache"] = self.prefix.stats()
+        return out
 
     # -- engine thread ---------------------------------------------------
 
@@ -830,13 +927,28 @@ class DecodeEngine:
                              self.config.prompt_buckets)
 
     def _prompt_width(self, length: int) -> int:
-        """Prefill block width for a ``length``-token prompt: the
-        shared prompt-bucket policy (a left-padded prompt)."""
+        """Cache positions a ``length``-token prompt takes: exact in the
+        pad-0 prefix layout, the shared prompt-bucket policy (a
+        left-padded prompt) otherwise."""
+        if self.prefix is not None:
+            return length
         return self._bucket(length)
 
     def _budget_pages(self, req: _Request) -> int:
         width = self._prompt_width(len(req.prompt))
         return self.kv.pages_for(width + req.max_new_tokens)
+
+    def _tail_width(self, length: int, start: int) -> int:
+        """Block width for the continuation prefill of prompt tokens
+        ``[start, length)``: the shared prompt-bucket policy, except
+        never past the model's cache end — the scalar append writes
+        ``[start, start + width)`` by slicing, so an overhanging block
+        must never reach it. An overshooting bucket falls back to the
+        exact tail length."""
+        width = self._bucket(length - start)
+        if start + width > self._model.cache_size:
+            width = length - start
+        return width
 
     def _device_keys(self, keys: np.ndarray) -> Optional[torch.Tensor]:
         """Step keys on the engine's device; None when greedy (no key
@@ -874,10 +986,45 @@ class DecodeEngine:
 
     def _admit(self) -> None:
         while True:
+            if self.prefix is not None:
+                if not self._admit_one_prefix():
+                    return
+                continue
             req = self.scheduler.next_admittable(self._budget_pages)
             if req is None:
                 return
             self._prefill_and_bind(req)
+
+    def _admit_one_prefix(self) -> bool:
+        """One admission attempt in prefix-cache mode: in fair-
+        queueing order, match each tenant head's prompt, pin the
+        matched resident pages, and reserve only the private
+        remainder; the first head whose reservation fits admits. A
+        failed reservation UNPINS before moving on — a head never
+        deadlocks the queue against its own pins (every page it waits
+        for is then either free, evictable, or held by a live slot
+        that will retire), and it holds the line for ITS tenant only
+        while other tenants' heads still admit."""
+        sched = self.scheduler
+        if not sched.pending or not sched.has_free_slot():
+            return False
+        for i, head in enumerate(sched.pending.heads()):
+            total = self._budget_pages(head)
+            match = self.prefix.pin(self.prefix.match(head.prompt))
+            if not self.kv.allocator.reserve(total - len(match.entries)):
+                self.prefix.unpin(match)
+                if i == 0 and sched.head_blocked(head):
+                    # Starvation guard (see SlotScheduler): the same
+                    # fair-first head has been skipped enough — hold
+                    # the whole line so freed pages accumulate for it.
+                    return False
+                continue  # this tenant's line holds; try the next
+            if i == 0:
+                sched.head_unblocked()
+            sched.pending.pop_head(head)
+            self._prefill_and_bind_prefix(head, match)
+            return True
+        return False
 
     def _prefill_and_bind(self, req: _Request) -> None:
         t0 = time.monotonic()
@@ -933,6 +1080,103 @@ class DecodeEngine:
             TRACER.record("engine_prefill", "engine", t0, t1 - t0,
                           self._span_args(req, slot=slot.index,
                                           prompt_len=length))
+        self._emit_token(slot, first)
+        if slot.done or slot.remaining == 0:
+            self._retire(slot, "eos" if slot.done else "budget")
+
+    def _prefill_and_bind_prefix(self, req: _Request,
+                                 match: PrefixMatch) -> None:
+        """Prefix-mode admission: the caller (``_admit_one_prefix``)
+        already pinned ``match``'s pages and reserved the private
+        remainder. Shared full blocks enter the slot's page table
+        as-is; a partially matched boundary page is forked
+        copy-on-write (its common head rows ride the gathered B=1
+        cache into a PRIVATE page, because the tail prefill and the
+        decode will write past them); only the unmatched tail is
+        prefilled. The same tokens at the same positions with the same
+        step-key schedule as a cold prefill; whether the tail's rows
+        have the cold prefill's bits depends on the prefill's products
+        at the two block widths (PERF.md)."""
+        t0 = time.monotonic()
+        length = len(req.prompt)
+        budget_pages = self._budget_pages(req)
+        shared = match.shared_pages
+        m = match.matched
+        fork_pinned = match.fork is not None
+        width = self._tail_width(length, m)
+        try:
+            if m > 0:
+                page_row = list(shared)
+                if match.fork is not None:
+                    page_row.append(match.fork.page)
+                cache = self.kv.gather_prefix_cache(page_row, m)
+                if fork_pinned:
+                    # The fork copy is queued (device work runs in
+                    # this thread's stream order); the donor page is
+                    # not this slot's to keep.
+                    self.prefix.unpin_fork(match)
+                    fork_pinned = False
+            else:
+                cache = init_cache(self._model, self._params, 1)
+            block = np.zeros((1, width), np.int32)
+            block[0, :length - m] = req.prompt[m:]
+            cache, first, done = _prefill_ctx(
+                self._model, self._params,
+                torch.from_numpy(block).to(self.device), cache, m,
+                length - m - 1, self._device_keys(req.step_keys[0:1]),
+                **self._sample_kw)
+            first = int(first[0])
+            done = bool(done[0])
+        except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
+            # Same contract as the plain path: the popped request
+            # holds a reservation AND pins — leak neither, fail only
+            # its own stream.
+            logger.exception("prefix prefill failed; shedding the "
+                             "request")
+            self.kv.allocator.unreserve(budget_pages - len(shared))
+            self.prefix.unpin(match, include_fork=fork_pinned)
+            _M_RETIRED.labels(self.name, "error").inc()
+            req.stream._fail(e)
+            return
+        slot = self.scheduler.bind(
+            req, prompt_width=length, pad_len=0, first_token=first,
+            done=done, budget_pages=budget_pages, deadline=req.deadline)
+        slot.allocated_pages = self.kv.adopt(
+            slot.index, cache, length, budget_pages, shared_pages=shared)
+        # Index this prompt's resident pages (new private blocks, plus
+        # the boundary partial).
+        self.prefix.register(
+            req.prompt,
+            self.kv.tables[slot.index, :slot.allocated_pages].tolist())
+        t1 = time.monotonic()
+        slot.queue_s = max(0.0, t0 - req.submitted_at)
+        slot.prefill_s = t1 - t0
+        self._note_compile("prefill_ctx", f"tokens[1,{width}]", t0,
+                           t1 - t0, link=self._span_args(req))
+        if m > 0:
+            self.prefix.hits += 1
+            self.prefix.saved_tokens_total += m
+            self._m_prefix_hits.inc()
+            self._m_prefix_saved.observe(float(m))
+        else:
+            self.prefix.misses += 1
+            self._m_prefix_misses.inc()
+            # Only full (cold) prefills feed the estimator — a tail
+            # prefill's cost scales with the UNMATCHED length and
+            # would read a warm cache as a fast prefill for cold
+            # requests.
+            self._prefill_est.observe(t1 - t0)
+        self._m_admitted.inc()
+        ctx = req.stream.obs_ctx
+        self._m_ttft.observe(t1 - req.submitted_at,
+                             trace_id=ctx.trace_id if ctx else None)
+        tenancy.observe_ttft(req.tenant or tenancy.DEFAULT_TENANT,
+                             t1 - req.submitted_at)
+        if TRACER.enabled:
+            TRACER.record("engine_prefill", "engine", t0, t1 - t0,
+                          self._span_args(req, slot=slot.index,
+                                          prompt_len=length,
+                                          prefix_matched=m))
         self._emit_token(slot, first)
         if slot.done or slot.remaining == 0:
             self._retire(slot, "eos" if slot.done else "budget")
@@ -1009,7 +1253,8 @@ class DecodeEngine:
                     "admitted": self.scheduler.admitted,
                     "retired": self.scheduler.retired,
                     "queue_depth": self.scheduler.queue_depth(),
-                    "prefix_hits": 0,
+                    "prefix_hits": (self.prefix.hits
+                                    if self.prefix is not None else 0),
                 })
         for s in active:
             # Every live slot waited this whole slice — that IS its

@@ -331,6 +331,24 @@ def _adopt_prefill(physical: List[LayerCache],
     return physical
 
 
+def _gather_pages_to_cache(physical: List[LayerCache], page_ids: torch.Tensor,
+                           cache_len: int, fill_len: int) -> List[LayerCache]:
+    """Materialize a slot-shaped page list as a contiguous B=1 cache of
+    ``cache_len`` positions: page ``j`` of ``page_ids`` lands at cache
+    rows ``[j·P, (j+1)·P)`` (null-page entries contribute the null
+    page's rows, which only masked positions ever read), and ``index``
+    is ``fill_len``, so the model's scalar append path continues the
+    sequence there — the continuation-prefill half of a prefix-cache
+    hit. Fresh tensors: the pool is never written through them."""
+    flat = page_ids.reshape(-1).long()
+
+    def g(pool):
+        _, _, h, d = pool.shape
+        return pool[flat].reshape(-1, h, d)[:cache_len][None]
+
+    return [LayerCache(g(c.k), g(c.v), fill_len) for c in physical]
+
+
 class PagedKVCache:
     """The pool tensors + table bookkeeping for one decode engine.
 
@@ -413,6 +431,60 @@ class PagedKVCache:
                 torch.tensor(pages, dtype=torch.int64, device=self.device),
                 shared, n_pages=n_priv)
         return n_pages
+
+    def read_page_layers(self, page: int) -> List[torch.Tensor]:
+        """Snapshot one pool page's K/V to host memory: one
+        ``[page_size, heads, dim]`` CPU tensor per KV tensor (the pool's
+        dtype; numpy has no bf16), K then V of each layer in layer
+        order (the order a host-tier splice writes back in). The
+        evict-to-host copy: called while the page still holds valid
+        K/V; the copy makes the snapshot exact whatever the pool does
+        next."""
+        return [pool[int(page)].to("cpu", copy=True)
+                for layer in self.physical for pool in (layer.k, layer.v)]
+
+    def gather_prefix_cache(self, page_ids: Sequence[int],
+                            fill_len: int) -> List[LayerCache]:
+        """Shared prefix pages (padded with the null page to the full
+        slot row) → a contiguous B=1 cache of ``cache_size`` positions
+        with ``index = fill_len``, ready for a continuation prefill of
+        the unmatched tail."""
+        row = np.zeros((self.pages_per_slot,), np.int64)
+        row[: len(page_ids)] = list(page_ids)
+        return _gather_pages_to_cache(
+            self.physical, torch.from_numpy(row).to(self.device),
+            self.cache_size, fill_len)
+
+    def truncate_slot(self, slot_index: int, allocated: int,
+                      keep_upto_position: int) -> int:
+        """Roll back a speculative multi-token append: keep only the
+        pages backing cache positions ``[0, keep_upto_position)`` and
+        hand the over-allocated tail back — each dropped page loses
+        this slot's reference (a privately allocated decode page goes
+        straight back to the free list; ``unref`` keeps shared /
+        prefix-retained custody correct if a caller ever truncates
+        into shared territory) and its page worth of reservation is
+        restored, so the slot can re-extend over the same range as
+        its sequence re-advances. Rejected K/V left in KEPT pages
+        past ``keep_upto_position`` needs no scrubbing: the decode
+        validity mask never attends past a row's write position, and
+        the next append overwrites it. Returns the new allocated
+        count. Engine thread only."""
+        keep = self.pages_for(max(0, keep_upto_position))
+        if keep >= allocated:
+            return allocated
+        dropped = self.tables[slot_index, keep:allocated].tolist()
+        for p in reversed(dropped):
+            self.allocator.unref(int(p))
+        if not self.allocator.reserve(len(dropped)):
+            # Unreachable: unref just returned len(dropped) pages of
+            # availability (free or retained custody) — surface
+            # loudly rather than silently under-reserving.
+            raise RuntimeError(
+                f"truncate_slot: could not restore {len(dropped)} "
+                f"pages of reservation")
+        self.tables[slot_index, keep:allocated] = 0
+        return keep
 
     def release_slot(self, slot_index: int, allocated: int,
                      unreserved_remainder: int) -> None:

@@ -85,6 +85,17 @@ def _prompt_positions(b: int, prompt_len: int,
     return torch.clamp_min(ar - pad_lengths[:, None], 0)
 
 
+def _row_cumsum(probs: torch.Tensor) -> torch.Tensor:
+    """Cumulative sums along the last axis, each row scanned alone. One
+    scan over ``[B, V]`` is not row-invariant on CUDA: PyTorch scans a
+    single row with another algorithm than a batch of rows, so a row's
+    sums round apart at B=1 and at B=4 (``scripts/decode_invariance.py``)
+    and a top-p boundary could move with the batch."""
+    rows = probs.reshape(-1, probs.shape[-1])
+    return torch.stack([torch.cumsum(r, dim=-1) for r in rows]).reshape(
+        probs.shape)
+
+
 def _truncate_logits(logits: torch.Tensor, top_k: Optional[int],
                      top_p: Optional[float]) -> torch.Tensor:
     """Mask logits outside the top-k set and/or the top-p (nucleus)
@@ -103,7 +114,7 @@ def _truncate_logits(logits: torch.Tensor, top_k: Optional[int],
     if top_p is not None and top_p < 1.0:
         sorted_logits = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_logits, dim=-1)
-        cum = torch.cumsum(probs, dim=-1)
+        cum = _row_cumsum(probs)
         keep = (cum - probs) < top_p
         keep[..., 0] = True
         threshold = torch.where(

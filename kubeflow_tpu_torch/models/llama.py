@@ -24,8 +24,17 @@ the meta device, and weights travel as a ``params`` dict applied with
 dtype its op consumes (see models/convert.py).
 
 Attention: the cache-free forward calls :func:`flash_attention` (the
-CUDA kernel on the GPU); the KV-cache path calls ``dense_attention``
-in plain PyTorch, as the reference runs it under XLA.
+CUDA kernel on the GPU); a prefill into the KV cache calls
+``dense_attention`` in plain PyTorch, as the reference runs it under
+XLA.
+
+A decode step (a cache forward with one token per row: ``generate``'s
+steps and the decode engine's) runs on kernels whose rows do not
+depend on the row count, so an engine slot's stream has the bits of the
+same request at B=1: every linear layer through :func:`decode_linear`
+(the fp32 ``lm_head`` included) and attention through
+:func:`decode_attention`. :func:`rms_norm` takes every norm on the
+card. On the CPU each is its plain version.
 """
 
 from __future__ import annotations
@@ -39,7 +48,10 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.attention import dense_attention
+from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.rms_norm import rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -65,10 +77,7 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # Variance in fp32 regardless of activation dtype.
-        var = x.float().square().mean(-1, keepdim=True)
-        normed = x * torch.rsqrt(var + self.eps).to(x.dtype)
-        return normed * self.scale.to(self.dtype)
+        return rms_norm(x, self.scale.to(self.dtype), self.eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -91,6 +100,16 @@ def _linear(d_in: int, d_out: int, dtype, device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, dtype=dtype, device=device)
 
 
+def _project(layer: nn.Linear, x: torch.Tensor, decode: bool) -> torch.Tensor:
+    """``layer(x)``; in a decode step, through :func:`decode_linear`."""
+    return decode_linear(x, layer.weight) if decode else layer(x)
+
+
+def _is_decode(x: torch.Tensor, cache) -> bool:
+    """A decode step: a cache forward with one token per row."""
+    return cache is not None and x.shape[1] == 1
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, rope_theta: float, dtype: torch.dtype,
@@ -110,9 +129,13 @@ class LlamaAttention(nn.Module):
     def forward(self, x, positions, pad_lengths=None,
                 cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
-        q = self.q_proj(x).reshape(b, l, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(b, l, self.num_kv_heads, self.head_dim)
+        decode = _is_decode(x, cache)
+        q = _project(self.q_proj, x, decode).reshape(
+            b, l, self.num_heads, self.head_dim)
+        k = _project(self.k_proj, x, decode).reshape(
+            b, l, self.num_kv_heads, self.head_dim)
+        v = _project(self.v_proj, x, decode).reshape(
+            b, l, self.num_kv_heads, self.head_dim)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
         if cache is not None and decode_positions is not None:
@@ -132,14 +155,19 @@ class LlamaAttention(nn.Module):
                 # first pad_lengths[i] slots hold pad K/V that must never
                 # receive attention mass.
                 valid = valid & (slots[None, :] >= pad_lengths[:, None])
-            out = dense_attention(
-                q, cache.k, cache.v, causal=True, q_offset=start,
-                kv_offset=0, kv_segment_valid=valid)
+            if decode:
+                # One query at ``start``: causality is the validity.
+                out = decode_attention(q, cache.k, cache.v, valid)
+            else:
+                out = dense_attention(
+                    q, cache.k, cache.v, causal=True, q_offset=start,
+                    kv_offset=0, kv_segment_valid=valid)
         elif self.attention_fn is not None:
             out = self.attention_fn(q, k, v)
         else:
             out = flash_attention(q, k, v, causal=True)
-        return self.o_proj(out.reshape(b, l, self.num_heads * self.head_dim))
+        return _project(self.o_proj, out.reshape(
+            b, l, self.num_heads * self.head_dim), decode)
 
     def _decode_rows(self, q, k, v, cache: LayerCache, start, pad_lengths):
         """The slot engine's decode step: every row sits at its own
@@ -165,8 +193,7 @@ class LlamaAttention(nn.Module):
         valid = pos <= start[:, None]
         if pad_lengths is not None:
             valid = valid & (pos >= pad_lengths[:, None])
-        return dense_attention(q, cache.k, cache.v, causal=False,
-                               kv_segment_valid=valid)
+        return decode_attention(q, cache.k, cache.v, valid)
 
 
 class LlamaBlock(nn.Module):
@@ -186,11 +213,13 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
                 decode_positions=None):
+        decode = _is_decode(x, cache)
         x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
                                cache, decode_positions)
         h = self.mlp_norm(x)
-        h = F.silu(self.gate_proj(h)) * self.up_proj(h)
-        return x + self.down_proj(h)
+        h = (F.silu(_project(self.gate_proj, h, decode))
+             * _project(self.up_proj, h, decode))
+        return x + _project(self.down_proj, h, decode)
 
 
 class Llama(nn.Module):
@@ -275,7 +304,8 @@ class Llama(nn.Module):
             x = layer(x, positions, pad_lengths,
                       None if cache is None else cache[i], decode_positions)
         x = self.final_norm(x)
-        return self.lm_head(x.float())
+        return _project(self.lm_head, x.float(),
+                        _is_decode(input_ids, cache))
 
 
 def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,

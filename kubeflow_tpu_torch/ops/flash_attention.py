@@ -45,6 +45,12 @@ Dispatch. A CPU tensor goes to :func:`flash_attention_reference`, the
 plain PyTorch version (the kernel's online softmax, written with torch
 ops). A CUDA tensor goes to the kernel, or the call raises: there is
 no fallback. ``flash_attention.launches`` counts kernel launches.
+
+Gradient. Where an input wants one, the kernel runs inside an
+``autograd.Function`` whose backward recomputes the plain version under
+autograd and differentiates it, as the reference's ``_flash`` and
+``_flash_masked`` custom VJPs recompute through ``blockwise_attention``
+(``kubeflow_tpu/ops/flash_attention.py:194-252``).
 """
 
 from __future__ import annotations
@@ -229,6 +235,31 @@ def _launch(q, k, v, causal, scale, kv_segment_valid):
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward recomputes the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, kv_segment_valid):
+        ctx.save_for_backward(q, k, v, kv_segment_valid)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale, kv_segment_valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, mask = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(w)
+                      for t, w in zip((q, k, v), wanted)]
+            out = flash_attention_reference(
+                *inputs, causal=ctx.causal, scale=ctx.scale,
+                kv_segment_valid=mask)
+            got = iter(torch.autograd.grad(
+                out, [t for t, w in zip(inputs, wanted) if w], grad))
+        return (*(next(got) if w else None for w in wanted), None, None,
+                None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -243,7 +274,8 @@ def flash_attention(
     ``kv_segment_valid`` is an optional [B, Lk] 0/1 mask for padded
     keys, shared by every head of a batch element. A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel on the current
-    stream (no synchronisation) or raises.
+    stream (no synchronisation) or raises. Differentiable in q, k and v:
+    on the card the backward recomputes through the plain version.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
@@ -253,6 +285,9 @@ def flash_attention(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, scale,
+                                     kv_segment_valid)
     return _launch(q, k, v, causal, scale, kv_segment_valid)
 
 

@@ -173,9 +173,9 @@ class LoadedModel:
         per LoadedModel. Generate-method signatures only. Capacity
         knobs ride the export's ``generate_config`` (``engine_slots`` /
         ``engine_page_size`` / ``engine_slice_tokens`` /
-        ``engine_num_pages``). The prefix cache, chunked prefill and a
-        draft model for speculative decoding are not ported and
-        raise."""
+        ``engine_num_pages`` / ``engine_prefix_cache``). Chunked
+        prefill, the host KV tier and a draft model for speculative
+        decoding are not ported and raise."""
         with self._engine_lock:
             if self._engine is not None:
                 return self._engine

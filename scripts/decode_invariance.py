@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+# Copyright 2026 The kubeflow-tpu Authors.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""Which of llama3-8b's ops round a row differently with the row count.
+
+Op by op, on one GPU, bitwise: each op runs once on a batch of rows and
+once on every row alone, and the script reports whether the batch's
+row i has the bits of row i computed alone (and the largest |Δ| where
+not). Three comparisons:
+
+- ``decode``: one decode step at the continuous-batching engine's
+  shapes (4 slots, cache 544 = 34 pages of 16), M = 4 distinct rows
+  against each row at M = 1: the q/k/v projections, rope, attention
+  (scores, softmax sum, PV and the whole), ``o_proj``, both RMSNorms,
+  gate/up/down, the final norm, the fp32 ``lm_head``, the top-k/top-p
+  truncation (with its softmax and cumsum) and the sampler;
+- ``prefill``: a [2, 512] prompt block against each [1, 512] row;
+- ``tail``: one row's last 128 positions computed in a block of width
+  128 (a prefix-cache hit's tail prefill) against the same positions
+  inside a block of width 512 (the cold prefill).
+
+Each op has a ``today`` column (the plain PyTorch op the port ran
+before its decode kernels: cuBLAS for every linear, the RMSNorm
+formula, ``dense_attention``) and a ``port`` column (what the port
+runs now on the card). A last row runs a whole decode step through the
+port's ``llama3-8b`` (32 layers, random weights from seed 0), both ways.
+
+Weights are random from seed 0; activations are N(0, 1) draws from seed
+1 (bitwise invariance does not depend on the values). Run from the
+repository root; ``--out`` writes the tables as JSON too::
+
+    python3 scripts/decode_invariance.py [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from kubeflow_tpu_torch.inference import generate as gen  # noqa: E402
+from kubeflow_tpu_torch.inference import prng  # noqa: E402
+from kubeflow_tpu_torch.models import llama  # noqa: E402
+from kubeflow_tpu_torch.models.convert import init_params  # noqa: E402
+from kubeflow_tpu_torch.ops.attention import dense_attention  # noqa: E402
+from kubeflow_tpu_torch.ops.decode_attention import (  # noqa: E402
+    decode_attention,
+)
+from kubeflow_tpu_torch.ops.decode_gemm import decode_linear  # noqa: E402
+from kubeflow_tpu_torch.ops.rms_norm import rms_norm  # noqa: E402
+from kubeflow_tpu_torch.utils.device import resolve_device  # noqa: E402
+
+CACHE = 544
+#: The decode rows' cache positions (prompt lengths of the engine mix).
+DECODE_POS = (300, 511, 77, 410)
+PREFILL_W = 512
+TAIL_W = 128
+SAMPLING = {"temperature": 0.7, "top_k": 40, "top_p": 0.9}
+EPS = 1e-5
+
+
+def llama3_8b(num_layers: int = 32) -> llama.Llama:
+    return llama.Llama(vocab_size=128256, num_layers=num_layers,
+                       d_model=4096, num_heads=32, num_kv_heads=8,
+                       mlp_dim=14336, rope_theta=500000.0,
+                       dtype="bfloat16", cache_size=CACHE)
+
+
+def compare(fn, inputs):
+    """``fn`` on the whole batch vs on each of its rows alone. Inputs
+    whose leading dimension is 1 (weights) go whole to every call.
+    Returns ``{"equal": bool, "max_abs": float}``."""
+    whole = fn(*inputs)
+    n = max(t.shape[0] for t in inputs)
+    equal, worst = True, 0.0
+    for i in range(n):
+        piece = fn(*[t if t.shape[0] == 1 else t[i:i + 1] for t in inputs])
+        d = _diff(piece, whole[i:i + 1])
+        equal &= d["equal"]
+        worst = max(worst, d["max_abs"])
+    return {"equal": equal, "max_abs": worst}
+
+
+def plain_rms_norm(x, scale):
+    """The RMSNorm formula the port ran before its kernel."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return x * torch.rsqrt(var + EPS).to(x.dtype) * scale
+
+
+def scores(q, k):
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                        llama_repeat(k, q).float()) * q.shape[-1] ** -0.5
+
+
+def llama_repeat(kv, q):
+    rep = q.shape[2] // kv.shape[2]
+    return kv.repeat_interleave(rep, dim=2)
+
+
+def softmax_sum(q, k, mask):
+    s = scores(q, k).masked_fill(~mask[:, None, None, :], -1e30)
+    m = torch.clamp_min(s.amax(-1, keepdim=True), -5e29)
+    return torch.exp(s - m).sum(-1)
+
+
+def pv(q, k, v, mask):
+    s = scores(q, k).masked_fill(~mask[:, None, None, :], -1e30)
+    p = torch.exp(s - torch.clamp_min(s.amax(-1, keepdim=True), -5e29))
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                        llama_repeat(v, q).float())
+
+
+def truncate_parts(logits):
+    """The pieces of ``_truncate_logits`` whose reduction order could
+    depend on the row count: top-k's k-th value, the sorted logits, the
+    softmax over them and its cumsum."""
+    kth = torch.topk(logits, SAMPLING["top_k"], dim=-1).values[..., -1:]
+    kept = torch.where(logits < kth, float("-inf"), logits)
+    srt = torch.sort(kept, dim=-1, descending=True).values
+    probs = torch.softmax(srt, dim=-1)
+    return kth, srt, probs, torch.cumsum(probs, dim=-1)
+
+
+@contextlib.contextmanager
+def today_routes():
+    """Run the port's model on the ops it used before its decode
+    kernels: cuBLAS for every linear, the RMSNorm formula,
+    ``dense_attention`` over the cache, one cumsum over the batch."""
+    saved = (llama.decode_linear, llama.rms_norm, llama.decode_attention,
+             gen._row_cumsum)
+    llama.decode_linear = F.linear
+    llama.rms_norm = lambda x, scale, eps: plain_rms_norm(x, scale)
+    llama.decode_attention = lambda q, k, v, valid: dense_attention(
+        q, k, v, kv_segment_valid=valid)
+    gen._row_cumsum = lambda probs: torch.cumsum(probs, dim=-1)
+    try:
+        yield
+    finally:
+        (llama.decode_linear, llama.rms_norm, llama.decode_attention,
+         gen._row_cumsum) = saved
+
+
+def decode_table(p, cfg, dev):
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf = torch.bfloat16
+    n = len(DECODE_POS)
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
+
+    d, hkv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    x = randn(n, 1, d)
+    kc, vc = randn(n, CACHE, hkv, hd), randn(n, CACHE, hkv, hd)
+    pos = torch.tensor(DECODE_POS, device=dev)
+    valid = torch.arange(CACHE, device=dev)[None, :] <= pos[:, None]
+    w = {k.split(".", 2)[-1]: v for k, v in p.items()
+         if k.startswith("layers.0.")}
+    wq, wk, wv, wo = (w[f"attention.{n_}_proj.weight"] for n_ in "qkvo")
+    scale = w["attn_norm.scale"]
+    h = plain_rms_norm(x, scale)
+    q = F.linear(h, wq).reshape(n, 1, cfg.num_heads, hd)
+    positions = pos[:, None]
+    qr = llama.rope(q, positions, cfg.rope_theta)
+    attn = dense_attention(qr, kc, vc, kv_segment_valid=valid)
+    mlp_in = randn(n, 1, d)
+    act = randn(n, 1, cfg.mlp_dim)
+    head_in = randn(n, 1, d, dtype=torch.float32)
+    logits = (F.linear(head_in, p["lm_head.weight"])[:, 0]
+              / SAMPLING["temperature"])
+    keys = gen._device_keys(np.stack([prng.PRNGKey(100 + i)
+                                      for i in range(n)]), dev)
+    cum = gen._row_cumsum
+    ops = [
+        ("attn_norm (RMSNorm)", [x, scale[None]],
+         lambda a, s: plain_rms_norm(a, s[0]),
+         lambda a, s: rms_norm(a, s[0], EPS)),
+        ("q_proj [4096→4096] bf16", [h, wq[None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("k_proj [4096→1024] bf16", [h, wk[None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("v_proj [4096→1024] bf16", [h, wv[None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("rope (q)", [q, positions],
+         lambda a, s: llama.rope(a, s, cfg.rope_theta), None),
+        ("attention scores QKᵀ (fp32 einsum)", [qr, kc],
+         scores, None),
+        ("attention softmax sum", [qr, kc, valid], softmax_sum, None),
+        ("attention PV (fp32 einsum)", [qr, kc, vc, valid], pv, None),
+        ("attention, whole (S = 544)", [qr, kc, vc, valid],
+         lambda a, b, c, m: dense_attention(a, b, c, kv_segment_valid=m),
+         decode_attention),
+        ("o_proj [4096→4096] bf16", [attn.reshape(n, 1, d), wo[None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("mlp_norm (RMSNorm)", [mlp_in, w["mlp_norm.scale"][None]],
+         lambda a, s: plain_rms_norm(a, s[0]),
+         lambda a, s: rms_norm(a, s[0], EPS)),
+        ("gate_proj [4096→14336] bf16",
+         [mlp_in, w["gate_proj.weight"][None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("up_proj [4096→14336] bf16", [mlp_in, w["up_proj.weight"][None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("down_proj [14336→4096] bf16", [act, w["down_proj.weight"][None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("final_norm (RMSNorm)", [mlp_in, p["final_norm.scale"][None]],
+         lambda a, s: plain_rms_norm(a, s[0]),
+         lambda a, s: rms_norm(a, s[0], EPS)),
+        ("lm_head [4096→128256] fp32", [head_in, p["lm_head.weight"][None]],
+         lambda a, m: F.linear(a, m[0]), lambda a, m: decode_linear(a, m[0])),
+        ("top-k k-th value", [logits], lambda a: truncate_parts(a)[0], None),
+        ("sorted logits", [logits], lambda a: truncate_parts(a)[1], None),
+        ("softmax of sorted", [logits], lambda a: truncate_parts(a)[2], None),
+        ("cumsum of softmax", [logits],
+         lambda a: torch.cumsum(truncate_parts(a)[2], dim=-1),
+         lambda a: cum(truncate_parts(a)[2])),
+        ("_truncate_logits (top-k 40, top-p 0.9)", [logits],
+         lambda a: gen._truncate_logits(a, 40, 0.9), None),
+        ("_sample_logits (per-row keys)", [logits, keys],
+         lambda a, k_: gen._sample_logits(a, k_, 1.0, 40, 0.9), None),
+        ("argmax (greedy)", [logits], lambda a: torch.argmax(a, -1), None),
+    ]
+    return _run_ops(ops)
+
+
+def _run_ops(ops):
+    """Each op's plain form under today's routes, and the port's form
+    (the plain one where the port kept it) under the port's."""
+    table = []
+    for name, inputs, plain, port in ops:
+        with today_routes():
+            today_row = compare(plain, inputs)
+        table.append({"op": name, "today": today_row,
+                      "port": compare(port or plain, inputs)})
+    return table
+
+
+def prefill_tables(p, cfg, dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).to(bf)
+
+    w = {k.split(".", 2)[-1]: v for k, v in p.items()
+         if k.startswith("layers.0.")}
+    d, hkv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    x = randn(2, PREFILL_W, d)
+    act = randn(2, PREFILL_W, cfg.mlp_dim)
+    q = randn(2, PREFILL_W, cfg.num_heads, hd)
+    kc, vc = randn(2, CACHE, hkv, hd), randn(2, CACHE, hkv, hd)
+    valid = (torch.arange(CACHE, device=dev) < PREFILL_W)[None].expand(2, -1)
+    head_in = torch.randn(2, PREFILL_W, d, device=dev, generator=g)
+    lin = {name: w[name] for name in (
+        "attention.q_proj.weight", "attention.k_proj.weight",
+        "gate_proj.weight")}
+
+    def attention(qq, k_, v_, m, offset=0):
+        return dense_attention(qq, k_, v_, causal=True, q_offset=offset,
+                               kv_offset=0, kv_segment_valid=m)
+
+    def rows_ops():
+        ops = [("attn_norm (RMSNorm)", [x],
+                lambda a: plain_rms_norm(a, w["attn_norm.scale"]),
+                lambda a: rms_norm(a, w["attn_norm.scale"], EPS))]
+        for name, weight in lin.items():
+            ops.append((f"{name.split('.')[-2]} bf16", [x],
+                        lambda a, m=weight: F.linear(a, m), None))
+        ops.append(("down_proj bf16", [act],
+                    lambda a: F.linear(a, w["down_proj.weight"]), None))
+        ops.append(("lm_head fp32", [head_in],
+                    lambda a: F.linear(a, p["lm_head.weight"]), None))
+        return ops
+
+    batch_ops = rows_ops() + [
+        ("attention (causal, cache 544)", [q, kc, vc, valid], attention,
+         None)]
+    prefill = _run_ops(batch_ops)
+
+    # Tail vs cold: positions [384, 512) of row 0 in a 128-wide block
+    # against the same positions inside the 512-wide block.
+    lo = PREFILL_W - TAIL_W
+    tail = []
+    for name, inputs, plain, port in rows_ops():
+        a = inputs[0][:1]
+        row = {"op": name}
+        for label, fn in (("today", plain), ("port", port or plain)):
+            row[label] = _diff(fn(a[:, lo:].contiguous()), fn(a)[:, lo:])
+        tail.append(row)
+    cold = attention(q[:1], kc[:1], vc[:1], valid[:1])[:, lo:]
+    hot = attention(q[:1, lo:].contiguous(), kc[:1], vc[:1], valid[:1],
+                    offset=lo)
+    row = _diff(hot, cold)
+    tail.append({"op": "attention (causal, cache 544)", "today": row,
+                 "port": row})
+    return prefill, tail
+
+
+def _diff(a, b):
+    if torch.equal(a, b):
+        return {"equal": True, "max_abs": 0.0}
+    return {"equal": False,
+            "max_abs": float((a.double() - b.double()).abs().max())}
+
+
+def decode_step(dev):
+    """One decode step through the port's llama3-8b (32 layers) at
+    M = 4 vs each row at M = 1: the logits, today's ops and the port's."""
+    model = llama3_8b()
+    params = init_params(model, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = len(DECODE_POS)
+    shape = (n, CACHE, model.num_kv_heads, model.head_dim)
+    caches = [llama.LayerCache(
+        torch.randn(shape, device=dev, generator=g).to(torch.bfloat16),
+        torch.randn(shape, device=dev, generator=g).to(torch.bfloat16))
+        for _ in range(model.num_layers)]
+    tokens = torch.randint(0, model.vocab_size, (n, 1), device=dev,
+                           generator=g)
+    pos = torch.tensor(DECODE_POS, device=dev)
+    pads = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def step(rows):
+        cache = [llama.LayerCache(c.k[rows].clone(), c.v[rows].clone())
+                 for c in caches]
+        with torch.inference_mode():
+            return llama.apply(model, params, tokens[rows], pos[rows, None],
+                               pad_lengths=pads[rows],
+                               decode_positions=pos[rows], cache=cache)
+
+    out = {}
+    for label, ctx in (("today", today_routes), ("port",
+                                                 contextlib.nullcontext)):
+        with ctx():
+            whole = step(slice(None))
+            pieces = torch.cat([step(slice(i, i + 1)) for i in range(n)])
+        out[label] = _diff(pieces, whole)
+    del params
+    return {"op": "decode step, llama3-8b 32 layers: logits", **out}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=None,
+                        help="also write the tables to this JSON file")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("decode_invariance: needs a GPU", file=sys.stderr)
+        return 1
+    dev = resolve_device()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    with torch.inference_mode():
+        cfg = llama3_8b(num_layers=1)
+        p = init_params(cfg, seed=0, device=dev)
+        tables = {"decode": decode_table(p, cfg, dev)}
+        tables["prefill"], tables["tail"] = prefill_tables(p, cfg, dev)
+        del p
+    tables["decode"].append(decode_step(dev))
+    for section, rows in tables.items():
+        print(f"-- {section}", flush=True)
+        for r in rows:
+            today, port = (("equal" if r[c]["equal"] else r[c]["max_abs"])
+                           for c in ("today", "port"))
+            print(f"{r['op']:45s} today {today} | port {port}", flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "tables": tables}, f, indent=1)
+    print(json.dumps({"card": card, "tables": tables}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

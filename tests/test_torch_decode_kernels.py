@@ -1,0 +1,275 @@
+# Copyright 2026 The kubeflow-tpu Authors.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""The decode step's kernels through their plain twins on the CPU, and
+the flash kernel's gradient.
+
+The decode GEMM's twin computes every row alone, so a row's bits do not
+depend on the row count; the RMSNorm and decode-attention twins hold
+against the reference's ``RMSNorm`` and ``dense_attention``; the flash
+wrapper's gradient (the plain version's autograd on the CPU, the
+recompute of its ``autograd.Function`` on the card) holds against the
+reference's dense gradients, as tests/test_flash_attention.py holds the
+Pallas kernel's. A llama-test decode step routes every linear, norm and
+attention through the three wrappers, and a prefill routes none of its
+linears there. The kernels themselves run in tests/test_torch_gpu.py.
+"""
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from kubeflow_tpu.models.llama import RMSNorm as JaxRMSNorm
+from kubeflow_tpu.ops.attention import dense_attention as jax_dense_attention
+from kubeflow_tpu_torch.inference.generate import _row_cumsum, generate
+from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models.convert import init_params
+from kubeflow_tpu_torch.ops import decode_attention as da
+from kubeflow_tpu_torch.ops import decode_gemm as dg
+from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import rms_norm as rn
+
+
+def _normal(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+# -- decode GEMM -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_decode_linear_twin_rows_equal_each_row_alone(dtype, m):
+    rng = np.random.default_rng(m)
+    x = torch.from_numpy(_normal(rng, m, 1, 64)).to(dtype)
+    w = torch.from_numpy(_normal(rng, 96, 64) * 0.1).to(dtype)
+    out = dg.decode_linear(x, w)
+    assert out.shape == (m, 1, 96) and out.dtype == dtype
+    for i in range(m):
+        assert torch.equal(out[i], dg.decode_linear(x[i:i + 1], w)[0])
+    torch.testing.assert_close(out.float(), F.linear(x, w).float(),
+                               rtol=1e-2 if dtype == torch.bfloat16 else 1e-5,
+                               atol=1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_decode_linear_cpu_twin_launches_nothing():
+    before = dg.decode_linear.launches
+    dg.decode_linear(torch.ones(2, 16), torch.ones(8, 16))
+    assert dg.decode_linear.launches == before
+
+
+@pytest.mark.parametrize("bad", ["k_mismatch", "dtype_mix", "float16",
+                                 "k_not_vector", "w_strided"])
+def test_decode_linear_checks_what_the_kernel_takes(bad):
+    x, w = torch.ones(2, 64), torch.ones(8, 64)
+    if bad == "k_mismatch":
+        w = torch.ones(8, 32)
+    elif bad == "dtype_mix":
+        w = w.to(torch.bfloat16)
+    elif bad == "float16":
+        x, w = x.half(), w.half()
+    elif bad == "k_not_vector":
+        x, w = torch.ones(2, 6), torch.ones(8, 6)
+    else:
+        w = torch.ones(64, 8).t()
+    with pytest.raises(ValueError):
+        dg._check_inputs(x, w)
+
+
+# -- RMSNorm ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,d", [(1, 64), (5, 64), (3, 4096)])
+def test_rms_norm_twin_matches_the_reference(rows, d):
+    rng = np.random.default_rng(d + rows)
+    x = _normal(rng, rows, d) * 3 + 0.5
+    scale = 1 + 0.1 * _normal(rng, d)
+    module = JaxRMSNorm(dtype=jnp.float32)
+    want = module.apply({"params": {"scale": jnp.asarray(scale)}},
+                        jnp.asarray(x))
+    got = rn.rms_norm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6,
+                               rtol=1e-6)
+
+
+def test_rms_norm_gradient_recomputes_the_formula(monkeypatch):
+    """The kernel's autograd.Function, with the kernel swapped for its
+    twin: the gradients are the formula's own."""
+    monkeypatch.setattr(rn, "_launch", rn.rms_norm_reference)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(_normal(rng, 4, 32)).requires_grad_()
+    scale = torch.from_numpy(1 + 0.1 * _normal(rng, 32)).requires_grad_()
+    gy = torch.from_numpy(_normal(rng, 4, 32))
+    got = torch.autograd.grad(rn._RMSNorm.apply(x, scale, 1e-5), (x, scale),
+                              gy)
+    want = torch.autograd.grad(rn.rms_norm_reference(x, scale, 1e-5),
+                               (x, scale), gy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# -- decode attention -------------------------------------------------------
+
+
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (4, 1)])
+def test_decode_attention_twin_matches_the_reference(h, hkv):
+    """One query per row over a cache with per-row valid spans: a row
+    left-padded, a row valid to its end, and a fully masked row (0)."""
+    rng = np.random.default_rng(h * 10 + hkv)
+    b, s, d = 3, 40, 16
+    q = _normal(rng, b, 1, h, d)
+    k, v = _normal(rng, b, s, hkv, d), _normal(rng, b, s, hkv, d)
+    pos = np.arange(s)
+    valid = np.stack([(pos >= 5) & (pos <= 30), pos <= 39,
+                      np.zeros(s, bool)])
+    want = jax_dense_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), kv_segment_valid=valid)
+    got = da.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), torch.from_numpy(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    assert not got[2].any()
+
+
+def test_decode_attention_smem_bound_raises_past_shared_memory():
+    q = torch.ones(1, 1, 32, 128)
+    ok = torch.ones(1, 544, 8, 128)
+    da._check_inputs(q, ok, ok, torch.ones(1, 544, dtype=torch.bool))
+    assert da.smem_bytes(32, 8, 544, 128) == 4 * (4 * (128 + 544 + 8 * 128)
+                                                  + 8)
+    long = torch.ones(1, 60000, 8, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        da._check_inputs(q, long, long,
+                         torch.ones(1, 60000, dtype=torch.bool))
+    for bad_q, bad_kv in ((torch.ones(1, 1, 36, 128), ok[:, :, :4]),
+                          (torch.ones(1, 1, 32, 96), torch.ones(1, 544, 8,
+                                                               96))):
+        with pytest.raises(ValueError, match="KV head|head_dim"):
+            da._check_inputs(bad_q, bad_kv, bad_kv,
+                             torch.ones(1, 544, dtype=torch.bool))
+
+
+# -- the decode step's routing ---------------------------------------------
+
+
+def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
+    """llama-test generate: each decode step sends its 7 linears a layer
+    and the lm_head through decode_linear, its 2 norms a layer and the
+    final one through rms_norm, and its attention through
+    decode_attention; the prefill sends no linear there."""
+    calls = {"decode_linear": 0, "rms_norm": 0, "decode_attention": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in calls:
+        monkeypatch.setattr(llama, name, counting(name, getattr(llama, name)))
+    model = llama.llama_test(dtype="float32", cache_size=32)
+    params = init_params(model, seed=0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 8)).astype(np.int32))
+    generate(model, params, ids, max_new_tokens=1)
+    assert calls == {"decode_linear": 0, "rms_norm": 5,
+                     "decode_attention": 0}
+    generate(model, params, ids, max_new_tokens=4)
+    steps, layers = 3, model.num_layers
+    assert calls == {"decode_linear": steps * (7 * layers + 1),
+                     "rms_norm": 5 * (steps + 2),
+                     "decode_attention": steps * layers}
+
+
+def test_row_cumsum_scans_each_row_as_one_cumsum():
+    probs = torch.softmax(torch.from_numpy(
+        _normal(np.random.default_rng(0), 3, 2, 50)), -1)
+    got = _row_cumsum(probs)
+    assert got.shape == probs.shape
+    for i in range(3):
+        for j in range(2):
+            assert torch.equal(got[i, j], torch.cumsum(probs[i, j], -1))
+
+
+# -- the flash kernel's gradient -------------------------------------------
+
+
+def _qkv(seed, l=64, h=4, d=16, kv_heads=None):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, 2, l, h, d), _normal(rng, 2, l, kv_heads or h, d),
+            _normal(rng, 2, l, kv_heads or h, d))
+
+
+def _jax_grads(q, k, v, **kw):
+    def loss(q, k, v):
+        return jnp.sum(jax_dense_attention(q, k, v, **kw) ** 2)
+    return jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+
+def _port_grads(attention, q, k, v, **kw):
+    ts = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    (attention(*ts, **kw) ** 2).sum().backward()
+    return [t.grad for t in ts]
+
+
+def _masked_case():
+    mask = (np.arange(64)[None, :] < np.array([[40], [64]])).astype(np.int32)
+    return mask
+
+
+@pytest.mark.parametrize("case", ["causal", "masked"])
+def test_flash_gradients_match_dense(case):
+    """Twins of tests/test_flash_attention.py's gradient tests (causal,
+    and a key mask) through the port's flash_attention: 5e-4."""
+    q, k, v = _qkv(4 if case == "causal" else 7)
+    kw = (dict(causal=True) if case == "causal"
+          else dict(kv_segment_valid=_masked_case()))
+    want = _jax_grads(q, k, v, **kw)
+    if case == "masked":
+        kw = dict(kv_segment_valid=torch.from_numpy(_masked_case()))
+    got = _port_grads(fa.flash_attention, q, k, v, **kw)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-4,
+                                   rtol=5e-4)
+
+
+@pytest.mark.parametrize("case", ["causal", "masked", "gqa"])
+def test_flash_autograd_function_recomputes_the_plain_version(monkeypatch,
+                                                              case):
+    """The card's autograd.Function, with the kernel swapped for the
+    plain version: its backward gives the plain version's gradients
+    for q, k and v, and only for the inputs that want one."""
+    monkeypatch.setattr(fa, "_launch", lambda q, k, v, causal, scale, mask:
+                        fa.flash_attention_reference(
+                            q, k, v, causal=causal, scale=scale,
+                            kv_segment_valid=mask))
+    q, k, v = _qkv(11, h=8 if case == "gqa" else 4,
+                   kv_heads=2 if case == "gqa" else None)
+    causal = case != "masked"
+    mask = torch.from_numpy(_masked_case()) if case == "masked" else None
+    got = _port_grads(lambda *t: fa._FlashAttention.apply(
+        *t, causal, 0.25, mask), q, k, v)
+    want = _port_grads(lambda *t: fa.flash_attention_reference(
+        *t, causal=causal, scale=0.25, kv_segment_valid=mask), q, k, v)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    qt = torch.from_numpy(q).requires_grad_()
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    (fa._FlashAttention.apply(qt, kt, vt, causal, 0.25, mask) ** 2).sum() \
+        .backward()
+    assert qt.grad is not None and kt.grad is None and vt.grad is None

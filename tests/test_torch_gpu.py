@@ -32,9 +32,12 @@ from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from kubeflow_tpu_torch.inference.generate import generate
 from kubeflow_tpu_torch.models.convert import init_params
-from kubeflow_tpu_torch.models.llama import apply, llama_test
+from kubeflow_tpu_torch.models.llama import LayerCache, apply, llama_test
 from kubeflow_tpu_torch.ops import bn_fused
+from kubeflow_tpu_torch.ops import decode_attention as da
+from kubeflow_tpu_torch.ops import decode_gemm as dg
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import rms_norm as rn
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 
@@ -467,3 +470,243 @@ def test_engine_one_slot_equals_b1_generate(cuda, mode):
             np.testing.assert_array_equal(got, want)
     finally:
         engine.stop()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_engine_four_slots_equal_b1_generate(cuda, mode):
+    """The engine's contract on the card: every stream of the 4-slot
+    mix equals B=1 generate, bitwise (the decode step's kernels give a
+    row its bits at any row count)."""
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, engine, requests = _engine_case(cuda, 4, sampling)
+    try:
+        streams = [engine.submit(p, rng=k, max_new_tokens=b)
+                   for p, b, k in requests]
+        for (p, b, k), s in zip(requests, streams):
+            np.testing.assert_array_equal(
+                s.result(timeout=300),
+                _b1(model, params, engine, p, k, b, sampling, cuda))
+    finally:
+        engine.stop()
+
+
+def test_prefix_engine_on_the_card_hits_and_drains(cuda):
+    """The prefix lane on the card: a cold request, then hits on its
+    full blocks and a forked boundary page; every stream its budget of
+    in-vocab tokens, the hit/miss counts, and a pool that drains."""
+    model = llama_test(cache_size=96)
+    params = init_params(model, seed=0, device=cuda)
+    engine = DecodeEngine(model, params, EngineConfig(
+        max_new_tokens=8, max_prompt_len=64, num_slots=4, page_size=16,
+        slice_tokens=4, prefix_cache=True), device=cuda)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 512, 40).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 512, n).astype(
+        np.int32)]) for n in (5, 12, 3, 20)]
+    try:
+        first = engine.submit(prompts[0], rng=prng.PRNGKey(0))
+        out = [first.result(timeout=300)]
+        out += [engine.submit(p, rng=prng.PRNGKey(i + 1)).result(timeout=300)
+                for i, p in enumerate(prompts[1:])]
+        assert all(o.shape == (8,) and ((o >= 0) & (o < 512)).all()
+                   for o in out)
+        st = engine.stats()
+        assert st["prefix_cache"]["hits"] == 3
+        assert st["prefix_cache"]["misses"] == 1
+        engine.kv.allocator.check_invariants()
+        engine.prefix.check_invariants()
+        engine.clear_prefix_cache()
+        assert engine.stats()["free_pages"] == engine.stats()["total_pages"]
+    finally:
+        engine.stop()
+
+
+# -- the decode step's kernels ---------------------------------------------
+#
+# Each against its plain twin: one step of its output type (2**-7 of
+# max(1, |y|) in bf16, 1e-5 of it in fp32: fp32 sums in another order,
+# then one rounding), the same bits on a second call, and the rows of a
+# batch equal to each row computed alone, bit for bit.
+
+STEP = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+ROW_COUNTS = (1, 2, 3, 4, 8, 16)
+
+
+def _assert_within_a_step(got, want, dtype):
+    tol = STEP[dtype] * max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol, (err, tol)
+
+
+def _rows_alone_equal(fn, xs, *rest):
+    whole = fn(xs, *rest)
+    for i in range(xs.shape[0]):
+        assert torch.equal(fn(xs[i:i + 1], *rest), whole[i:i + 1]), i
+
+
+@pytest.mark.parametrize("dtype,k,n", [
+    (torch.bfloat16, 4096, 1024), (torch.bfloat16, 512, 2000),
+    (torch.bfloat16, 64, 128), (torch.float32, 4096, 5000),
+    (torch.float32, 64, 512)])
+def test_decode_gemm_matches_plain_and_rows_are_row_count_free(
+        cuda, dtype, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn(n, k, device=cuda, generator=gen) * 0.02).to(dtype)
+    x = torch.randn(16, 1, k, device=cuda, generator=gen).to(dtype)
+    before = dg.decode_linear.launches
+    for m in ROW_COUNTS:
+        got = dg.decode_linear(x[:m], w)
+        torch.cuda.synchronize()
+        _assert_within_a_step(got, dg.decode_linear_reference(x[:m], w),
+                              dtype)
+        assert torch.equal(dg.decode_linear(x[:m], w), got)
+        _rows_alone_equal(dg.decode_linear, x[:m], w)
+    assert dg.decode_linear.launches > before
+
+
+def test_decode_gemm_raises_where_a_gradient_is_wanted(cuda):
+    w = torch.randn(8, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        dg.decode_linear(torch.randn(2, 64, device=cuda), w)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 4096),
+                                     (torch.bfloat16, 64),
+                                     (torch.float32, 4096),
+                                     (torch.float32, 64)])
+def test_rms_norm_matches_plain_and_rows_are_row_count_free(cuda, dtype, d):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randn(16, 1, d, device=cuda, generator=gen) * 2).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).to(dtype)
+    for m in ROW_COUNTS:
+        got = rn.rms_norm(x[:m], scale, 1e-5)
+        torch.cuda.synchronize()
+        _assert_within_a_step(got, rn.rms_norm_reference(x[:m], scale, 1e-5),
+                              dtype)
+        assert torch.equal(rn.rms_norm(x[:m], scale, 1e-5), got)
+        _rows_alone_equal(lambda t: rn.rms_norm(t, scale, 1e-5), x[:m])
+
+
+def test_rms_norm_gradient_is_the_plain_versions(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(8, 64, device=cuda, generator=gen)
+    scale = 1 + 0.1 * torch.randn(64, device=cuda, generator=gen)
+    gy = torch.randn(8, 64, device=cuda, generator=gen)
+    grads = []
+    for fn in (rn.rms_norm, rn.rms_norm_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale)]
+        (fn(*leaves, 1e-5) * gy).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,h,hkv,s,d", [
+    (torch.bfloat16, 32, 8, 544, 128), (torch.bfloat16, 4, 2, 80, 16),
+    (torch.float32, 8, 2, 200, 64), (torch.float32, 4, 4, 33, 16)])
+def test_decode_attention_matches_plain_and_rows_are_row_count_free(
+        cuda, dtype, h, hkv, s, d):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(16, 1, h, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(16, s, hkv, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(16, s, hkv, d, device=cuda, generator=gen).to(dtype)
+    pos = torch.arange(s, device=cuda)
+    start = torch.randint(0, s, (16,), device=cuda, generator=gen)
+    pad = torch.minimum(torch.randint(0, 8, (16,), device=cuda,
+                                      generator=gen), start)
+    valid = (pos[None] <= start[:, None]) & (pos[None] >= pad[:, None])
+    valid[3] = False  # a fully masked row gives 0
+    tol = TOL[dtype]
+    for m in ROW_COUNTS:
+        got = da.decode_attention(q[:m], k[:m], v[:m], valid[:m])
+        torch.cuda.synchronize()
+        want = da.dense_attention(q[:m], k[:m], v[:m],
+                                  kv_segment_valid=valid[:m])
+        assert float((got.float() - want.float()).abs().max()) <= tol
+        assert torch.equal(da.decode_attention(q[:m], k[:m], v[:m],
+                                               valid[:m]), got)
+        for i in range(m):
+            assert torch.equal(da.decode_attention(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1]),
+                got[i:i + 1]), (m, i)
+    assert not da.decode_attention(q, k, v, valid)[3].any()
+
+
+def test_decode_attention_smem_mirror_is_the_kernels(cuda):
+    for h, hkv, s, d in ((32, 8, 544, 128), (4, 2, 80, 16), (8, 8, 9000, 64)):
+        assert da.smem_bytes(h, hkv, s, d) == \
+            da.kernel_smem_bytes(h, hkv, s, d)
+
+
+def test_decode_attention_reads_an_expanded_mask_in_place(cuda):
+    """generate's scalar path hands one validity row expanded over the
+    batch (batch stride 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(3, 1, 4, 16, device=cuda, generator=gen)
+    k = torch.randn(3, 50, 2, 16, device=cuda, generator=gen)
+    v = torch.randn(3, 50, 2, 16, device=cuda, generator=gen)
+    valid = (torch.arange(50, device=cuda) < 31)[None].expand(3, -1)
+    got = da.decode_attention(q, k, v, valid)
+    want = da.dense_attention(q, k, v, kv_segment_valid=valid)
+    assert float((got - want).abs().max()) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_llama_test_decode_step_rows_equal_each_row_alone(cuda, dtype):
+    """A llama-test decode step at M = 4 (rows at different cache
+    positions, one left-padded) gives each row the logits it gets at
+    M = 1, bit for bit, through the decode kernels."""
+    model = llama_test(dtype=dtype, cache_size=64)
+    params = init_params(model, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (4, 64, model.num_kv_heads, model.head_dim)
+    caches = [(torch.randn(shape, device=cuda, generator=gen).to(dtype),
+               torch.randn(shape, device=cuda, generator=gen).to(dtype))
+              for _ in range(model.num_layers)]
+    tok = torch.randint(0, 512, (4, 1), device=cuda, generator=gen)
+    start = torch.tensor([10, 63, 31, 5], device=cuda)
+    pad = torch.tensor([0, 0, 4, 0], device=cuda)
+    counts = (dg.decode_linear.launches, rn.rms_norm.launches,
+              da.decode_attention.launches)
+
+    def step(rows):
+        cache = [LayerCache(k[rows].clone(), v[rows].clone())
+                 for k, v in caches]
+        with torch.inference_mode():
+            return apply(model, params, tok[rows],
+                         (start - pad)[rows, None], pad_lengths=pad[rows],
+                         decode_positions=start[rows], cache=cache)
+
+    whole = step(slice(None))
+    for i in range(4):
+        assert torch.equal(step(slice(i, i + 1)), whole[i:i + 1]), i
+    layers = model.num_layers
+    assert (dg.decode_linear.launches - counts[0],
+            rn.rms_norm.launches - counts[1],
+            da.decode_attention.launches - counts[2]) == (
+        5 * (7 * layers + 1), 5 * (2 * layers + 1), 5 * layers)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_kernel_gradient_is_the_plain_versions(cuda, dtype, masked):
+    """dq, dk and dv through the kernel's autograd.Function against the
+    plain version's autograd: 1e-2 in bf16 (both backwards recompute in
+    bf16 from one forward that rounds apart), 5e-4 in fp32."""
+    q, k, v = _qkv(cuda, 2, 96, 96, 8, 2, 64, dtype, seed=6)
+    mask = None
+    if masked:
+        mask = (torch.arange(96, device=cuda)[None, :] < torch.tensor(
+            [[60], [96]], device=cuda)).to(torch.int32)
+    gout = torch.randn(2, 96, 8, 64, device=cuda).to(dtype)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=not masked, kv_segment_valid=mask)
+        (out.float() * gout.float()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    tol = 1e-2 if dtype == torch.bfloat16 else 5e-4
+    for got, ref in zip(*grads):
+        assert got is not None
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)

@@ -17,8 +17,9 @@
 - Every module imports with ``jax``, ``flax``, ``msgpack`` and
   ``kubeflow_tpu`` blocked, and no source line of the package or of its
   GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
-  ``scripts/bn_phase_times.py``) names them: the GPU machine has no
-  ``msgpack``, so the export reader is the port's own.
+  ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``) names
+  them: the GPU machine has no ``msgpack``, so the export reader is the
+  port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
 - On a CPU tensor the flash wrapper takes the plain version and counts
   no launch.
@@ -63,6 +64,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "scripts", "profile_torch_llama.py")
     yield os.path.join(ROOT, "scripts", "bn_phase_times.py")
+    yield os.path.join(ROOT, "scripts", "decode_invariance.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():

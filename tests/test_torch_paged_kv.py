@@ -14,12 +14,13 @@
 
 """The port's paged KV cache against the reference's.
 
-The page gather, the token-range scatter and the prefill adoption run
-on random pools and tables through both packages and must agree exactly
-(they only move values). The copied ``PageAllocator`` is driven through
-the same random operation sequence as the reference's and must end in
-the same state, and its ref-count twins of tests/test_prefix_cache.py
-hold.
+The page gather, the token-range scatter, the prefill adoption and the
+prefix lane's page operations (pages to a contiguous cache, a page's
+host snapshot, the slot rollback) run on random pools and tables
+through both packages and must agree exactly (they only move values).
+The copied ``PageAllocator`` is driven through the same random
+operation sequence as the reference's and must end in the same state,
+and its ref-count twins of tests/test_prefix_cache.py hold.
 """
 
 import jax.numpy as jnp
@@ -183,6 +184,91 @@ def test_paged_cache_round_trip_through_adopt_gather_scatter():
     kv.release_slot(1, n, 0)
     assert kv.allocator.free_pages == 8 and not kv.tables.any()
     kv.allocator.check_invariants()
+
+
+@pytest.mark.parametrize("seed,cache_len,fill_len", [
+    (0, 16, 5), (1, 14, 8), (2, 16, 0), (3, 10, 9)])
+def test_gather_pages_to_cache_matches_reference(seed, cache_len, fill_len):
+    """Pages → a contiguous B=1 cache (null-page entries included) with
+    ``index`` at ``fill_len``, the same values as the reference's."""
+    pools = _pools(seed)
+    rng = np.random.default_rng(200 + seed)
+    row = np.zeros((4,), np.int32)
+    k = int(rng.integers(1, 5))
+    row[:k] = rng.permutation(np.arange(1, PAGES))[:k]
+    template = _jax_tree(np.zeros((LAYERS, 2, 1, cache_len, H, D),
+                                  np.float32))
+    got = paged_kv._gather_pages_to_cache(
+        _torch_layers(pools), torch.from_numpy(row), cache_len, fill_len)
+    want = jax_paged_kv._gather_pages_to_cache(
+        _jax_tree(pools), jnp.asarray(row), template,
+        jnp.asarray(fill_len, jnp.int32))
+    _check(got, want)
+    for i, c in enumerate(got):
+        assert c.index == int(want[f"layer_{i}"]["attention"]["index"])
+
+
+def _twin_caches(seed, num_slots=2, cache_size=16):
+    """A port and a reference PagedKVCache over the same random pools."""
+    pools = _pools(seed)
+    template = [LayerCache(torch.zeros(1, cache_size, H, D),
+                           torch.zeros(1, cache_size, H, D))
+                for _ in range(LAYERS)]
+    ours = PagedKVCache(template, num_slots=num_slots, page_size=P,
+                        cache_size=cache_size, num_pages=PAGES)
+    ours.physical = _torch_layers(pools)
+    ref = jax_paged_kv.PagedKVCache(
+        _jax_tree(np.zeros((LAYERS, 2, 1, cache_size, H, D), np.float32)),
+        num_slots=num_slots, page_size=P, cache_size=cache_size,
+        num_pages=PAGES)
+    ref.physical = _jax_tree(pools)
+    return ours, ref
+
+
+@pytest.mark.parametrize("page", [0, 3, PAGES - 1])
+def test_read_page_layers_matches_reference(page):
+    ours, ref = _twin_caches(page)
+    got, want = ours.read_page_layers(page), ref.read_page_layers(page)
+    assert len(got) == len(want) == 2 * LAYERS
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu"
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+@pytest.mark.parametrize("pages,fill_len", [([], 0), ([4], 3),
+                                            ([2, 7], 6), ([1, 5, 8], 11)])
+def test_gather_prefix_cache_matches_reference(pages, fill_len):
+    ours, ref = _twin_caches(len(pages) + fill_len)
+    template = _jax_tree(np.zeros((LAYERS, 2, 1, 16, H, D), np.float32))
+    got = ours.gather_prefix_cache(pages, fill_len)
+    want = ref.gather_prefix_cache(pages, template, fill_len)
+    _check(got, want)
+    assert all(c.index == fill_len for c in got)
+    # A gathered cache is a copy: writing it leaves the pool alone.
+    before = ours.physical[0].k.clone()
+    got[0].k.fill_(9.0)
+    assert torch.equal(ours.physical[0].k, before)
+
+
+@pytest.mark.parametrize("keep", [0, 3, 4, 9, 16])
+def test_truncate_slot_matches_reference(keep):
+    """The same admission, extension and rollback through both caches:
+    the same kept count, page table and allocator counts."""
+    ours, ref = _twin_caches(keep)
+    for kv in (ours, ref):
+        assert kv.allocator.reserve(4)
+        kv.tables[1, :1] = kv.allocator.alloc(1)
+        kv.extend_slot(1, 1, 15, 4)
+    got = ours.truncate_slot(1, 4, keep)
+    want = ref.truncate_slot(1, 4, keep)
+    assert got == want
+    np.testing.assert_array_equal(ours.tables, ref.tables)
+    for attr in ("free_pages", "reserved_pages", "inuse_pages"):
+        assert getattr(ours.allocator, attr) == \
+            getattr(ref.allocator, attr), attr
+    ours.allocator.check_invariants()
+    ours.release_slot(1, got, 4 - got)
+    assert ours.allocator.free_pages == PAGES - 1
 
 
 # -- the copied PageAllocator ----------------------------------------------

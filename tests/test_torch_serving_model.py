@@ -209,12 +209,42 @@ def test_engine_streams_equal_run(flax_params, generate_config):
     model.close()  # idempotent
 
 
+def test_engine_prefix_cache_rides_the_export(flax_params):
+    """``engine_prefix_cache`` in the export's generate_config builds the
+    prefix lane: a second request sharing the first's prompt head hits,
+    and both streams equal the reference engine's on the same export."""
+    cfg = dict(SAMPLED, engine_slots=2, engine_page_size=4,
+               engine_slice_tokens=2, engine_prefix_cache=True)
+    jax_model, model = _pair(flax_params, "generate", GEN_KWARGS,
+                             MAX_PROMPT, GEN_OUT, generate_config=cfg)
+    head = _ids(30, 1, 5)[0]
+    prompts = [np.concatenate([head, _ids(31 + i, 1, 2 + i)[0]])
+               for i in range(2)]
+    keys = [prng.PRNGKey(70 + i) for i in range(2)]
+    out = {}
+    for name, loaded in (("port", model), ("jax", jax_model)):
+        engine = loaded.ensure_engine()
+        try:
+            assert engine.prefix is not None
+            out[name] = [engine.submit(p, rng=k).result(timeout=120.0)
+                         for p, k in zip(prompts, keys)]
+            stats = engine.stats()["prefix_cache"]
+            assert stats["hits"] == 1 and stats["misses"] == 1, stats
+        finally:
+            loaded.close()
+    for a, b in zip(out["port"], out["jax"]):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_ensure_engine_refuses_what_it_cannot_serve(flax_params):
     _, predict = _pair(flax_params, "predict", {"dtype": "float32"}, SEQ,
                        {"logits": TensorSpec("float32", (-1, SEQ, 512))})
     with pytest.raises(ValueError, match="generate-method"):
         predict.ensure_engine()
-    for extra, item in (({"engine_prefix_cache": True}, "A6"),
+    # The prefix lane serves (test_engine_prefix_cache_rides_the_export);
+    # the host tier on top of it does not yet.
+    for extra, item in (({"engine_prefix_cache": True,
+                          "engine_host_cache_bytes": 1 << 20}, "A7"),
                         ({"engine_prefill_chunk": 8}, "A7"),
                         ({"engine_draft_tokens": 2,
                           "engine_draft_export": "/nowhere"}, "A7")):
