@@ -49,7 +49,14 @@ checkout's BN kernel by the same code (a parent commit's, say).
    as a decode step reads them), the profiler's device time, the bound,
    and the PyTorch call computing the same function (``F.linear``,
    ``F.rms_norm``, ``scaled_dot_product_attention`` with the mask and
-   ``enable_gqa``).
+   ``enable_gqa``); decode attention also at llama3-8b's full context,
+   B1 S8192.
+3c. The prefill GEMM at each llama3-8b prefill product, M = 512,
+   against its plain version (``F.linear``) to one bf16 step, the same
+   bits on a second call, and the rows of blocks of M = 1, 20, 128, 140,
+   256 and 512 rows equal to the same rows of the 512-row block; timed
+   as the decode kernels, summed over one prefill forward's 224
+   launches.
 4. The Llama slice: ``llama3-8b`` at full width with random weights
    from seed 0, served through ``LoadedModel.run``: predict [2, 2048],
    classify [1, 2048], and greedy generate of two left-padded prompts
@@ -63,17 +70,19 @@ checkout's BN kernel by the same code (a parent commit's, say).
    200, 512; budgets 32, 8, 32, 16, 32, 24), greedy and sampled
    (temperature 0.7, top-k 40, top-p 0.9, keys ``PRNGKey(100 + i)``).
    Every stream equals B=1 ``generate``'s, token for token, and the
-   pool ends clean; requests 1 and 3 through a 1-slot engine too. Then
+   pool ends clean; requests 1 and 3 through a 1-slot engine too;
+   every admission's prefill launches the prefill GEMM 224 times. Then
    a sampled ``LoadedModel.run`` of two left-padded rows with their own
    keys, each row equal to B=1. Time to first token, inter-token ms,
    tokens/s, slices and peak memory are printed. Each generate decode
    step and each engine decode step must launch the decode GEMM 225
-   times and decode attention 32 times (RMSNorm 65), and no CUDA tensor
-   may reach a plain twin. Then the prefix lane (``engine_prefix_cache``,
-   4 slots, the same cache): 8 requests sharing a 360-token prefix,
-   one cold, then 7 at once, greedy and sampled: 7 hits and 1 miss, a
-   clean pool, TTFTs, and each hit stream beside its own cold run and
-   B=1 ``generate`` (reported). Then one decode step's kernel launches
+   times and decode attention 32 times (RMSNorm 65), generate's prefill
+   the prefill GEMM 224 times, and no CUDA tensor may reach a plain
+   twin. Then the prefix lane (``engine_prefix_cache``, 4 slots, the
+   same cache): 8 requests sharing a 360-token prefix, one cold, then 7
+   at once, greedy and sampled: 7 hits and 1 miss, a clean pool, TTFTs,
+   each hit stream equal to its own cold run and every stream equal to
+   B=1 ``generate`` (asserted). Then one decode step's kernel launches
    through the decode kernels and through the plain ops. The params are
    freed before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
@@ -96,7 +105,8 @@ checkout's BN kernel by the same code (a parent commit's, say).
 Each path's launch counts are zeroed just before it and read just
 after; every kernel must have run on its path. The kernels line lists
 the decode kernels' figures summed over one llama3-8b decode step at
-4 slots. Any failure ends the run
+4 slots, and the prefill GEMM's over one prefill forward at M = 512.
+Any failure ends the run
 with a nonzero exit and no result line. Needs one GPU; fails without
 one.
 """
@@ -138,6 +148,7 @@ from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.ops import _build, bn_fused
 from kubeflow_tpu_torch.ops import decode_attention as da
 from kubeflow_tpu_torch.ops import decode_gemm as dg
+from kubeflow_tpu_torch.ops import prefill_gemm as pg
 from kubeflow_tpu_torch.ops import rms_norm as rn
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
@@ -615,6 +626,127 @@ def decode_attention_rows():
                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
         log(f"decode_attention {json.dumps(row)}")
         rows.append(row)
+    # llama3-8b's full context, one row: the kernel at its S ceiling's
+    # side of the main path (a CTA holds 1,024 keys of 8,192).
+    s_long = 8192
+    del q, k, v, caches
+    torch.cuda.empty_cache()
+    q = torch.randn(1, 1, 32, 128, device="cuda", generator=gen).to(bf)
+    k = torch.randn(1, s_long, 8, 128, device="cuda", generator=gen).to(bf)
+    v = torch.randn(1, s_long, 8, 128, device="cuda", generator=gen).to(bf)
+    valid = torch.arange(s_long, device="cuda")[None, :] < s_long - 100
+    got = da.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    want = dense_attention(q, k, v, kv_segment_valid=valid)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.isfinite(got).all() or err > KERNEL_TOL["bfloat16"]:
+        raise AssertionError(f"decode_attention S={s_long}: max |Δ| {err}")
+    if not torch.equal(da.decode_attention(q, k, v, valid), got):
+        raise AssertionError(f"decode_attention S={s_long}: a second call "
+                             "gave other bits")
+    run = functools.partial(da.decode_attention, q, k, v, valid)
+    library = functools.partial(
+        F.scaled_dot_product_attention, q.transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), attn_mask=valid[:, None, None, :],
+        enable_gqa=True)
+    n_valid = int(valid.sum())
+    b_ms, b_by = bound((2 * n_valid * 8 * 128 + 2 * 32 * 128) * 2
+                       + valid.numel(), 4.0 * 128 * 32 * n_valid, bf)
+    t = time_ms(run, **KERNEL_TIMING)
+    row = {"shape": f"B1 S{s_long} H32/8 D128 bf16", "m": 1, "s": s_long,
+           "launches_per_step": 0, "splits": da.splits(s_long),
+           "max_abs_err": err, "tol": KERNEL_TOL["bfloat16"], "ms": t,
+           "device_ms": profiled_ms(run),
+           "plain_ms": time_ms(functools.partial(
+               dense_attention, q, k, v, kv_segment_valid=valid), reps=5),
+           "library_ms": time_ms(library, **KERNEL_TIMING),
+           "library_device_ms": profiled_ms(library),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
+    log(f"decode_attention {json.dumps(row)}")
+    rows.append(row)
+    return rows
+
+
+#: llama3-8b's prefill products at M = 512 (a [1, 512] prompt block):
+#: (name, K, N, launches a prefill forward). 7 a layer over 32 layers;
+#: the fp32 head stays cuBLAS.
+PREFILL_GEMMS = (
+    ("q_proj/o_proj [4096→4096]", 4096, 4096, 64),
+    ("k_proj/v_proj [4096→1024]", 4096, 1024, 64),
+    ("gate_proj/up_proj [4096→14336]", 4096, 14336, 64),
+    ("down_proj [14336→4096]", 14336, 4096, 32),
+)
+PREFILL_M = 512
+#: Block widths whose rows must equal the same rows of the 512-wide
+#: block: a decode-sized block, the prefix mix's tail buckets and exact
+#: tails, and the cold width.
+PREFILL_WIDTHS = (1, 20, 128, 140, 256, 512)
+
+
+def prefill_gemm_rows():
+    """The prefill GEMM at each llama3-8b prefill shape, M = 512, bf16:
+    within one bf16 step of ``F.linear`` (its plain version), the same
+    bits on a second call, and the last and first M rows of the block
+    computed alone in a block of M rows, for every M in PREFILL_WIDTHS,
+    equal to the same rows of the 512-wide block, bit for bit. Times as
+    the decode kernels' (weights cycled through copies larger than L2),
+    the bound the larger of the FLOPs at the bf16 peak and the bytes."""
+    rows = []
+    bf = torch.bfloat16
+    for name, k, n, per_forward in PREFILL_GEMMS:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(bf)
+        x = torch.randn(PREFILL_M, k, device="cuda", generator=gen).to(bf)
+        got = pg.prefill_linear(x, w)
+        torch.cuda.synchronize()
+        want = pg.prefill_linear_reference(x, w)
+        err = float((got.float() - want.float()).abs().max())
+        tol = DECODE_TOL[bf] * max(1.0, float(want.float().abs().max()))
+        if not torch.isfinite(got).all() or err > tol:
+            raise AssertionError(f"prefill_gemm {name}: max |Δ| {err} > "
+                                 f"{tol}")
+        if not torch.equal(pg.prefill_linear(x, w), got):
+            raise AssertionError(f"prefill_gemm {name}: a second call gave "
+                                 "other bits")
+        for m in PREFILL_WIDTHS:
+            tail = pg.prefill_linear(x[PREFILL_M - m:].contiguous(), w)
+            head = pg.prefill_linear(x[:m], w)
+            if not (torch.equal(tail, got[PREFILL_M - m:])
+                    and torch.equal(head, got[:m])):
+                raise AssertionError(f"prefill_gemm {name}: rows of an "
+                                     f"{m}-row block differ from the same "
+                                     f"rows of the {PREFILL_M}-row block")
+        ws = cold_cycle((w,))
+
+        def run():
+            return pg.prefill_linear(x, next(ws)[0])
+
+        def library():
+            return F.linear(x, next(ws)[0])
+
+        b_ms, b_by = bound((n * k + PREFILL_M * k + PREFILL_M * n) * 2,
+                           2.0 * PREFILL_M * n * k, bf)
+        ms = time_ms(run, **KERNEL_TIMING)
+        lib_ms = time_ms(library, **KERNEL_TIMING)
+        row = {"shape": f"{name} M={PREFILL_M} bf16",
+               "launches_per_forward": per_forward,
+               "max_abs_err": err, "tol": tol,
+               "widths_bitwise_equal": list(PREFILL_WIDTHS),
+               "ms": ms, "device_ms": profiled_ms(run),
+               # The plain version is the library call, F.linear.
+               "plain_ms": lib_ms, "library_ms": lib_ms,
+               "library_device_ms": profiled_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
+        log(f"prefill_gemm {json.dumps(row)}")
+        rows.append(row)
+        del w, x, ws, got, want
+        torch.cuda.empty_cache()
+    sums = {key: sum(r["launches_per_forward"] * r[key] for r in rows)
+            for key in ("ms", "device_ms", "library_ms",
+                        "library_device_ms", "bound_ms")}
+    log(f"prefill_gemm per llama3-8b prefill forward [1, {PREFILL_M}]: "
+        f"Σ layers·ms {json.dumps(sums)} over "
+        f"{sum(r['launches_per_forward'] for r in rows)} launches")
     return rows
 
 
@@ -628,11 +760,15 @@ def per_step(rows, key):
 COUNTERS = {"flash_attention": flash_attention,
             "decode_gemm": dg.decode_linear,
             "rms_norm": rn.rms_norm,
-            "decode_attention": da.decode_attention}
+            "decode_attention": da.decode_attention,
+            "prefill_gemm": pg.prefill_linear}
 #: llama3-8b's launches a decode step: 7 products a layer and the head;
 #: two norms a layer and the final one; attention once a layer.
 STEP_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1,
                  "decode_attention": 32}
+#: llama3-8b's prefill-GEMM launches a prefill forward: its 7 bf16
+#: projections a layer (the fp32 head stays cuBLAS).
+PREFILL_LAUNCHES = 7 * 32
 
 
 def zero_counts():
@@ -646,10 +782,13 @@ def read_counts():
 
 @contextlib.contextmanager
 def twin_calls():
-    """Count calls of the decode GEMM's and RMSNorm's plain twins: on
-    the card's routes a CUDA tensor must never reach them."""
-    calls = {"decode_linear_reference": 0, "rms_norm_reference": 0}
-    saved = (dg.decode_linear_reference, rn.rms_norm_reference)
+    """Count calls of the decode GEMM's, the prefill GEMM's and
+    RMSNorm's plain twins: on the card's routes a CUDA tensor must never
+    reach them."""
+    calls = {"decode_linear_reference": 0, "prefill_linear_reference": 0,
+             "rms_norm_reference": 0}
+    saved = (dg.decode_linear_reference, pg.prefill_linear_reference,
+             rn.rms_norm_reference)
 
     def counted(name, fn):
         def wrapped(*a, **kw):
@@ -658,11 +797,14 @@ def twin_calls():
         return wrapped
 
     dg.decode_linear_reference = counted("decode_linear_reference", saved[0])
-    rn.rms_norm_reference = counted("rms_norm_reference", saved[1])
+    pg.prefill_linear_reference = counted("prefill_linear_reference",
+                                          saved[1])
+    rn.rms_norm_reference = counted("rms_norm_reference", saved[2])
     try:
         yield calls
     finally:
-        dg.decode_linear_reference, rn.rms_norm_reference = saved
+        (dg.decode_linear_reference, pg.prefill_linear_reference,
+         rn.rms_norm_reference) = saved
 
 
 def llama_metadata(method, seq, kwargs, generate_config=None):
@@ -755,12 +897,17 @@ def serve_llama(card):
         raise AssertionError(f"predict launched flash "
                              f"{after_predict['flash_attention']} times, "
                              f"fewer than its {layers} layers")
-    # generate: one prefill (norms only), then NEW_TOKENS - 1 decode
-    # steps, each through the three decode kernels.
+    # generate: one prefill (its norms and its 7 bf16 projections a
+    # layer through the prefill GEMM), then NEW_TOKENS - 1 decode steps,
+    # each through the three decode kernels.
     steps = NEW_TOKENS - 1
     in_generate = {k: launches[k] - before_generate[k] for k in launches}
     want = {k: steps * n for k, n in STEP_LAUNCHES.items()}
     want["rms_norm"] += STEP_LAUNCHES["rms_norm"]
+    want["prefill_gemm"] = PREFILL_LAUNCHES
+    if before_generate["prefill_gemm"]:
+        raise AssertionError(f"the cache-free forward launched the prefill "
+                             f"GEMM {before_generate['prefill_gemm']} times")
     if any(in_generate[k] != n for k, n in want.items()) or any(
             twins.values()):
         raise AssertionError(f"generate launched {in_generate}, expected "
@@ -994,6 +1141,8 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         timing["decode_steps"] = steps
         want = {k: steps * n for k, n in STEP_LAUNCHES.items()
                 if k != "rms_norm"}
+        # One B=1 prefill an admission.
+        want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
         if (counts["flash_attention"] or any(
                 counts[k] != n for k, n in want.items())
                 or counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"]
@@ -1119,12 +1268,13 @@ def serve_prefix(card, registry, params, kwargs, *,
     """The prefix-cache lane through ``LoadedModel.ensure_engine``:
     request 0 alone (cold), then the other 7 at once (hits on the shared
     pages), greedy and sampled. Asserts 7 hits and 1 miss, saved prefill
-    tokens, a clean pool and both invariant checks; prints the TTFTs;
-    compares each hit stream with its own cold run and with B=1
-    ``generate``. A tail prefill runs the prompt's last rows in a
-    narrower block than the cold prefill, and cuBLAS rounds some of
-    those rows apart at the two widths (scripts/decode_invariance.py,
-    ``tail``), so the agreement is reported, not asserted."""
+    tokens, a clean pool and both invariant checks, one prefill forward
+    through the prefill GEMM (224 launches) per request; prints the
+    TTFTs; asserts each hit stream equal to its own cold run, each cold
+    run and every stream equal to B=1 ``generate``. A tail prefill runs
+    the prompt's last rows in a narrower block than the cold prefill;
+    the prefill GEMM gives a row the same bits at both widths
+    (scripts/decode_invariance.py, ``tail``), so the streams agree."""
     vocab = get_model(registry).num_classes_or_vocab
     requests = prefix_requests(vocab)
     kwargs = dict(kwargs, cache_size=cache_size)
@@ -1159,7 +1309,9 @@ def serve_prefix(card, registry, params, kwargs, *,
                 or stats["free_pages"] + stats["retained_pages"]
                 != stats["total_pages"] or any(twins.values())
                 or counts["decode_gemm"] != STEP_LAUNCHES["decode_gemm"] * (
-                    cold_timing["decode_steps"] + timing["decode_steps"])):
+                    cold_timing["decode_steps"] + timing["decode_steps"])
+                or counts["prefill_gemm"]
+                != PREFILL_LAUNCHES * PREFIX_REQUESTS):
             raise AssertionError(f"prefix {mode}: stats {stats}, launches "
                                  f"{counts}, plain twins called {twins}")
         results = cold + hits
@@ -1203,6 +1355,18 @@ def serve_prefix(card, registry, params, kwargs, *,
         log(f"prefix lane {mode}, 1 cold + {PREFIX_REQUESTS - 1} hits, "
             f"4 slots: {json.dumps(row)}")
         loaded.close()
+        hits_n = PREFIX_REQUESTS - 1
+        if (row["hit_equals_own_cold_run"] != hits_n
+                or row["cold_runs_equal_b1"] != hits_n
+                or row["streams_equal_b1"] != PREFIX_REQUESTS):
+            raise AssertionError(
+                f"prefix {mode}: {row['hit_equals_own_cold_run']} of "
+                f"{hits_n} hits equal their own cold run (first divergent "
+                f"steps {row['hit_vs_cold_first_divergence']}), "
+                f"{row['cold_runs_equal_b1']} cold runs and "
+                f"{row['streams_equal_b1']} of {PREFIX_REQUESTS} streams "
+                f"equal B=1 (first divergent steps "
+                f"{row['b1_first_divergence']})")
     return report
 
 
@@ -1672,6 +1836,7 @@ def main() -> int:
     gemm_rows = decode_gemm_rows()
     norm_rows = rms_norm_rows()
     attn_rows = decode_attention_rows()
+    prefill_rows = prefill_gemm_rows()
     small_model_agreement()
     export_round_trip()
     launches = serve_llama(card)
@@ -1719,6 +1884,18 @@ def main() -> int:
                                                "bound_ms", "library_ms")},
             "bound_by": "bytes",
         })
+    # The prefill GEMM: sums over one llama3-8b prefill forward at
+    # M = 512, each shape's figure times its launches a forward.
+    kernels.append({
+        "name": "prefill_gemm", "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/prefill_gemm.cu",
+        "replaces": "kubeflow_tpu/models/llama.py:72",
+        "launches": launches["prefill_gemm"],
+        "max_abs_err": max(r["max_abs_err"] for r in prefill_rows),
+        **{k: sum(r["launches_per_forward"] * r[k] for r in prefill_rows)
+           for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "operations",
+    })
     kernels += [{
         "name": "bn_forward",
         "route": "cuda",

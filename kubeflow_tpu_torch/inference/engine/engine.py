@@ -944,10 +944,18 @@ class DecodeEngine:
         never past the model's cache end — the scalar append writes
         ``[start, start + width)`` by slicing, so an overhanging block
         must never reach it. An overshooting bucket falls back to the
-        exact tail length."""
+        exact tail length. A hit's tail block (``start > 0``) is at
+        least 2 wide: the model runs a one-token cache forward as a
+        decode step, whose kernels sum in another order than the
+        prefill's, and the cold run prefills that position in a wider
+        block. The pad column's K/V lands at ``length``, which the
+        first decode step overwrites, and it fits: a prompt leaves
+        room for at least one new token before the cache end."""
         width = self._bucket(length - start)
         if start + width > self._model.cache_size:
             width = length - start
+        if start > 0:
+            width = max(width, 2)
         return width
 
     def _device_keys(self, keys: np.ndarray) -> Optional[torch.Tensor]:
@@ -1094,9 +1102,12 @@ class DecodeEngine:
         cache into a PRIVATE page, because the tail prefill and the
         decode will write past them); only the unmatched tail is
         prefilled. The same tokens at the same positions with the same
-        step-key schedule as a cold prefill; whether the tail's rows
-        have the cold prefill's bits depends on the prefill's products
-        at the two block widths (PERF.md)."""
+        step-key schedule as a cold prefill, and the same bits: the
+        tail block is narrower than the cold prefill's, but on the card
+        every prefill op gives a row bits that do not depend on the
+        block's width (the projections run on the prefill GEMM, whose
+        reduction order depends on K alone; scripts/decode_invariance.py
+        checks each op at every tail width)."""
         t0 = time.monotonic()
         length = len(req.prompt)
         budget_pages = self._budget_pages(req)

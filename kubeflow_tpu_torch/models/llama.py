@@ -24,17 +24,25 @@ the meta device, and weights travel as a ``params`` dict applied with
 dtype its op consumes (see models/convert.py).
 
 Attention: the cache-free forward calls :func:`flash_attention` (the
-CUDA kernel on the GPU); a prefill into the KV cache calls
-``dense_attention`` in plain PyTorch, as the reference runs it under
-XLA.
+CUDA kernel on the GPU).
 
-A decode step (a cache forward with one token per row: ``generate``'s
-steps and the decode engine's) runs on kernels whose rows do not
-depend on the row count, so an engine slot's stream has the bits of the
-same request at B=1: every linear layer through :func:`decode_linear`
-(the fp32 ``lm_head`` included) and attention through
-:func:`decode_attention`. :func:`rms_norm` takes every norm on the
-card. On the CPU each is its plain version.
+A cache forward runs on kernels whose rows depend neither on the row
+count nor on the block width. A decode step (one token per row:
+``generate``'s steps and the decode engine's) sends every linear layer
+through :func:`decode_linear` (the fp32 ``lm_head`` included) and
+attention through :func:`decode_attention`, so an engine slot's stream
+has the bits of the same request at B=1. A prefill into the cache (more
+than one token per row: ``generate``'s prompt pass, the engine's
+admissions and a prefix hit's tail) sends its seven bf16 projections
+through :func:`prefill_linear`, so a prompt position's row has the same
+bits in a hit's narrow tail block as in the cold run's full-width
+block. Its attention (``dense_attention`` over the cache, in plain
+PyTorch, as the reference runs it under XLA) and its fp32 ``lm_head``
+(cuBLAS in full fp32) keep their ops: their rows agree across those
+widths on the card (scripts/decode_invariance.py, ``tail``).
+:func:`rms_norm` takes every norm on the card. On the CPU each is its
+plain version. The cache-free forward (predict, classify) keeps
+``layer(x)``: a plain large product, as the reference leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
@@ -100,14 +109,29 @@ def _linear(d_in: int, d_out: int, dtype, device) -> nn.Linear:
     return nn.Linear(d_in, d_out, bias=False, dtype=dtype, device=device)
 
 
-def _project(layer: nn.Linear, x: torch.Tensor, decode: bool) -> torch.Tensor:
-    """``layer(x)``; in a decode step, through :func:`decode_linear`."""
-    return decode_linear(x, layer.weight) if decode else layer(x)
+#: A forward's routes for its linear layers: a decode step, a prefill
+#: into the cache, or neither (the cache-free forward).
+DECODE, PREFILL = "decode", "prefill"
 
 
-def _is_decode(x: torch.Tensor, cache) -> bool:
-    """A decode step: a cache forward with one token per row."""
-    return cache is not None and x.shape[1] == 1
+def _project(layer: nn.Linear, x: torch.Tensor,
+             route: Optional[str]) -> torch.Tensor:
+    """``layer(x)``; in a decode step through :func:`decode_linear`, and
+    a bf16 layer in a prefill into the cache through
+    :func:`prefill_linear`."""
+    if route == DECODE:
+        return decode_linear(x, layer.weight)
+    if route == PREFILL and layer.weight.dtype == torch.bfloat16:
+        return prefill_linear(x, layer.weight)
+    return layer(x)
+
+
+def _route(x: torch.Tensor, cache) -> Optional[str]:
+    """A cache forward with one token per row is a decode step, with
+    more a prefill; a forward without a cache is neither."""
+    if cache is None:
+        return None
+    return DECODE if x.shape[1] == 1 else PREFILL
 
 
 class LlamaAttention(nn.Module):
@@ -129,12 +153,12 @@ class LlamaAttention(nn.Module):
     def forward(self, x, positions, pad_lengths=None,
                 cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
-        decode = _is_decode(x, cache)
-        q = _project(self.q_proj, x, decode).reshape(
+        route = _route(x, cache)
+        q = _project(self.q_proj, x, route).reshape(
             b, l, self.num_heads, self.head_dim)
-        k = _project(self.k_proj, x, decode).reshape(
+        k = _project(self.k_proj, x, route).reshape(
             b, l, self.num_kv_heads, self.head_dim)
-        v = _project(self.v_proj, x, decode).reshape(
+        v = _project(self.v_proj, x, route).reshape(
             b, l, self.num_kv_heads, self.head_dim)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
@@ -155,7 +179,7 @@ class LlamaAttention(nn.Module):
                 # first pad_lengths[i] slots hold pad K/V that must never
                 # receive attention mass.
                 valid = valid & (slots[None, :] >= pad_lengths[:, None])
-            if decode:
+            if route == DECODE:
                 # One query at ``start``: causality is the validity.
                 out = decode_attention(q, cache.k, cache.v, valid)
             else:
@@ -167,7 +191,7 @@ class LlamaAttention(nn.Module):
         else:
             out = flash_attention(q, k, v, causal=True)
         return _project(self.o_proj, out.reshape(
-            b, l, self.num_heads * self.head_dim), decode)
+            b, l, self.num_heads * self.head_dim), route)
 
     def _decode_rows(self, q, k, v, cache: LayerCache, start, pad_lengths):
         """The slot engine's decode step: every row sits at its own
@@ -213,13 +237,13 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
                 decode_positions=None):
-        decode = _is_decode(x, cache)
+        route = _route(x, cache)
         x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
                                cache, decode_positions)
         h = self.mlp_norm(x)
-        h = (F.silu(_project(self.gate_proj, h, decode))
-             * _project(self.up_proj, h, decode))
-        return x + _project(self.down_proj, h, decode)
+        h = (F.silu(_project(self.gate_proj, h, route))
+             * _project(self.up_proj, h, route))
+        return x + _project(self.down_proj, h, route)
 
 
 class Llama(nn.Module):
@@ -304,8 +328,7 @@ class Llama(nn.Module):
             x = layer(x, positions, pad_lengths,
                       None if cache is None else cache[i], decode_positions)
         x = self.final_norm(x)
-        return _project(self.lm_head, x.float(),
-                        _is_decode(input_ids, cache))
+        return _project(self.lm_head, x.float(), _route(input_ids, cache))
 
 
 def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,

@@ -23,16 +23,19 @@ original: the reference runs its cache path under XLA
 validity mask, with its constants (``NEG_INF``, the ``m_safe`` clamp,
 the ``max(l, 1e-30)`` normalizer) and its rounding points (fp32 scores
 and statistics, the global max first, P cast to V's dtype before an
-fp32 PV). One block per (row, kv head) holds that head's ``H / Hkv``
-query heads (GQA without ``_repeat_kv`` copies); the scores sit in
-shared memory. Every sum is in an order fixed by D, S and the block,
-never by B, so a row has the same bits at any batch size. One launch
-where the plain version is about twenty. Bound by bytes (K and V read
-once).
+fp32 PV). One thread-block cluster per (row, kv head) splits the keys
+over ``C = min(8, ceil(S / 64))`` CTAs, each holding the kv head's
+``H / Hkv`` query heads (GQA without ``_repeat_kv`` copies), its keys'
+scores and V rows in shared memory; the CTAs exchange their maxima,
+partial normalizers and partial outputs through distributed shared
+memory and add them in rank order. Every sum is in an order fixed by S,
+D and the kernel's constants, never by B, so a row has the same bits at
+any batch size. One launch where the plain version is about twenty.
+Bound by bytes (K and V read once).
 
 Dispatch. A CPU tensor goes to ``dense_attention`` itself, the plain
 version. A CUDA tensor goes to the kernel, or the call raises, also
-where S's scores do not fit in shared memory.
+where a CTA's share of S's scores does not fit in shared memory.
 ``decode_attention.launches`` counts kernel launches.
 """
 
@@ -51,16 +54,40 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 #: Query heads one kv head may serve (the kernel's kMaxRep).
 MAX_REP = 8
-#: The kernel's warps a block.
-WARPS = 8
+#: The kernel's warps a CTA.
+WARPS = 4
+#: CTAs a cluster at most, and keys a CTA before another is added.
+MAX_SPLIT, SPLIT_KEYS = 8, 64
+#: V rows a CTA stages in shared memory at once, in bytes at most.
+V_STAGE_BYTES = 32768
+#: The kernel's static shared memory: a float per warp and head, at most.
+STATIC_SMEM_BYTES = 4 * WARPS * MAX_REP
 
 
-def smem_bytes(h: int, hkv: int, s: int, d: int) -> int:
-    """Shared memory of one launch: the block's query heads, their
-    scores and the warps' partial outputs in fp32, and the heads' max
-    and normalizer (as the kernel's ``kft_decode_attention_smem_bytes``)."""
-    rep = h // hkv
-    return 4 * (rep * (d + s + WARPS * d) + 2 * rep)
+def splits(s: int) -> int:
+    """CTAs a cluster at S keys (the kernel's ``splits``)."""
+    return min(MAX_SPLIT, max(1, -(-s // SPLIT_KEYS)))
+
+
+def padded_rep(rep: int) -> int:
+    """H / Hkv rounded up to a power of two: the heads a CTA's loops
+    run (the kernel's ``padded_rep``)."""
+    return 1 if rep <= 1 else 2 if rep <= 2 else 4 if rep <= 4 else 8
+
+
+def smem_bytes(h: int, hkv: int, s: int, d: int, elem_bytes: int) -> int:
+    """Dynamic shared memory of one CTA at ``elem_bytes`` a K/V element:
+    its V rows (one stage of at most ``V_STAGE_BYTES`` where its range
+    fits, else two), then in fp32 for the padded heads its q, its keys'
+    scores, its partial output and the heads' local max, global max and
+    partial normalizer, then a validity byte a key (as the kernel's
+    ``kft_decode_attention_smem_bytes``)."""
+    r = padded_rep(h // hkv)
+    span = -(-s // splits(s))
+    row = d * elem_bytes
+    keys = min(span, V_STAGE_BYTES // row)
+    buffers = 2 if span > keys else 1
+    return buffers * keys * row + 4 * r * (2 * d + span + 3) + span
 
 
 def _library() -> ctypes.CDLL:
@@ -70,15 +97,24 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 9 + [ctypes.c_float, ctypes.c_void_p])
         lib.kft_decode_attention.restype = ctypes.c_int
-        lib.kft_decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.kft_decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
         lib.kft_decode_attention_smem_bytes.restype = ctypes.c_longlong
+        lib.kft_decode_attention_splits.argtypes = [ctypes.c_int]
+        lib.kft_decode_attention_splits.restype = ctypes.c_int
         lib._kft_bound = True
     return lib
 
 
-def kernel_smem_bytes(h: int, hkv: int, s: int, d: int) -> int:
+def kernel_smem_bytes(h: int, hkv: int, s: int, d: int,
+                      elem_bytes: int) -> int:
     """The built kernel's own figure for :func:`smem_bytes`."""
-    return _library().kft_decode_attention_smem_bytes(h, hkv, s, d)
+    return _library().kft_decode_attention_smem_bytes(h, hkv, s, d,
+                                                      elem_bytes)
+
+
+def kernel_splits(s: int) -> int:
+    """The built kernel's own figure for :func:`splits`."""
+    return _library().kft_decode_attention_splits(s)
 
 
 def _check_inputs(q, k, v, valid) -> None:
@@ -96,6 +132,8 @@ def _check_inputs(q, k, v, valid) -> None:
                          "KV head")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    if k.shape[1] == 0:
+        raise ValueError("the cache has no keys")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
                          "takes float32 or bfloat16, all three alike")
@@ -109,13 +147,17 @@ def _check_inputs(q, k, v, valid) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-    if k.data_ptr() % 16 or any((st * k.element_size()) % 16
-                                for st in k.stride()[:3]):
-        raise ValueError("k's rows must be 16-byte aligned (16-byte loads)")
-    need = smem_bytes(h, k.shape[2], k.shape[1], d)
+    for name, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any((st * t.element_size()) % 16
+                                    for st in t.stride()[:3]):
+            raise ValueError(f"{name}'s rows must be 16-byte aligned "
+                             "(16-byte loads)")
+    need = smem_bytes(h, k.shape[2], k.shape[1], d,
+                      k.element_size()) + STATIC_SMEM_BYTES
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"S = {k.shape[1]}: the scores take {need} bytes of "
-                         f"shared memory, more than {MAX_SMEM_BYTES}")
+        raise ValueError(f"S = {k.shape[1]}: a CTA's share of the keys "
+                         f"takes {need} bytes of shared memory, more than "
+                         f"{MAX_SMEM_BYTES}")
 
 
 def _launch(q, k, v, valid) -> torch.Tensor:

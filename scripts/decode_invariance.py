@@ -27,15 +27,21 @@ not). Three comparisons:
   gate/up/down, the final norm, the fp32 ``lm_head``, the top-k/top-p
   truncation (with its softmax and cumsum) and the sampler;
 - ``prefill``: a [2, 512] prompt block against each [1, 512] row;
-- ``tail``: one row's last 128 positions computed in a block of width
-  128 (a prefix-cache hit's tail prefill) against the same positions
-  inside a block of width 512 (the cold prefill).
+- ``tail``: one row's last W positions computed in a block of width W
+  (a prefix-cache hit's tail prefill: W = 32, 64, 128, 256, and the
+  exact tails 140 and 184 near the cache end) against the same
+  positions inside the block of width 512 (the cold prefill): both
+  RMSNorms, the seven projections, rope, attention over the 544-slot
+  cache and the fp32 head, each width's result under ``widths``.
 
 Each op has a ``today`` column (the plain PyTorch op the port ran
-before its decode kernels: cuBLAS for every linear, the RMSNorm
-formula, ``dense_attention``) and a ``port`` column (what the port
-runs now on the card). A last row runs a whole decode step through the
-port's ``llama3-8b`` (32 layers, random weights from seed 0), both ways.
+before its kernels: cuBLAS for every linear, the RMSNorm formula,
+``dense_attention``) and a ``port`` column (what the port runs now on
+the card: the decode kernels in a decode step; in a prefill the
+prefill GEMM and the RMSNorm kernel, with attention and the fp32 head
+kept as they were). A last row runs a whole decode step through
+the port's ``llama3-8b`` (32 layers, random weights from seed 0), both
+ways.
 
 Weights are random from seed 0; activations are N(0, 1) draws from seed
 1 (bitwise invariance does not depend on the values). Run from the
@@ -69,6 +75,7 @@ from kubeflow_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
 )
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear  # noqa: E402
+from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear  # noqa: E402
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm  # noqa: E402
 from kubeflow_tpu_torch.utils.device import resolve_device  # noqa: E402
 
@@ -76,7 +83,12 @@ CACHE = 544
 #: The decode rows' cache positions (prompt lengths of the engine mix).
 DECODE_POS = (300, 511, 77, 410)
 PREFILL_W = 512
-TAIL_W = 128
+#: A prefix hit's tail block widths in the prefix mix: the buckets, and
+#: exact tails near the cache end, where a bucket would overrun it.
+TAIL_WIDTHS = (32, 64, 128, 256, 140, 184)
+#: A prefill's seven bf16 projections.
+PREFILL_LINEARS = tuple(f"attention.{n}_proj.weight" for n in "qkvo") + (
+    "gate_proj.weight", "up_proj.weight", "down_proj.weight")
 SAMPLING = {"temperature": 0.7, "top_k": 40, "top_p": 0.9}
 EPS = 1e-5
 
@@ -271,49 +283,73 @@ def prefill_tables(p, cfg, dev):
     kc, vc = randn(2, CACHE, hkv, hd), randn(2, CACHE, hkv, hd)
     valid = (torch.arange(CACHE, device=dev) < PREFILL_W)[None].expand(2, -1)
     head_in = torch.randn(2, PREFILL_W, d, device=dev, generator=g)
-    lin = {name: w[name] for name in (
-        "attention.q_proj.weight", "attention.k_proj.weight",
-        "gate_proj.weight")}
 
     def attention(qq, k_, v_, m, offset=0):
         return dense_attention(qq, k_, v_, causal=True, q_offset=offset,
                                kv_offset=0, kv_segment_valid=m)
 
     def rows_ops():
-        ops = [("attn_norm (RMSNorm)", [x],
-                lambda a: plain_rms_norm(a, w["attn_norm.scale"]),
-                lambda a: rms_norm(a, w["attn_norm.scale"], EPS))]
-        for name, weight in lin.items():
-            ops.append((f"{name.split('.')[-2]} bf16", [x],
-                        lambda a, m=weight: F.linear(a, m), None))
-        ops.append(("down_proj bf16", [act],
-                    lambda a: F.linear(a, w["down_proj.weight"]), None))
-        ops.append(("lm_head fp32", [head_in],
+        """(name, input, today's op, the port's op) for each row-wise
+        op of a prefill."""
+        ops = []
+        for norm in ("attn_norm", "mlp_norm"):
+            scale = w[f"{norm}.scale"]
+            ops.append((f"{norm} (RMSNorm)", x,
+                        lambda a, s_=scale: plain_rms_norm(a, s_),
+                        lambda a, s_=scale: rms_norm(a, s_, EPS)))
+        for name in PREFILL_LINEARS:
+            weight = w[name]
+            ops.append((f"{name.split('.')[-2]} bf16 "
+                        f"[{weight.shape[1]}→{weight.shape[0]}]",
+                        act if name == "down_proj.weight" else x,
+                        lambda a, m=weight: F.linear(a, m),
+                        lambda a, m=weight: prefill_linear(a, m)))
+        ops.append(("lm_head fp32", head_in,
                     lambda a: F.linear(a, p["lm_head.weight"]), None))
         return ops
 
-    batch_ops = rows_ops() + [
-        ("attention (causal, cache 544)", [q, kc, vc, valid], attention,
-         None)]
+    batch_ops = [(name, [a], plain, port)
+                 for name, a, plain, port in rows_ops()]
+    batch_ops.append(("attention (causal, cache 544)", [q, kc, vc, valid],
+                      attention, None))
     prefill = _run_ops(batch_ops)
 
-    # Tail vs cold: positions [384, 512) of row 0 in a 128-wide block
-    # against the same positions inside the 512-wide block.
-    lo = PREFILL_W - TAIL_W
+    # Tail vs cold: the last W positions of row 0 in a W-wide block (a
+    # prefix hit's tail prefill) against the same positions inside the
+    # 512-wide block (the cold prefill), at every width the prefix mix
+    # reaches.
     tail = []
-    for name, inputs, plain, port in rows_ops():
-        a = inputs[0][:1]
+    for name, a, plain, port in rows_ops():
+        a = a[:1]
         row = {"op": name}
         for label, fn in (("today", plain), ("port", port or plain)):
-            row[label] = _diff(fn(a[:, lo:].contiguous()), fn(a)[:, lo:])
+            cold = fn(a)
+            row[label] = _widths(lambda lo: fn(a[:, lo:].contiguous()),
+                                 lambda lo: cold[:, lo:])
         tail.append(row)
-    cold = attention(q[:1], kc[:1], vc[:1], valid[:1])[:, lo:]
-    hot = attention(q[:1, lo:].contiguous(), kc[:1], vc[:1], valid[:1],
-                    offset=lo)
-    row = _diff(hot, cold)
+    positions = torch.arange(PREFILL_W, device=dev)[None]
+    qr = llama.rope(q[:1], positions, cfg.rope_theta)
+    row = _widths(lambda lo: llama.rope(q[:1, lo:].contiguous(),
+                                        positions[:, lo:], cfg.rope_theta),
+                  lambda lo: qr[:, lo:])
+    tail.append({"op": "rope (q)", "today": row, "port": row})
+    cold = attention(q[:1], kc[:1], vc[:1], valid[:1])
+    row = _widths(lambda lo: attention(q[:1, lo:].contiguous(), kc[:1],
+                                       vc[:1], valid[:1], offset=lo),
+                  lambda lo: cold[:, lo:])
     tail.append({"op": "attention (causal, cache 544)", "today": row,
                  "port": row})
     return prefill, tail
+
+
+def _widths(narrow, wide):
+    """Each tail width's block against the cold block's same positions:
+    ``{"equal": all equal, "max_abs": the worst, "widths": {W: diff}}``."""
+    per = {str(wd): _diff(narrow(PREFILL_W - wd), wide(PREFILL_W - wd))
+           for wd in TAIL_WIDTHS}
+    return {"equal": all(r["equal"] for r in per.values()),
+            "max_abs": max(r["max_abs"] for r in per.values()),
+            "widths": per}
 
 
 def _diff(a, b):
@@ -386,6 +422,12 @@ def main() -> int:
             today, port = (("equal" if r[c]["equal"] else r[c]["max_abs"])
                            for c in ("today", "port"))
             print(f"{r['op']:45s} today {today} | port {port}", flush=True)
+            for c in ("today", "port"):
+                apart = {wd: x["max_abs"] for wd, x in
+                         r[c].get("widths", {}).items() if not x["equal"]}
+                if apart:
+                    print(f"{'':45s} {c} apart at widths {apart}",
+                          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

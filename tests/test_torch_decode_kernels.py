@@ -150,12 +150,22 @@ def test_decode_attention_smem_bound_raises_past_shared_memory():
     q = torch.ones(1, 1, 32, 128)
     ok = torch.ones(1, 544, 8, 128)
     da._check_inputs(q, ok, ok, torch.ones(1, 544, dtype=torch.bool))
-    assert da.smem_bytes(32, 8, 544, 128) == 4 * (4 * (128 + 544 + 8 * 128)
-                                                  + 8)
-    long = torch.ones(1, 60000, 8, 128)
+    # Eight CTAs of 68 keys: the 68 bf16 V rows, then in fp32 q, the
+    # scores, the CTA's partial output and 3 statistics a head, then a
+    # validity byte a key.
+    assert da.splits(544) == 8
+    assert da.smem_bytes(32, 8, 544, 128, 2) == (
+        68 * 256 + 4 * 4 * (128 + 68 + 128 + 3) + 68)
+    # Past 32 KB of V rows a CTA, two stages of them in turn.
+    assert da.smem_bytes(32, 8, 8192, 128, 2) == (
+        2 * 128 * 256 + 4 * 4 * (128 + 1024 + 128 + 3) + 1024)
+    # llama3-8b's full context fits; a CTA's share past ~110k keys not.
+    ctx = torch.ones(1, 1, 8, 128).expand(1, 8192, 8, 128)
+    da._check_inputs(q, ctx, ctx, torch.ones(1, 8192, dtype=torch.bool))
+    long = torch.ones(1, 1, 8, 128).expand(1, 120000, 8, 128)
     with pytest.raises(ValueError, match="shared memory"):
         da._check_inputs(q, long, long,
-                         torch.ones(1, 60000, dtype=torch.bool))
+                         torch.ones(1, 120000, dtype=torch.bool))
     for bad_q, bad_kv in ((torch.ones(1, 1, 36, 128), ok[:, :, :4]),
                           (torch.ones(1, 1, 32, 96), torch.ones(1, 544, 8,
                                                                96))):

@@ -37,6 +37,7 @@ from kubeflow_tpu_torch.ops import bn_fused
 from kubeflow_tpu_torch.ops import decode_attention as da
 from kubeflow_tpu_torch.ops import decode_gemm as dg
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import prefill_gemm as pg
 from kubeflow_tpu_torch.ops import rms_norm as rn
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
@@ -603,7 +604,8 @@ def test_rms_norm_gradient_is_the_plain_versions(cuda):
 
 @pytest.mark.parametrize("dtype,h,hkv,s,d", [
     (torch.bfloat16, 32, 8, 544, 128), (torch.bfloat16, 4, 2, 80, 16),
-    (torch.float32, 8, 2, 200, 64), (torch.float32, 4, 4, 33, 16)])
+    (torch.float32, 8, 2, 200, 64), (torch.float32, 4, 4, 33, 16),
+    (torch.bfloat16, 32, 8, 8192, 128), (torch.float32, 16, 2, 700, 256)])
 def test_decode_attention_matches_plain_and_rows_are_row_count_free(
         cuda, dtype, h, hkv, s, d):
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -633,9 +635,53 @@ def test_decode_attention_matches_plain_and_rows_are_row_count_free(
 
 
 def test_decode_attention_smem_mirror_is_the_kernels(cuda):
-    for h, hkv, s, d in ((32, 8, 544, 128), (4, 2, 80, 16), (8, 8, 9000, 64)):
-        assert da.smem_bytes(h, hkv, s, d) == \
-            da.kernel_smem_bytes(h, hkv, s, d)
+    for h, hkv, s, d in ((32, 8, 544, 128), (4, 2, 80, 16), (8, 8, 9000, 64),
+                         (32, 8, 8192, 128), (32, 8, 100000, 128),
+                         (8, 1, 30000, 256)):
+        for elem in (2, 4):
+            assert da.smem_bytes(h, hkv, s, d, elem) == \
+                da.kernel_smem_bytes(h, hkv, s, d, elem)
+        assert da.splits(s) == da.kernel_splits(s)
+
+
+def _s_ceiling(h, hkv, d):
+    """The longest bf16 cache whose CTA share fits."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        fits = (da.smem_bytes(h, hkv, mid, d, 2) + da.STATIC_SMEM_BYTES
+                <= fa.MAX_SMEM_BYTES)
+        lo, hi = (mid, hi) if fits else (lo, mid - 1)
+    return lo
+
+
+def test_decode_attention_runs_at_its_s_ceiling(cuda):
+    """llama3-8b's heads at the longest cache a CTA's shared memory
+    holds: the kernel launches, holds against the plain version and
+    gives a row its bits alone; one key more is refused."""
+    s = _s_ceiling(32, 8, 128)
+    assert s > 8 * 8192
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(2, 1, 32, 128, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    k = torch.randn(2, s, 8, 128, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    v = torch.randn(2, s, 8, 128, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    valid = torch.arange(s, device=cuda)[None] < torch.tensor(
+        [[s], [s - 1000]], device=cuda)
+    got = da.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    want = da.dense_attention(q, k, v, kv_segment_valid=valid)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        TOL[torch.bfloat16]
+    assert torch.equal(da.decode_attention(q[1:], k[1:], v[1:], valid[1:]),
+                       got[1:])
+    longer = k[:1, :1].expand(1, s + 1, 8, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        da.decode_attention(q[:1], longer, longer,
+                            torch.ones(1, s + 1, dtype=torch.bool,
+                                       device=cuda))
 
 
 def test_decode_attention_reads_an_expanded_mask_in_place(cuda):
@@ -710,3 +756,109 @@ def test_flash_kernel_gradient_is_the_plain_versions(cuda, dtype, masked):
         assert got is not None
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+# -- the prefill GEMM --------------------------------------------------------
+#
+# Against its plain version (F.linear) to one bf16 step, the same bits on
+# a second call, and rows whose bits do not depend on the block width: the
+# last and first M rows of a 512-row block, computed alone in a block of
+# M rows, equal the same rows of the 512-row block.
+
+PREFILL_WIDTHS = (1, 20, 128, 140, 256, 512)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 1024), (512, 2000), (64, 128),
+                                 (72, 40), (1024, 33)])
+def test_prefill_gemm_matches_plain_and_rows_are_width_free(cuda, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    w = (torch.randn(n, k, device=cuda, generator=gen) * 0.02).to(
+        torch.bfloat16)
+    x = torch.randn(512, k, device=cuda, generator=gen).to(torch.bfloat16)
+    before = pg.prefill_linear.launches
+    got = pg.prefill_linear(x, w)
+    torch.cuda.synchronize()
+    _assert_within_a_step(got, pg.prefill_linear_reference(x, w),
+                          torch.bfloat16)
+    assert torch.equal(pg.prefill_linear(x, w), got)
+    for m in PREFILL_WIDTHS:
+        assert torch.equal(pg.prefill_linear(x[512 - m:].contiguous(), w),
+                           got[512 - m:]), m
+        assert torch.equal(pg.prefill_linear(x[:m], w), got[:m]), m
+    # generate's [B, L, K] block: rows as the flat block's.
+    assert torch.equal(pg.prefill_linear(x.reshape(2, 256, k), w),
+                       got.reshape(2, 256, n))
+    assert pg.prefill_linear.launches > before
+
+
+@pytest.mark.parametrize("bad", ["float32", "k_not_8", "w_strided",
+                                 "devices", "gradient"])
+def test_prefill_gemm_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda, bad):
+    x = torch.randn(4, 64, device=cuda).to(torch.bfloat16)
+    w = torch.randn(32, 64, device=cuda).to(torch.bfloat16)
+    error, match = ValueError, None
+    if bad == "float32":
+        x, w, match = x.float(), w.float(), "bfloat16"
+    elif bad == "k_not_8":
+        x, w, match = x[:, :60], w[:, :60].contiguous(), "multiple of 8"
+    elif bad == "w_strided":
+        w, match = torch.randn(64, 32, device=cuda).to(torch.bfloat16).t(), \
+            "contiguous"
+    elif bad == "devices":
+        w, match = w.cpu(), "one device"
+    else:
+        w, error, match = w.requires_grad_(True), RuntimeError, "no gradient"
+    before = pg.prefill_linear.launches
+    with pytest.raises(error, match=match):
+        pg.prefill_linear(x, w)
+    assert pg.prefill_linear.launches == before
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_prefix_hits_equal_their_cold_runs_on_the_card(cuda, mode):
+    """llama-test bf16 through the prefix lane: a cold request, then hits
+    on its full blocks and a copy-on-write fork of its boundary page,
+    with tails of several widths; each hit stream equals the same
+    request run cold (the cache cleared), and every stream equals B=1
+    generate of the unpadded prompt."""
+    sampling = ENGINE_SAMPLING[mode]
+    model = llama_test(cache_size=96)
+    params = init_params(model, seed=0, device=cuda)
+    engine = DecodeEngine(model, params, EngineConfig(
+        max_new_tokens=8, max_prompt_len=64, num_slots=4, page_size=16,
+        slice_tokens=4, prefix_cache=True, **sampling), device=cuda)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(0, 512, 40).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 512, n).astype(
+        np.int32)]) for n in (5, 12, 3, 20, 1)] + [shared[:36]]
+    keys = [prng.PRNGKey(400 + i) for i in range(len(prompts))]
+    before = pg.prefill_linear.launches
+    try:
+        cold = engine.submit(prompts[0], rng=keys[0]).result(timeout=300)
+        streams = [engine.submit(p, rng=k)
+                   for p, k in zip(prompts[1:], keys[1:])]
+        hits = [s.result(timeout=300) for s in streams]
+        px = engine.stats()["prefix_cache"]
+        assert px["hits"] == len(prompts) - 1 and px["misses"] == 1, px
+        # A match past the 32 tokens of the two full blocks: the forks.
+        assert px["saved_prefill_tokens"] % 16, px
+        assert pg.prefill_linear.launches - before == \
+            7 * model.num_layers * len(prompts)
+        recold = []
+        for p, k in zip(prompts[1:], keys[1:]):
+            engine.clear_prefix_cache()
+            recold.append(engine.submit(p, rng=k).result(timeout=300))
+        engine.clear_prefix_cache()
+        assert engine.stats()["free_pages"] == engine.stats()["total_pages"]
+        for i, (hit, again) in enumerate(zip(hits, recold)):
+            np.testing.assert_array_equal(hit, again, err_msg=f"hit {i}")
+        for i, (p, k, got) in enumerate(zip(prompts, keys, [cold] + hits)):
+            want, _ = generate(model, params, torch.from_numpy(p[None]).to(
+                cuda), max_new_tokens=8, rng=k[None],
+                prompt_lengths=torch.tensor([len(p)], device=cuda),
+                **sampling)
+            np.testing.assert_array_equal(got, want[0].cpu().numpy(),
+                                          err_msg=f"request {i}")
+    finally:
+        engine.stop()

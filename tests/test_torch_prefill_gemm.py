@@ -1,0 +1,161 @@
+# Copyright 2026 The kubeflow-tpu Authors.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""The prefill GEMM through its plain twin on the CPU, and the model's
+routes to it.
+
+The twin (``F.linear``) holds against the reference's ``nn.Dense`` (the
+``_dense`` of kubeflow_tpu/models/llama.py) at the reference's fp32
+tolerance; a llama-test cache forward with more than one token a row
+sends its seven bf16 projections a layer through ``prefill_linear``, a
+decode step and the cache-free forward none; a prefix hit's one-token
+tail is prefilled in a 2-wide block, so it takes the prefill's route as
+its cold run does. The kernel itself runs in tests/test_torch_gpu.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.models.llama import _dense
+from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from kubeflow_tpu_torch.inference.generate import generate
+from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models.convert import init_params
+from kubeflow_tpu_torch.ops import prefill_gemm as pg
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (7, 64, 96), (33, 72, 40),
+                                   (128, 256, 512), (257, 128, 33)])
+def test_prefill_linear_twin_matches_the_reference_dense(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k + n)
+    x = rng.standard_normal((2, m, k)).astype(np.float32)
+    w = (rng.standard_normal((n, k)) * 0.02).astype(np.float32)
+    want = _dense(n, ("embed", "mlp"), jnp.float32).apply(
+        {"params": {"kernel": jnp.asarray(w.T)}}, jnp.asarray(x))
+    before = pg.prefill_linear.launches
+    got = pg.prefill_linear(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.shape == (2, m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    assert pg.prefill_linear.launches == before
+
+
+@pytest.mark.parametrize("bad", ["k_mismatch", "float32", "dtype_mix",
+                                 "k_not_8", "w_strided"])
+def test_prefill_linear_checks_what_the_kernel_takes(bad):
+    bf = torch.bfloat16
+    x, w = torch.ones(4, 64, dtype=bf), torch.ones(8, 64, dtype=bf)
+    match = None
+    if bad == "k_mismatch":
+        w, match = torch.ones(8, 32, dtype=bf), "x · Wᵀ"
+    elif bad == "float32":
+        x, w, match = x.float(), w.float(), "bfloat16"
+    elif bad == "dtype_mix":
+        w, match = w.float(), "bfloat16"
+    elif bad == "k_not_8":
+        x, w, match = x[:, :60], w[:, :60].contiguous(), "multiple of 8"
+    else:
+        w, match = torch.ones(64, 8, dtype=bf).t(), "contiguous"
+    with pytest.raises(ValueError, match=match):
+        pg._check_inputs(x, w)
+
+
+def test_prefill_linear_refuses_a_device_other_than_cpu_or_cuda():
+    x = torch.ones(2, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pg.prefill_linear(x, x[:1].expand(8, 64))
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """Calls of the model's three linear routes, counted at the model's
+    own names (the plain twins run underneath)."""
+    counts = {"prefill_linear": 0, "decode_linear": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            counts[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in counts:
+        monkeypatch.setattr(llama, name, counting(name, getattr(llama, name)))
+    return counts
+
+
+def test_cache_forward_routes_bf16_projections_to_the_prefill_gemm(calls):
+    """llama-test bf16: a cache forward with L > 1 sends exactly 7 ×
+    num_layers products through prefill_linear (the fp32 head stays
+    ``layer(x)``), a decode step none, and the cache-free forward
+    none."""
+    model = llama.llama_test(cache_size=32)
+    params = init_params(model, seed=0, device="cpu")
+    layers = model.num_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (2, 8)).astype(np.int32))
+    with torch.inference_mode():
+        generate(model, params, ids, max_new_tokens=1)
+    assert calls == {"prefill_linear": 7 * layers, "decode_linear": 0}
+    with torch.inference_mode():
+        generate(model, params, ids, max_new_tokens=4)
+    assert calls == {"prefill_linear": 2 * 7 * layers,
+                     "decode_linear": 3 * (7 * layers + 1)}
+    free = llama.llama_test()
+    with torch.inference_mode():
+        llama.apply(free, params, ids)
+    assert calls == {"prefill_linear": 2 * 7 * layers,
+                     "decode_linear": 3 * (7 * layers + 1)}
+
+
+def test_fp32_prefill_keeps_its_linear_layers(calls):
+    """The kernel takes bf16: an fp32 model's prefill stays
+    ``layer(x)``."""
+    model = llama.llama_test(dtype="float32", cache_size=32)
+    params = init_params(model, seed=0, device="cpu")
+    ids = torch.zeros((1, 8), dtype=torch.int32)
+    generate(model, params, ids, max_new_tokens=1)
+    assert calls == {"prefill_linear": 0, "decode_linear": 0}
+
+
+def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
+    """A prompt cached whole leaves a one-token tail: the engine
+    prefills it in a 2-wide block, so it runs the prefill's kernels as
+    the cold run's block does (a one-token cache forward is a decode
+    step); a cold one-token prompt keeps its width, as B=1 generate
+    runs it."""
+    model = llama.llama_test(cache_size=64)
+    params = init_params(model, seed=0, device="cpu")
+    engine = DecodeEngine(model, params, EngineConfig(
+        max_new_tokens=4, max_prompt_len=48, num_slots=1, page_size=8,
+        slice_tokens=2, prefix_cache=True), device="cpu")
+    try:
+        assert engine._tail_width(36, 35) == 2
+        assert engine._tail_width(1, 0) == 1
+        assert engine._tail_width(45, 32) == 16
+        prompt = np.random.default_rng(3).integers(0, 512, 20).astype(
+            np.int32)
+        first = engine.submit(prompt, rng=prng.PRNGKey(0)).result(120)
+        again = engine.submit(prompt, rng=prng.PRNGKey(0)).result(120)
+        np.testing.assert_array_equal(first, again)
+        px = engine.stats()["prefix_cache"]
+        assert px["hits"] == 1 and px["saved_prefill_tokens"] == 19, px
+        layers = model.num_layers
+        # Two admissions, each one prefill forward; 3 decode steps each.
+        assert calls == {"prefill_linear": 2 * 7 * layers,
+                         "decode_linear": 2 * 3 * (7 * layers + 1)}
+    finally:
+        engine.stop()
