@@ -44,7 +44,8 @@ checkout's BN kernel by the same code (a parent commit's, say).
    product, RMSNorm at [M, 4096], decode attention over a 544-slot
    cache) against their plain twins at M = 1 and 4: one step of the
    output type, the same bits on a second call, and every row at M in
-   (2, 3, 4, 8, 16) equal to the row computed alone; times as the flash
+   (2, 3, 4, 8, 16, 20, 32) equal to the row computed alone (20: a
+   speculative verify's 4 slots × 5 tokens); times as the flash
    kernel's (weights and caches cycled through copies larger than L2,
    as a decode step reads them), the profiler's device time, the bound,
    and the PyTorch call computing the same function (``F.linear``,
@@ -53,8 +54,11 @@ checkout's BN kernel by the same code (a parent commit's, say).
    B1 S8192.
 3c. The prefill GEMM at each llama3-8b prefill product, M = 512,
    against its plain version (``F.linear``) to one bf16 step, the same
-   bits on a second call, and the rows of blocks of M = 1, 20, 128, 140,
-   256 and 512 rows equal to the same rows of the 512-row block; timed
+   bits on a second call, and the rows of blocks of M = 1, 2, 20, 128,
+   140, 256 and 512 rows equal to the same rows of the 512-row block;
+   the 1024-row block of generate's [2, 512] prefill the same way (one
+   bf16 step, the same bits twice, each 512-row half equal to the half
+   alone); timed
    as the decode kernels, summed over one prefill forward's 224
    launches.
 4. The Llama slice: ``llama3-8b`` at full width with random weights
@@ -428,7 +432,9 @@ def flash_gradient_rows():
 #: flash's tolerances (1e-2 bf16, 2e-5 fp32).
 DECODE_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 #: Row counts whose every row must equal that row computed alone.
-INVARIANCE_ROWS = (2, 3, 4, 8, 16)
+INVARIANCE_ROWS = (2, 3, 4, 8, 16, 20, 32)
+#: Rows the row-count checks' inputs hold: the largest of INVARIANCE_ROWS.
+CHECK_ROWS = max(INVARIANCE_ROWS)
 #: llama3-8b's decode-step products: (name, K, N, dtype, launches a
 #: step). 7 a layer over 32 layers, and the fp32 head.
 DECODE_GEMMS = (
@@ -462,7 +468,7 @@ def bound(nbytes, flops, dtype):
 
 
 def hold_rows(name, fn, plain, inputs, dtype, tol=None):
-    """``fn`` vs ``plain`` on a 16-row batch's leading rows: max |Δ|
+    """``fn`` vs ``plain`` on a CHECK_ROWS batch's leading rows: max |Δ|
     within one step of the type (or ``tol``) at M = 1 and 4, the same
     bits on a second call, and every row at M in INVARIANCE_ROWS equal
     to itself computed alone. ``inputs(m)`` gives the call's args."""
@@ -497,7 +503,8 @@ def decode_gemm_rows():
     for name, k, n, dtype, per_step in DECODE_GEMMS:
         gen = torch.Generator(device="cuda").manual_seed(8)
         w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(dtype)
-        x = torch.randn(16, 1, k, device="cuda", generator=gen).to(dtype)
+        x = torch.randn(CHECK_ROWS, 1, k, device="cuda", generator=gen).to(
+            dtype)
         errs = hold_rows(f"decode_gemm {name}", dg.decode_linear,
                          dg.decode_linear_reference,
                          lambda m: (x[:m], w), dtype)
@@ -581,12 +588,13 @@ def decode_attention_rows():
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf = torch.bfloat16
-    q = torch.randn(16, 1, 32, 128, device="cuda", generator=gen).to(bf)
-    k = torch.randn(16, ENGINE_CACHE, 8, 128, device="cuda",
+    q = torch.randn(CHECK_ROWS, 1, 32, 128, device="cuda",
                     generator=gen).to(bf)
-    v = torch.randn(16, ENGINE_CACHE, 8, 128, device="cuda",
+    k = torch.randn(CHECK_ROWS, ENGINE_CACHE, 8, 128, device="cuda",
                     generator=gen).to(bf)
-    pos = torch.tensor(DECODE_POSITIONS * 4, device="cuda")
+    v = torch.randn(CHECK_ROWS, ENGINE_CACHE, 8, 128, device="cuda",
+                    generator=gen).to(bf)
+    pos = torch.tensor(DECODE_POSITIONS * (CHECK_ROWS // 4), device="cuda")
     valid = (torch.arange(ENGINE_CACHE, device="cuda")[None, :]
              <= pos[:, None])
     errs = hold_rows("decode_attention", da.decode_attention,
@@ -677,10 +685,13 @@ PREFILL_GEMMS = (
     ("down_proj [14336→4096]", 14336, 4096, 32),
 )
 PREFILL_M = 512
+#: The rows generate's left-padded [2, 512] prefill block gives each
+#: product.
+MAIN_PATH_M = len(PROMPTS) * max(PROMPTS)
 #: Block widths whose rows must equal the same rows of the 512-wide
-#: block: a decode-sized block, the prefix mix's tail buckets and exact
-#: tails, and the cold width.
-PREFILL_WIDTHS = (1, 20, 128, 140, 256, 512)
+#: block: a decode-sized block, a hit's one-token tail prefilled 2 wide,
+#: the prefix mix's tail buckets and exact tails, and the cold width.
+PREFILL_WIDTHS = (1, 2, 20, 128, 140, 256, 512)
 
 
 def prefill_gemm_rows():
@@ -688,7 +699,11 @@ def prefill_gemm_rows():
     within one bf16 step of ``F.linear`` (its plain version), the same
     bits on a second call, and the last and first M rows of the block
     computed alone in a block of M rows, for every M in PREFILL_WIDTHS,
-    equal to the same rows of the 512-wide block, bit for bit. Times as
+    equal to the same rows of the 512-wide block, bit for bit. The
+    MAIN_PATH_M-row block generate's prefill gives it (more output tiles
+    than the card holds clusters at k/v, so a cluster walks a second
+    one) is held the same way: within one bf16 step, the same bits on a
+    second call, and each 512-row half equal to that half alone. Times as
     the decode kernels' (weights cycled through copies larger than L2),
     the bound the larger of the FLOPs at the bf16 peak and the bytes."""
     rows = []
@@ -696,18 +711,33 @@ def prefill_gemm_rows():
     for name, k, n, per_forward in PREFILL_GEMMS:
         gen = torch.Generator(device="cuda").manual_seed(11)
         w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(bf)
-        x = torch.randn(PREFILL_M, k, device="cuda", generator=gen).to(bf)
-        got = pg.prefill_linear(x, w)
-        torch.cuda.synchronize()
-        want = pg.prefill_linear_reference(x, w)
-        err = float((got.float() - want.float()).abs().max())
-        tol = DECODE_TOL[bf] * max(1.0, float(want.float().abs().max()))
-        if not torch.isfinite(got).all() or err > tol:
-            raise AssertionError(f"prefill_gemm {name}: max |Δ| {err} > "
-                                 f"{tol}")
-        if not torch.equal(pg.prefill_linear(x, w), got):
-            raise AssertionError(f"prefill_gemm {name}: a second call gave "
-                                 "other bits")
+        x_main = torch.randn(MAIN_PATH_M, k, device="cuda",
+                             generator=gen).to(bf)
+        x = x_main[:PREFILL_M]
+        errs = {}
+        for block in (x, x_main):
+            got = pg.prefill_linear(block, w)
+            torch.cuda.synchronize()
+            want = pg.prefill_linear_reference(block, w)
+            err = float((got.float() - want.float()).abs().max())
+            tol = DECODE_TOL[bf] * max(1.0, float(want.float().abs().max()))
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"prefill_gemm {name} M={len(block)}: "
+                                     f"max |Δ| {err} > {tol}")
+            if not torch.equal(pg.prefill_linear(block, w), got):
+                raise AssertionError(f"prefill_gemm {name} M={len(block)}: "
+                                     "a second call gave other bits")
+            errs[len(block)] = (err, tol, got)
+        err, tol, got = errs[PREFILL_M]
+        main_err, main_tol, main_got = errs[MAIN_PATH_M]
+        for r0 in range(0, MAIN_PATH_M, PREFILL_M):
+            half = x_main[r0:r0 + PREFILL_M]
+            if not torch.equal(pg.prefill_linear(half, w),
+                               main_got[r0:r0 + PREFILL_M]):
+                raise AssertionError(
+                    f"prefill_gemm {name}: rows {r0}.. of the "
+                    f"{MAIN_PATH_M}-row block differ from the same "
+                    f"{PREFILL_M} rows alone")
         for m in PREFILL_WIDTHS:
             tail = pg.prefill_linear(x[PREFILL_M - m:].contiguous(), w)
             head = pg.prefill_linear(x[:m], w)
@@ -732,6 +762,8 @@ def prefill_gemm_rows():
                "launches_per_forward": per_forward,
                "max_abs_err": err, "tol": tol,
                "widths_bitwise_equal": list(PREFILL_WIDTHS),
+               f"max_abs_err_m{MAIN_PATH_M}": main_err,
+               f"tol_m{MAIN_PATH_M}": main_tol,
                "ms": ms, "device_ms": profiled_ms(run),
                # The plain version is the library call, F.linear.
                "plain_ms": lib_ms, "library_ms": lib_ms,
@@ -739,7 +771,7 @@ def prefill_gemm_rows():
                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
         log(f"prefill_gemm {json.dumps(row)}")
         rows.append(row)
-        del w, x, ws, got, want
+        del w, x, x_main, ws, got, want, main_got, errs
         torch.cuda.empty_cache()
     sums = {key: sum(r["launches_per_forward"] * r[key] for r in rows)
             for key in ("ms", "device_ms", "library_ms",

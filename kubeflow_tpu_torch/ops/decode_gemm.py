@@ -20,13 +20,19 @@ original: the reference leaves a decode step's products to XLA (the
 ``nn.Dense`` layers of ``kubeflow_tpu/models/llama.py``). It computes
 ``y = x · Wᵀ`` for ``x [..., K]`` and ``W [N, K]`` (``nn.Linear``'s
 layout), bf16 or fp32 (the fp32 ``lm_head``, in full fp32 FMA), with
-fp32 accumulation and one rounding. Each output element's reduction
-order depends on K alone, never on the row count: no split-K, no
-atomics, rows in fixed tiles handled alike. So a row of a decode step
-at M = 4 slots has the bits it has at M = 1, which cuBLAS (kernels
-picked by shape) does not promise, and the decode engine's contract
-(every slot's stream equals B=1 ``generate``) needs. It is bound by
-bytes: a weight read, 16.06 GB per ``llama3-8b`` decode step.
+fp32 accumulation and one rounding. bf16 streams W through a ring of
+``cp.async`` copies with x staged beside it in shared memory, on
+``mma.sync``, reading W once for every M up to 32. Each output
+element's reduction order depends on K alone (and N, which a weight
+fixes), never on the row count: the tile is the same for every M, the
+K split (a cluster of up to 8 CTAs) is chosen from N, K and the card's
+SM count and its partials are added in rank order, there are no
+atomics, and rows past M are zero-filled. So a row of a decode step at
+M = 4 slots has the bits it has at M = 1, which cuBLAS (kernels picked
+by shape) does not promise, and the decode engine's contract (every
+slot's stream equals B=1 ``generate``) needs. It is bound by bytes: a
+weight read, 16.06 GB per ``llama3-8b`` decode step.
+:func:`launch_plan` mirrors the kernel's plan (``kft_decode_gemm_plan``).
 
 Dispatch. A CPU tensor goes to :func:`decode_linear_reference`, the
 plain version: each row its own M = 1 ``F.linear``, batch-invariant by
@@ -37,6 +43,7 @@ construction. A CUDA tensor goes to the kernel, or the call raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +51,63 @@ import torch.nn.functional as F
 from kubeflow_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: bf16: x rows one pass over W serves, W rows (output columns) a CTA,
+#: K a ring stage, the ring's depth, threads a CTA, the largest split.
+ROWS_PER_PASS, TILE_N, TILE_K, STAGES, THREADS, MAX_SPLIT = \
+    32, 64, 128, 3, 128, 8
+#: bf16 dynamic shared memory: the ring (W and x tiles), which the fp32
+#: partials (ROWS_PER_PASS + 1 floats a W row) reuse once it drains.
+SMEM_BYTES = max(STAGES * (TILE_N + ROWS_PER_PASS) * TILE_K * 2,
+                 TILE_N * (ROWS_PER_PASS + 1) * 4)
+#: The fp32 design: rows a pass, output columns a CTA, threads a CTA.
+FP32_ROWS, FP32_COLS, FP32_THREADS = 8, 4, 256
+#: SMs of an H100 SXM: the card a plan is for unless told another count.
+H100_SMS = 132
+
+
+class LaunchPlan(NamedTuple):
+    """One launch's shape; ``M_FIELDS`` are the only ones that depend
+    on M."""
+    rows_per_pass: int
+    tile_n: int
+    tile_k: int      # 0: fp32's warps each take a fixed slice of K
+    split: int       # CTAs a cluster, each a fixed range of K
+    stages: int
+    threads: int
+    smem_bytes: int  # dynamic shared memory a CTA
+    grid_x: int
+    grid_y: int      # passes over W: one per ROWS_PER_PASS rows
+
+
+M_FIELDS = ("grid_y",)
+
+
+def split_for(n: int, k: int, sms: int = H100_SMS) -> int:
+    """The bf16 K split (the kernel's ``split_for``): the largest power
+    of two up to MAX_SPLIT that keeps the CTAs within two an SM, halved
+    while a CTA would get fewer than 2 stages of K."""
+    slabs, k_tiles = -(-n // TILE_N), -(-k // TILE_K)
+    split = 1
+    while split < MAX_SPLIT and slabs * split * 2 <= 2 * sms:
+        split *= 2
+    while split > 1 and k_tiles < 2 * split:
+        split //= 2
+    return split
+
+
+def launch_plan(dtype: torch.dtype, m: int, n: int, k: int,
+                sms: int = H100_SMS) -> LaunchPlan:
+    """The kernel's launch at ``x [m, k] · W[n, k]ᵀ`` in ``dtype`` on a
+    card of ``sms`` SMs (its ``kft_decode_gemm_plan``)."""
+    if dtype == torch.bfloat16:
+        split = split_for(n, k, sms)
+        return LaunchPlan(ROWS_PER_PASS, TILE_N, TILE_K, split, STAGES,
+                          THREADS, SMEM_BYTES, -(-n // TILE_N) * split,
+                          -(-m // ROWS_PER_PASS))
+    if dtype == torch.float32:
+        return LaunchPlan(FP32_ROWS, FP32_COLS, 0, 1, 0, FP32_THREADS, 0,
+                          -(-n // FP32_COLS), 1)
+    raise ValueError(f"dtype {dtype}: the kernel takes float32 or bfloat16")
 
 
 def decode_linear_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -61,8 +125,20 @@ def _library() -> ctypes.CDLL:
                                         + [ctypes.c_int] * 4
                                         + [ctypes.c_longlong, ctypes.c_void_p])
         lib.kft_decode_gemm.restype = ctypes.c_int
+        lib.kft_decode_gemm_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.kft_decode_gemm_plan.restype = ctypes.c_int
         lib._kft_bound = True
     return lib
+
+
+def kernel_plan(dtype: torch.dtype, m: int, n: int, k: int,
+                sms: int) -> LaunchPlan:
+    """The built kernel's own figure for :func:`launch_plan`."""
+    out = (ctypes.c_int * len(LaunchPlan._fields))()
+    if _library().kft_decode_gemm_plan(_DTYPES[dtype], m, n, k, sms, out):
+        raise ValueError(f"dtype {dtype}: the kernel has no plan")
+    return LaunchPlan(*out)
 
 
 def _check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:

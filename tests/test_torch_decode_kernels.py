@@ -283,3 +283,45 @@ def test_flash_autograd_function_recomputes_the_plain_version(monkeypatch,
     (fa._FlashAttention.apply(qt, kt, vt, causal, 0.25, mask) ** 2).sum() \
         .backward()
     assert qt.grad is not None and kt.grad is None and vt.grad is None
+
+
+# -- the decode GEMM's launch plan ------------------------------------------
+#
+# Mirrored in Python (tests/test_torch_gpu.py holds the mirror against the
+# built kernel's query): only the passes over W (grid y) may follow M.
+
+#: llama3-8b's decode products: (dtype, K, N).
+LLAMA_DECODE = ((torch.bfloat16, 4096, 4096), (torch.bfloat16, 4096, 1024),
+                (torch.bfloat16, 4096, 14336), (torch.bfloat16, 14336, 4096),
+                (torch.float32, 4096, 128256))
+
+
+@pytest.mark.parametrize("dtype,k,n", LLAMA_DECODE)
+def test_decode_gemm_plan_depends_on_m_only_through_the_passes(dtype, k, n):
+    fixed = dg.launch_plan(dtype, 1, n, k)._replace(
+        **dict.fromkeys(dg.M_FIELDS, 0))
+    for m in range(1, 1025):
+        plan = dg.launch_plan(dtype, m, n, k)
+        assert plan._replace(**dict.fromkeys(dg.M_FIELDS, 0)) == fixed, m
+    # One pass over W for every M up to 32 (bf16).
+    if dtype == torch.bfloat16:
+        assert {dg.launch_plan(dtype, m, n, k).grid_y
+                for m in range(1, 33)} == {1}
+
+
+@pytest.mark.parametrize("dtype,k,n", LLAMA_DECODE)
+def test_decode_gemm_plan_fits_shared_memory_and_fills_the_card(dtype, k, n):
+    plan = dg.launch_plan(dtype, 4, n, k)
+    assert plan.smem_bytes <= 232448
+    if dtype == torch.bfloat16:
+        # About one wave, two CTAs an SM, each K tile range at least 2
+        # stages long.
+        assert 128 <= plan.grid_x <= 2 * dg.H100_SMS
+        assert -(-k // dg.TILE_K) >= 2 * plan.split
+        assert plan.split & (plan.split - 1) == 0
+        assert plan.split <= dg.MAX_SPLIT
+
+
+def test_decode_gemm_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dg.launch_plan(torch.float16, 4, 64, 64)

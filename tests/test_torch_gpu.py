@@ -531,6 +531,11 @@ def test_prefix_engine_on_the_card_hits_and_drains(cuda):
 
 STEP = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 ROW_COUNTS = (1, 2, 3, 4, 8, 16)
+#: The decode GEMM also serves a speculative verify's slots·(k + 1) rows
+#: (4 · 5 = 20) in one pass over W, up to 32.
+GEMM_ROW_COUNTS = ROW_COUNTS + (20, 32)
+#: Past 32 rows the kernel takes a second pass over W.
+GEMM_PASS_ROWS = GEMM_ROW_COUNTS + (40,)
 
 
 def _assert_within_a_step(got, want, dtype):
@@ -553,9 +558,10 @@ def test_decode_gemm_matches_plain_and_rows_are_row_count_free(
         cuda, dtype, k, n):
     gen = torch.Generator(device=cuda).manual_seed(0)
     w = (torch.randn(n, k, device=cuda, generator=gen) * 0.02).to(dtype)
-    x = torch.randn(16, 1, k, device=cuda, generator=gen).to(dtype)
+    x = torch.randn(max(GEMM_PASS_ROWS), 1, k, device=cuda,
+                    generator=gen).to(dtype)
     before = dg.decode_linear.launches
-    for m in ROW_COUNTS:
+    for m in GEMM_PASS_ROWS:
         got = dg.decode_linear(x[:m], w)
         torch.cuda.synchronize()
         _assert_within_a_step(got, dg.decode_linear_reference(x[:m], w),
@@ -563,6 +569,19 @@ def test_decode_gemm_matches_plain_and_rows_are_row_count_free(
         assert torch.equal(dg.decode_linear(x[:m], w), got)
         _rows_alone_equal(dg.decode_linear, x[:m], w)
     assert dg.decode_linear.launches > before
+
+
+def test_decode_gemm_plan_mirror_is_the_kernels(cuda):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype, k, n in ((torch.bfloat16, 4096, 4096),
+                        (torch.bfloat16, 4096, 1024),
+                        (torch.bfloat16, 4096, 14336),
+                        (torch.bfloat16, 14336, 4096),
+                        (torch.bfloat16, 64, 128), (torch.bfloat16, 512, 2000),
+                        (torch.float32, 4096, 128256)):
+        for m in (1, 4, 20, 32, 33, 100):
+            assert dg.kernel_plan(dtype, m, n, k, sms) == \
+                dg.launch_plan(dtype, m, n, k, sms), (dtype, m, n, k)
 
 
 def test_decode_gemm_raises_where_a_gradient_is_wanted(cuda):
@@ -763,24 +782,33 @@ def test_flash_kernel_gradient_is_the_plain_versions(cuda, dtype, masked):
 # Against its plain version (F.linear) to one bf16 step, the same bits on
 # a second call, and rows whose bits do not depend on the block width: the
 # last and first M rows of a 512-row block, computed alone in a block of
-# M rows, equal the same rows of the 512-row block.
+# M rows, equal the same rows of the 512-row block, and each half of a
+# 1024-row block (generate's [2, 512] prefill; at k/v more output tiles
+# than the card holds clusters) equals that half alone.
 
-PREFILL_WIDTHS = (1, 20, 128, 140, 256, 512)
+PREFILL_WIDTHS = (1, 2, 20, 128, 140, 256, 512)
 
 
 @pytest.mark.parametrize("k,n", [(4096, 1024), (512, 2000), (64, 128),
-                                 (72, 40), (1024, 33)])
+                                 (72, 40), (1024, 33), (256, 2350),
+                                 (264, 8200)])
 def test_prefill_gemm_matches_plain_and_rows_are_width_free(cuda, k, n):
     gen = torch.Generator(device=cuda).manual_seed(13)
     w = (torch.randn(n, k, device=cuda, generator=gen) * 0.02).to(
         torch.bfloat16)
-    x = torch.randn(512, k, device=cuda, generator=gen).to(torch.bfloat16)
+    x_main = torch.randn(1024, k, device=cuda, generator=gen).to(
+        torch.bfloat16)
+    x = x_main[:512]
     before = pg.prefill_linear.launches
+    for block in (x, x_main):
+        whole = pg.prefill_linear(block, w)
+        torch.cuda.synchronize()
+        _assert_within_a_step(whole, pg.prefill_linear_reference(block, w),
+                              torch.bfloat16)
+        assert torch.equal(pg.prefill_linear(block, w), whole)
     got = pg.prefill_linear(x, w)
-    torch.cuda.synchronize()
-    _assert_within_a_step(got, pg.prefill_linear_reference(x, w),
-                          torch.bfloat16)
-    assert torch.equal(pg.prefill_linear(x, w), got)
+    assert torch.equal(whole[:512], got)
+    assert torch.equal(pg.prefill_linear(x_main[512:], w), whole[512:])
     for m in PREFILL_WIDTHS:
         assert torch.equal(pg.prefill_linear(x[512 - m:].contiguous(), w),
                            got[512 - m:]), m
@@ -788,7 +816,21 @@ def test_prefill_gemm_matches_plain_and_rows_are_width_free(cuda, k, n):
     # generate's [B, L, K] block: rows as the flat block's.
     assert torch.equal(pg.prefill_linear(x.reshape(2, 256, k), w),
                        got.reshape(2, 256, n))
+    assert torch.equal(pg.prefill_linear(x_main.reshape(2, 512, k), w),
+                       whole.reshape(2, 512, n))
     assert pg.prefill_linear.launches > before
+
+
+def test_prefill_gemm_plan_mirror_is_the_kernels(cuda):
+    for k, n in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (512, 2000), (64, 128), (72, 40), (1024, 33), (256, 2350),
+                 (264, 8200)):
+        clusters = pg.kernel_max_clusters(n, k)
+        plan = pg.launch_plan(1, n, k)
+        assert 0 < clusters <= pg.H100_SMS // (plan.split * plan.share)
+        for m in (1, 2, 20, 128, 140, 512, 1024):
+            assert pg.kernel_plan(m, n, k, clusters) == \
+                pg.launch_plan(m, n, k, clusters), (m, n, k)
 
 
 @pytest.mark.parametrize("bad", ["float32", "k_not_8", "w_strided",

@@ -159,3 +159,56 @@ def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
                          "decode_linear": 2 * 3 * (7 * layers + 1)}
     finally:
         engine.stop()
+
+
+# -- the launch plan ---------------------------------------------------------
+#
+# The kernel's plan (tile, K split, ring, shared memory, grid) mirrored in
+# Python (tests/test_torch_gpu.py holds the mirror against the built
+# kernel's query). A row's reduction order follows the tile and the split,
+# so only the grid may follow M.
+
+#: llama3-8b's prefill products: (K, N).
+LLAMA_PREFILL = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+H100_SMEM = 232448
+
+
+@pytest.mark.parametrize("k,n", LLAMA_PREFILL + ((72, 40), (1024, 33)))
+def test_prefill_plan_depends_on_m_only_through_the_grid(k, n):
+    fixed = pg.launch_plan(1, n, k)._replace(**dict.fromkeys(pg.M_FIELDS, 0))
+    for m in range(1, 1025):
+        plan = pg.launch_plan(m, n, k)
+        assert plan._replace(**dict.fromkeys(pg.M_FIELDS, 0)) == fixed, m
+        assert plan.tiles_m == -(-m // pg.TILE_M)
+
+
+@pytest.mark.parametrize("k,n", LLAMA_PREFILL + ((72, 40), (1024, 33)))
+def test_prefill_plan_fits_a_ctas_shared_memory(k, n):
+    plan = pg.launch_plan(512, n, k)
+    assert plan.smem_bytes <= H100_SMEM
+    assert plan.smem_bytes >= plan.stages * pg.stage_bytes(plan.tile_n)
+    assert plan.ctas % (plan.split * plan.share) == 0
+    assert plan.ctas <= pg.H100_SMS
+    assert 1 in (plan.split, plan.share)
+
+
+#: Clusters an H100 SXM holds at once at the k/v plan's shape (3 CTAs of
+#: 199,744 bytes of shared memory), as the kernel's occupancy query reads
+#: it on the card; the 32 output tiles of k/v at M = 512 run in one round.
+H100_CLUSTERS_OF_3 = 39
+
+
+def test_prefill_plan_fills_the_card_at_k_v():
+    """k/v [4096 → 1024] at M = 512: 32 output tiles, each split over K
+    three ways, so 96 CTAs of work, all at once, where one tile a CTA
+    gave 32."""
+    plan = pg.launch_plan(512, 1024, 4096, H100_CLUSTERS_OF_3)
+    tiles = plan.tiles_m * -(-1024 // plan.tile_n)
+    assert plan.split == 3 and tiles <= H100_CLUSTERS_OF_3
+    assert plan.ctas == tiles * plan.split == 96
+    # The wide shapes need no split (a tile's K in one CTA); pairs of
+    # their column blocks share x's tile.
+    for k, n in LLAMA_PREFILL:
+        if n >= 4096:
+            plan = pg.launch_plan(512, n, k)
+            assert (plan.split, plan.share) == (1, 2)
