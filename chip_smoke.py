@@ -51,7 +51,20 @@ checkout's BN kernel by the same code (a parent commit's, say).
    and the PyTorch call computing the same function (``F.linear``,
    ``F.rms_norm``, ``scaled_dot_product_attention`` with the mask and
    ``enable_gqa``); decode attention also at llama3-8b's full context,
-   B1 S8192.
+   B1 S8192. Then a prefill's attention over the cache
+   (``prefill_attention``: the decode attention kernel, a query a row)
+   on generate's left-padded [2, 512] block over 544 slots, an engine
+   chunk of 64 at offset 448 and a [1, 2048] prompt: within 1e-2 of
+   ``dense_attention(causal=True, q_offset=...)``, the same bits on a
+   second call, the chunk's rows equal to the one-shot block's; timed
+   beside the plain version, SDPA with the same mask and the bound.
+   Then the decode GEMM's fp32 route at the lm_head's shape,
+   M = 1, 4, 16, 20, 32 and 40: within 1e-5·max(1, |y|) of its plain
+   version, the same bits twice, every row equal to itself alone, one
+   pass over W up to 32 rows; its device ms in turns with its earlier
+   design (built from ``scripts/earlier/decode_gemm_fp32_row_tiles.cu``
+   as ``scripts/gemm_ab.py`` builds earlier designs) and ``F.linear``,
+   beside the bound.
 3c. The prefill GEMM at each llama3-8b prefill product, M = 512,
    against its plain version (``F.linear``) to one bf16 step, the same
    bits on a second call, and the rows of blocks of M = 1, 2, 20, 128,
@@ -75,7 +88,9 @@ checkout's BN kernel by the same code (a parent commit's, say).
    (temperature 0.7, top-k 40, top-p 0.9, keys ``PRNGKey(100 + i)``).
    Every stream equals B=1 ``generate``'s, token for token, and the
    pool ends clean; requests 1 and 3 through a 1-slot engine too;
-   every admission's prefill launches the prefill GEMM 224 times. Then
+   every admission's prefill launches the prefill GEMM 224 times,
+   decode attention 32 (its attention over the cache, a query a row)
+   and the decode GEMM once (its fp32 head at the position read). Then
    a sampled ``LoadedModel.run`` of two left-padded rows with their own
    keys, each row equal to B=1. Time to first token, inter-token ms,
    tokens/s, slices and peak memory are printed. Each generate decode
@@ -86,9 +101,23 @@ checkout's BN kernel by the same code (a parent commit's, say).
    same cache): 8 requests sharing a 360-token prefix, one cold, then 7
    at once, greedy and sampled: 7 hits and 1 miss, a clean pool, TTFTs,
    each hit stream equal to its own cold run and every stream equal to
-   B=1 ``generate`` (asserted). Then one decode step's kernel launches
-   through the decode kernels and through the plain ops. The params are
-   freed before the next phases.
+   B=1 ``generate`` (asserted). Then speculative decoding on the engine
+   mix (k = 4), greedy and sampled, with the strong draft (llama3-8b
+   itself, its own dense cache) and a weak one (one layer at llama3-8b's
+   widths from seed 9): every stream equal to the vanilla engine's and
+   B=1's, the strong draft's acceptance above 0.5, rounds run, a clean
+   pool (asserted); acceptance, verifier forwards per token, inter-token
+   ms and tokens/s beside the vanilla engine's. Then chunked prefill
+   (chunk 64) with speculation on the prefix mix plus a 512-token prompt
+   admitted while the others decode, greedy and sampled: every stream
+   equal to the same engine's without chunking and to B=1 (asserted);
+   the decoding neighbours' largest inter-token gap while the long
+   prompt is admitted, chunked against one-shot. Then one verify forward
+   (4 slots × 5 tokens) beside one decode step: 225 decode-GEMM
+   launches at M = 20, 65 RMSNorm, 160 decode attention, no prefill GEMM
+   and no plain twin (asserted), and the device ms of each. Then one
+   decode step's kernel launches through the decode kernels and through
+   the plain ops. The params are freed before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -138,6 +167,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
 from kubeflow_tpu_torch.models import resnet
 from kubeflow_tpu_torch.models.convert import (
@@ -675,6 +705,97 @@ def decode_attention_rows():
     return rows
 
 
+#: Prefill blocks whose attention over the cache runs on the decode
+#: attention kernel, a query a row: (name, rows' pad lengths, block
+#: width, offset, cache slots). generate's left-padded [2, 512] prompt
+#: block over its 544-slot cache (the engine's cache has that length
+#: too); an engine chunk of 64 at offset 448 of the 512-token row; a
+#: 2,048-token prompt over a cache of its length.
+PREFILL_ATTENTION = (
+    ("generate [2, 512] pads (212, 0) S544",
+     (max(PROMPTS) - PROMPTS[0], 0), max(PROMPTS), 0,
+     max(PROMPTS) + NEW_TOKENS),
+    ("chunk [1, 64] at 448 S544", (0,), 64, 448, max(PROMPTS) + NEW_TOKENS),
+    ("prompt [1, 2048] S2048", (0,), 2048, 0, 2048),
+)
+
+
+def prefill_attention_rows():
+    """``prefill_attention`` at llama3-8b's heads (32/8, D = 128, bf16)
+    on the blocks of PREFILL_ATTENTION, with the validity generate and
+    the engine build (keys below the block's end and at or past the
+    row's pad): against ``dense_attention(causal=True, q_offset=...)``
+    within the decode attention tolerance, the same bits on a second
+    call, and the chunk's rows equal to the same rows of the one-shot
+    block; its time beside the plain version, SDPA with the same mask,
+    and the bound."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+    blocks = {}
+    for name, pads, l, offset, s in PREFILL_ATTENTION:
+        b = len(pads)
+        if offset:  # the chunk: the one-shot block's unpadded row
+            ref_q, ref_k, ref_v = blocks[PREFILL_ATTENTION[0][0]]
+            q = ref_q[-1:, offset:offset + l].clone()
+            k, v = ref_k[-1:].clone(), ref_v[-1:].clone()
+        else:
+            q = torch.randn(b, l, 32, 128, device="cuda",
+                            generator=gen).to(bf)
+            k = torch.randn(b, s, 8, 128, device="cuda", generator=gen).to(bf)
+            v = torch.randn(b, s, 8, 128, device="cuda", generator=gen).to(bf)
+        blocks[name] = (q, k, v)
+        slots = torch.arange(s, device="cuda")
+        pad = torch.tensor(pads, device="cuda")
+        valid = ((slots[None, :] < offset + l)
+                 & (slots[None, :] >= pad[:, None]))
+        run = functools.partial(da.prefill_attention, q, k, v, offset, valid)
+        plain = functools.partial(dense_attention, q, k, v, causal=True,
+                                  q_offset=offset, kv_offset=0,
+                                  kv_segment_valid=valid)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.isfinite(got).all() or err > KERNEL_TOL["bfloat16"]:
+            raise AssertionError(f"prefill_attention {name}: max |Δ| {err}")
+        if not torch.equal(run(), got):
+            raise AssertionError(f"prefill_attention {name}: a second call "
+                                 "gave other bits")
+        if offset:
+            whole = da.prefill_attention(ref_q[-1:], k, v, 0, valid)
+            if not torch.equal(got, whole[:, offset:offset + l]):
+                raise AssertionError(
+                    f"prefill_attention {name}: the chunk's rows differ "
+                    "from the same rows of the one-shot block")
+        causal = slots[None, :] <= offset + torch.arange(
+            l, device="cuda")[:, None]
+        mask = causal[None] & valid[:, None, :]  # [B, L, S]
+        library = functools.partial(
+            F.scaled_dot_product_attention, q.transpose(1, 2),
+            k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask[:, None],
+            enable_gqa=True)
+        pairs = float(mask.sum())
+        n_valid = int(valid.sum())
+        b_ms, b_by = bound((2 * n_valid * 8 * 128 + 2 * b * l * 32 * 128) * 2
+                           + valid.numel(), 4.0 * 128 * 32 * pairs, bf)
+        t = time_ms(run, **KERNEL_TIMING)
+        row = {"shape": f"{name} H32/8 D128 bf16", "b": b, "l": l,
+               "offset": offset, "s": s, "launches": b,
+               "max_abs_err": err, "tol": KERNEL_TOL["bfloat16"], "ms": t,
+               "device_ms": profiled_ms(run),
+               "plain_ms": time_ms(plain, reps=5),
+               "plain_device_ms": profiled_ms(plain, calls=5),
+               "library_ms": time_ms(library, **KERNEL_TIMING),
+               "library_device_ms": profiled_ms(library),
+               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
+        log(f"prefill_attention {json.dumps(row)}")
+        rows.append(row)
+    del blocks
+    torch.cuda.empty_cache()
+    return rows
+
+
 #: llama3-8b's prefill products at M = 512 (a [1, 512] prompt block):
 #: (name, K, N, launches a prefill forward). 7 a layer over 32 layers;
 #: the fp32 head stays cuBLAS.
@@ -801,6 +922,12 @@ STEP_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1,
 #: llama3-8b's prefill-GEMM launches a prefill forward: its 7 bf16
 #: projections a layer (the fp32 head stays cuBLAS).
 PREFILL_LAUNCHES = 7 * 32
+#: Decode-attention launches a prefill forward takes for each batch row:
+#: its attention over the cache, one query a row of the kernel, a layer.
+PREFILL_ATTENTION_LAUNCHES = 32
+#: Decode-GEMM launches a prefill forward takes: its fp32 head at the
+#: one position a row its caller reads.
+PREFILL_HEAD_LAUNCHES = 1
 
 
 def zero_counts():
@@ -937,6 +1064,8 @@ def serve_llama(card):
     want = {k: steps * n for k, n in STEP_LAUNCHES.items()}
     want["rms_norm"] += STEP_LAUNCHES["rms_norm"]
     want["prefill_gemm"] = PREFILL_LAUNCHES
+    want["decode_attention"] += PREFILL_ATTENTION_LAUNCHES * len(PROMPTS)
+    want["decode_gemm"] += PREFILL_HEAD_LAUNCHES
     if before_generate["prefill_gemm"]:
         raise AssertionError(f"the cache-free forward launched the prefill "
                              f"GEMM {before_generate['prefill_gemm']} times")
@@ -1024,9 +1153,12 @@ def serve_llama(card):
     log(f"{LLAMA} serving: {json.dumps(metrics)}")
     del predict_model, gen_model
     # The engine slice and the prefix lane on the same params, made once.
-    serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
-                 decode_ms_b2=decode_ms)
+    _, vanilla = serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
+                              decode_ms_b2=decode_ms)
     serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
+    serve_spec(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla)
+    serve_chunked(card, LLAMA, params, {"dtype": "bfloat16"})
+    verify_forward_launches(card, LLAMA, params)
     decode_step_launches(card, LLAMA, params)
     return launches
 
@@ -1102,7 +1234,11 @@ def run_engine(engine, requests):
     results = [s.result(timeout=600) for s in streams]
     wall = time.monotonic() - t0
     slices = [e for e in TRACER.snapshot() if e["name"] == "engine_slice"]
-    inter = [e["dur"] / 1e3 / e["args"]["steps"] for e in slices]
+    # A plain slice's wall over its steps; a speculative round's over
+    # the tokens it emitted a slot.
+    inter = [e["dur"] / 1e3 / (e["args"]["tokens"] / e["args"]["slots"]
+                               if e["args"].get("spec")
+                               else e["args"]["steps"]) for e in slices]
     timing = {
         "ttft_ms": [firsts[i] for i in range(len(requests))],
         "inter_token_ms": (statistics.median(inter) if inter else None),
@@ -1133,23 +1269,31 @@ def first_divergence(a, b):
     return int(diff[0]) if diff.size else None
 
 
+def engine_requests(vocab, prompts=ENGINE_PROMPTS, budgets=ENGINE_BUDGETS):
+    """The engine mix's requests: (prompt, budget, key)."""
+    rng = np.random.default_rng(0)
+    return [(rng.integers(0, vocab, n).astype(np.int32), budget,
+             prng.PRNGKey(100 + i))
+            for i, (n, budget) in enumerate(zip(prompts, budgets))]
+
+
 def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
                  budgets=ENGINE_BUDGETS, generate_config=None,
                  cache_size=ENGINE_CACHE, device=None,
                  decode_ms_b2=None):
     """Phases 4b-4d on ``params``: ``:generate`` through the
     continuous-batching engine, greedy and sampled, 4 slots then 1;
-    then sampled ``LoadedModel.run`` with per-row keys."""
+    then sampled ``LoadedModel.run`` with per-row keys. Returns the
+    report and, by mode, each request's stream, its B=1 reference and
+    the run's timing."""
     config = dict(ENGINE_GENERATE_CONFIG if generate_config is None
                   else generate_config)
     vocab = get_model(registry).num_classes_or_vocab
     max_prompt = max(prompts)
-    rng = np.random.default_rng(0)
-    requests = [(rng.integers(0, vocab, n).astype(np.int32), budget,
-                 prng.PRNGKey(100 + i))
-                for i, (n, budget) in enumerate(zip(prompts, budgets))]
+    requests = engine_requests(vocab, prompts, budgets)
     kwargs = dict(kwargs, cache_size=cache_size)
     report = {"card": card}
+    runs = {}
     for mode, sampling in (("greedy", {"temperature": 0.0}),
                            ("sampled", SAMPLING)):
         loaded = engine_model(registry, params, kwargs, max_prompt,
@@ -1175,6 +1319,9 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
                 if k != "rms_norm"}
         # One B=1 prefill an admission.
         want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
+        want["decode_attention"] += PREFILL_ATTENTION_LAUNCHES * len(
+            requests)
+        want["decode_gemm"] += PREFILL_HEAD_LAUNCHES * len(requests)
         if (counts["flash_attention"] or any(
                 counts[k] != n for k, n in want.items())
                 or counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"]
@@ -1195,6 +1342,7 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
                 raise AssertionError(
                     f"engine {mode} request {i}: first token {got[0]} != "
                     f"B=1 generate's {want[0]}")
+        runs[mode] = (results, refs, timing)
         timing["streams_equal_b1"] = sum(
             np.array_equal(g, w) for g, w in zip(results, refs))
         timing["first_divergence"] = [first_divergence(g, w)
@@ -1258,7 +1406,7 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
                 f"{first_divergence(out[i], want)}")
     log("sampled LoadedModel.run, 2 rows with row_rngs: each row equals "
         "B=1 generate")
-    return report
+    return report, runs
 
 
 #: The prefix-lane phase: 8 requests sharing a 360-token prefix (22
@@ -1342,6 +1490,7 @@ def serve_prefix(card, registry, params, kwargs, *,
                 != stats["total_pages"] or any(twins.values())
                 or counts["decode_gemm"] != STEP_LAUNCHES["decode_gemm"] * (
                     cold_timing["decode_steps"] + timing["decode_steps"])
+                + PREFILL_HEAD_LAUNCHES * PREFIX_REQUESTS
                 or counts["prefill_gemm"]
                 != PREFILL_LAUNCHES * PREFIX_REQUESTS):
             raise AssertionError(f"prefix {mode}: stats {stats}, launches "
@@ -1458,6 +1607,412 @@ def decode_step_launches(card, registry, params):
     log(f"decode step launches (4 rows, cache {ENGINE_CACHE}): "
         f"{json.dumps(out)} (generate's decode profiled before the decode "
         f"kernels: ~3,400 a step)")
+    return out
+
+
+#: The fp32 head's rows on the decode GEMM's fp32 route, at the lm_head's
+#: shape: a decode step's M = 1 and 4, 16, a speculative verify's
+#: 4 slots × 5 tokens = 20, a whole pass's 32, and 40 (a second pass).
+FP32_HEAD_ROWS = (1, 4, 16, 20, 32, 40)
+#: The fp32 route's earlier design, kept as a copy to time beside today's.
+EARLIER_FP32 = os.path.join(ROOT, "scripts", "earlier",
+                            "decode_gemm_fp32_row_tiles.cu")
+
+
+def earlier_fp32_route():
+    """The earlier fp32 design, ``(x, W) -> y``, built from its copy as
+    ``scripts/gemm_ab.py`` builds earlier designs."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import gemm_ab
+
+    lib = gemm_ab.build_copy(EARLIER_FP32, "decode_gemm_fp32")
+    gemm_ab.bind(lib, "kft_decode_gemm", 4)
+    return gemm_ab.earlier_decode(lib)
+
+
+def fp32_head_rows(earlier):
+    """The decode GEMM's fp32 route at the lm_head's [4096→128256], M in
+    FP32_HEAD_ROWS: within 1e-5·max(1, |y|) of its plain version, the
+    same bits on a second call, every row equal to itself computed
+    alone, and one pass over W up to M = 32. Device ms (the profiler's,
+    W read from device memory) in turns with the earlier design and
+    F.linear (earlier, today, F.linear, F.linear, today, earlier),
+    beside the bound."""
+    fp32 = torch.float32
+    k, n = 4096, 128256
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.randn(n, k, device="cuda", generator=gen) * 0.02
+    x = torch.randn(max(FP32_HEAD_ROWS), k, device="cuda", generator=gen)
+    fns = {"earlier": earlier, "today": dg.decode_linear,
+           "F.linear": F.linear}
+    rows = []
+    for m in FP32_HEAD_ROWS:
+        xs = x[:m]
+        got = dg.decode_linear(xs, w)
+        torch.cuda.synchronize()
+        want = dg.decode_linear_reference(xs, w)
+        err = float((got - want).abs().max())
+        tol = DECODE_TOL[fp32] * max(1.0, float(want.abs().max()))
+        earlier_err = float((earlier(xs, w) - want).abs().max())
+        if not torch.isfinite(got).all() or err > tol or earlier_err > tol:
+            raise AssertionError(f"fp32 head M={m}: max |Δ| {err} "
+                                 f"(earlier design {earlier_err}) > {tol}")
+        if not torch.equal(dg.decode_linear(xs, w), got):
+            raise AssertionError(f"fp32 head M={m}: a second call gave "
+                                 "other bits")
+        for i in range(m):
+            if not torch.equal(dg.decode_linear(xs[i:i + 1], w),
+                               got[i:i + 1]):
+                raise AssertionError(f"fp32 head: row {i} of M={m} differs "
+                                     "from the row alone")
+        passes = dg.launch_plan(fp32, m, n, k).grid_y
+        if passes != -(-m // dg.ROWS_PER_PASS):
+            raise AssertionError(f"fp32 head M={m}: {passes} passes over W")
+        times = {impl: [] for impl in fns}
+        for impl in ("earlier", "today", "F.linear", "F.linear", "today",
+                     "earlier"):
+            fn = fns[impl]
+            times[impl].append(profiled_ms(lambda: fn(xs, w)))
+        b_ms, b_by = bound((n * k + m * k + m * n) * 4, 2.0 * m * n * k,
+                           fp32)
+        row = {"shape": f"lm_head [4096→128256] fp32 M={m}", "m": m,
+               "passes_over_w": passes, "max_abs_err": err, "tol": tol,
+               "device_ms": times["today"],
+               "earlier_device_ms": times["earlier"],
+               "library_device_ms": times["F.linear"],
+               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_share": b_ms / min(times["today"])}
+        log(f"fp32 head {json.dumps(row)}")
+        rows.append(row)
+    del w, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: Speculative decoding on the engine mix: draft tokens a round.
+SPEC_K = 4
+#: The weak draft: one layer at llama3-8b's widths, from another seed.
+WEAK_DRAFT_SEED = 9
+
+
+def weak_draft(registry, cache_size, device=None):
+    """A 1-layer Llama at the model's widths, random from another seed:
+    its proposals are noise (acceptance near 0), and its steps run the
+    decode kernels at the shapes a full model's step gives them."""
+    full = get_model(registry).make()
+    model = llama.Llama(
+        vocab_size=full.vocab_size, num_layers=1, d_model=full.d_model,
+        num_heads=full.num_heads, num_kv_heads=full.num_kv_heads,
+        mlp_dim=full.mlp_dim, rope_theta=full.rope_theta,
+        dtype="bfloat16", cache_size=cache_size)
+    return model, init_params(model, seed=WEAK_DRAFT_SEED, device=device)
+
+
+def spec_engine(loaded, name, draft):
+    """The engine ``LoadedModel.ensure_engine`` builds from ``loaded``'s
+    export config, with ``draft`` ((module, params)) as its speculative
+    draft, as an export naming a draft gets."""
+    (_, spec), = loaded.signature().inputs.items()
+    config = EngineConfig.from_generate_config(
+        loaded.metadata.generate_config, spec.shape[1])
+    return DecodeEngine(loaded._module, loaded.params, config, name=name,
+                        device=loaded.device, draft_model=draft[0],
+                        draft_params=draft[1])
+
+
+def serve_spec(card, registry, params, kwargs, vanilla, *,
+               cache_size=ENGINE_CACHE, device=None):
+    """Speculative decoding on the engine mix (4 slots, k = SPEC_K),
+    greedy and sampled, with the strong draft (the model itself: the
+    same params, its own dense cache) and the weak one. Asserts every
+    stream equal to the vanilla engine's (``vanilla``: serve_engine's
+    runs) and B=1's, the strong draft's acceptance above 0.5, rounds
+    run, a clean pool, and every decode kernel and the prefill GEMM
+    launched (no CUDA tensor at a plain twin). Reports the acceptance,
+    verifier forwards per emitted token, inter-token ms and tokens/s
+    beside the vanilla engine's."""
+    vocab = get_model(registry).num_classes_or_vocab
+    requests = engine_requests(vocab)
+    kwargs = dict(kwargs, cache_size=cache_size)
+    config = dict(ENGINE_GENERATE_CONFIG, engine_draft_tokens=SPEC_K)
+    drafts = {"strong": None,
+              "weak": weak_draft(registry, cache_size, device)}
+    report = {"card": card, "k": SPEC_K}
+    for draft_name, draft in drafts.items():
+        for mode, sampling in (("greedy", {"temperature": 0.0}),
+                               ("sampled", SAMPLING)):
+            loaded = engine_model(registry, params, kwargs,
+                                  max(ENGINE_PROMPTS),
+                                  dict(config, **sampling), device)
+            engine = spec_engine(
+                loaded, f"smoke-spec-{draft_name}-{mode}",
+                (loaded._module, loaded.params) if draft is None else draft)
+            try:
+                with twin_calls() as twins:
+                    zero_counts()
+                    results, timing = run_engine(engine, requests)
+                    counts = read_counts()
+                stats = check_engine_pool(engine, len(requests))
+            finally:
+                engine.stop()
+            spec = stats["spec"]
+            want, refs, plain = vanilla[mode]
+            tokens = sum(len(r) for r in results)
+            row = {
+                "acceptance_rate": spec["acceptance_rate"],
+                "rounds": spec["rounds"],
+                "verify_forwards_per_token": spec["rounds"] / tokens,
+                "slot_verify_forwards_per_token":
+                    spec["drafted_tokens"] / SPEC_K / tokens,
+                "inter_token_ms": timing["inter_token_ms"],
+                "inter_token_ms_range": timing["inter_token_ms_range"],
+                "tokens_per_s": timing["tokens_per_s"],
+                "vanilla_inter_token_ms": plain["inter_token_ms"],
+                "vanilla_tokens_per_s": plain["tokens_per_s"],
+                "ttft_ms": timing["ttft_ms"],
+                "launches": counts,
+                "streams_equal_vanilla": sum(
+                    np.array_equal(g, w) for g, w in zip(results, want)),
+                "streams_equal_b1": sum(
+                    np.array_equal(g, w) for g, w in zip(results, refs)),
+                "first_divergence": [first_divergence(g, w)
+                                     for g, w in zip(results, refs)],
+            }
+            report[f"{draft_name} {mode}"] = row
+            log(f"spec {draft_name} draft {mode}, k={SPEC_K}: "
+                f"{json.dumps(row)}")
+            if (row["streams_equal_vanilla"] != len(requests)
+                    or row["streams_equal_b1"] != len(requests)
+                    or spec["rounds"] <= 0
+                    or (draft is None and spec["acceptance_rate"] <= 0.5)
+                    or counts["flash_attention"] or any(twins.values())
+                    or not all(counts[k] for k in (
+                        "decode_gemm", "rms_norm", "decode_attention",
+                        "prefill_gemm"))):
+                raise AssertionError(
+                    f"spec {draft_name} {mode}: {row}, stats {stats}, "
+                    f"plain twins called {twins}")
+            loaded.close()
+    log(f"{registry} speculative decoding: {json.dumps(report)}")
+    return report
+
+
+#: The chunked-prefill phase: the prefix lane's chunk, and one long
+#: prompt admitted while the prefix mix decodes.
+PREFILL_CHUNK = 64
+LONG_PROMPT, LONG_BUDGET = 512, 16
+
+
+def run_with_long(engine, requests, long_request):
+    """Submit ``requests`` at once; once every one of them is admitted
+    (each has streamed a token, none is queued), submit
+    ``long_request``, so its admission is the only one while the others
+    decode. Returns every stream's tokens (``requests`` then the long
+    one) and the largest gap between two token events of another stream
+    while the long prompt was being admitted (its submit to its first
+    token), in ms."""
+    events = {}
+    streams = []
+
+    def submit(prompt, budget, key):
+        stream = engine.submit(prompt, rng=key, max_new_tokens=budget)
+        times = events.setdefault(len(streams), [])
+        stream.set_notify(lambda times=times: times.append(
+            time.monotonic()))
+        streams.append(stream)
+        return stream
+
+    for prompt, budget, key in requests:
+        submit(prompt, budget, key)
+    deadline = time.monotonic() + 600
+    while not all(s.tokens_so_far for s in streams):
+        if time.monotonic() > deadline:
+            raise AssertionError("a request was never admitted")
+        time.sleep(0.002)
+    t_submit = time.monotonic()
+    long_stream = submit(*long_request)
+    results = [s.result(timeout=600) for s in streams]
+    t_first = events[len(streams) - 1][0]
+    gap = 0.0
+    for i, times in events.items():
+        if i == len(streams) - 1:
+            continue
+        for a, b in zip(times, times[1:]):
+            if b > t_submit and a < t_first:
+                gap = max(gap, b - a)
+    del long_stream
+    return results, gap * 1e3
+
+
+def serve_chunked(card, registry, params, kwargs, *,
+                  cache_size=ENGINE_CACHE, device=None):
+    """Chunked prefill composed with speculative decoding (the strong
+    draft, k = SPEC_K): the prefix lane with ``engine_prefill_chunk`` =
+    PREFILL_CHUNK, on the prefix mix (request 0 cold, then 7 at once)
+    plus a LONG_PROMPT-token prompt admitted while they decode, greedy
+    and sampled; and the same engine without chunking. Asserts every
+    chunked stream equal to the unchunked engine's and to B=1, a clean
+    pool and every kernel of the path launched; reports the decoding
+    neighbours' largest inter-token gap while the long prompt is
+    admitted, chunked against one-shot."""
+    vocab = get_model(registry).num_classes_or_vocab
+    requests = prefix_requests(vocab)
+    rng = np.random.default_rng(1)
+    long_request = (rng.integers(0, vocab, LONG_PROMPT).astype(np.int32),
+                    LONG_BUDGET, prng.PRNGKey(400))
+    kwargs = dict(kwargs, cache_size=cache_size)
+    report = {"card": card, "chunk": PREFILL_CHUNK, "k": SPEC_K}
+    for mode, sampling in (("greedy", {"temperature": 0.0}),
+                           ("sampled", SAMPLING)):
+        runs = {}
+        for lane, extra in (("chunked",
+                             {"engine_prefill_chunk": PREFILL_CHUNK}),
+                            ("one_shot", {})):
+            loaded = engine_model(
+                registry, params, kwargs, LONG_PROMPT,
+                dict(PREFIX_GENERATE_CONFIG, engine_draft_tokens=SPEC_K,
+                     **extra, **sampling), device)
+            engine = spec_engine(loaded, f"smoke-{lane}-{mode}",
+                                 (loaded._module, loaded.params))
+            try:
+                with twin_calls() as twins:
+                    zero_counts()
+                    prompt, budget, key = requests[0]
+                    cold = engine.submit(prompt, rng=key,
+                                         max_new_tokens=budget).result(600)
+                    results, gap = run_with_long(engine, requests[1:],
+                                                 long_request)
+                    counts = read_counts()
+                stats = engine.stats()
+                engine.kv.allocator.check_invariants()
+                engine.prefix.check_invariants()
+            finally:
+                engine.stop()
+            if (stats["active_slots"] or stats["queue_depth"]
+                    or stats["reserved_pages"]
+                    or stats["free_pages"] + stats["retained_pages"]
+                    != stats["total_pages"] or any(twins.values())
+                    or counts["flash_attention"]
+                    or not all(counts[k] for k in (
+                        "decode_gemm", "rms_norm", "decode_attention",
+                        "prefill_gemm"))
+                    or stats.get("prefill_chunk") != extra.get(
+                        "engine_prefill_chunk")):
+                raise AssertionError(f"{lane} {mode}: stats {stats}, "
+                                     f"launches {counts}, plain twins "
+                                     f"called {twins}")
+            runs[lane] = {"streams": [cold] + results, "gap_ms": gap,
+                          "launches": counts,
+                          "acceptance_rate": stats["spec"][
+                              "acceptance_rate"]}
+            loaded.close()
+        refs = [b1_unpadded(loaded, p, k, b, sampling)
+                for p, b, k in requests + [long_request]]
+        chunked, one_shot = runs["chunked"], runs["one_shot"]
+        row = {
+            "neighbour_max_gap_ms_chunked": chunked["gap_ms"],
+            "neighbour_max_gap_ms_one_shot": one_shot["gap_ms"],
+            "acceptance_rate": chunked["acceptance_rate"],
+            "launches_chunked": chunked["launches"],
+            "streams_equal_one_shot": sum(
+                np.array_equal(a, b) for a, b in zip(chunked["streams"],
+                                                     one_shot["streams"])),
+            "streams_equal_b1": sum(
+                np.array_equal(a, b) for a, b in zip(chunked["streams"],
+                                                     refs)),
+            "one_shot_streams_equal_b1": sum(
+                np.array_equal(a, b) for a, b in zip(one_shot["streams"],
+                                                     refs)),
+            "b1_first_divergence": [first_divergence(a, b) for a, b in
+                                    zip(chunked["streams"], refs)],
+        }
+        report[mode] = row
+        log(f"chunked prefill {mode} (chunk {PREFILL_CHUNK}, spec k="
+            f"{SPEC_K}), prefix mix + a {LONG_PROMPT}-token prompt: "
+            f"{json.dumps(row)}")
+        n = len(refs)
+        if (row["streams_equal_one_shot"] != n or row["streams_equal_b1"]
+                != n or row["one_shot_streams_equal_b1"] != n):
+            raise AssertionError(f"chunked {mode}: {row}")
+    return report
+
+
+def verify_forward_launches(card, registry, params):
+    """One speculative verify forward (4 slots × SPEC_K + 1 tokens over a
+    544-slot cache) beside one decode step at the same rows: each
+    forward's kernel launches (zeroed just before it), the rows each
+    decode-GEMM launch took, and its device ms from the profiler. The
+    verify must launch the decode GEMM 225 times at M = 20, RMSNorm 65
+    and decode attention 32·(k + 1) times, and no prefill GEMM; no CUDA
+    tensor may reach a plain twin."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    model = get_model(registry).make(dtype="bfloat16",
+                                     cache_size=ENGINE_CACHE)
+    n, width = len(DECODE_POSITIONS), SPEC_K + 1
+    shape = (n, ENGINE_CACHE, model.num_kv_heads, model.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cache = [LayerCache(torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16), torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16)) for _ in range(model.num_layers)]
+    pos = torch.tensor(DECODE_POSITIONS, device="cuda")
+    block = torch.randint(0, model.vocab_size, (n, width), device="cuda",
+                          generator=gen)
+    pads = torch.zeros(n, dtype=torch.int32, device="cuda")
+    forwards = {
+        "decode step": lambda: apply(
+            model, params, block[:, :1], pos[:, None], pad_lengths=pads,
+            decode_positions=pos, cache=cache),
+        "verify": lambda: apply(
+            model, params, block, pos[:, None] + torch.arange(
+                width, device="cuda")[None], pad_lengths=pads,
+            decode_positions=pos, cache=cache)}
+    rows_seen = []
+    saved = llama.decode_linear
+
+    def counted(x, w):
+        rows_seen.append(x.reshape(-1, x.shape[-1]).shape[0])
+        return saved(x, w)
+
+    out = {"card": card}
+    for name, fn in forwards.items():
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            llama.decode_linear = counted
+            rows_seen.clear()
+            try:
+                with twin_calls() as twins:
+                    zero_counts()
+                    fn()
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+            finally:
+                llama.decode_linear = saved
+            with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        cuda_rows = [r for r in prof.key_averages()
+                     if r.device_type == DeviceType.CUDA]
+        out[name] = {"launches": counts, "decode_gemm_rows": sorted(
+            set(rows_seen)), "plain_twins": twins,
+            "device_ms": sum(r.self_device_time_total
+                             for r in cuda_rows) / 1e3,
+            "kernel_launches": sum(r.count for r in cuda_rows)}
+    log(f"verify forward vs decode step (4 slots, k={SPEC_K}, cache "
+        f"{ENGINE_CACHE}): {json.dumps(out)}")
+    want = {"decode_gemm": STEP_LAUNCHES["decode_gemm"],
+            "rms_norm": STEP_LAUNCHES["rms_norm"],
+            "decode_attention": STEP_LAUNCHES["decode_attention"] * width,
+            "prefill_gemm": 0, "flash_attention": 0}
+    verify = out["verify"]
+    if (verify["launches"] != want or verify["decode_gemm_rows"] != [
+            n * width] or any(verify["plain_twins"].values())):
+        raise AssertionError(f"verify forward: launches "
+                             f"{verify['launches']}, expected {want}; "
+                             f"decode GEMM rows {verify['decode_gemm_rows']}"
+                             f"; plain twins {verify['plain_twins']}")
     return out
 
 
@@ -1866,8 +2421,10 @@ def main() -> int:
     rows = [check_flash(kernels, *s) for s in shapes]
     flash_gradient_rows()
     gemm_rows = decode_gemm_rows()
+    fp32_head_rows(earlier_fp32_route())
     norm_rows = rms_norm_rows()
     attn_rows = decode_attention_rows()
+    prefill_attention_rows()
     prefill_rows = prefill_gemm_rows()
     small_model_agreement()
     export_round_trip()

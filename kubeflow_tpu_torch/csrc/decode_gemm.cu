@@ -66,12 +66,27 @@
 // came within 1-5% of this; deeper rings (fewer CTAs an SM) took up to
 // 1.9x as long.
 //
-// fp32 design (decode_gemm_fp32_kernel), kept from the first port: a CTA
-// owns 4 output columns; its 8 warps split K into 8 fixed slices of
-// 16-byte chunks, lane l takes chunks l, l + 32, ... and FMAs each
-// element in order into one partial per (row, column); a fixed
-// __shfl_xor_sync butterfly sums the lanes and the warps' sums are added
-// in warp order through shared memory. Rows go in tiles of 8.
+// fp32 design (decode_gemm_fp32_kernel): the same streamed weight read in
+// full fp32 FMA. A CTA of 8 warps owns a slab of 64 rows of W (output
+// columns); its 256 threads keep a 3-stage ring of cp.async copies in
+// flight, each stage the slab's next 64 columns of K (16 KB of W, a
+// 256-byte run of each row: 128-byte runs streamed 7% slower in a
+// development sweep) and the same columns of up to 32 rows of x, so x's
+// reads from L2 stay within half of W's at M = 32 and two CTAs fit an SM.
+// Each output's K is split into 8 fixed classes (16-byte chunk index mod
+// 8): a lane takes one class of an 8-row x 8-column register tile, adds
+// its K elements in ascending order, one fmaf each, and a fixed butterfly
+// over the 8 lanes of the classes sums the partials. The lane layout makes
+// every shared-memory read a full 128-byte wavefront: a quarter-warp reads
+// 8 consecutive chunks of one W row, or of one x row (layouts that
+// broadcast x to the lanes of a column group were bound by shared memory
+// at M = 20). The order is fixed by K alone, and a row past M is skipped,
+// never computed differently. So W is read once for every M up to 32 (M
+// above 32 takes another pass per 32 rows, the grid's y); at M = 32 the
+// FMAs (33.6 GFLOP for the lm_head, 0.50 ms at 67 TFLOP/s) come near the
+// bytes bound (2.10 GB, 0.63 ms). The earlier design gave a CTA 4 columns
+// and rows in tiles of 8: it read W once a tile of 8 rows, and each CTA
+// read x's whole rows for its 64 KB of W.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -262,12 +277,23 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: FMA in full fp32.
+// fp32: a streamed weight read in full fp32 FMA.
 // ---------------------------------------------------------------------------
 
-constexpr int kFmaWarps = 8;  // warps a CTA, each a fixed slice of K
-constexpr int kFmaCols = 4;   // output columns a CTA owns
-constexpr int kFmaRows = 8;   // rows a CTA computes in one pass over K
+constexpr int kF32BN = 64;   // W rows (output columns) a CTA
+constexpr int kF32BK = 64;   // K a stage: a 256-byte run of each W row
+constexpr int kF32Chunks = kF32BK / 4;  // 16-byte chunks a tile row
+constexpr int kF32Classes = 8;          // K classes: chunk index mod 8
+constexpr int kF32Threads = 4 * kF32BN; // 2 quads of 4 warps, 32 W rows each
+constexpr int kF32Stages = 3;
+constexpr int kF32WBytes = kF32BN * kF32BK * 4;
+constexpr int kF32XBytes = kRowsPerPass * kF32BK * 4;
+constexpr int kF32StageBytes = kF32WBytes + kF32XBytes;
+// 73,728 bytes: two CTAs an SM (the registers allow two), each with two
+// stages (32 KB of W) in flight while it computes the third.
+constexpr int kF32SmemBytes = kF32Stages * kF32StageBytes;
+static_assert(kF32Chunks % kF32Classes == 0, "whole K classes a stage");
+static_assert(kRowsPerPass == 32, "a lane's x rows rg + 4 i, i < 8");
 
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
   f[0] = __uint_as_float(u.x);
@@ -276,77 +302,103 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
   f[3] = __uint_as_float(u.w);
 }
 
-__global__ void __launch_bounds__(kFmaWarps * 32)
+__global__ void __launch_bounds__(kF32Threads, 2)
     decode_gemm_fp32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                             float* __restrict__ y, int m, int n, int k, long long x_stride) {
-  __shared__ float part[kFmaWarps][kFmaRows][kFmaCols];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kFmaCols;
-  const int chunks = k / 4;
-  // Warp w sums the 16-byte chunks [c0, c1) of K: a split fixed by K.
-  const int per_warp = (chunks + kFmaWarps - 1) / kFmaWarps;
-  const int c0 = warp * per_warp;
-  const int c1 = min(chunks, c0 + per_warp);
-  const uint4* wrow[kFmaCols];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(smem_raw);
+  const int n0 = blockIdx.x * kF32BN;
+  const int r0 = blockIdx.y * kRowsPerPass;
+  const int rows = min(kRowsPerPass, m - r0);  // x rows of this pass
+  const int k_tiles = (k + kF32BK - 1) / kF32BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Lane (q, kb) of warp w: K class kb, W rows 32 (w / 4) + 8 q .. + 7 and
+  // x rows rg + 4 i with rg = (q + w) mod 4, so the 4 warps of a quad
+  // cover each (W row group, x row group) pair once. A quarter-warp (one
+  // q) reads 8 consecutive chunks of one W row, or of one x row: every
+  // shared-memory read is a whole 128-byte wavefront, none broadcast.
+  const int kb = lane % kF32Classes, q = lane / kF32Classes;
+  const int wrow0 = 32 * (warp / 4) + 8 * q;
+  const int rg = (q + warp) % 4;
+
+  // Stage `slot` <- K tile kt of the W slab and of the pass's x rows; W
+  // past N or K is zero-filled, x rows past M are never read.
+  auto load = [&](int slot, int kt) {
+    const uint32_t st = ring + slot * kF32StageBytes;
+    const int k0 = kt * kF32BK;
 #pragma unroll
-  for (int c = 0; c < kFmaCols; ++c) {
-    // Columns past N read the last row again and are not stored.
-    const int col = min(col0 + c, n - 1);
-    wrow[c] = reinterpret_cast<const uint4*>(w + static_cast<long long>(col) * k);
+    for (int j = 0; j < kF32BN * kF32Chunks / kF32Threads; ++j) {
+      const int i = threadIdx.x + j * kF32Threads;
+      const int row = i / kF32Chunks, chunk = i % kF32Chunks, col = k0 + chunk * 4;
+      const bool in = n0 + row < n && col < k;
+      cp_async16(st + i * 16, in ? w + static_cast<long long>(n0 + row) * k + col : w, in);
+    }
+    for (int i = threadIdx.x; i < rows * kF32Chunks; i += kF32Threads) {
+      const int row = i / kF32Chunks, col = k0 + (i % kF32Chunks) * 4;
+      const bool in = col < k;
+      cp_async16(st + kF32WBytes + i * 16,
+                 in ? x + static_cast<long long>(r0 + row) * x_stride + col : x, in);
+    }
+  };
+
+  float acc[8][8];  // [x row rg + 4 i][W row wrow0 + c]
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
   }
-  for (int r0 = 0; r0 < m; r0 += kFmaRows) {
-    float acc[kFmaRows][kFmaCols];
+  for (int t = 0; t < k_tiles; ++t) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // stage t landed; stage t - 1 is free again
+    if (t + kF32Stages - 1 < k_tiles) load((t + kF32Stages - 1) % kF32Stages, t + kF32Stages - 1);
+    cp_async_commit();
+    const uint32_t st = ring + (t % kF32Stages) * kF32StageBytes;
 #pragma unroll
-    for (int r = 0; r < kFmaRows; ++r)
+    for (int j = 0; j < kF32Chunks / kF32Classes; ++j) {
+      const int kk = kF32Classes * j + kb;
+      float wf[8][4];
 #pragma unroll
-      for (int c = 0; c < kFmaCols; ++c) acc[r][c] = 0.0f;
-    const uint4* xrow[kFmaRows];
+      for (int c = 0; c < 8; ++c) unpack(lds128(st + ((wrow0 + c) * kF32Chunks + kk) * 16), wf[c]);
 #pragma unroll
-    for (int r = 0; r < kFmaRows; ++r)
-      xrow[r] = reinterpret_cast<const uint4*>(
-          x + static_cast<long long>(min(r0 + r, m - 1)) * x_stride);
-#pragma unroll 2
-    for (int j = c0 + lane; j < c1; j += 32) {
-      float wf[kFmaCols][4];
-#pragma unroll
-      for (int c = 0; c < kFmaCols; ++c) unpack(__ldg(wrow[c] + j), wf[c]);
-#pragma unroll
-      for (int r = 0; r < kFmaRows; ++r) {
-        if (r0 + r < m) {
+      for (int i = 0; i < 8; ++i) {
+        if (rg + 4 * i < rows) {
           float xf[4];
-          unpack(__ldg(xrow[r] + j), xf);
+          unpack(lds128(st + kF32WBytes + ((rg + 4 * i) * kF32Chunks + kk) * 16), xf);
+          // Each K element of the chunk in ascending order, one fmaf each.
 #pragma unroll
-          for (int c = 0; c < kFmaCols; ++c)
+          for (int e = 0; e < 4; ++e)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[r][c] = fmaf(xf[e], wf[c][e], acc[r][c]);
+            for (int c = 0; c < 8; ++c) acc[i][c] = fmaf(xf[e], wf[c][e], acc[i][c]);
         }
       }
     }
+  }
+  cp_async_wait<0>();
+
+  // The 8 classes' partials of each output, summed by a fixed butterfly
+  // over the lanes' kb bits: ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 +
+  // p7)), the same bits on every lane (addition commutes).
 #pragma unroll
-    for (int r = 0; r < kFmaRows; ++r) {
+  for (int i = 0; i < 8; ++i) {
+    const int r = rg + 4 * i;
 #pragma unroll
-      for (int c = 0; c < kFmaCols; ++c) {
-        float v = acc[r][c];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) part[warp][r][c] = v;
-      }
+    for (int c = 0; c < 8; ++c) {
+      float v = acc[i][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      const int col = n0 + wrow0 + c;
+      if (kb == 0 && r < rows && col < n) y[static_cast<long long>(r0 + r) * n + col] = v;
     }
-    __syncthreads();
-    // The warps' sums, added in warp order.
-    if (threadIdx.x < kFmaRows * kFmaCols) {
-      const int r = threadIdx.x / kFmaCols, c = threadIdx.x % kFmaCols;
-      float v = 0.0f;
-#pragma unroll
-      for (int wi = 0; wi < kFmaWarps; ++wi) v += part[wi][r][c];
-      if (r0 + r < m && col0 + c < n) y[static_cast<long long>(r0 + r) * n + col0 + c] = v;
-    }
-    __syncthreads();
   }
 }
 
-// The card's SM count, read (and the bf16 kernel's shared-memory limit
+// The card's SM count, read (and both kernels' shared-memory limits
 // raised) once a process: a decode step launches the kernel 225 times.
 cudaError_t card_sms(int* out) {
   static int known = 0;
@@ -357,6 +409,9 @@ cudaError_t card_sms(int* out) {
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(decode_gemm_bf16_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(decode_gemm_fp32_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
     if (err != cudaSuccess) return err;
     known = sms;
   }
@@ -394,8 +449,11 @@ int launch_bf16(const void* x, const void* w, void* y, int m, int n, int k, long
 
 int launch_fp32(const void* x, const void* w, void* y, int m, int n, int k, long long x_stride,
                 cudaStream_t stream) {
-  const dim3 grid((n + kFmaCols - 1) / kFmaCols);
-  decode_gemm_fp32_kernel<<<grid, kFmaWarps * 32, 0, stream>>>(
+  int sms = 0;
+  cudaError_t err = card_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kF32BN - 1) / kF32BN, (m + kRowsPerPass - 1) / kRowsPerPass);
+  decode_gemm_fp32_kernel<<<grid, kF32Threads, kF32SmemBytes, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), m, n,
       k, x_stride);
   return static_cast<int>(cudaGetLastError());
@@ -406,10 +464,9 @@ int launch_fp32(const void* x, const void* w, void* y, int m, int n, int k, long
 extern "C" {
 
 // The launch plan at (dtype, m, n, k) on a card of `sms` SMs, as ints:
-// x rows a pass over W, output columns a CTA, K a stage (0: the fp32
-// design's warps each take a fixed slice of K), the K split (CTAs a
-// cluster), ring stages, threads a CTA, dynamic shared memory, grid x
-// and grid y. Only grid y depends on m; ops/decode_gemm.py's launch_plan
+// x rows a pass over W, output columns a CTA, K a stage, the K split
+// (CTAs a cluster; 1 for fp32), ring stages, threads a CTA, dynamic
+// shared memory, grid x and grid y. Only grid y depends on m; ops/decode_gemm.py's launch_plan
 // mirrors it. dtype 0 = float32, 1 = bfloat16; -1 for another.
 int kft_decode_gemm_plan(int dtype, int m, int n, int k, int sms, int* out) {
   if (dtype == 1) {
@@ -422,8 +479,10 @@ int kft_decode_gemm_plan(int dtype, int m, int n, int k, int sms, int* out) {
     return 0;
   }
   if (dtype == 0) {
-    const int vals[9] = {kFmaRows, kFmaCols, 0, 1, 0, kFmaWarps * 32, 0,
-                         (n + kFmaCols - 1) / kFmaCols, 1};
+    const int vals[9] = {kRowsPerPass,  kF32BN,     kF32BK,
+                         1,             kF32Stages, kF32Threads,
+                         kF32SmemBytes, (n + kF32BN - 1) / kF32BN,
+                         (m + kRowsPerPass - 1) / kRowsPerPass};
     for (int i = 0; i < 9; ++i) out[i] = vals[i];
     return 0;
   }

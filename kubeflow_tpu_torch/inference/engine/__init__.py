@@ -19,8 +19,9 @@ persistent decode loop over N slots where finished rows retire and
 queued requests admit *between* K-token slices (prefill into a free
 slot), with the KV cache page-managed (:mod:`paged_kv`) instead of
 rebuilt per batch, and tokens streamed back incrementally as they are
-sampled. The port runs the plain lane and the prefix-cache lane
-(:mod:`prefix_cache`); the other lanes of the reference come later.
+sampled. The port runs the plain lane, the prefix-cache lane
+(:mod:`prefix_cache`), chunked prefill and speculative decoding; KV
+handoff, stream resume and the host tier come later.
 """
 
 from kubeflow_tpu_torch.inference.engine.engine import (  # noqa: F401

@@ -12,8 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""The continuous-batching decode engine: the plain lane and the
-prefix-cache lane.
+"""The continuous-batching decode engine: the plain lane, the
+prefix-cache lane, chunked prefill and speculative decoding.
 
 Port of ``kubeflow_tpu/inference/engine/engine.py``. One persistent
 decode loop over N slots: decode runs in K-token slices; BETWEEN slices
@@ -37,15 +37,29 @@ token-block hashes (``prefix_cache.py``), and a matched prefix is
 shared copy-on-write instead of re-prefilled: only the unmatched tail
 runs, as a continuation prefill at the tail's bucket width.
 
+With ``EngineConfig.prefill_chunk`` (prefix-cache mode only) a prompt
+whose unmatched tail is longer than one chunk binds its slot at once and
+prefills one page-aligned chunk per engine lap, between decode slices,
+so a long admission does not stall the slots that are decoding.
+
+With a draft model and ``speculate_tokens = k``, each round runs k + 1
+one-token steps of the draft over its own dense cache (one row a slot),
+then ONE verifier forward over every slot's ``[t0, d1..dk]`` block
+(``decode_positions`` with l = k + 1: on the card the same decode
+kernels as a vanilla step, at M = slots·(k + 1)), samples the k + 1
+targets from the verifier's logits with the slot's own step keys, and
+emits the agreeing prefix plus one; speculated K/V past it rolls back
+through ``truncate_slot``. The targets are the vanilla slice's tokens,
+whatever the draft proposed, so a spec stream equals a vanilla one.
+
 Deadlines are checked at submit (shed), at admission (expired in queue)
 and at every slice boundary (mid-decode eviction frees the slot's
 pages). Observability: the reference's metric families, span names
 (``engine_prefill``, ``engine_slice``, ``engine_request``,
-``engine_compile``) and ``stats()`` keys.
+``engine_compile``, ``spec_verify``) and ``stats()`` keys.
 
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP A7):
-chunked prefill, speculative decoding with a draft, KV handoff,
-mid-stream resume and the host KV tier.
+Not ported yet, and raising ``NotImplementedError`` (ROADMAP A7): KV
+handoff, mid-stream resume and the host KV tier.
 """
 
 from __future__ import annotations
@@ -160,7 +174,7 @@ _M_PAGE_OCC = obs_metrics.Gauge(
     "kft_engine_page_occupancy",
     "Fraction of the KV page pool allocated or reserved "
     "(cached-idle pages count as headroom)", ("model",))
-# Speculative-decode families (registered; lane not ported yet): the acceptance economics
+# Speculative-decode families: the acceptance economics
 # the draft lane is judged by. drafted = k per live slot per round;
 # accepted = drafted tokens actually emitted (each one a verifier
 # forward NOT paid); the rate gauge is lifetime accepted/drafted via
@@ -359,8 +373,8 @@ class _Request:
 class EngineConfig:
     """Static decode configuration (mirrors generate_config) + the
     engine's capacity knobs. Every field of the reference's; the
-    chunked-prefill and host-tier knobs raise in :class:`DecodeEngine`
-    until their lanes are ported."""
+    host-tier knob raises in :class:`DecodeEngine` until its lane is
+    ported."""
 
     max_new_tokens: int
     max_prompt_len: int
@@ -390,11 +404,9 @@ class EngineConfig:
     #: the pad-0 (right-padded) prompt layout so prompt token i always
     #: lands at cache position i, prompt pages are content-indexed by
     #: a radix of token-block hashes, and a matching prefix is shared
-    #: copy-on-write instead of re-prefilled. The same tokens at the
-    #: same positions as a cold prefill; on the card the tail prefill's
-    #: products may round rows apart from the cold prefill's, whose
-    #: block is wider (ROADMAP C3), so a hit's stream can leave its cold
-    #: run's.
+    #: copy-on-write instead of re-prefilled. Output stays bitwise
+    #: equal to cold prefill (greedy + sampled): on the card a prefill's
+    #: rows do not depend on its block width.
     prefix_cache: bool = False
     #: speculative decoding: draft tokens per verify round
     #: (0 = vanilla decode). Takes effect only when the engine is
@@ -443,40 +455,131 @@ class EngineConfig:
         )
 
 
-def _decode_slice(model, params, physical: List[LayerCache],
-                  tables: torch.Tensor, write_pos: torch.Tensor,
-                  pad_lens: torch.Tensor, tokens: torch.Tensor,
-                  done: torch.Tensor, step_rngs: Optional[torch.Tensor],
-                  *, num_steps: int, temperature: float,
-                  eos_id: Optional[int], top_k: Optional[int],
-                  top_p: Optional[float]):
-    """One K-token slice over the slot batch: gather the logical cache
-    from pages ONCE, run the per-row decode step K times over it,
-    scatter the K newly written token positions back. The step math is
-    the same sample → EOS-latch → advance as generate's
-    ``_make_decode_step``; only the cache write is per-row
-    (``decode_positions``) instead of the shared scalar index — that
-    is what lets rows sit at different sequence positions.
+def _sample_step(logits: torch.Tensor, step_rng: Optional[torch.Tensor],
+                 done: torch.Tensor, *, temperature: float,
+                 eos_id: Optional[int], top_k: Optional[int],
+                 top_p: Optional[float]):
+    """One step's sample → EOS latch, as generate's
+    ``_make_decode_step``: ``(tokens [N], done [N])``."""
+    tok = _sample_logits(logits, step_rng, temperature, top_k, top_p)
+    if eos_id is not None:
+        tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+        done = done | (tok == eos_id)
+    return tok, done
+
+
+def _decode_steps(model, params, cache: List[LayerCache],
+                  tokens: torch.Tensor, write_pos: torch.Tensor,
+                  pad_lens: torch.Tensor, done: torch.Tensor,
+                  step_rngs: Optional[torch.Tensor], num_steps: int,
+                  **sample_kw):
+    """``num_steps`` per-row decode steps over ``cache`` (updated in
+    place): sample → EOS-latch → advance, each row writing at its own
+    position (``decode_positions``) instead of the shared scalar index,
+    which is what lets rows sit at different sequence positions.
     ``step_rngs`` is ``[K, N, 2]`` (None when greedy). Returns
     ``(tokens [N, K] int32, last tokens [N], done [N])``."""
-    logical = _gather_logical(physical, tables)
     tok, wpos, dn = tokens, write_pos, done
     out = []
     for k in range(num_steps):
         positions = (wpos - pad_lens)[:, None]
         logits = apply(model, params, tok[:, None], positions,
                        pad_lengths=pad_lens, decode_positions=wpos,
-                       cache=logical)[:, 0]
-        tok = _sample_logits(logits, None if step_rngs is None
-                             else step_rngs[k], temperature, top_k, top_p)
-        if eos_id is not None:
-            tok = torch.where(dn, torch.full_like(tok, eos_id), tok)
-            dn = dn | (tok == eos_id)
+                       cache=cache)[:, 0]
+        tok, dn = _sample_step(logits, None if step_rngs is None
+                               else step_rngs[k], dn, **sample_kw)
         out.append(tok)
         wpos = wpos + 1
+    return torch.stack(out, dim=1), tok, dn
+
+
+def _decode_slice(model, params, physical: List[LayerCache],
+                  tables: torch.Tensor, write_pos: torch.Tensor,
+                  pad_lens: torch.Tensor, tokens: torch.Tensor,
+                  done: torch.Tensor, step_rngs: Optional[torch.Tensor],
+                  *, num_steps: int, **sample_kw):
+    """One K-token slice over the slot batch: gather the logical cache
+    from pages ONCE, run the per-row decode step K times over it
+    (:func:`_decode_steps`), scatter the K newly written token positions
+    back."""
+    logical = _gather_logical(physical, tables)
+    out = _decode_steps(model, params, logical, tokens, write_pos,
+                        pad_lens, done, step_rngs, num_steps, **sample_kw)
     _scatter_token_range(physical, logical, tables, write_pos,
                          num_steps=num_steps)
-    return torch.stack(out, dim=1), tok, dn
+    return out
+
+
+def _draft_slice(draft_model, draft_params, draft_cache: List[LayerCache],
+                 tokens: torch.Tensor, write_pos: torch.Tensor,
+                 pad_lens: torch.Tensor, done: torch.Tensor,
+                 step_rngs: Optional[torch.Tensor], *, num_steps: int,
+                 **sample_kw):
+    """``num_steps`` (k + 1) single-token draft steps over the
+    persistent DENSE draft cache (one row per slot, updated in place),
+    sampled with the SAME step keys the verifier will use: with similar
+    logits the draw lands on the same token, which is what acceptance is
+    made of. Rejected rows need no rollback: validity is the slot's
+    write_pos frontier, and the next round overwrites stale K/V before
+    any query attends to it. The k+1-th step exists ONLY to write the
+    k-th draft's K/V: on a full accept the next round starts past it,
+    and without the write it would hold zeros for good (acceptance
+    collapses while the output stays right). Its proposal is dropped by
+    the caller. Returns the proposals ``[N, num_steps]``."""
+    return _decode_steps(draft_model, draft_params, draft_cache, tokens,
+                         write_pos, pad_lens, done, step_rngs, num_steps,
+                         **sample_kw)[0]
+
+
+def _verify_slice(model, params, physical: List[LayerCache],
+                  tables: torch.Tensor, write_pos: torch.Tensor,
+                  pad_lens: torch.Tensor, tokens: torch.Tensor,
+                  drafts: torch.Tensor, done: torch.Tensor,
+                  step_rngs: Optional[torch.Tensor], **sample_kw):
+    """ONE batched verifier forward over each slot's speculative block
+    ``[t0, d1..dk]`` (k + 1 positions), then the sample → EOS-latch
+    chain replayed over the k + 1 logit columns with the slot's own step
+    keys: target j is the token the vanilla slice would have sampled at
+    that step, whatever the drafts proposed, because the model runs a
+    ``decode_positions`` forward of any width as a decode step (one
+    query at a time, every linear on the decode GEMM), so column j has
+    the bits of the one-token step at ``write_pos + j``. Acceptance is
+    the longest agreeing draft prefix. The block's K/V is written
+    through the page tables at ``[write_pos, write_pos + k + 1)``; the
+    host truncates back to the accepted length
+    (``PagedKVCache.truncate_slot``). Returns ``(targets [N, k+1],
+    accepts [N])``."""
+    logical = _gather_logical(physical, tables)
+    block = torch.cat([tokens[:, None], drafts], dim=1)
+    width = block.shape[1]
+    positions = (write_pos - pad_lens)[:, None] + torch.arange(
+        width, device=block.device)[None, :]
+    logits = apply(model, params, block, positions, pad_lengths=pad_lens,
+                   decode_positions=write_pos, cache=logical)
+    dn = done
+    targets = []
+    for j in range(width):
+        tok, dn = _sample_step(logits[:, j].contiguous(), None
+                               if step_rngs is None else step_rngs[j], dn,
+                               **sample_kw)
+        targets.append(tok)
+    targets = torch.stack(targets, dim=1)
+    agree = (drafts == targets[:, :-1]).to(torch.int32)
+    accepts = torch.cumprod(agree, dim=1).sum(dim=1)
+    _scatter_token_range(physical, logical, tables, write_pos,
+                         num_steps=width)
+    return targets, accepts
+
+
+def _insert_cache_row(batched: List[LayerCache], single: List[LayerCache],
+                      row: int) -> None:
+    """Land a B=1 prefill cache in row ``row`` of a B=N cache, in place:
+    the draft cache's admission write. K/V only: the batched cache's
+    scalar ``index`` stays as it is, because the decode path addresses
+    positions explicitly (``decode_positions``)."""
+    for dst, src in zip(batched, single):
+        dst.k[row] = src.k[0].to(dst.k.dtype)
+        dst.v[row] = src.v[0].to(dst.v.dtype)
 
 
 def _prefill_ctx(model, params, token_block: torch.Tensor,
@@ -500,9 +603,11 @@ def _prefill_ctx(model, params, token_block: torch.Tensor,
         width, device=token_block.device)[None].expand(b, width)
     for layer in cache:
         layer.index = start
-    logits = apply(model, params, token_block, positions, cache=cache)
-    first = _sample_logits(logits[:, last_col], first_rng, temperature,
-                           top_k, top_p)
+    logits = apply(model, params, token_block, positions, cache=cache,
+                   logits_at=torch.full((b,), last_col,
+                                        device=token_block.device))
+    first = _sample_logits(logits[:, 0], first_rng, temperature, top_k,
+                           top_p)
     done = (first == eos_id if eos_id is not None
             else torch.zeros((b,), dtype=torch.bool, device=first.device))
     return cache, first, done
@@ -511,7 +616,8 @@ def _prefill_ctx(model, params, token_block: torch.Tensor,
 def _unported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{option} is not ported yet (ROADMAP {item}); the port's engine "
-        f"runs the plain and prefix-cache lanes only")
+        f"runs the plain and prefix-cache lanes, chunked prefill and "
+        f"speculative decoding")
 
 
 class DecodeEngine:
@@ -526,9 +632,12 @@ class DecodeEngine:
 
     The plain lane: left-padded B=1 prefills, paged KV, K-token slices;
     with ``prefix_cache``, the prefix lane (pad-0 prefills, shared
-    prefix pages, a copy-on-write fork of a partly matched page).
-    Chunked prefill, speculative decoding, KV handoff, stream resume
-    and the host tier raise ``NotImplementedError``.
+    prefix pages, a copy-on-write fork of a partly matched page), and
+    with ``prefill_chunk`` its prompts prefilled a chunk per lap; with
+    ``draft_model``/``draft_params`` and ``speculate_tokens > 0``,
+    speculative rounds in place of plain slices (the draft lives on the
+    engine's device too). KV handoff, stream resume and the host tier
+    raise ``NotImplementedError``.
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
@@ -544,19 +653,38 @@ class DecodeEngine:
         if config.speculate_tokens < 0:
             raise ValueError(
                 f"speculate_tokens {config.speculate_tokens} < 0")
-        if draft_model is not None or draft_params is not None:
-            raise _unported("speculative decoding with a draft model",
-                            "A7")
-        if config.speculate_tokens > 0:
-            # The knob survived export without a draft model: vanilla
-            # decode, as the reference does — the output is the same
-            # either way, only the verifier-forward count differs.
+        self._spec_on = (draft_model is not None
+                         and config.speculate_tokens > 0)
+        if config.speculate_tokens > 0 and draft_model is None:
+            # The knob survived export but the draft weights didn't
+            # load (serving/model.py degrades here): vanilla decode,
+            # never a failed engine — the output is the same either way,
+            # only the verifier-forward count differs.
             logger.warning(
                 "engine %s: engine_draft_tokens=%d but no draft "
                 "model — speculative decoding disabled, decoding "
                 "vanilla", name, config.speculate_tokens)
+        if self._spec_on:
+            if draft_model.cache_size != model.cache_size:
+                raise ValueError(
+                    f"draft cache_size {draft_model.cache_size} != "
+                    f"verifier cache_size {model.cache_size} — the "
+                    f"draft writes at the verifier's slot positions")
+            if draft_model.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {draft_model.vocab_size} != "
+                    f"verifier vocab_size {model.vocab_size}")
         if config.prefill_chunk:
-            raise _unported("engine_prefill_chunk", "A7")
+            if not config.prefix_cache:
+                raise ValueError(
+                    "engine_prefill_chunk requires engine_prefix_cache"
+                    " — chunks accumulate in the pad-0 layout and "
+                    "land in the prefix index")
+            if config.prefill_chunk % config.page_size:
+                raise ValueError(
+                    f"engine_prefill_chunk {config.prefill_chunk} "
+                    f"must be a multiple of engine_page_size "
+                    f"{config.page_size} (page-aligned slices)")
         if config.host_cache_bytes < 0:
             raise ValueError(
                 f"engine_host_cache_bytes {config.host_cache_bytes} "
@@ -567,11 +695,14 @@ class DecodeEngine:
         if self.device.type == "cuda" and self.device.index is None:
             # The engine thread sets this device as its own current one.
             self.device = torch.device("cuda", torch.cuda.current_device())
-        off = [k for k, v in params.items() if v.device != self.device]
-        if off:
-            raise ValueError(
-                f"params {off[:3]} are not on the engine's device "
-                f"{self.device}")
+        for what, tree in (("params", params), ("draft params",
+                                                 draft_params if
+                                                 self._spec_on else {})):
+            off = [k for k, v in tree.items() if v.device != self.device]
+            if off:
+                raise ValueError(
+                    f"{what} {off[:3]} are not on the engine's device "
+                    f"{self.device}")
         # A module of its own: apply() swaps weights into the module it
         # is given, so the engine thread and a caller's thread must not
         # share one (a meta-device template copies for free).
@@ -607,6 +738,23 @@ class DecodeEngine:
         self._sample_kw = dict(
             temperature=config.temperature, eos_id=config.eos_id,
             top_k=config.top_k, top_p=config.top_p)
+        # Draft lane: a persistent dense draft cache (one row per slot)
+        # and split draft / verify dispatches, so the attribution can
+        # tell draft wall from verify wall (the spec_verify span, the
+        # draft_ms / verify_ms request args). The draft module is the
+        # engine thread's own copy, as the verifier's is.
+        self._draft_model = None
+        self._draft_params = None
+        self._draft_cache: Optional[List[LayerCache]] = None
+        self._spec_rounds = 0
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        if self._spec_on:
+            self._draft_model = copy.deepcopy(draft_model)
+            self._draft_params = draft_params
+            with torch.inference_mode():
+                self._draft_cache = init_cache(draft_model, draft_params,
+                                               config.num_slots)
         # Metric children (owner-checked gauge callbacks).
         self._m_tokens = _M_TOKENS.labels(name)
         self._m_admitted = _M_ADMITTED.labels(name)
@@ -621,6 +769,12 @@ class DecodeEngine:
         self._g_pages.set_function(self.kv.allocator.available)
         self._g_occupancy = _M_PAGE_OCC.labels(name)
         self._g_occupancy.set_function(self.page_occupancy)
+        if self._spec_on:
+            self._m_spec_drafted = _M_SPEC_DRAFTED.labels(name)
+            self._m_spec_accepted = _M_SPEC_ACCEPTED.labels(name)
+            self._m_spec_rejected = _M_SPEC_REJECTED.labels(name)
+            self._g_spec_rate = _M_SPEC_RATE.labels(name)
+            self._g_spec_rate.set_function(self.spec_acceptance_rate)
         if self.prefix is not None:
             self._m_prefix_hits = _M_PREFIX_HITS.labels(name)
             self._m_prefix_misses = _M_PREFIX_MISSES.labels(name)
@@ -659,6 +813,13 @@ class DecodeEngine:
         alloc = self.kv.allocator
         total = alloc.num_pages - 1
         return (total - alloc.available()) / total if total else 1.0
+
+    def spec_acceptance_rate(self) -> float:
+        """Lifetime drafted-token acceptance rate (0.0 before the
+        first speculative round)."""
+        if not self._spec_drafted_total:
+            return 0.0
+        return self._spec_accepted_total / self._spec_drafted_total
 
     def _prefix_evicted_total(self) -> float:
         return float(self.prefix.evicted_pages) if self.prefix \
@@ -836,6 +997,8 @@ class DecodeEngine:
         self._g_queue.clear_function(self.scheduler)
         self._g_pages.clear_function(self.kv.allocator)
         self._g_occupancy.clear_function(self)
+        if self._spec_on:
+            self._g_spec_rate.clear_function(self)
 
     def stats(self) -> dict:
         alloc = self.kv.allocator
@@ -862,6 +1025,20 @@ class DecodeEngine:
         }
         if self.prefix is not None:
             out["prefix_cache"] = self.prefix.stats()
+        if self._spec_on:
+            # The acceptance economics: verify_forwards is what
+            # "verifier forwards per emitted token" divides by.
+            out["spec"] = {
+                "k": self.config.speculate_tokens,
+                "rounds": self._spec_rounds,
+                "verify_forwards": self._spec_rounds,
+                "drafted_tokens": self._spec_drafted_total,
+                "accepted_tokens": self._spec_accepted_total,
+                "acceptance_rate": round(
+                    self.spec_acceptance_rate(), 4),
+            }
+        if self.config.prefill_chunk:
+            out["prefill_chunk"] = self.config.prefill_chunk
         return out
 
     # -- engine thread ---------------------------------------------------
@@ -886,8 +1063,12 @@ class DecodeEngine:
             try:
                 self._expire()
                 self._admit()
+                self._advance_prefills()
                 if self.scheduler.decoding_slots():
-                    self._run_plain_slice()
+                    self._run_slice()
+                elif self.scheduler.prefilling_slots():
+                    # Prefill-only laps: work advanced, no nap.
+                    pass
                 else:
                     # Queued-but-unadmittable head with nothing
                     # decoding: bounded nap instead of a hot spin
@@ -1030,9 +1211,18 @@ class DecodeEngine:
             if i == 0:
                 sched.head_unblocked()
             sched.pending.pop_head(head)
-            self._prefill_and_bind_prefix(head, match)
+            if self._chunkable(head, match):
+                # A long tail feeds one chunk per engine lap.
+                self._bind_chunked_prefill(head, match)
+            else:
+                self._prefill_and_bind_prefix(head, match)
             return True
         return False
+
+    def _chunkable(self, req: _Request, match: PrefixMatch) -> bool:
+        return (self.config.prefill_chunk > 0
+                and len(req.prompt) - match.matched
+                > self.config.prefill_chunk)
 
     def _prefill_and_bind(self, req: _Request) -> None:
         t0 = time.monotonic()
@@ -1091,6 +1281,8 @@ class DecodeEngine:
         self._emit_token(slot, first)
         if slot.done or slot.remaining == 0:
             self._retire(slot, "eos" if slot.done else "budget")
+        else:
+            self._draft_prefill(slot, req)
 
     def _prefill_and_bind_prefix(self, req: _Request,
                                  match: PrefixMatch) -> None:
@@ -1191,6 +1383,199 @@ class DecodeEngine:
         self._emit_token(slot, first)
         if slot.done or slot.remaining == 0:
             self._retire(slot, "eos" if slot.done else "budget")
+        else:
+            self._draft_prefill(slot, req)
+
+    def _bind_chunked_prefill(self, req: _Request,
+                              match: PrefixMatch) -> None:
+        """Admit a prompt WITHOUT running its prefill yet: the slot
+        binds in the PREFILLING state holding the reservation and the
+        pinned prefix match; :meth:`_advance_prefills` feeds one
+        page-aligned chunk per engine lap. As in the one-shot path, the
+        matched prefix (plus a boundary fork) is gathered into the
+        accumulating B=1 cache up front: the fork's donor page is
+        unpinned once the copy is queued, and ``match`` is narrowed so a
+        mid-prefill retire can unpin the entries without freeing the
+        fork twice."""
+        t0 = time.monotonic()
+        m = match.matched
+        budget_pages = self._budget_pages(req)
+        fork_pinned = match.fork is not None
+        try:
+            if m > 0:
+                page_row = list(match.shared_pages)
+                if match.fork is not None:
+                    page_row.append(match.fork.page)
+                cache = self.kv.gather_prefix_cache(page_row, m)
+                if fork_pinned:
+                    self.prefix.unpin_fork(match)
+                    fork_pinned = False
+                    match = dataclasses.replace(match, fork=None,
+                                                fork_len=0)
+            else:
+                cache = init_cache(self._model, self._params, 1)
+        except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
+            logger.exception("chunked-prefill admission failed; "
+                             "shedding the request")
+            self.kv.allocator.unreserve(
+                budget_pages - len(match.entries))
+            self.prefix.unpin(match, include_fork=fork_pinned)
+            _M_RETIRED.labels(self.name, "error").inc()
+            req.stream._fail(e)
+            return
+        slot = self.scheduler.bind_prefilling(
+            req, prefill_pos=m, prefill_cache=cache,
+            prefill_match=match, budget_pages=budget_pages,
+            deadline=req.deadline)
+        slot.queue_s = max(0.0, t0 - req.submitted_at)
+
+    def _advance_prefills(self) -> None:
+        """Feed ONE chunk to every prefilling slot — one per engine
+        lap, so a long prompt's prefill interleaves with decode slices
+        instead of stalling them (the chunk is the prefill's slice
+        budget). Chunks run at a fixed [1, chunk] width; the final tail
+        takes the one-shot path's tail width. On the card a chunk's rows
+        have the bits they have in the one-shot block (the prefill's
+        kernels sum in an order its width does not change), so a chunked
+        stream equals a one-shot one."""
+        chunk = self.config.prefill_chunk
+        for slot in self.scheduler.prefilling_slots():
+            req = slot.request
+            length = len(req.prompt)
+            pos = slot.prefill_pos
+            remaining = length - pos
+            final = remaining <= chunk
+            t0 = time.monotonic()
+            try:
+                if final:
+                    width = self._tail_width(length, pos)
+                    block = np.zeros((1, width), np.int32)
+                    block[0, :remaining] = req.prompt[pos:]
+                    last_col = remaining - 1
+                else:
+                    # At least 2 wide, as a hit's tail is (_tail_width):
+                    # a one-token cache forward is a decode step. A pad
+                    # column's K/V lands at the next prompt position,
+                    # which the next chunk overwrites.
+                    width = max(chunk, 2)
+                    block = np.zeros((1, width), np.int32)
+                    block[0, :chunk] = req.prompt[pos:pos + chunk]
+                    last_col = chunk - 1
+                cache, first, done = _prefill_ctx(
+                    self._model, self._params,
+                    torch.from_numpy(block).to(self.device),
+                    slot.prefill_cache, pos, last_col,
+                    self._device_keys(req.step_keys[0:1]),
+                    **self._sample_kw)
+                # The chunk's end is this lap's yield point.
+                first = int(first[0])
+                done = bool(done[0])
+            except Exception as e:  # noqa: BLE001 — fail only this
+                # slot; its prefilling retire path unwinds the pins
+                # and the reservation.
+                logger.exception("chunk prefill failed")
+                self._retire(slot, "error", error=e)
+                continue
+            dur = time.monotonic() - t0
+            slot.prefill_cache = cache
+            slot.prefill_pos = pos + (remaining if final else chunk)
+            slot.prefill_s += dur
+            self._note_compile("prefill_ctx", f"tokens[1,{width}]", t0,
+                               dur, link=self._span_args(req))
+            if final:
+                self._finish_chunked_prefill(slot, first=first, done=done)
+
+    def _finish_chunked_prefill(self, slot: Slot, *, first: int,
+                                done: bool) -> None:
+        """Last chunk landed: adopt the accumulated cache into pages,
+        register the prompt in the prefix index, and join the decode
+        batch (:meth:`SlotScheduler.finish_prefill`)."""
+        req = slot.request
+        match = slot.prefill_match
+        m = match.matched
+        length = len(req.prompt)
+        try:
+            allocated = self.kv.adopt(
+                slot.index, slot.prefill_cache, length,
+                slot.budget_pages, shared_pages=match.shared_pages)
+        except Exception as e:  # noqa: BLE001 — the prefilling
+            # retire branch unpins the match and unreserves.
+            logger.exception("chunked-prefill adopt failed")
+            self._retire(slot, "error", error=e)
+            return
+        # From here the slot owns its pages like any bound slot: the
+        # pins became table refs, and release_slot unwinds them.
+        SlotScheduler.finish_prefill(slot, prompt_width=length,
+                                     first_token=first, done=done)
+        slot.allocated_pages = allocated
+        self.prefix.register(
+            req.prompt, self.kv.tables[slot.index, :allocated].tolist())
+        t1 = time.monotonic()
+        if m > 0:
+            self.prefix.hits += 1
+            self.prefix.saved_tokens_total += m
+            self._m_prefix_hits.inc()
+            self._m_prefix_saved.observe(float(m))
+        else:
+            self.prefix.misses += 1
+            self._m_prefix_misses.inc()
+            # Not fed to the prefill estimator: a chunked prefill's wall
+            # spans several laps with decode slices between them.
+        self._m_admitted.inc()
+        ctx = req.stream.obs_ctx
+        self._m_ttft.observe(t1 - req.submitted_at,
+                             trace_id=ctx.trace_id if ctx else None)
+        tenancy.observe_ttft(req.tenant or tenancy.DEFAULT_TENANT,
+                             t1 - req.submitted_at)
+        if TRACER.enabled:
+            TRACER.record(
+                "engine_prefill", "engine", t1 - slot.prefill_s,
+                slot.prefill_s,
+                self._span_args(req, slot=slot.index, prompt_len=length,
+                                prefix_matched=m, chunked=True))
+        self._emit_token(slot, first)
+        if slot.done or slot.remaining == 0:
+            self._retire(slot, "eos" if slot.done else "budget")
+        else:
+            self._draft_prefill(slot, req)
+
+    def _draft_prefill(self, slot: Slot, req: _Request) -> None:
+        """Fill the slot's draft-cache row with the DRAFT model's prompt
+        K/V, in the layout the verifier's slot uses, so the first draft
+        step continues from ``write_pos``. The draft pays its whole
+        prompt every admission (no draft-side prefix cache: the draft
+        is small beside one saved verifier forward)."""
+        if not self._spec_on:
+            return
+        length = len(req.prompt)
+        t0 = time.monotonic()
+        if self.prefix is not None:
+            width = self._tail_width(length, 0)
+            block = np.zeros((1, width), np.int32)
+            block[0, :length] = req.prompt
+            cache, _, _ = _prefill_ctx(
+                self._draft_model, self._draft_params,
+                torch.from_numpy(block).to(self.device),
+                init_cache(self._draft_model, self._draft_params, 1), 0,
+                length - 1, self._device_keys(req.step_keys[0:1]),
+                **self._sample_kw)
+        else:
+            width = slot.prompt_width
+            pad = slot.pad_len
+            padded = np.zeros((1, width), np.int32)
+            padded[0, pad:] = req.prompt
+            (cache, _, _, _), _ = _prefill(
+                self._draft_model, self._draft_params,
+                torch.from_numpy(padded).to(self.device),
+                self._device_keys(req.step_keys[0:1]),
+                init_cache(self._draft_model, self._draft_params, 1),
+                torch.tensor([pad], dtype=torch.int32, device=self.device),
+                **self._sample_kw)
+        _insert_cache_row(self._draft_cache, cache, slot.index)
+        dur = time.monotonic() - t0
+        slot.draft_s += dur
+        self._note_compile("draft_prefill", f"tokens[1,{width}]", t0, dur,
+                           link=self._span_args(req))
 
     def _emit_token(self, slot: Slot, token: int) -> None:
         slot.emitted += 1
@@ -1204,6 +1589,12 @@ class DecodeEngine:
         if self.config.eos_id is not None and \
                 token == self.config.eos_id:
             slot.done = True
+
+    def _run_slice(self) -> None:
+        if self._spec_on:
+            self._run_spec_slice()
+        else:
+            self._run_plain_slice()
 
     def _run_plain_slice(self) -> None:
         active = self.scheduler.decoding_slots()
@@ -1286,15 +1677,168 @@ class DecodeEngine:
             elif s.remaining == 0:
                 self._retire(s, "budget")
 
+    def _run_spec_slice(self) -> None:
+        """One speculative round over the decode batch: k + 1 draft
+        steps (the dense draft cache) and ONE batched verifier forward
+        over every slot's ``[t0, d1..dk]``, then accept the agreeing
+        prefix. Emits ``min(accepts + 1, remaining)`` tokens a slot for
+        one verifier weight read. The targets come from the verifier's
+        own logits under the slot's own step keys, so the stream is the
+        vanilla slice's whatever the drafts were. Speculated K/V past the
+        accepted length rolls back through ``truncate_slot``
+        (reservation-safe), keeping the write_pos / steps_done alignment
+        the vanilla path keeps."""
+        active = self.scheduler.decoding_slots()
+        k = self.config.speculate_tokens
+        steps = k + 1
+        n = self.config.num_slots
+        for s in active:
+            s.allocated_pages = self.kv.extend_slot(
+                s.index, s.allocated_pages, s.write_pos + steps,
+                s.budget_pages)
+        tokens = np.zeros((n,), np.int32)
+        wpos = np.zeros((n,), np.int32)
+        pads = np.zeros((n,), np.int32)
+        done = np.ones((n,), bool)  # inactive rows ride latched
+        rngs = np.zeros((steps, n, 2), np.uint32)
+        for s in active:
+            tokens[s.index] = s.last_token
+            wpos[s.index] = s.write_pos
+            pads[s.index] = s.pad_len
+            done[s.index] = s.done
+            rngs[:, s.index] = SlotScheduler.slice_keys(s, steps)
+        dev = self.device
+        tokens_d = torch.from_numpy(tokens).to(dev)
+        wpos_d = torch.from_numpy(wpos).to(dev)
+        pads_d = torch.from_numpy(pads).to(dev)
+        done_d = torch.from_numpy(done).to(dev)
+        rngs_d = self._device_keys(rngs)
+        t0 = time.monotonic()
+        # The draft proposes with keys [0, k): key j is the key target
+        # j + 1 is sampled with. All k + 1 keys go in; the last step only
+        # writes K/V (see _draft_slice) and its proposal is dropped.
+        drafts = _draft_slice(
+            self._draft_model, self._draft_params, self._draft_cache,
+            tokens_d, wpos_d, pads_d, done_d, rngs_d, num_steps=steps,
+            **self._sample_kw)[:, :k]
+        # Wait for the drafts, so draft wall and verify wall are
+        # attributed apart (the spec_verify span).
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        t1 = time.monotonic()
+        targets, accepts = _verify_slice(
+            self._model, self._params, self.kv.physical,
+            self.kv.device_tables(), wpos_d, pads_d, tokens_d, drafts,
+            done_d, rngs_d, **self._sample_kw)
+        targets = targets.cpu().numpy()
+        accepts = accepts.cpu().numpy()
+        t2 = time.monotonic()
+        t_draft, t_verify = t1 - t0, t2 - t1
+        t_round = t2 - t0
+        self._slices += 1
+        self._spec_rounds += 1
+        self._note_compile("spec_draft", f"steps={k} slots={n}", t0,
+                           t_draft)
+        self._note_compile("spec_verify", f"width={steps} slots={n}", t1,
+                           t_verify)
+        round_drafted = round_accepted = round_emitted = 0
+        for s in active:
+            a = int(accepts[s.index])
+            take = min(a + 1, s.remaining)
+            used = take - 1  # drafted tokens that saved a forward
+            round_drafted += k
+            round_accepted += used
+            s.spec_drafted += k
+            s.spec_accepted += used
+            s.draft_s += t_draft
+            s.verify_s += t_verify
+            s.decode_s += t_round
+            per_token = t_round / take
+            for j in range(take):
+                if s.done:
+                    break  # post-EOS targets are latched padding
+                s.steps_done += 1
+                self._emit_token(s, int(targets[s.index, j]))
+                self._m_inter.observe(per_token)
+                round_emitted += 1
+            s.write_pos += take
+            s.allocated_pages = self.kv.truncate_slot(
+                s.index, s.allocated_pages, s.write_pos)
+            s.last_token = int(targets[s.index, take - 1])
+            if s.done:
+                self._retire(s, "eos")
+            elif s.remaining == 0:
+                self._retire(s, "budget")
+        self._spec_drafted_total += round_drafted
+        self._spec_accepted_total += round_accepted
+        self._m_spec_drafted.inc(round_drafted)
+        self._m_spec_accepted.inc(round_accepted)
+        self._m_spec_rejected.inc(round_drafted - round_accepted)
+        self._token_est.observe(
+            t_round / max(1.0, round_emitted / max(1, len(active))))
+        if TRACER.enabled:
+            alloc = self.kv.allocator
+            TRACER.record(
+                "engine_slice", "engine", t0, t_round, {
+                    "model": self.name,
+                    "slice": self._slices,
+                    "slots": len(active),
+                    "steps": steps,
+                    "tokens": round_emitted,
+                    "spec": True,
+                    "drafted": round_drafted,
+                    "accepted": round_accepted,
+                    "draft_ms": round(t_draft * 1e3, 3),
+                    "verify_ms": round(t_verify * 1e3, 3),
+                    "free_pages": alloc.available(),
+                    "retained_pages": alloc.retained_pages,
+                    "occupancy": round(self.page_occupancy(), 4),
+                    "admitted": self.scheduler.admitted,
+                    "retired": self.scheduler.retired,
+                    "queue_depth": self.scheduler.queue_depth(),
+                    "prefix_hits": (self.prefix.hits
+                                    if self.prefix is not None else 0),
+                })
+            # The spec_verify leg: the verifier-forward share of the
+            # round, the half the attribution report splits out.
+            TRACER.record(
+                "spec_verify", "engine", t1, t_verify, {
+                    "model": self.name,
+                    "slice": self._slices,
+                    "slots": len(active),
+                    "width": steps,
+                })
+
     def _retire(self, slot: Slot, reason: str,
                 error: Optional[BaseException] = None) -> None:
         req = slot.request
-        self.kv.release_slot(
-            slot.index, slot.allocated_pages,
-            slot.budget_pages - slot.allocated_pages)
+        if slot.prefilling:
+            # Mid-chunked-prefill death (deadline / cancel / error /
+            # shutdown): no pages were adopted — the slot holds only
+            # its reservation and the pinned prefix match (its fork
+            # already unpinned and narrowed out at bind).
+            match = slot.prefill_match
+            shared = len(match.entries) if match is not None else 0
+            if match is not None and self.prefix is not None:
+                self.prefix.unpin(match, include_fork=False)
+            self.kv.allocator.unreserve(slot.budget_pages - shared)
+            slot.clear_prefill_state()
+        else:
+            self.kv.release_slot(
+                slot.index, slot.allocated_pages,
+                slot.budget_pages - slot.allocated_pages)
         self.scheduler.retire(slot, reason)
         _M_RETIRED.labels(self.name, reason).inc()
         if TRACER.enabled:
+            extra = {}
+            if slot.spec_drafted or slot.draft_s or slot.verify_s:
+                # Draft vs verify split of the decode share, plus the
+                # request's own acceptance economics.
+                extra = dict(
+                    draft_ms=round(slot.draft_s * 1e3, 3),
+                    verify_ms=round(slot.verify_s * 1e3, 3),
+                    spec_drafted=slot.spec_drafted,
+                    spec_accepted=slot.spec_accepted)
             TRACER.record(
                 "engine_request", "engine", req.submitted_at,
                 time.monotonic() - req.submitted_at,
@@ -1305,7 +1849,8 @@ class DecodeEngine:
                     # a slot, prefill, decode-slice share).
                     queue_ms=round(slot.queue_s * 1e3, 3),
                     prefill_ms=round(slot.prefill_s * 1e3, 3),
-                    decode_ms=round(slot.decode_s * 1e3, 3)))
+                    decode_ms=round(slot.decode_s * 1e3, 3),
+                    **extra))
         if error is not None:
             req.stream._fail(error)
             return

@@ -187,8 +187,10 @@ def _prefill(model, params, prompt_ids: torch.Tensor,
     b, prompt_len = prompt_ids.shape
     positions = _prompt_positions(b, prompt_len, pad_lengths,
                                   prompt_ids.device)
-    last_logits = apply(model, params, prompt_ids, positions,
-                        pad_lengths=pad_lengths, cache=cache)[:, -1]
+    last_logits = apply(
+        model, params, prompt_ids, positions, pad_lengths=pad_lengths,
+        cache=cache, logits_at=torch.full(
+            (b,), prompt_len - 1, device=prompt_ids.device))[:, 0]
     first = _sample_logits(last_logits, first_rng, temperature, top_k, top_p)
     done = (first == eos_id if eos_id is not None
             else torch.zeros((b,), dtype=torch.bool, device=first.device))

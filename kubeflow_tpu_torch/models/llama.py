@@ -28,18 +28,25 @@ CUDA kernel on the GPU).
 
 A cache forward runs on kernels whose rows depend neither on the row
 count nor on the block width. A decode step (one token per row:
-``generate``'s steps and the decode engine's) sends every linear layer
-through :func:`decode_linear` (the fp32 ``lm_head`` included) and
-attention through :func:`decode_attention`, so an engine slot's stream
-has the bits of the same request at B=1. A prefill into the cache (more
-than one token per row: ``generate``'s prompt pass, the engine's
-admissions and a prefix hit's tail) sends its seven bf16 projections
-through :func:`prefill_linear`, so a prompt position's row has the same
-bits in a hit's narrow tail block as in the cold run's full-width
-block. Its attention (``dense_attention`` over the cache, in plain
-PyTorch, as the reference runs it under XLA) and its fp32 ``lm_head``
-(cuBLAS in full fp32) keep their ops: their rows agree across those
-widths on the card (scripts/decode_invariance.py, ``tail``).
+``generate``'s steps and the decode engine's; and every forward given
+``decode_positions``, so also the engine's speculative verify of k + 1
+tokens a row) sends every linear layer through :func:`decode_linear`
+(the fp32 ``lm_head`` included) on its ``[B·l, d]`` rows and attention
+through :func:`decode_attention`, one query at a time, so an engine
+slot's stream has the bits of the same request at B=1, and a verify
+row those of the one-token step at its position. A prefill into the
+cache (more than one token per row without ``decode_positions``:
+``generate``'s prompt pass, the engine's admissions, a prefix hit's
+tail and a chunk of a chunked prefill) sends its seven bf16 projections
+through :func:`prefill_linear` and its attention over the cache
+through :func:`prefill_attention` (the decode attention kernel, one
+query a row), so a prompt position's row has the same bits in a hit's
+narrow tail block or a chunk as in the cold run's full-width block.
+Every cache forward's fp32 ``lm_head`` runs on the decode GEMM's fp32
+route, because cuBLAS's rows differ at narrow widths
+(scripts/decode_invariance.py, ``tail``); a prefill's callers ask for
+the one position a row they read (``logits_at``), so the head runs on
+B rows, not B·L.
 :func:`rms_norm` takes every norm on the card. On the CPU each is its
 plain version. The cache-free forward (predict, classify) keeps
 ``layer(x)``: a plain large product, as the reference leaves it to XLA.
@@ -55,8 +62,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
-from kubeflow_tpu_torch.ops.attention import dense_attention
-from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+from kubeflow_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    prefill_attention,
+)
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
@@ -126,12 +135,18 @@ def _project(layer: nn.Linear, x: torch.Tensor,
     return layer(x)
 
 
-def _route(x: torch.Tensor, cache) -> Optional[str]:
-    """A cache forward with one token per row is a decode step, with
-    more a prefill; a forward without a cache is neither."""
+def _route(x: torch.Tensor, cache, decode_positions=None) -> Optional[str]:
+    """A cache forward given per-row ``decode_positions`` (the decode
+    engine's step, and its speculative verify of l tokens a row) is a
+    decode step whatever its l, so a verify row has the bits of the
+    one-token step at its position. Without them, a cache forward with
+    one token per row is a decode step (``generate``'s), with more a
+    prefill; a forward without a cache is neither."""
     if cache is None:
         return None
-    return DECODE if x.shape[1] == 1 else PREFILL
+    if decode_positions is not None or x.shape[1] == 1:
+        return DECODE
+    return PREFILL
 
 
 class LlamaAttention(nn.Module):
@@ -153,7 +168,7 @@ class LlamaAttention(nn.Module):
     def forward(self, x, positions, pad_lengths=None,
                 cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
-        route = _route(x, cache)
+        route = _route(x, cache, decode_positions)
         q = _project(self.q_proj, x, route).reshape(
             b, l, self.num_heads, self.head_dim)
         k = _project(self.k_proj, x, route).reshape(
@@ -183,9 +198,7 @@ class LlamaAttention(nn.Module):
                 # One query at ``start``: causality is the validity.
                 out = decode_attention(q, cache.k, cache.v, valid)
             else:
-                out = dense_attention(
-                    q, cache.k, cache.v, causal=True, q_offset=start,
-                    kv_offset=0, kv_segment_valid=valid)
+                out = prefill_attention(q, cache.k, cache.v, start, valid)
         elif self.attention_fn is not None:
             out = self.attention_fn(q, k, v)
         else:
@@ -197,27 +210,57 @@ class LlamaAttention(nn.Module):
         """The slot engine's decode step: every row sits at its own
         cache position ``start[b]`` (rows joined the batch at different
         times), so the write is per row and the scalar ``index`` is left
-        alone. Validity (``slot <= start``, and ``>= pad_lengths``) is
-        the whole mask: the new token may attend to every valid slot, so
-        the masked score set equals the scalar path's causal + valid
-        one. A start past the cache end is clamped for the write, as
-        XLA's ``dynamic_update_slice`` clamps it; only an overshooting
-        row, whose tokens are discarded, gets there."""
+        alone. With l = 1, validity (``slot <= start``, and ``>=
+        pad_lengths``) is the whole mask: the new token may attend to
+        every valid slot, so the masked score set equals the scalar
+        path's causal + valid one; a start past the cache end is clamped
+        for the write, as XLA's ``dynamic_update_slice`` clamps it (only
+        an overshooting row, whose tokens are discarded, gets there).
+        l > 1 is the speculative verify: row b's token j sits at
+        ``start[b] + j`` and attends with validity ``<= start[b] + j``,
+        one query at a time at the one-token step's shapes, as the
+        reference unrolls it: query j's output then has the bits of the
+        one-token step at that position. A block that runs past the
+        cache end (the last round of a request whose budget ends there)
+        drops the cells past it, which hold only tokens the engine
+        discards; the reference's clamp would move the whole block back
+        over valid K/V (ROADMAP C5)."""
         b, l = q.shape[:2]
-        if l != 1:
-            raise NotImplementedError(
-                "decode_positions with more than one token per row (the "
-                "speculative verify, unrolled per query) is not ported yet")
         slots = cache.k.shape[1]
-        rows = torch.arange(b, device=q.device)
-        write = torch.clamp(start.long(), 0, slots - 1)
-        cache.k[rows, write] = k[:, 0].to(self.dtype)
-        cache.v[rows, write] = v[:, 0].to(self.dtype)
+        rows = torch.arange(b, device=q.device)[:, None]
         pos = torch.arange(slots, device=q.device)[None, :]
-        valid = pos <= start[:, None]
-        if pad_lengths is not None:
-            valid = valid & (pos >= pad_lengths[:, None])
-        return decode_attention(q, cache.k, cache.v, valid)
+        if l == 1:
+            write = torch.clamp(start.long(), 0, slots - 1)[:, None]
+            cache.k[rows, write] = k.to(self.dtype)
+            cache.v[rows, write] = v.to(self.dtype)
+        else:
+            self._write_block(cache, k, v, start.long(), rows)
+        outs = []
+        for j in range(l):
+            valid = pos <= (start + j)[:, None]
+            if pad_lengths is not None:
+                valid = valid & (pos >= pad_lengths[:, None])
+            outs.append(decode_attention(q[:, j:j + 1], cache.k, cache.v,
+                                         valid))
+        return outs[0] if l == 1 else torch.cat(outs, dim=1)
+
+    def _write_block(self, cache: LayerCache, k, v, start, rows):
+        """Write row b's l tokens at ``start[b] + j``. A cell past the
+        cache end instead writes position ``start[b] - 1`` (the last
+        slot where the row starts past the end) with the K/V it holds
+        already, so nothing valid moves and no two cells write different
+        values to one position (the block fits the cache: l is at most
+        its length)."""
+        slots = cache.k.shape[1]
+        cells = start[:, None] + torch.arange(k.shape[1],
+                                              device=k.device)[None, :]
+        over = cells >= slots
+        back = torch.clamp(start - 1, 0, slots - 1)[:, None]
+        dst = torch.where(over, back, cells)
+        for pool, new in ((cache.k, k), (cache.v, v)):
+            pool[rows, dst] = torch.where(over[:, :, None, None],
+                                          pool[rows, dst],
+                                          new.to(self.dtype))
 
 
 class LlamaBlock(nn.Module):
@@ -237,7 +280,7 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
                 decode_positions=None):
-        route = _route(x, cache)
+        route = _route(x, cache, decode_positions)
         x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
                                cache, decode_positions)
         h = self.mlp_norm(x)
@@ -297,12 +340,20 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 pad_lengths: Optional[torch.Tensor] = None,
                 decode_positions: Optional[torch.Tensor] = None,
-                cache: Optional[List[LayerCache]] = None) -> torch.Tensor:
+                cache: Optional[List[LayerCache]] = None,
+                logits_at: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``pad_lengths`` ([B], cache models only): per-row count of
         LEFT-pad cache slots, masked out of attention.
         ``decode_positions`` ([B], cache models only): the
-        continuous-batching engine's per-row cache write position; the
-        caches' scalar ``index`` is then left as it is."""
+        continuous-batching engine's per-row cache write position of the
+        row's first token (a speculative verify writes l tokens from
+        there); the caches' scalar ``index`` is then left as it is.
+        ``logits_at`` ([B], cache models only): one column a row whose
+        logits alone are returned, ``[B, 1, vocab]``. A cache forward's
+        head runs on the decode GEMM's fp32 route, whose rows do not
+        depend on the block's width as cuBLAS's do not promise: a
+        chunk's or a hit tail's last row has the bits of the one-shot
+        block's."""
         if decode_positions is not None and not self.cache_size:
             raise ValueError(
                 "decode_positions requires a cache_size model (the "
@@ -319,6 +370,8 @@ class Llama(nn.Module):
             raise ValueError(
                 "pad_lengths requires a cache_size model (batched "
                 "generation left-pads into the KV cache)")
+        elif logits_at is not None:
+            raise ValueError("logits_at requires a cache_size model")
         b, l = input_ids.shape
         if positions is None:
             positions = torch.arange(l, device=input_ids.device)[None].expand(
@@ -327,8 +380,12 @@ class Llama(nn.Module):
         for i, layer in enumerate(self.layers):
             x = layer(x, positions, pad_lengths,
                       None if cache is None else cache[i], decode_positions)
-        x = self.final_norm(x)
-        return _project(self.lm_head, x.float(), _route(input_ids, cache))
+        if logits_at is not None:
+            x = x[torch.arange(b, device=x.device), logits_at.long()][:, None]
+        x = self.final_norm(x).float()
+        if cache is None:
+            return self.lm_head(x)
+        return decode_linear(x, self.lm_head.weight)
 
 
 def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,

@@ -20,18 +20,23 @@ original: the reference leaves a decode step's products to XLA (the
 ``nn.Dense`` layers of ``kubeflow_tpu/models/llama.py``). It computes
 ``y = x · Wᵀ`` for ``x [..., K]`` and ``W [N, K]`` (``nn.Linear``'s
 layout), bf16 or fp32 (the fp32 ``lm_head``, in full fp32 FMA), with
-fp32 accumulation and one rounding. bf16 streams W through a ring of
-``cp.async`` copies with x staged beside it in shared memory, on
-``mma.sync``, reading W once for every M up to 32. Each output
-element's reduction order depends on K alone (and N, which a weight
-fixes), never on the row count: the tile is the same for every M, the
-K split (a cluster of up to 8 CTAs) is chosen from N, K and the card's
-SM count and its partials are added in rank order, there are no
-atomics, and rows past M are zero-filled. So a row of a decode step at
+fp32 accumulation and one rounding. Both dtypes stream W through a ring
+of ``cp.async`` copies with x staged beside it in shared memory, reading
+W once for every M up to 32: bf16 on ``mma.sync``; fp32 as an 8 x 8
+register tile in each of 8 lanes that split K into fixed classes, summed
+by a fixed butterfly, in fp32 FMA (so a speculative verify's 20 rows
+cost the fp32 head one read of its 2.10 GB, as a decode step's 4 do).
+Each output element's reduction order depends on K alone (and N, which
+a weight fixes), never on the row count: the tile is the same for every
+M, the bf16 K split (a cluster of up to 8 CTAs) is chosen from N, K and
+the card's SM count and its partials are added in rank order, fp32's K
+classes and their butterfly are fixed by K, there are no atomics, and
+rows past M are zero-filled or skipped. So a row of a decode step at
 M = 4 slots has the bits it has at M = 1, which cuBLAS (kernels picked
 by shape) does not promise, and the decode engine's contract (every
-slot's stream equals B=1 ``generate``) needs. It is bound by bytes: a
-weight read, 16.06 GB per ``llama3-8b`` decode step.
+slot's stream equals B=1 ``generate``) needs; a speculative verify's
+row has the bits of the one-token step at its position. It is bound by
+bytes: a weight read, 16.06 GB per ``llama3-8b`` decode step.
 :func:`launch_plan` mirrors the kernel's plan (``kft_decode_gemm_plan``).
 
 Dispatch. A CPU tensor goes to :func:`decode_linear_reference`, the
@@ -59,8 +64,12 @@ ROWS_PER_PASS, TILE_N, TILE_K, STAGES, THREADS, MAX_SPLIT = \
 #: partials (ROWS_PER_PASS + 1 floats a W row) reuse once it drains.
 SMEM_BYTES = max(STAGES * (TILE_N + ROWS_PER_PASS) * TILE_K * 2,
                  TILE_N * (ROWS_PER_PASS + 1) * 4)
-#: The fp32 design: rows a pass, output columns a CTA, threads a CTA.
-FP32_ROWS, FP32_COLS, FP32_THREADS = 8, 4, 256
+#: fp32: W rows (output columns) a CTA, K a ring stage, the ring's depth,
+#: threads a CTA; rows a pass as bf16's.
+FP32_TILE_N, FP32_TILE_K, FP32_STAGES, FP32_THREADS = 64, 64, 3, 256
+#: fp32 dynamic shared memory: the ring (W and x tiles).
+FP32_SMEM_BYTES = (FP32_STAGES * (FP32_TILE_N + ROWS_PER_PASS)
+                   * FP32_TILE_K * 4)
 #: SMs of an H100 SXM: the card a plan is for unless told another count.
 H100_SMS = 132
 
@@ -70,8 +79,8 @@ class LaunchPlan(NamedTuple):
     on M."""
     rows_per_pass: int
     tile_n: int
-    tile_k: int      # 0: fp32's warps each take a fixed slice of K
-    split: int       # CTAs a cluster, each a fixed range of K
+    tile_k: int
+    split: int       # CTAs a cluster, each a fixed range of K (fp32: 1)
     stages: int
     threads: int
     smem_bytes: int  # dynamic shared memory a CTA
@@ -105,8 +114,9 @@ def launch_plan(dtype: torch.dtype, m: int, n: int, k: int,
                           THREADS, SMEM_BYTES, -(-n // TILE_N) * split,
                           -(-m // ROWS_PER_PASS))
     if dtype == torch.float32:
-        return LaunchPlan(FP32_ROWS, FP32_COLS, 0, 1, 0, FP32_THREADS, 0,
-                          -(-n // FP32_COLS), 1)
+        return LaunchPlan(ROWS_PER_PASS, FP32_TILE_N, FP32_TILE_K, 1,
+                          FP32_STAGES, FP32_THREADS, FP32_SMEM_BYTES,
+                          -(-n // FP32_TILE_N), -(-m // ROWS_PER_PASS))
     raise ValueError(f"dtype {dtype}: the kernel takes float32 or bfloat16")
 
 

@@ -27,7 +27,10 @@ Port of ``kubeflow_tpu/serving/model.py``'s ``LoadedModel``:
   where a batch placed it.
 - ``ensure_engine`` builds the continuous-batching decode engine
   (inference/engine/) from the export's ``generate_config``, the path
-  ``:generate`` is served through.
+  ``:generate`` is served through, with the speculative draft that
+  ``engine_draft_export`` names (``_load_draft``; a draft that fails to
+  load or does not fit the verifier degrades to vanilla decoding with a
+  warning, as the reference does: the output is the same either way).
 
 The model is built from a registry name and the params of
 ``models/convert.py``; :func:`load_version` reads an export directory
@@ -37,10 +40,11 @@ The model is built from a registry name and the params of
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +61,8 @@ from kubeflow_tpu_torch.serving.export import (
 )
 from kubeflow_tpu_torch.serving.signature import ModelMetadata, Signature
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
+
+logger = logging.getLogger(__name__)
 
 _NP_DTYPES = {
     "float32": np.float32,
@@ -167,15 +173,40 @@ class LoadedModel:
             base = prng.fold_in(base, counter)
         return prng.fold_in(base, np.arange(n))
 
+    def _load_draft(self) -> Tuple[Any, Any]:
+        """Load the speculative-decoding draft model named by the
+        export's ``engine_draft_export`` (a version dir written by either
+        package, typically a much smaller model sharing the verifier's
+        vocab) onto this model's device. Returns ``(module, params)`` or
+        ``(None, None)``: any load failure degrades to vanilla decoding
+        with a warning rather than failing the serve path, because
+        speculation changes how many verifier forwards a token costs,
+        never which token it is."""
+        cfg = self.metadata.generate_config
+        path = cfg.get("engine_draft_export")
+        if not path or not int(cfg.get("engine_draft_tokens", 0) or 0):
+            return None, None
+        try:
+            draft = load_version(path, device=self.device)
+            return draft._module, draft.params
+        except Exception as e:  # noqa: BLE001 — degrade, never fail
+            logger.warning(
+                "model %s: draft model load from %r failed (%s); "
+                "serving with vanilla decoding",
+                self.metadata.model_name, path, e)
+            return None, None
+
     def ensure_engine(self, name: Optional[str] = None,
                       queue_capacity: Optional[int] = None):
         """The version's continuous-batching decode engine, built once
         per LoadedModel. Generate-method signatures only. Capacity
         knobs ride the export's ``generate_config`` (``engine_slots`` /
         ``engine_page_size`` / ``engine_slice_tokens`` /
-        ``engine_num_pages`` / ``engine_prefix_cache``). Chunked
-        prefill, the host KV tier and a draft model for speculative
-        decoding are not ported and raise."""
+        ``engine_num_pages``, plus ``engine_prefix_cache`` for the
+        prefix lane, ``engine_prefill_chunk`` for sliced long-prompt
+        admission, and ``engine_draft_tokens`` / ``engine_draft_export``
+        for speculative decoding). The host KV tier is not ported and
+        raises."""
         with self._engine_lock:
             if self._engine is not None:
                 return self._engine
@@ -190,19 +221,31 @@ class LoadedModel:
                 EngineConfig,
             )
 
-            cfg = self.metadata.generate_config
-            if cfg.get("engine_draft_export") and \
-                    int(cfg.get("engine_draft_tokens", 0) or 0):
-                raise NotImplementedError(
-                    "engine_draft_export (speculative decoding with a "
-                    "draft model) is not ported yet (ROADMAP A7)")
             (_, spec), = sig.inputs.items()
             config = EngineConfig.from_generate_config(
-                cfg, spec.shape[1], queue_capacity=queue_capacity)
-            self._engine = DecodeEngine(
-                self._module, self.params, config,
-                name=name or self.metadata.model_name,
-                device=self.device)
+                self.metadata.generate_config, spec.shape[1],
+                queue_capacity=queue_capacity)
+            draft_model, draft_params = self._load_draft()
+            try:
+                self._engine = DecodeEngine(
+                    self._module, self.params, config,
+                    name=name or self.metadata.model_name,
+                    device=self.device, draft_model=draft_model,
+                    draft_params=draft_params)
+            except ValueError:
+                if draft_model is None:
+                    raise
+                # Incompatible draft (vocab / cache mismatch): the
+                # engine rejected it. Degrade to vanilla, as for a
+                # failed load.
+                logger.warning(
+                    "model %s: draft model incompatible with "
+                    "verifier; serving with vanilla decoding",
+                    self.metadata.model_name, exc_info=True)
+                self._engine = DecodeEngine(
+                    self._module, self.params, config,
+                    name=name or self.metadata.model_name,
+                    device=self.device)
             return self._engine
 
     @property

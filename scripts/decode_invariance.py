@@ -18,7 +18,7 @@
 Op by op, on one GPU, bitwise: each op runs once on a batch of rows and
 once on every row alone, and the script reports whether the batch's
 row i has the bits of row i computed alone (and the largest |Δ| where
-not). Three comparisons:
+not). Five comparisons:
 
 - ``decode``: one decode step at the continuous-batching engine's
   shapes (4 slots, cache 544 = 34 pages of 16), M = 4 distinct rows
@@ -28,20 +28,30 @@ not). Three comparisons:
   truncation (with its softmax and cumsum) and the sampler;
 - ``prefill``: a [2, 512] prompt block against each [1, 512] row;
 - ``tail``: one row's last W positions computed in a block of width W
-  (a prefix-cache hit's tail prefill: W = 32, 64, 128, 256, and the
-  exact tails 140 and 184 near the cache end) against the same
+  (a prefix-cache hit's tail prefill or a chunked prefill's last chunk:
+  W = 2, 4, 8, 16, 32, 64, 128, 256, and the exact tails 140 and 184
+  near the cache end) against the same
   positions inside the block of width 512 (the cold prefill): both
   RMSNorms, the seven projections, rope, attention over the 544-slot
-  cache and the fp32 head, each width's result under ``widths``.
+  cache and the fp32 head, each width's result under ``widths``;
+- ``verify``: a speculative verify's block, 4 slots × 5 tokens (20
+  rows), against the one-token step of the 4 slots at each of the 5
+  positions: both RMSNorms, the seven projections, rope and the fp32
+  head; and a whole verify forward through the 32-layer model, each
+  logit column j against the one-token steps at ``start + j``;
+- ``chunk``: every chunk of a 512-token prompt prefilled in chunks of 64
+  and of 128 against the same positions of the 512-wide block: the
+  row-wise ops, attention over the 544-slot cache from the chunk's
+  offset, and the fp32 head (a chunked prefill's).
 
 Each op has a ``today`` column (the plain PyTorch op the port ran
 before its kernels: cuBLAS for every linear, the RMSNorm formula,
 ``dense_attention``) and a ``port`` column (what the port runs now on
 the card: the decode kernels in a decode step; in a prefill the
-prefill GEMM and the RMSNorm kernel, with attention and the fp32 head
-kept as they were). A last row runs a whole decode step through
-the port's ``llama3-8b`` (32 layers, random weights from seed 0), both
-ways.
+prefill GEMM, the RMSNorm kernel, the decode attention kernel one
+query a row, and the decode GEMM's fp32 route for the head). A last row runs a
+whole decode step through the port's ``llama3-8b`` (32 layers, random
+weights from seed 0), both ways.
 
 Weights are random from seed 0; activations are N(0, 1) draws from seed
 1 (bitwise invariance does not depend on the values). Run from the
@@ -73,6 +83,7 @@ from kubeflow_tpu_torch.models.convert import init_params  # noqa: E402
 from kubeflow_tpu_torch.ops.attention import dense_attention  # noqa: E402
 from kubeflow_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
+    prefill_attention,
 )
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear  # noqa: E402
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear  # noqa: E402
@@ -83,14 +94,19 @@ CACHE = 544
 #: The decode rows' cache positions (prompt lengths of the engine mix).
 DECODE_POS = (300, 511, 77, 410)
 PREFILL_W = 512
-#: A prefix hit's tail block widths in the prefix mix: the buckets, and
-#: exact tails near the cache end, where a bucket would overrun it.
-TAIL_WIDTHS = (32, 64, 128, 256, 140, 184)
+#: A prefix hit's tail block widths: the buckets (2 to 16 for short
+#: tails and a chunked prefill's last chunk), and exact tails near the
+#: cache end, where a bucket would overrun it.
+TAIL_WIDTHS = (2, 4, 8, 16, 32, 64, 128, 256, 140, 184)
 #: A prefill's seven bf16 projections.
 PREFILL_LINEARS = tuple(f"attention.{n}_proj.weight" for n in "qkvo") + (
     "gate_proj.weight", "up_proj.weight", "down_proj.weight")
 SAMPLING = {"temperature": 0.7, "top_k": 40, "top_p": 0.9}
 EPS = 1e-5
+#: A speculative verify's block: draft tokens a round plus one.
+VERIFY_WIDTH = 5
+#: A chunked prefill's chunk widths.
+CHUNK_WIDTHS = (64, 128)
 
 
 def llama3_8b(num_layers: int = 32) -> llama.Llama:
@@ -288,6 +304,9 @@ def prefill_tables(p, cfg, dev):
         return dense_attention(qq, k_, v_, causal=True, q_offset=offset,
                                kv_offset=0, kv_segment_valid=m)
 
+    def port_attention(qq, k_, v_, m, offset=0):
+        return prefill_attention(qq, k_, v_, offset, m)
+
     def rows_ops():
         """(name, input, today's op, the port's op) for each row-wise
         op of a prefill."""
@@ -305,13 +324,14 @@ def prefill_tables(p, cfg, dev):
                         lambda a, m=weight: F.linear(a, m),
                         lambda a, m=weight: prefill_linear(a, m)))
         ops.append(("lm_head fp32", head_in,
-                    lambda a: F.linear(a, p["lm_head.weight"]), None))
+                    lambda a: F.linear(a, p["lm_head.weight"]),
+                    lambda a: decode_linear(a, p["lm_head.weight"])))
         return ops
 
     batch_ops = [(name, [a], plain, port)
                  for name, a, plain, port in rows_ops()]
     batch_ops.append(("attention (causal, cache 544)", [q, kc, vc, valid],
-                      attention, None))
+                      attention, port_attention))
     prefill = _run_ops(batch_ops)
 
     # Tail vs cold: the last W positions of row 0 in a W-wide block (a
@@ -333,13 +353,109 @@ def prefill_tables(p, cfg, dev):
                                         positions[:, lo:], cfg.rope_theta),
                   lambda lo: qr[:, lo:])
     tail.append({"op": "rope (q)", "today": row, "port": row})
-    cold = attention(q[:1], kc[:1], vc[:1], valid[:1])
-    row = _widths(lambda lo: attention(q[:1, lo:].contiguous(), kc[:1],
-                                       vc[:1], valid[:1], offset=lo),
-                  lambda lo: cold[:, lo:])
-    tail.append({"op": "attention (causal, cache 544)", "today": row,
-                 "port": row})
-    return prefill, tail
+    row = {"op": "attention (causal, cache 544)"}
+    for label, fn in (("today", attention), ("port", port_attention)):
+        cold = fn(q[:1], kc[:1], vc[:1], valid[:1])
+        row[label] = _widths(lambda lo: fn(q[:1, lo:].contiguous(), kc[:1],
+                                           vc[:1], valid[:1], offset=lo),
+                             lambda lo: cold[:, lo:])
+    tail.append(row)
+
+    # Chunk vs cold: every chunk of the 512-token prompt in a block of
+    # its own (a chunked prefill) against the same positions inside the
+    # 512-wide block.
+    chunk = []
+    for name, a, plain, port in rows_ops():
+        a = a[:1]
+        row = {"op": name}
+        for label, fn in (("today", plain), ("port", port or plain)):
+            cold = fn(a)
+            row[label] = _chunks(lambda lo, wd: fn(a[:, lo:lo + wd]
+                                                   .contiguous()),
+                                 lambda lo, wd: cold[:, lo:lo + wd])
+        chunk.append(row)
+    row = _chunks(lambda lo, wd: llama.rope(
+        q[:1, lo:lo + wd].contiguous(), positions[:, lo:lo + wd],
+        cfg.rope_theta), lambda lo, wd: qr[:, lo:lo + wd])
+    chunk.append({"op": "rope (q)", "today": row, "port": row})
+    row = {"op": "attention (causal, cache 544)"}
+    for label, fn in (("today", attention), ("port", port_attention)):
+        cold = fn(q[:1], kc[:1], vc[:1], valid[:1])
+        row[label] = _chunks(lambda lo, wd: fn(
+            q[:1, lo:lo + wd].contiguous(), kc[:1], vc[:1], valid[:1],
+            offset=lo), lambda lo, wd: cold[:, lo:lo + wd])
+    chunk.append(row)
+    return prefill, tail, chunk
+
+
+def _chunks(narrow, wide):
+    """Each chunk width's blocks against the cold block's same positions:
+    ``{"equal", "max_abs", "widths": {W: diff over its chunks}}``."""
+    per = {}
+    for wd in CHUNK_WIDTHS:
+        diffs = [_diff(narrow(lo, wd), wide(lo, wd))
+                 for lo in range(0, PREFILL_W, wd)]
+        per[str(wd)] = {"equal": all(d["equal"] for d in diffs),
+                        "max_abs": max(d["max_abs"] for d in diffs)}
+    return {"equal": all(r["equal"] for r in per.values()),
+            "max_abs": max(r["max_abs"] for r in per.values()),
+            "widths": per}
+
+
+def verify_table(p, cfg, dev):
+    """Each op of a verify's 4 × 5 block against the one-token step's
+    4 rows at each of the 5 positions."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    n, wd = len(DECODE_POS), VERIFY_WIDTH
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
+
+    w = {k.split(".", 2)[-1]: v for k, v in p.items()
+         if k.startswith("layers.0.")}
+    d, hd = cfg.d_model, cfg.head_dim
+    x = randn(n, wd, d)
+    act = randn(n, wd, cfg.mlp_dim)
+    q = randn(n, wd, cfg.num_heads, hd)
+    positions = torch.tensor(DECODE_POS, device=dev)[:, None] + \
+        torch.arange(wd, device=dev)[None]
+    head_in = randn(n, wd, d, dtype=torch.float32)
+    ops = []
+    for norm in ("attn_norm", "mlp_norm", "final_norm"):
+        scale = (p["final_norm.scale"] if norm == "final_norm"
+                 else w[f"{norm}.scale"])
+        ops.append((f"{norm} (RMSNorm)", x,
+                    lambda a, s_=scale: plain_rms_norm(a, s_),
+                    lambda a, s_=scale: rms_norm(a, s_, EPS)))
+    for name in PREFILL_LINEARS:
+        weight = w[name]
+        ops.append((f"{name.split('.')[-2]} bf16 "
+                    f"[{weight.shape[1]}→{weight.shape[0]}]",
+                    act if name == "down_proj.weight" else x,
+                    lambda a, m=weight: F.linear(a, m),
+                    lambda a, m=weight: decode_linear(a, m)))
+    ops.append(("lm_head fp32 [4096→128256]", head_in,
+                lambda a: F.linear(a, p["lm_head.weight"]),
+                lambda a: decode_linear(a, p["lm_head.weight"])))
+    table = []
+    for name, a, plain, port in ops:
+        row = {"op": name}
+        for label, fn in (("today", plain), ("port", port)):
+            block = fn(a)
+            diffs = [_diff(fn(a[:, j:j + 1].contiguous()), block[:, j:j + 1])
+                     for j in range(wd)]
+            row[label] = {"equal": all(r["equal"] for r in diffs),
+                          "max_abs": max(r["max_abs"] for r in diffs)}
+        table.append(row)
+    block = llama.rope(q, positions, cfg.rope_theta)
+    diffs = [_diff(llama.rope(q[:, j:j + 1].contiguous(),
+                              positions[:, j:j + 1], cfg.rope_theta),
+                   block[:, j:j + 1]) for j in range(wd)]
+    row = {"equal": all(r["equal"] for r in diffs),
+           "max_abs": max(r["max_abs"] for r in diffs)}
+    table.append({"op": "rope (q)", "today": row, "port": row})
+    return table
 
 
 def _widths(narrow, wide):
@@ -361,7 +477,9 @@ def _diff(a, b):
 
 def decode_step(dev):
     """One decode step through the port's llama3-8b (32 layers) at
-    M = 4 vs each row at M = 1: the logits, today's ops and the port's."""
+    M = 4 vs each row at M = 1: the logits, today's ops and the port's;
+    and one verify forward of 4 slots × 5 tokens against the 5
+    one-token steps from the same cache, column by column."""
     model = llama3_8b()
     params = init_params(model, seed=0, device=dev)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -384,15 +502,38 @@ def decode_step(dev):
                                pad_lengths=pads[rows],
                                decode_positions=pos[rows], cache=cache)
 
-    out = {}
+    wd = VERIFY_WIDTH
+    block = torch.randint(0, model.vocab_size, (n, wd), device=dev,
+                          generator=g)
+
+    def verify():
+        cache = [llama.LayerCache(c.k.clone(), c.v.clone()) for c in caches]
+        with torch.inference_mode():
+            return llama.apply(
+                model, params, block,
+                pos[:, None] + torch.arange(wd, device=dev)[None],
+                pad_lengths=pads, decode_positions=pos, cache=cache)
+
+    def one_token_steps():
+        cache = [llama.LayerCache(c.k.clone(), c.v.clone()) for c in caches]
+        with torch.inference_mode():
+            return torch.cat([llama.apply(
+                model, params, block[:, j:j + 1], pos[:, None] + j,
+                pad_lengths=pads, decode_positions=pos + j, cache=cache)
+                for j in range(wd)], dim=1)
+
+    out, ver = {}, {}
     for label, ctx in (("today", today_routes), ("port",
                                                  contextlib.nullcontext)):
         with ctx():
             whole = step(slice(None))
             pieces = torch.cat([step(slice(i, i + 1)) for i in range(n)])
-        out[label] = _diff(pieces, whole)
+            out[label] = _diff(pieces, whole)
+            ver[label] = _diff(verify(), one_token_steps())
     del params
-    return {"op": "decode step, llama3-8b 32 layers: logits", **out}
+    return ({"op": "decode step, llama3-8b 32 layers: logits", **out},
+            {"op": "verify forward 4 × 5, llama3-8b 32 layers: logits",
+             **ver})
 
 
 def main() -> int:
@@ -413,9 +554,13 @@ def main() -> int:
         cfg = llama3_8b(num_layers=1)
         p = init_params(cfg, seed=0, device=dev)
         tables = {"decode": decode_table(p, cfg, dev)}
-        tables["prefill"], tables["tail"] = prefill_tables(p, cfg, dev)
+        tables["prefill"], tables["tail"], tables["chunk"] = \
+            prefill_tables(p, cfg, dev)
+        tables["verify"] = verify_table(p, cfg, dev)
         del p
-    tables["decode"].append(decode_step(dev))
+    step_row, verify_row = decode_step(dev)
+    tables["decode"].append(step_row)
+    tables["verify"].append(verify_row)
     for section, rows in tables.items():
         print(f"-- {section}", flush=True)
         for r in rows:

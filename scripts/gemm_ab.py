@@ -21,8 +21,9 @@ points as today's) with ``_build.NVCC_FLAGS``, loads them with ctypes
 beside this checkout's kernels, and times the earlier kernel, today's
 kernel and ``F.linear`` in turns (earlier, today, F.linear, F.linear,
 today, earlier) on the same inputs: the four llama3-8b prefill products
-at M = 512, and the five decode products (the fp32 ``lm_head`` too) at
-M = 1, 4 and 20. Each turn is the device time per call from the
+at M = 512, and the five decode products at M = 1, 4 and 20 (the fp32
+``lm_head`` also at 32, a whole pass of its rows: a speculative verify's
+4 slots × 5 tokens take 20). Each turn is the device time per call from the
 profiler's kernel records over 20 calls, the weights cycled through
 copies larger than the 50 MB L2 as a forward reads them. Every kernel's
 output is held against ``F.linear`` (one step of the output type) first.
@@ -74,6 +75,8 @@ DECODE = (("q_proj/o_proj [4096→4096] bf16", 4096, 4096, torch.bfloat16, 64),
           ("down_proj [14336→4096] bf16", 14336, 4096, torch.bfloat16, 32),
           ("lm_head [4096→128256] fp32", 4096, 128256, torch.float32, 1))
 DECODE_M = (1, 4, 20)
+#: The fp32 lm_head's rows: DECODE_M and a whole pass over W.
+FP32_HEAD_M = DECODE_M + (32,)
 STEP = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -229,9 +232,9 @@ def main() -> int:
     for name, k, n, dtype, launches in DECODE:
         gen = torch.Generator(device="cuda").manual_seed(8)
         w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(dtype)
-        x = torch.randn(max(DECODE_M), k, device="cuda", generator=gen).to(
-            dtype)
-        for m in DECODE_M:
+        ms = FP32_HEAD_M if dtype == torch.float32 else DECODE_M
+        x = torch.randn(max(ms), k, device="cuda", generator=gen).to(dtype)
+        for m in ms:
             result["decode"].append(compare(name, m, fns, x[:m], w, dtype,
                                             launches))
         del w, x

@@ -181,7 +181,8 @@ def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     """llama-test generate: each decode step sends its 7 linears a layer
     and the lm_head through decode_linear, its 2 norms a layer and the
     final one through rms_norm, and its attention through
-    decode_attention; the prefill sends no linear there."""
+    decode_attention; the prefill sends only its head, at the one
+    position a row generate reads, to decode_linear."""
     calls = {"decode_linear": 0, "rms_norm": 0, "decode_attention": 0}
 
     def counting(name, fn):
@@ -197,11 +198,11 @@ def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, 512, (2, 8)).astype(np.int32))
     generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"decode_linear": 0, "rms_norm": 5,
+    assert calls == {"decode_linear": 1, "rms_norm": 5,
                      "decode_attention": 0}
     generate(model, params, ids, max_new_tokens=4)
     steps, layers = 3, model.num_layers
-    assert calls == {"decode_linear": steps * (7 * layers + 1),
+    assert calls == {"decode_linear": 2 + steps * (7 * layers + 1),
                      "rms_norm": 5 * (steps + 2),
                      "decode_attention": steps * layers}
 
@@ -303,16 +304,25 @@ def test_decode_gemm_plan_depends_on_m_only_through_the_passes(dtype, k, n):
     for m in range(1, 1025):
         plan = dg.launch_plan(dtype, m, n, k)
         assert plan._replace(**dict.fromkeys(dg.M_FIELDS, 0)) == fixed, m
-    # One pass over W for every M up to 32 (bf16).
-    if dtype == torch.bfloat16:
-        assert {dg.launch_plan(dtype, m, n, k).grid_y
-                for m in range(1, 33)} == {1}
+    # One pass over W for every M up to 32, both dtypes (the fp32 head
+    # too: a speculative verify's 4 · 5 rows read its W once).
+    assert {dg.launch_plan(dtype, m, n, k).grid_y
+            for m in range(1, 33)} == {1}
+    assert dg.launch_plan(dtype, 33, n, k).grid_y == 2
 
 
 @pytest.mark.parametrize("dtype,k,n", LLAMA_DECODE)
 def test_decode_gemm_plan_fits_shared_memory_and_fills_the_card(dtype, k, n):
     plan = dg.launch_plan(dtype, 4, n, k)
     assert plan.smem_bytes <= 232448
+    if dtype == torch.float32:
+        # A slab of output columns a CTA wide enough that x's reads (up
+        # to 32 rows of a K stage) stay within half of W's, and at least
+        # two CTAs an SM.
+        assert plan.tile_n >= 64 and plan.split == 1
+        assert 2 * plan.rows_per_pass <= plan.tile_n
+        assert 2 * (plan.smem_bytes + 1024) <= 233472
+        assert plan.grid_x == -(-n // plan.tile_n)
     if dtype == torch.bfloat16:
         # About one wave, two CTAs an SM, each K tile range at least 2
         # stages long.

@@ -686,21 +686,31 @@ def test_per_row_decode_step_matches_the_reference(model, params,
 @pytest.mark.parametrize("option", [
     "prefix_cache", "prefill_chunk", "host_cache_bytes", "draft"])
 def test_unported_lane_options_raise(model, params, option):
+    """The lane options the engine refuses: the reference's config errors
+    (a chunk that is not a multiple of the page, a chunk without the
+    prefix cache, a draft whose vocab is not the verifier's) raise
+    ``ValueError`` as the reference's do; the host tier, not ported,
+    raises ``NotImplementedError``."""
     kw = dict(max_new_tokens=4, max_prompt_len=MAX_PROMPT)
     extra = {}
+    error, match = ValueError, None
     if option == "prefix_cache":
-        # The prefix lane serves (tests/test_torch_prefix_cache.py); its
-        # chunked prefill, which feeds the pad-0 layout a chunk per lap,
-        # is not ported.
-        kw.update(prefix_cache=True, prefill_chunk=8)
+        # The prefix lane serves; its chunks must be page-aligned.
+        kw.update(prefix_cache=True, prefill_chunk=8, page_size=16)
+        match = "multiple of engine_page_size"
     elif option == "prefill_chunk":
         kw["prefill_chunk"] = 8
+        match = "requires engine_prefix_cache"
     elif option == "host_cache_bytes":
         kw["host_cache_bytes"] = 1 << 20
+        error, match = NotImplementedError, "ROADMAP A7"
     else:
         kw["speculate_tokens"] = 2
-        extra = dict(draft_model=model, draft_params=params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        draft = llama_test(dtype="float32", cache_size=CACHE,
+                           vocab_size=model.vocab_size + 1)
+        extra = dict(draft_model=draft, draft_params={})
+        match = "vocab_size"
+    with pytest.raises(error, match=match):
         DecodeEngine(model, params, EngineConfig(**kw), device="cpu",
                      **extra)
 

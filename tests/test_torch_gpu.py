@@ -30,7 +30,7 @@ import torch
 
 from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
-from kubeflow_tpu_torch.inference.generate import generate
+from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
 from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.models.llama import LayerCache, apply, llama_test
 from kubeflow_tpu_torch.ops import bn_fused
@@ -904,3 +904,127 @@ def test_prefix_hits_equal_their_cold_runs_on_the_card(cuda, mode):
                                           err_msg=f"request {i}")
     finally:
         engine.stop()
+
+
+# -- speculative decoding and the fp32 route on the card -------------------
+
+
+def test_fp32_route_rows_equal_each_row_alone_at_every_m(cuda):
+    """The decode GEMM's fp32 route (the lm_head's) at every M from 1 to
+    40: within 1e-5·max(1, |y|) of its plain version, and every row the
+    bits it has alone, so a verify's rows (slots·(k + 1)) are a decode
+    step's; one pass over W up to 32 rows, a second past it."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    k, n = 1024, 3000
+    w = torch.randn(n, k, device=cuda, generator=gen) * 0.02
+    x = torch.randn(40, k, device=cuda, generator=gen)
+    alone = torch.cat([dg.decode_linear(x[i:i + 1], w) for i in range(40)])
+    _assert_within_a_step(alone, dg.decode_linear_reference(x, w),
+                          torch.float32)
+    for m in range(1, 41):
+        assert torch.equal(dg.decode_linear(x[:m], w), alone[:m]), m
+        assert dg.launch_plan(torch.float32, m, n, k).grid_y == \
+            (1 if m <= 32 else 2)
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_verify_rows_equal_the_one_token_steps(cuda, mode):
+    """llama-test bf16 with its fp32 head: a verify forward of 4 rows ×
+    5 tokens (``decode_positions``, one query at a time, every linear on
+    the decode GEMM at M = 20) gives column j the logits of the one-token
+    decode step at ``start + j``, bit for bit, and samples the same
+    token from them."""
+    model = llama_test(cache_size=64)
+    params = init_params(model, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shape = (4, 64, model.num_kv_heads, model.head_dim)
+    caches = [(torch.randn(shape, device=cuda, generator=gen).to(
+        torch.bfloat16), torch.randn(shape, device=cuda, generator=gen).to(
+        torch.bfloat16)) for _ in range(model.num_layers)]
+    block = torch.randint(0, 512, (4, 5), device=cuda, generator=gen)
+    start = torch.tensor([10, 58, 31, 5], device=cuda)
+    pad = torch.tensor([0, 0, 4, 0], device=cuda)
+    positions = (start - pad)[:, None] + torch.arange(5, device=cuda)[None]
+
+    def fresh():
+        return [LayerCache(k.clone(), v.clone()) for k, v in caches]
+
+    before = (dg.decode_linear.launches, pg.prefill_linear.launches)
+    with torch.inference_mode():
+        verify = apply(model, params, block, positions, pad_lengths=pad,
+                       decode_positions=start, cache=fresh())
+        cache = fresh()
+        steps = torch.cat([apply(
+            model, params, block[:, j:j + 1], positions[:, j:j + 1],
+            pad_lengths=pad, decode_positions=start + j, cache=cache)
+            for j in range(5)], dim=1)
+    assert torch.equal(verify, steps)
+    assert dg.decode_linear.launches - before[0] == 6 * (
+        7 * model.num_layers + 1)
+    assert pg.prefill_linear.launches == before[1]
+    sampling = ENGINE_SAMPLING[mode]
+    keys = torch.from_numpy(np.stack([prng.PRNGKey(i) for i in range(4)])
+                            .astype(np.int64)).to(cuda)
+    for j in range(5):
+        assert torch.equal(
+            _sample_logits(verify[:, j].contiguous(), keys,
+                           sampling["temperature"], sampling.get("top_k"),
+                           sampling.get("top_p")),
+            _sample_logits(steps[:, j], keys, sampling["temperature"],
+                           sampling.get("top_k"), sampling.get("top_p")))
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_strong_draft_engine_equals_vanilla_on_the_card(cuda, mode):
+    """The engine mix at llama-test size through a speculative engine
+    whose draft is the model itself (k = 4): every stream equals the
+    vanilla engine's, the acceptance is high, and the pool drains."""
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, vanilla, requests = _engine_case(cuda, 4, sampling)
+    spec = DecodeEngine(model, params, EngineConfig(
+        max_new_tokens=max(ENGINE_BUDGETS),
+        max_prompt_len=max(ENGINE_PROMPTS), num_slots=4, page_size=16,
+        slice_tokens=4, speculate_tokens=4, **sampling), device=cuda,
+        draft_model=model, draft_params=params)
+    try:
+        out = {}
+        for name, engine in (("vanilla", vanilla), ("spec", spec)):
+            streams = [engine.submit(p, rng=k, max_new_tokens=b)
+                       for p, b, k in requests]
+            out[name] = [s.result(timeout=300) for s in streams]
+        for i, (a, b) in enumerate(zip(out["spec"], out["vanilla"])):
+            np.testing.assert_array_equal(a, b, err_msg=f"request {i}")
+        stats = spec.stats()
+        assert stats["spec"]["rounds"] > 0
+        assert stats["spec"]["acceptance_rate"] > 0.5, stats["spec"]
+        assert stats["free_pages"] == stats["total_pages"]
+        spec.kv.allocator.check_invariants()
+    finally:
+        vanilla.stop()
+        spec.stop()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_prefill_attention_rows_are_width_free(cuda, dtype):
+    """A cache prefill's attention on the decode attention kernel, one
+    query a row: within flash's tolerance of the block's plain causal
+    attention, and every query's output the same bits in a block of any
+    width at any offset (a chunk, a hit's tail, the one-shot block)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b, l, s, h, hkv, d = 2, 64, 96, 8, 2, 64
+    q = torch.randn(b, l, h, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(dtype)
+    start = 20
+    pos = torch.arange(s, device=cuda)[None, :]
+    valid = (pos < start + l) & (pos >= torch.tensor([[0], [5]],
+                                                     device=cuda))
+    whole = da.prefill_attention(q, k, v, start, valid)
+    want = dense_attention(q, k, v, causal=True, q_offset=start,
+                           kv_offset=0, kv_segment_valid=valid)
+    assert float((whole.float() - want.float()).abs().max()) <= TOL[dtype]
+    for width in (1, 2, 4, 8, 16, 32):
+        for lo in range(0, l, width):
+            part = da.prefill_attention(q[:, lo:lo + width].contiguous(), k,
+                                        v, start + lo, valid)
+            assert torch.equal(part, whole[:, lo:lo + width]), (width, lo)

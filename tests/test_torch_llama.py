@@ -165,14 +165,16 @@ def test_unported_options_raise():
     model = llama_test(dtype="float32")
     params = convert.init_params(model, seed=0, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int32)
-    # The per-row cache write is ported for one token a row; the
-    # multi-token verify of speculative decoding is not.
+    # decode_positions needs a cache model; there the multi-token
+    # verify of speculative decoding runs (tests/test_torch_spec_decode.py
+    # holds it against the reference's).
     with pytest.raises(ValueError, match="decode_positions"):
         apply(model, params, ids, decode_positions=torch.zeros(1))
     cache_model = llama_test(dtype="float32", cache_size=8)
     cache = init_cache(cache_model, params, 1)
-    with pytest.raises(NotImplementedError, match="verify"):
-        apply(cache_model, params, ids, ids.long(), cache=cache,
-              decode_positions=torch.zeros(1, dtype=torch.int32))
+    with torch.inference_mode():
+        logits = apply(cache_model, params, ids, ids.long(), cache=cache,
+                       decode_positions=torch.zeros(1, dtype=torch.int32))
+    assert logits.shape == (1, 4, 512) and torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="pad_lengths"):
         apply(model, params, ids, pad_lengths=torch.zeros(1))

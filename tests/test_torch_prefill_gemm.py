@@ -32,7 +32,7 @@ import torch
 from kubeflow_tpu.models.llama import _dense
 from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
-from kubeflow_tpu_torch.inference.generate import generate
+from kubeflow_tpu_torch.inference.generate import generate, init_cache
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.ops import prefill_gemm as pg
@@ -99,9 +99,9 @@ def calls(monkeypatch):
 
 def test_cache_forward_routes_bf16_projections_to_the_prefill_gemm(calls):
     """llama-test bf16: a cache forward with L > 1 sends exactly 7 ×
-    num_layers products through prefill_linear (the fp32 head stays
-    ``layer(x)``), a decode step none, and the cache-free forward
-    none."""
+    num_layers products through prefill_linear (the fp32 head, at the
+    one position a row generate reads, goes through decode_linear), a
+    decode step none, and the cache-free forward none."""
     model = llama.llama_test(cache_size=32)
     params = init_params(model, seed=0, device="cpu")
     layers = model.num_layers
@@ -109,26 +109,48 @@ def test_cache_forward_routes_bf16_projections_to_the_prefill_gemm(calls):
         0, 512, (2, 8)).astype(np.int32))
     with torch.inference_mode():
         generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"prefill_linear": 7 * layers, "decode_linear": 0}
+    assert calls == {"prefill_linear": 7 * layers, "decode_linear": 1}
     with torch.inference_mode():
         generate(model, params, ids, max_new_tokens=4)
     assert calls == {"prefill_linear": 2 * 7 * layers,
-                     "decode_linear": 3 * (7 * layers + 1)}
+                     "decode_linear": 2 + 3 * (7 * layers + 1)}
     free = llama.llama_test()
     with torch.inference_mode():
         llama.apply(free, params, ids)
     assert calls == {"prefill_linear": 2 * 7 * layers,
-                     "decode_linear": 3 * (7 * layers + 1)}
+                     "decode_linear": 2 + 3 * (7 * layers + 1)}
+
+
+def test_cache_forward_head_is_the_decode_route_with_or_without_logits_at(
+        calls):
+    """A cache prefill's fp32 head runs on decode_linear whether or not
+    the caller picks a position: no cuBLAS head remains on a cache
+    forward, so the full-width logits' rows equal ``logits_at``'s."""
+    model = llama.llama_test(cache_size=32)
+    params = init_params(model, seed=0, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 512, (2, 8)).astype(np.int32))
+    out = []
+    for kw in ({}, {"logits_at": torch.tensor([7, 3])}):
+        with torch.inference_mode():
+            out.append(llama.apply(model, params, ids,
+                                   cache=init_cache(model, params, 2), **kw))
+    assert calls == {"prefill_linear": 2 * 7 * model.num_layers,
+                     "decode_linear": 2}
+    assert out[0].shape == (2, 8, 512) and out[1].shape == (2, 1, 512)
+    assert torch.equal(out[0][0, 7], out[1][0, 0])
+    assert torch.equal(out[0][1, 3], out[1][1, 0])
 
 
 def test_fp32_prefill_keeps_its_linear_layers(calls):
-    """The kernel takes bf16: an fp32 model's prefill stays
-    ``layer(x)``."""
+    """The kernel takes bf16: an fp32 model's prefill projections stay
+    ``layer(x)`` (its head, at the position read, takes decode_linear
+    as every model's does)."""
     model = llama.llama_test(dtype="float32", cache_size=32)
     params = init_params(model, seed=0, device="cpu")
     ids = torch.zeros((1, 8), dtype=torch.int32)
     generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"prefill_linear": 0, "decode_linear": 0}
+    assert calls == {"prefill_linear": 0, "decode_linear": 1}
 
 
 def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
@@ -154,11 +176,42 @@ def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
         px = engine.stats()["prefix_cache"]
         assert px["hits"] == 1 and px["saved_prefill_tokens"] == 19, px
         layers = model.num_layers
-        # Two admissions, each one prefill forward; 3 decode steps each.
+        # Two admissions, each one prefill forward (its head on the row
+        # read through decode_linear); 3 decode steps each.
         assert calls == {"prefill_linear": 2 * 7 * layers,
-                         "decode_linear": 2 * 3 * (7 * layers + 1)}
+                         "decode_linear": 2 * (1 + 3 * (7 * layers + 1))}
     finally:
         engine.stop()
+
+
+def test_one_token_chunks_are_prefilled_on_the_prefill_route(calls):
+    """Chunked prefill one token a chunk (pages of 1): each chunk runs
+    in a 2-wide block on the prefill's kernels, as the one-shot block
+    does, never as a one-token decode step; the stream equals the
+    one-shot engine's."""
+    model = llama.llama_test(cache_size=32)
+    params = init_params(model, seed=0, device="cpu")
+    prompt = np.random.default_rng(4).integers(0, 512, 5).astype(np.int32)
+    out = []
+    for chunk in (1, 0):
+        engine = DecodeEngine(model, params, EngineConfig(
+            max_new_tokens=4, max_prompt_len=16, num_slots=1, page_size=1,
+            slice_tokens=2, prefix_cache=True, prefill_chunk=chunk),
+            device="cpu")
+        try:
+            calls.update(prefill_linear=0, decode_linear=0)
+            out.append(engine.submit(prompt, rng=prng.PRNGKey(0)).result(
+                120))
+            layers = model.num_layers
+            # Five chunks (or one block), each with its head on the row
+            # read, then 3 decode steps.
+            forwards = 5 if chunk else 1
+            assert calls == {
+                "prefill_linear": forwards * 7 * layers,
+                "decode_linear": forwards + 3 * (7 * layers + 1)}
+        finally:
+            engine.stop()
+    np.testing.assert_array_equal(out[0], out[1])
 
 
 # -- the launch plan ---------------------------------------------------------

@@ -241,16 +241,27 @@ def test_ensure_engine_refuses_what_it_cannot_serve(flax_params):
                        {"logits": TensorSpec("float32", (-1, SEQ, 512))})
     with pytest.raises(ValueError, match="generate-method"):
         predict.ensure_engine()
-    # The prefix lane serves (test_engine_prefix_cache_rides_the_export);
-    # the host tier on top of it does not yet.
-    for extra, item in (({"engine_prefix_cache": True,
-                          "engine_host_cache_bytes": 1 << 20}, "A7"),
-                        ({"engine_prefill_chunk": 8}, "A7"),
-                        ({"engine_draft_tokens": 2,
-                          "engine_draft_export": "/nowhere"}, "A7")):
+    # The host tier on top of the prefix lane is not ported yet; chunked
+    # prefill without the prefix cache is the reference's config error.
+    for extra, error, match in (
+            ({"engine_prefix_cache": True,
+              "engine_host_cache_bytes": 1 << 20}, NotImplementedError,
+             "A7"),
+            ({"engine_prefill_chunk": 8}, ValueError,
+             "requires engine_prefix_cache")):
         _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
                          GEN_OUT, generate_config=dict(SAMPLED, **extra))
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             model.ensure_engine()
         assert model.engine is None
+    # A draft export that does not load degrades to vanilla decoding, as
+    # the reference's does.
+    _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                     GEN_OUT, generate_config=dict(
+                         SAMPLED, engine_draft_tokens=2,
+                         engine_draft_export="/nowhere"))
+    try:
+        assert "spec" not in model.ensure_engine().stats()
+    finally:
+        model.close()
 
