@@ -52,12 +52,16 @@ checkout's BN kernel by the same code (a parent commit's, say).
    ``F.rms_norm``, ``scaled_dot_product_attention`` with the mask and
    ``enable_gqa``); decode attention also at llama3-8b's full context,
    B1 S8192. Then a prefill's attention over the cache
-   (``prefill_attention``: the decode attention kernel, a query a row)
-   on generate's left-padded [2, 512] block over 544 slots, an engine
-   chunk of 64 at offset 448 and a [1, 2048] prompt: within 1e-2 of
-   ``dense_attention(causal=True, q_offset=...)``, the same bits on a
-   second call, the chunk's rows equal to the one-shot block's; timed
-   beside the plain version, SDPA with the same mask and the bound.
+   (``prefill_attention``: one flash launch for the block, causal at its
+   offset) on generate's left-padded [2, 512] block over 544 slots, an
+   engine chunk of 64 at offset 448, a [1, 2048] and a [1, 8192] prompt:
+   within 1e-2 of ``dense_attention(causal=True, q_offset=...)``, the
+   same bits on a second call, one launch a call, a chunk's rows (the
+   chunk at 448; the last 64 rows of each other block at their offset)
+   equal to the one-shot block's; timed beside the earlier route (each
+   query a row of the decode attention kernel, written out here; not at
+   8,192, where it takes about 115 ms a call), the plain version, SDPA
+   with the same mask and the bound.
    Then the decode GEMM's fp32 route at the lm_head's shape,
    M = 1, 4, 16, 20, 32 and 40: within 1e-5·max(1, |y|) of its plain
    version, the same bits twice, every row equal to itself alone, one
@@ -89,14 +93,15 @@ checkout's BN kernel by the same code (a parent commit's, say).
    Every stream equals B=1 ``generate``'s, token for token, and the
    pool ends clean; requests 1 and 3 through a 1-slot engine too;
    every admission's prefill launches the prefill GEMM 224 times,
-   decode attention 32 (its attention over the cache, a query a row)
-   and the decode GEMM once (its fp32 head at the position read). Then
+   flash 32 (its attention over the cache, one launch a layer) and the
+   decode GEMM once (its fp32 head at the position read). Then
    a sampled ``LoadedModel.run`` of two left-padded rows with their own
    keys, each row equal to B=1. Time to first token, inter-token ms,
    tokens/s, slices and peak memory are printed. Each generate decode
    step and each engine decode step must launch the decode GEMM 225
    times and decode attention 32 times (RMSNorm 65), generate's prefill
-   the prefill GEMM 224 times, and no CUDA tensor may reach a plain
+   the prefill GEMM 224 times and flash 32 times (one a layer for its
+   [2, 512] block), and no CUDA tensor may reach a plain
    twin. Then the prefix lane (``engine_prefix_cache``, 4 slots, the
    same cache): 8 requests sharing a 360-token prefix, one cold, then 7
    at once, greedy and sampled: 7 hits and 1 miss, a clean pool, TTFTs,
@@ -196,6 +201,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
     kernel_smem_bytes,
     launch_plan,
+    prefill_attention,
 )
 from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.serving.export import export_model
@@ -705,19 +711,42 @@ def decode_attention_rows():
     return rows
 
 
-#: Prefill blocks whose attention over the cache runs on the decode
-#: attention kernel, a query a row: (name, rows' pad lengths, block
-#: width, offset, cache slots). generate's left-padded [2, 512] prompt
-#: block over its 544-slot cache (the engine's cache has that length
-#: too); an engine chunk of 64 at offset 448 of the 512-token row; a
-#: 2,048-token prompt over a cache of its length.
+#: Prefill blocks whose attention over the cache runs on the flash
+#: kernel, one launch a block: (name, rows' pad lengths, block width,
+#: offset, cache slots). generate's left-padded [2, 512] prompt block
+#: over its 544-slot cache (the engine's cache has that length too); an
+#: engine chunk of 64 at offset 448 of the 512-token row; prompts of
+#: 2,048 and 8,192 tokens (llama3-8b's context) over caches of their
+#: length.
 PREFILL_ATTENTION = (
     ("generate [2, 512] pads (212, 0) S544",
      (max(PROMPTS) - PROMPTS[0], 0), max(PROMPTS), 0,
      max(PROMPTS) + NEW_TOKENS),
     ("chunk [1, 64] at 448 S544", (0,), 64, 448, max(PROMPTS) + NEW_TOKENS),
     ("prompt [1, 2048] S2048", (0,), 2048, 0, 2048),
+    ("prompt [1, 8192] S8192", (0,), 8192, 0, 8192),
 )
+#: The earlier route is timed up to this block width; past it a call
+#: takes about 115 ms (8,192 rows of 32 CTA clusters each).
+EARLIER_ROUTE_MAX_L = 2048
+#: A chunk's width where the rows of a block are held against a chunk of
+#: them: the chunk phase's.
+ROWS_CHUNK = 64
+
+
+def per_query_attention(q, k, v, q_offset, valid):
+    """The earlier route of a prefill's attention, kept here to time
+    beside the flash launch: each query a row of the decode attention
+    kernel with its causal frontier as its validity and its batch row's
+    K/V broadcast (batch stride 0), one launch for each of the B rows."""
+    b, l = q.shape[:2]
+    pos = torch.arange(k.shape[1], device=q.device)
+    causal = pos[None, :] <= q_offset + torch.arange(
+        l, device=q.device)[:, None]
+    return torch.stack([da.decode_attention(
+        q[i][:, None], k[i][None].expand(l, *k.shape[1:]),
+        v[i][None].expand(l, *v.shape[1:]), causal & valid[i][None, :])[:, 0]
+        for i in range(b)])
 
 
 def prefill_attention_rows():
@@ -725,9 +754,12 @@ def prefill_attention_rows():
     on the blocks of PREFILL_ATTENTION, with the validity generate and
     the engine build (keys below the block's end and at or past the
     row's pad): against ``dense_attention(causal=True, q_offset=...)``
-    within the decode attention tolerance, the same bits on a second
-    call, and the chunk's rows equal to the same rows of the one-shot
-    block; its time beside the plain version, SDPA with the same mask,
+    within flash's tolerance, the same bits on a second call, one flash
+    launch a call, and a chunk's rows equal to the same rows of the
+    one-shot block (the chunk row against its 512-token block; every
+    other block's last ROWS_CHUNK rows, run as a chunk at their offset,
+    against the block); its time beside the earlier route (to
+    EARLIER_ROUTE_MAX_L), the plain version, SDPA with the same mask,
     and the bound."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -744,30 +776,48 @@ def prefill_attention_rows():
                             generator=gen).to(bf)
             k = torch.randn(b, s, 8, 128, device="cuda", generator=gen).to(bf)
             v = torch.randn(b, s, 8, 128, device="cuda", generator=gen).to(bf)
-        blocks[name] = (q, k, v)
+        if name == PREFILL_ATTENTION[0][0]:
+            blocks[name] = (q, k, v)
         slots = torch.arange(s, device="cuda")
         pad = torch.tensor(pads, device="cuda")
-        valid = ((slots[None, :] < offset + l)
-                 & (slots[None, :] >= pad[:, None]))
-        run = functools.partial(da.prefill_attention, q, k, v, offset, valid)
+
+        def validity(end):
+            return (slots[None, :] < end) & (slots[None, :] >= pad[:, None])
+
+        valid = validity(offset + l)
+        run = functools.partial(prefill_attention, q, k, v, offset, valid)
         plain = functools.partial(dense_attention, q, k, v, causal=True,
                                   q_offset=offset, kv_offset=0,
                                   kv_segment_valid=valid)
+        before = flash_attention.launches
         got = run()
         torch.cuda.synchronize()
+        if flash_attention.launches != before + 1:
+            raise AssertionError(f"prefill_attention {name}: "
+                                 f"{flash_attention.launches - before} "
+                                 "flash launches, not 1")
         want = plain()
         err = float((got.float() - want.float()).abs().max())
+        del want
         if not torch.isfinite(got).all() or err > KERNEL_TOL["bfloat16"]:
             raise AssertionError(f"prefill_attention {name}: max |Δ| {err}")
         if not torch.equal(run(), got):
             raise AssertionError(f"prefill_attention {name}: a second call "
                                  "gave other bits")
         if offset:
-            whole = da.prefill_attention(ref_q[-1:], k, v, 0, valid)
+            whole = prefill_attention(ref_q[-1:], k, v, 0, valid)
             if not torch.equal(got, whole[:, offset:offset + l]):
                 raise AssertionError(
                     f"prefill_attention {name}: the chunk's rows differ "
                     "from the same rows of the one-shot block")
+        else:
+            lo = l - ROWS_CHUNK
+            part = prefill_attention(q[:, lo:].contiguous(), k, v, lo,
+                                     validity(l))
+            if not torch.equal(part, got[:, lo:]):
+                raise AssertionError(
+                    f"prefill_attention {name}: its last {ROWS_CHUNK} rows "
+                    "as a chunk differ from the same rows of the block")
         causal = slots[None, :] <= offset + torch.arange(
             l, device="cuda")[:, None]
         mask = causal[None] & valid[:, None, :]  # [B, L, S]
@@ -781,16 +831,27 @@ def prefill_attention_rows():
                            + valid.numel(), 4.0 * 128 * 32 * pairs, bf)
         t = time_ms(run, **KERNEL_TIMING)
         row = {"shape": f"{name} H32/8 D128 bf16", "b": b, "l": l,
-               "offset": offset, "s": s, "launches": b,
+               "offset": offset, "s": s, "launches": 1,
                "max_abs_err": err, "tol": KERNEL_TOL["bfloat16"], "ms": t,
-               "device_ms": profiled_ms(run),
-               "plain_ms": time_ms(plain, reps=5),
-               "plain_device_ms": profiled_ms(plain, calls=5),
-               "library_ms": time_ms(library, **KERNEL_TIMING),
-               "library_device_ms": profiled_ms(library),
-               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
+               "device_ms": profiled_ms(run)}
+        if l <= EARLIER_ROUTE_MAX_L:
+            earlier = functools.partial(per_query_attention, q, k, v, offset,
+                                        valid)
+            row.update(earlier_ms=time_ms(earlier, reps=5),
+                       earlier_device_ms=profiled_ms(earlier, calls=5),
+                       earlier_launches=b)
+        else:
+            row["earlier_ms"] = (f"not timed: about 115 ms a call past "
+                                 f"{EARLIER_ROUTE_MAX_L} rows")
+        row.update(plain_ms=time_ms(plain, reps=5),
+                   plain_device_ms=profiled_ms(plain, calls=5),
+                   library_ms=time_ms(library, **KERNEL_TIMING),
+                   library_device_ms=profiled_ms(library),
+                   bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t)
         log(f"prefill_attention {json.dumps(row)}")
         rows.append(row)
+        del q, k, v, got, mask, causal, library, run, plain
+        torch.cuda.empty_cache()
     del blocks
     torch.cuda.empty_cache()
     return rows
@@ -922,12 +983,20 @@ STEP_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1,
 #: llama3-8b's prefill-GEMM launches a prefill forward: its 7 bf16
 #: projections a layer (the fp32 head stays cuBLAS).
 PREFILL_LAUNCHES = 7 * 32
-#: Decode-attention launches a prefill forward takes for each batch row:
-#: its attention over the cache, one query a row of the kernel, a layer.
+#: Flash launches a prefill forward takes, whatever its B: its attention
+#: over the cache, one launch a layer for the whole block.
 PREFILL_ATTENTION_LAUNCHES = 32
 #: Decode-GEMM launches a prefill forward takes: its fp32 head at the
 #: one position a row its caller reads.
 PREFILL_HEAD_LAUNCHES = 1
+
+
+def prefills_on_flash(counts) -> bool:
+    """Every prefill forward's layer (the verifier's and the draft's,
+    chunk or whole block) launched 7 prefill GEMMs and one flash: its
+    attention over the cache went to flash and nowhere else."""
+    return (counts["flash_attention"] > 0
+            and counts["prefill_gemm"] == 7 * counts["flash_attention"])
 
 
 def zero_counts():
@@ -1056,15 +1125,16 @@ def serve_llama(card):
         raise AssertionError(f"predict launched flash "
                              f"{after_predict['flash_attention']} times, "
                              f"fewer than its {layers} layers")
-    # generate: one prefill (its norms and its 7 bf16 projections a
-    # layer through the prefill GEMM), then NEW_TOKENS - 1 decode steps,
-    # each through the three decode kernels.
+    # generate: one prefill (its norms, its 7 bf16 projections a layer
+    # through the prefill GEMM, its attention one flash launch a layer
+    # for the [2, 512] block), then NEW_TOKENS - 1 decode steps, each
+    # through the three decode kernels.
     steps = NEW_TOKENS - 1
     in_generate = {k: launches[k] - before_generate[k] for k in launches}
     want = {k: steps * n for k, n in STEP_LAUNCHES.items()}
     want["rms_norm"] += STEP_LAUNCHES["rms_norm"]
     want["prefill_gemm"] = PREFILL_LAUNCHES
-    want["decode_attention"] += PREFILL_ATTENTION_LAUNCHES * len(PROMPTS)
+    want["flash_attention"] = PREFILL_ATTENTION_LAUNCHES
     want["decode_gemm"] += PREFILL_HEAD_LAUNCHES
     if before_generate["prefill_gemm"]:
         raise AssertionError(f"the cache-free forward launched the prefill "
@@ -1076,6 +1146,7 @@ def serve_llama(card):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} never ran on the main path")
+    launches["flash_attention_prefill"] = in_generate["flash_attention"]
     logits = pred["logits"]
     if logits.shape != (*PREDICT_SHAPE, vocab) or logits.dtype != np.float32:
         raise AssertionError(f"predict logits {logits.shape} {logits.dtype}")
@@ -1317,13 +1388,11 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         timing["decode_steps"] = steps
         want = {k: steps * n for k, n in STEP_LAUNCHES.items()
                 if k != "rms_norm"}
-        # One B=1 prefill an admission.
+        # One B=1 prefill an admission, its attention on flash.
         want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
-        want["decode_attention"] += PREFILL_ATTENTION_LAUNCHES * len(
-            requests)
+        want["flash_attention"] = PREFILL_ATTENTION_LAUNCHES * len(requests)
         want["decode_gemm"] += PREFILL_HEAD_LAUNCHES * len(requests)
-        if (counts["flash_attention"] or any(
-                counts[k] != n for k, n in want.items())
+        if (any(counts[k] != n for k, n in want.items())
                 or counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"]
                 or any(twins.values())):
             raise AssertionError(f"engine {mode}: launches {counts} over "
@@ -1491,8 +1560,13 @@ def serve_prefix(card, registry, params, kwargs, *,
                 or counts["decode_gemm"] != STEP_LAUNCHES["decode_gemm"] * (
                     cold_timing["decode_steps"] + timing["decode_steps"])
                 + PREFILL_HEAD_LAUNCHES * PREFIX_REQUESTS
+                or counts["decode_attention"]
+                != STEP_LAUNCHES["decode_attention"] * (
+                    cold_timing["decode_steps"] + timing["decode_steps"])
                 or counts["prefill_gemm"]
-                != PREFILL_LAUNCHES * PREFIX_REQUESTS):
+                != PREFILL_LAUNCHES * PREFIX_REQUESTS
+                or counts["flash_attention"]
+                != PREFILL_ATTENTION_LAUNCHES * PREFIX_REQUESTS):
             raise AssertionError(f"prefix {mode}: stats {stats}, launches "
                                  f"{counts}, plain twins called {twins}")
         results = cold + hits
@@ -1727,8 +1801,9 @@ def serve_spec(card, registry, params, kwargs, vanilla, *,
     same params, its own dense cache) and the weak one. Asserts every
     stream equal to the vanilla engine's (``vanilla``: serve_engine's
     runs) and B=1's, the strong draft's acceptance above 0.5, rounds
-    run, a clean pool, and every decode kernel and the prefill GEMM
-    launched (no CUDA tensor at a plain twin). Reports the acceptance,
+    run, a clean pool, every decode kernel and the prefill GEMM
+    launched and every prefill's attention on flash (no CUDA tensor at a
+    plain twin). Reports the acceptance,
     verifier forwards per emitted token, inter-token ms and tokens/s
     beside the vanilla engine's."""
     vocab = get_model(registry).num_classes_or_vocab
@@ -1785,7 +1860,7 @@ def serve_spec(card, registry, params, kwargs, vanilla, *,
                     or row["streams_equal_b1"] != len(requests)
                     or spec["rounds"] <= 0
                     or (draft is None and spec["acceptance_rate"] <= 0.5)
-                    or counts["flash_attention"] or any(twins.values())
+                    or not prefills_on_flash(counts) or any(twins.values())
                     or not all(counts[k] for k in (
                         "decode_gemm", "rms_norm", "decode_attention",
                         "prefill_gemm"))):
@@ -1852,7 +1927,8 @@ def serve_chunked(card, registry, params, kwargs, *,
     plus a LONG_PROMPT-token prompt admitted while they decode, greedy
     and sampled; and the same engine without chunking. Asserts every
     chunked stream equal to the unchunked engine's and to B=1, a clean
-    pool and every kernel of the path launched; reports the decoding
+    pool, every kernel of the path launched and every chunk's attention
+    on flash; reports the decoding
     neighbours' largest inter-token gap while the long prompt is
     admitted, chunked against one-shot."""
     vocab = get_model(registry).num_classes_or_vocab
@@ -1892,7 +1968,7 @@ def serve_chunked(card, registry, params, kwargs, *,
                     or stats["reserved_pages"]
                     or stats["free_pages"] + stats["retained_pages"]
                     != stats["total_pages"] or any(twins.values())
-                    or counts["flash_attention"]
+                    or not prefills_on_flash(counts)
                     or not all(counts[k] for k in (
                         "decode_gemm", "rms_norm", "decode_attention",
                         "prefill_gemm"))
@@ -2447,6 +2523,7 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
         "replaces": "kubeflow_tpu/ops/flash_attention.py:83",
         "launches": launches["flash_attention"],
+        "launches_prefill": launches.pop("flash_attention_prefill"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],

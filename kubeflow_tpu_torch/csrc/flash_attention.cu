@@ -18,7 +18,11 @@
 // (a Pallas kernel whose sequential kv grid dimension carried fp32
 // running statistics in VMEM scratch). It computes the same function:
 // S = Q K^T * scale in fp32; causal mask from global positions, with
-// kv tiles wholly in a q tile's future skipped; an optional [B, Lk]
+// kv tiles wholly in a q tile's future skipped; a query offset (query i
+// sits at position q_offset + i, keys at 0 .. Lk - 1: a block of
+// queries over a cache that already holds the keys before it, which the
+// TPU kernel does not take and the reference's dense_attention does);
+// an optional [B, Lk]
 // key-validity row shared by every head of a batch element; an online
 // softmax with fp32 running max and sum, the m_safe = max(m, NEG_INF/2)
 // clamp, P cast to V's dtype before PV, and a final divide by
@@ -65,6 +69,14 @@
 //    (the ragged tail, the causal diagonal, a key-validity row) pay for
 //    masking; a warpgroup whose rows all lie before a tile, or past Lq,
 //    skips it but still releases its stages.
+//  - Query offset: causality compares q_offset + row with the key's
+//    position; tiles stay aligned at key 0 and rows past Lq are
+//    block-local. A row's scores, maxima, sums and PV products then
+//    depend only on its position and the keys: a kv tile wholly past
+//    its frontier, which its warpgroup runs for its later rows, masks
+//    every score (m unchanged, corr = exp2(0) = 1, P = 0), so a row has
+//    the same bits in a block of any width at any offset (a chunk, a
+//    prefix hit's tail, the one-shot prompt).
 //  - GQA reads KV head h / (H / Hkv) through the tensor map; nothing is
 //    repeated or transposed in memory. Blocks with the longest causal
 //    rows launch first so the short ones fill the tail of the grid.
@@ -104,10 +116,21 @@ struct Params {
   long long mask_sb;
   float scale;
   int causal;
+  int q_offset;  // position of query 0; keys sit at 0 .. lk - 1
 };
 
 __host__ __device__ constexpr size_t align_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
+}
+
+// Keys a q tile of `block` rows from block-local row q0 runs: every key,
+// or under causality those up to its last row's position (keys past it
+// are in the future of every row of the tile).
+__host__ __device__ inline int kv_end(int lq, int lk, int q0, int block, int causal,
+                                      int q_offset) {
+  if (!causal) return lk;
+  const int last = q_offset + (lq < q0 + block ? lq : q0 + block);
+  return lk < last ? lk : last;
 }
 
 // ---------------------------------------------------------------------------
@@ -156,6 +179,7 @@ struct WgParams {
   int heads, group, lq, lk;
   float scale_log2;
   int causal;
+  int q_offset;
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -551,9 +575,13 @@ __device__ __forceinline__ void consume(const WgParams& p, uint32_t base,
   const int tid = threadIdx.x % 128;
   const int lane = tid % 32;
   const int quad = lane % 4;
-  const int wg_row0 = q0 + 64 * cw;  // first q position of this warpgroup
+  const int wg_row0 = q0 + 64 * cw;  // first q row of this warpgroup
   const int row0 = wg_row0 + 16 * (tid / 32) + lane / 4;  // this thread's rows:
   const int row1 = row0 + 8;                              // row0 and row0 + 8
+  // Positions in the cache: rows (and Lq) are block-local, positions are
+  // what causality compares with the keys'.
+  const int wg_pos0 = p.q_offset + wg_row0;
+  const int pos0 = p.q_offset + row0, pos1 = pos0 + 8;
   const Barriers<T::kStages> bar(base + T::kOffBar);
   // Descriptors: Q and K K-major, V MN-major (the next 64-column chunk
   // kKVChunkBytes on); 8-row groups 8 rows apart.
@@ -565,7 +593,7 @@ __device__ __forceinline__ void consume(const WgParams& p, uint32_t base,
   // rest lie wholly in its rows' causal future, or its rows past Lq.
   int n_mine = n_tiles;
   if (wg_row0 >= p.lq) n_mine = 0;
-  else if (p.causal) n_mine = min(n_tiles, (wg_row0 + 63) / kN + 1);
+  else if (p.causal) n_mine = min(n_tiles, (wg_pos0 + 63) / kN + 1);
 
   // Accumulators: like sc, register i of o holds column 8 (i / 4) +
   // 2 quad + (i & 1) of row (i & 2) ? row1 : row0.
@@ -587,9 +615,9 @@ __device__ __forceinline__ void consume(const WgParams& p, uint32_t base,
   auto softmax = [&](int t, const uint32_t (&words)[kW]) {
     const int k0 = t * kN;
     const bool masked = p.mask != nullptr || k0 + kN > p.lk ||
-                        (p.causal && k0 + kN - 1 > wg_row0);
-    const int lim0 = p.causal ? row0 - k0 - 2 * quad : kN;
-    const int lim1 = p.causal ? row1 - k0 - 2 * quad : kN;
+                        (p.causal && k0 + kN - 1 > wg_pos0);
+    const int lim0 = p.causal ? pos0 - k0 - 2 * quad : kN;
+    const int lim1 = p.causal ? pos1 - k0 - 2 * quad : kN;
     online_softmax<kN>(sc, words, masked, lim0, lim1, p.scale_log2, st);
   };
 
@@ -717,10 +745,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Causal blocks late in the sequence do the most work: launch them
   // first so the short ones fill the tail of the grid.
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;
-  // Keys past the last query of this tile are all in its causal future.
-  int kv_end = p.lk;
-  if (p.causal) kv_end = min(kv_end, min(p.lq, q0 + kBlockM));
-  const int n_tiles = (kv_end + T::kBlockN - 1) / T::kBlockN;
+  const int n_tiles =
+      (kv_end(p.lq, p.lk, q0, kBlockM, p.causal, p.q_offset) + T::kBlockN - 1) / T::kBlockN;
 
   if (threadIdx.x == 0) {
     mbar_init(bar.q, 1);
@@ -815,6 +841,7 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   wp.lk = p.lk;
   wp.scale_log2 = p.scale * kLog2e;
   wp.causal = p.causal;
+  wp.q_offset = p.q_offset;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::kSmemBytes);
@@ -914,9 +941,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_kernel_fma(const Params
     l_s[threadIdx.x] = 0.0f;
   }
 
-  int kv_end = p.lk;
-  if (p.causal) kv_end = min(kv_end, min(p.lq, q0 + kFmaBlock));
-  const int n_tiles = (kv_end + kFmaBlock - 1) / kFmaBlock;
+  const int n_tiles =
+      (kv_end(p.lq, p.lk, q0, kFmaBlock, p.causal, p.q_offset) + kFmaBlock - 1) / kFmaBlock;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kFmaBlock;
@@ -938,7 +964,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_kernel_fma(const Params
 
     for (int rr = 0; rr < kFmaRowsPerWarp; ++rr) {
       const int r = row0 + rr;
-      const int q_pos = q0 + r;
+      const int q_pos = p.q_offset + q0 + r;  // its position in the cache
       float s[kFmaBlock / 32];
       float m_cur = kNegInf;
 #pragma unroll
@@ -1017,7 +1043,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
 // dimension of q/k/v is contiguous and the output is a contiguous
-// [B, Lq, H, D]. Returns the launch's cudaError_t (0 = launched).
+// [B, Lq, H, D]. q_offset: position of query 0 (causal only; the caller
+// keeps q_offset + lq <= lk). Returns the launch's cudaError_t
+// (0 = launched).
 int kft_flash_attention_fwd(const void* q, const void* k, const void* v,
                             const void* mask, void* out, int dtype, int batch,
                             int heads, int kv_heads, int lq, int lk, int d,
@@ -1025,7 +1053,7 @@ int kft_flash_attention_fwd(const void* q, const void* k, const void* v,
                             long long k_sb, long long k_sl, long long k_sh,
                             long long v_sb, long long v_sl, long long v_sh,
                             long long mask_sb, float scale, int causal,
-                            void* stream) {
+                            int q_offset, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -1050,6 +1078,7 @@ int kft_flash_attention_fwd(const void* q, const void* k, const void* v,
   p.mask_sb = mask_sb;
   p.scale = scale;
   p.causal = causal;
+  p.q_offset = q_offset;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0) {
@@ -1082,6 +1111,22 @@ int kft_flash_attention_smem_bytes(int dtype, int d) {
     }
   }
   return -1;
+}
+
+// kv tiles that block-local q tile `q_tile` of the kernel taking
+// (dtype, head_dim) runs, or -1 where none does; launch_plan mirrors it.
+int kft_flash_attention_kv_tiles(int dtype, int d, int lq, int lk, int causal, int q_offset,
+                                 int q_tile) {
+  int block_q, block_k;
+  if (dtype == 0 && fma_takes(d)) {
+    block_q = block_k = kFmaBlock;
+  } else if (dtype == 1 && (d == 16 || d == 32 || d == 64 || d == 128 || d == 256)) {
+    block_q = kBlockM;
+    block_k = d <= 128 ? Tile<128>::kBlockN : Tile<256>::kBlockN;
+  } else {
+    return -1;
+  }
+  return (kv_end(lq, lk, q_tile * block_q, block_q, causal, q_offset) + block_k - 1) / block_k;
 }
 
 const char* kft_cuda_error_string(int err) {

@@ -38,10 +38,13 @@ row those of the one-token step at its position. A prefill into the
 cache (more than one token per row without ``decode_positions``:
 ``generate``'s prompt pass, the engine's admissions, a prefix hit's
 tail and a chunk of a chunked prefill) sends its seven bf16 projections
-through :func:`prefill_linear` and its attention over the cache
-through :func:`prefill_attention` (the decode attention kernel, one
-query a row), so a prompt position's row has the same bits in a hit's
-narrow tail block or a chunk as in the cold run's full-width block.
+through :func:`prefill_linear` and its attention over the cache through
+:func:`prefill_attention`: one launch a layer of the flash kernel for
+the whole ``[B, L]`` block, causal at the block's offset in the cache
+(``cache.index``), with its key tiles aligned at slot 0. Both kernels'
+rows depend neither on the block's width nor on its offset, so a prompt
+position's row has the same bits in a hit's narrow tail block or a
+chunk as in the cold run's full-width block.
 Every cache forward's fp32 ``lm_head`` runs on the decode GEMM's fp32
 route, because cuBLAS's rows differ at narrow widths
 (scripts/decode_invariance.py, ``tail``); a prefill's callers ask for
@@ -62,12 +65,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
-from kubeflow_tpu_torch.ops.decode_attention import (
-    decode_attention,
+from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
+from kubeflow_tpu_torch.ops.flash_attention import (
+    flash_attention,
     prefill_attention,
 )
-from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
-from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype

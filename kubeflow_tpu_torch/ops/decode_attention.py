@@ -37,11 +37,6 @@ Dispatch. A CPU tensor goes to ``dense_attention`` itself, the plain
 version. A CUDA tensor goes to the kernel, or the call raises, also
 where a CTA's share of S's scores does not fit in shared memory.
 ``decode_attention.launches`` counts kernel launches.
-
-:func:`prefill_attention` runs a prefill block's causal attention over
-the cache on the same kernel, one query a row, so a row's bits do not
-depend on the block's width either (a chunk's, a prefix hit's tail's or
-the one-shot prompt's).
 """
 
 from __future__ import annotations
@@ -207,28 +202,3 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 #: Kernel launches since the count was last set to 0.
 decode_attention.launches = 0
-
-
-def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      q_offset: int, valid: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a prefill block ``q [B, L, H, D]``, query j at
-    cache position ``q_offset + j``, over ``k, v [B, S, Hkv, D]`` where the
-    ``[B, S]`` bool ``valid`` is True: ``dense_attention(q, k, v,
-    causal=True, q_offset=q_offset, kv_segment_valid=valid)``. A CPU
-    tensor takes that plain version. On the card each query is a row of
-    :func:`decode_attention` with its causal frontier as its validity and
-    the row's K/V broadcast (batch stride 0), one launch for each of the B
-    rows: the masked score set is the block's, and a query's bits do not
-    depend on how many queries share its block, which a block's einsums
-    (cuBLAS, kernels picked by shape) do not promise."""
-    if q.device.type == "cpu":
-        return dense_attention(q, k, v, causal=True, q_offset=q_offset,
-                               kv_offset=0, kv_segment_valid=valid)
-    b, l = q.shape[:2]
-    pos = torch.arange(k.shape[1], device=q.device)
-    causal = pos[None, :] <= q_offset + torch.arange(
-        l, device=q.device)[:, None]
-    return torch.stack([decode_attention(
-        q[i][:, None], k[i][None].expand(l, *k.shape[1:]),
-        v[i][None].expand(l, *v.shape[1:]), causal & valid[i][None, :])[:, 0]
-        for i in range(b)])

@@ -48,8 +48,8 @@ Each op has a ``today`` column (the plain PyTorch op the port ran
 before its kernels: cuBLAS for every linear, the RMSNorm formula,
 ``dense_attention``) and a ``port`` column (what the port runs now on
 the card: the decode kernels in a decode step; in a prefill the
-prefill GEMM, the RMSNorm kernel, the decode attention kernel one
-query a row, and the decode GEMM's fp32 route for the head). A last row runs a
+prefill GEMM, the RMSNorm kernel, the flash kernel at the block's
+offset, and the decode GEMM's fp32 route for the head). A last row runs a
 whole decode step through the port's ``llama3-8b`` (32 layers, random
 weights from seed 0), both ways.
 
@@ -83,9 +83,11 @@ from kubeflow_tpu_torch.models.convert import init_params  # noqa: E402
 from kubeflow_tpu_torch.ops.attention import dense_attention  # noqa: E402
 from kubeflow_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
-    prefill_attention,
 )
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear  # noqa: E402
+from kubeflow_tpu_torch.ops.flash_attention import (  # noqa: E402
+    prefill_attention,
+)
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear  # noqa: E402
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm  # noqa: E402
 from kubeflow_tpu_torch.utils.device import resolve_device  # noqa: E402

@@ -26,8 +26,12 @@ its parts timed alone at the forward's shapes, times their launches a
 forward:
 
 - ``attention``: the causal attention of the L queries over the cache,
-  32 calls a forward, as the per-query kernel (``prefill_attention``,
-  where the checkout has it) and as the einsums of ``dense_attention``;
+  32 calls a forward: as the flash route (``prefill_attention`` in
+  ``ops/flash_attention.py``, one launch at the block's offset) or as
+  the per-query route (``prefill_attention`` in
+  ``ops/decode_attention.py``, each query a row of the decode attention
+  kernel), whichever the checkout has, and as the einsums of
+  ``dense_attention``;
 - ``head``: the fp32 ``lm_head``, as the decode GEMM's fp32 route on
   the one row read and as ``F.linear`` on all L rows.
 
@@ -61,12 +65,14 @@ from kubeflow_tpu_torch.models.convert import init_params  # noqa: E402
 from kubeflow_tpu_torch.models.llama import apply, llama3_8b  # noqa: E402
 from kubeflow_tpu_torch.ops import decode_attention as da  # noqa: E402
 from kubeflow_tpu_torch.ops import decode_gemm as dg  # noqa: E402
+from kubeflow_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from kubeflow_tpu_torch.ops.attention import dense_attention  # noqa: E402
 
 #: Substrings of a kernel's name → its class, first match wins.
 CLASSES = (
     ("prefill_gemm", ("prefill_gemm_kernel",)),
     ("decode_attention", ("decode_attention_kernel",)),
+    ("flash_attention", ("flash_fwd_kernel",)),
     ("decode_gemm fp32 (head)", ("decode_gemm_fp32_kernel",)),
     ("rms_norm", ("rms_norm_kernel",)),
     ("cuBLAS gemm", ("gemm", "cutlass", "xmma", "nvjet", "matmul")),
@@ -157,6 +163,9 @@ def forward_row(params, length: int, seed: int) -> dict:
     valid = torch.ones((1, length), dtype=torch.bool, device="cuda")
     parts = {}
     with torch.inference_mode():
+        if hasattr(fa, "prefill_attention"):
+            parts["attention: flash route"] = layers * device_ms(
+                lambda: fa.prefill_attention(q, k, v, 0, valid))
         if hasattr(da, "prefill_attention"):
             parts["attention: per-query kernel"] = layers * device_ms(
                 lambda: da.prefill_attention(q, k, v, 0, valid))

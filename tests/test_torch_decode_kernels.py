@@ -36,7 +36,11 @@ import torch.nn.functional as F
 
 from kubeflow_tpu.models.llama import RMSNorm as JaxRMSNorm
 from kubeflow_tpu.ops.attention import dense_attention as jax_dense_attention
-from kubeflow_tpu_torch.inference.generate import _row_cumsum, generate
+from kubeflow_tpu_torch.inference.generate import (
+    _row_cumsum,
+    generate,
+    init_cache,
+)
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.models.convert import init_params
 from kubeflow_tpu_torch.ops import decode_attention as da
@@ -181,13 +185,19 @@ def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     """llama-test generate: each decode step sends its 7 linears a layer
     and the lm_head through decode_linear, its 2 norms a layer and the
     final one through rms_norm, and its attention through
-    decode_attention; the prefill sends only its head, at the one
-    position a row generate reads, to decode_linear."""
-    calls = {"decode_linear": 0, "rms_norm": 0, "decode_attention": 0}
+    decode_attention; the prefill sends its attention once a layer, the
+    whole block at the cache's index, to prefill_attention (the flash
+    kernel on the card), none to decode_attention, and only its head, at
+    the one position a row generate reads, to decode_linear."""
+    calls = {"decode_linear": 0, "rms_norm": 0, "decode_attention": 0,
+             "prefill_attention": 0}
+    offsets = []
 
     def counting(name, fn):
         def wrapped(*a, **kw):
             calls[name] += 1
+            if name == "prefill_attention":
+                offsets.append((a[3], a[0].shape[1]))
             return fn(*a, **kw)
         return wrapped
 
@@ -197,14 +207,28 @@ def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     params = init_params(model, seed=0, device="cpu")
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, 512, (2, 8)).astype(np.int32))
+    layers = model.num_layers
     generate(model, params, ids, max_new_tokens=1)
     assert calls == {"decode_linear": 1, "rms_norm": 5,
-                     "decode_attention": 0}
+                     "decode_attention": 0, "prefill_attention": layers}
+    assert offsets == [(0, 8)] * layers
     generate(model, params, ids, max_new_tokens=4)
-    steps, layers = 3, model.num_layers
+    steps = 3
     assert calls == {"decode_linear": 2 + steps * (7 * layers + 1),
                      "rms_norm": 5 * (steps + 2),
-                     "decode_attention": steps * layers}
+                     "decode_attention": steps * layers,
+                     "prefill_attention": 2 * layers}
+    # A second block into the same cache: one launch a layer at the
+    # cache's index, 8, where the first block ended.
+    cache = init_cache(model, params, 2)
+    offsets.clear()
+    for start, block in ((0, ids), (8, ids[:, :5])):
+        positions = start + torch.arange(block.shape[1])[None].expand(2, -1)
+        with torch.inference_mode():
+            llama.apply(model, params, block, positions, cache=cache)
+    assert offsets == [(0, 8)] * layers + [(8, 5)] * layers
+    assert calls["prefill_attention"] == 4 * layers
+    assert calls["decode_attention"] == steps * layers
 
 
 def test_row_cumsum_scans_each_row_as_one_cumsum():
@@ -265,10 +289,11 @@ def test_flash_autograd_function_recomputes_the_plain_version(monkeypatch,
     """The card's autograd.Function, with the kernel swapped for the
     plain version: its backward gives the plain version's gradients
     for q, k and v, and only for the inputs that want one."""
-    monkeypatch.setattr(fa, "_launch", lambda q, k, v, causal, scale, mask:
+    monkeypatch.setattr(fa, "_launch",
+                        lambda q, k, v, causal, scale, mask, q_offset:
                         fa.flash_attention_reference(
                             q, k, v, causal=causal, scale=scale,
-                            kv_segment_valid=mask))
+                            kv_segment_valid=mask, q_offset=q_offset))
     q, k, v = _qkv(11, h=8 if case == "gqa" else 4,
                    kv_heads=2 if case == "gqa" else None)
     causal = case != "masked"

@@ -1004,27 +1004,124 @@ def test_strong_draft_engine_equals_vanilla_on_the_card(cuda, mode):
         spec.stop()
 
 
+#: A prefill block's rows against the same rows in blocks of these widths
+#: (32 and below: a hit's tail buckets and short chunks; 64, 128: the
+#: chunk widths and a whole q tile; 129: across a q tile's edge).
+PREFILL_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 129)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_prefill_attention_rows_are_width_free(cuda, dtype):
-    """A cache prefill's attention on the decode attention kernel, one
-    query a row: within flash's tolerance of the block's plain causal
-    attention, and every query's output the same bits in a block of any
-    width at any offset (a chunk, a hit's tail, the one-shot block)."""
+    """A cache prefill's attention, one flash launch for the block at its
+    offset (37, 165: not multiples of a tile): within flash's tolerance
+    of the block's plain causal attention, and every query's output the
+    same bits in a block of any width at any offset (a chunk, a hit's
+    tail, the one-shot block), for rows with and without a left pad."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    b, l, s, h, hkv, d = 2, 64, 96, 8, 2, 64
+    b, l, s, h, hkv, d = 2, 260, 448, 8, 2, 64
     q = torch.randn(b, l, h, d, device=cuda, generator=gen).to(dtype)
     k = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(dtype)
     v = torch.randn(b, s, hkv, d, device=cuda, generator=gen).to(dtype)
-    start = 20
     pos = torch.arange(s, device=cuda)[None, :]
-    valid = (pos < start + l) & (pos >= torch.tensor([[0], [5]],
-                                                     device=cuda))
-    whole = da.prefill_attention(q, k, v, start, valid)
-    want = dense_attention(q, k, v, causal=True, q_offset=start,
-                           kv_offset=0, kv_segment_valid=valid)
-    assert float((whole.float() - want.float()).abs().max()) <= TOL[dtype]
-    for width in (1, 2, 4, 8, 16, 32):
-        for lo in range(0, l, width):
-            part = da.prefill_attention(q[:, lo:lo + width].contiguous(), k,
-                                        v, start + lo, valid)
-            assert torch.equal(part, whole[:, lo:lo + width]), (width, lo)
+    pads = torch.tensor([[0], [5]], device=cuda)
+    for start in (37, 165):
+        valid = (pos < start + l) & (pos >= pads)
+        before = fa.flash_attention.launches
+        whole = fa.prefill_attention(q, k, v, start, valid)
+        assert fa.flash_attention.launches == before + 1
+        want = dense_attention(q, k, v, causal=True, q_offset=start,
+                               kv_offset=0, kv_segment_valid=valid)
+        assert float((whole.float() - want.float()).abs().max()) <= \
+            TOL[dtype]
+        for width in PREFILL_WIDTHS:
+            for lo in range(0, l, width):
+                hi = min(l, lo + width)
+                # The validity the engine builds for the narrower block.
+                part_valid = (pos < start + hi) & (pos >= pads)
+                part = fa.prefill_attention(q[:, lo:hi].contiguous(), k, v,
+                                            start + lo, part_valid)
+                assert torch.equal(part, whole[:, lo:hi]), (start, width,
+                                                            lo)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_offset_0_is_the_call_without_one(cuda, dtype):
+    """``q_offset=0`` is today's kernel: the bits of a call without the
+    argument, causal and not, with a key mask, at Lq = Lk and Lq < Lk
+    (predict and classify do not change)."""
+    for b, lq, lk, causal, masked in ((2, 200, 200, True, False),
+                                      (1, 96, 160, True, True),
+                                      (2, 96, 160, False, True)):
+        q, k, v = _qkv(cuda, b, lq, lk, 8, 2, 64, dtype, seed=lq + lk)
+        mask = None
+        if masked:
+            mask = (torch.arange(lk, device=cuda)[None, :] < torch.tensor(
+                [[lk - 30], [lk]], device=cuda)[:b]).to(torch.int32)
+        plain = fa.flash_attention(q, k, v, causal=causal,
+                                   kv_segment_valid=mask)
+        assert torch.equal(fa.flash_attention(
+            q, k, v, causal=causal, kv_segment_valid=mask, q_offset=0),
+            plain)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 64)])
+def test_flash_at_an_offset_matches_plain_version(cuda, dtype, d):
+    """The kernel at query offsets (GQA 4:1, left-padded validity, a
+    block ending before the cache) against its plain version and
+    dense_attention: flash's tolerance; the same bits on a second call."""
+    b, l, s = 2, 150, 700
+    q, k, v = _qkv(cuda, b, l, s, 8, 2, d, dtype, seed=d)
+    pos = torch.arange(s, device=cuda)[None, :]
+    for start in (0, 131, 448):
+        valid = (pos < start + l) & (pos >= torch.tensor([[0], [9]],
+                                                         device=cuda))
+        got = fa.flash_attention(q, k, v, causal=True, q_offset=start,
+                                 kv_segment_valid=valid)
+        for ref in (fa.flash_attention_reference(
+                        q, k, v, causal=True, q_offset=start,
+                        kv_segment_valid=valid),
+                    dense_attention(q, k, v, causal=True, q_offset=start,
+                                    kv_offset=0, kv_segment_valid=valid)):
+            assert float((got.float() - ref.float()).abs().max()) <= \
+                TOL[dtype], start
+        assert torch.equal(fa.flash_attention(
+            q, k, v, causal=True, q_offset=start, kv_segment_valid=valid),
+            got)
+
+
+def test_flash_kv_tiles_mirror_is_the_kernels(cuda):
+    """launch_plan's kv tiles per q tile equal the built kernel's own
+    figure at offsets, widths and both routes."""
+    for dtype, dims in fa.HEAD_DIMS.items():
+        for d in dims:
+            for lq, lk, causal, offset in ((200, 800, True, 448),
+                                           (129, 400, True, 37),
+                                           (2048, 2048, True, 0),
+                                           (96, 160, False, 0),
+                                           (1, 544, True, 300)):
+                plan = fa.launch_plan(dtype, d, lq, lk=lk, causal=causal,
+                                      q_offset=offset)
+                assert plan.kv_tiles == tuple(
+                    fa.kernel_kv_tiles(dtype, d, lq, lk, causal, offset, i)
+                    for i in range(plan.grid[1])), (dtype, d, lq, offset)
+
+
+def test_prefill_attention_raises_where_the_kernel_does_not_go(cuda):
+    """No quiet route back: a CUDA block the kernel refuses (a head dim
+    it has no instantiation for, an offset past the cache) raises and
+    launches nothing."""
+    q = torch.zeros(1, 8, 4, 48, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 32, 2, 48, dtype=torch.bfloat16, device=cuda)
+    valid = torch.ones(1, 32, dtype=torch.bool, device=cuda)
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.prefill_attention(q, kv, kv, 4, valid)
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 32, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="within Lk"):
+        fa.prefill_attention(q, kv, kv, 25, valid)
+    assert (fa.flash_attention.launches,
+            da.decode_attention.launches) == before

@@ -80,19 +80,31 @@ def test_prefill_linear_refuses_a_device_other_than_cpu_or_cuda():
         pg.prefill_linear(x, x[:1].expand(8, 64))
 
 
+class _Calls(dict):
+    """Call counts by route; ``offsets`` holds each prefill_attention
+    call's (q_offset, block width)."""
+
+    def __init__(self, names):
+        super().__init__((name, 0) for name in names)
+        self.offsets = []
+
+
 @pytest.fixture
 def calls(monkeypatch):
-    """Calls of the model's three linear routes, counted at the model's
-    own names (the plain twins run underneath)."""
-    counts = {"prefill_linear": 0, "decode_linear": 0}
+    """Calls of the model's linear and attention routes over the cache,
+    counted at the model's own names (the plain twins run underneath)."""
+    counts = _Calls(("prefill_linear", "decode_linear", "prefill_attention",
+                     "decode_attention"))
 
     def counting(name, fn):
         def wrapped(*a, **kw):
             counts[name] += 1
+            if name == "prefill_attention":
+                counts.offsets.append((a[3], a[0].shape[1]))
             return fn(*a, **kw)
         return wrapped
 
-    for name in counts:
+    for name in list(counts):
         monkeypatch.setattr(llama, name, counting(name, getattr(llama, name)))
     return counts
 
@@ -100,8 +112,11 @@ def calls(monkeypatch):
 def test_cache_forward_routes_bf16_projections_to_the_prefill_gemm(calls):
     """llama-test bf16: a cache forward with L > 1 sends exactly 7 ×
     num_layers products through prefill_linear (the fp32 head, at the
-    one position a row generate reads, goes through decode_linear), a
-    decode step none, and the cache-free forward none."""
+    one position a row generate reads, goes through decode_linear) and
+    its attention once a layer, the whole block at offset 0, through
+    prefill_attention (the flash kernel on the card), never through
+    decode_attention; a decode step none of the prefill's, and the
+    cache-free forward none of either."""
     model = llama.llama_test(cache_size=32)
     params = init_params(model, seed=0, device="cpu")
     layers = model.num_layers
@@ -109,16 +124,20 @@ def test_cache_forward_routes_bf16_projections_to_the_prefill_gemm(calls):
         0, 512, (2, 8)).astype(np.int32))
     with torch.inference_mode():
         generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"prefill_linear": 7 * layers, "decode_linear": 1}
+    assert calls == {"prefill_linear": 7 * layers, "decode_linear": 1,
+                     "prefill_attention": layers, "decode_attention": 0}
+    assert calls.offsets == [(0, 8)] * layers
     with torch.inference_mode():
         generate(model, params, ids, max_new_tokens=4)
-    assert calls == {"prefill_linear": 2 * 7 * layers,
-                     "decode_linear": 2 + 3 * (7 * layers + 1)}
+    after = {"prefill_linear": 2 * 7 * layers,
+             "decode_linear": 2 + 3 * (7 * layers + 1),
+             "prefill_attention": 2 * layers,
+             "decode_attention": 3 * layers}
+    assert calls == after
     free = llama.llama_test()
     with torch.inference_mode():
         llama.apply(free, params, ids)
-    assert calls == {"prefill_linear": 2 * 7 * layers,
-                     "decode_linear": 2 + 3 * (7 * layers + 1)}
+    assert calls == after
 
 
 def test_cache_forward_head_is_the_decode_route_with_or_without_logits_at(
@@ -136,7 +155,9 @@ def test_cache_forward_head_is_the_decode_route_with_or_without_logits_at(
             out.append(llama.apply(model, params, ids,
                                    cache=init_cache(model, params, 2), **kw))
     assert calls == {"prefill_linear": 2 * 7 * model.num_layers,
-                     "decode_linear": 2}
+                     "decode_linear": 2,
+                     "prefill_attention": 2 * model.num_layers,
+                     "decode_attention": 0}
     assert out[0].shape == (2, 8, 512) and out[1].shape == (2, 1, 512)
     assert torch.equal(out[0][0, 7], out[1][0, 0])
     assert torch.equal(out[0][1, 3], out[1][1, 0])
@@ -145,12 +166,15 @@ def test_cache_forward_head_is_the_decode_route_with_or_without_logits_at(
 def test_fp32_prefill_keeps_its_linear_layers(calls):
     """The kernel takes bf16: an fp32 model's prefill projections stay
     ``layer(x)`` (its head, at the position read, takes decode_linear
-    as every model's does)."""
+    as every model's does); its attention takes prefill_attention as a
+    bf16 model's does (the flash kernel's fp32 route on the card)."""
     model = llama.llama_test(dtype="float32", cache_size=32)
     params = init_params(model, seed=0, device="cpu")
     ids = torch.zeros((1, 8), dtype=torch.int32)
     generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"prefill_linear": 0, "decode_linear": 1}
+    assert calls == {"prefill_linear": 0, "decode_linear": 1,
+                     "prefill_attention": model.num_layers,
+                     "decode_attention": 0}
 
 
 def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
@@ -177,9 +201,15 @@ def test_one_token_hit_tail_is_prefilled_on_the_prefill_route(calls):
         assert px["hits"] == 1 and px["saved_prefill_tokens"] == 19, px
         layers = model.num_layers
         # Two admissions, each one prefill forward (its head on the row
-        # read through decode_linear); 3 decode steps each.
+        # read through decode_linear, its attention one prefill_attention
+        # call a layer); 3 decode steps each.
         assert calls == {"prefill_linear": 2 * 7 * layers,
-                         "decode_linear": 2 * (1 + 3 * (7 * layers + 1))}
+                         "decode_linear": 2 * (1 + 3 * (7 * layers + 1)),
+                         "prefill_attention": 2 * layers,
+                         "decode_attention": 2 * 3 * layers}
+        # The cold block (the prompt's 32-wide bucket) from slot 0; the
+        # hit's one-token tail, 2 wide, at the cache's index: 19.
+        assert calls.offsets == [(0, 32)] * layers + [(19, 2)] * layers
     finally:
         engine.stop()
 
@@ -199,16 +229,25 @@ def test_one_token_chunks_are_prefilled_on_the_prefill_route(calls):
             slice_tokens=2, prefix_cache=True, prefill_chunk=chunk),
             device="cpu")
         try:
-            calls.update(prefill_linear=0, decode_linear=0)
+            calls.update(prefill_linear=0, decode_linear=0,
+                         prefill_attention=0, decode_attention=0)
+            calls.offsets.clear()
             out.append(engine.submit(prompt, rng=prng.PRNGKey(0)).result(
                 120))
             layers = model.num_layers
             # Five chunks (or one block), each with its head on the row
-            # read, then 3 decode steps.
+            # read and its attention one prefill_attention call a layer
+            # at the cache's index, then 3 decode steps.
             forwards = 5 if chunk else 1
             assert calls == {
                 "prefill_linear": forwards * 7 * layers,
-                "decode_linear": forwards + 3 * (7 * layers + 1)}
+                "decode_linear": forwards + 3 * (7 * layers + 1),
+                "prefill_attention": forwards * layers,
+                "decode_attention": 3 * layers}
+            # Chunk i of one token, 2 wide, at the cache's index i; the
+            # one-shot block (8 wide, its bucket) at 0.
+            blocks = [(i, 2) for i in range(5)] if chunk else [(0, 8)]
+            assert calls.offsets == [b for b in blocks for _ in range(layers)]
         finally:
             engine.stop()
     np.testing.assert_array_equal(out[0], out[1])
