@@ -122,7 +122,28 @@ checkout's BN kernel by the same code (a parent commit's, say).
    launches at M = 20, 65 RMSNorm, 160 decode attention, no prefill GEMM
    and no plain twin (asserted), and the device ms of each. Then one
    decode step's kernel launches through the decode kernels and through
-   the plain ops. The params are freed before the next phases.
+   the plain ops. Then the engine's last lanes, greedy and sampled: KV
+   handoff (the engine mix through ``run_prefill``, the blob through
+   ``serving/wire.py`` both ways, ``submit(handoff=)`` on a second
+   engine; and the prefix mix on a prefill-role engine, chunks of 64,
+   adopted by a decode-role engine): every adopted stream equal to the
+   local one and B=1, the decode engine's index holding the carried
+   prefix, the prefill-role engine's hits, each prefill forward's 224 +
+   32 + 1 launches and none in an adoption (asserted; blob bytes, encode,
+   decode and adopt ms printed). Mid-stream resume in both lanes: three
+   engine-mix requests killed after 1 token, the middle and budget - 1,
+   continued on a peer from a resume token: one prefill forward a resume
+   (asserted), resumed == uninterrupted reported as n of m (ROADMAP C9:
+   the resume makes the emitted tokens' K/V on the prefill route, the
+   stream made it on the decode route), TTFTs printed. The host tier
+   (one slot, 34 usable pages, 256 MB of host RAM; fillers between
+   prefix-mix requests evict the prefix): spilled and re-adopted blocks,
+   each hit equal to its cold run and B=1, both tiers drained (asserted;
+   ms a spilled and a re-adopted block printed). Fleet blocks: engine
+   A's export of the 22 shared blocks through the wire into engine B's
+   host tier, B's hit equal to its cold run and B=1, B's pages of them
+   byte-equal to A's (asserted). The params are freed before the next
+   phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -173,6 +194,7 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from kubeflow_tpu_torch.inference.engine import engine as engine_module
 from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
 from kubeflow_tpu_torch.models import resnet
 from kubeflow_tpu_torch.models.convert import (
@@ -205,6 +227,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
 )
 from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.serving.export import export_model
+from kubeflow_tpu_torch.serving import wire
 from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
 from kubeflow_tpu_torch.serving.signature import (
     ModelMetadata,
@@ -1226,9 +1249,14 @@ def serve_llama(card):
     # The engine slice and the prefix lane on the same params, made once.
     _, vanilla = serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
                               decode_ms_b2=decode_ms)
-    serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
+    _, prefix_refs = serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
     serve_spec(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla)
     serve_chunked(card, LLAMA, params, {"dtype": "bfloat16"})
+    serve_handoff(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla,
+                  prefix_refs)
+    serve_resume(card, LLAMA, params, {"dtype": "bfloat16"})
+    serve_host_tier(card, LLAMA, params, {"dtype": "bfloat16"}, prefix_refs)
+    serve_fleet(card, LLAMA, params, {"dtype": "bfloat16"}, prefix_refs)
     verify_forward_launches(card, LLAMA, params)
     decode_step_launches(card, LLAMA, params)
     return launches
@@ -1283,17 +1311,26 @@ def b1_reference(loaded, prompt, key, budget, sampling):
 
 
 def run_engine(engine, requests):
-    """Submit every request at once; wait for all. Returns the token
-    arrays and the timings: each request's time to first token (from
-    its submit to the engine emitting token 0), the engine_slice spans'
-    inter-token ms, the aggregate tokens/s and the slices run."""
+    """Submit every request at once; wait for all (see run_streams)."""
+    return run_streams(engine, [
+        functools.partial(engine.submit, prompt, rng=key,
+                          max_new_tokens=budget)
+        for prompt, budget, key in requests])
+
+
+def run_streams(engine, submits):
+    """Call every submit (each returns a stream) at once; wait for all.
+    Returns the token arrays and the timings: each request's time to
+    first token (from its submit to the engine emitting token 0), the
+    engine_slice spans' inter-token ms, the aggregate tokens/s and the
+    slices run."""
     TRACER.clear()
     firsts = {}
     streams = []
     t0 = time.monotonic()
-    for i, (prompt, budget, key) in enumerate(requests):
+    for i, submit in enumerate(submits):
         submitted = time.monotonic()
-        stream = engine.submit(prompt, rng=key, max_new_tokens=budget)
+        stream = submit()
 
         def on_emit(i=i, stream=stream, submitted=submitted):
             if i not in firsts and stream.tokens_so_far:
@@ -1311,7 +1348,7 @@ def run_engine(engine, requests):
                                if e["args"].get("spec")
                                else e["args"]["steps"]) for e in slices]
     timing = {
-        "ttft_ms": [firsts[i] for i in range(len(requests))],
+        "ttft_ms": [firsts[i] for i in range(len(submits))],
         "inter_token_ms": (statistics.median(inter) if inter else None),
         "inter_token_ms_range": ([min(inter), max(inter)] if inter
                                  else None),
@@ -1529,6 +1566,7 @@ def serve_prefix(card, registry, params, kwargs, *,
     kwargs = dict(kwargs, cache_size=cache_size)
     max_prompt = 512
     report = {"card": card}
+    prefix_refs = {}
     for mode, sampling in (("greedy", {"temperature": 0.0}),
                            ("sampled", SAMPLING)):
         loaded = engine_model(registry, params, kwargs, max_prompt,
@@ -1587,6 +1625,7 @@ def serve_prefix(card, registry, params, kwargs, *,
                                  f"{engine.stats()}")
         refs = [b1_unpadded(loaded, p, k, b, sampling)
                 for p, b, k in requests]
+        prefix_refs[mode] = refs
         row = {
             "ttft_ms_cold": cold_timing["ttft_ms"][0],
             "ttft_ms_hits": timing["ttft_ms"],
@@ -1622,7 +1661,7 @@ def serve_prefix(card, registry, params, kwargs, *,
                 f"{row['streams_equal_b1']} of {PREFIX_REQUESTS} streams "
                 f"equal B=1 (first divergent steps "
                 f"{row['b1_first_divergence']})")
-    return report
+    return report, prefix_refs
 
 
 def decode_step_launches(card, registry, params):
@@ -2010,6 +2049,471 @@ def serve_chunked(card, registry, params, kwargs, *,
         if (row["streams_equal_one_shot"] != n or row["streams_equal_b1"]
                 != n or row["one_shot_streams_equal_b1"] != n):
             raise AssertionError(f"chunked {mode}: {row}")
+    return report
+
+
+#: Slice 11's lanes. Resume kills three engine-mix requests (the
+#: 300-token prompt; the 512-token one, whose context passes
+#: max_prompt_len; the 77-token one) after the first token, the middle
+#: and budget - 1.
+RESUME_REQUESTS = (0, 1, 2)
+#: The host-tier phase: one slot and 34 usable pages, one request's
+#: worth at the longest prefix-mix request, so a filler of another
+#: 512-token prompt between rounds evicts the 360-token prefix; 256 MB
+#: of host RAM holds it (about 2 MB a page at llama3-8b).
+HOST_TIER_PAGES = 35
+HOST_TIER_BYTES = 256 << 20
+HOST_TIER_REQUESTS = (0, 1, 2)
+MODES = (("greedy", {"temperature": 0.0}), ("sampled", SAMPLING))
+
+
+def kill_points(budget):
+    return (1, budget // 2, budget - 1)
+
+
+def prefill_launches_ok(counts, forwards, decode_steps):
+    """``forwards`` prefill forwards (224 prefill GEMM, 32 flash, one
+    decode GEMM for the head's row each) and ``decode_steps`` decode
+    steps, and nothing else."""
+    return (counts["prefill_gemm"] == PREFILL_LAUNCHES * forwards
+            and counts["flash_attention"]
+            == PREFILL_ATTENTION_LAUNCHES * forwards
+            and counts["decode_gemm"]
+            == STEP_LAUNCHES["decode_gemm"] * decode_steps
+            + PREFILL_HEAD_LAUNCHES * forwards
+            and counts["decode_attention"]
+            == STEP_LAUNCHES["decode_attention"] * decode_steps)
+
+
+def traced_decode_steps():
+    """Decode steps of the engine_slice spans since TRACER.clear()."""
+    return sum(e["args"]["steps"] for e in TRACER.snapshot()
+               if e["name"] == "engine_slice")
+
+
+def handoff_blob(handoff, timing):
+    """A handoff through the wire and back, timed."""
+    t0 = time.monotonic()
+    blob = wire.encode_kv_handoff(LLAMA, 1, handoff)
+    t1 = time.monotonic()
+    carried = wire.decode_kv_handoff(blob, model=LLAMA, version=1)
+    timing["blob_bytes"].append(len(blob))
+    timing["encode_ms"].append((t1 - t0) * 1e3)
+    timing["decode_ms"].append((time.monotonic() - t1) * 1e3)
+    return carried
+
+
+def serve_handoff(card, registry, params, kwargs, vanilla, prefix_refs, *,
+                  cache_size=ENGINE_CACHE, device=None):
+    """KV handoff, greedy and sampled. Classic lane: engine A's
+    ``run_prefill`` of each engine-mix request, the blob through
+    ``wire`` both ways, ``submit(handoff=)`` on engine B, all six at
+    once. Prefix lane: a prefill-role engine (chunks of PREFILL_CHUNK)
+    on the prefix mix, its right-layout blobs adopted by a decode-role
+    engine. Asserts every adopted stream equal to the local engine's
+    and B=1 (classic; ``vanilla``) or B=1 (prefix; ``prefix_refs``),
+    the prefill-role engine's hits, the decode engine's index holding
+    the carried prefix, clean pools, each prefill forward's launches
+    and none in the adopting engine's prefills. Prints the blob's bytes,
+    encode and decode ms and the admissions' adopt ms."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    report = {"card": card}
+    for lane, requests in (("classic", engine_requests(vocab)),
+                           ("prefix", prefix_requests(vocab))):
+        for mode, sampling in MODES:
+            if lane == "classic":
+                config = dict(ENGINE_GENERATE_CONFIG, **sampling)
+                want = list(zip(*vanilla[mode][:2]))
+            else:
+                config = dict(PREFIX_GENERATE_CONFIG,
+                              engine_prefill_chunk=PREFILL_CHUNK, **sampling)
+                want = [(r, r) for r in prefix_refs[mode]]
+            loaded = engine_model(registry, params, kwargs,
+                                  max(ENGINE_PROMPTS), config, device)
+            prefill = loaded.ensure_engine(name=f"smoke-handoff-{lane}-"
+                                           f"prefill-{mode}")
+            decode = DecodeEngine(
+                loaded._module, loaded.params,
+                dataclasses.replace(prefill.config, prefill_chunk=0),
+                name=f"smoke-handoff-{lane}-decode-{mode}",
+                device=loaded.device)
+            blobs = {"blob_bytes": [], "encode_ms": [], "decode_ms": []}
+            try:
+                with twin_calls() as twins:
+                    zero_counts()
+                    handoffs = [prefill.run_prefill(p, rng=k,
+                                                    max_new_tokens=b)
+                                for p, b, k in requests]
+                    at_prefill = read_counts()
+                    carried = [handoff_blob(h, blobs) for h in handoffs]
+                    zero_counts()
+                    results, timing = run_streams(decode, [
+                        functools.partial(decode.submit, handoff=h)
+                        for h in carried])
+                    counts = read_counts()
+                adopt = [e["dur"] / 1e3 for e in TRACER.snapshot()
+                         if e["name"] == "engine_prefill"
+                         and e["args"].get("adopted")]
+                pstats, dstats = prefill.stats(), decode.stats()
+                row = {
+                    "blob_bytes": blobs["blob_bytes"][0],
+                    "encode_ms": blobs["encode_ms"],
+                    "decode_ms": blobs["decode_ms"],
+                    "adopt_ms": adopt,
+                    "ttft_ms": timing["ttft_ms"],
+                    "inter_token_ms": timing["inter_token_ms"],
+                    "launches_prefill": at_prefill,
+                    "launches_adopting": counts,
+                    "streams_equal_local": sum(
+                        np.array_equal(g, w[0])
+                        for g, w in zip(results, want)),
+                    "streams_equal_b1": sum(
+                        np.array_equal(g, w[1])
+                        for g, w in zip(results, want)),
+                    "first_divergence": [first_divergence(g, w[1])
+                                         for g, w in zip(results, want)],
+                }
+                if lane == "prefix":
+                    row["prefill_role_prefix_cache"] = pstats["prefix_cache"]
+                    row["decode_role_matched"] = decode.probe_prefix(
+                        requests[0][0])
+                report[f"{lane} {mode}"] = row
+                log(f"handoff {lane} {mode}, {len(requests)} requests: "
+                    f"{json.dumps(row)}")
+                layouts = {h.layout for h in handoffs}
+                # One prefill forward a request, at least one a request
+                # in the prefix lane's chunks: 224 prefill GEMM, 32
+                # flash and one head on the decode GEMM each.
+                forwards = len(requests) if lane == "classic" else max(
+                    len(requests),
+                    at_prefill["flash_attention"] // PREFILL_ATTENTION_LAUNCHES)
+                bad = [
+                    row["streams_equal_b1"] != len(requests),
+                    row["streams_equal_local"] != len(requests),
+                    layouts != {"left" if lane == "classic" else "right"},
+                    not prefill_launches_ok(at_prefill, forwards, 0),
+                    not prefill_launches_ok(counts, 0,
+                                            timing["decode_steps"]),
+                    any(twins.values()),
+                    dstats["active_slots"] or dstats["reserved_pages"],
+                    dstats["admitted"] != len(requests),
+                ]
+                if lane == "classic":
+                    bad += [dstats["free_pages"] != dstats["total_pages"],
+                            pstats["admitted"] != 0]
+                else:
+                    bad += [pstats["prefix_cache"]["hits"] <= 0,
+                            pstats["retired"] != {
+                                "prefill_handoff": len(requests)},
+                            row["decode_role_matched"]
+                            < PREFIX_SHARED - PREFIX_SHARED % 16]
+                    decode.kv.allocator.check_invariants()
+                    decode.prefix.check_invariants()
+                    decode.clear_prefix_cache()
+                    if decode.stats()["free_pages"] != \
+                            decode.stats()["total_pages"]:
+                        bad.append("pages leaked")
+                if any(bad):
+                    raise AssertionError(
+                        f"handoff {lane} {mode}: {row}; prefill-role "
+                        f"stats {pstats}; decode-role stats {dstats}; "
+                        f"failed checks {[i for i, b in enumerate(bad) if b]};"
+                        f" plain twins called {twins}")
+            finally:
+                decode.stop()
+                loaded.close()
+    log(f"{registry} KV handoff: {json.dumps(report)}")
+    return report
+
+
+def serve_resume(card, registry, params, kwargs, *,
+                 cache_size=ENGINE_CACHE, device=None):
+    """Mid-stream resume in both lanes, greedy and sampled: three
+    engine-mix requests run on one engine; each is killed after 1
+    token, the middle and budget - 1, its resume token goes through
+    ``wire`` both ways, and a peer engine continues all nine at once
+    from the context and the remaining step keys. Asserts each resume's
+    one prefill forward (224 prefill GEMM, 32 flash, one head on the
+    decode GEMM), the tokens' shape and range and a clean pool; REPORTS
+    resumed == uninterrupted as n of m with each first divergence: the
+    resume prefills the emitted tokens' K/V on the prefill route where
+    the uninterrupted stream made it on the decode route, and the two
+    are apart on the card (scripts/decode_invariance.py ``route``,
+    ROADMAP C9). Prints each resume's TTFT beside the original's."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    picks = [engine_requests(vocab)[i] for i in RESUME_REQUESTS]
+    report = {"card": card}
+    for lane, lane_config in (("classic", ENGINE_GENERATE_CONFIG),
+                              ("prefix", PREFIX_GENERATE_CONFIG)):
+        for mode, sampling in MODES:
+            loaded = engine_model(registry, params, kwargs,
+                                  max(ENGINE_PROMPTS),
+                                  dict(lane_config, **sampling), device)
+            engine = loaded.ensure_engine(name=f"smoke-resume-{lane}-{mode}")
+            peer = DecodeEngine(loaded._module, loaded.params,
+                                engine.config,
+                                name=f"smoke-resume-peer-{lane}-{mode}",
+                                device=loaded.device)
+            try:
+                full, original = run_engine(engine, picks)
+                submits, wants, cases = [], [], []
+                for i, ((prompt, budget, key), got) in enumerate(
+                        zip(picks, full)):
+                    keys = prng.split(np.asarray(key, np.uint32), budget)
+                    for kill in kill_points(budget):
+                        doc = wire.decode_resume_token(
+                            wire.encode_resume_token(
+                                LLAMA, 1, np.concatenate([prompt,
+                                                          got[:kill]]),
+                                keys[kill:], budget - kill),
+                            model=LLAMA, version=1)
+                        submits.append(functools.partial(
+                            peer.submit, doc["prompt_tokens"],
+                            step_keys=doc["step_keys"]))
+                        wants.append(got[kill:])
+                        cases.append((RESUME_REQUESTS[i], kill))
+                with twin_calls() as twins:
+                    zero_counts()
+                    resumed, timing = run_streams(peer, submits)
+                    counts = read_counts()
+                stats = peer.stats()
+                equal = [np.array_equal(g, w) for g, w in zip(resumed,
+                                                              wants)]
+                row = {
+                    "resumed_equal_uninterrupted":
+                        f"{sum(equal)} of {len(equal)}",
+                    "cases": [
+                        {"request": r, "kill": k, "equal": e,
+                         "first_divergence": first_divergence(g, w),
+                         "ttft_ms": t}
+                        for (r, k), e, g, w, t in zip(
+                            cases, equal, resumed, wants,
+                            timing["ttft_ms"])],
+                    "original_ttft_ms": original["ttft_ms"],
+                    "inter_token_ms": timing["inter_token_ms"],
+                    "launches": counts,
+                    "status": ("held" if all(equal)
+                               else "reported, C9 open"),
+                }
+                report[f"{lane} {mode}"] = row
+                log(f"resume {lane} {mode}: {json.dumps(row)}")
+                bad = [
+                    not prefill_launches_ok(counts, len(submits),
+                                            timing["decode_steps"]),
+                    any(twins.values()),
+                    any(g.shape != w.shape or not ((g >= 0)
+                                                   & (g < vocab)).all()
+                        for g, w in zip(resumed, wants)),
+                    stats["active_slots"] or stats["reserved_pages"],
+                    stats["admitted"] != len(submits),
+                ]
+                if any(bad):
+                    raise AssertionError(
+                        f"resume {lane} {mode}: {row}; stats {stats}; "
+                        f"failed checks {[i for i, b in enumerate(bad) if b]};"
+                        f" plain twins called {twins}")
+            finally:
+                peer.stop()
+                loaded.close()
+    log(f"{registry} mid-stream resume: {json.dumps(report)}")
+    return report
+
+
+def serve_host_tier(card, registry, params, kwargs, prefix_refs, *,
+                    cache_size=ENGINE_CACHE, device=None):
+    """The host KV tier, greedy and sampled: one slot, a pool of
+    HOST_TIER_PAGES and HOST_TIER_BYTES of host RAM; prefix-mix requests
+    0, 1, 2 with a filler of another 512-token prompt after each but the
+    last, so the 360-token prefix spills to host RAM between rounds and
+    comes back on the next request. Asserts spilled and re-adopted
+    blocks, each re-adopted hit equal to its cold run and B=1
+    (``prefix_refs``), one prefill forward an admission, and both tiers
+    drained to zero with a clean byte ledger. Prints ms per spilled and
+    per re-adopted block (host clock around each spill, and around each
+    splice with the card synchronised)."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    requests = prefix_requests(vocab)
+    picks = [requests[i] for i in HOST_TIER_REQUESTS]
+    rng = np.random.default_rng(5)
+    fillers = [(rng.integers(0, vocab, 512).astype(np.int32), 32,
+                prng.PRNGKey(700 + i)) for i in range(len(picks) - 1)]
+    report = {"card": card}
+    splice = engine_module.splice_host_blocks
+    for mode, sampling in MODES:
+        loaded = engine_model(
+            registry, params, kwargs, 512,
+            dict(PREFIX_GENERATE_CONFIG, engine_slots=1,
+                 engine_num_pages=HOST_TIER_PAGES,
+                 engine_host_cache_bytes=HOST_TIER_BYTES, **sampling),
+            device)
+        engine = loaded.ensure_engine(name=f"smoke-host-tier-{mode}")
+        spill_ms, splice_ms = [], []
+        spill = engine.prefix._spill
+
+        def timed_spill(entry, spill=spill, out=spill_ms):
+            t0 = time.monotonic()
+            spill(entry)
+            out.append((time.monotonic() - t0) * 1e3)
+
+        def timed_splice(cache, layers, first, page, out=splice_ms):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            cache = splice(cache, layers, first, page)
+            torch.cuda.synchronize()
+            out.append(((time.monotonic() - t0) * 1e3, len(layers)))
+            return cache
+
+        engine.prefix.set_spill(timed_spill)
+        engine_module.splice_host_blocks = timed_splice
+        try:
+            TRACER.clear()
+            with twin_calls() as twins:
+                zero_counts()
+                hits = []
+                for i, (prompt, budget, key) in enumerate(picks):
+                    hits.append(engine.submit(prompt, rng=key,
+                                              max_new_tokens=budget)
+                                .result(600))
+                    if i < len(fillers):
+                        p, b, k = fillers[i]
+                        engine.submit(p, rng=k, max_new_tokens=b).result(600)
+                counts = read_counts()
+            steps = traced_decode_steps()
+            stats = engine.stats()
+            tier = stats["kv_tier"]["host"]
+            engine.kv.allocator.check_invariants()
+            engine.prefix.check_invariants()
+            engine.host_tier.check_accounting()
+            cold = []
+            for prompt, budget, key in picks[1:]:
+                engine.clear_prefix_cache()
+                engine.host_tier.clear()
+                cold.append(engine.submit(prompt, rng=key,
+                                          max_new_tokens=budget).result(600))
+            engine.clear_prefix_cache()
+            engine.host_tier.clear()
+            engine.host_tier.check_accounting()
+            drained = engine.stats()
+        finally:
+            engine_module.splice_host_blocks = splice
+            loaded.close()
+        refs = [prefix_refs[mode][i] for i in HOST_TIER_REQUESTS]
+        blocks = sum(n for _, n in splice_ms)
+        row = {
+            "kv_tier": tier,
+            "prefix_cache": stats["prefix_cache"],
+            "spill_ms_per_block": (statistics.mean(spill_ms) if spill_ms
+                                   else None),
+            "readopt_ms_per_block": (sum(ms for ms, _ in splice_ms) / blocks
+                                     if blocks else None),
+            "readopted_blocks_per_hit": [n for _, n in splice_ms],
+            "launches": counts,
+            "hits_equal_cold": sum(np.array_equal(h, c)
+                                   for h, c in zip(hits[1:], cold)),
+            "streams_equal_b1": sum(np.array_equal(h, r)
+                                    for h, r in zip(hits, refs)),
+            "first_divergence": [first_divergence(h, r)
+                                 for h, r in zip(hits, refs)],
+        }
+        report[mode] = row
+        log(f"host tier {mode}: {json.dumps(row)}")
+        admissions = len(picks) + len(fillers)
+        bad = [
+            tier["spilled_blocks"] <= 0, tier["readopted_blocks"] <= 0,
+            stats["prefix_cache"]["hits"] != len(picks) - 1,
+            row["hits_equal_cold"] != len(picks) - 1,
+            row["streams_equal_b1"] != len(picks),
+            not prefill_launches_ok(counts, admissions, steps),
+            any(twins.values()),
+            drained["free_pages"] != drained["total_pages"],
+            drained["reserved_pages"] or drained["active_slots"],
+            drained["kv_tier"]["host"]["resident_bytes"] != 0,
+            drained["kv_tier"]["host"]["resident_blocks"] != 0,
+        ]
+        if any(bad):
+            raise AssertionError(
+                f"host tier {mode}: {row}; after the drain {drained}; "
+                f"failed checks {[i for i, b in enumerate(bad) if b]}; "
+                f"plain twins called {twins}")
+    log(f"{registry} host KV tier: {json.dumps(report)}")
+    return report
+
+
+def serve_fleet(card, registry, params, kwargs, prefix_refs, *,
+                cache_size=ENGINE_CACHE, device=None):
+    """Fleet KV blocks, greedy and sampled: engine A serves prefix-mix
+    request 0; its ``export_prefix_blocks`` of request 1's prompt goes
+    through ``wire.encode_kv_blocks`` / ``decode_kv_blocks`` into engine
+    B's ``import_prefix_blocks``. Asserts every block sent imported and
+    re-adopted, B's request a hit equal to its cold run and B=1, and
+    B's pages of those blocks, read back, byte-equal to A's. Prints the
+    export, codec and import ms and the payload's bytes."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    picks = prefix_requests(vocab)[:2]
+    report = {"card": card}
+    for mode, sampling in MODES:
+        loaded = engine_model(
+            registry, params, kwargs, 512,
+            dict(PREFIX_GENERATE_CONFIG,
+                 engine_host_cache_bytes=HOST_TIER_BYTES, **sampling),
+            device)
+        owner = loaded.ensure_engine(name=f"smoke-fleet-owner-{mode}")
+        asker = DecodeEngine(loaded._module, loaded.params, owner.config,
+                             name=f"smoke-fleet-asker-{mode}",
+                             device=loaded.device)
+        (p0, b0, k0), (p1, b1, k1) = picks
+        try:
+            owner.submit(p0, rng=k0, max_new_tokens=b0).result(600)
+            t0 = time.monotonic()
+            blocks = owner.export_prefix_blocks(p1)
+            t1 = time.monotonic()
+            data = wire.encode_kv_blocks(LLAMA, 1, 16, blocks)
+            t2 = time.monotonic()
+            carried = wire.decode_kv_blocks(data, model=LLAMA, version=1,
+                                            page_size=16)
+            t3 = time.monotonic()
+            imported = asker.import_prefix_blocks(carried)
+            t4 = time.monotonic()
+            asker.note_kv_fetch("hit", blocks=imported)
+            with twin_calls() as twins:
+                hit = asker.submit(p1, rng=k1, max_new_tokens=b1).result(600)
+            stats = asker.stats()
+            readback = asker.export_prefix_blocks(p1)[:len(blocks)]
+            same_bytes = len(readback) == len(blocks) and all(
+                torch.equal(g.view(torch.int16), w.view(torch.int16))
+                for (_, got), (_, want) in zip(readback, blocks)
+                for g, w in zip(got, want))
+            asker.clear_prefix_cache()
+            asker.host_tier.clear()
+            cold = asker.submit(p1, rng=k1, max_new_tokens=b1).result(600)
+        finally:
+            asker.stop()
+            loaded.close()
+        row = {
+            "blocks_sent": len(blocks), "imported": imported,
+            "payload_bytes": len(data),
+            "export_ms": (t1 - t0) * 1e3, "encode_ms": (t2 - t1) * 1e3,
+            "decode_ms": (t3 - t2) * 1e3, "import_ms": (t4 - t3) * 1e3,
+            "kv_tier": stats["kv_tier"], "prefix_cache": stats["prefix_cache"],
+            "readback_byte_equal": same_bytes,
+            "hit_equals_cold": bool(np.array_equal(hit, cold)),
+            "hit_equals_b1": bool(np.array_equal(hit, prefix_refs[mode][1])),
+        }
+        report[mode] = row
+        log(f"fleet blocks {mode}: {json.dumps(row)}")
+        if (len(blocks) != PREFIX_SHARED // 16 or imported != len(blocks)
+                or stats["kv_tier"]["fetch_hits"] != 1
+                or stats["kv_tier"]["host"]["readopted_blocks"] != imported
+                or stats["prefix_cache"]["hits"] != 1
+                or not same_bytes or not row["hit_equals_cold"]
+                or not row["hit_equals_b1"] or any(twins.values())):
+            raise AssertionError(f"fleet blocks {mode}: {row}; plain twins "
+                                 f"called {twins}")
+    log(f"{registry} fleet KV blocks: {json.dumps(report)}")
     return report
 
 

@@ -19,16 +19,21 @@ persistent decode loop over N slots where finished rows retire and
 queued requests admit *between* K-token slices (prefill into a free
 slot), with the KV cache page-managed (:mod:`paged_kv`) instead of
 rebuilt per batch, and tokens streamed back incrementally as they are
-sampled. The port runs the plain lane, the prefix-cache lane
-(:mod:`prefix_cache`), chunked prefill and speculative decoding; KV
-handoff, stream resume and the host tier come later.
+sampled. The port runs every lane of the reference's: the plain lane,
+the prefix-cache lane (:mod:`prefix_cache`) and its host-RAM tier
+(:mod:`kv_tier`), chunked prefill, speculative decoding, KV handoff and
+mid-stream resume.
 """
 
 from kubeflow_tpu_torch.inference.engine.engine import (  # noqa: F401
     DecodeEngine,
     EngineConfig,
     GenerateStream,
+    PrefillHandoff,
     TokenEvent,
+)
+from kubeflow_tpu_torch.inference.engine.kv_tier import (  # noqa: F401
+    HostKVTier,
 )
 from kubeflow_tpu_torch.inference.engine.paged_kv import (  # noqa: F401
     PageAllocator,

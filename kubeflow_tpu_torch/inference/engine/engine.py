@@ -13,7 +13,8 @@
 # limitations under the License.
 
 """The continuous-batching decode engine: the plain lane, the
-prefix-cache lane, chunked prefill and speculative decoding.
+prefix-cache lane, chunked prefill, speculative decoding, KV handoff,
+mid-stream resume and the host KV tier.
 
 Port of ``kubeflow_tpu/inference/engine/engine.py``. One persistent
 decode loop over N slots: decode runs in K-token slices; BETWEEN slices
@@ -52,18 +53,41 @@ emits the agreeing prefix plus one; speculated K/V past it rolls back
 through ``truncate_slot``. The targets are the vanilla slice's tokens,
 whatever the draft proposed, so a spec stream equals a vanilla one.
 
+KV handoff (role-split serving): :meth:`DecodeEngine.run_prefill` runs
+a prompt's prefill without decoding and returns a
+:class:`PrefillHandoff` (its cache on the host, the whole step-key
+schedule); ``submit(handoff=)`` on this or any engine of the same export
+adopts the carried pages at admission instead of prefilling, so the
+adopted stream carries the bytes a local prefill would have made. The
+classic lane prefills left-padded at the bucket width on the engine
+thread; the prefix lane runs a slot-bound prefill-only request that
+hits and registers the prefix index, and the adopter indexes the carried
+pages in its own.
+
+Mid-stream resume: ``submit(context, step_keys=keys[k:])`` continues a
+stream whose replica died after k tokens. The context (prompt plus the
+emitted tokens) is prefilled whole, so the emitted tokens' K/V comes
+from the prefill route where the uninterrupted stream made it on the
+decode route (ROADMAP C9 records whether the two agree on the card).
+
+Tiered KV memory (``host_cache_bytes``, prefix lane only): evicted
+full prefix blocks spill to host RAM (``kv_tier.py``), a match continues
+past the HBM chain into host blocks, which are spliced back into the
+admission's gathered cache, and :meth:`DecodeEngine.export_prefix_blocks`
+/ :meth:`DecodeEngine.import_prefix_blocks` move blocks between
+replicas (``serving/kv_store.py``), their leaves in the reference's
+order (``paged_kv.kv_leaf_order``).
+
 Deadlines are checked at submit (shed), at admission (expired in queue)
 and at every slice boundary (mid-decode eviction frees the slot's
 pages). Observability: the reference's metric families, span names
 (``engine_prefill``, ``engine_slice``, ``engine_request``,
 ``engine_compile``, ``spec_verify``) and ``stats()`` keys.
-
-Not ported yet, and raising ``NotImplementedError`` (ROADMAP A7): KV
-handoff, mid-stream resume and the host KV tier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import logging
@@ -77,14 +101,21 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine.kv_tier import (
+    HostKVTier,
+    splice_host_blocks,
+)
 from kubeflow_tpu_torch.inference.engine.paged_kv import (
     PagedKVCache,
     _gather_logical,
     _scatter_token_range,
+    kv_leaf_order,
 )
 from kubeflow_tpu_torch.inference.engine.prefix_cache import (
+    _ROOT,
     PrefixCache,
     PrefixMatch,
+    _block_key,
 )
 from kubeflow_tpu_torch.inference.engine.slots import Slot, SlotScheduler
 from kubeflow_tpu_torch.inference.generate import (
@@ -108,7 +139,7 @@ from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 logger = logging.getLogger(__name__)
 
 __all__ = ["DecodeEngine", "EngineConfig", "GenerateStream",
-           "TokenEvent"]
+           "PrefillHandoff", "TokenEvent"]
 
 #: Admission safety factor (same rationale as the micro-batcher's):
 #: shed unless the estimated time-to-first-token fits inside this
@@ -192,7 +223,7 @@ _M_SPEC_REJECTED = obs_metrics.Counter(
 _M_SPEC_RATE = obs_metrics.Gauge(
     "kft_engine_spec_acceptance_rate",
     "Lifetime drafted-token acceptance rate", ("model",))
-# Tiered KV memory families (registered; lane not ported yet): the host tier's block flow
+# Tiered KV memory families: the host tier's block flow
 # (spill in, re-adopt out, LRU eviction) plus the fleet pull-through
 # counters. All ride render-time callbacks off the live tier — one
 # source of truth, owner-checked clears at stop(), same discipline as
@@ -254,6 +285,12 @@ class GenerateStream:
         self._final = False
         self._notify: Optional[Callable[[], None]] = None
         self.cancelled = False
+        #: Mid-stream resume seam: what a PEER engine needs to reproduce
+        #: this request's remaining tokens if this replica dies
+        #: mid-decode — {"prompt" (the full context ids), "step_keys"
+        #: (the whole sampling schedule), "max_new_tokens"}. None when
+        #: unresumable (a left-layout handoff carries no prompt ids).
+        self.resume_ctx: Optional[dict] = None
 
     # -- engine side -----------------------------------------------------
 
@@ -353,6 +390,32 @@ class GenerateStream:
         self.cancelled = True
 
 
+@dataclasses.dataclass
+class PrefillHandoff:
+    """The page-adopt seam's transferable half: everything a decode
+    engine needs to continue a request whose prefill ran elsewhere (a
+    prefill-role replica, ``serving/wire.py`` carrying it, or another
+    engine in this process). ``step_keys`` travels whole because
+    ``prng.split(key, n)`` depends on n: re-deriving it with another
+    budget would fork the sampled sequence."""
+
+    cache: List[LayerCache]  # B=1 prefill cache on the host
+    first_token: int
+    done: bool
+    prompt_len: int  # true prompt token count
+    prompt_width: int  # prefill bucket width (pad + prompt)
+    max_new_tokens: int
+    step_keys: np.ndarray  # [max_new_tokens, 2] uint32
+    #: Cache layout the prefill ran in: ``left`` (classic, the prompt
+    #: left-padded at ``[width - len, width)``) or ``right`` (the prefix
+    #: lane's pad-0 layout, ``prompt_width == prompt_len``). An engine
+    #: adopts only its own layout.
+    layout: str = "left"
+    #: The prompt ids (``right`` layout): the adopting engine indexes the
+    #: carried pages in its prefix cache.
+    prompt_tokens: Optional[np.ndarray] = None
+
+
 @dataclasses.dataclass(eq=False)  # identity equality: the queued-
 # cancel sweep removes by instance, and the generated field-wise eq
 # compares numpy prompts
@@ -367,14 +430,22 @@ class _Request:
     #: Tenant identity: names this request's weighted-fair sub-queue
     #: and tags its TTFT/usage metrics. Empty = the default tenant.
     tenant: str = ""
+    #: Adopt, don't prefill: the request arrives with its prefilled
+    #: cache (KV handoff); admission copies the pages in and decode
+    #: starts at the first slice.
+    handoff: Optional[PrefillHandoff] = None
+    #: Prefill-only: the prefix lane's ``run_prefill``. The request
+    #: binds a slot, prefills (chunked when configured), registers its
+    #: pages in the prefix index, then retires with a
+    #: :class:`PrefillHandoff` in ``prefill_box`` instead of decoding.
+    prefill_only: bool = False
+    prefill_box: Optional[dict] = None
 
 
 @dataclasses.dataclass
 class EngineConfig:
     """Static decode configuration (mirrors generate_config) + the
-    engine's capacity knobs. Every field of the reference's; the
-    host-tier knob raises in :class:`DecodeEngine` until its lane is
-    ported."""
+    engine's capacity knobs: every field of the reference's."""
 
     max_new_tokens: int
     max_prompt_len: int
@@ -613,11 +684,10 @@ def _prefill_ctx(model, params, token_block: torch.Tensor,
     return cache, first, done
 
 
-def _unported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP {item}); the port's engine "
-        f"runs the plain and prefix-cache lanes, chunked prefill and "
-        f"speculative decoding")
+def _host_cache(cache: List[LayerCache]) -> List[LayerCache]:
+    """A B=1 cache copied to the host (a handoff's)."""
+    return [LayerCache(c.k.to("cpu", copy=True), c.v.to("cpu", copy=True),
+                       c.index) for c in cache]
 
 
 class DecodeEngine:
@@ -632,12 +702,16 @@ class DecodeEngine:
 
     The plain lane: left-padded B=1 prefills, paged KV, K-token slices;
     with ``prefix_cache``, the prefix lane (pad-0 prefills, shared
-    prefix pages, a copy-on-write fork of a partly matched page), and
-    with ``prefill_chunk`` its prompts prefilled a chunk per lap; with
+    prefix pages, a copy-on-write fork of a partly matched page), with
+    ``prefill_chunk`` its prompts prefilled a chunk per lap, and with
+    ``host_cache_bytes`` its evicted blocks kept in host RAM; with
     ``draft_model``/``draft_params`` and ``speculate_tokens > 0``,
     speculative rounds in place of plain slices (the draft lives on the
-    engine's device too). KV handoff, stream resume and the host tier
-    raise ``NotImplementedError``.
+    engine's device too). In every lane: :meth:`run_prefill` and
+    ``submit(handoff=)`` (KV handoff), ``submit(step_keys=)`` (resume).
+    Work that reads engine-thread state or runs the model for a caller
+    (``run_prefill``'s classic lane, :meth:`export_prefix_blocks`) is
+    posted to the engine thread (:meth:`_run_on_engine`).
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
@@ -689,8 +763,6 @@ class DecodeEngine:
             raise ValueError(
                 f"engine_host_cache_bytes {config.host_cache_bytes} "
                 f"< 0 (0 disables the host tier)")
-        if config.host_cache_bytes:
-            raise _unported("engine_host_cache_bytes", "A7")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The engine thread sets this device as its own current one.
@@ -723,7 +795,35 @@ class DecodeEngine:
         self.prefix: Optional[PrefixCache] = None
         if config.prefix_cache:
             self.prefix = PrefixCache(config.page_size, self.kv.allocator)
+        #: Host-RAM KV tier or None. Wired here so the prefix cache's
+        #: reclaim spills from the first eviction.
+        self.host_tier: Optional[HostKVTier] = None
+        if config.host_cache_bytes > 0:
+            if self.prefix is None:
+                # No index to tier: degrade, never a failed engine.
+                logger.warning(
+                    "engine %s: engine_host_cache_bytes=%d but "
+                    "engine_prefix_cache is off — host KV tier "
+                    "disabled", name, config.host_cache_bytes)
+            else:
+                self.host_tier = HostKVTier(config.host_cache_bytes)
+                self.prefix.set_host_tier(self.host_tier)
+                self.prefix.set_spill(self._spill_entry)
+        # Per-page host leaf shapes ([page_size, heads, dim] a KV leaf,
+        # kv_leaf_order): the gate every fleet-fetched block must pass
+        # before it can be spliced.
+        self._kv_leaf_shapes = [
+            tuple(getattr(self.kv.physical[i], n).shape[1:])
+            for i, n in kv_leaf_order(len(self.kv.physical))]
+        # Fleet pull-through accounting (GIL-consistent ints; the
+        # serving layer counts through note_kv_fetch).
+        self._kv_fetch_hits = 0
+        self._kv_fetch_misses = 0
+        self._kv_fetch_errors = 0
+        self._kv_fetched_blocks_total = 0
         self._cv = threading.Condition()
+        # Closures posted by _run_on_engine, run at the top of each lap.
+        self._control: Deque[Callable[[], None]] = deque()
         self._thread: Optional[threading.Thread] = None
         self._closed = False
         self._rng_counter = 0
@@ -785,6 +885,23 @@ class DecodeEngine:
             self._g_prefix_pages = _M_PREFIX_PAGES.labels(name)
             self._g_prefix_pages.set_function(
                 self.prefix.resident_pages)
+        if self.host_tier is not None:
+            self._m_host_spilled = _M_HOST_SPILLED.labels(name)
+            self._m_host_spilled.set_function(self._host_spilled)
+            self._m_host_readopted = _M_HOST_READOPTED.labels(name)
+            self._m_host_readopted.set_function(self._host_readopted)
+            self._m_host_evicted = _M_HOST_EVICTED.labels(name)
+            self._m_host_evicted.set_function(self._host_evicted)
+            self._g_host_bytes = _M_HOST_BYTES.labels(name)
+            self._g_host_bytes.set_function(
+                self.host_tier.resident_bytes)
+            self._g_host_blocks = _M_HOST_BLOCKS.labels(name)
+            self._g_host_blocks.set_function(
+                self.host_tier.resident_blocks)
+            self._m_kv_fetch_hit = _M_KV_FETCH.labels(name, "hit")
+            self._m_kv_fetch_miss = _M_KV_FETCH.labels(name, "miss")
+            self._m_kv_fetch_error = _M_KV_FETCH.labels(name, "error")
+            self._m_kv_fetched_blocks = _M_KV_FETCH_BLOCKS.labels(name)
 
     # -- submit side -----------------------------------------------------
 
@@ -825,6 +942,145 @@ class DecodeEngine:
         return float(self.prefix.evicted_pages) if self.prefix \
             else 0.0
 
+    def _host_spilled(self) -> float:
+        return float(self.host_tier.spilled_blocks) \
+            if self.host_tier else 0.0
+
+    def _host_readopted(self) -> float:
+        return float(self.host_tier.readopted_blocks) \
+            if self.host_tier else 0.0
+
+    def _host_evicted(self) -> float:
+        return float(self.host_tier.evicted_blocks) \
+            if self.host_tier else 0.0
+
+    def _spill_entry(self, entry) -> None:
+        """Evict-to-host hook (``PrefixCache.set_spill``): snapshot a
+        full block's page to host memory under its chain key. Runs
+        inside reclaim on the engine thread, before the page returns to
+        the free list, so the copy reads valid K/V. Never raises: a
+        failed spill degrades to a plain drop (the next match
+        re-prefills)."""
+        try:
+            self.host_tier.put(entry.key, entry.tokens,
+                               self.kv.read_page_layers(entry.page))
+        except Exception:  # noqa: BLE001 — degrade to plain drop
+            logger.exception("engine %s: host-tier spill failed; page "
+                             "dropped cold", self.name)
+
+    def note_kv_fetch(self, outcome: str, *, blocks: int = 0) -> None:
+        """Record one fleet pull-through attempt from the serving layer
+        (``hit`` / ``miss`` / ``error``). Thread-safe (GIL ints and
+        metric children)."""
+        if self.host_tier is None:
+            return
+        if outcome == "hit":
+            self._kv_fetch_hits += 1
+            self._m_kv_fetch_hit.inc()
+            if blocks:
+                self._kv_fetched_blocks_total += blocks
+                self._m_kv_fetched_blocks.inc(blocks)
+        elif outcome == "miss":
+            self._kv_fetch_misses += 1
+            self._m_kv_fetch_miss.inc()
+        else:
+            self._kv_fetch_errors += 1
+            self._m_kv_fetch_error.inc()
+
+    @contextlib.contextmanager
+    def _device_scope(self):
+        """What the engine thread holds for its whole life:
+        ``inference_mode`` and the engine's CUDA device (both per
+        thread)."""
+        with contextlib.ExitStack() as stack:
+            if self.device.type == "cuda":
+                stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.inference_mode())
+            yield
+
+    def _run_on_engine(self, fn: Callable[[], Any],
+                       timeout_s: float = 5.0) -> Any:
+        """Run ``fn`` on the engine thread between laps and return its
+        result (bounded wait). The engine thread is the single mutator
+        of the prefix index, the pool's page custody and the engine's
+        module (``apply`` swaps weights into it). Inline, in the engine
+        thread's device scope, when the engine thread is not running:
+        nothing else owns that state then."""
+        with self._cv:
+            thread = self._thread
+        if thread is None or not thread.is_alive():
+            with self._device_scope():
+                return fn()
+        done = threading.Event()
+        box: dict = {}
+
+        def wrapped() -> None:
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — carried back
+                box["error"] = e
+            finally:
+                done.set()
+
+        with self._cv:
+            self._control.append(wrapped)
+            self._cv.notify_all()
+        if not done.wait(timeout_s):
+            raise TimeoutError(f"engine {self.name} control op timed out "
+                               f"after {timeout_s:.1f}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def export_prefix_blocks(self, prompt: np.ndarray, *,
+                             timeout_s: float = 5.0) -> List[tuple]:
+        """Owner side of the fleet pull-through: every resident FULL
+        block of ``prompt`` (HBM or host tier), chain order, as
+        ``(block_tokens, layers)`` pairs for ``wire.encode_kv_blocks``
+        (layers in ``kv_leaf_order``). The walk and the page snapshots
+        run on the engine thread; any failure or timeout returns [] and
+        the fetcher prefills."""
+        if self.prefix is None:
+            return []
+        tokens = np.asarray(prompt, np.int32).reshape(-1)
+
+        def walk() -> List[tuple]:
+            return [(block, self.kv.read_page_layers(entry.page)
+                     if is_hbm else list(entry.layers))
+                    for block, entry, is_hbm in self.prefix.chain_blocks(
+                        tokens)]
+
+        try:
+            return self._run_on_engine(walk, timeout_s=timeout_s)
+        except Exception:  # noqa: BLE001 — best-effort export
+            logger.warning("engine %s: prefix-block export failed; peer "
+                           "will prefill cold", self.name, exc_info=True)
+            return []
+
+    def import_prefix_blocks(self, blocks: Sequence[tuple]) -> int:
+        """Fleet-fetch landing: index carried ``(tokens, layers)``
+        blocks in the HOST tier under chain keys recomputed from the
+        carried tokens (never the peer's hashes), after a shape gate
+        against this engine's pool. Import stops at the first malformed
+        block: a chain is only as good as its prefix. Thread-safe (the
+        host tier locks). Returns the blocks inserted."""
+        if self.host_tier is None:
+            return 0
+        p = self.config.page_size
+        parent = _ROOT
+        imported = 0
+        for tokens, layers in blocks:
+            block = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+            if len(block) != p:
+                break
+            if [tuple(a.shape) for a in layers] != self._kv_leaf_shapes:
+                break
+            key = _block_key(parent, block)
+            if self.host_tier.put(key, block, layers, imported=True):
+                imported += 1
+            parent = key
+        return imported
+
     def probe_prefix(self, prompt: np.ndarray) -> int:
         """Cheap, lock-free estimate of how many prompt tokens this
         engine could serve from its prefix cache. Dict reads off the
@@ -847,6 +1103,96 @@ class DecodeEngine:
         admission."""
         return self.prefix.clear() if self.prefix is not None else 0
 
+    def run_prefill(self, prompt: np.ndarray, *,
+                    rng: Optional[np.ndarray] = None,
+                    max_new_tokens: Optional[int] = None,
+                    obs_ctx: Any = None,
+                    timeout_s: float = 300.0) -> PrefillHandoff:
+        """Run the B=1 prefill WITHOUT decoding: the prefill-role half
+        of KV handoff. The returned handoff feeds ``submit(handoff=)``
+        on this or any engine serving the same export. Both lanes run
+        on the engine thread, and the call blocks up to ``timeout_s``:
+        the classic lane's left-padded prefill at the bucket width is
+        posted there (:meth:`_run_on_engine`); the prefix lane queues a
+        slot-bound prefill-only request, chunked when ``prefill_chunk``
+        is set, which hits and registers the prefix index."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
+            raise ValueError(
+                f"prompt length {prompt.shape[0]} outside "
+                f"[1, {self.config.max_prompt_len}]")
+        budget = (self.config.max_new_tokens if max_new_tokens is None
+                  else int(max_new_tokens))
+        if not 1 <= budget <= self.config.max_new_tokens:
+            raise ValueError(
+                f"max_new_tokens {budget} outside "
+                f"[1, {self.config.max_new_tokens}]")
+        key = self._next_key() if rng is None else np.asarray(rng)
+        step_keys = prng.split(np.asarray(key, np.uint32), budget)
+        length = int(prompt.shape[0])
+        t0 = time.monotonic()
+
+        def note_span() -> None:
+            # The prefill-role hop's work joins the request's trace.
+            if TRACER.enabled and obs_ctx is not None:
+                TRACER.record(
+                    "engine_prefill", "engine", t0, time.monotonic() - t0,
+                    span_args(obs_ctx, model=self.name, prompt_len=length,
+                              handoff=True))
+
+        if self.prefix is not None:
+            if self.kv.pages_for(length) > self.kv.allocator.num_pages - 1:
+                raise ValueError(
+                    f"prompt needs {self.kv.pages_for(length)} pages but "
+                    f"the pool has only {self.kv.allocator.num_pages - 1}")
+            stream = GenerateStream(budget, obs_ctx=obs_ctx)
+            box: dict = {"handoff": None}
+            req = _Request(prompt=prompt, step_keys=step_keys,
+                           max_new_tokens=budget, deadline=None,
+                           stream=stream, submitted_at=t0,
+                           tenant=tenancy.DEFAULT_TENANT,
+                           prefill_only=True, prefill_box=box)
+            with self._cv:
+                if self._closed:
+                    raise RuntimeError("engine is stopped")
+                self.scheduler.pending.append(req)
+                self._cv.notify_all()
+            self._ensure_thread()
+            stream.result(timeout=timeout_s)  # raises on engine error
+            if box["handoff"] is None:
+                raise RuntimeError(
+                    "prefill-only request finished without a handoff")
+            note_span()
+            return box["handoff"]
+        width = self._bucket(length)
+        pad = width - length
+        padded = np.zeros((1, width), np.int32)
+        padded[0, pad:] = prompt
+
+        def prefill() -> PrefillHandoff:
+            # On the engine thread: apply() swaps weights into the
+            # engine's module, which a caller's thread must not touch.
+            (cache, first, _, done), _ = _prefill(
+                self._model, self._params,
+                torch.from_numpy(padded).to(self.device),
+                self._device_keys(step_keys[0:1]),
+                init_cache(self._model, self._params, 1),
+                torch.tensor([pad], dtype=torch.int32, device=self.device),
+                **self._sample_kw)
+            handoff = PrefillHandoff(
+                cache=_host_cache(cache), first_token=int(first[0]),
+                done=bool(done[0]), prompt_len=length, prompt_width=width,
+                max_new_tokens=budget, step_keys=step_keys)
+            self._note_compile("prefill", f"tokens[1,{width}]", t0,
+                               time.monotonic() - t0,
+                               link=span_args(obs_ctx))
+            return handoff
+
+        self._ensure_thread()
+        handoff = self._run_on_engine(prefill, timeout_s=timeout_s)
+        note_span()
+        return handoff
+
     def submit(self, prompt: Optional[np.ndarray] = None, *,
                rng: Optional[np.ndarray] = None,
                max_new_tokens: Optional[int] = None,
@@ -854,7 +1200,7 @@ class DecodeEngine:
                obs_ctx: Any = None,
                request_id: str = "",
                tenant: str = "",
-               handoff: Any = None,
+               handoff: Optional[PrefillHandoff] = None,
                step_keys: Optional[np.ndarray] = None
                ) -> GenerateStream:
         """Queue one request; tokens stream on the returned handle.
@@ -863,23 +1209,59 @@ class DecodeEngine:
         budget (a short request retires early and frees its slot);
         ``rng`` is the request's sampling key ([2] uint32 — the same
         key reproduces the same tokens at B=1 through generate()).
-        ``handoff`` (KV handoff) and ``step_keys`` (stream resume) are
-        not ported and raise.
+
+        With ``handoff`` (KV handoff) the prompt's prefill already ran
+        elsewhere: admission adopts the carried cache pages instead of
+        prefilling, and the prompt, key schedule and budget come from
+        the handoff (a different caller budget is rejected: it would
+        fork the schedule).
+
+        With ``step_keys`` (mid-stream resume) the caller gives the
+        remaining sampling schedule ([budget, 2] uint32) instead of a
+        key: ``prompt`` is the whole context (the original prompt and
+        the tokens already emitted elsewhere), the budget is the
+        schedule's length, and the context may exceed
+        ``max_prompt_len``: its bound is ``cache_size - budget``.
 
         Raises :class:`OverloadedError` /
         :class:`DeadlineExceededError` synchronously when admission
         control sheds the request."""
+        if handoff is not None and step_keys is not None:
+            raise ValueError("handoff and step_keys are mutually "
+                             "exclusive (the handoff carries its own "
+                             "key schedule)")
         if handoff is not None:
-            raise _unported("submit(handoff=)", "A7")
-        if step_keys is not None:
-            raise _unported("submit(step_keys=)", "A7")
-        prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
-            raise ValueError(
-                f"prompt length {prompt.shape[0]} outside "
-                f"[1, {self.config.max_prompt_len}]")
-        budget = (self.config.max_new_tokens
-                  if max_new_tokens is None else int(max_new_tokens))
+            prompt, budget = self._check_handoff(handoff, max_new_tokens)
+        elif step_keys is not None:
+            # Mid-stream resume: the context is the original prompt and
+            # the tokens already emitted elsewhere, and the remaining
+            # schedule is the budget.
+            if rng is not None:
+                raise ValueError("step_keys and rng are mutually "
+                                 "exclusive (the schedule is explicit)")
+            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            step_keys = np.ascontiguousarray(
+                np.asarray(step_keys, np.uint32).reshape(-1, 2))
+            budget = len(step_keys)
+            if (max_new_tokens is not None
+                    and int(max_new_tokens) != budget):
+                raise ValueError(
+                    f"max_new_tokens {max_new_tokens} != the "
+                    f"{budget}-key resume schedule")
+            limit = self._model.cache_size - budget
+            if not 1 <= prompt.shape[0] <= limit:
+                raise ValueError(
+                    f"resume context length {prompt.shape[0]} outside "
+                    f"[1, {limit}] (cache_size {self._model.cache_size}"
+                    f" - {budget} remaining tokens)")
+        else:
+            prompt = np.asarray(prompt, np.int32).reshape(-1)
+            if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
+                raise ValueError(
+                    f"prompt length {prompt.shape[0]} outside "
+                    f"[1, {self.config.max_prompt_len}]")
+            budget = (self.config.max_new_tokens
+                      if max_new_tokens is None else int(max_new_tokens))
         if not 1 <= budget <= self.config.max_new_tokens:
             raise ValueError(
                 f"max_new_tokens {budget} outside "
@@ -889,7 +1271,10 @@ class DecodeEngine:
         # A worst-case reservation that can NEVER fit the pool would
         # sit at the FIFO head forever (admission holds the line for
         # the head) — fail it at submit, not by hanging the queue.
-        width = self._prompt_width(int(prompt.shape[0]))
+        if handoff is not None and self.prefix is None:
+            width = handoff.prompt_width
+        else:
+            width = self._prompt_width(int(prompt.shape[0]))
         need = self.kv.pages_for(width + budget)
         usable = self.kv.allocator.num_pages - 1
         if need > usable:
@@ -923,6 +1308,11 @@ class DecodeEngine:
                 raise DeadlineExceededError(
                     "deadline expired before submit")
             est = self.estimated_ttft_s()
+            if handoff is not None:
+                # An adopting admission skips its own prefill, the
+                # expensive term: pricing it would shed adoptable
+                # requests the proxy then prefills again elsewhere.
+                est = max(0.0, est - self._prefill_est.estimate_s())
             if est > remaining * ADMISSION_SAFETY:
                 self._m_shed.inc()
                 tenancy.note_shed(tenant, "overload")
@@ -931,13 +1321,22 @@ class DecodeEngine:
                     f"token {est * 1e3:.0f}ms exceeds remaining "
                     f"budget {remaining * 1e3:.0f}ms",
                     retry_after_s=est)
-        key = self._next_key() if rng is None else np.asarray(rng)
-        step_keys = prng.split(np.asarray(key, np.uint32), budget)
+        if handoff is not None:
+            step_keys = np.asarray(handoff.step_keys, np.uint32)
+        elif step_keys is None:
+            key = self._next_key() if rng is None else np.asarray(rng)
+            step_keys = prng.split(np.asarray(key, np.uint32), budget)
         stream = GenerateStream(budget, obs_ctx=obs_ctx)
+        if handoff is None or handoff.prompt_tokens is not None:
+            # The peer-resume context; a left-layout handoff's
+            # placeholder prompt (zeros) is not the context.
+            stream.resume_ctx = {"prompt": prompt, "step_keys": step_keys,
+                                 "max_new_tokens": budget}
         req = _Request(prompt=prompt, step_keys=step_keys,
                        max_new_tokens=budget, deadline=deadline,
                        stream=stream, submitted_at=now,
-                       request_id=request_id, tenant=tenant)
+                       request_id=request_id, tenant=tenant,
+                       handoff=handoff)
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is stopped")
@@ -945,6 +1344,63 @@ class DecodeEngine:
             self._cv.notify_all()
         self._ensure_thread()
         return stream
+
+    def _check_handoff(self, handoff: PrefillHandoff,
+                       max_new_tokens: Optional[int]):
+        """The reference's checks of a handoff at submit (layout, width,
+        length, budget against the step-key schedule), and its cache's
+        geometry against this engine's pool. Returns ``(prompt,
+        budget)``: the carried prompt ids, or zeros of the prompt's
+        length where a left-layout handoff carries none."""
+        if (max_new_tokens is not None
+                and int(max_new_tokens) != handoff.max_new_tokens):
+            raise ValueError(
+                f"max_new_tokens {max_new_tokens} != handoff's "
+                f"{handoff.max_new_tokens} — the step-key schedule was "
+                f"derived at prefill time")
+        layout = getattr(handoff, "layout", "left") or "left"
+        expected = "right" if self.prefix is not None else "left"
+        if layout != expected:
+            # A left-padded cache in the pad-0 layout (or the reverse)
+            # would put the prompt at the wrong cache positions.
+            raise ValueError(
+                f"handoff layout {layout!r} incompatible with this "
+                f"engine's {expected!r} layout (prefix caching "
+                f"{'on' if expected == 'right' else 'off'})")
+        max_bucket = self._bucket(self.config.max_prompt_len)
+        if not 1 <= handoff.prompt_width <= max_bucket:
+            raise ValueError(f"handoff prompt_width {handoff.prompt_width}"
+                             f" outside [1, {max_bucket}]")
+        if not 1 <= handoff.prompt_len <= handoff.prompt_width:
+            raise ValueError(
+                f"handoff prompt_len {handoff.prompt_len} outside "
+                f"[1, width {handoff.prompt_width}]")
+        budget = int(handoff.max_new_tokens)
+        if len(np.asarray(handoff.step_keys)) != budget:
+            raise ValueError(
+                f"handoff carries {len(handoff.step_keys)} step keys "
+                f"for a {budget}-token budget")
+        want = [(1, self.kv.cache_size) + tuple(c.k.shape[2:])
+                for c in self.kv.physical]
+        got = [tuple(c.k.shape) for c in handoff.cache]
+        if got != want or any(tuple(c.v.shape) != tuple(c.k.shape)
+                              for c in handoff.cache):
+            raise ValueError(
+                f"handoff cache of {len(got)} layers {got[:1]} does not "
+                f"fit this engine's {len(want)} layers {want[:1]}")
+        if handoff.prompt_tokens is None:
+            return np.zeros((handoff.prompt_len,), np.int32), budget
+        prompt = np.asarray(handoff.prompt_tokens, np.int32).reshape(-1)
+        if prompt.shape[0] != handoff.prompt_len:
+            raise ValueError(
+                f"handoff carries {prompt.shape[0]} prompt tokens but "
+                f"claims prompt_len {handoff.prompt_len}")
+        return prompt, budget
+
+    def _carried_cache(self, handoff: PrefillHandoff) -> List[LayerCache]:
+        """A handoff's host cache on the engine's device."""
+        return [LayerCache(c.k.to(self.device), c.v.to(self.device),
+                           c.index) for c in handoff.cache]
 
     def _ensure_thread(self) -> None:
         with self._cv:
@@ -993,6 +1449,14 @@ class DecodeEngine:
             # engine (params + page pool).
             self._m_prefix_evicted.clear_function(self)
             self._g_prefix_pages.clear_function(self.prefix)
+        if self.host_tier is not None:
+            if not still_running:
+                self.host_tier.clear()
+            self._m_host_spilled.clear_function(self)
+            self._m_host_readopted.clear_function(self)
+            self._m_host_evicted.clear_function(self)
+            self._g_host_bytes.clear_function(self.host_tier)
+            self._g_host_blocks.clear_function(self.host_tier)
         self._g_slots.clear_function(self.scheduler)
         self._g_queue.clear_function(self.scheduler)
         self._g_pages.clear_function(self.kv.allocator)
@@ -1039,16 +1503,36 @@ class DecodeEngine:
             }
         if self.config.prefill_chunk:
             out["prefill_chunk"] = self.config.prefill_chunk
+        if self.host_tier is not None:
+            out["kv_tier"] = {
+                "host": self.host_tier.stats(),
+                "fetch_hits": self._kv_fetch_hits,
+                "fetch_misses": self._kv_fetch_misses,
+                "fetch_errors": self._kv_fetch_errors,
+                "fetched_blocks": self._kv_fetched_blocks_total,
+            }
         return out
 
     # -- engine thread ---------------------------------------------------
 
+    def _drain_control(self) -> None:
+        """Run every posted control closure (engine thread). The
+        closures carry their own error boxes (:meth:`_run_on_engine`);
+        the except keeps a broken one from failing in-flight slots."""
+        while True:
+            with self._cv:
+                if not self._control:
+                    return
+                fn = self._control.popleft()
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — already boxed
+                logger.exception("engine control op failed")
+
     def _loop(self) -> None:
         # inference_mode and the current CUDA device are per thread:
         # this thread does every device op of the engine.
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
-        with torch.inference_mode():
+        with self._device_scope():
             self._run_loop()
 
     def _run_loop(self) -> None:
@@ -1057,10 +1541,12 @@ class DecodeEngine:
                 if self._closed:
                     return
                 if (not self.scheduler.pending
-                        and not self.scheduler.active_slots()):
+                        and not self.scheduler.active_slots()
+                        and not self._control):
                     self._cv.wait(timeout=0.05)
                     continue
             try:
+                self._drain_control()
                 self._expire()
                 self._admit()
                 self._advance_prefills()
@@ -1110,14 +1596,24 @@ class DecodeEngine:
     def _prompt_width(self, length: int) -> int:
         """Cache positions a ``length``-token prompt takes: exact in the
         pad-0 prefix layout, the shared prompt-bucket policy (a
-        left-padded prompt) otherwise."""
-        if self.prefix is not None:
+        left-padded prompt) otherwise — except a resume context longer
+        than ``max_prompt_len`` (legal: its bound is the cache), which
+        takes its exact width, as ``prompt_bucket`` clamps to
+        ``max_prompt_len`` and a clamped width would cut the
+        context."""
+        if self.prefix is not None or length > self.config.max_prompt_len:
             return length
         return self._bucket(length)
 
     def _budget_pages(self, req: _Request) -> int:
-        width = self._prompt_width(len(req.prompt))
-        return self.kv.pages_for(width + req.max_new_tokens)
+        if req.handoff is not None and self.prefix is None:
+            width = req.handoff.prompt_width
+        else:
+            width = self._prompt_width(len(req.prompt))
+        # Prefill-only requests never decode: the prompt's pages are the
+        # whole budget.
+        new_tokens = 0 if req.prefill_only else req.max_new_tokens
+        return self.kv.pages_for(width + new_tokens)
 
     def _tail_width(self, length: int, start: int) -> int:
         """Block width for the continuation prefill of prompt tokens
@@ -1131,7 +1627,11 @@ class DecodeEngine:
         prefill's, and the cold run prefills that position in a wider
         block. The pad column's K/V lands at ``length``, which the
         first decode step overwrites, and it fits: a prompt leaves
-        room for at least one new token before the cache end."""
+        room for at least one new token before the cache end. A resume
+        context's tail longer than ``max_prompt_len`` takes its exact
+        width (``prompt_bucket`` clamps, which would cut it)."""
+        if length - start > self.config.max_prompt_len:
+            return length - start
         width = self._bucket(length - start)
         if start + width > self._model.cache_size:
             width = length - start
@@ -1199,7 +1699,20 @@ class DecodeEngine:
             return False
         for i, head in enumerate(sched.pending.heads()):
             total = self._budget_pages(head)
-            match = self.prefix.pin(self.prefix.match(head.prompt))
+            match = self.prefix.match(head.prompt)
+            if head.handoff is not None:
+                # A handoff arrives with its whole prefill: full-block
+                # sharing still saves pages, but a boundary fork or a
+                # host block has nothing to add that the carried cache
+                # does not hold, and a placeholder prompt (no tokens in
+                # the blob) must not match zeros.
+                entries = (match.entries
+                           if head.handoff.prompt_tokens is not None
+                           else [])
+                match = PrefixMatch(
+                    entries=entries, fork=None, fork_len=0,
+                    matched=len(entries) * self.kv.page_size)
+            match = self.prefix.pin(match)
             if not self.kv.allocator.reserve(total - len(match.entries)):
                 self.prefix.unpin(match)
                 if i == 0 and sched.head_blocked(head):
@@ -1211,8 +1724,11 @@ class DecodeEngine:
             if i == 0:
                 sched.head_unblocked()
             sched.pending.pop_head(head)
-            if self._chunkable(head, match):
-                # A long tail feeds one chunk per engine lap.
+            if head.prefill_only or self._chunkable(head, match):
+                # A long tail feeds one chunk per engine lap; a
+                # prefill-only request always binds a slot (with
+                # chunking off its whole tail is one chunk) so its
+                # pages register in the prefix index.
                 self._bind_chunked_prefill(head, match)
             else:
                 self._prefill_and_bind_prefix(head, match)
@@ -1221,29 +1737,41 @@ class DecodeEngine:
 
     def _chunkable(self, req: _Request, match: PrefixMatch) -> bool:
         return (self.config.prefill_chunk > 0
+                and req.handoff is None
                 and len(req.prompt) - match.matched
                 > self.config.prefill_chunk)
 
     def _prefill_and_bind(self, req: _Request) -> None:
         t0 = time.monotonic()
         length = len(req.prompt)
-        width = self._prompt_width(length)
-        pad = width - length
-        prompt = np.zeros((1, width), np.int32)
-        prompt[0, pad:] = req.prompt
         try:
-            # A fresh zero cache per admission: the prefill writes it
-            # in place, and adopt copies it into the slot's pages.
-            carry, _ = _prefill(
-                self._model, self._params,
-                torch.from_numpy(prompt).to(self.device),
-                self._device_keys(req.step_keys[0:1]),
-                init_cache(self._model, self._params, 1),
-                torch.tensor([pad], dtype=torch.int32, device=self.device),
-                **self._sample_kw)
-            prefill_cache, first, _, done = carry
-            first = int(first[0])
-            done = bool(done[0])
+            if req.handoff is not None:
+                # KV handoff: the prefill ran elsewhere; adopt its cache
+                # pages instead of recomputing them.
+                width = req.handoff.prompt_width
+                pad = width - req.handoff.prompt_len
+                prefill_cache = self._carried_cache(req.handoff)
+                first = int(req.handoff.first_token)
+                done = bool(req.handoff.done)
+            else:
+                width = self._prompt_width(length)
+                pad = width - length
+                prompt = np.zeros((1, width), np.int32)
+                prompt[0, pad:] = req.prompt
+                # A fresh zero cache per admission: the prefill writes
+                # it in place, and adopt copies it into the slot's
+                # pages.
+                carry, _ = _prefill(
+                    self._model, self._params,
+                    torch.from_numpy(prompt).to(self.device),
+                    self._device_keys(req.step_keys[0:1]),
+                    init_cache(self._model, self._params, 1),
+                    torch.tensor([pad], dtype=torch.int32,
+                                 device=self.device),
+                    **self._sample_kw)
+                prefill_cache, first, _, done = carry
+                first = int(first[0])
+                done = bool(done[0])
         except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
             # The request was popped WITH a reservation
             # (next_admittable); letting this propagate to _loop's
@@ -1265,9 +1793,12 @@ class DecodeEngine:
         t1 = time.monotonic()
         slot.queue_s = max(0.0, t0 - req.submitted_at)
         slot.prefill_s = t1 - t0
-        self._note_compile("prefill", f"tokens[1,{width}]", t0, t1 - t0,
-                           link=self._span_args(req))
-        self._prefill_est.observe(t1 - t0)
+        if req.handoff is None:
+            self._note_compile("prefill", f"tokens[1,{width}]", t0,
+                               t1 - t0, link=self._span_args(req))
+            # Only real prefills feed the estimator: an adoption's time
+            # would read a decode-role replica's prefills as nearly free.
+            self._prefill_est.observe(t1 - t0)
         self._m_admitted.inc()
         ctx = req.stream.obs_ctx
         self._m_ttft.observe(t1 - req.submitted_at,
@@ -1277,7 +1808,8 @@ class DecodeEngine:
         if TRACER.enabled:
             TRACER.record("engine_prefill", "engine", t0, t1 - t0,
                           self._span_args(req, slot=slot.index,
-                                          prompt_len=length))
+                                          prompt_len=length,
+                                          adopted=req.handoff is not None))
         self._emit_token(slot, first)
         if slot.done or slot.remaining == 0:
             self._retire(slot, "eos" if slot.done else "budget")
@@ -1308,28 +1840,30 @@ class DecodeEngine:
         fork_pinned = match.fork is not None
         width = self._tail_width(length, m)
         try:
-            if m > 0:
-                page_row = list(shared)
-                if match.fork is not None:
-                    page_row.append(match.fork.page)
-                cache = self.kv.gather_prefix_cache(page_row, m)
-                if fork_pinned:
-                    # The fork copy is queued (device work runs in
-                    # this thread's stream order); the donor page is
-                    # not this slot's to keep.
-                    self.prefix.unpin_fork(match)
-                    fork_pinned = False
+            if req.handoff is not None:
+                cache = self._carried_cache(req.handoff)
+                first = int(req.handoff.first_token)
+                done = bool(req.handoff.done)
             else:
-                cache = init_cache(self._model, self._params, 1)
-            block = np.zeros((1, width), np.int32)
-            block[0, :length - m] = req.prompt[m:]
-            cache, first, done = _prefill_ctx(
-                self._model, self._params,
-                torch.from_numpy(block).to(self.device), cache, m,
-                length - m - 1, self._device_keys(req.step_keys[0:1]),
-                **self._sample_kw)
-            first = int(first[0])
-            done = bool(done[0])
+                if m > 0:
+                    cache = self._gather_match(match)
+                    if fork_pinned:
+                        # The fork copy is queued (device work runs in
+                        # this thread's stream order); the donor page
+                        # is not this slot's to keep.
+                        self.prefix.unpin_fork(match)
+                        fork_pinned = False
+                else:
+                    cache = init_cache(self._model, self._params, 1)
+                block = np.zeros((1, width), np.int32)
+                block[0, :length - m] = req.prompt[m:]
+                cache, first, done = _prefill_ctx(
+                    self._model, self._params,
+                    torch.from_numpy(block).to(self.device), cache, m,
+                    length - m - 1, self._device_keys(req.step_keys[0:1]),
+                    **self._sample_kw)
+                first = int(first[0])
+                done = bool(done[0])
         except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
             # Same contract as the plain path: the popped request
             # holds a reservation AND pins — leak neither, fail only
@@ -1347,28 +1881,32 @@ class DecodeEngine:
         slot.allocated_pages = self.kv.adopt(
             slot.index, cache, length, budget_pages, shared_pages=shared)
         # Index this prompt's resident pages (new private blocks, plus
-        # the boundary partial).
-        self.prefix.register(
-            req.prompt,
-            self.kv.tables[slot.index, :slot.allocated_pages].tolist())
+        # the boundary partial). A handoff's registration lands the
+        # warm transfer: pages this replica never prefilled become
+        # matchable.
+        if req.handoff is None or req.handoff.prompt_tokens is not None:
+            self.prefix.register(
+                req.prompt,
+                self.kv.tables[slot.index, :slot.allocated_pages].tolist())
         t1 = time.monotonic()
         slot.queue_s = max(0.0, t0 - req.submitted_at)
         slot.prefill_s = t1 - t0
-        self._note_compile("prefill_ctx", f"tokens[1,{width}]", t0,
-                           t1 - t0, link=self._span_args(req))
-        if m > 0:
-            self.prefix.hits += 1
-            self.prefix.saved_tokens_total += m
-            self._m_prefix_hits.inc()
-            self._m_prefix_saved.observe(float(m))
-        else:
-            self.prefix.misses += 1
-            self._m_prefix_misses.inc()
-            # Only full (cold) prefills feed the estimator — a tail
-            # prefill's cost scales with the UNMATCHED length and
-            # would read a warm cache as a fast prefill for cold
-            # requests.
-            self._prefill_est.observe(t1 - t0)
+        if req.handoff is None:
+            self._note_compile("prefill_ctx", f"tokens[1,{width}]", t0,
+                               t1 - t0, link=self._span_args(req))
+            if m > 0:
+                self.prefix.hits += 1
+                self.prefix.saved_tokens_total += m
+                self._m_prefix_hits.inc()
+                self._m_prefix_saved.observe(float(m))
+            else:
+                self.prefix.misses += 1
+                self._m_prefix_misses.inc()
+                # Only full (cold) prefills feed the estimator — a tail
+                # prefill's cost scales with the UNMATCHED length and
+                # would read a warm cache as a fast prefill for cold
+                # requests.
+                self._prefill_est.observe(t1 - t0)
         self._m_admitted.inc()
         ctx = req.stream.obs_ctx
         self._m_ttft.observe(t1 - req.submitted_at,
@@ -1379,7 +1917,8 @@ class DecodeEngine:
             TRACER.record("engine_prefill", "engine", t0, t1 - t0,
                           self._span_args(req, slot=slot.index,
                                           prompt_len=length,
-                                          prefix_matched=m))
+                                          prefix_matched=m,
+                                          adopted=req.handoff is not None))
         self._emit_token(slot, first)
         if slot.done or slot.remaining == 0:
             self._retire(slot, "eos" if slot.done else "budget")
@@ -1403,10 +1942,7 @@ class DecodeEngine:
         fork_pinned = match.fork is not None
         try:
             if m > 0:
-                page_row = list(match.shared_pages)
-                if match.fork is not None:
-                    page_row.append(match.fork.page)
-                cache = self.kv.gather_prefix_cache(page_row, m)
+                cache = self._gather_match(match)
                 if fork_pinned:
                     self.prefix.unpin_fork(match)
                     fork_pinned = False
@@ -1429,6 +1965,23 @@ class DecodeEngine:
             deadline=req.deadline)
         slot.queue_s = max(0.0, t0 - req.submitted_at)
 
+    def _gather_match(self, match: PrefixMatch) -> List[LayerCache]:
+        """A matched prefix as the accumulating B=1 cache: the shared
+        pages, then host-tier blocks continuing the chain (their table
+        rows gather as null-page rows and the host copies are spliced
+        over them: byte-equal to having kept the pages), then a
+        boundary fork's page."""
+        host_blocks = list(match.host_entries)
+        page_row = list(match.shared_pages) + [0] * len(host_blocks)
+        if match.fork is not None:
+            page_row.append(match.fork.page)
+        cache = self.kv.gather_prefix_cache(page_row, match.matched)
+        if host_blocks:
+            splice_host_blocks(cache, [hb.layers for hb in host_blocks],
+                               len(match.shared_pages), self.kv.page_size)
+            self.host_tier.note_readopted(len(host_blocks))
+        return cache
+
     def _advance_prefills(self) -> None:
         """Feed ONE chunk to every prefilling slot — one per engine
         lap, so a long prompt's prefill interleaves with decode slices
@@ -1444,7 +1997,10 @@ class DecodeEngine:
             length = len(req.prompt)
             pos = slot.prefill_pos
             remaining = length - pos
-            final = remaining <= chunk
+            # chunk 0 only for a prefill-only admission with chunking
+            # off: its whole tail is one chunk.
+            step = chunk if chunk else remaining
+            final = remaining <= step
             t0 = time.monotonic()
             try:
                 if final:
@@ -1478,7 +2034,7 @@ class DecodeEngine:
                 continue
             dur = time.monotonic() - t0
             slot.prefill_cache = cache
-            slot.prefill_pos = pos + (remaining if final else chunk)
+            slot.prefill_pos = pos + (remaining if final else step)
             slot.prefill_s += dur
             self._note_compile("prefill_ctx", f"tokens[1,{width}]", t0,
                                dur, link=self._span_args(req))
@@ -1488,8 +2044,9 @@ class DecodeEngine:
     def _finish_chunked_prefill(self, slot: Slot, *, first: int,
                                 done: bool) -> None:
         """Last chunk landed: adopt the accumulated cache into pages,
-        register the prompt in the prefix index, and join the decode
-        batch (:meth:`SlotScheduler.finish_prefill`)."""
+        register the prompt in the prefix index, and either join the
+        decode batch (:meth:`SlotScheduler.finish_prefill`) or, for a
+        prefill-only request, package the handoff and retire."""
         req = slot.request
         match = slot.prefill_match
         m = match.matched
@@ -1522,6 +2079,9 @@ class DecodeEngine:
             # Not fed to the prefill estimator: a chunked prefill's wall
             # spans several laps with decode slices between them.
         self._m_admitted.inc()
+        if req.prefill_only:
+            self._finish_prefill_handoff(slot, first=first, done=done)
+            return
         ctx = req.stream.obs_ctx
         self._m_ttft.observe(t1 - req.submitted_at,
                              trace_id=ctx.trace_id if ctx else None)
@@ -1539,13 +2099,38 @@ class DecodeEngine:
         else:
             self._draft_prefill(slot, req)
 
+    def _finish_prefill_handoff(self, slot: Slot, *, first: int,
+                                done: bool) -> None:
+        """Prefill-only completion: gather the slot's (adopted and
+        registered) pages back into a contiguous B=1 cache for the
+        :class:`PrefillHandoff`, hand it to the waiting ``run_prefill``
+        caller, and retire the slot. Positions past the prompt in the
+        tail page gather as whatever the page holds there: dead cells
+        the adopting decode overwrites or masks."""
+        req = slot.request
+        length = len(req.prompt)
+        page_row = self.kv.tables[slot.index, :slot.allocated_pages].tolist()
+        cache = self.kv.gather_prefix_cache(page_row, length)
+        req.prefill_box["handoff"] = PrefillHandoff(
+            cache=_host_cache(cache), first_token=first, done=done,
+            prompt_len=length, prompt_width=length,
+            max_new_tokens=req.max_new_tokens,
+            step_keys=np.asarray(req.step_keys), layout="right",
+            prompt_tokens=np.asarray(req.prompt, np.int32).copy())
+        self._retire(slot, "prefill_handoff")
+
     def _draft_prefill(self, slot: Slot, req: _Request) -> None:
         """Fill the slot's draft-cache row with the DRAFT model's prompt
         K/V, in the layout the verifier's slot uses, so the first draft
         step continues from ``write_pos``. The draft pays its whole
         prompt every admission (no draft-side prefix cache: the draft
-        is small beside one saved verifier forward)."""
+        is small beside one saved verifier forward). A left-layout
+        handoff carries no prompt ids: the row stays stale, the drafts
+        are junk and acceptance falls, but the stream is the same
+        (targets never depend on drafts)."""
         if not self._spec_on:
+            return
+        if req.handoff is not None and req.handoff.prompt_tokens is None:
             return
         length = len(req.prompt)
         t0 = time.monotonic()

@@ -46,7 +46,7 @@ set that may be written twice.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -252,6 +252,19 @@ class PageAllocator:
                 "idle set"
 
 
+def kv_leaf_order(num_layers: int) -> List[Tuple[int, str]]:
+    """The order of one page's KV leaves wherever they leave the pool
+    (the host tier, fleet blocks on the wire): ``(layer, "k" | "v")``
+    in the reference's tree-flatten order of its cache collection, whose
+    ``layer_{i}`` keys sort as strings (``layer_0, layer_1, layer_10,
+    ..., layer_19, layer_2, ...``), K before V in a layer (the scalar
+    ``index`` is not a KV leaf). Blocks either package writes then
+    splice into the other's cache at the right layer."""
+    return [(i, name)
+            for i in sorted(range(num_layers), key=lambda i: f"layer_{i}")
+            for name in ("k", "v")]
+
+
 def _is_kv(leaf) -> bool:
     """KV leaves are [*, time, heads, dim]; the per-layer scalar
     ``index`` is not a tensor in the port."""
@@ -434,14 +447,16 @@ class PagedKVCache:
 
     def read_page_layers(self, page: int) -> List[torch.Tensor]:
         """Snapshot one pool page's K/V to host memory: one
-        ``[page_size, heads, dim]`` CPU tensor per KV tensor (the pool's
-        dtype; numpy has no bf16), K then V of each layer in layer
-        order (the order a host-tier splice writes back in). The
+        ``[page_size, heads, dim]`` CPU tensor per KV leaf (the pool's
+        dtype; numpy has no bf16) in :func:`kv_leaf_order`, the order a
+        host-tier splice writes back in, in one device-to-host copy. The
         evict-to-host copy: called while the page still holds valid
         K/V; the copy makes the snapshot exact whatever the pool does
         next."""
-        return [pool[int(page)].to("cpu", copy=True)
-                for layer in self.physical for pool in (layer.k, layer.v)]
+        page = int(page)
+        leaves = [getattr(self.physical[i], name)[page]
+                  for i, name in kv_leaf_order(len(self.physical))]
+        return list(torch.stack(leaves).to("cpu", copy=True).unbind(0))
 
     def gather_prefix_cache(self, page_ids: Sequence[int],
                             fill_len: int) -> List[LayerCache]:

@@ -45,12 +45,14 @@ a Dense kernel is ``[in, out]`` in Flax and ``[out, in]`` in
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import re
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from kubeflow_tpu_torch.models.llama import LayerCache
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -146,6 +148,67 @@ def unflatten_tree(flat: Mapping[str, object], sep: str = "/") -> Dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
+    return out
+
+
+_CACHE_KEY = re.compile(r"^layer_(\d+)/attention/(k|v|index)$")
+
+
+def _host_array(t: torch.Tensor):
+    """A tensor on the host as flax_msgpack reads arrays back: numpy,
+    except bfloat16, which numpy has no type for, as a CPU tensor."""
+    t = t.detach().to("cpu")
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A CPU tensor of its own from an array or a tensor (an array read
+    from a blob is a read-only view of its bytes)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", copy=True)
+    return torch.from_numpy(np.array(a))
+
+
+def cache_to_flax(cache: List[LayerCache]) -> Dict[str, object]:
+    """A KV cache as the reference's flat ``"/"``-keyed cache collection:
+    ``layer_{i}/attention/{k,v}`` (``[B, C, heads, dim]``; numpy, a
+    bfloat16 cache as CPU tensors) and ``layer_{i}/attention/index``,
+    the int32 scalar (a 0-d array) the reference keeps there."""
+    out: Dict[str, object] = {}
+    for i, layer in enumerate(cache):
+        out[f"layer_{i}/attention/k"] = _host_array(layer.k)
+        out[f"layer_{i}/attention/v"] = _host_array(layer.v)
+        out[f"layer_{i}/attention/index"] = np.asarray(int(layer.index),
+                                                       np.int32)
+    return out
+
+
+def cache_from_flax(flat: Mapping[str, object]) -> List[LayerCache]:
+    """The inverse of :func:`cache_to_flax`: one :class:`LayerCache` a
+    layer, CPU tensors of their own. Every layer from 0 up must carry
+    ``k``, ``v`` and ``index``, K and V of one 4-d shape, and no other
+    key may be present."""
+    layers: Dict[int, Dict[str, object]] = {}
+    for key, value in flat.items():
+        m = _CACHE_KEY.match(key)
+        if m is None:
+            raise ValueError(f"cache key {key!r} is not "
+                             f"layer_<i>/attention/{{k,v,index}}")
+        layers.setdefault(int(m.group(1)), {})[m.group(2)] = value
+    if sorted(layers) != list(range(len(layers))) or not layers:
+        raise ValueError(f"cache layers {sorted(layers)} are not 0.."
+                         f"{len(layers) - 1}")
+    out = []
+    for i in range(len(layers)):
+        parts = layers[i]
+        if set(parts) != {"k", "v", "index"}:
+            raise ValueError(f"cache layer {i} carries {sorted(parts)}, "
+                             f"not index, k and v")
+        k, v = (_host_tensor(parts[n]) for n in ("k", "v"))
+        if k.ndim != 4 or k.shape != v.shape:
+            raise ValueError(f"cache layer {i}: k {tuple(k.shape)} and v "
+                             f"{tuple(v.shape)} are not one 4-d shape")
+        out.append(LayerCache(k, v, int(np.asarray(parts["index"]))))
     return out
 
 

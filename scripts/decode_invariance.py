@@ -42,7 +42,19 @@ not). Five comparisons:
 - ``chunk``: every chunk of a 512-token prompt prefilled in chunks of 64
   and of 128 against the same positions of the 512-wide block: the
   row-wise ops, attention over the 544-slot cache from the chunk's
-  offset, and the fp32 head (a chunked prefill's).
+  offset, and the fp32 head (a chunked prefill's);
+- ``route``: the resume question. A stream of a 300-token prompt killed
+  after 1, 16 or 31 tokens resumes on a peer that prefills the whole
+  context. Each emitted token's row from a decode step at 4 slots (the
+  uninterrupted stream: the decode GEMM, decode attention) against the
+  same token's row inside the prefill block of the resumed context (the
+  prefill GEMM, flash at the block's offset), in two layouts: ``pad0``
+  (the prefix lane: the context at slot 0, one block) and ``classic``
+  (the original prompt left-padded in its 512 bucket, the context in
+  the continuation's bucket and pad); and ``classic prompt rows``, the
+  prompt's own rows prefilled at the original pad against the
+  continuation's: both RMSNorms, the seven projections, rope, attention
+  over the 544-slot cache and the fp32 head.
 
 Each op has a ``today`` column (the plain PyTorch op the port ran
 before its kernels: cuBLAS for every linear, the RMSNorm formula,
@@ -109,6 +121,12 @@ EPS = 1e-5
 VERIFY_WIDTH = 5
 #: A chunked prefill's chunk widths.
 CHUNK_WIDTHS = (64, 128)
+#: The resume question: a prompt of 300 in the 512 bucket, and the kill
+#: points of a 32-token budget (after the first token, the middle, and
+#: budget - 1).
+ROUTE_PROMPT = 300
+ROUTE_BUCKET = 512
+ROUTE_KILLS = (1, 16, 31)
 
 
 def llama3_8b(num_layers: int = 32) -> llama.Llama:
@@ -460,6 +478,164 @@ def verify_table(p, cfg, dev):
     return table
 
 
+def route_table(p, cfg, dev):
+    """Each op's row for an emitted token from a decode step at 4 slots
+    against the same token's row in the resumed context's prefill
+    block, per layout (see the module doc). ``today``: the plain ops on
+    both routes; ``port``: the decode kernels against the prefill
+    kernels."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(*shape, device=dev, generator=g).to(dtype)
+
+    w = {k.split(".", 2)[-1]: v for k, v in p.items()
+         if k.startswith("layers.0.")}
+    d, hkv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    n_ctx = ROUTE_PROMPT + max(ROUTE_KILLS)
+    x, act = randn(n_ctx, d), randn(n_ctx, cfg.mlp_dim)
+    head_in = randn(n_ctx, d, dtype=torch.float32)
+    others = {n_: randn(3, n_) for n_ in (d, cfg.mlp_dim)}
+    others_f32 = randn(3, d, dtype=torch.float32)
+    q = randn(n_ctx, cfg.num_heads, hd)
+    kseq, vseq = randn(n_ctx, hkv, hd), randn(n_ctx, hkv, hd)
+    slots = torch.arange(CACHE, device=dev)
+    orig_pad = ROUTE_BUCKET - ROUTE_PROMPT
+
+    def row_ops():
+        ops = []
+        for norm in ("attn_norm", "mlp_norm"):
+            scale = w[f"{norm}.scale"]
+            ops.append((f"{norm} (RMSNorm)", x,
+                        lambda a, s_=scale: plain_rms_norm(a, s_),
+                        lambda a, s_=scale: rms_norm(a, s_, EPS),
+                        lambda a, s_=scale: rms_norm(a, s_, EPS)))
+        for name in PREFILL_LINEARS:
+            weight = w[name]
+            ops.append((f"{name.split('.')[-2]} bf16 "
+                        f"[{weight.shape[1]}→{weight.shape[0]}]",
+                        act if name == "down_proj.weight" else x,
+                        lambda a, m=weight: F.linear(a, m),
+                        lambda a, m=weight: decode_linear(a, m),
+                        lambda a, m=weight: prefill_linear(a, m)))
+        ops.append(("lm_head fp32", head_in,
+                    lambda a: F.linear(a, p["lm_head.weight"]),
+                    lambda a: decode_linear(a, p["lm_head.weight"]),
+                    lambda a: decode_linear(a, p["lm_head.weight"])))
+        return ops
+
+    def step_rows(fn, a, positions):
+        """The decode route: each position's row at M = 4 beside three
+        other slots' rows, one step a position."""
+        rest = (others_f32 if a.dtype == torch.float32
+                else others[a.shape[-1]])
+        return torch.stack([fn(torch.cat([a[i:i + 1], rest])[:, None])[0, 0]
+                            for i in positions])
+
+    def padded(a, pad):
+        return torch.cat([a.new_zeros((pad,) + a.shape[1:]), a])
+
+    table = []
+    for name, a, plain, dec, pre in row_ops():
+        row = {"op": name}
+        for label, d_fn, p_fn in (("today", plain, plain),
+                                  ("port", dec, pre)):
+            layouts = {"pad0": [], "classic": [], "classic prompt rows": []}
+            for kill in ROUTE_KILLS:
+                ctx = ROUTE_PROMPT + kill
+                emitted = range(ROUTE_PROMPT, ctx)
+                want = step_rows(d_fn, a, emitted)
+                block = p_fn(a[None, :ctx])[0]
+                layouts["pad0"].append(_diff(block[ROUTE_PROMPT:ctx], want))
+                pad = ROUTE_BUCKET - ctx
+                block = p_fn(padded(a[:ctx], pad)[None])[0]
+                layouts["classic"].append(
+                    _diff(block[pad + ROUTE_PROMPT:], want))
+                orig = p_fn(padded(a[:ROUTE_PROMPT], orig_pad)[None])[0]
+                layouts["classic prompt rows"].append(
+                    _diff(block[pad:pad + ROUTE_PROMPT], orig[orig_pad:]))
+            row[label] = _layouts(layouts)
+        table.append(row)
+    positions = torch.arange(n_ctx, device=dev)
+    qr = llama.rope(q[None], positions[None], cfg.rope_theta)[0]
+    one = torch.stack([llama.rope(q[None, i:i + 1], positions[None, i:i + 1],
+                                  cfg.rope_theta)[0, 0]
+                       for i in range(ROUTE_PROMPT, n_ctx)])
+    r = _diff(qr[ROUTE_PROMPT:], one)
+    same = _layouts({k: [r] for k in ("pad0", "classic")})
+    table.append({"op": "rope (q)", "today": same, "port": same})
+
+    def cache_at(pad):
+        """A [1, 544] cache holding the context's K/V from slot ``pad``
+        (random K/V elsewhere: masked)."""
+        kc, vc = randn(1, CACHE, hkv, hd), randn(1, CACHE, hkv, hd)
+        kc[0, pad:pad + n_ctx], vc[0, pad:pad + n_ctx] = kseq, vseq
+        return kc, vc
+
+    def decode_rows(attend, pad, emitted):
+        """The decode route: each emitted token's query at 4 slots (three
+        other slots over their own random caches)."""
+        kc, vc = cache_at(pad)
+        k4 = torch.cat([kc, randn(3, CACHE, hkv, hd)])
+        v4 = torch.cat([vc, randn(3, CACHE, hkv, hd)])
+        out = []
+        for i in emitted:
+            q4 = torch.cat([q[None, i:i + 1], randn(3, 1, cfg.num_heads, hd)])
+            valid = torch.stack([(slots >= pad) & (slots <= pad + i)] + [
+                slots <= s for s in DECODE_POS[1:]])
+            out.append(attend(q4, k4, v4, valid)[0, 0])
+        return torch.stack(out)
+
+    def prefill_rows(attend, pad, ctx, width):
+        kc, vc = cache_at(pad)
+        qb = padded(q[:ctx], pad)
+        qb = torch.cat([qb, qb.new_zeros((width - qb.shape[0],)
+                                         + qb.shape[1:])])[None]
+        valid = ((slots < width) & (slots >= pad))[None]
+        return attend(qb, kc, vc, valid)[0]
+
+    dense_dec = (lambda q_, k_, v_, m: dense_attention(
+        q_, k_, v_, kv_segment_valid=m))
+    dense_pre = (lambda q_, k_, v_, m: dense_attention(
+        q_, k_, v_, causal=True, q_offset=0, kv_offset=0,
+        kv_segment_valid=m))
+    flash_pre = (lambda q_, k_, v_, m: prefill_attention(q_, k_, v_, 0, m))
+    row = {"op": "attention (cache 544)"}
+    for label, d_fn, p_fn in (("today", dense_dec, dense_pre),
+                              ("port", decode_attention, flash_pre)):
+        layouts = {"pad0": [], "classic": [], "classic prompt rows": []}
+        orig = prefill_rows(p_fn, orig_pad, ROUTE_PROMPT, ROUTE_BUCKET)
+        for kill in ROUTE_KILLS:
+            ctx = ROUTE_PROMPT + kill
+            emitted = range(ROUTE_PROMPT, ctx)
+            block = prefill_rows(p_fn, 0, ctx, ctx)
+            layouts["pad0"].append(_diff(block[ROUTE_PROMPT:ctx],
+                                         decode_rows(d_fn, 0, emitted)))
+            pad = ROUTE_BUCKET - ctx
+            block = prefill_rows(p_fn, pad, ctx, ROUTE_BUCKET)
+            layouts["classic"].append(_diff(
+                block[pad + ROUTE_PROMPT:pad + ctx],
+                decode_rows(d_fn, orig_pad, emitted)))
+            layouts["classic prompt rows"].append(_diff(
+                block[pad:pad + ROUTE_PROMPT],
+                orig[orig_pad:orig_pad + ROUTE_PROMPT]))
+        row[label] = _layouts(layouts)
+    table.append(row)
+    return table
+
+
+def _layouts(per):
+    """Each layout's diffs (one a kill point) folded: ``{"equal",
+    "max_abs", "layouts": {name: {"equal", "max_abs"}}}``."""
+    out = {name: {"equal": all(d["equal"] for d in diffs),
+                  "max_abs": max(d["max_abs"] for d in diffs)}
+           for name, diffs in per.items()}
+    return {"equal": all(r["equal"] for r in out.values()),
+            "max_abs": max(r["max_abs"] for r in out.values()),
+            "layouts": out}
+
+
 def _widths(narrow, wide):
     """Each tail width's block against the cold block's same positions:
     ``{"equal": all equal, "max_abs": the worst, "widths": {W: diff}}``."""
@@ -559,6 +735,7 @@ def main() -> int:
         tables["prefill"], tables["tail"], tables["chunk"] = \
             prefill_tables(p, cfg, dev)
         tables["verify"] = verify_table(p, cfg, dev)
+        tables["route"] = route_table(p, cfg, dev)
         del p
     step_row, verify_row = decode_step(dev)
     tables["decode"].append(step_row)
@@ -570,11 +747,12 @@ def main() -> int:
                            for c in ("today", "port"))
             print(f"{r['op']:45s} today {today} | port {port}", flush=True)
             for c in ("today", "port"):
-                apart = {wd: x["max_abs"] for wd, x in
-                         r[c].get("widths", {}).items() if not x["equal"]}
-                if apart:
-                    print(f"{'':45s} {c} apart at widths {apart}",
-                          flush=True)
+                for part in ("widths", "layouts"):
+                    apart = {wd: x["max_abs"] for wd, x in
+                             r[c].get(part, {}).items() if not x["equal"]}
+                    if apart:
+                        print(f"{'':45s} {c} apart at {part} {apart}",
+                              flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -686,11 +686,12 @@ def test_per_row_decode_step_matches_the_reference(model, params,
 @pytest.mark.parametrize("option", [
     "prefix_cache", "prefill_chunk", "host_cache_bytes", "draft"])
 def test_unported_lane_options_raise(model, params, option):
-    """The lane options the engine refuses: the reference's config errors
-    (a chunk that is not a multiple of the page, a chunk without the
-    prefix cache, a draft whose vocab is not the verifier's) raise
-    ``ValueError`` as the reference's do; the host tier, not ported,
-    raises ``NotImplementedError``."""
+    """The lane options' config errors raise ``ValueError`` as the
+    reference's do: a chunk that is not a multiple of the page, a chunk
+    without the prefix cache, a draft whose vocab is not the verifier's,
+    a negative host-tier budget. A positive host-tier budget engages the
+    tier on a prefix-cache engine and degrades to no tier without one,
+    as the reference's does."""
     kw = dict(max_new_tokens=4, max_prompt_len=MAX_PROMPT)
     extra = {}
     error, match = ValueError, None
@@ -702,8 +703,21 @@ def test_unported_lane_options_raise(model, params, option):
         kw["prefill_chunk"] = 8
         match = "requires engine_prefix_cache"
     elif option == "host_cache_bytes":
-        kw["host_cache_bytes"] = 1 << 20
-        error, match = NotImplementedError, "ROADMAP A7"
+        for prefix, engaged in ((True, True), (False, False)):
+            engine = DecodeEngine(model, params, EngineConfig(
+                **kw, prefix_cache=prefix, host_cache_bytes=1 << 20),
+                device="cpu")
+            try:
+                assert (engine.host_tier is not None) == engaged
+                assert ("kv_tier" in engine.stats()) == engaged
+                if engaged:
+                    assert engine.prefix.host is engine.host_tier
+                    assert engine.stats()["kv_tier"]["host"][
+                        "budget_bytes"] == 1 << 20
+            finally:
+                engine.stop()
+        kw.update(prefix_cache=True, host_cache_bytes=-1)
+        match = "0 disables the host tier"
     else:
         kw["speculate_tokens"] = 2
         draft = llama_test(dtype="float32", cache_size=CACHE,
@@ -717,12 +731,28 @@ def test_unported_lane_options_raise(model, params, option):
 
 @pytest.mark.parametrize("arg", ["handoff", "step_keys"])
 def test_unported_submit_options_raise(model, params, arg):
+    """``submit(handoff=)`` and ``submit(step_keys=)`` validate as the
+    reference's do: the two are mutually exclusive, a handoff's budget
+    must be its step-key schedule's, a resume's ``max_new_tokens`` its
+    schedule's length and its key the schedule (not ``rng``)."""
     engine = _engine(model, params, EngineConfig(
         max_new_tokens=4, max_prompt_len=MAX_PROMPT), "u-submit")
+    keys = np.zeros((4, 2), np.uint32)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            engine.submit(np.zeros(4, np.int32),
-                          **{arg: np.zeros((4, 2), np.uint32)})
+        if arg == "handoff":
+            handoff = engine.run_prefill(np.arange(1, 5, dtype=np.int32),
+                                         rng=prng.PRNGKey(0))
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                engine.submit(handoff=handoff, step_keys=keys)
+            with pytest.raises(ValueError, match="step-key"):
+                engine.submit(handoff=handoff, max_new_tokens=3)
+        else:
+            with pytest.raises(ValueError, match="mutually exclusive"):
+                engine.submit(np.zeros(4, np.int32), step_keys=keys,
+                              rng=prng.PRNGKey(0))
+            with pytest.raises(ValueError, match="resume schedule"):
+                engine.submit(np.zeros(4, np.int32), step_keys=keys,
+                              max_new_tokens=3)
     finally:
         engine.stop()
 

@@ -1125,3 +1125,156 @@ def test_prefill_attention_raises_where_the_kernel_does_not_go(cuda):
         fa.prefill_attention(q, kv, kv, 25, valid)
     assert (fa.flash_attention.launches,
             da.decode_attention.launches) == before
+
+
+# -- KV handoff, the host tier and fleet blocks on the card ----------------
+#
+# These carry bytes the cache already holds, so they hold bit for bit:
+# an adopted stream equals the local one and B=1, a re-adopted or
+# imported hit equals its cold run.
+
+
+def _blob_round_trip(handoff):
+    from kubeflow_tpu_torch.serving import wire
+
+    return wire.decode_kv_handoff(wire.encode_kv_handoff("m", 1, handoff),
+                                  model="m", version=1)
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_classic_handoff_equals_local_and_b1_on_the_card(cuda, mode):
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, local, requests = _engine_case(cuda, 4, sampling)
+    adopter = DecodeEngine(model, params, local.config, name="adopter",
+                           device=cuda)
+    try:
+        for p, b, k in requests:
+            handoff = _blob_round_trip(local.run_prefill(
+                p, rng=k, max_new_tokens=b))
+            got = adopter.submit(handoff=handoff).result(timeout=300)
+            np.testing.assert_array_equal(
+                got, local.submit(p, rng=k, max_new_tokens=b).result(
+                    timeout=300))
+            np.testing.assert_array_equal(
+                got, _b1(model, params, local, p, k, b, sampling, cuda))
+        st = adopter.stats()
+        assert st["retired"] == {"budget": len(requests)}
+        assert st["free_pages"] == st["total_pages"]
+        adopter.kv.allocator.check_invariants()
+    finally:
+        local.stop()
+        adopter.stop()
+
+
+def _prefix_case(cuda, sampling, **kw):
+    model = llama_test(cache_size=96)
+    params = init_params(model, seed=0, device=cuda)
+    config = dict(max_new_tokens=8, max_prompt_len=64, num_slots=4,
+                  page_size=16, slice_tokens=4, prefix_cache=True,
+                  **sampling)
+    config.update(kw)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(0, 512, 40).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 512, n).astype(
+        np.int32)]) for n in (5, 12, 3, 20)]
+    keys = [prng.PRNGKey(500 + i) for i in range(len(prompts))]
+    return model, params, config, prompts, keys
+
+
+def _b1_unpadded(model, params, prompt, key, budget, sampling, cuda):
+    want, _ = generate(model, params, torch.from_numpy(prompt[None]).to(
+        cuda), max_new_tokens=budget, rng=key[None],
+        prompt_lengths=torch.tensor([len(prompt)], device=cuda), **sampling)
+    return want[0].cpu().numpy()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_prefix_handoff_adopts_and_registers_on_the_card(cuda, mode):
+    """A prefill-role engine (chunks of 16) hits its own index; each
+    right-layout handoff adopted on a decode-role engine equals B=1, and
+    the decode engine indexes the carried pages."""
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, config, prompts, keys = _prefix_case(cuda, sampling)
+    prefill = DecodeEngine(model, params, EngineConfig(
+        **config, prefill_chunk=16), device=cuda)
+    decode = DecodeEngine(model, params, EngineConfig(**config),
+                          device=cuda)
+    try:
+        for p, k in zip(prompts, keys):
+            handoff = _blob_round_trip(prefill.run_prefill(p, rng=k))
+            assert handoff.layout == "right"
+            np.testing.assert_array_equal(
+                decode.submit(handoff=handoff).result(timeout=300),
+                _b1_unpadded(model, params, p, k, 8, sampling, cuda))
+        assert prefill.stats()["prefix_cache"]["hits"] > 0
+        assert decode.probe_prefix(prompts[0]) >= 32
+        decode.clear_prefix_cache()
+        assert decode.stats()["free_pages"] == decode.stats()["total_pages"]
+    finally:
+        prefill.stop()
+        decode.stop()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_host_tier_readopted_hits_equal_cold_on_the_card(cuda, mode):
+    """A pool of 8 pages cannot keep a 40-token prefix between requests
+    of other prefixes: its blocks spill to host RAM and come back on a
+    revisit, which equals its cold run and B=1."""
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, config, prompts, keys = _prefix_case(
+        cuda, sampling, num_slots=1, num_pages=9, host_cache_bytes=1 << 26)
+    engine = DecodeEngine(model, params, EngineConfig(**config),
+                          device=cuda)
+    rng = np.random.default_rng(4)
+    others = [rng.integers(0, 512, 60).astype(np.int32) for _ in range(2)]
+    try:
+        engine.submit(prompts[0], rng=keys[0]).result(timeout=300)
+        for i, o in enumerate(others):
+            engine.submit(o, rng=prng.PRNGKey(900 + i)).result(timeout=300)
+        host = engine.stats()["kv_tier"]["host"]
+        assert host["spilled_blocks"] > 0, host
+        hit = engine.submit(prompts[1], rng=keys[1]).result(timeout=300)
+        assert engine.stats()["kv_tier"]["host"]["readopted_blocks"] > 0
+        engine.clear_prefix_cache()
+        engine.host_tier.clear()
+        cold = engine.submit(prompts[1], rng=keys[1]).result(timeout=300)
+        np.testing.assert_array_equal(hit, cold)
+        np.testing.assert_array_equal(
+            hit, _b1_unpadded(model, params, prompts[1], keys[1], 8,
+                              sampling, cuda))
+        engine.clear_prefix_cache()
+        engine.host_tier.check_accounting()
+        assert engine.stats()["free_pages"] == engine.stats()["total_pages"]
+    finally:
+        engine.stop()
+
+
+def test_fleet_blocks_import_hits_and_equal_cold_on_the_card(cuda):
+    """Engine A's blocks of a served prefix go through the wire into
+    engine B's host tier: byte-equal to A's pages, and B's request hits
+    them and equals its cold run."""
+    from kubeflow_tpu_torch.serving import wire
+
+    model, params, config, prompts, keys = _prefix_case(
+        cuda, {"temperature": 0.0}, host_cache_bytes=1 << 26)
+    a = DecodeEngine(model, params, EngineConfig(**config), device=cuda)
+    b = DecodeEngine(model, params, EngineConfig(**config), device=cuda)
+    try:
+        a.submit(prompts[0], rng=keys[0]).result(timeout=300)
+        blocks = a.export_prefix_blocks(prompts[0])
+        assert len(blocks) == 2
+        carried = wire.decode_kv_blocks(
+            wire.encode_kv_blocks("m", 1, 16, blocks), model="m",
+            version=1, page_size=16)
+        for (_, got), (_, want) in zip(carried, blocks):
+            assert all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                       for g, w in zip(got, want))
+        cold = b.submit(prompts[1], rng=keys[1]).result(timeout=300)
+        b.clear_prefix_cache()
+        assert b.import_prefix_blocks(carried) == 2
+        hit = b.submit(prompts[1], rng=keys[1]).result(timeout=300)
+        assert b.stats()["kv_tier"]["host"]["readopted_blocks"] == 2
+        np.testing.assert_array_equal(hit, cold)
+    finally:
+        a.stop()
+        b.stop()

@@ -241,12 +241,12 @@ def test_ensure_engine_refuses_what_it_cannot_serve(flax_params):
                        {"logits": TensorSpec("float32", (-1, SEQ, 512))})
     with pytest.raises(ValueError, match="generate-method"):
         predict.ensure_engine()
-    # The host tier on top of the prefix lane is not ported yet; chunked
-    # prefill without the prefix cache is the reference's config error.
+    # A negative host-tier budget, and chunked prefill without the
+    # prefix cache, are the reference's config errors.
     for extra, error, match in (
             ({"engine_prefix_cache": True,
-              "engine_host_cache_bytes": 1 << 20}, NotImplementedError,
-             "A7"),
+              "engine_host_cache_bytes": -1}, ValueError,
+             "0 disables the host tier"),
             ({"engine_prefill_chunk": 8}, ValueError,
              "requires engine_prefix_cache")):
         _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
@@ -254,6 +254,15 @@ def test_ensure_engine_refuses_what_it_cannot_serve(flax_params):
         with pytest.raises(error, match=match):
             model.ensure_engine()
         assert model.engine is None
+    # The host tier on top of the prefix lane reaches the engine.
+    _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
+                     GEN_OUT, generate_config=dict(
+                         SAMPLED, engine_prefix_cache=True,
+                         engine_host_cache_bytes=1 << 20))
+    try:
+        assert model.ensure_engine().host_tier.budget_bytes == 1 << 20
+    finally:
+        model.close()
     # A draft export that does not load degrades to vanilla decoding, as
     # the reference's does.
     _, model = _pair(flax_params, "generate", GEN_KWARGS, MAX_PROMPT,
