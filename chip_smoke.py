@@ -117,7 +117,23 @@ checkout's BN kernel by the same code (a parent commit's, say).
    admitted while the others decode, greedy and sampled: every stream
    equal to the same engine's without chunking and to B=1 (asserted);
    the decoding neighbours' largest inter-token gap while the long
-   prompt is admitted, chunked against one-shot. Then one verify forward
+   prompt is admitted, chunked against one-shot. Then the four mixes on
+   a captured engine (every plain slice, speculative draft and verify
+   and classic admission prefill a CUDA graph), greedy and sampled, in
+   turns with an uncaptured engine (uncaptured, captured, captured
+   again, uncaptured): every captured stream equal to the uncaptured
+   engine's, one graph per ``engine_compile`` key of a captured
+   program, no decode attention launched by a wrapper in the replayed
+   pass and, in the engine mix, no wrapper launch at all, and no plain
+   twin called (asserted); inter-token ms of both, the graphs against
+   the distinct keys, the device idle share and each kernel's launches
+   of the replayed pass and of one 4-step slice replayed alone, and a
+   classic admission's device ms beside its TTFT on both engines
+   (reported). Every engine phase that counts launches runs the engine
+   a server builds (captured) and counts what the card ran
+   (``served_launches``): the wrappers' launches, less each graph's
+   capture (which records its warm-up's launches, asserted equal), plus
+   each replay's graph. Then one verify forward
    (4 slots × 5 tokens) beside one decode step: 225 decode-GEMM
    launches at M = 20, 65 RMSNorm, 160 decode attention, no prefill GEMM
    and no plain twin (asserted), and the device ms of each. Then one
@@ -132,10 +148,13 @@ checkout's BN kernel by the same code (a parent commit's, say).
    32 + 1 launches and none in an adoption (asserted; blob bytes, encode,
    decode and adopt ms printed). Mid-stream resume in both lanes: three
    engine-mix requests killed after 1 token, the middle and budget - 1,
-   continued on a peer from a resume token: one prefill forward a resume
-   (asserted), resumed == uninterrupted reported as n of m (ROADMAP C9:
-   the resume makes the emitted tokens' K/V on the prefill route, the
-   stream made it on the decode route), TTFTs printed. The host tier
+   continued on a peer engine from a resume
+   token that carries the original prompt, with the emitted tokens
+   apart (``submit(prompt_len=)``): resumed == uninterrupted in 9 of 9
+   cases a lane and mode, and each resume's one prompt prefill forward
+   and one replay forward on the decode kernels (asserted); one
+   whole-context resume a lane and mode reported; TTFTs printed. The
+   host tier
    (one slot, 34 usable pages, 256 MB of host RAM; fillers between
    prefix-mix requests evict the prefix): spilled and re-adopted blocks,
    each hit equal to its cold run and B=1, both tiers drained (asserted;
@@ -1031,6 +1050,101 @@ def read_counts():
     return {name: fn.launches for name, fn in COUNTERS.items()}
 
 
+#: Each kernel's function names in the profiler's CUDA activity (the
+#: ``__global__`` functions of ``csrc/*.cu``), by the name the kernels
+#: line gives it.
+KERNEL_NAMES = {"flash_attention": ("flash_fwd_kernel_wgmma",
+                                    "flash_fwd_kernel_fma"),
+                "decode_gemm": ("decode_gemm_bf16_kernel",
+                                "decode_gemm_fp32_kernel"),
+                "rms_norm": ("rms_norm_kernel",),
+                "decode_attention": ("decode_attention_kernel",),
+                "prefill_gemm": ("prefill_gemm_kernel",)}
+
+
+def kernel_counts(prof) -> dict:
+    """Each kernel's launches in a profile's CUDA activity: a replayed
+    graph's kernel nodes count one each, as eager launches do."""
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    for row in prof.key_averages():
+        for name, functions in KERNEL_NAMES.items():
+            if any(f in row.key for f in functions):
+                counts[name] += row.count
+    return counts
+
+
+class ProgramTally:
+    """A captured engine's program calls, in order, as ``(key, first
+    use?)``, and each key's body: the wrappers' launches while its
+    capture recorded it into the graph."""
+
+    def __init__(self):
+        self.bodies = {}
+        self.calls = []
+
+    def run(self, graphs, run, key, body, inputs):
+        """``GraphCache.run`` (``run``) with the call noted. A key's
+        first use runs its body twice, the warm-up and the capture: each
+        run's launches are read from the wrappers, and they must be
+        equal (a capture records what the warm-up ran)."""
+        if key in graphs.programs:
+            self.calls.append((key, False))
+            return run(key, body, inputs)
+        runs = []
+
+        def recorded(**kw):
+            before = read_counts()
+            out = body(**kw)
+            after = read_counts()
+            runs.append({k: after[k] - before[k] for k in after})
+            return out
+
+        out = run(key, recorded, inputs)
+        warm_up, captured = runs
+        if warm_up != captured:
+            raise AssertionError(f"program {key}: the capture recorded "
+                                 f"{captured}, its warm-up ran {warm_up}")
+        self.bodies[key] = captured
+        self.calls.append((key, True))
+        return out
+
+
+@contextlib.contextmanager
+def served_launches(*engines):
+    """Each kernel's launches on the card for the block's work on
+    ``engines``, captured as a server builds them: the yielded dict is
+    filled when the block ends. A wrapper counts each launch it makes:
+    every eager call's, and a captured program's twice on the key's
+    first use (the warm-up runs the body, the capture records it). A
+    replay calls no wrapper and runs the kernels its graph holds. So the
+    card ran each kernel the wrappers' count, less each first use's
+    capture, plus each replay's body. serve_captured reads one replayed
+    slice's kernels from the card itself."""
+    patched = []
+    for engine in engines:
+        graphs = engine._graphs
+        if graphs is None:
+            raise AssertionError(f"engine {engine.name} runs uncaptured")
+        if not hasattr(graphs, "smoke_tally"):
+            graphs.smoke_tally = ProgramTally()
+        graphs.run = functools.partial(graphs.smoke_tally.run, graphs,
+                                       graphs.run)
+        patched.append((graphs, len(graphs.smoke_tally.calls)))
+    counts = {}
+    zero_counts()
+    try:
+        yield counts
+    finally:
+        for graphs, _ in patched:
+            del graphs.run  # the class's method again; no cycle is kept
+    counts.update(read_counts())
+    for graphs, mark in patched:
+        tally = graphs.smoke_tally
+        for key, first in tally.calls[mark:]:
+            for name, n in tally.bodies[key].items():
+                counts[name] += -n if first else n
+
+
 @contextlib.contextmanager
 def twin_calls():
     """Count calls of the decode GEMM's, the prefill GEMM's and
@@ -1252,6 +1366,7 @@ def serve_llama(card):
     _, prefix_refs = serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
     serve_spec(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla)
     serve_chunked(card, LLAMA, params, {"dtype": "bfloat16"})
+    serve_captured(card, LLAMA, params, {"dtype": "bfloat16"})
     serve_handoff(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla,
                   prefix_refs)
     serve_resume(card, LLAMA, params, {"dtype": "bfloat16"})
@@ -1318,6 +1433,15 @@ def run_engine(engine, requests):
         for prompt, budget, key in requests])
 
 
+def slice_inter_ms(slices):
+    """Each engine_slice span's inter-token ms: a plain slice's wall
+    over its steps; a speculative round's over the tokens it emitted a
+    slot."""
+    return [e["dur"] / 1e3 / (e["args"]["tokens"] / e["args"]["slots"]
+                              if e["args"].get("spec")
+                              else e["args"]["steps"]) for e in slices]
+
+
 def run_streams(engine, submits):
     """Call every submit (each returns a stream) at once; wait for all.
     Returns the token arrays and the timings: each request's time to
@@ -1342,11 +1466,7 @@ def run_streams(engine, submits):
     results = [s.result(timeout=600) for s in streams]
     wall = time.monotonic() - t0
     slices = [e for e in TRACER.snapshot() if e["name"] == "engine_slice"]
-    # A plain slice's wall over its steps; a speculative round's over
-    # the tokens it emitted a slot.
-    inter = [e["dur"] / 1e3 / (e["args"]["tokens"] / e["args"]["slots"]
-                               if e["args"].get("spec")
-                               else e["args"]["steps"]) for e in slices]
+    inter = slice_inter_ms(slices)
     timing = {
         "ttft_ms": [firsts[i] for i in range(len(submits))],
         "inter_token_ms": (statistics.median(inter) if inter else None),
@@ -1412,10 +1532,8 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
                                  f"{engine.kv.logical_len} != {cache_size}")
         if device is None:
             torch.cuda.reset_peak_memory_stats()
-        with twin_calls() as twins:
-            zero_counts()
+        with twin_calls() as twins, served_launches(engine) as counts:
             results, timing = run_engine(engine, requests)
-            counts = read_counts()
         if device is None:
             timing["peak_memory_gb"] = \
                 torch.cuda.max_memory_allocated() / 1e9
@@ -1576,11 +1694,9 @@ def serve_prefix(card, registry, params, kwargs, *,
         if engine.prefix is None:
             raise AssertionError("engine_prefix_cache did not reach the "
                                  "engine")
-        with twin_calls() as twins:
-            zero_counts()
+        with twin_calls() as twins, served_launches(engine) as counts:
             cold, cold_timing = run_engine(engine, requests[:1])
             hits, timing = run_engine(engine, requests[1:])
-            counts = read_counts()
         # Tokens each hit took from the cache (not a multiple of the
         # page size where it forked a boundary page).
         matched = [e["args"]["prefix_matched"] for e in TRACER.snapshot()
@@ -1821,16 +1937,17 @@ def weak_draft(registry, cache_size, device=None):
     return model, init_params(model, seed=WEAK_DRAFT_SEED, device=device)
 
 
-def spec_engine(loaded, name, draft):
+def spec_engine(loaded, name, draft, **engine_kw):
     """The engine ``LoadedModel.ensure_engine`` builds from ``loaded``'s
     export config, with ``draft`` ((module, params)) as its speculative
-    draft, as an export naming a draft gets."""
+    draft, as an export naming a draft gets (``engine_kw``: the
+    ``DecodeEngine`` switch for an uncaptured comparison engine)."""
     (_, spec), = loaded.signature().inputs.items()
     config = EngineConfig.from_generate_config(
         loaded.metadata.generate_config, spec.shape[1])
     return DecodeEngine(loaded._module, loaded.params, config, name=name,
                         device=loaded.device, draft_model=draft[0],
-                        draft_params=draft[1])
+                        draft_params=draft[1], **engine_kw)
 
 
 def serve_spec(card, registry, params, kwargs, vanilla, *,
@@ -1862,10 +1979,8 @@ def serve_spec(card, registry, params, kwargs, vanilla, *,
                 loaded, f"smoke-spec-{draft_name}-{mode}",
                 (loaded._module, loaded.params) if draft is None else draft)
             try:
-                with twin_calls() as twins:
-                    zero_counts()
+                with twin_calls() as twins, served_launches(engine) as counts:
                     results, timing = run_engine(engine, requests)
-                    counts = read_counts()
                 stats = check_engine_pool(engine, len(requests))
             finally:
                 engine.stop()
@@ -1990,14 +2105,12 @@ def serve_chunked(card, registry, params, kwargs, *,
             engine = spec_engine(loaded, f"smoke-{lane}-{mode}",
                                  (loaded._module, loaded.params))
             try:
-                with twin_calls() as twins:
-                    zero_counts()
+                with twin_calls() as twins, served_launches(engine) as counts:
                     prompt, budget, key = requests[0]
                     cold = engine.submit(prompt, rng=key,
                                          max_new_tokens=budget).result(600)
                     results, gap = run_with_long(engine, requests[1:],
                                                  long_request)
-                    counts = read_counts()
                 stats = engine.stats()
                 engine.kv.allocator.check_invariants()
                 engine.prefix.check_invariants()
@@ -2050,6 +2163,196 @@ def serve_chunked(card, registry, params, kwargs, *,
                 != n or row["one_shot_streams_equal_b1"] != n):
             raise AssertionError(f"chunked {mode}: {row}")
     return report
+
+
+#: The programs a captured engine runs as CUDA graphs, by engine_compile
+#: program name (kubeflow_tpu_torch/inference/engine/graphs.py).
+CAPTURED = ("decode_slice", "spec_draft", "spec_verify", "prefill")
+
+
+def device_window(fn):
+    """``fn()`` under the profiler's CUDA activity, then a synchronise:
+    its result, and the window's wall ms (host clock), the device's busy
+    ms (every kernel, copy and set it ran, summed), the idle share
+    1 - busy / wall, the device launches and each kernel's launches."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA]
+    busy = sum(r.self_device_time_total for r in rows) / 1e3
+    return out, {"wall_ms": wall, "device_ms": busy,
+                 "idle_share": max(0.0, 1.0 - busy / wall),
+                 "launches": sum(r.count for r in rows),
+                 "kernels": kernel_counts(prof)}
+
+
+def captured_mixes(vocab):
+    """The four mixes as their phases run them: (name, generate config,
+    strong draft?, max prompt, requests)."""
+    return [
+        ("engine", ENGINE_GENERATE_CONFIG, False, max(ENGINE_PROMPTS),
+         engine_requests(vocab)),
+        ("prefix", PREFIX_GENERATE_CONFIG, False, 512,
+         prefix_requests(vocab)),
+        ("spec", dict(ENGINE_GENERATE_CONFIG, engine_draft_tokens=SPEC_K),
+         True, max(ENGINE_PROMPTS), engine_requests(vocab)),
+        ("chunk", dict(PREFIX_GENERATE_CONFIG, engine_draft_tokens=SPEC_K,
+                       engine_prefill_chunk=PREFILL_CHUNK),
+         True, LONG_PROMPT, prefix_requests(vocab)),
+    ]
+
+
+def run_mix(engine, mix, requests, long_request):
+    """One pass of a mix as its phase runs it (the engine and spec mixes
+    at once; the prefix mix's request 0 cold, then the 7 at once; the
+    chunk mix's request 0, then the 7 with the long prompt admitted once
+    they decode). Returns the streams and the pass's median inter-token
+    ms. The prefix index is cleared after a pass, so each pass takes the
+    same path."""
+    if mix in ("engine", "spec"):
+        streams, timing = run_engine(engine, requests)
+        return streams, timing["inter_token_ms"]
+    cold, _ = run_engine(engine, requests[:1])
+    TRACER.clear()
+    if mix == "prefix":
+        rest, _ = run_engine(engine, requests[1:])
+    else:
+        rest, _ = run_with_long(engine, requests[1:], long_request)
+    inter = slice_inter_ms([e for e in TRACER.snapshot()
+                            if e["name"] == "engine_slice"])
+    engine.clear_prefix_cache()
+    return cold + rest, statistics.median(inter)
+
+
+def serve_captured(card, registry, params, kwargs, *,
+                   cache_size=ENGINE_CACHE, device=None):
+    """The engine, prefix, spec and chunk mixes on a captured engine
+    (every plain slice, speculative draft and verify and classic
+    admission prefill a CUDA graph, graphs.py), greedy and sampled,
+    against an uncaptured engine of the same config, in turns:
+    uncaptured, captured (its graphs captured on first use), captured
+    again (replays), uncaptured. Asserts every captured stream equal to
+    the uncaptured engine's, one graph per engine_compile key of a
+    captured program, and in the replayed pass no decode attention
+    launch from a wrapper (every decode step replayed) and, in the
+    engine mix, no wrapper launch at all; no plain twin called in any
+    pass. Reports inter-token ms of both engines, the graphs against the
+    distinct engine_compile keys and, in the engine mix: the device idle
+    share and each kernel's launches of the replayed pass and of one
+    captured 4-step slice replayed alone, and a classic admission
+    (the 512-token request alone, budget 1) on both engines, its device
+    ms beside its host-clock TTFT."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    rng = np.random.default_rng(1)
+    long_request = (rng.integers(0, vocab, LONG_PROMPT).astype(np.int32),
+                    LONG_BUDGET, prng.PRNGKey(400))
+    report = {"card": card}
+    for mix, config, strong, max_prompt, requests in captured_mixes(vocab):
+        for mode, sampling in MODES:
+            loaded = engine_model(registry, params, kwargs, max_prompt,
+                                  dict(config, **sampling), device)
+            draft = (loaded._module, loaded.params) if strong else None
+            engines = {
+                captured: (spec_engine(loaded, f"smoke-graphs-{mix}-{mode}",
+                                       draft, capture_graphs=captured)
+                           if strong else DecodeEngine(
+                               loaded._module, loaded.params,
+                               EngineConfig.from_generate_config(
+                                   loaded.metadata.generate_config,
+                                   max_prompt),
+                               name=f"smoke-graphs-{mix}-{mode}",
+                               device=loaded.device,
+                               capture_graphs=captured))
+                for captured in (False, True)}
+            eager, graphs = engines[False], engines[True]
+            try:
+                passes, inter, windows = {}, {}, {}
+                with twin_calls() as twins:
+                    for name, engine in (("eager 1", eager),
+                                         ("captured 1", graphs),
+                                         ("captured 2", graphs),
+                                         ("eager 2", eager)):
+                        zero_counts()
+                        if mix == "engine" and name.endswith("2"):
+                            (streams, ms), window = device_window(
+                                functools.partial(run_mix, engine, mix,
+                                                  requests, long_request))
+                            windows[name] = window
+                        else:
+                            streams, ms = run_mix(engine, mix, requests,
+                                                  long_request)
+                        passes[name] = (streams, read_counts())
+                        inter[name] = ms
+                want = passes["eager 1"][0]
+                equal = {name: sum(np.array_equal(g, w)
+                                   for g, w in zip(streams, want))
+                         for name, (streams, _) in passes.items()}
+                keys = set(graphs._graphs.programs)
+                compiled = set(graphs._compile_seen)
+                replayed = passes["captured 2"][1]
+                row = {
+                    "streams_equal_uncaptured": equal,
+                    "inter_token_ms": inter,
+                    "graphs": len(keys),
+                    "engine_compile_keys": len(compiled),
+                    "graph_keys": sorted(" ".join(k) for k in keys),
+                    "replays": graphs._graphs.replays(),
+                    "launches_replayed_pass": replayed,
+                    "plain_twin_calls": twins,
+                }
+                if mix == "engine":
+                    row["pass_windows"] = windows
+                    row.update(captured_engine_extras(
+                        eager, graphs, requests))
+                report[f"{mix} {mode}"] = row
+                log(f"captured {mix} {mode}: {json.dumps(row)}")
+                bad = [
+                    any(n != len(want) for n in equal.values()),
+                    keys != {k for k in compiled if k[0] in CAPTURED},
+                    graphs.captured_keys() != keys,
+                    replayed["decode_attention"] != 0,
+                    mix == "engine" and any(replayed.values()),
+                    any(twins.values()),
+                ]
+                if any(bad):
+                    raise AssertionError(
+                        f"captured {mix} {mode}: {row}; failed checks "
+                        f"{[i for i, b in enumerate(bad) if b]}")
+            finally:
+                eager.stop()
+                graphs.stop()
+                loaded.close()
+    log(f"{registry} captured decode programs: {json.dumps(report)}")
+    return report
+
+
+def captured_engine_extras(eager, graphs, requests):
+    """The engine mix's device windows: one captured 4-step slice
+    replayed alone (each kernel's launches beside a 4-step slice's
+    STEP_LAUNCHES), and a classic admission (the 512-token request,
+    budget 1, alone on an idle engine) on each engine, its device ms
+    beside its host-clock TTFT."""
+    out = {}
+    program = graphs._graphs.programs[("decode_slice", "steps=4 slots=4")]
+    _, out["slice_replay_window"] = device_window(program.graph.replay)
+    # What the card ran, by kernel, beside a 4-step slice's launches.
+    out["slice_replay_window"]["kernels_expected"] = dict(
+        dict.fromkeys(KERNEL_NAMES, 0),
+        **{k: 4 * n for k, n in STEP_LAUNCHES.items()})
+    prompt, _, key = requests[1]
+    for name, engine in (("uncaptured", eager), ("captured", graphs)):
+        (_, timing), window = device_window(functools.partial(
+            run_engine, engine, [(prompt, 1, key)]))
+        out[f"admission_{name}"] = dict(window, ttft_ms=timing["ttft_ms"][0])
+    return out
 
 
 #: Slice 11's lanes. Resume kills three engine-mix requests (the
@@ -2141,17 +2444,15 @@ def serve_handoff(card, registry, params, kwargs, vanilla, prefix_refs, *,
             blobs = {"blob_bytes": [], "encode_ms": [], "decode_ms": []}
             try:
                 with twin_calls() as twins:
-                    zero_counts()
-                    handoffs = [prefill.run_prefill(p, rng=k,
-                                                    max_new_tokens=b)
-                                for p, b, k in requests]
-                    at_prefill = read_counts()
+                    with served_launches(prefill) as at_prefill:
+                        handoffs = [prefill.run_prefill(p, rng=k,
+                                                        max_new_tokens=b)
+                                    for p, b, k in requests]
                     carried = [handoff_blob(h, blobs) for h in handoffs]
-                    zero_counts()
-                    results, timing = run_streams(decode, [
-                        functools.partial(decode.submit, handoff=h)
-                        for h in carried])
-                    counts = read_counts()
+                    with served_launches(decode) as counts:
+                        results, timing = run_streams(decode, [
+                            functools.partial(decode.submit, handoff=h)
+                            for h in carried])
                 adopt = [e["dur"] / 1e3 for e in TRACER.snapshot()
                          if e["name"] == "engine_prefill"
                          and e["args"].get("adopted")]
@@ -2227,20 +2528,54 @@ def serve_handoff(card, registry, params, kwargs, vanilla, prefix_refs, *,
     return report
 
 
+#: A split resume's replay forward of n emitted tokens (n <= 32): 7
+#: projections a layer and the head's row on the decode GEMM, two norms a
+#: layer and the final one, one decode attention launch a layer for each
+#: token, and no prefill GEMM; its prompt's prefill forward is a
+#: prefill's (PREFILL_LAUNCHES, PREFILL_ATTENTION_LAUNCHES, the head's
+#: row), with its norms (2 a layer and the final one at the row read).
+REPLAY_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1}
+
+
+def resume_launches_ok(counts, resumes, emitted, decode_steps):
+    """``resumes`` split resumes of ``emitted`` emitted tokens in all,
+    each one prompt prefill forward and one replay forward, then
+    ``decode_steps`` decode steps, and nothing else."""
+    return (counts["prefill_gemm"] == PREFILL_LAUNCHES * resumes
+            and counts["flash_attention"]
+            == PREFILL_ATTENTION_LAUNCHES * resumes
+            and counts["decode_gemm"]
+            == STEP_LAUNCHES["decode_gemm"] * decode_steps
+            + (REPLAY_LAUNCHES["decode_gemm"] + PREFILL_HEAD_LAUNCHES)
+            * resumes
+            and counts["rms_norm"]
+            == STEP_LAUNCHES["rms_norm"] * decode_steps
+            + (REPLAY_LAUNCHES["rms_norm"] + STEP_LAUNCHES["rms_norm"])
+            * resumes
+            and counts["decode_attention"]
+            == STEP_LAUNCHES["decode_attention"] * (decode_steps + emitted))
+
+
 def serve_resume(card, registry, params, kwargs, *,
                  cache_size=ENGINE_CACHE, device=None):
     """Mid-stream resume in both lanes, greedy and sampled: three
-    engine-mix requests run on one engine; each is killed after 1
-    token, the middle and budget - 1, its resume token goes through
-    ``wire`` both ways, and a peer engine continues all nine at once
-    from the context and the remaining step keys. Asserts each resume's
-    one prefill forward (224 prefill GEMM, 32 flash, one head on the
-    decode GEMM), the tokens' shape and range and a clean pool; REPORTS
-    resumed == uninterrupted as n of m with each first divergence: the
-    resume prefills the emitted tokens' K/V on the prefill route where
-    the uninterrupted stream made it on the decode route, and the two
-    are apart on the card (scripts/decode_invariance.py ``route``,
-    ROADMAP C9). Prints each resume's TTFT beside the original's."""
+    engine-mix requests run on one engine; each is killed
+    after 1 token, the middle and budget - 1. As the reference's manager
+    does it, the resume token carries the original prompt, the whole
+    schedule and the whole budget (``wire`` both ways), and the emitted
+    tokens travel apart; a peer engine continues all nine at once
+    with ``submit(prompt + emitted, step_keys=keys[kill:],
+    prompt_len=len(prompt))``: the prompt prefilled as at its admission,
+    the emitted tokens replayed on the decode route. Asserts every
+    resumed stream equal to the uninterrupted one (ROADMAP C9), each
+    resume's launches on the card (one prompt prefill forward, one
+    replay forward:
+    225 decode GEMM, 65 RMSNorm, 32 decode attention a token, no prefill
+    GEMM), the tokens' shape and range and a clean pool. Then one
+    unsplit resume a lane and mode (request 0 killed in the middle, its
+    whole context prefilled, as the reference does it), reported: its
+    emitted tokens' K/V comes from the prefill route. Prints each
+    resume's TTFT beside the original's."""
     vocab = get_model(registry).num_classes_or_vocab
     kwargs = dict(kwargs, cache_size=cache_size)
     picks = [engine_requests(vocab)[i] for i in RESUME_REQUESTS]
@@ -2258,29 +2593,36 @@ def serve_resume(card, registry, params, kwargs, *,
                                 device=loaded.device)
             try:
                 full, original = run_engine(engine, picks)
-                submits, wants, cases = [], [], []
+                submits, wants, cases, emitted = [], [], [], 0
                 for i, ((prompt, budget, key), got) in enumerate(
                         zip(picks, full)):
-                    keys = prng.split(np.asarray(key, np.uint32), budget)
+                    doc = wire.decode_resume_token(
+                        wire.encode_resume_token(
+                            LLAMA, 1, prompt,
+                            prng.split(np.asarray(key, np.uint32), budget),
+                            budget),
+                        model=LLAMA, version=1)
                     for kill in kill_points(budget):
-                        doc = wire.decode_resume_token(
-                            wire.encode_resume_token(
-                                LLAMA, 1, np.concatenate([prompt,
-                                                          got[:kill]]),
-                                keys[kill:], budget - kill),
-                            model=LLAMA, version=1)
                         submits.append(functools.partial(
-                            peer.submit, doc["prompt_tokens"],
-                            step_keys=doc["step_keys"]))
+                            peer.submit, np.concatenate(
+                                [doc["prompt_tokens"], got[:kill]]),
+                            step_keys=doc["step_keys"][kill:],
+                            prompt_len=len(doc["prompt_tokens"])))
                         wants.append(got[kill:])
                         cases.append((RESUME_REQUESTS[i], kill))
-                with twin_calls() as twins:
-                    zero_counts()
+                        emitted += kill
+                with twin_calls() as twins, served_launches(peer) as counts:
                     resumed, timing = run_streams(peer, submits)
-                    counts = read_counts()
                 stats = peer.stats()
                 equal = [np.array_equal(g, w) for g, w in zip(resumed,
                                                               wants)]
+                # The reference's whole-context form, once.
+                (prompt, budget, key), got = picks[0], full[0]
+                kill = budget // 2
+                unsplit = peer.submit(
+                    np.concatenate([prompt, got[:kill]]),
+                    step_keys=prng.split(np.asarray(key, np.uint32),
+                                         budget)[kill:]).result(600)
                 row = {
                     "resumed_equal_uninterrupted":
                         f"{sum(equal)} of {len(equal)}",
@@ -2294,14 +2636,19 @@ def serve_resume(card, registry, params, kwargs, *,
                     "original_ttft_ms": original["ttft_ms"],
                     "inter_token_ms": timing["inter_token_ms"],
                     "launches": counts,
-                    "status": ("held" if all(equal)
-                               else "reported, C9 open"),
+                    "unsplit_reported": {
+                        "request": RESUME_REQUESTS[0], "kill": kill,
+                        "equal": bool(np.array_equal(unsplit,
+                                                     got[kill:])),
+                        "first_divergence": first_divergence(
+                            unsplit, got[kill:])},
                 }
                 report[f"{lane} {mode}"] = row
                 log(f"resume {lane} {mode}: {json.dumps(row)}")
                 bad = [
-                    not prefill_launches_ok(counts, len(submits),
-                                            timing["decode_steps"]),
+                    not all(equal),
+                    not resume_launches_ok(counts, len(submits), emitted,
+                                           timing["decode_steps"]),
                     any(twins.values()),
                     any(g.shape != w.shape or not ((g >= 0)
                                                    & (g < vocab)).all()
@@ -2370,8 +2717,7 @@ def serve_host_tier(card, registry, params, kwargs, prefix_refs, *,
         engine_module.splice_host_blocks = timed_splice
         try:
             TRACER.clear()
-            with twin_calls() as twins:
-                zero_counts()
+            with twin_calls() as twins, served_launches(engine) as counts:
                 hits = []
                 for i, (prompt, budget, key) in enumerate(picks):
                     hits.append(engine.submit(prompt, rng=key,
@@ -2380,7 +2726,6 @@ def serve_host_tier(card, registry, params, kwargs, prefix_refs, *,
                     if i < len(fillers):
                         p, b, k = fillers[i]
                         engine.submit(p, rng=k, max_new_tokens=b).result(600)
-                counts = read_counts()
             steps = traced_decode_steps()
             stats = engine.stats()
             tier = stats["kv_tier"]["host"]

@@ -65,10 +65,14 @@ hits and registers the prefix index, and the adopter indexes the carried
 pages in its own.
 
 Mid-stream resume: ``submit(context, step_keys=keys[k:])`` continues a
-stream whose replica died after k tokens. The context (prompt plus the
-emitted tokens) is prefilled whole, so the emitted tokens' K/V comes
-from the prefill route where the uninterrupted stream made it on the
-decode route (ROADMAP C9 records whether the two agree on the card).
+stream whose replica died after k tokens. With ``prompt_len`` (the split
+form) the original prompt is prefilled exactly as its first admission
+did, and the k emitted tokens' K/V is written by ``decode_positions``
+forwards over them (:func:`_replay_slice`, the verify's route): every op
+then runs on the route the uninterrupted stream ran it on, and the card
+gives the same bits. Without it the whole context is prefilled, as the
+reference does, and the emitted tokens' K/V comes from the prefill
+route, which on the card rounds apart from the decode route.
 
 Tiered KV memory (``host_cache_bytes``, prefix lane only): evicted
 full prefix blocks spill to host RAM (``kv_tier.py``), a match continues
@@ -90,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -101,6 +106,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine.graphs import GraphCache
 from kubeflow_tpu_torch.inference.engine.kv_tier import (
     HostKVTier,
     splice_host_blocks,
@@ -440,6 +446,10 @@ class _Request:
     #: :class:`PrefillHandoff` in ``prefill_box`` instead of decoding.
     prefill_only: bool = False
     prefill_box: Optional[dict] = None
+    #: A split resume's emitted tokens (``submit(prompt_len=)``):
+    #: ``prompt`` is then the original prompt alone, and admission
+    #: replays these on the decode route after the prompt's prefill.
+    replay: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -602,6 +612,19 @@ def _draft_slice(draft_model, draft_params, draft_cache: List[LayerCache],
                          **sample_kw)[0]
 
 
+def _draft_proposals(draft_model, draft_params,
+                     draft_cache: List[LayerCache], tokens: torch.Tensor,
+                     write_pos: torch.Tensor, pad_lens: torch.Tensor,
+                     done: torch.Tensor, step_rngs: Optional[torch.Tensor],
+                     *, num_steps: int, **sample_kw) -> torch.Tensor:
+    """A round's k = ``num_steps`` − 1 proposals ``[N, k]``
+    (:func:`_draft_slice`, its last step's proposal dropped)."""
+    return _draft_slice(draft_model, draft_params, draft_cache, tokens,
+                        write_pos, pad_lens, done, step_rngs,
+                        num_steps=num_steps,
+                        **sample_kw)[:, :num_steps - 1]
+
+
 def _verify_slice(model, params, physical: List[LayerCache],
                   tables: torch.Tensor, write_pos: torch.Tensor,
                   pad_lens: torch.Tensor, tokens: torch.Tensor,
@@ -640,6 +663,46 @@ def _verify_slice(model, params, physical: List[LayerCache],
     _scatter_token_range(physical, logical, tables, write_pos,
                          num_steps=width)
     return targets, accepts
+
+
+#: Columns a resume's replay forward takes at most: up to 32 rows the
+#: decode GEMM reads W once and a row's bits do not depend on the row
+#: count (tests/test_torch_gpu.py), so a longer replay runs in forwards
+#: of this width.
+REPLAY_COLUMNS = 32
+
+
+def _replay_slice(model, params, physical: List[LayerCache],
+                  tables: torch.Tensor, write_pos: torch.Tensor,
+                  pad_lens: torch.Tensor, tokens: torch.Tensor,
+                  first_rng: Optional[torch.Tensor], **sample_kw):
+    """A split resume's emitted tokens ``tokens [1, n]`` into the slot's
+    pages at ``write_pos … write_pos + n − 1``, then its first new token.
+    The tokens go through ``decode_positions`` forwards of at most
+    :data:`REPLAY_COLUMNS` columns over the slot's gathered row, the
+    verify's route: column j has the bits of the one-token decode step
+    at ``write_pos + j``, which is where the uninterrupted stream made
+    that token's K/V and its next logits. The first new token is sampled
+    from the last column with ``first_rng``, the first key of the
+    remaining schedule. Returns ``(first [1], done [1])``."""
+    logical = _gather_logical(physical, tables)
+    n = tokens.shape[1]
+    for c0 in range(0, n, REPLAY_COLUMNS):
+        block = tokens[:, c0:c0 + REPLAY_COLUMNS]
+        width = block.shape[1]
+        start = write_pos + c0
+        positions = (start - pad_lens)[:, None] + torch.arange(
+            width, device=block.device)[None, :]
+        logits = apply(model, params, block, positions,
+                       pad_lengths=pad_lens, decode_positions=start,
+                       cache=logical, logits_at=torch.full(
+                           (1,), width - 1, device=block.device))
+    first, done = _sample_step(
+        logits[:, 0], first_rng,
+        torch.zeros((1,), dtype=torch.bool, device=tokens.device),
+        **sample_kw)
+    _scatter_token_range(physical, logical, tables, write_pos, num_steps=n)
+    return first, done
 
 
 def _insert_cache_row(batched: List[LayerCache], single: List[LayerCache],
@@ -712,12 +775,22 @@ class DecodeEngine:
     Work that reads engine-thread state or runs the model for a caller
     (``run_prefill``'s classic lane, :meth:`export_prefix_blocks`) is
     posted to the engine thread (:meth:`_run_on_engine`).
+
+    On a CUDA device the engine runs its fixed programs as CUDA graphs
+    (``graphs.py``): a plain decode slice, a speculative round's draft
+    and verify, and the classic lane's admission prefill at a prompt
+    bucket, one graph per ``engine_compile`` key, captured on the key's
+    first use and replayed after. A failed capture or replay raises.
+    ``capture_graphs=False`` builds an engine that runs every op eagerly
+    (the comparison the GPU checks hold the captured engine to); a CPU
+    engine always does. Prefix-lane and chunked prefills, a draft's
+    prefill and a resume's replay run eagerly in either.
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
                  config: EngineConfig, *, name: str = "engine",
                  device: DeviceLike = None, draft_model: Any = None,
-                 draft_params: Any = None):
+                 draft_params: Any = None, capture_graphs: bool = True):
         if model.cache_size < config.max_prompt_len + \
                 config.max_new_tokens:
             raise ValueError(
@@ -831,9 +904,17 @@ class DecodeEngine:
         self._prefill_est = LatencyEstimator(prior_s=0.05)
         self._token_est = LatencyEstimator(prior_s=0.01)
         # First-seen (program, shape) keys: the reference's compile
-        # events. In the port the first run of a shape is where cuBLAS
-        # picks its algorithms; the count is the engine_compile spans.
+        # events; the count is the engine_compile spans. On the card a
+        # decode slice, a speculative round's draft and verify, and a
+        # classic admission's prefill at a prompt bucket are captured
+        # there as CUDA graphs (graphs.py) and replayed after.
         self._compile_seen: set = set()
+        self._graphs: Optional[GraphCache] = (
+            GraphCache(self.device)
+            if capture_graphs and self.device.type == "cuda" else None)
+        # The captured admission prefill's B=1 cache (one for every
+        # prompt bucket: an admission adopts it before the next).
+        self._prefill_cache: Optional[List[LayerCache]] = None
         self._slices = 0
         self._sample_kw = dict(
             temperature=config.temperature, eos_id=config.eos_id,
@@ -1172,13 +1253,8 @@ class DecodeEngine:
         def prefill() -> PrefillHandoff:
             # On the engine thread: apply() swaps weights into the
             # engine's module, which a caller's thread must not touch.
-            (cache, first, _, done), _ = _prefill(
-                self._model, self._params,
-                torch.from_numpy(padded).to(self.device),
-                self._device_keys(step_keys[0:1]),
-                init_cache(self._model, self._params, 1),
-                torch.tensor([pad], dtype=torch.int32, device=self.device),
-                **self._sample_kw)
+            cache, first, done = self._classic_prefill(
+                padded, pad, step_keys[0:1], length)
             handoff = PrefillHandoff(
                 cache=_host_cache(cache), first_token=int(first[0]),
                 done=bool(done[0]), prompt_len=length, prompt_width=width,
@@ -1201,7 +1277,8 @@ class DecodeEngine:
                request_id: str = "",
                tenant: str = "",
                handoff: Optional[PrefillHandoff] = None,
-               step_keys: Optional[np.ndarray] = None
+               step_keys: Optional[np.ndarray] = None,
+               prompt_len: Optional[int] = None
                ) -> GenerateStream:
         """Queue one request; tokens stream on the returned handle.
 
@@ -1222,6 +1299,14 @@ class DecodeEngine:
         the tokens already emitted elsewhere), the budget is the
         schedule's length, and the context may exceed
         ``max_prompt_len``: its bound is ``cache_size - budget``.
+        ``prompt_len`` splits the context: ``prompt[:prompt_len]`` is
+        the original prompt (at most ``max_prompt_len``), prefilled as
+        its first admission did, and the rest are the emitted tokens,
+        written on the decode route (:func:`_replay_slice`). Only the
+        split form gives the uninterrupted stream's tokens bitwise on
+        the card; without it the whole context is prefilled, as the
+        reference does, and the emitted tokens' K/V comes from the
+        prefill route, one rounding apart.
 
         Raises :class:`OverloadedError` /
         :class:`DeadlineExceededError` synchronously when admission
@@ -1230,6 +1315,12 @@ class DecodeEngine:
             raise ValueError("handoff and step_keys are mutually "
                              "exclusive (the handoff carries its own "
                              "key schedule)")
+        if prompt_len is not None and handoff is not None:
+            raise ValueError("prompt_len and handoff are mutually "
+                             "exclusive (a handoff carries its prefill)")
+        if prompt_len is not None and step_keys is None:
+            raise ValueError("prompt_len splits a resume context: it "
+                             "needs step_keys")
         if handoff is not None:
             prompt, budget = self._check_handoff(handoff, max_new_tokens)
         elif step_keys is not None:
@@ -1254,6 +1345,25 @@ class DecodeEngine:
                     f"resume context length {prompt.shape[0]} outside "
                     f"[1, {limit}] (cache_size {self._model.cache_size}"
                     f" - {budget} remaining tokens)")
+            if prompt_len is not None:
+                prompt_len = int(prompt_len)
+                if not 1 <= prompt_len <= prompt.shape[0]:
+                    raise ValueError(
+                        f"prompt_len {prompt_len} outside [1, "
+                        f"{prompt.shape[0]}] (the resume context)")
+                if prompt_len > self.config.max_prompt_len:
+                    raise ValueError(
+                        f"prompt part of {prompt_len} tokens outside "
+                        f"[1, {self.config.max_prompt_len}] "
+                        f"(max_prompt_len)")
+                end = self._prompt_width(prompt_len) + (
+                    prompt.shape[0] - prompt_len) + budget
+                if end > self._model.cache_size:
+                    raise ValueError(
+                        f"resume context of {prompt.shape[0]} tokens "
+                        f"(prompt bucket {self._prompt_width(prompt_len)}"
+                        f") and {budget} remaining tokens outside the "
+                        f"cache_size {self._model.cache_size}")
         else:
             prompt = np.asarray(prompt, np.int32).reshape(-1)
             if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
@@ -1273,6 +1383,9 @@ class DecodeEngine:
         # the head) — fail it at submit, not by hanging the queue.
         if handoff is not None and self.prefix is None:
             width = handoff.prompt_width
+        elif prompt_len is not None:
+            width = self._prompt_width(prompt_len) + (
+                prompt.shape[0] - prompt_len)
         else:
             width = self._prompt_width(int(prompt.shape[0]))
         need = self.kv.pages_for(width + budget)
@@ -1332,11 +1445,14 @@ class DecodeEngine:
             # placeholder prompt (zeros) is not the context.
             stream.resume_ctx = {"prompt": prompt, "step_keys": step_keys,
                                  "max_new_tokens": budget}
+        replay = None
+        if prompt_len is not None and prompt_len < prompt.shape[0]:
+            prompt, replay = prompt[:prompt_len], prompt[prompt_len:]
         req = _Request(prompt=prompt, step_keys=step_keys,
                        max_new_tokens=budget, deadline=deadline,
                        stream=stream, submitted_at=now,
                        request_id=request_id, tenant=tenant,
-                       handoff=handoff)
+                       handoff=handoff, replay=replay)
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is stopped")
@@ -1434,6 +1550,9 @@ class DecodeEngine:
         else:
             for slot in self.scheduler.active_slots():
                 self._retire(slot, "shutdown", error=err)
+            # The graphs and their pool go with the engine thread.
+            self._graphs = None
+            self._prefill_cache = None
         for req in list(self.scheduler.pending):
             req.stream._fail(err)
         self.scheduler.pending.clear()
@@ -1463,6 +1582,13 @@ class DecodeEngine:
         self._g_occupancy.clear_function(self)
         if self._spec_on:
             self._g_spec_rate.clear_function(self)
+
+    def captured_keys(self) -> set:
+        """The ``engine_compile`` keys this engine runs as CUDA graphs,
+        one graph each (empty when uncaptured). Not a ``stats()`` key:
+        those are the reference's."""
+        return set(self._graphs.programs) if self._graphs is not None \
+            else set()
 
     def stats(self) -> dict:
         alloc = self.kv.allocator
@@ -1610,6 +1736,8 @@ class DecodeEngine:
             width = req.handoff.prompt_width
         else:
             width = self._prompt_width(len(req.prompt))
+        if req.replay is not None:
+            width += len(req.replay)
         # Prefill-only requests never decode: the prompt's pages are the
         # whole budget.
         new_tokens = 0 if req.prefill_only else req.max_new_tokens
@@ -1741,6 +1869,65 @@ class DecodeEngine:
                 and len(req.prompt) - match.matched
                 > self.config.prefill_chunk)
 
+    def _program(self, key: Optional[tuple], body: Callable[..., Any],
+                 inputs: Dict[str, Any]) -> Any:
+        """``body(**inputs)`` for host arrays (or device tensors)
+        ``inputs``: on a captured engine ``key``'s CUDA graph (the key's
+        first use runs the body and captures it; later uses replay it);
+        otherwise, or with no key, the body run on the inputs moved to
+        the device."""
+        if self._graphs is not None and key is not None:
+            return self._graphs.run(key, body, inputs)
+        return body(**{name: None if value is None
+                       else torch.as_tensor(value).to(self.device)
+                       for name, value in inputs.items()})
+
+    def _classic_prefill(self, prompt: np.ndarray, pad: int,
+                         first_keys: np.ndarray, length: int):
+        """The classic lane's B=1 prefill of the left-padded ``prompt
+        [1, W]`` (``pad`` pad tokens, ``length`` real ones) and its first
+        sample with ``first_keys [1, 2]``: ``(cache, first [1], done
+        [1])``, the cache the engine's one B=1 prefill cache (an
+        admission adopts it, a handoff copies it, before the next).
+        Captured per prompt bucket, the pad a device input; a resume
+        context past ``max_prompt_len`` takes its exact width and runs
+        eagerly (a graph a length would multiply without bound)."""
+        if self._prefill_cache is None:
+            self._prefill_cache = init_cache(self._model, self._params, 1)
+        key = (("prefill", f"tokens[1,{prompt.shape[1]}]")
+               if length <= self.config.max_prompt_len else None)
+        cache, first, done = self._program(
+            key, self._prefill_body,
+            dict(prompt_ids=prompt, first_rng=self._host_keys(first_keys),
+                 pad_lengths=np.asarray([pad], np.int32)))
+        # The cache index is host state, which a replay does not set: it
+        # holds the width of the last bucket whose body ran eagerly.
+        for layer in cache:
+            layer.index = prompt.shape[1]
+        return cache, first, done
+
+    def _prefill_body(self, prompt_ids: torch.Tensor,
+                      first_rng: Optional[torch.Tensor],
+                      pad_lengths: torch.Tensor):
+        """The admission prefill: the B=1 prefill cache zeroed, then
+        generate's prompt pass and first sample into it."""
+        cache = self._prefill_cache
+        for layer in cache:
+            layer.k.zero_()
+            layer.v.zero_()
+            layer.index = 0
+        (cache, first, _, done), _ = _prefill(
+            self._model, self._params, prompt_ids, first_rng, cache,
+            pad_lengths, **self._sample_kw)
+        return cache, first, done
+
+    def _host_keys(self, keys: np.ndarray) -> Optional[np.ndarray]:
+        """Step keys as a program's host input (int64, as the device
+        takes them); None when greedy (no key is read)."""
+        if self.config.temperature <= 0.0:
+            return None
+        return np.asarray(keys, np.uint32).astype(np.int64)
+
     def _prefill_and_bind(self, req: _Request) -> None:
         t0 = time.monotonic()
         length = len(req.prompt)
@@ -1758,18 +1945,10 @@ class DecodeEngine:
                 pad = width - length
                 prompt = np.zeros((1, width), np.int32)
                 prompt[0, pad:] = req.prompt
-                # A fresh zero cache per admission: the prefill writes
-                # it in place, and adopt copies it into the slot's
-                # pages.
-                carry, _ = _prefill(
-                    self._model, self._params,
-                    torch.from_numpy(prompt).to(self.device),
-                    self._device_keys(req.step_keys[0:1]),
-                    init_cache(self._model, self._params, 1),
-                    torch.tensor([pad], dtype=torch.int32,
-                                 device=self.device),
-                    **self._sample_kw)
-                prefill_cache, first, _, done = carry
+                # The prefill writes a zero cache in place, and adopt
+                # copies it into the slot's pages.
+                prefill_cache, first, done = self._classic_prefill(
+                    prompt, pad, req.step_keys[0:1], length)
                 first = int(first[0])
                 done = bool(done[0])
         except Exception as e:  # noqa: BLE001 — CUDA OOM and the like
@@ -1790,6 +1969,9 @@ class DecodeEngine:
             deadline=req.deadline)
         slot.allocated_pages = self.kv.adopt(
             slot.index, prefill_cache, width, budget_pages)
+        if req.replay is not None and not self._replay(slot, req):
+            return
+        first = slot.last_token
         t1 = time.monotonic()
         slot.queue_s = max(0.0, t0 - req.submitted_at)
         slot.prefill_s = t1 - t0
@@ -1888,6 +2070,9 @@ class DecodeEngine:
             self.prefix.register(
                 req.prompt,
                 self.kv.tables[slot.index, :slot.allocated_pages].tolist())
+        if req.replay is not None and not self._replay(slot, req):
+            return
+        first = slot.last_token
         t1 = time.monotonic()
         slot.queue_s = max(0.0, t0 - req.submitted_at)
         slot.prefill_s = t1 - t0
@@ -2082,6 +2267,9 @@ class DecodeEngine:
         if req.prefill_only:
             self._finish_prefill_handoff(slot, first=first, done=done)
             return
+        if req.replay is not None and not self._replay(slot, req):
+            return
+        first = slot.last_token
         ctx = req.stream.obs_ctx
         self._m_ttft.observe(t1 - req.submitted_at,
                              trace_id=ctx.trace_id if ctx else None)
@@ -2119,6 +2307,41 @@ class DecodeEngine:
             prompt_tokens=np.asarray(req.prompt, np.int32).copy())
         self._retire(slot, "prefill_handoff")
 
+    def _replay(self, slot: Slot, req: _Request) -> bool:
+        """A split resume, once its prompt's pages are adopted: write
+        the emitted tokens' K/V on the decode route and sample the next
+        token with the first key of the remaining schedule
+        (:func:`_replay_slice`). The slot then stands where the
+        uninterrupted stream stood after those tokens. The prompt
+        prefill's own sample is discarded: that token is the first
+        emitted one. False when the replay failed and the slot retired
+        with the error."""
+        n = len(req.replay)
+        width = slot.write_pos
+        dev = self.device
+        try:
+            slot.allocated_pages = self.kv.extend_slot(
+                slot.index, slot.allocated_pages, width + n,
+                slot.budget_pages)
+            first, done = _replay_slice(
+                self._model, self._params, self.kv.physical,
+                torch.from_numpy(self.kv.tables[slot.index:slot.index + 1]
+                                 .astype(np.int64)).to(dev),
+                torch.tensor([width], dtype=torch.int32, device=dev),
+                torch.tensor([slot.pad_len], dtype=torch.int32,
+                             device=dev),
+                torch.from_numpy(req.replay[None]).to(dev),
+                self._device_keys(req.step_keys[0:1]), **self._sample_kw)
+            first, done = int(first[0]), bool(done[0])
+        except Exception as e:  # noqa: BLE001 — fail only this slot
+            logger.exception("resume replay failed")
+            self._retire(slot, "error", error=e)
+            return False
+        slot.write_pos = slot.prompt_width = width + n
+        slot.last_token = first
+        slot.done = done
+        return True
+
     def _draft_prefill(self, slot: Slot, req: _Request) -> None:
         """Fill the slot's draft-cache row with the DRAFT model's prompt
         K/V, in the layout the verifier's slot uses, so the first draft
@@ -2132,12 +2355,16 @@ class DecodeEngine:
             return
         if req.handoff is not None and req.handoff.prompt_tokens is None:
             return
-        length = len(req.prompt)
+        # A split resume's draft row takes the whole context in one
+        # prefill: the draft moves acceptance only, never tokens.
+        context = (req.prompt if req.replay is None
+                   else np.concatenate([req.prompt, req.replay]))
+        length = len(context)
         t0 = time.monotonic()
         if self.prefix is not None:
             width = self._tail_width(length, 0)
             block = np.zeros((1, width), np.int32)
-            block[0, :length] = req.prompt
+            block[0, :length] = context
             cache, _, _ = _prefill_ctx(
                 self._draft_model, self._draft_params,
                 torch.from_numpy(block).to(self.device),
@@ -2148,7 +2375,7 @@ class DecodeEngine:
             width = slot.prompt_width
             pad = slot.pad_len
             padded = np.zeros((1, width), np.int32)
-            padded[0, pad:] = req.prompt
+            padded[0, pad:] = context
             (cache, _, _, _), _ = _prefill(
                 self._draft_model, self._draft_params,
                 torch.from_numpy(padded).to(self.device),
@@ -2203,12 +2430,14 @@ class DecodeEngine:
             rngs[:, s.index] = SlotScheduler.slice_keys(s, num_steps)
         dev = self.device
         t0 = time.monotonic()
-        out, last_tok, _ = _decode_slice(
-            self._model, self._params, self.kv.physical,
-            self.kv.device_tables(), torch.from_numpy(wpos).to(dev),
-            torch.from_numpy(pads).to(dev), torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(done).to(dev), self._device_keys(rngs),
-            num_steps=num_steps, **self._sample_kw)
+        out, last_tok, _ = self._program(
+            ("decode_slice", f"steps={num_steps} slots={n}"),
+            functools.partial(_decode_slice, self._model, self._params,
+                              self.kv.physical, num_steps=num_steps,
+                              **self._sample_kw),
+            dict(tables=self.kv.device_tables(), write_pos=wpos,
+                 pad_lens=pads, tokens=tokens, done=done,
+                 step_rngs=self._host_keys(rngs)))
         # The executor yield point (decode-slicing contract): the copy
         # to the host waits for THIS slice, so admissions interleave
         # instead of queueing behind back-to-back slices.
@@ -2293,28 +2522,28 @@ class DecodeEngine:
             done[s.index] = s.done
             rngs[:, s.index] = SlotScheduler.slice_keys(s, steps)
         dev = self.device
-        tokens_d = torch.from_numpy(tokens).to(dev)
-        wpos_d = torch.from_numpy(wpos).to(dev)
-        pads_d = torch.from_numpy(pads).to(dev)
-        done_d = torch.from_numpy(done).to(dev)
-        rngs_d = self._device_keys(rngs)
+        inputs = dict(tokens=tokens, write_pos=wpos, pad_lens=pads,
+                      done=done, step_rngs=self._host_keys(rngs))
         t0 = time.monotonic()
         # The draft proposes with keys [0, k): key j is the key target
         # j + 1 is sampled with. All k + 1 keys go in; the last step only
         # writes K/V (see _draft_slice) and its proposal is dropped.
-        drafts = _draft_slice(
-            self._draft_model, self._draft_params, self._draft_cache,
-            tokens_d, wpos_d, pads_d, done_d, rngs_d, num_steps=steps,
-            **self._sample_kw)[:, :k]
+        drafts = self._program(
+            ("spec_draft", f"steps={k} slots={n}"),
+            functools.partial(_draft_proposals, self._draft_model,
+                              self._draft_params, self._draft_cache,
+                              num_steps=steps, **self._sample_kw),
+            inputs)
         # Wait for the drafts, so draft wall and verify wall are
         # attributed apart (the spec_verify span).
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         t1 = time.monotonic()
-        targets, accepts = _verify_slice(
-            self._model, self._params, self.kv.physical,
-            self.kv.device_tables(), wpos_d, pads_d, tokens_d, drafts,
-            done_d, rngs_d, **self._sample_kw)
+        targets, accepts = self._program(
+            ("spec_verify", f"width={steps} slots={n}"),
+            functools.partial(_verify_slice, self._model, self._params,
+                              self.kv.physical, **self._sample_kw),
+            dict(inputs, tables=self.kv.device_tables(), drafts=drafts))
         targets = targets.cpu().numpy()
         accepts = accepts.cpu().numpy()
         t2 = time.monotonic()

@@ -368,7 +368,9 @@ class PagedKVCache:
     ``physical`` holds one page pool per layer (``LayerCache`` of
     ``[num_pages, page_size, kv_heads, head_dim]`` tensors in the
     template's dtype, on its device). Host-side ``tables`` is the
-    source of truth (numpy); ``device_tables()`` copies it for a slice.
+    source of truth (numpy); ``device_tables()`` copies it into one
+    device buffer for a slice, the same tensor every call, so a captured
+    slice reads its page tables at one address.
     """
 
     def __init__(self, cache_template: List[LayerCache], *, num_slots: int,
@@ -397,6 +399,9 @@ class PagedKVCache:
                          for c in cache_template]
         self.device = cache_template[0].k.device
         self.tables = np.zeros((num_slots, self.pages_per_slot), np.int32)
+        self._device_tables = torch.zeros(self.tables.shape,
+                                          dtype=torch.int64,
+                                          device=self.device)
 
     # -- accounting ------------------------------------------------------
 
@@ -405,8 +410,12 @@ class PagedKVCache:
         return -(-length // self.page_size)
 
     def device_tables(self) -> torch.Tensor:
-        return torch.from_numpy(self.tables.astype(np.int64)).to(
-            self.device)
+        """The host tables copied into the pool's one device buffer
+        (``copy_``, in stream order after the work that read it last),
+        which is returned."""
+        self._device_tables.copy_(torch.from_numpy(
+            self.tables.astype(np.int64)))
+        return self._device_tables
 
     # -- slot operations (engine thread only) ----------------------------
 

@@ -104,8 +104,10 @@ def _truncate_logits(logits: torch.Tensor, top_k: Optional[int],
     mass reaches ``top_p`` and turns it into a value threshold. The top
     token is always kept, so ``top_p <= 0`` is greedy rather than an
     all -inf row (over which categorical would emit token 0)."""
-    neg_inf = torch.tensor(float("-inf"), dtype=logits.dtype,
-                           device=logits.device)
+    # Constants made on the device (``torch.full``), not copied from
+    # the host: a captured decode program cannot hold a host copy.
+    neg_inf = torch.full((), float("-inf"), dtype=logits.dtype,
+                         device=logits.device)
     # top_k in (None, 0) and top_p in (None, >= 1.0) mean "disabled";
     # top_k >= vocab is a no-op.
     if top_k is not None and 0 < top_k < logits.shape[-1]:
@@ -119,8 +121,8 @@ def _truncate_logits(logits: torch.Tensor, top_k: Optional[int],
         keep[..., 0] = True
         threshold = torch.where(
             keep, sorted_logits,
-            torch.tensor(float("inf"), dtype=logits.dtype,
-                         device=logits.device)).amin(dim=-1, keepdim=True)
+            torch.full((), float("inf"), dtype=logits.dtype,
+                       device=logits.device)).amin(dim=-1, keepdim=True)
         logits = torch.where(logits < threshold, neg_inf, logits)
     return logits
 

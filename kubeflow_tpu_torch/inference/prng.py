@@ -155,8 +155,10 @@ def uniform(key: KeyLike, shape, device=None, minval: float = 0.0,
     bits = random_bits(key, shape, device)
     mantissa = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mantissa.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # Made on the device, not copied from the host (a captured decode
+    # program cannot hold a host copy).
+    lo = torch.full((), minval, dtype=torch.float32, device=floats.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=floats.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -54,7 +54,13 @@ not). Five comparisons:
   the continuation's bucket and pad); and ``classic prompt rows``, the
   prompt's own rows prefilled at the original pad against the
   continuation's: both RMSNorms, the seven projections, rope, attention
-  over the 544-slot cache and the fp32 head.
+  over the 544-slot cache and the fp32 head. The ``replay`` layout is
+  the split resume's route (``submit(prompt_len=)``): each emitted
+  token's row from the replay forward (the emitted tokens as one
+  ``decode_positions`` block at B = 1 on the decode kernels, attention
+  one query at a time over the original layout) against the same
+  token's row from a decode step at 4 slots; its ``port`` cells must
+  read ``equal``.
 
 Each op has a ``today`` column (the plain PyTorch op the port ran
 before its kernels: cuBLAS for every linear, the RMSNorm formula,
@@ -541,11 +547,14 @@ def route_table(p, cfg, dev):
         row = {"op": name}
         for label, d_fn, p_fn in (("today", plain, plain),
                                   ("port", dec, pre)):
-            layouts = {"pad0": [], "classic": [], "classic prompt rows": []}
+            layouts = {"pad0": [], "classic": [], "classic prompt rows": [],
+                       "replay": []}
             for kill in ROUTE_KILLS:
                 ctx = ROUTE_PROMPT + kill
                 emitted = range(ROUTE_PROMPT, ctx)
                 want = step_rows(d_fn, a, emitted)
+                layouts["replay"].append(
+                    _diff(d_fn(a[None, ROUTE_PROMPT:ctx])[0], want))
                 block = p_fn(a[None, :ctx])[0]
                 layouts["pad0"].append(_diff(block[ROUTE_PROMPT:ctx], want))
                 pad = ROUTE_BUCKET - ctx
@@ -563,7 +572,7 @@ def route_table(p, cfg, dev):
                                   cfg.rope_theta)[0, 0]
                        for i in range(ROUTE_PROMPT, n_ctx)])
     r = _diff(qr[ROUTE_PROMPT:], one)
-    same = _layouts({k: [r] for k in ("pad0", "classic")})
+    same = _layouts({k: [r] for k in ("pad0", "classic", "replay")})
     table.append({"op": "rope (q)", "today": same, "port": same})
 
     def cache_at(pad):
@@ -573,10 +582,10 @@ def route_table(p, cfg, dev):
         kc[0, pad:pad + n_ctx], vc[0, pad:pad + n_ctx] = kseq, vseq
         return kc, vc
 
-    def decode_rows(attend, pad, emitted):
+    def decode_rows(attend, pad, emitted, cache=None):
         """The decode route: each emitted token's query at 4 slots (three
         other slots over their own random caches)."""
-        kc, vc = cache_at(pad)
+        kc, vc = cache_at(pad) if cache is None else cache
         k4 = torch.cat([kc, randn(3, CACHE, hkv, hd)])
         v4 = torch.cat([vc, randn(3, CACHE, hkv, hd)])
         out = []
@@ -586,6 +595,15 @@ def route_table(p, cfg, dev):
                 slots <= s for s in DECODE_POS[1:]])
             out.append(attend(q4, k4, v4, valid)[0, 0])
         return torch.stack(out)
+
+    def replay_rows(attend, pad, emitted, cache):
+        """The replay forward's attention: each emitted token's query
+        alone (B = 1) over the original layout, valid up to itself."""
+        kc, vc = cache
+        return torch.stack([
+            attend(q[None, i:i + 1], kc, vc,
+                   ((slots >= pad) & (slots <= pad + i))[None])[0, 0]
+            for i in emitted])
 
     def prefill_rows(attend, pad, ctx, width):
         kc, vc = cache_at(pad)
@@ -604,11 +622,16 @@ def route_table(p, cfg, dev):
     row = {"op": "attention (cache 544)"}
     for label, d_fn, p_fn in (("today", dense_dec, dense_pre),
                               ("port", decode_attention, flash_pre)):
-        layouts = {"pad0": [], "classic": [], "classic prompt rows": []}
+        layouts = {"pad0": [], "classic": [], "classic prompt rows": [],
+                   "replay": []}
         orig = prefill_rows(p_fn, orig_pad, ROUTE_PROMPT, ROUTE_BUCKET)
         for kill in ROUTE_KILLS:
             ctx = ROUTE_PROMPT + kill
             emitted = range(ROUTE_PROMPT, ctx)
+            cache = cache_at(orig_pad)
+            layouts["replay"].append(_diff(
+                replay_rows(d_fn, orig_pad, emitted, cache),
+                decode_rows(d_fn, orig_pad, emitted, cache)))
             block = prefill_rows(p_fn, 0, ctx, ctx)
             layouts["pad0"].append(_diff(block[ROUTE_PROMPT:ctx],
                                          decode_rows(d_fn, 0, emitted)))

@@ -22,6 +22,7 @@ with PyTorch and CUDA alone; tests/conftest.py imports JAX, so skip it::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -q
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -1278,3 +1279,264 @@ def test_fleet_blocks_import_hits_and_equal_cold_on_the_card(cuda):
     finally:
         a.stop()
         b.stop()
+
+
+# -- captured decode programs and the split resume on the card -------------
+#
+# A captured engine's streams equal an uncaptured engine's bit for bit in
+# the engine, prefix, spec and chunk mixes; a replayed slice calls no
+# kernel wrapper; every captured key is one engine_compile key; a capture
+# that fails raises. A resume given the prompt's length equals the
+# uninterrupted stream.
+
+#: The programs the engine captures, by engine_compile program name.
+CAPTURED = ("decode_slice", "spec_draft", "spec_verify", "prefill")
+WRAPPERS = (dg.decode_linear, rn.rms_norm, da.decode_attention,
+            pg.prefill_linear, fa.flash_attention)
+
+
+def _mix(cuda, mix, sampling):
+    """(model, params, config, requests) of one mix at llama-test size:
+    the engine mix (classic lane), the prefix mix, the engine mix with a
+    strong draft (k = 4), and the prefix mix chunked at 16 with it."""
+    if mix in ("engine", "spec"):
+        model, params, engine, requests = _engine_case(cuda, 4, sampling)
+        engine.stop()
+        config = dataclasses.asdict(engine.config)
+        if mix == "spec":
+            config["speculate_tokens"] = 4
+        return model, params, config, requests
+    model, params, config, prompts, keys = _prefix_case(cuda, sampling)
+    if mix == "chunk":
+        config.update(prefill_chunk=16, speculate_tokens=4)
+    return model, params, config, [(p, 8, k) for p, k in zip(prompts, keys)]
+
+
+def _mix_engine(model, params, config, **kw):
+    draft = (dict(draft_model=model, draft_params=params)
+             if config.get("speculate_tokens") else {})
+    device = next(iter(params.values())).device
+    return DecodeEngine(model, params, EngineConfig(**config),
+                        device=device, **draft, **kw)
+
+
+def _run_mix(engine, requests):
+    streams = [engine.submit(p, rng=k, max_new_tokens=b)
+               for p, b, k in requests]
+    return [s.result(timeout=300) for s in streams]
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+@pytest.mark.parametrize("mix", ["engine", "prefix", "spec", "chunk"])
+def test_captured_engine_equals_uncaptured(cuda, mix, mode):
+    model, params, config, requests = _mix(cuda, mix,
+                                           ENGINE_SAMPLING[mode])
+    captured = _mix_engine(model, params, config)
+    eager = _mix_engine(model, params, config, capture_graphs=False)
+    try:
+        want = _run_mix(eager, requests)
+        # The first pass captures each key (its first use returns the
+        # warm-up's outputs); the second replays every key.
+        for _ in range(2):
+            got = _run_mix(captured, requests)
+            for i, (g, w) in enumerate(zip(got, want)):
+                np.testing.assert_array_equal(g, w, err_msg=f"request {i}")
+        assert captured.captured_keys()
+        assert eager.captured_keys() == set()
+        assert captured._graphs.replays() > 0
+    finally:
+        captured.stop()
+        eager.stop()
+
+
+@pytest.mark.parametrize("mix", ["engine", "spec"])
+def test_replayed_slices_call_no_kernel_wrapper(cuda, mix):
+    """The mix a second time on the same captured engine: every key is
+    captured already, so the classic lane's prefills, slices and rounds
+    all replay, and no wrapper counts a launch."""
+    model, params, config, requests = _mix(cuda, mix,
+                                           ENGINE_SAMPLING["sampled"])
+    engine = _mix_engine(model, params, config)
+    try:
+        first = _run_mix(engine, requests)
+        programs = dict(engine._graphs.programs)
+        replays = engine._graphs.replays()
+        for fn in WRAPPERS:
+            fn.launches = 0
+        again = _run_mix(engine, requests)
+        if mix == "spec":
+            # The draft's prefill of each admission stays eager: its
+            # projections, its attention on flash and its head's row.
+            assert dg.decode_linear.launches == len(requests)
+            assert pg.prefill_linear.launches == 7 * model.num_layers * len(
+                requests)
+            assert fa.flash_attention.launches == model.num_layers * len(
+                requests)
+            assert da.decode_attention.launches == 0
+        else:
+            assert [fn.launches for fn in WRAPPERS] == [0] * len(WRAPPERS)
+        assert engine._graphs.programs == programs
+        assert engine._graphs.replays() > replays
+        for a, b in zip(first, again):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        engine.stop()
+
+
+@pytest.mark.parametrize("mix", ["engine", "prefix", "spec", "chunk"])
+def test_one_graph_per_engine_compile_key(cuda, mix):
+    model, params, config, requests = _mix(cuda, mix,
+                                           ENGINE_SAMPLING["greedy"])
+    engine = _mix_engine(model, params, config)
+    try:
+        _run_mix(engine, requests)
+        keys = set(engine._graphs.programs)
+        assert keys == {k for k in engine._compile_seen
+                        if k[0] in CAPTURED}
+        assert engine.captured_keys() == keys
+        if config["prefix_cache"]:
+            assert not any(k[0] == "prefill" for k in keys)
+    finally:
+        engine.stop()
+
+
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """A host read inside the captured body breaks the capture: the
+    request fails with the error, no graph is kept, and nothing runs
+    the body eagerly in its place (the stream gets no token)."""
+    from kubeflow_tpu_torch.models import llama
+
+    model, params, config, requests = _mix(cuda, "engine",
+                                           ENGINE_SAMPLING["greedy"])
+    real = llama.decode_linear
+
+    def syncing(x, w):
+        float(x.float().sum())  # a device value read on the host
+        return real(x, w)
+
+    monkeypatch.setattr(llama, "decode_linear", syncing)
+    engine = _mix_engine(model, params, config)
+    try:
+        prompt, budget, key = requests[0]
+        stream = engine.submit(prompt, rng=key, max_new_tokens=budget)
+        with pytest.raises(RuntimeError):
+            stream.result(timeout=300)
+        assert stream.tokens_so_far == []
+        assert not engine._graphs.programs
+    finally:
+        engine.stop()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+@pytest.mark.parametrize("lane", ["classic", "prefix"])
+def test_split_resume_equals_uninterrupted_on_the_card(cuda, lane, mode):
+    """Killed after 1 token, the middle and budget - 1: the prompt
+    prefilled as at its admission and the emitted tokens replayed on the
+    decode route give the rest of the stream bit for bit."""
+    sampling = ENGINE_SAMPLING[mode]
+    model, params, config, requests = _mix(
+        cuda, "engine" if lane == "classic" else "prefix", sampling)
+    a = _mix_engine(model, params, config)
+    b = _mix_engine(model, params, config)
+    try:
+        for prompt, budget, key in requests[:3]:
+            stream = a.submit(prompt, rng=key, max_new_tokens=budget)
+            full = stream.result(timeout=300)
+            keys = stream.resume_ctx["step_keys"]
+            for kill in (1, budget // 2, budget - 1):
+                resumed = b.submit(
+                    np.concatenate([prompt, full[:kill]]),
+                    step_keys=keys[kill:], prompt_len=len(prompt))
+                np.testing.assert_array_equal(resumed.result(timeout=300),
+                                              full[kill:])
+        assert b.stats()["reserved_pages"] == 0
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_captured_prefill_handoff_keeps_its_prompt_width(cuda):
+    """The classic prefill's cache index is host state, which a replay
+    does not set: after two prompt buckets are captured, a replay of the
+    first still hands off a cache whose index is its prompt width, and
+    the same K/V as that bucket's first run."""
+    model, params, engine, requests = _engine_case(
+        cuda, 4, ENGINE_SAMPLING["greedy"])
+    try:
+        short, long_ = requests[0], requests[1]
+        assert engine._prompt_width(len(short[0])) != engine._prompt_width(
+            len(long_[0]))
+        handoffs = [engine.run_prefill(p, rng=k, max_new_tokens=b)
+                    for p, b, k in (short, long_, short)]
+        assert len(engine.captured_keys()) == 2
+        assert engine._graphs.replays() == 1
+        for handoff in handoffs:
+            assert [c.index for c in handoff.cache] == [
+                handoff.prompt_width] * len(handoff.cache)
+        for a, b in zip(handoffs[0].cache, handoffs[2].cache):
+            assert torch.equal(a.k, b.k) and torch.equal(a.v, b.v)
+        assert handoffs[0].first_token == handoffs[2].first_token
+    finally:
+        engine.stop()
+
+
+def _wrapper_counts():
+    return [fn.launches for fn in WRAPPERS]
+
+
+@pytest.mark.parametrize("mix", ["engine", "spec"])
+def test_captured_programs_hold_the_uncaptured_launches(cuda, mix):
+    """The same requests, one at a time, on an uncaptured and on a
+    captured engine. Each captured key's warm-up and capture call the
+    wrappers alike (the capture records what the warm-up ran); the
+    captured engine's wrapper launches, less each capture, plus each
+    replay's body, are the uncaptured engine's launches."""
+    model, params, config, requests = _mix(cuda, mix,
+                                           ENGINE_SAMPLING["sampled"])
+    launches, tokens = {}, {}
+    for captured in (False, True):
+        engine = _mix_engine(model, params, config,
+                             capture_graphs=captured)
+        bodies, calls = {}, []
+        if captured:
+            run = engine._graphs.run
+
+            def counted(key, body, inputs, run=run, graphs=engine._graphs):
+                if key in graphs.programs:
+                    calls.append((key, 1))
+                    return run(key, body, inputs)
+                runs = []
+
+                def recorded(**kw):
+                    before = _wrapper_counts()
+                    out = body(**kw)
+                    runs.append([a - b for a, b in zip(_wrapper_counts(),
+                                                       before)])
+                    return out
+
+                out = run(key, recorded, inputs)
+                assert len(runs) == 2 and runs[0] == runs[1], (key, runs)
+                bodies[key] = runs[1]
+                calls.append((key, -1))
+                return out
+
+            engine._graphs.run = counted
+        try:
+            for fn in WRAPPERS:
+                fn.launches = 0
+            tokens[captured] = [
+                engine.submit(p, rng=k, max_new_tokens=b).result(300)
+                for p, b, k in requests]
+            total = _wrapper_counts()
+            for key, sign in calls:
+                total = [t + sign * n for t, n in zip(total, bodies[key])]
+            launches[captured] = total
+            if captured:
+                assert any(sign == 1 for _, sign in calls)
+                del engine._graphs.run
+        finally:
+            engine.stop()
+    assert launches[True] == launches[False]
+    assert all(n > 0 for n in launches[True])
+    for a, b in zip(tokens[True], tokens[False]):
+        np.testing.assert_array_equal(a, b)

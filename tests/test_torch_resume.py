@@ -238,3 +238,141 @@ def test_resume_token_crosses_backends(pair, direction, sampling):
                               step_keys=doc["step_keys"])
         np.testing.assert_array_equal(resumed.result(timeout=180),
                                       full[kill_at:])
+
+
+# -- the split form: submit(prompt_len=) -----------------------------------
+#
+# The prompt prefilled as its first admission did, the emitted tokens
+# replayed on the decode route: on the card only this form gives the
+# uninterrupted stream's bits, and on the CPU it must give its tokens in
+# every lane, as the reference's whole-context resume does.
+
+#: The lanes a split resume runs in: classic, prefix, and the prefix lane
+#: chunked at one page with a strong draft (the model itself, k = 2).
+SPLIT_LANES = {"classic": {}, "prefix": {"prefix_cache": True},
+               "chunk_spec": {"prefix_cache": True, "prefill_chunk": 4,
+                              "speculate_tokens": 2}}
+
+
+def _lane_engine(model, params, name, lane, sampling):
+    kw = _config(**(SAMPLED if sampling == "sampled"
+                    else dict(temperature=0.0)))
+    kw.update(SPLIT_LANES[lane])
+    draft = (dict(draft_model=model, draft_params=params)
+             if kw.get("speculate_tokens") else {})
+    return DecodeEngine(model, params, EngineConfig(**kw), name=name,
+                        device="cpu", **draft)
+
+
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+@pytest.mark.parametrize("lane", sorted(SPLIT_LANES))
+def test_split_resume_equals_uninterrupted_and_the_reference(
+        model, params, pair, lane, sampling):
+    """Kills after 1, 3 and budget - 1 tokens: the split resume on a
+    peer gives the rest of the uninterrupted stream, and the same tokens
+    as the reference engine's resume of the whole context."""
+    _, ref = pair(sampling)
+    a = _lane_engine(model, params, f"rs-a-{lane}-{sampling}", lane,
+                     sampling)
+    b = _lane_engine(model, params, f"rs-b-{lane}-{sampling}", lane,
+                     sampling)
+    try:
+        prompt = _prompt(11)
+        stream = a.submit(prompt, rng=prng.PRNGKey(13))
+        full = stream.result(timeout=180)
+        keys = stream.resume_ctx["step_keys"]
+        for kill_at in (1, 3, NEW_TOKENS - 1):
+            context = np.concatenate([prompt, full[:kill_at]])
+            resumed = b.submit(context, step_keys=keys[kill_at:],
+                               prompt_len=PROMPT_LEN)
+            got = resumed.result(timeout=180)
+            np.testing.assert_array_equal(got, full[kill_at:])
+            np.testing.assert_array_equal(resumed.resume_ctx["prompt"],
+                                          context)
+            theirs = ref.submit(context, step_keys=keys[kill_at:])
+            np.testing.assert_array_equal(got, theirs.result(timeout=180))
+        st = b.stats()
+        assert st["reserved_pages"] == 0 and st["active_slots"] == 0
+        b.kv.allocator.check_invariants()
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_split_resume_validation(model, params):
+    eng = _engine(model, params, "rs-v")
+    try:
+        context = np.arange(10, dtype=np.int32)
+        keys = np.zeros((4, 2), np.uint32)
+        for bad in (0, 11):
+            with pytest.raises(ValueError, match=f"prompt_len {bad} outside"):
+                eng.submit(context, step_keys=keys, prompt_len=bad)
+        with pytest.raises(ValueError, match="max_prompt_len"):
+            eng.submit(context, step_keys=keys, prompt_len=PROMPT_LEN + 1)
+        # Bucket 8 for a 5-token prompt, 21 emitted tokens and 6 to go
+        # pass the cache's 32 positions, though the 26-token context
+        # alone fits beside the budget.
+        with pytest.raises(ValueError, match="cache_size"):
+            eng.submit(np.arange(26, dtype=np.int32),
+                       step_keys=np.zeros((6, 2), np.uint32), prompt_len=5)
+        handoff = eng.run_prefill(_prompt(4), rng=prng.PRNGKey(1))
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            eng.submit(handoff=handoff, prompt_len=3)
+        with pytest.raises(ValueError, match="needs step_keys"):
+            eng.submit(context[:5], prompt_len=3)
+        assert eng.stats()["queue_depth"] == 0
+    finally:
+        eng.stop()
+
+
+def test_split_resume_replays_on_the_decode_route(monkeypatch):
+    """The route, by the kernel wrappers' calls (llama-test bf16, whose
+    projections reach both GEMM wrappers): the resume's one prefill
+    runs the prompt's bucket (7 prefill-GEMM calls a layer, 8 rows
+    each) and no prefill GEMM sees an emitted token; the emitted tokens
+    go through one replay forward on the decode GEMM (7 calls a layer at
+    their count of rows) and the decode attention (one query a token a
+    layer)."""
+    from kubeflow_tpu_torch.models import llama
+
+    bf16 = llama_test(cache_size=CACHE)
+    weights = convert.init_params(bf16, seed=0, device="cpu")
+    a = _engine(bf16, weights, "rs-route-a", temperature=0.0)
+    b = _engine(bf16, weights, "rs-route-b", temperature=0.0)
+    calls = {"prefill": [], "decode": [], "attention": []}
+
+    def counted(name, fn, rows):
+        def wrapped(*args):
+            calls[name].append(rows(args[0]))
+            return fn(*args)
+        return wrapped
+
+    flat = lambda x: x.reshape(-1, x.shape[-1]).shape[0]  # noqa: E731
+    try:
+        prompt = _prompt(6)
+        stream = a.submit(prompt, rng=prng.PRNGKey(2))
+        full = stream.result(timeout=120)
+        kill_at = 3
+        monkeypatch.setattr(llama, "prefill_linear", counted(
+            "prefill", llama.prefill_linear, flat))
+        monkeypatch.setattr(llama, "decode_linear", counted(
+            "decode", llama.decode_linear, flat))
+        monkeypatch.setattr(llama, "decode_attention", counted(
+            "attention", llama.decode_attention, lambda q: q.shape[0]))
+        resumed = b.submit(np.concatenate([prompt, full[:kill_at]]),
+                           step_keys=stream.resume_ctx["step_keys"][kill_at:],
+                           prompt_len=PROMPT_LEN)
+        np.testing.assert_array_equal(resumed.result(timeout=120),
+                                      full[kill_at:])
+        layers = bf16.num_layers
+        assert calls["prefill"] == [PROMPT_LEN] * 7 * layers
+        # The replay's projections at kill_at rows; its head and the
+        # prefill's at one row; the decode slices' at the 2 slots.
+        assert calls["decode"].count(kill_at) == 7 * layers
+        assert set(calls["decode"]) <= {1, kill_at, 2}
+        # One query a layer for each emitted token (B = 1), then the
+        # decode slices' (B = 2 slots).
+        assert calls["attention"].count(1) == kill_at * layers
+    finally:
+        a.stop()
+        b.stop()
