@@ -152,17 +152,39 @@ checkout's BN kernel by the same code (a parent commit's, say).
    token that carries the original prompt, with the emitted tokens
    apart (``submit(prompt_len=)``): resumed == uninterrupted in 9 of 9
    cases a lane and mode, and each resume's one prompt prefill forward
-   and one replay forward on the decode kernels (asserted); one
-   whole-context resume a lane and mode reported; TTFTs printed. The
-   host tier
+   and one replay forward on the decode kernels (asserted); TTFTs
+   printed. The host tier
    (one slot, 34 usable pages, 256 MB of host RAM; fillers between
    prefix-mix requests evict the prefix): spilled and re-adopted blocks,
    each hit equal to its cold run and B=1, both tiers drained (asserted;
    ms a spilled and a re-adopted block printed). Fleet blocks: engine
    A's export of the 22 shared blocks through the wire into engine B's
    host tier, B's hit equal to its cold run and B=1, B's pages of them
-   byte-equal to A's (asserted). The params are freed before the next
-   phases.
+   byte-equal to A's (asserted). Then the serving plane on the same
+   params (``serve_manager``): ``ServedModel`` / ``ModelManager`` as a
+   server runs them, greedy and sampled, two continuous-batching models
+   sharing the params, loaded through the version poll with the bucket
+   and engine warmups (captured engines): the engine mix's six prompts
+   through ``submit`` at once, each equal to B=1 ``generate`` with the
+   request's key, and no graph captured after the load; ``submit_stream``
+   with the mix's budgets, each the unary row's prefix; ``prefill_handoff``
+   → the wire → ``submit_handoff`` on the peer, equal to the local rows;
+   ``submit_resume`` after kills at 1, the middle and budget - 1, then a
+   second death one token into each resumed stream (its token carrying
+   ``prompt_len``) resumed on the first model, every case equal to the
+   uninterrupted stream; the engine phases' launch formulas and no plain
+   twin (asserted); then the micro-batcher: four [1, 512] predict and
+   classify requests at once in fewer executions, each row within 3e-2
+   relative RMS of the request alone, 32 flash launches an execution,
+   and four mixed-length static generates at once, one execution a
+   prompt bucket, each equal to the request alone (asserted); the REST
+   and SSE server on a
+   loopback port where tornado imports (said so where it does not); the
+   load path itself on a ``llama-test`` export (add_model → the poll →
+   ``load_version`` → the warmups; which queue served). Load seconds,
+   TTFT and inter-token ms, a manager pass's idle share, ``batch_stats()``
+   and the ``kft_serving_*`` exposition are printed. The params are
+   freed before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -244,9 +266,11 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     launch_plan,
     prefill_attention,
 )
+from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.serving.export import export_model
 from kubeflow_tpu_torch.serving import wire
+from kubeflow_tpu_torch.serving.manager import ModelManager, ServedModel
 from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
 from kubeflow_tpu_torch.serving.signature import (
     ModelMetadata,
@@ -1109,6 +1133,18 @@ class ProgramTally:
         return out
 
 
+def tally_programs(engine):
+    """Route a captured engine's program calls through a
+    ``ProgramTally``: from its build on, for an engine whose first
+    captures come before the block that counts (a server's load warms
+    its engine up), else for one ``served_launches`` block."""
+    graphs = engine._graphs
+    if not hasattr(graphs, "smoke_tally"):
+        graphs.smoke_tally = ProgramTally()
+    graphs.run = functools.partial(graphs.smoke_tally.run, graphs,
+                                   graphs.run)
+
+
 @contextlib.contextmanager
 def served_launches(*engines):
     """Each kernel's launches on the card for the block's work on
@@ -1125,20 +1161,22 @@ def served_launches(*engines):
         graphs = engine._graphs
         if graphs is None:
             raise AssertionError(f"engine {engine.name} runs uncaptured")
-        if not hasattr(graphs, "smoke_tally"):
-            graphs.smoke_tally = ProgramTally()
-        graphs.run = functools.partial(graphs.smoke_tally.run, graphs,
-                                       graphs.run)
-        patched.append((graphs, len(graphs.smoke_tally.calls)))
+        # An engine tallied from its build on (tally_programs) keeps its
+        # tally; any other is tallied for the block.
+        lasting = "run" in vars(graphs)
+        if not lasting:
+            tally_programs(engine)
+        patched.append((graphs, len(graphs.smoke_tally.calls), lasting))
     counts = {}
     zero_counts()
     try:
         yield counts
     finally:
-        for graphs, _ in patched:
-            del graphs.run  # the class's method again; no cycle is kept
+        for graphs, _, lasting in patched:
+            if not lasting:
+                del graphs.run  # the class's method again; no cycle kept
     counts.update(read_counts())
-    for graphs, mark in patched:
+    for graphs, mark, _ in patched:
         tally = graphs.smoke_tally
         for key, first in tally.calls[mark:]:
             for name, n in tally.bodies[key].items():
@@ -1361,20 +1399,30 @@ def serve_llama(card):
     log(f"{LLAMA} serving: {json.dumps(metrics)}")
     del predict_model, gen_model
     # The engine slice and the prefix lane on the same params, made once.
-    _, vanilla = serve_engine(card, LLAMA, params, {"dtype": "bfloat16"},
-                              decode_ms_b2=decode_ms)
-    _, prefix_refs = serve_prefix(card, LLAMA, params, {"dtype": "bfloat16"})
-    serve_spec(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla)
-    serve_chunked(card, LLAMA, params, {"dtype": "bfloat16"})
-    serve_captured(card, LLAMA, params, {"dtype": "bfloat16"})
-    serve_handoff(card, LLAMA, params, {"dtype": "bfloat16"}, vanilla,
-                  prefix_refs)
-    serve_resume(card, LLAMA, params, {"dtype": "bfloat16"})
-    serve_host_tier(card, LLAMA, params, {"dtype": "bfloat16"}, prefix_refs)
-    serve_fleet(card, LLAMA, params, {"dtype": "bfloat16"}, prefix_refs)
-    verify_forward_launches(card, LLAMA, params)
-    decode_step_launches(card, LLAMA, params)
+    kw = {"dtype": "bfloat16"}
+    _, vanilla = timed(serve_engine, card, LLAMA, params, kw,
+                       decode_ms_b2=decode_ms)
+    _, prefix_refs = timed(serve_prefix, card, LLAMA, params, kw)
+    timed(serve_spec, card, LLAMA, params, kw, vanilla)
+    timed(serve_chunked, card, LLAMA, params, kw)
+    captured = timed(serve_captured, card, LLAMA, params, kw)
+    timed(serve_handoff, card, LLAMA, params, kw, vanilla, prefix_refs)
+    timed(serve_resume, card, LLAMA, params, kw)
+    timed(serve_host_tier, card, LLAMA, params, kw, prefix_refs)
+    timed(serve_fleet, card, LLAMA, params, kw, prefix_refs)
+    timed(verify_forward_launches, card, LLAMA, params)
+    timed(decode_step_launches, card, LLAMA, params)
+    timed(serve_manager, card, LLAMA, params, kw, captured)
     return launches
+
+
+def timed(phase, *args, **kw):
+    """Run one phase and print its wall seconds (the smoke's time
+    limit is shared by every phase)."""
+    t0 = time.monotonic()
+    out = phase(*args, **kw)
+    log(f"phase {phase.__name__}: {time.monotonic() - t0:.1f} s")
+    return out
 
 
 #: The engine slice (phases 4b-4d): ``EngineConfig(max_new_tokens=32,
@@ -2571,11 +2619,9 @@ def serve_resume(card, registry, params, kwargs, *,
     resume's launches on the card (one prompt prefill forward, one
     replay forward:
     225 decode GEMM, 65 RMSNorm, 32 decode attention a token, no prefill
-    GEMM), the tokens' shape and range and a clean pool. Then one
-    unsplit resume a lane and mode (request 0 killed in the middle, its
-    whole context prefilled, as the reference does it), reported: its
-    emitted tokens' K/V comes from the prefill route. Prints each
-    resume's TTFT beside the original's."""
+    GEMM), the tokens' shape and range and a clean pool. Prints each
+    resume's TTFT beside the original's. (A second death of a resumed
+    stream runs through the manager, serve_manager.)"""
     vocab = get_model(registry).num_classes_or_vocab
     kwargs = dict(kwargs, cache_size=cache_size)
     picks = [engine_requests(vocab)[i] for i in RESUME_REQUESTS]
@@ -2616,13 +2662,6 @@ def serve_resume(card, registry, params, kwargs, *,
                 stats = peer.stats()
                 equal = [np.array_equal(g, w) for g, w in zip(resumed,
                                                               wants)]
-                # The reference's whole-context form, once.
-                (prompt, budget, key), got = picks[0], full[0]
-                kill = budget // 2
-                unsplit = peer.submit(
-                    np.concatenate([prompt, got[:kill]]),
-                    step_keys=prng.split(np.asarray(key, np.uint32),
-                                         budget)[kill:]).result(600)
                 row = {
                     "resumed_equal_uninterrupted":
                         f"{sum(equal)} of {len(equal)}",
@@ -2636,12 +2675,6 @@ def serve_resume(card, registry, params, kwargs, *,
                     "original_ttft_ms": original["ttft_ms"],
                     "inter_token_ms": timing["inter_token_ms"],
                     "launches": counts,
-                    "unsplit_reported": {
-                        "request": RESUME_REQUESTS[0], "kill": kill,
-                        "equal": bool(np.array_equal(unsplit,
-                                                     got[kill:])),
-                        "first_divergence": first_divergence(
-                            unsplit, got[kill:])},
                 }
                 report[f"{lane} {mode}"] = row
                 log(f"resume {lane} {mode}: {json.dumps(row)}")
@@ -2859,6 +2892,510 @@ def serve_fleet(card, registry, params, kwargs, prefix_refs, *,
             raise AssertionError(f"fleet blocks {mode}: {row}; plain twins "
                                  f"called {twins}")
     log(f"{registry} fleet KV blocks: {json.dumps(report)}")
+    return report
+
+
+#: The manager phase: the engine mix's generate config with prompt
+#: buckets at the mix's widths (77 → 128, 200 → 256, the rest → 512),
+#: so the load's engine warmup reaches every bucket the mix takes, and
+#: a deterministic per-request key (seed 0), so a request's key is
+#: known to the B=1 reference. The engine models load at max_batch 2
+#: (their bucket warmup runs the B=1 generate loop a bucket), the
+#: batcher's at 4.
+MANAGER_BUCKETS = (128, 256, 512)
+MANAGER_MAX_BATCH = 4
+#: The batcher's predict and classify requests: [1, 512] each, four at
+#: once; and its static generates (power-of-two prompt buckets), four
+#: prompts at once whose lengths mix the buckets (300, 410 and 512 take
+#: 512; 77 takes 128), so the group runs as two executions.
+MANAGER_PREDICT_SEQ = 512
+MANAGER_STATIC_PROMPTS = (0, 1, 2, 3)
+#: A coalesced predict or classify row against the same request alone:
+#: the bf16 Llama tolerance (relative RMS; the cache-free forward's
+#: projections run on F.linear, whose sums depend on the row count).
+MANAGER_TOL = 3e-2
+
+
+class SmokeServedModel(ServedModel):
+    """A ``ServedModel`` whose one version is an in-memory
+    ``LoadedModel`` on the smoke's llama3-8b params (an export would be
+    ~16 GB on disk). ``_load`` builds it and then does what
+    ``ServedModel._load`` does after its ``load_version``: the bucket
+    warmup, the admission prior and, for a continuous-batching generate
+    model, the engine warmup (``_warm_engine``). A peer that only
+    adopts and resumes skips the bucket warmup (``bucket_warmup``): it
+    runs no static request, and the warmup's B=1 generates cost ~8 s a
+    model at llama3-8b."""
+
+    def __init__(self, name, metadata, params, bucket_warmup=True, **kw):
+        super().__init__(name, "", **kw)
+        self._metadata, self._params = metadata, params
+        self._bucket_warmup = bucket_warmup
+        self.load_s = {}
+
+    def _available_versions(self):
+        return [1]
+
+    def _load(self, version):
+        t0 = time.monotonic()
+        loaded = LoadedModel(self._metadata, version, self._params,
+                             max_batch=self.max_batch, device=self.device)
+        if self._bucket_warmup:
+            loaded.warmup()
+            self._latency.seed(loaded.warmup_batch_seconds)
+        t1 = time.monotonic()
+        if (self.continuous_batching
+                and loaded.signature().method == "generate"):
+            engine = loaded.ensure_engine(
+                self.name, queue_capacity=self.queue_capacity)
+            if engine._graphs is not None:
+                # Its warmup captures: the tally must see those bodies.
+                tally_programs(engine)
+            self._warm_engine(engine)
+        self.load_s = {"bucket_warmup_s": t1 - t0,
+                       "engine_warmup_s": time.monotonic() - t1}
+        return loaded
+
+
+def manager_model(name, registry, method, seq, kwargs, params, config,
+                  device, max_batch=MANAGER_MAX_BATCH, bucket_warmup=True,
+                  **kw):
+    meta = ModelMetadata(
+        model_name=name, registry_name=registry, model_kwargs=kwargs,
+        signatures={"serving_default": Signature(
+            method=method,
+            inputs={"input_ids": TensorSpec("int32", (-1, seq))},
+            outputs={})},
+        generate_config=config)
+    served = SmokeServedModel(name, meta, params, max_batch=max_batch,
+                              device=device, bucket_warmup=bucket_warmup,
+                              **kw)
+    t0 = time.monotonic()
+    if not served.poll_versions():
+        raise AssertionError(f"{name}: no version loaded")
+    served.load_s["load_s"] = time.monotonic() - t0
+    return served
+
+
+def resume_token(stream):
+    """The token a server mints for a live stream (server.py's resume
+    event), through the wire and back as the next replica reads it."""
+    ctx = stream.resume_ctx
+    blob = wire.encode_resume_token(
+        LLAMA, 1, ctx["prompt"], ctx["step_keys"], ctx["max_new_tokens"],
+        prompt_len=ctx.get("prompt_len"))
+    return wire.decode_resume_token(blob, model=LLAMA, version=1)
+
+
+def manager_resumes(served, cases, vocab, bad):
+    """``submit_resume`` of ``cases`` ``(token, emitted, want)`` on
+    ``served``, counted; returns the streams, the report row, and
+    appends failed checks to ``bad``."""
+    engine = served.get().engine
+    TRACER.clear()
+    with twin_calls() as twins, served_launches(engine) as counts:
+        _, streams = served.submit_resume(
+            [(token, emitted) for token, emitted, _ in cases], None)
+        got = [s.result(timeout=600) for s in streams]
+    equal = [np.array_equal(g, w) for g, (_, _, w) in zip(got, cases)]
+    # Replayed on the decode route: the context past the original
+    # prompt (a second death's token holds its first life's tokens).
+    emitted = sum(len(t["prompt_tokens"]) + len(e)
+                  - t.get("prompt_len", len(t["prompt_tokens"]))
+                  for t, e, _ in cases)
+    row = {"equal": f"{sum(equal)} of {len(equal)}",
+           "first_divergence": [first_divergence(g, w)
+                                for g, (_, _, w) in zip(got, cases)],
+           "launches": counts}
+    bad += [not all(equal),
+            not resume_launches_ok(counts, len(cases), emitted,
+                                   traced_decode_steps()),
+            any(twins.values()),
+            any(not ((g >= 0) & (g < vocab)).all() for g in got)]
+    return streams, row
+
+
+def manager_batcher(card, registry, params, kwargs, device):
+    """The micro-batcher: four [1, 512] predict and four classify
+    requests submitted at once coalesce into fewer executions, each row
+    within the bf16 tolerance of the request alone (max |Δ| reported),
+    32 flash launches an execution; then four mixed-length static
+    generates at once (``_run_generate_group``), greedy and sampled:
+    one execution a prompt-length bucket (two), each row equal to the
+    same request alone."""
+    vocab = get_model(registry).num_classes_or_vocab
+    report = {}
+    served = manager_model("smoke-manager-predict", registry, "predict",
+                           MANAGER_PREDICT_SEQ,
+                           {k: v for k, v in kwargs.items()
+                            if k != "cache_size"},  # the cache-free forward
+                           params, {}, device)
+    try:
+        served.batch_window_s = 0.25
+        loaded = served.get()
+        report["predict_load_s"] = served.load_s
+        x = np.random.default_rng(5).integers(
+            0, vocab, (4, MANAGER_PREDICT_SEQ)).astype(np.int32)
+        for method, key in (("predict", "logits"), ("classify", "scores")):
+            alone = [loaded.run({"input_ids": x[i:i + 1]}, method=method)
+                     for i in range(len(x))]
+            served.batch_stats(reset=True)
+            with twin_calls() as twins:
+                zero_counts()
+                futures = [served.submit({"input_ids": x[i:i + 1]}, None,
+                                         method, None)
+                           for i in range(len(x))]
+                got = [f.result(timeout=600) for f in futures]
+                counts = read_counts()
+            stats = served.batch_stats()
+            errs = [rel_rms(torch.from_numpy(g[key][0]),
+                            torch.from_numpy(a[key][0]))
+                    for g, a in zip(got, alone)]
+            row = {"requests": len(x), "executions": stats["batches"],
+                   "rel_rms": errs,
+                   "max_abs": max(float(np.abs(g[key] - a[key]).max())
+                                  for g, a in zip(got, alone)),
+                   "launches": counts}
+            if method == "classify":
+                row["classes_equal"] = float(np.mean(
+                    [np.mean(g["classes"] == a["classes"])
+                     for g, a in zip(got, alone)]))
+            report[method] = row
+            log(f"manager batcher {method}: {json.dumps(row)}")
+            if (stats["rows"] != len(x) or stats["batches"] >= len(x)
+                    or max(errs) > MANAGER_TOL
+                    or counts["flash_attention"] != 32 * stats["batches"]
+                    or counts["prefill_gemm"] or counts["decode_gemm"]
+                    or any(twins.values())):
+                raise AssertionError(f"manager batcher {method}: {row}; "
+                                     f"stats {stats}; twins {twins}")
+    finally:
+        served.stop()
+    picks = [engine_requests(vocab)[i] for i in MANAGER_STATIC_PROMPTS]
+    for mode, sampling in MODES:
+        config = dict(max_new_tokens=NEW_TOKENS, deterministic=True,
+                      **sampling)
+        served = manager_model(f"smoke-manager-static-{mode}", registry,
+                               "generate", max(ENGINE_PROMPTS), kwargs,
+                               params, config, device)
+        try:
+            served.batch_window_s = 0.25
+            loaded = served.get()
+            alone = [served.submit({"input_ids": p[None]}, None, None, None)
+                     .result(timeout=600)["tokens"][0]
+                     for p, _, _ in picks]
+            served.batch_stats(reset=True)
+            futures = [served.submit({"input_ids": p[None]}, None, None,
+                                     None) for p, _, _ in picks]
+            got = [f.result(timeout=600)["tokens"][0] for f in futures]
+            stats = served.batch_stats()
+            buckets = {loaded._length_bucket(len(p), max(ENGINE_PROMPTS))
+                       for p, _, _ in picks}
+            equal = [np.array_equal(g, a) for g, a in zip(got, alone)]
+            row = {"prompts": [len(p) for p, _, _ in picks],
+                   "executions": stats["batches"],
+                   "equal_alone": f"{sum(equal)} of {len(equal)}",
+                   "first_divergence": [first_divergence(g, a)
+                                        for g, a in zip(got, alone)],
+                   "load_s": served.load_s}
+            report[f"static {mode}"] = row
+            log(f"manager static generate {mode}: {json.dumps(row)}")
+            if (stats["batches"] != len(buckets)
+                    or not all(equal)
+                    or any(not ((g >= 0) & (g < vocab)).all()
+                           for g in got)):
+                raise AssertionError(f"manager static generate {mode}: "
+                                     f"{row}; stats {stats}")
+        finally:
+            served.stop()
+    return report
+
+
+def manager_load_path(device=None):
+    """The load path itself on the card: a ``llama-test`` generate
+    export through ``ModelManager.add_model`` → the version poll →
+    ``load_version`` → the bucket and engine warmups, then one request
+    equal to B=1 ``generate``. Reports which queue served (the native
+    one of ``native/libkft_runtime.so`` or the Python one)."""
+    from kubeflow_tpu_torch.serving import _native
+
+    kwargs = {"dtype": "bfloat16", "cache_size": 64}
+    params = init_params(llama_test(**kwargs), seed=0, device="cpu")
+    meta = ModelMetadata(
+        model_name="tiny", registry_name="llama-test", model_kwargs=kwargs,
+        signatures={"serving_default": Signature(
+            method="generate",
+            inputs={"input_ids": TensorSpec("int32", (-1, 16))},
+            outputs={"tokens": TensorSpec("int32", (-1, 8))})},
+        generate_config={"max_new_tokens": 8, "engine_slots": 2,
+                         "engine_page_size": 8, "engine_slice_tokens": 4,
+                         "deterministic": True})
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        export_model(tmp, 1, meta,
+                     {"params": unflatten_tree(params_to_flax(params))})
+        manager = ModelManager(poll_interval_s=3600, device=device)
+        try:
+            t0 = time.monotonic()
+            served = manager.add_model("tiny", tmp, max_batch=2,
+                                       continuous_batching=True)
+            load_s = time.monotonic() - t0
+            loaded = served.get()
+            prompt = np.arange(3, 14, dtype=np.int32)
+            got = served.submit({"input_ids": prompt[None]}, None, None,
+                                None).result(timeout=300)["tokens"][0]
+            want = b1_reference(loaded, prompt, loaded.request_rngs(1)[0],
+                                8, {})
+            row = {"load_s": load_s, "ready": manager.ready(),
+                   "queue": type(served._queue).__name__,
+                   "native_library": _native._LIB is not None,
+                   "captured_keys": len(loaded.engine.captured_keys()),
+                   "equal_b1": bool(np.array_equal(got, want))}
+        finally:
+            manager.stop()
+    log(f"manager load path (llama-test export): {json.dumps(row)}")
+    if not (row["ready"] and row["equal_b1"]):
+        raise AssertionError(f"manager load path: {row}")
+    return row
+
+
+def manager_http(served, requests, unary):
+    """``make_app`` on a loopback port in front of ``served``: one unary
+    ``:generate`` and one SSE stream over HTTP give the manager's tokens.
+    Returns None (and says so) where tornado does not import."""
+    try:
+        import tornado.ioloop  # noqa: F401
+    except ImportError as e:
+        log(f"manager http: {e.name} does not import on this machine; "
+            f"the REST/SSE server was not driven")
+        return None
+    import asyncio
+    import http.client
+    import threading
+
+    from kubeflow_tpu_torch.serving.server import make_app
+
+    manager = ModelManager(device=served.device)
+    manager._models[served.name] = served
+    holder, started = {}, threading.Event()
+
+    def run():
+        asyncio.set_event_loop(asyncio.new_event_loop())
+        server = make_app(manager).listen(0, address="127.0.0.1")
+        holder["port"] = next(iter(
+            server._sockets.values())).getsockname()[1]
+        holder["loop"] = tornado.ioloop.IOLoop.current()
+        started.set()
+        holder["loop"].start()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    if not started.wait(60):
+        raise AssertionError("manager http: the server did not start")
+    try:
+        out = {}
+        for name, i, body in (
+                ("unary", 0, {"instances": [requests[0][0].tolist()]}),
+                ("sse", 1, {"instances": [requests[1][0].tolist()],
+                            "stream": True})):
+            conn = http.client.HTTPConnection("127.0.0.1", holder["port"],
+                                              timeout=600)
+            conn.request("POST", f"/v1/models/{served.name}:generate",
+                         body=json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            if resp.status != 200:
+                raise AssertionError(f"manager http {name}: "
+                                     f"{resp.status} {resp.read()}")
+            if name == "unary":
+                tokens = json.loads(resp.read())["predictions"][0]["tokens"]
+            else:
+                events = list(wire.iter_sse_events(resp))
+                tokens = [d["token"] for e, d in events if e == "token"]
+                if events[-1][0] != "done" or \
+                        events[-1][1]["tokens"][0] != tokens:
+                    raise AssertionError(f"manager http sse: {events[-1]}")
+            conn.close()
+            out[name] = tokens == unary[i].tolist()
+    finally:
+        holder["loop"].add_callback(holder["loop"].stop)
+        thread.join(10)
+    log(f"manager http (make_app on loopback): tokens equal the "
+        f"manager's {out}")
+    if not all(out.values()):
+        raise AssertionError(f"manager http: {out}")
+    return out
+
+
+def serve_manager(card, registry, params, kwargs, captured=None, *,
+                  cache_size=ENGINE_CACHE, device=None):
+    """The serving plane on ``params``: ``ServedModel`` / ``ModelManager``
+    as a server runs them, greedy and sampled. Two continuous-batching
+    models (``a`` and its peer ``b``, sharing the params) load through
+    the version poll with the bucket and engine warmups, their engines
+    captured. Asserted: the engine mix's six prompts through
+    ``ServedModel.submit`` at once, each equal to B=1 ``generate`` with
+    the request's key, no graph captured after the load's warmup, and
+    the engine phases' launch formulas; ``submit_stream`` with the mix's
+    budgets, each stream the unary row's prefix; ``prefill_handoff`` on
+    ``a``, the blobs through the wire, ``submit_handoff`` on ``b``,
+    equal to the unary rows, 224 + 32 + 1 launches a prefill and none an
+    adoption; ``submit_resume`` on ``b`` of three requests killed at 1,
+    the middle and budget - 1 (tokens minted as the server mints them),
+    and a second death one token into each resumed stream, its token
+    carrying ``prompt_len``, resumed on ``a``: every case equal to the
+    uninterrupted stream, with each resume's launches; no plain twin
+    anywhere. Reported: load and warmup seconds, TTFT and inter-token ms
+    beside ``serve_captured``'s, a manager pass's device idle share,
+    ``batch_stats()`` and the ``kft_serving_*`` exposition. Then the
+    batcher (``manager_batcher``), the REST/SSE server where tornado
+    imports (``manager_http``) and the llama-test load path
+    (``manager_load_path``)."""
+    vocab = get_model(registry).num_classes_or_vocab
+    kwargs = dict(kwargs, cache_size=cache_size)
+    requests = engine_requests(vocab)
+    report = {"card": card}
+    for mode, sampling in MODES:
+        config = dict(ENGINE_GENERATE_CONFIG, deterministic=True,
+                      prompt_buckets=list(MANAGER_BUCKETS), **sampling)
+        a, b = (manager_model(f"smoke-manager-{mode}-{side}", registry,
+                              "generate", max(ENGINE_PROMPTS), kwargs,
+                              params, config, device, max_batch=2,
+                              bucket_warmup=side == "a",
+                              continuous_batching=True)
+                for side in "ab")
+        try:
+            loaded = a.get()
+            engine, peer = loaded.engine, b.get().engine
+            warm, peer_warm = engine.captured_keys(), peer.captured_keys()
+            key = loaded.request_rngs(1)[0]  # deterministic: every row's
+            budget = config["max_new_tokens"]
+            refs = [b1_reference(loaded, p, key, budget, sampling)
+                    for p, _, _ in requests]
+            bad = []
+            # 1. Unary generates through submit, all six at once.
+            TRACER.clear()
+            with twin_calls() as twins, served_launches(engine) as counts:
+                futures = [a.submit({"input_ids": p[None]}, None, None,
+                                    None) for p, _, _ in requests]
+                unary = [f.result(timeout=600)["tokens"][0]
+                         for f in futures]
+            steps = traced_decode_steps()
+            want = {k: steps * n for k, n in STEP_LAUNCHES.items()
+                    if k != "rms_norm"}
+            want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
+            want["flash_attention"] = \
+                PREFILL_ATTENTION_LAUNCHES * len(requests)
+            want["decode_gemm"] += PREFILL_HEAD_LAUNCHES * len(requests)
+            equal = [np.array_equal(g, w) for g, w in zip(unary, refs)]
+            row = {"load_s": a.load_s, "peer_load_s": b.load_s,
+                   "unary_equal_b1": f"{sum(equal)} of {len(equal)}",
+                   "first_divergence": [first_divergence(g, w)
+                                        for g, w in zip(unary, refs)],
+                   "graphs_after_load": len(warm),
+                   "unary_launches": counts}
+            bad += [not all(equal),
+                    engine.captured_keys() != warm,
+                    any(counts[k] != n for k, n in want.items()),
+                    counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"],
+                    any(twins.values())]
+            # 2. Streams with the mix's budgets: each the unary prefix.
+            live = []
+
+            def submit_stream(prompt, n):
+                _, (stream,) = a.submit_stream({"input_ids": prompt[None]},
+                                               None, None, max_new_tokens=n)
+                live.append(stream)
+                return stream
+
+            streamed, timing = run_streams(engine, [
+                functools.partial(submit_stream, p, n)
+                for p, n, _ in requests])
+            prefix = [np.array_equal(s, u[:len(s)]) and len(s) == n
+                      for s, u, (_, n, _) in zip(streamed, unary, requests)]
+            row["streams_prefix_of_unary"] = f"{sum(prefix)} of {len(prefix)}"
+            row["ttft_ms"] = timing["ttft_ms"]
+            row["inter_token_ms"] = timing["inter_token_ms"]
+            row["inter_token_ms_range"] = timing["inter_token_ms_range"]
+            if captured is not None:
+                row["serve_captured_inter_token_ms"] = captured.get(
+                    f"engine {mode}", {}).get("inter_token_ms")
+            bad.append(not all(prefix))
+            # 3. Role split: prefill on a, the blobs through the wire,
+            # adopted on b.
+            TRACER.clear()
+            with twin_calls() as twins, \
+                    served_launches(engine, peer) as counts:
+                carried = []
+                for p, _, _ in requests:
+                    _, (h,) = a.prefill_handoff({"input_ids": p[None]},
+                                                None, None)
+                    carried.append(wire.decode_kv_handoff(
+                        wire.encode_kv_handoff(LLAMA, 1, h), model=LLAMA,
+                        version=1))
+                _, streams = b.submit_handoff(carried, None)
+                adopted = [s.result(timeout=600) for s in streams]
+            equal = [np.array_equal(g, w) for g, w in zip(adopted, unary)]
+            row["handoff_equal_local"] = f"{sum(equal)} of {len(equal)}"
+            row["handoff_launches"] = counts
+            bad += [not all(equal),
+                    not prefill_launches_ok(counts, len(requests),
+                                            traced_decode_steps()),
+                    any(twins.values())]
+            # 4. Resume on b after kills at 1, the middle and budget - 1,
+            # then a second death one token later, resumed on a.
+            first, cases = [], []
+            for i in RESUME_REQUESTS:
+                token = resume_token(live[i])
+                bad.append("prompt_len" in token)  # a first life's token
+                full = streamed[i]
+                for kill in kill_points(len(full)):
+                    cases.append((token, full[:kill].tolist(), full[kill:]))
+                    first.append((i, kill))
+            resumed, row["resume"] = manager_resumes(b, cases, vocab, bad)
+            second = []
+            for (i, kill), stream in zip(first, resumed):
+                full = streamed[i]
+                if kill >= len(full) - 1:
+                    continue  # one token left: nothing to die after
+                token = resume_token(stream)
+                bad.append(token.get("prompt_len") != len(requests[i][0]))
+                second.append((token, full[kill:kill + 1].tolist(),
+                               full[kill + 1:]))
+            _, row["second_death"] = manager_resumes(a, second, vocab, bad)
+            row["second_death"]["cases"] = len(second)
+            # Reported: one manager pass under the profiler, the
+            # batcher's and engine's stats, the serving families.
+            _, window = device_window(lambda: [
+                f.result(timeout=600) for f in [
+                    a.submit({"input_ids": p[None]}, None, None, None)
+                    for p, _, _ in requests]])
+            row["manager_pass_window"] = {
+                k: window[k] for k in ("wall_ms", "device_ms",
+                                       "idle_share")}
+            row["batch_stats"] = a.batch_stats()
+            # No capture after the loads' warmups, on either model,
+            # through every path above.
+            row["graphs_after_phase"] = [len(engine.captured_keys()),
+                                         len(peer.captured_keys())]
+            bad += [engine.captured_keys() != warm,
+                    peer.captured_keys() != peer_warm]
+            if mode == "greedy":
+                row["http"] = manager_http(a, requests, unary)
+            report[mode] = row
+            log(f"manager {mode}: {json.dumps(row, default=str)}")
+            if any(bad):
+                raise AssertionError(
+                    f"manager {mode}: failed checks "
+                    f"{[i for i, x in enumerate(bad) if x]}; {row}")
+        finally:
+            a.stop()
+            b.stop()
+    exposition = [line for line in obs_metrics.render().splitlines()
+                  if line.startswith("kft_serving_")]
+    log("manager kft_serving_* exposition:\n" + "\n".join(exposition))
+    report["batcher"] = manager_batcher(card, registry, params, kwargs,
+                                        device)
+    report["load_path"] = manager_load_path(device)
     return report
 
 

@@ -24,8 +24,13 @@ package it keeps as its own copy.
 - ``ops``: attention and ghost batch norm in plain PyTorch, and
   ``flash_attention`` and ``fused_bn_train_forward``, whose CUDA paths
   are the hand-written Hopper kernels in ``csrc/``.
-- ``inference``: greedy KV-cache generation.
-- ``serving``: model signatures and ``LoadedModel``.
+- ``inference``: greedy and sampled KV-cache generation and the
+  continuous-batching decode engine.
+- ``serving``: the model server: signatures and exports,
+  ``LoadedModel``, ``ModelManager``, the REST, SSE and gRPC servers and
+  their wire.
+- ``obs``, ``scaling``: metrics, tracing and the scrape handlers; the
+  admission arithmetic and replica roles the server uses.
 - ``training``: the vision train step, the ``tpu-cnn`` benchmark,
   evaluation and synthetic data.
 

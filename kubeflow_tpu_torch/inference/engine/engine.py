@@ -450,6 +450,12 @@ class _Request:
     #: ``prompt`` is then the original prompt alone, and admission
     #: replays these on the decode route after the prompt's prefill.
     replay: Optional[np.ndarray] = None
+    #: Fleet KV fetch wall: seconds the serving layer spent pulling
+    #: this request's prefix blocks from the rendezvous owner before
+    #: submit. Attributed as its own ``kv_fetch_ms`` bucket in the
+    #: engine_request span, so a tier fetch is never mistaken for
+    #: queue wait or decode time.
+    kv_fetch_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -986,6 +992,14 @@ class DecodeEngine:
 
     # -- submit side -----------------------------------------------------
 
+    def set_tenant_weights(self,
+                           weight_of: Optional[Callable[[str], float]]
+                           ) -> None:
+        """Install the tenant-quota weight lookup the fair admission
+        queue drains by (idempotent; safe while traffic flows: the
+        queue reads it per scheduling decision)."""
+        self.scheduler.pending.weight_of = weight_of
+
     def _next_key(self) -> np.ndarray:
         base = prng.PRNGKey(self.config.seed)
         with self._cv:
@@ -1278,7 +1292,8 @@ class DecodeEngine:
                tenant: str = "",
                handoff: Optional[PrefillHandoff] = None,
                step_keys: Optional[np.ndarray] = None,
-               prompt_len: Optional[int] = None
+               prompt_len: Optional[int] = None,
+               kv_fetch_s: float = 0.0
                ) -> GenerateStream:
         """Queue one request; tokens stream on the returned handle.
 
@@ -1310,7 +1325,9 @@ class DecodeEngine:
 
         Raises :class:`OverloadedError` /
         :class:`DeadlineExceededError` synchronously when admission
-        control sheds the request."""
+        control sheds the request. ``kv_fetch_s`` is the fleet KV
+        fetch the serving layer ran for this request, recorded in its
+        ``engine_request`` span."""
         if handoff is not None and step_keys is not None:
             raise ValueError("handoff and step_keys are mutually "
                              "exclusive (the handoff carries its own "
@@ -1442,9 +1459,13 @@ class DecodeEngine:
         stream = GenerateStream(budget, obs_ctx=obs_ctx)
         if handoff is None or handoff.prompt_tokens is not None:
             # The peer-resume context; a left-layout handoff's
-            # placeholder prompt (zeros) is not the context.
+            # placeholder prompt (zeros) is not the context. A split
+            # resume keeps its split point, so a second death resumes
+            # split too (the server writes it into the token).
             stream.resume_ctx = {"prompt": prompt, "step_keys": step_keys,
                                  "max_new_tokens": budget}
+            if prompt_len is not None:
+                stream.resume_ctx["prompt_len"] = prompt_len
         replay = None
         if prompt_len is not None and prompt_len < prompt.shape[0]:
             prompt, replay = prompt[:prompt_len], prompt[prompt_len:]
@@ -1452,7 +1473,8 @@ class DecodeEngine:
                        max_new_tokens=budget, deadline=deadline,
                        stream=stream, submitted_at=now,
                        request_id=request_id, tenant=tenant,
-                       handoff=handoff, replay=replay)
+                       handoff=handoff, replay=replay,
+                       kv_fetch_s=max(0.0, float(kv_fetch_s)))
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is stopped")
@@ -2653,6 +2675,8 @@ class DecodeEngine:
                     verify_ms=round(slot.verify_s * 1e3, 3),
                     spec_drafted=slot.spec_drafted,
                     spec_accepted=slot.spec_accepted)
+            if req.kv_fetch_s:
+                extra["kv_fetch_ms"] = round(req.kv_fetch_s * 1e3, 3)
             TRACER.record(
                 "engine_request", "engine", req.submitted_at,
                 time.monotonic() - req.submitted_at,

@@ -12,42 +12,82 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Prometheus-style metrics: Counter / Gauge / Histogram + exposition.
+"""Prometheus-style metrics: counters, gauges, histograms, exposition.
 
-The port's own copy of ``kubeflow_tpu/obs/metrics.py``, cut to what the
-decode engine and the tenancy counters use: the three metric types with
-labels, render-time callbacks with owner-checked clears, histogram
-exemplars, the registry and its text exposition. The family names and
-the rendered text are the reference's, so a scrape reads the same from
-either package. (The exposition parser, the JSONL dump and content
-negotiation stay in the reference until the server is ported.)
+The port's copy of the reference's ``obs/metrics.py``, whole, so a
+scrape of a port replica reads the same as one of a JAX replica:
 
-- **Histogram semantics**: buckets are CUMULATIVE (each ``le`` bucket
+- **Text exposition format**: one ``# HELP`` + ``# TYPE`` block per
+  family, samples as ``name{label="value"} <float>``, label values
+  escaped (``\\\\`` ``\\"`` ``\\n``), HELP text escaped.
+  :func:`parse_exposition` is the strict inverse.
+- **Histograms**: cumulative ``_bucket{le=...}`` series (each bucket
   counts all observations <= its bound), ``+Inf`` equals ``_count``,
-  and ``_sum`` is the raw total.
+  ``_sum`` is the raw total; exemplars ride the OpenMetrics form only
+  (:func:`negotiate_content_type`).
 - **Cardinality**: label names that imply a series per request
-  (:data:`FORBIDDEN_LABELS`) are rejected at metric construction.
-"""
+  (:data:`FORBIDDEN_LABELS`) are rejected at metric construction."""
 
 from __future__ import annotations
 
 import bisect
+import json
 import re
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
+    "CONTENT_TYPE",
+    "CONTENT_TYPE_OPENMETRICS",
     "FORBIDDEN_LABELS",
     "Counter",
     "Gauge",
     "Histogram",
     "REGISTRY",
     "Registry",
+    "counter_increase",
+    "dump_jsonl",
     "enabled",
+    "negotiate_content_type",
+    "parse_exposition",
     "render",
     "set_enabled",
 ]
+
+#: The Prometheus text exposition content type (format version 0.0.4).
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+#: The OpenMetrics text content type — the format that carries
+#: exemplars. Served only when the scraper ASKS for it via Accept
+#: (see :func:`negotiate_content_type`); everything else gets 0.0.4.
+CONTENT_TYPE_OPENMETRICS = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8")
+
+
+def negotiate_content_type(accept: Optional[str]) -> str:
+    """Scrape-handler content negotiation: OpenMetrics when the
+    client's ``Accept`` names it, Prometheus text 0.0.4 otherwise —
+    the fallback ladder real Prometheus servers use. Exemplars only
+    ride the OpenMetrics form (the 0.0.4 grammar has no ``#`` exemplar
+    clause, and a strict 0.0.4 parser would reject it)."""
+    if accept and "application/openmetrics-text" in accept:
+        return CONTENT_TYPE_OPENMETRICS
+    return CONTENT_TYPE
+
+
+def counter_increase(prev: float, cur: float) -> float:
+    """Increase of a cumulative counter between two samples, aware of
+    process restarts: a counter that DROPPED was reset to zero (the
+    replica restarted) and has climbed back to ``cur`` — the increase
+    since the previous sample is at least ``cur``, never the negative
+    delta. One shared helper for every rate() computed from scraped
+    counters (the collector's store and the autoscaler's shed-rate
+    differencing both ride this; a naive subtraction turns one
+    replica restart into a huge negative rate)."""
+    if cur >= prev:
+        return cur - prev
+    return max(0.0, cur)
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -55,7 +95,8 @@ _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 #: Label names whose values are per-request/per-object by construction:
 #: one time series per request is the classic cardinality explosion.
 #: High-cardinality data belongs in spans (obs/tracing.py) and access
-#: logs, never in metric labels. Enforced here at construction.
+#: logs, never in metric labels. Enforced here at construction AND
+#: statically by scripts/lint.py check_metric_label_discipline.
 FORBIDDEN_LABELS = frozenset({
     "request_id", "trace_id", "span_id", "batch_id", "pod_uid", "uid",
 })
@@ -66,8 +107,8 @@ FORBIDDEN_LABELS = frozenset({
 DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                    1.0, 2.5, 5.0, 10.0)
 
-# Process-wide update switch. One attribute read per update when
-# disabled.
+# Process-wide update switch (the obs-overhead bench measures with
+# this on vs off). One attribute read per update when disabled.
 _enabled = True
 
 
@@ -125,7 +166,7 @@ class Registry:
     def reset(self) -> None:
         """Zero every value IN PLACE (test isolation). Children are
         kept, not dropped: hot-path modules cache child objects at
-        construction (e.g. the decode engine binds its counters once) —
+        construction (e.g. ServedModel binds its shed counter once) —
         dropping children would orphan those caches, and their later
         updates would silently stop rendering."""
         with self._lock:
@@ -348,7 +389,7 @@ class Counter(_Metric):
     """Monotonically increasing value. ``inc`` only; negative
     increments raise (a decreasing counter corrupts rate()).
     ``set_function`` bridges pre-existing monotonic counters (e.g.
-    an engine's lifetime totals) without double bookkeeping."""
+    the workqueue's lifetime totals) without double bookkeeping."""
 
     type = "counter"
 
@@ -504,3 +545,229 @@ class Histogram(_Metric):
             out.append(f"{self.name}_sum{base} {_format_value(total)}")
             out.append(f"{self.name}_count{base} {count}")
         return out
+
+
+# -- parsing (the test-side validator) ---------------------------------------
+
+
+def _unescape_label_value(value: str) -> str:
+    out = []
+    i = 0
+    while i < len(value):
+        c = value[i]
+        if c == "\\" and i + 1 < len(value):
+            nxt = value[i + 1]
+            if nxt == "n":
+                out.append("\n")
+            elif nxt in ("\\", '"'):
+                out.append(nxt)
+            else:
+                raise ValueError(f"bad escape \\{nxt} in label value")
+            i += 2
+        else:
+            out.append(c)
+            i += 1
+    return "".join(out)
+
+
+def _parse_labels(text: str) -> Dict[str, str]:
+    labels: Dict[str, str] = {}
+    i = 0
+    while i < len(text):
+        eq = text.index("=", i)
+        name = text[i:eq].strip().lstrip(",").strip()
+        if not _LABEL_RE.match(name):
+            raise ValueError(f"bad label name {name!r}")
+        if text[eq + 1] != '"':
+            raise ValueError(f"label value for {name} not quoted")
+        j = eq + 2
+        raw = []
+        while True:
+            if j >= len(text):
+                raise ValueError("unterminated label value")
+            if text[j] == "\\":
+                raw.append(text[j:j + 2])
+                j += 2
+                continue
+            if text[j] == '"':
+                break
+            raw.append(text[j])
+            j += 1
+        labels[name] = _unescape_label_value("".join(raw))
+        i = j + 1
+    return labels
+
+
+def _parse_exemplar(blob: str, lineno: int) -> Tuple[Dict[str, str],
+                                                     float,
+                                                     Optional[float]]:
+    """Parse the OpenMetrics exemplar clause ``{labels} value [ts]``
+    (the part after the sample's `` # `` separator)."""
+    m = re.match(r"^\{(.*)\}\s+(\S+)(?:\s+(\S+))?$", blob.strip())
+    if not m:
+        raise ValueError(f"line {lineno}: malformed exemplar {blob!r}")
+    label_blob, value_text, ts_text = m.groups()
+    labels = _parse_labels(label_blob) if label_blob else {}
+    try:
+        value = float(value_text)
+        ts = float(ts_text) if ts_text is not None else None
+    except ValueError:
+        raise ValueError(
+            f"line {lineno}: bad exemplar value in {blob!r}") from None
+    return labels, value, ts
+
+
+def parse_exposition(text: str) -> Dict[str, Dict[str, Any]]:
+    """Strictly parse Prometheus text exposition (0.0.4 and the
+    OpenMetrics text extensions: bucket exemplars, ``# EOF``). Returns
+    ``{family: {"help", "type", "samples": [(name, labels, value)],
+    "exemplars": [(name, labels, ex_labels, ex_value, ex_ts)]}}``.
+
+    Raises ValueError on: samples before their family's TYPE line,
+    malformed label quoting/escapes, non-float values, histogram
+    bucket counts that are not monotonically non-decreasing in
+    ``le``-order, or ``+Inf`` != ``_count``. This is the validator
+    the endpoint tests run every scrape surface through, and the
+    collector's ingest front end.
+    """
+    families: Dict[str, Dict[str, Any]] = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# HELP "):
+            _, _, rest = line.partition("# HELP ")
+            name, _, help_text = rest.partition(" ")
+            families.setdefault(name, {"help": None, "type": None,
+                                       "samples": [], "exemplars": []})
+            families[name]["help"] = help_text
+            continue
+        if line.startswith("# TYPE "):
+            _, _, rest = line.partition("# TYPE ")
+            name, _, mtype = rest.partition(" ")
+            if mtype not in ("counter", "gauge", "histogram", "summary",
+                            "untyped"):
+                raise ValueError(f"line {lineno}: unknown type {mtype!r}")
+            families.setdefault(name, {"help": None, "type": None,
+                                       "samples": [], "exemplars": []})
+            families[name]["type"] = mtype
+            continue
+        if line.startswith("#"):
+            continue  # comment (includes the OpenMetrics "# EOF")
+
+        def try_sample(candidate: str):
+            # Sample line: name[{labels}] value. Returns the parsed
+            # triple, or an error string when the candidate doesn't
+            # parse as one (kept so the final diagnostic can name the
+            # real problem, e.g. "bad value").
+            m = re.match(
+                r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)$",
+                candidate)
+            if not m:
+                return None, f"malformed sample {candidate!r}"
+            name, label_blob, value_text = m.groups()
+            try:
+                labels = (_parse_labels(label_blob[1:-1])
+                          if label_blob else {})
+            except ValueError as e:
+                return None, str(e)
+            try:
+                value = float(value_text.replace("+Inf", "inf")
+                              .replace("-Inf", "-inf"))
+            except ValueError:
+                return None, f"bad value {value_text!r}"
+            return (name, labels, value), None
+
+        # OpenMetrics exemplar clause rides after " # " on a sample
+        # line — but a LABEL VALUE may legally contain " # " too, so
+        # try the whole line as a plain sample first, then each split
+        # point left to right (the first left side that parses as a
+        # sample wins; anything right of it is the exemplar).
+        exemplar_blob = None
+        parsed, error = try_sample(line)
+        if parsed is None:
+            idx = line.find(" # ")
+            while idx != -1 and parsed is None:
+                parsed, _ = try_sample(line[:idx])
+                if parsed is not None:
+                    exemplar_blob = line[idx + 3:]
+                idx = line.find(" # ", idx + 1)
+        if parsed is None:
+            raise ValueError(f"line {lineno}: {error}")
+        sample_name, labels, value = parsed
+        family = sample_name
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = sample_name[:-len(suffix)] \
+                if sample_name.endswith(suffix) else None
+            if base and base in families:
+                family = base
+                break
+        if family not in families or families[family]["type"] is None:
+            raise ValueError(
+                f"line {lineno}: sample {sample_name} precedes its "
+                f"# TYPE line")
+        families[family]["samples"].append((sample_name, labels, value))
+        if exemplar_blob is not None:
+            ex_labels, ex_value, ex_ts = _parse_exemplar(
+                exemplar_blob, lineno)
+            families[family]["exemplars"].append(
+                (sample_name, labels, ex_labels, ex_value, ex_ts))
+    _validate_histograms(families)
+    return families
+
+
+def _validate_histograms(families: Dict[str, Dict[str, Any]]) -> None:
+    for name, fam in families.items():
+        if fam["type"] != "histogram":
+            continue
+        # Group buckets by their non-le label set.
+        series: Dict[Tuple, List[Tuple[float, float]]] = {}
+        counts: Dict[Tuple, float] = {}
+        for sample_name, labels, value in fam["samples"]:
+            key = tuple(sorted((k, v) for k, v in labels.items()
+                               if k != "le"))
+            if sample_name == f"{name}_bucket":
+                le = labels.get("le")
+                if le is None:
+                    raise ValueError(f"{name}_bucket sample without le")
+                bound = float("inf") if le == "+Inf" else float(le)
+                series.setdefault(key, []).append((bound, value))
+            elif sample_name == f"{name}_count":
+                counts[key] = value
+        for key, buckets in series.items():
+            buckets.sort()
+            last = -1.0
+            for bound, value in buckets:
+                if value < last:
+                    raise ValueError(
+                        f"{name}: bucket counts not cumulative at "
+                        f"le={bound}")
+                last = value
+            if buckets[-1][0] != float("inf"):
+                raise ValueError(f"{name}: missing le=+Inf bucket")
+            if key in counts and buckets[-1][1] != counts[key]:
+                raise ValueError(
+                    f"{name}: +Inf bucket {buckets[-1][1]} != _count "
+                    f"{counts[key]}")
+
+
+def dump_jsonl(path: str, registry: Optional[Registry] = None) -> None:
+    """Write every sample as one JSON object per line (the CI artifact
+    shape — citests/artifacts.py copies these next to the junit XML)."""
+    reg = registry or REGISTRY
+    with open(path, "w") as f:
+        for metric in reg.collect():
+            for line in metric._samples():
+                m = re.match(
+                    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(\S+)$",
+                    line)
+                if not m:
+                    continue
+                name, label_blob, value = m.groups()
+                f.write(json.dumps({
+                    "name": name,
+                    "labels": (_parse_labels(label_blob[1:-1])
+                               if label_blob else {}),
+                    "value": float(value.replace("+Inf", "inf")
+                                   .replace("-Inf", "-inf")),
+                    "type": metric.type,
+                }) + "\n")

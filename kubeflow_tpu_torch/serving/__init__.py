@@ -12,7 +12,29 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Model serving in the port: signatures and ``LoadedModel``.
+"""Model serving on the GPU (tensorflow_model_server + http-proxy role).
 
-The server, proxy and manager of the JAX package are not ported yet;
-``serving.model.LoadedModel`` is the unit they call per request."""
+The port's serving plane, module for module the reference's:
+
+- :mod:`signature` / :mod:`export` / :mod:`flax_msgpack`: the on-disk
+  model format, versioned directories ``<base>/<N>/`` holding a
+  signature map and serialized params, written and read by either
+  package.
+- :mod:`model`: loads one version onto the card (``LoadedModel``:
+  batch buckets, predict / classify / generate, the decode engine).
+- :mod:`manager`: the version watcher (hot reload of new ``<N>/``
+  dirs; POSIX via the native scanner of :mod:`_native`, object stores
+  via :mod:`remote`) and the micro-batching queue.
+- :mod:`wire` / :mod:`grpc_server`: the PredictionService wire surface
+  (hand-rolled protobuf codec, native gRPC listener on :9000), the SSE
+  codec, and the handoff, resume and KV-block blobs.
+- :mod:`server`: the model-server process: native gRPC on :9000,
+  HTTP/JSON, SSE and gRPC-Web on :8500.
+- :mod:`overload`, :mod:`tenancy`, :mod:`faults`,
+  :mod:`version_policy`, :mod:`kv_store`: deadlines and admission,
+  tenant quotas and fair queueing, the fault-injection seam, the
+  version policy grammar and the fleet KV pull-through.
+
+Not ported: sharded exports (``serving/sharding.py``), the proxy, the
+client and the benchmark; the reference's proxy fronts port replicas
+unchanged."""

@@ -227,9 +227,22 @@ def dump(obj: Any, f: BinaryIO) -> None:
         f.write(piece)
 
 
+def _sorted_tree(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        return {k: _sorted_tree(obj[k]) for k in sorted(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_sorted_tree(v) for v in obj]
+    return obj
+
+
 def dumps(obj: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize(obj)``: the bytes of the
+    blobs replicas exchange. Unlike :func:`dump` (``to_bytes``, which
+    keeps a map's order), it writes every map of ``obj`` with its keys
+    sorted, as Flax's copy of the tree through ``jax.tree_util``
+    leaves them."""
     out: List[bytes] = []
-    _pack(obj, out)
+    _pack(_sorted_tree(obj), out)
     return b"".join(out)
 
 

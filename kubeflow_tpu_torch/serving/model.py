@@ -248,6 +248,12 @@ class LoadedModel:
                     device=self.device)
             return self._engine
 
+    def shard_topology(self) -> Dict[str, Any]:
+        """Healthz-facing layout summary, the reference's shape: the
+        port loads monolithic exports only (``load_version`` refuses
+        sharded ones), so one shard and no mesh."""
+        return {"num_shards": 1, "on_mesh": False}
+
     @property
     def engine(self):
         """The built engine or None (never builds)."""

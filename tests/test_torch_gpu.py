@@ -1540,3 +1540,108 @@ def test_captured_programs_hold_the_uncaptured_launches(cuda, mix):
     assert all(n > 0 for n in launches[True])
     for a, b in zip(tokens[True], tokens[False]):
         np.testing.assert_array_equal(a, b)
+
+
+def _served_on_the_card(tmp_path, sampling):
+    """A ``ServedModel`` over a ``llama-test`` bf16 export, loaded on
+    the card the way a server loads it (the version poll, the bucket
+    warmup and the engine's warmup, which captures its graphs)."""
+    from kubeflow_tpu_torch.models.convert import (
+        params_to_flax,
+        unflatten_tree,
+    )
+    from kubeflow_tpu_torch.serving.export import export_model
+    from kubeflow_tpu_torch.serving.manager import ServedModel
+    from kubeflow_tpu_torch.serving.signature import (
+        ModelMetadata,
+        Signature,
+        TensorSpec,
+    )
+
+    kwargs = {"dtype": "bfloat16", "cache_size": 64}
+    params = init_params(llama_test(**kwargs), seed=0, device="cpu")
+    meta = ModelMetadata(
+        model_name="m", registry_name="llama-test", model_kwargs=kwargs,
+        signatures={"serving_default": Signature(
+            method="generate",
+            inputs={"input_ids": TensorSpec("int32", (-1, 16))},
+            outputs={"tokens": TensorSpec("int32", (-1, 12))})},
+        generate_config={"max_new_tokens": 12, "engine_slots": 2,
+                         "engine_page_size": 8, "engine_slice_tokens": 4,
+                         "prompt_buckets": [8, 16], "seed": 3,
+                         "deterministic": True, **sampling})
+    export_model(str(tmp_path / "m"), 1, meta,
+                 {"params": unflatten_tree(params_to_flax(params))})
+    served = ServedModel("m", str(tmp_path / "m"), max_batch=2,
+                         continuous_batching=True)
+    assert served.poll_versions()
+    return served
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_served_model_engine_rows_equal_b1_on_the_card(cuda, tmp_path,
+                                                       mode):
+    """Unary generates through ``ServedModel.submit`` on the captured
+    engine its load built: every row equals B=1 ``generate`` at the
+    engine's shapes with the request's key, and the load's warmup left
+    nothing to capture for the warm buckets."""
+    sampling = ENGINE_SAMPLING[mode]
+    served = _served_on_the_card(tmp_path, sampling)
+    try:
+        loaded = served.get()
+        engine = loaded.engine
+        warm = engine.captured_keys()
+        assert ("prefill", "tokens[1,16]") in warm
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, 512, n).astype(np.int32)
+                   for n in (5, 16, 11)]
+        futures = [served.submit({"input_ids": p[None]}, None, None, None)
+                   for p in prompts]
+        key = loaded.request_rngs(1)[0]  # deterministic: every request's
+        for p, f in zip(prompts, futures):
+            got = f.result(timeout=300)["tokens"][0]
+            want = _b1(loaded._module, loaded.params, engine, p, key, 12,
+                       sampling, cuda)
+            np.testing.assert_array_equal(got, want)
+        assert engine.captured_keys() == warm
+    finally:
+        served.stop()
+
+
+@pytest.mark.parametrize("mode", sorted(ENGINE_SAMPLING))
+def test_served_model_second_death_resumes_bitwise_on_the_card(
+        cuda, tmp_path, mode):
+    """``submit_resume`` after kills at 1 and the middle, through the
+    wire, then a second death one token into the resumed stream: its
+    token carries ``prompt_len``, and the second resume, split at the
+    original prompt, gives the rest of the uninterrupted stream."""
+    from kubeflow_tpu_torch.serving import wire
+
+    served = _served_on_the_card(tmp_path, ENGINE_SAMPLING[mode])
+
+    def token_of(stream):
+        ctx = stream.resume_ctx
+        return wire.decode_resume_token(wire.encode_resume_token(
+            "m", 1, ctx["prompt"], ctx["step_keys"],
+            ctx["max_new_tokens"], prompt_len=ctx.get("prompt_len")),
+            model="m", version=1)
+
+    try:
+        prompt = np.random.default_rng(2).integers(0, 512, 13).astype(
+            np.int32)
+        _, (first,) = served.submit_stream({"input_ids": prompt[None]},
+                                           None, None)
+        full = first.result(timeout=300)
+        for kill in (1, 6):
+            _, (second,) = served.submit_resume(
+                [(token_of(first), full[:kill].tolist())], None)
+            np.testing.assert_array_equal(second.result(timeout=300),
+                                          full[kill:])
+            token = token_of(second)
+            assert token["prompt_len"] == len(prompt)
+            _, (third,) = served.submit_resume(
+                [(token, full[kill:kill + 1].tolist())], None)
+            np.testing.assert_array_equal(third.result(timeout=300),
+                                          full[kill + 1:])
+    finally:
+        served.stop()

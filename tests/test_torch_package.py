@@ -17,7 +17,8 @@
 - Every module imports with ``jax``, ``flax``, ``msgpack`` and
   ``kubeflow_tpu`` blocked, and no source line of the package or of its
   GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
-  ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``) names
+  ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``,
+  ``scripts/manager_phase.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -65,6 +66,7 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "profile_torch_llama.py")
     yield os.path.join(ROOT, "scripts", "bn_phase_times.py")
     yield os.path.join(ROOT, "scripts", "decode_invariance.py")
+    yield os.path.join(ROOT, "scripts", "manager_phase.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():
@@ -72,6 +74,14 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert "kubeflow_tpu_torch.ops.flash_attention" in mods
     assert "kubeflow_tpu_torch.inference.engine.engine" in mods
     assert "kubeflow_tpu_torch.serving.export" in mods
+    # The serving plane, the lazily-importing modules included (the
+    # tornado server, the grpc listener, the scrape handlers).
+    for name in ("serving.manager", "serving.server", "serving.grpc_server",
+                 "serving.wire", "serving._native", "serving.remote",
+                 "serving.faults", "serving.version_policy",
+                 "serving.overload", "serving.tenancy", "obs.exposition",
+                 "scaling.policy", "scaling.endpoints"):
+        assert f"kubeflow_tpu_torch.{name}" in mods, name
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
             "             'kubeflow_tpu'):\n"
