@@ -183,8 +183,46 @@ checkout's BN kernel by the same code (a parent commit's, say).
    load path itself on a ``llama-test`` export (add_model → the poll →
    ``load_version`` → the warmups; which queue served). Load seconds,
    TTFT and inter-token ms, a manager pass's idle share, ``batch_stats()``
-   and the ``kft_serving_*`` exposition are printed. The params are
-   freed before the next phases.
+   and the ``kft_serving_*`` exposition are printed. Then LM training
+   (``train_lm``), once the serving phases' engines and caches are gone,
+   each part through an entry point, its counts zeroed just before it
+   and read just after. (1) LoRA fine-tuning of ``llama3-8b`` at full
+   width and depth through ``run_lora_benchmark``'s run
+   (``fine_tune_lora``: rank 16, α 16, rematerialised blocks, b1 ×
+   L1024, ``adamw(1e-4)``, adapters from seed 0, one warmup and 10 timed
+   steps on its fixed batch) on the served params, which it casts to
+   bf16 (``cast_floating``, the head too): 13,631,488 trainable params;
+   step 0's loss equal to the base model's bit for bit (B is zero); each
+   step 64 flash launches (forward and the remat recompute), 129
+   RMSNorm, 32 flash and 64 RMSNorm gradients recomputed through their
+   plain versions and no plain twin in a forward; every base tensor
+   bit-identical to a host copy, with no ``.grad``, after the run; the
+   loss lower at step 10 than at step 0; peak memory under 80 GB
+   (asserted); step ms, tokens/s, hardware- and model-FLOPs utilisation
+   by ``lm_train_flops`` and a profiled step's device split and idle
+   share (reported). The adapters merged into the served params
+   (``merge_lora``) and served: every merged weight W + (A·B·α/r)ᵀ
+   rounded to bf16 once and ``LoadedModel.run`` predict at [1, 1024]
+   equal to the merged weights applied on the same route, bit for bit;
+   within 0.1 relative RMS of the adapter forward (the bound of two bf16
+   routes of one function) and closer to it than the unmerged base; 32
+   flash launches and a 16-token greedy generate (asserted; the floor
+   between the adapter forward on flash and on dense attention beside
+   it). (2) The LoRA benchmark's CLI (``training.benchmark --model
+   llama3-8b --lora_rank 16 --seq_len 1024 --data``) on a token shard:
+   its own base drawn and cast to bf16, the batches put on the card by
+   the prefetch thread; 13,631,488 trainable params, finite losses, the
+   launches of its 3 steps by the formula (asserted). (3) The
+   pretraining step through the tpu-lm CLI (``training.pretrain --model
+   llama3-8b --num_layers 4``, ``fit`` and its optimizer:
+   ``clip_by_global_norm(1.0)``, ``adamw(warmup_cosine(0, 1e-4, 2, 10),
+   weight_decay=0.01)``), fp32 masters, b1 × L2048 on a token shard of
+   one repeated sequence (depth cut: at 32 layers its fp32 state takes
+   ~129 GB): the first update changes nothing (its rate is 0: step 2's
+   loss equals step 1's bit for bit), 4 flash and 9 RMSNorm launches a
+   step, the loss falls over 10 steps, peak under 80 GB (asserted);
+   step ms, tokens/s, utilisation (reported). The params are freed
+   before the next phases.
 5. The BN forward kernel: its launch plan at every ResNet-50 b256 BN
    shape from the card's own limits (the smallest layers must take the
    on-chip route), then the kernel vs its plain version at each of the
@@ -218,6 +256,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import itertools
 import json
 import math
@@ -277,17 +316,31 @@ from kubeflow_tpu_torch.serving.signature import (
     Signature,
     TensorSpec,
 )
+from kubeflow_tpu_torch.ops.lora import merge_lora
 from kubeflow_tpu_torch.training.benchmark import (
     BenchConfig,
+    LoRABenchConfig,
+    fine_tune_lora,
+    lm_train_flops,
     run_benchmark,
+    summarize_lm_trace,
     synthetic_batch,
 )
+from kubeflow_tpu_torch.training.benchmark import main as benchmark_main
+from kubeflow_tpu_torch.training.data import place_batch, synthetic_causal_lm
+from kubeflow_tpu_torch.training.finetune import make_lora_train_step
+from kubeflow_tpu_torch.training.lm import (
+    causal_lm_loss,
+    lm_forward_with_aux,
+)
+from kubeflow_tpu_torch.training.pretrain import main as pretrain_main
 from kubeflow_tpu_torch.training.train import (
     create_train_state,
     make_train_step,
     sgd,
 )
 from kubeflow_tpu_torch.utils.device import resolve_device
+from kubeflow_tpu_torch.utils.trees import cast_floating
 
 #: Published peaks of one H100 SXM (dense): bf16 tensor cores, fp32
 #: outside the tensor cores, and HBM3 bandwidth.
@@ -1413,6 +1466,10 @@ def serve_llama(card):
     timed(verify_forward_launches, card, LLAMA, params)
     timed(decode_step_launches, card, LLAMA, params)
     timed(serve_manager, card, LLAMA, params, kw, captured)
+    del captured
+    train = timed(train_lm, card, params)
+    launches["flash_attention_train"] = train["flash_attention"]
+    launches["rms_norm_train"] = train["rms_norm"]
     return launches
 
 
@@ -3399,6 +3456,468 @@ def serve_manager(card, registry, params, kwargs, captured=None, *,
     return report
 
 
+
+# -- The LM training slice (phase 4z) -----------------------------------------
+
+#: run_lora_benchmark's settings, at llama3-8b's full width and depth.
+LORA_RANK = 16
+LORA_ALPHA = 16.0
+LORA_SEQ = 1024
+LORA_LR = 1e-4
+LORA_STEPS = 10
+#: The CLI run (``training.benchmark --lora_rank``) on a token shard:
+#: its warmup step and this many timed ones.
+LORA_CLI_STEPS = 2
+#: rank 16 on q/k/v/o of 32 layers: 32·16·((4096 + 4096)·2 + (4096 +
+#: 1024)·2) adapter params, 0.170% of llama3-8b's 8,030,261,248.
+LORA_TRAINABLE = 13_631_488
+#: The merge is checked where it is exact: every merged weight equals
+#: W + (A·B·α/r)ᵀ in fp32 rounded to bf16 once, bit for bit, and the
+#: merged model served equals the same weights applied on the same
+#: route, bit for bit. Against the adapter forward (a different
+#: function: W and the delta apart, each in bf16) the merged model is
+#: held to LOGITS_REL_RMS_TOL, the bound of two bf16 routes of one
+#: llama3-8b function, and must sit closer to it than the unmerged base;
+#: the floor between the adapter forward on flash and on the plain dense
+#: attention is measured beside it.
+MERGE_GENERATE_PROMPT = 128
+MERGE_GENERATE_TOKENS = 16
+#: The pretraining step, through the tpu-lm CLI: llama3-8b's full
+#: width, depth cut 32 → 4 (at 32 layers the fp32 params, grads and two
+#: moments take ~129 GB).
+PRETRAIN_LAYERS = 4
+PRETRAIN_SEQ = 2048
+PRETRAIN_STEPS = 10
+#: The pretrain CLI's default peak rate and a 2-step warmup.
+PRETRAIN_LR = 1e-4
+PRETRAIN_WARMUP = 2
+
+
+def train_launch_formula(layers: int, remat: bool, frozen_embed: bool):
+    """Launches and plain recomputes one train step makes. Forward:
+    flash once a layer, RMSNorm twice a layer and once at the end; a
+    remat backward runs each block's forward again (flash and both
+    block norms once more). Backward: the flash gradient recomputes
+    through its plain version once a layer; a norm's gradient through
+    its plain formula wherever its input or scale wants one (all of
+    them, except the first block's attention norm when the embedding
+    is frozen, as in LoRA)."""
+    again = 1 if remat else 0
+    return {
+        "flash_attention": layers * (1 + again),
+        "rms_norm": 2 * layers + 1 + 2 * layers * again,
+        "flash_backward": layers,
+        "rms_norm_backward": 2 * layers + 1 - (1 if frozen_embed else 0),
+        "forward_plain": 0,
+    }
+
+
+@contextlib.contextmanager
+def train_twins():
+    """Count each call of a plain twin (flash's, RMSNorm's, both
+    GEMMs'), telling a backward's recompute (the design: the gradient
+    recomputes through the plain version, as the reference's custom VJP
+    does) from a forward's, which on the card must never happen."""
+    calls = {"flash_backward": 0, "rms_norm_backward": 0,
+             "forward_plain": 0}
+    depth = [0]
+    fa_mod = sys.modules[flash_attention.__module__]
+    saved = {(fa_mod, "flash_attention_reference"):
+             fa_mod.flash_attention_reference,
+             (rn, "rms_norm_reference"): rn.rms_norm_reference,
+             (dg, "decode_linear_reference"): dg.decode_linear_reference,
+             (pg, "prefill_linear_reference"): pg.prefill_linear_reference}
+    backwards = {fa_mod._FlashAttention: fa_mod._FlashAttention.backward,
+                 rn._RMSNorm: rn._RMSNorm.backward}
+
+    def counted(key, fn, backward_name):
+        def wrapped(*a, **kw):
+            if depth[0] and backward_name:
+                calls[backward_name] += 1
+            else:
+                calls["forward_plain"] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def in_backward(fn):
+        def wrapped(ctx, *grads):
+            depth[0] += 1
+            try:
+                return fn(ctx, *grads)
+            finally:
+                depth[0] -= 1
+        return staticmethod(wrapped)
+
+    names = {"flash_attention_reference": "flash_backward",
+             "rms_norm_reference": "rms_norm_backward"}
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, counted(name, fn, names.get(name)))
+    for cls, fn in backwards.items():
+        cls.backward = in_backward(fn)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+        for cls, fn in backwards.items():
+            cls.backward = staticmethod(fn)
+
+
+TRAIN_KERNELS = ("flash_attention", "rms_norm")
+
+
+@contextlib.contextmanager
+def counted_run(name: str, steps: int, want: dict):
+    """Zero every count just before a training run and read the counts
+    just after it: its flash and RMSNorm launches and its plain-twin
+    calls must be ``steps`` times the formula's. Yields a dict that
+    holds the run's launches once it has ended."""
+    out = {}
+    with train_twins() as twins:
+        zero_counts()
+        yield out
+        torch.cuda.synchronize()
+        counts = read_counts()
+    out.update({k: counts[k] for k in TRAIN_KERNELS})
+    got = {**out, **twins}
+    expected = {k: steps * v for k, v in want.items()}
+    if got != expected:
+        raise AssertionError(f"{name}: {steps} steps launched / recomputed "
+                             f"{got}, expected {expected}")
+
+
+def profiled_step(step, state, batch):
+    """One step under ``torch.profiler``: its wall ms and the LM
+    breakdown (``training/benchmark.py`` ``summarize_lm_trace``)."""
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        summary = summarize_lm_trace(tmp, wall_ms)
+    return state, summary
+
+
+def write_token_shard(directory: str, seq_len: int, vocab: int,
+                      seed: int, repeats: int = 8) -> str:
+    """A ``.npy`` token shard: one random sequence of ``seq_len`` ids
+    repeated, so every chunk the stream cuts is that sequence and a run
+    on it trains on a fixed batch through the real data path (the shard
+    read, the vocabulary check on the host, the prefetch to the
+    card)."""
+    ids = np.random.RandomState(seed).randint(0, vocab, seq_len)
+    path = os.path.join(directory, "tokens.npy")
+    np.save(path, np.tile(ids.astype(np.int32), repeats))
+    return path
+
+
+def run_cli(main_fn, argv) -> dict:
+    """An entry point's ``main(argv)`` in this process: exit code 0 and
+    its last stdout line, a JSON object."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"{argv}: exit code {rc}, output "
+                             f"{out.getvalue()[-2000:]!r}")
+    return json.loads(lines[-1])
+
+
+def train_lora(card, params, device=None):
+    """LoRA fine-tuning of llama3-8b at full width and depth through
+    ``run_lora_benchmark``'s run (``fine_tune_lora``: r 16, α 16, remat,
+    b1 × L1024, ``adamw(1e-4)``, seed 0, one fixed synthetic batch) on
+    the served params, which it casts to bf16 (the reference's
+    ``cast_floating``, the head too); then the adapters merged into the
+    served params and served. Returns (report, flash and RMSNorm
+    launches)."""
+    entry = get_model(LLAMA)
+    vocab = entry.num_classes_or_vocab
+    device = resolve_device(device)
+    config = LoRABenchConfig(model=LLAMA, lora_rank=LORA_RANK,
+                             seq_len=LORA_SEQ, steps=LORA_STEPS,
+                             warmup_steps=1, learning_rate=LORA_LR, seed=0)
+    # run_lora_benchmark's batch; the base model's loss on it, and the
+    # base on the host to check it after the run.
+    host_batch = next(synthetic_causal_lm(1, LORA_SEQ, vocab, seed=0))
+    batch = place_batch(host_batch, device)
+    base = cast_floating(params, torch.bfloat16)
+    with torch.no_grad():
+        _, (base_loss, _, _) = lm_forward_with_aux(
+            entry.make(), base, batch, causal_lm_loss, 0.01)
+    frozen = {k: v.cpu() for k, v in base.items()}
+    del base
+    torch.cuda.reset_peak_memory_stats()
+    want = train_launch_formula(entry.make().num_layers, remat=True,
+                                frozen_embed=True)
+    with counted_run("lora", 1 + LORA_STEPS, want) as launches:
+        result, state = fine_tune_lora(config, device, params)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if result["trainable_params"] != LORA_TRAINABLE or any(
+            t.requires_grad for t in state.base_params.values()):
+        raise AssertionError(
+            f"lora: {result['trainable_params']} trainable params "
+            f"(expected {LORA_TRAINABLE}); a base tensor wants a gradient: "
+            f"{any(t.requires_grad for t in state.base_params.values())}")
+    losses = result["warmup_losses"] + result["losses"]
+    if losses[0] != float(base_loss):
+        raise AssertionError(f"lora step 0 loss {losses[0]!r} != the base "
+                             f"model's {float(base_loss)!r}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"lora: the loss did not fall on the fixed "
+                             f"batch over {LORA_STEPS} steps: {losses}")
+    for k, v in state.base_params.items():
+        if v.grad is not None or not torch.equal(v.cpu(), frozen[k]):
+            raise AssertionError(f"lora: base tensor {k} changed or holds "
+                                 "a gradient")
+    del frozen
+    if peak_gb >= 80:
+        raise AssertionError(f"lora: peak {peak_gb} GB")
+    state, profile = profiled_step(make_lora_train_step(), state, batch)
+    step_ms = result["step_time_ms"]
+    report = {
+        "card": card, "model": LLAMA, "lora_rank": LORA_RANK,
+        "seq_len": LORA_SEQ, "base_params": result["base_params"],
+        "trainable_params": result["trainable_params"],
+        "trainable_pct": result["trainable_pct"],
+        "step0_loss": losses[0], "base_loss": float(base_loss),
+        "losses": losses, "step_ms": step_ms,
+        "tokens_per_s": result["tokens_per_sec"],
+        "flops_per_step": result["flops_per_step"],
+        "hfu_pct": result.get("mfu_pct"),
+        "model_flops_per_step": result["model_flops_per_step"],
+        "model_flops_util_pct": result.get("model_flops_util_pct"),
+        "peak_memory_gb": peak_gb,
+        "per_step": {k: v for k, v in want.items()},
+        "profiled_step": profile,
+        "busy_share_of_timed_step": profile["device_busy_ms"] / step_ms,
+    }
+    log(f"lora fine-tune: {json.dumps(report)}")
+    report["merged"] = serve_merged(state, params, host_batch, device)
+    return report, dict(launches)
+
+
+def train_lora_cli(card):
+    """The LoRA benchmark's CLI as a user runs it on the card
+    (``training.benchmark --model llama3-8b --lora_rank 16 --seq_len
+    1024``) on a token shard (``--data``): its own base drawn in fp32 and
+    cast to bf16 tensor by tensor, the batches put on the card by the
+    prefetch thread. Asserted: exit 0, 13,631,488 trainable params,
+    finite losses, the launches of its steps by the formula."""
+    entry = get_model(LLAMA)
+    want = train_launch_formula(entry.make().num_layers, remat=True,
+                                frozen_embed=True)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        shard = write_token_shard(tmp, LORA_SEQ,
+                                  entry.num_classes_or_vocab, seed=1)
+        with counted_run("lora cli", 1 + LORA_CLI_STEPS, want) as launches:
+            result = run_cli(benchmark_main, [
+                "--model", LLAMA, "--lora_rank", str(LORA_RANK),
+                "--seq_len", str(LORA_SEQ), "--steps", str(LORA_CLI_STEPS),
+                "--data", shard])
+    losses = result["warmup_losses"] + result["losses"]
+    if result["trainable_params"] != LORA_TRAINABLE or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"lora cli: {result}")
+    report = {k: result.get(k) for k in (
+        "device", "step_time_ms", "tokens_per_sec", "mfu_pct",
+        "model_flops_util_pct", "trainable_params", "trainable_pct",
+        "compile_plus_warmup_s")}
+    report.update(card=card, losses=losses)
+    log(f"lora benchmark CLI: {json.dumps(report)}")
+    return report, dict(launches)
+
+
+def serve_merged(state, params, host_batch, device):
+    """The trained adapters merged into the served params
+    (``merge_lora``), then served. Asserted: every merged weight is
+    W + (A·B·α/r)ᵀ rounded to bf16 once and every other tensor the
+    served one, bit for bit; ``LoadedModel.run`` predict at [1, 1024]
+    equals the merged weights applied on the same route bit for bit,
+    with one flash launch a layer; it is within LOGITS_REL_RMS_TOL of
+    the adapter forward and closer to it than the unmerged base; a
+    greedy generate of 16 tokens."""
+    entry = get_model(LLAMA)
+    vocab = entry.num_classes_or_vocab
+    ids = torch.from_numpy(host_batch["input_ids"]).to(device)
+    dense = entry.make(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA,
+                       attention_fn=functools.partial(dense_attention,
+                                                      causal=True))
+    with torch.no_grad():
+        adapter = apply(state.model, state.variables(), ids)
+        floor = rel_rms(apply(dense, state.variables(), ids), adapter)
+        unmerged = rel_rms(apply(entry.make(), params, ids), adapter)
+    merged = merge_lora(params, state.lora, alpha=LORA_ALPHA)
+    adapted = {k[:-len(".lora_a")] for k in state.lora
+               if k.endswith(".lora_a")}
+    moved = total = 0
+    for name, w in merged.items():
+        layer = name[:-len(".weight")]
+        if layer not in adapted:
+            if w is not params[name]:
+                raise AssertionError(f"merge: {name} is not the served "
+                                     "tensor")
+            continue
+        a = state.lora[f"{layer}.lora_a"].float()
+        b = state.lora[f"{layer}.lora_b"].float()
+        want = (params[name].float()
+                + (a @ b * (LORA_ALPHA / LORA_RANK)).T).to(w.dtype)
+        if w.dtype != params[name].dtype or not torch.equal(w, want):
+            raise AssertionError(f"merge: {name} is not W + (A·B·α/r)ᵀ "
+                                 "rounded once")
+        moved += int((w != params[name]).sum())
+        total += w.numel()
+    loaded = LoadedModel(
+        llama_metadata("predict", LORA_SEQ, {"dtype": "bfloat16"}), 1,
+        merged, max_batch=1, device=device)
+    zero_counts()
+    out = loaded.run({"input_ids": host_batch["input_ids"]},
+                     method="predict")
+    flash_n = read_counts()["flash_attention"]
+    logits = torch.from_numpy(out["logits"]).to(device)
+    with torch.no_grad():
+        same_route = torch.equal(
+            logits, apply(entry.make(dtype="bfloat16"), merged, ids))
+    err = rel_rms(logits, adapter)
+    layers = entry.make().num_layers
+    del logits, adapter, loaded
+    if not same_route or flash_n != layers or not (
+            err < LOGITS_REL_RMS_TOL and err < unmerged):
+        raise AssertionError(
+            f"merged model: served == the same weights applied: "
+            f"{same_route}; {flash_n} flash launches (expected {layers}); "
+            f"relative RMS {err} vs the adapter forward (tol "
+            f"{LOGITS_REL_RMS_TOL}; the unmerged base {unmerged}, the floor "
+            f"{floor})")
+    prompt = host_batch["input_ids"][:, :MERGE_GENERATE_PROMPT]
+    gen_model = LoadedModel(ModelMetadata(
+        model_name=LLAMA, registry_name=LLAMA,
+        model_kwargs={"dtype": "bfloat16",
+                      "cache_size": MERGE_GENERATE_PROMPT
+                      + MERGE_GENERATE_TOKENS},
+        signatures={"serving_default": Signature(
+            method="generate",
+            inputs={"input_ids": TensorSpec(
+                "int32", (-1, MERGE_GENERATE_PROMPT))},
+            outputs={"tokens": TensorSpec(
+                "int32", (-1, MERGE_GENERATE_TOKENS))})},
+        generate_config={"max_new_tokens": MERGE_GENERATE_TOKENS,
+                         "temperature": 0.0}), 1, merged, max_batch=1,
+        device=device)
+    tokens = gen_model.run({"input_ids": prompt})["tokens"]
+    del gen_model, merged
+    if tokens.shape != (1, MERGE_GENERATE_TOKENS) or not (
+            (tokens >= 0) & (tokens < vocab)).all():
+        raise AssertionError(f"merged generate tokens {tokens.shape} out of "
+                             "range")
+    report = {"weights_exact": True, "served_equals_applied": same_route,
+              "adapted_weights_changed_share": moved / total,
+              "logits_vs_adapter_rel_rms": err,
+              "unmerged_base_vs_adapter_rel_rms": unmerged,
+              "adapter_dense_vs_flash_rel_rms": floor,
+              "flash_launches": flash_n,
+              "tokens": tokens[0].tolist()}
+    log(f"lora merged and served: {json.dumps(report)}")
+    return report
+
+
+def train_pretrain(card):
+    """The pretraining step through the tpu-lm CLI
+    (``training.pretrain.main``: ``fit``, the prefetch thread, the
+    vocabulary check on the host) with its optimizer
+    (``clip_by_global_norm(1.0)``, then ``adamw(warmup_cosine(0, 1e-4,
+    2, 10), weight_decay=0.01)``) on ``llama3-8b --num_layers 4``, fp32
+    masters, b1 × L2048, on a token shard of one repeated sequence (a
+    fixed batch), every step logged. The first update's rate is
+    schedule(0) = 0, so it changes no param: step 2's loss equals step
+    1's bit for bit. The loss falls over 10 steps; the launches by the
+    formula; peak memory < 80 GB."""
+    entry = get_model(LLAMA)
+    model = entry.make(num_layers=PRETRAIN_LAYERS)
+    want = train_launch_formula(PRETRAIN_LAYERS, remat=False,
+                                frozen_embed=False)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        shard = write_token_shard(tmp, PRETRAIN_SEQ,
+                                  entry.num_classes_or_vocab, seed=2)
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        with counted_run("pretrain", PRETRAIN_STEPS, want) as launches:
+            final = run_cli(pretrain_main, [
+                "--model", LLAMA, "--num_layers", str(PRETRAIN_LAYERS),
+                "--global_batch", "1", "--seq_len", str(PRETRAIN_SEQ),
+                "--steps", str(PRETRAIN_STEPS),
+                "--warmup_steps", str(PRETRAIN_WARMUP),
+                "--learning_rate", str(PRETRAIN_LR), "--log_every", "1",
+                "--data", shard, "--metrics_path", metrics_path])
+        with open(metrics_path) as f:
+            records = [json.loads(line) for line in f]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in records]
+    if final["final_step"] != PRETRAIN_STEPS or [
+            r["step"] for r in records] != list(
+                range(1, PRETRAIN_STEPS + 1)):
+        raise AssertionError(f"pretrain: {final}, logged steps "
+                             f"{[r['step'] for r in records]}")
+    if losses[1] != losses[0]:
+        raise AssertionError(f"pretrain: the first update (lr = "
+                             f"schedule(0) = 0) moved the loss on the fixed "
+                             f"batch: {losses[0]!r} → {losses[1]!r}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"pretrain: the loss did not fall over "
+                             f"{PRETRAIN_STEPS} steps: {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"pretrain: peak {peak_gb} GB")
+    # Each logged window is one step; the first two hold the warmup.
+    step_ms = statistics.median(1e3 / r["steps_per_sec"]
+                                for r in records[2:])
+    flops = lm_train_flops(model, 1, PRETRAIN_SEQ)
+    model_flops = lm_train_flops(model, 1, PRETRAIN_SEQ, causal=True)
+    report = {
+        "card": card, "model": f"{LLAMA} --num_layers {PRETRAIN_LAYERS}",
+        "seq_len": PRETRAIN_SEQ,
+        "params": sum(p.numel() for p in model.parameters()),
+        "losses": losses, "step_ms": step_ms,
+        "step_ms_each": [1e3 / r["steps_per_sec"] for r in records],
+        "tokens_per_s": PRETRAIN_SEQ / step_ms * 1e3,
+        "flops_per_step": flops,
+        "hfu_pct": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"] * 100,
+        "model_flops_per_step": model_flops,
+        "model_flops_util_pct": (model_flops / (step_ms / 1e3)
+                                 / PEAK_FLOPS["bfloat16"] * 100),
+        "peak_memory_gb": peak_gb, "per_step": want,
+    }
+    log(f"pretrain step: {json.dumps(report)}")
+    return report, dict(launches)
+
+
+def train_lm(card, params):
+    """Phase 4z: LoRA on the served params, merged and served; the LoRA
+    benchmark's CLI on a token shard; then the pretraining step through
+    the tpu-lm CLI. The serving phases' engines and caches are gone by
+    now. Returns the train path's flash and RMSNorm launches."""
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    for phase, args in ((train_lora, (card, params)),
+                        (train_lora_cli, (card,)),
+                        (train_pretrain, (card,))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{phase.__name__}: {torch.cuda.memory_allocated() / 1e9:.2f} "
+            "GB allocated at the start (the served params)")
+        _, got = timed(phase, *args)
+        for k in launches:
+            launches[k] += got[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def verify_forward_launches(card, registry, params):
     """One speculative verify forward (4 slots × SPEC_K + 1 tokens over a
     544-slot cache) beside one decode step at the same rows: each
@@ -3910,6 +4429,7 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/flash_attention.py:83",
         "launches": launches["flash_attention"],
         "launches_prefill": launches.pop("flash_attention_prefill"),
+        "launches_train": launches.pop("flash_attention_train"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -3919,6 +4439,7 @@ def main() -> int:
     }]
     # The decode kernels: sums over one llama3-8b decode step's launches
     # at M = 4 (4 slots), each shape's figure times its launches a step.
+    rms_train = launches.pop("rms_norm_train")
     for name, source, replaces, krows in (
             ("decode_gemm", "decode_gemm.cu",
              "kubeflow_tpu/models/llama.py:72", gemm_rows),
@@ -3931,6 +4452,7 @@ def main() -> int:
             "source": f"kubeflow_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": launches[name],
+            **({"launches_train": rms_train} if name == "rms_norm" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             **{k: per_step(krows, k) for k in ("ms", "plain_ms",
                                                "bound_ms", "library_ms")},

@@ -41,18 +41,36 @@ and the ``batch_stats`` collection (``bn_init/mean``, ``…/bn1/var``)
 onto the BN modules' buffers of the same path. Kernels change layout:
 a Dense kernel is ``[in, out]`` in Flax and ``[out, in]`` in
 ``nn.Linear``; a conv kernel is HWIO in Flax and OIHW in PyTorch.
+
+LoRA adapters (``lora_rank > 0``) live in the reference's separate
+``"lora"`` collection, ``layer_{i}/attention/{q,k,v,o}_proj/lora_a``
+``[in, r]`` and ``…/lora_b`` ``[r, out]``; the port keeps that layout
+under ``layers.{i}.attention.q_proj.lora_a``, so they carry across
+untransposed (:func:`lora_from_flax`, :func:`lora_to_flax`).
+
+Training state. :func:`state_to_flax` flattens a train state (the
+trainers' ``LMState`` and ``LoRAState``, or any nest of dicts, tuples
+and named tuples of tensors and ints) to the flat ``"/"``-keyed dict
+the reference's checkpoints hold: the reference's tree paths
+(``step``, ``params/layer_0/attention/q_proj/kernel``,
+``opt_state/0/mu/...`` — a chain's members by index, a named tuple's
+fields by name, optax's), Flax's layouts and dtypes, ints as int32.
+:func:`state_from_flax` is its inverse onto a live state of the same
+structure.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from kubeflow_tpu_torch.models.llama import LayerCache
+from kubeflow_tpu_torch.ops.lora import is_lora_name
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -83,11 +101,14 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
     """Port params from a flat ``"/"``-keyed dict of Flax params (as
     ``flax.traverse_util.flatten_dict(params, sep="/")`` gives them).
     ``config`` is the port module the params are for (built on the meta
-    device); every one of its parameters must be present, and no other
-    key may be."""
+    device); every one of its parameters (its LoRA adapters aside: they
+    are :func:`lora_from_flax`'s) must be present, and no other key may
+    be."""
     device = resolve_device(device)
     out = {}
     for name, template in config.named_parameters():
+        if is_lora_name(name):
+            continue
         key = _flax_key(name)
         if key not in flat:
             raise KeyError(f"Flax params have no {key!r} (for {name})")
@@ -213,23 +234,176 @@ def cache_from_flax(flat: Mapping[str, object]) -> List[LayerCache]:
 
 
 def init_params(config: nn.Module, seed: int = 0,
-                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                device: DeviceLike = None,
+                dtype: torch.dtype = None) -> Dict[str, torch.Tensor]:
     """Random params drawn on ``device`` from a ``torch.Generator``
     seeded with ``seed``: norm scales are 1, every other weight is
     N(0, 0.02), as the reference's initializers. An 8B model is made on
-    the card in seconds. (The numbers differ from ``jax.random``'s; to
-    compare with the reference, carry its params across instead.)"""
+    the card in seconds. Each is drawn in the template's dtype and, given
+    ``dtype``, cast to it at once (the reference's LoRA base:
+    ``cast_floating`` of the fp32 init, one tensor at a time). LoRA
+    adapters are not params (``ops.lora.init_lora``). (The numbers
+    differ from ``jax.random``'s; to compare with the reference, carry
+    its params across instead.)"""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     out = {}
     for name, template in config.named_parameters():
+        if is_lora_name(name):
+            continue
         t = torch.empty(template.shape, dtype=template.dtype, device=device)
         if name.endswith(".scale"):
             t.fill_(1.0)
         else:
             t.normal_(0.0, 0.02, generator=gen)
-        out[name] = t
+        out[name] = t if dtype is None else t.to(dtype)
+    return out
+
+
+def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
+                   device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Port adapters from the reference's flat ``"/"``-keyed ``lora``
+    collection: every adapter of ``config`` must be present, fp32, in
+    the reference's layout, and no other key may be."""
+    device = resolve_device(device)
+    out = {}
+    for name, template in config.named_parameters():
+        if not is_lora_name(name):
+            continue
+        key = _flax_key(name)
+        if key not in flat:
+            raise KeyError(f"the lora collection has no {key!r} (for {name})")
+        arr = np.array(flat[key], dtype=np.float32)
+        if tuple(arr.shape) != tuple(template.shape):
+            raise ValueError(f"{key}: shape {arr.shape} does not fit "
+                             f"{name} {tuple(template.shape)}")
+        out[name] = torch.from_numpy(arr).to(device)
+    extra = set(flat) - {_flax_key(n) for n in out}
+    if extra:
+        raise ValueError(f"lora leaves the port model has no place for: "
+                         f"{sorted(extra)[:5]}")
+    return out
+
+
+def lora_to_flax(lora: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lora_from_flax`: the flat ``lora``
+    collection, fp32 numpy."""
+    return {_flax_key(name): t.detach().float().cpu().numpy()
+            for name, t in lora.items()}
+
+
+def _state_children(node: Any):
+    """``(path part, child)`` pairs of a state node, or None for a
+    leaf: a dataclass's fields (but not those marked ``static``: the
+    module template, the optimizer), a named tuple's fields, a tuple's
+    indices, a dict's keys (a port parameter name as its Flax path)."""
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return [(f.name, getattr(node, f.name))
+                for f in dataclasses.fields(node)
+                if not f.metadata.get("static")]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return list(zip(node._fields, node))
+    if isinstance(node, (tuple, list)):
+        return [(str(i), v) for i, v in enumerate(node)]
+    if isinstance(node, Mapping):
+        return [(_flax_key(k), v) for k, v in node.items()]
+    return None
+
+
+def _leaf_to_flax(key: str, leaf: Any):
+    if isinstance(leaf, bool) or not isinstance(leaf, (int, torch.Tensor,
+                                                      np.ndarray)):
+        raise TypeError(f"{key}: a {type(leaf).__name__} is no state leaf")
+    if isinstance(leaf, int):
+        return np.asarray(leaf, np.int32)
+    if isinstance(leaf, np.ndarray):
+        return leaf
+    # A copy of its own, even of a CPU tensor: the optimizer updates
+    # the live one in place while a checkpoint writer may still hold it.
+    t = leaf.detach().to("cpu", copy=True)
+    if key.endswith("/kernel") and t.ndim in (2, 4):
+        t = t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)
+    t = t.contiguous()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def state_to_flax(state: Any) -> Dict[str, Any]:
+    """A train state as the reference's flat checkpoint dict (see the
+    module docstring): numpy arrays in Flax's layout, a bfloat16 leaf as
+    a CPU tensor (``serving/flax_msgpack.py`` writes it as Flax does),
+    ints as 0-d int32 arrays."""
+    out: Dict[str, Any] = {}
+
+    def walk(node, prefix):
+        children = _state_children(node)
+        if children is None:
+            if prefix in out:
+                raise ValueError(f"duplicate flat key {prefix!r} in state")
+            out[prefix] = _leaf_to_flax(prefix, node)
+            return
+        for part, child in children:
+            walk(child, f"{prefix}/{part}" if prefix else part)
+
+    walk(state, "")
+    return out
+
+
+def _leaf_from_flax(key: str, value: Any, live: Any):
+    if isinstance(live, int):
+        return int(np.asarray(value))
+    if isinstance(value, torch.Tensor):
+        t = value.detach().to("cpu")
+    else:
+        t = torch.from_numpy(np.array(value))
+    if key.endswith("/kernel") and t.ndim in (2, 4):
+        t = _as_torch_kernel(t)
+    if tuple(t.shape) != tuple(live.shape):
+        raise ValueError(f"leaf {key!r}: checkpoint shape {tuple(t.shape)} "
+                         f"!= live {tuple(live.shape)}")
+    out = t.to(device=live.device, dtype=live.dtype)
+    return out.requires_grad_(live.requires_grad) if out.is_leaf else out
+
+
+def _as_torch_kernel(t: torch.Tensor) -> torch.Tensor:
+    return (t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)).contiguous()
+
+
+def state_from_flax(flat: Mapping[str, Any], state: Any) -> Any:
+    """The inverse of :func:`state_to_flax` onto ``state``'s structure:
+    a new state (the live one's static fields kept) whose tensors take
+    the live leaves' devices, dtypes and ``requires_grad``. Every live
+    leaf must be in ``flat`` at the live shape, and no other key may
+    be."""
+    seen = set()
+
+    def build(node, prefix):
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: build(getattr(node, f.name),
+                              f"{prefix}/{f.name}" if prefix else f.name)
+                for f in dataclasses.fields(node)
+                if not f.metadata.get("static")})
+        children = _state_children(node)
+        if children is None:
+            if prefix not in flat:
+                raise ValueError(f"the checkpoint lacks leaf {prefix!r}; "
+                                 "has the state's structure changed?")
+            seen.add(prefix)
+            return _leaf_from_flax(prefix, flat[prefix], node)
+        values = [build(child, f"{prefix}/{part}" if prefix else part)
+                  for part, child in children]
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*values)
+        if isinstance(node, (tuple, list)):
+            return type(node)(values)
+        return dict(zip(node.keys(), values))
+
+    out = build(state, "")
+    extra = set(flat) - seen
+    if extra:
+        raise ValueError(f"the checkpoint carries unknown leaves "
+                         f"{sorted(extra)[:5]}")
     return out
 
 

@@ -51,8 +51,23 @@ route, because cuBLAS's rows differ at narrow widths
 the one position a row they read (``logits_at``), so the head runs on
 B rows, not B·L.
 :func:`rms_norm` takes every norm on the card. On the CPU each is its
-plain version. The cache-free forward (predict, classify) keeps
-``layer(x)``: a plain large product, as the reference leaves it to XLA.
+plain version. The cache-free forward (predict, classify, training)
+keeps ``F.linear``: a plain large product, as the reference leaves it
+to XLA.
+
+Training. ``param_dtype`` is the storage dtype of every weight; by
+default each weight is stored in the dtype its op consumes (serving).
+Training keeps fp32 masters (``param_dtype="float32"``) and casts each
+weight to ``dtype`` at its op, as Flax does, so gradients reach the
+fp32 masters; a LoRA base stored in bf16 (the reference's
+``cast_floating``) is cast only where the op wants another dtype (the
+fp32 ``lm_head``). In serving storage every such cast is a no-op.
+``lora_rank > 0`` puts :class:`~kubeflow_tpu_torch.ops.lora.LoRALinear`
+adapters on q/k/v/o (the reference's ``LoRADense``); ``remat=True``
+recomputes each block in the backward pass
+(``torch.utils.checkpoint``, the reference's ``nn.remat``), so the
+block's flash and RMSNorm kernels launch again there: a remat forward
+and backward launch flash twice a layer and RMSNorm twice a block norm.
 """
 
 from __future__ import annotations
@@ -63,6 +78,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
@@ -71,6 +87,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     prefill_attention,
 )
+from kubeflow_tpu_torch.ops.lora import LoRALinear
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype
@@ -91,11 +108,13 @@ class LayerCache:
 
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.scale = nn.Parameter(torch.ones(
+            dim, dtype=param_dtype or dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.scale.to(self.dtype), self.eps)
@@ -117,7 +136,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return rotated.to(x.dtype)
 
 
-def _linear(d_in: int, d_out: int, dtype, device) -> nn.Linear:
+def _linear(d_in: int, d_out: int, dtype, device, lora_rank: int = 0,
+            lora_alpha: float = 16.0) -> nn.Linear:
+    if lora_rank:
+        return LoRALinear(d_in, d_out, lora_rank, lora_alpha, dtype=dtype,
+                          device=device)
     return nn.Linear(d_in, d_out, bias=False, dtype=dtype, device=device)
 
 
@@ -128,14 +151,20 @@ DECODE, PREFILL = "decode", "prefill"
 
 def _project(layer: nn.Linear, x: torch.Tensor,
              route: Optional[str]) -> torch.Tensor:
-    """``layer(x)``; in a decode step through :func:`decode_linear`, and
-    a bf16 layer in a prefill into the cache through
-    :func:`prefill_linear`."""
+    """``x·W`` with W cast to x's dtype at the op (a no-op in serving
+    storage); in a decode step through :func:`decode_linear`, and a bf16
+    layer in a prefill into the cache through :func:`prefill_linear`. A
+    LoRA layer adds its adapter's delta on any route."""
+    weight = layer.weight.to(x.dtype)
     if route == DECODE:
-        return decode_linear(x, layer.weight)
-    if route == PREFILL and layer.weight.dtype == torch.bfloat16:
-        return prefill_linear(x, layer.weight)
-    return layer(x)
+        y = decode_linear(x, weight)
+    elif route == PREFILL and weight.dtype == torch.bfloat16:
+        y = prefill_linear(x, weight)
+    else:
+        y = F.linear(x, weight)
+    if isinstance(layer, LoRALinear):
+        y = y + layer.delta(x)
+    return y
 
 
 def _route(x: torch.Tensor, cache, decode_positions=None) -> Optional[str]:
@@ -155,7 +184,9 @@ def _route(x: torch.Tensor, cache, decode_positions=None) -> Optional[str]:
 class LlamaAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, rope_theta: float, dtype: torch.dtype,
-                 attention_fn: Optional[AttentionFn] = None, device=None):
+                 attention_fn: Optional[AttentionFn] = None, device=None,
+                 param_dtype: Optional[torch.dtype] = None,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
@@ -163,10 +194,16 @@ class LlamaAttention(nn.Module):
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.attention_fn = attention_fn
-        self.q_proj = _linear(d_model, num_heads * head_dim, dtype, device)
-        self.k_proj = _linear(d_model, num_kv_heads * head_dim, dtype, device)
-        self.v_proj = _linear(d_model, num_kv_heads * head_dim, dtype, device)
-        self.o_proj = _linear(num_heads * head_dim, d_model, dtype, device)
+        store = param_dtype or dtype
+        lora = (lora_rank, lora_alpha)
+        self.q_proj = _linear(d_model, num_heads * head_dim, store, device,
+                              *lora)
+        self.k_proj = _linear(d_model, num_kv_heads * head_dim, store,
+                              device, *lora)
+        self.v_proj = _linear(d_model, num_kv_heads * head_dim, store,
+                              device, *lora)
+        self.o_proj = _linear(num_heads * head_dim, d_model, store, device,
+                              *lora)
 
     def forward(self, x, positions, pad_lengths=None,
                 cache: Optional[LayerCache] = None, decode_positions=None):
@@ -270,16 +307,20 @@ class LlamaBlock(nn.Module):
     def __init__(self, d_model: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, mlp_dim: int, rope_theta: float,
                  dtype: torch.dtype, attention_fn: Optional[AttentionFn],
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
-        self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device)
+        store = param_dtype or dtype
+        self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device,
+                                 param_dtype=store)
         self.attention = LlamaAttention(
             d_model, num_heads, num_kv_heads, head_dim, rope_theta, dtype,
-            attention_fn, device)
-        self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device)
-        self.gate_proj = _linear(d_model, mlp_dim, dtype, device)
-        self.up_proj = _linear(d_model, mlp_dim, dtype, device)
-        self.down_proj = _linear(mlp_dim, d_model, dtype, device)
+            attention_fn, device, store, lora_rank, lora_alpha)
+        self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device,
+                                param_dtype=store)
+        self.gate_proj = _linear(d_model, mlp_dim, store, device)
+        self.up_proj = _linear(d_model, mlp_dim, store, device)
+        self.down_proj = _linear(mlp_dim, d_model, store, device)
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
                 decode_positions=None):
@@ -298,6 +339,10 @@ class Llama(nn.Module):
 
     ``cache_size > 0`` makes it a generation model: every forward then
     takes ``cache`` (from ``inference.generate.init_cache``).
+    ``param_dtype`` (default: serving storage, each weight in the dtype
+    its op consumes) stores every weight in that dtype, cast at the op;
+    ``lora_rank``/``lora_alpha`` add adapters on q/k/v/o; ``remat``
+    recomputes each block in the backward pass.
     """
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 32,
@@ -306,19 +351,21 @@ class Llama(nn.Module):
                  rope_theta: float = 10000.0, dtype="bfloat16",
                  attention_fn: Optional[AttentionFn] = None,
                  cache_size: int = 0, num_experts: int = 0,
-                 lora_rank: int = 0, device="meta"):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 remat: bool = False, param_dtype=None, device="meta"):
         super().__init__()
         if num_experts > 0:
             raise NotImplementedError(
-                "MoE Llama (num_experts > 0) is not ported yet")
-        if lora_rank > 0:
-            raise NotImplementedError(
-                "LoRA Llama (lora_rank > 0) is not ported yet")
+                "MoE Llama (num_experts > 0) is not ported yet (ROADMAP "
+                "A13)")
+        if lora_rank < 0:
+            raise ValueError(f"lora_rank must be >= 0, got {lora_rank}")
         if cache_size and attention_fn is not None:
             raise ValueError(
                 "cache_size and attention_fn are mutually exclusive: the "
                 "decode path always uses dense attention over the cache")
         dtype = torch_dtype(dtype)
+        store = None if param_dtype is None else torch_dtype(param_dtype)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.d_model = d_model
@@ -329,15 +376,21 @@ class Llama(nn.Module):
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.cache_size = cache_size
-        self.tok_embed = nn.Embedding(vocab_size, d_model, dtype=dtype,
-                                      device=device)
+        self.lora_rank = lora_rank
+        self.lora_alpha = lora_alpha
+        self.remat = remat
+        self.tok_embed = nn.Embedding(vocab_size, d_model,
+                                      dtype=store or dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, num_heads, num_kv_heads, self.head_dim,
-                       mlp_dim, rope_theta, dtype, attention_fn, device)
+                       mlp_dim, rope_theta, dtype, attention_fn, device,
+                       store, lora_rank, lora_alpha)
             for _ in range(num_layers))
-        self.final_norm = RMSNorm(d_model, dtype=dtype, device=device)
+        self.final_norm = RMSNorm(d_model, dtype=dtype, device=device,
+                                  param_dtype=store)
         # fp32 head over an fp32-cast input, as the reference.
-        self.lm_head = _linear(d_model, vocab_size, torch.float32, device)
+        self.lm_head = _linear(d_model, vocab_size, store or torch.float32,
+                               device)
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
@@ -379,16 +432,35 @@ class Llama(nn.Module):
         if positions is None:
             positions = torch.arange(l, device=input_ids.device)[None].expand(
                 b, l)
-        x = self.tok_embed(input_ids)
+        # Gather, then cast: the rows of Flax's cast-then-gather.
+        x = self.tok_embed(input_ids).to(self.dtype)
+        remat = self.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, pad_lengths,
-                      None if cache is None else cache[i], decode_positions)
+            if remat:
+                x = _rematerialized(layer, x, positions)
+            else:
+                x = layer(x, positions, pad_lengths,
+                          None if cache is None else cache[i],
+                          decode_positions)
         if logits_at is not None:
             x = x[torch.arange(b, device=x.device), logits_at.long()][:, None]
         x = self.final_norm(x).float()
+        head = self.lm_head.weight.float()
         if cache is None:
-            return self.lm_head(x)
-        return decode_linear(x, self.lm_head.weight)
+            return F.linear(x, head)
+        return decode_linear(x, head)
+
+
+def _rematerialized(layer: nn.Module, x: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """``layer(x, positions)``, its activations dropped and recomputed in
+    the backward pass. The recompute runs after :func:`apply` has put
+    the template's own (meta) parameters back, so it applies the
+    layer's weights of this call explicitly."""
+    weights = dict(layer.named_parameters())
+    return torch.utils.checkpoint.checkpoint(
+        lambda h, pos: torch.func.functional_call(layer, weights, (h, pos)),
+        x, positions, use_reentrant=False, preserve_rng_state=False)
 
 
 def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,
@@ -408,22 +480,26 @@ def llama2_7b(**kw) -> Llama:
     return Llama(**kw)
 
 
+# A config's depth may be cut (``num_layers=``); its widths are fixed.
+
+
 def llama2_13b(**kw) -> Llama:
-    return Llama(num_layers=40, d_model=5120, num_heads=40, num_kv_heads=40,
+    kw.setdefault("num_layers", 40)
+    return Llama(d_model=5120, num_heads=40, num_kv_heads=40,
                  mlp_dim=13824, **kw)
 
 
 def llama3_8b(**kw) -> Llama:
-    return Llama(vocab_size=128256, num_layers=32, d_model=4096,
-                 num_heads=32, num_kv_heads=8, mlp_dim=14336,
-                 rope_theta=500000.0, **kw)
+    kw.setdefault("num_layers", 32)
+    return Llama(vocab_size=128256, d_model=4096, num_heads=32,
+                 num_kv_heads=8, mlp_dim=14336, rope_theta=500000.0, **kw)
 
 
 def llama_test(**kw) -> Llama:
     """Tiny GQA config for CI."""
     kw.setdefault("vocab_size", 512)
-    return Llama(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
-                 mlp_dim=128, **kw)
+    kw.setdefault("num_layers", 2)
+    return Llama(d_model=64, num_heads=4, num_kv_heads=2, mlp_dim=128, **kw)
 
 
 register_model(ModelEntry("llama2-7b", "language", llama2_7b,

@@ -65,5 +65,6 @@ def get_model(name: str) -> ModelEntry:
         return _MODELS[name]
     except KeyError:
         raise KeyError(
-            f"unknown model {name!r}; available: {sorted(_MODELS)}"
-        ) from None
+            f"unknown model {name!r}; available: {sorted(_MODELS)} (not "
+            f"ported yet: BERT and ViT, ROADMAP A12; the MoE configs, A13; "
+            f"the rest of vision, A11)") from None

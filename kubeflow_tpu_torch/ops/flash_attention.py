@@ -315,7 +315,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         q, k, v, mask = ctx.saved_tensors
         wanted = ctx.needs_input_grad[:3]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "flash_backward_recompute"):
             inputs = [t.detach().requires_grad_(w)
                       for t, w in zip((q, k, v), wanted)]
             out = flash_attention_reference(

@@ -113,7 +113,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         wanted = ctx.needs_input_grad[:2]
-        with torch.enable_grad():
+        with torch.enable_grad(), torch.profiler.record_function(
+                "rms_norm_backward_recompute"):
             inputs = [t.detach().requires_grad_(w)
                       for t, w in zip(ctx.saved_tensors, wanted)]
             y = rms_norm_reference(*inputs, ctx.eps)

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import collections
 import json
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 #: GPU annotation name prefix → class.
 ANNOTATIONS = (
@@ -44,26 +44,51 @@ CLASSES = (
     ("copy/cast", ("copy", "cast", "fill", "cat", "index", "memcpy",
                    "memset", "pad")),
 )
+#: The LM trainers' classes (training/benchmark.py): the kernels of the
+#: port by name, the backward's plain recomputes and the optimizer by
+#: span, cuBLAS's products split by type: an fp32 product's kernel
+#: names its operands (``f32f32``, ``sgemm``), and outside the backward
+#: recomputes the LM step's fp32 products are the ``lm_head``'s; any
+#: other product is bf16.
+LM_ANNOTATIONS = (
+    ("flash_backward_recompute", "flash_backward_plain_recompute"),
+    ("rms_norm_backward_recompute", "rms_norm_backward_plain_recompute"),
+    ("Optimizer.step", "optimizer"),
+)
+LM_CLASSES = (
+    ("flash_forward_kernel", ("flash_fwd_kernel",)),
+    ("rms_norm_kernel", ("rms_norm_kernel",)),
+    ("gemm_fp32", ("f32f32", "sgemm")),
+    ("gemm_bf16", ("gemm", "cutlass", "xmma", "nvjet", "matmul", "cublas")),
+    ("cross_entropy", ("nll_loss", "log_softmax", "logsoftmax")),
+    ("reduce", ("reduce", "softmax", "norm", "argmax")),
+    ("copy/cast", ("copy", "cast", "fill", "cat", "index", "memcpy",
+                   "memset", "pad")),
+)
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def kernel_class(name: str) -> str:
+def kernel_class(name: str, classes: Sequence[Tuple[str, Tuple[str, ...]]]
+                 = CLASSES) -> str:
     low = name.lower()
-    for cls, keys in CLASSES:
+    for cls, keys in classes:
         if any(k in low for k in keys):
             return cls
     return "elementwise/other"
 
 
-def summarize_trace(path: str, wall_ms: float, top: int = 10) -> Dict:
+def summarize_trace(path: str, wall_ms: float, top: int = 10,
+                    classes=CLASSES, annotations=ANNOTATIONS) -> Dict:
     """Device time by class and the top kernels of a Chrome trace that
-    ``torch.profiler.profile.export_chrome_trace`` wrote."""
+    ``torch.profiler.profile.export_chrome_trace`` wrote. ``classes``
+    and ``annotations`` default to the vision trainer's; the LM
+    trainers pass :data:`LM_CLASSES` and :data:`LM_ANNOTATIONS`."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     spans = sorted(
         (e["ts"], e["ts"] + e["dur"], cls)
         for e in events if e.get("cat") == "gpu_user_annotation"
-        for prefix, cls in ANNOTATIONS if e["name"].startswith(prefix))
+        for prefix, cls in annotations if e["name"].startswith(prefix))
     by_class = collections.Counter()
     by_kernel = collections.Counter()
     launches = collections.Counter()
@@ -72,7 +97,7 @@ def summarize_trace(path: str, wall_ms: float, top: int = 10) -> Dict:
             continue
         ms = e["dur"] / 1e3
         cls = next((c for lo, hi, c in spans if lo <= e["ts"] < hi),
-                   None) or kernel_class(e["name"])
+                   None) or kernel_class(e["name"], classes)
         by_class[cls] += ms
         by_kernel[e["name"]] += ms
         launches[e["name"]] += 1

@@ -1645,3 +1645,189 @@ def test_served_model_second_death_resumes_bitwise_on_the_card(
                                           full[kill + 1:])
     finally:
         served.stop()
+
+
+# -- LM training: LoRA and the pretraining step on the card ------------------
+
+def _lora_setup(cuda, remat, seed=0):
+    from kubeflow_tpu_torch.ops.lora import init_lora
+    from kubeflow_tpu_torch.utils.trees import cast_floating
+
+    model = llama_test(lora_rank=4, remat=remat)
+    base = cast_floating(init_params(llama_test(), seed=seed, device=cuda),
+                         torch.bfloat16)
+    lora = init_lora(model, seed=seed, device=cuda)
+    ids = torch.randint(0, 512, (2, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7),
+                        dtype=torch.int32)
+    return model, base, lora, {"input_ids": ids}
+
+
+def test_lora_remat_gradients_equal_no_remat_on_the_card(cuda):
+    """The remat recompute runs the same kernels on the same inputs, so
+    the adapters' gradients are the same bits with and without it (B
+    drawn nonzero, so both factors get one)."""
+    from kubeflow_tpu_torch.training.lm import causal_lm_loss
+
+    grads = []
+    for remat in (False, True):
+        model, base, lora, batch = _lora_setup(cuda, remat)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        for k in lora:
+            if k.endswith(".lora_b"):
+                lora[k] = torch.randn(lora[k].shape, device=cuda,
+                                      generator=gen) * 0.02
+        lora = {k: v.requires_grad_(True) for k, v in lora.items()}
+        logits = apply(model, {**base, **lora}, batch["input_ids"])
+        loss, _ = causal_lm_loss(logits, batch)
+        grads.append(torch.autograd.grad(loss, list(lora.values())))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_lora_step0_equals_base_and_base_stays_frozen_on_the_card(cuda):
+    from kubeflow_tpu_torch.training.finetune import (
+        create_lora_state,
+        make_lora_train_step,
+    )
+    from kubeflow_tpu_torch.training.lm import (
+        causal_lm_loss,
+        lm_forward_with_aux,
+    )
+    from kubeflow_tpu_torch.training.optim import adamw
+
+    model, base, lora, batch = _lora_setup(cuda, remat=True)
+    with torch.no_grad():
+        _, (base_loss, _, _) = lm_forward_with_aux(
+            llama_test(), base, batch, causal_lm_loss, 0.01)
+    state, _ = create_lora_state(model, adamw(1e-2), base, lora)
+    frozen = {k: v.clone() for k, v in state.base_params.items()}
+    step = make_lora_train_step()
+    losses = []
+    for _ in range(4):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    assert torch.equal(losses[0], base_loss)  # B is zero at step 0
+    assert float(losses[-1]) < float(losses[0])
+    for k, v in state.base_params.items():
+        assert v.grad is None and not v.requires_grad, k
+        assert torch.equal(v, frozen[k]), k
+
+
+@pytest.mark.parametrize("kind", ["lora_remat", "pretrain"])
+def test_train_step_launches_match_the_formula_on_the_card(cuda, kind):
+    """Flash once a layer and RMSNorm twice a layer plus once a forward;
+    a remat backward runs each block's forward again."""
+    from kubeflow_tpu_torch.training.finetune import (
+        create_lora_state,
+        make_lora_train_step,
+    )
+    from kubeflow_tpu_torch.training.lm import (
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.training.optim import adamw
+
+    layers = 2
+    if kind == "lora_remat":
+        model, base, lora, batch = _lora_setup(cuda, remat=True)
+        state, _ = create_lora_state(model, adamw(1e-3), base, lora)
+        step = make_lora_train_step()
+        want = {"flash": 2 * layers, "rms": 2 * (2 * layers) + 1}
+    else:
+        model = llama_test(param_dtype="float32")
+        state, _ = create_lm_state(model, adamw(1e-3), init_params(
+            model, seed=0, device=cuda))
+        batch = _lora_setup(cuda, remat=False)[3]
+        step = make_lm_train_step()
+        want = {"flash": layers, "rms": 2 * layers + 1}
+    step(state, batch)  # the first call builds nothing more, but warms up
+    fa.flash_attention.launches = rn.rms_norm.launches = 0
+    step(state, batch)
+    torch.cuda.synchronize()
+    assert {"flash": fa.flash_attention.launches,
+            "rms": rn.rms_norm.launches} == want
+
+
+def _token_shard(directory, seq_len, vocab=512, seed=3):
+    """One random sequence of ``seq_len`` ids repeated: every chunk the
+    stream cuts is that sequence, so each step sees the same batch."""
+    ids = np.random.RandomState(seed).randint(0, vocab, seq_len)
+    path = str(directory / "tokens.npy")
+    np.save(path, np.tile(ids.astype(np.int32), 8))
+    return path
+
+
+def _last_json_line(capsys):
+    import json
+
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_lora_benchmark_cli_on_token_shards_on_the_card(cuda, tmp_path,
+                                                        capsys):
+    """``training.benchmark --lora_rank`` as a user runs it on the card:
+    the base drawn in fp32 and cast to bf16, the shard's batches put on
+    the card by the prefetch thread, the step's launches by the
+    formula."""
+    from kubeflow_tpu_torch.training import benchmark
+
+    shard = _token_shard(tmp_path, 32)
+    fa.flash_attention.launches = rn.rms_norm.launches = 0
+    assert benchmark.main(["--model", "llama-test", "--lora_rank", "4",
+                           "--seq_len", "32", "--batch_size", "2",
+                           "--steps", "2", "--data", shard]) == 0
+    torch.cuda.synchronize()
+    result = _last_json_line(capsys)
+    model = llama_test(lora_rank=4)
+    assert result["trainable_params"] == sum(
+        p.numel() for n, p in model.named_parameters() if "lora_" in n)
+    assert result["device"] == torch.cuda.get_device_name(cuda)
+    losses = result["warmup_losses"] + result["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    # 3 steps, each flash twice a layer and RMSNorm 4 a layer + 1
+    # (forward and remat recompute), over 2 layers.
+    assert (fa.flash_attention.launches, rn.rms_norm.launches) == (
+        3 * 4, 3 * 9)
+
+
+def test_pretrain_cli_resumes_from_its_checkpoints_on_the_card(
+        cuda, tmp_path, capsys):
+    """``training.pretrain`` on the card with both checkpoint tiers: a
+    run of 6 steps; then its steps after 4 deleted, as a crash after
+    step 4's saves leaves it, and the same command again restores step
+    4 onto the card and takes steps 5 and 6 to the same losses, bit for
+    bit."""
+    import json
+    import shutil
+
+    shard = _token_shard(tmp_path, 32)
+    ckpt = tmp_path / "ckpt"
+
+    def run(metrics):
+        assert pretrain.main([
+            "--model", "llama-test", "--global_batch", "2",
+            "--seq_len", "32", "--steps", "6", "--warmup_steps", "2",
+            "--learning_rate", "1e-2", "--log_every", "1",
+            "--data", shard, "--checkpoint_dir", str(ckpt),
+            "--save_every", "2", "--continuous_every", "1",
+            "--metrics_path", str(metrics)]) == 0
+        assert _last_json_line(capsys)["final_step"] == 6
+        with open(metrics) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f)}
+
+    from kubeflow_tpu_torch.training import pretrain
+
+    first = run(tmp_path / "first.jsonl")
+    assert sorted(first) == [1, 2, 3, 4, 5, 6]
+    assert first[2] == first[1]  # the first update's rate is 0
+    assert first[6] < first[1]
+    # The continuous tier's writer may have dropped a step it was
+    # behind on; the periodic tier holds step 4 whatever it dropped.
+    for tier in (ckpt, ckpt / "continuous"):
+        for step_dir in tier.glob("step-*"):
+            if int(step_dir.name[len("step-"):]) > 4:
+                shutil.rmtree(step_dir)
+    assert (ckpt / "step-00000004" / "manifest.json").is_file()
+    resumed = run(tmp_path / "resumed.jsonl")
+    assert resumed == {5: first[5], 6: first[6]}

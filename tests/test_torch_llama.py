@@ -160,8 +160,10 @@ def test_bf16_model_stores_bf16_weights_and_fp32_head():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         llama_test(num_experts=4)
-    with pytest.raises(NotImplementedError):
-        llama_test(lora_rank=8)
+    # LoRA is ported (tests/test_torch_lora.py); a negative rank raises.
+    assert llama_test(lora_rank=8).layers[0].attention.q_proj.rank == 8
+    with pytest.raises(ValueError, match="lora_rank"):
+        llama_test(lora_rank=-1)
     model = llama_test(dtype="float32")
     params = convert.init_params(model, seed=0, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int32)

@@ -18,7 +18,7 @@
   ``kubeflow_tpu`` blocked, and no source line of the package or of its
   GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
   ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``,
-  ``scripts/manager_phase.py``) names
+  ``scripts/manager_phase.py``, ``scripts/train_phase.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -67,6 +67,7 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "bn_phase_times.py")
     yield os.path.join(ROOT, "scripts", "decode_invariance.py")
     yield os.path.join(ROOT, "scripts", "manager_phase.py")
+    yield os.path.join(ROOT, "scripts", "train_phase.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():

@@ -173,7 +173,7 @@ def test_run_benchmark_on_the_cpu_returns_the_reference_keys(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--model", "resnet-test", "--bn_stat_rows", "-1"], ">= 0"),
     (["--model", "llama-test", "--bn_stat_rows", "4"], "vision models"),
-    (["--model", "llama-test"], "not ported"),
+    (["--model", "llama-test", "--data", "shards"], "requires --lora_rank"),
     (["--model", "no-such-model"], "unknown model"),
 ])
 def test_cli_validation(argv, match, capsys):
