@@ -30,10 +30,12 @@ checkout's BN kernel by the same code (a parent commit's, say).
    ``launch_plan``'s shared memory held to the library's own figure for
    every flash instantiation.
 3. Flash attention vs its plain version on the card, at the Llama
-   path's shapes, a long sequence and three variants, and the same bits
+   path's shapes, a long sequence, three variants and ViT-B/16's and
+   BERT-base's training shapes (rows f and g), and the same bits
    on a second call; each kernel's time (CUDA events around 20
    back-to-back calls, median of 7 such runs; ``ms_one_call``: one call
-   per event pair, median of 30, which adds the wrapper's host work), its plain
+   per event pair, median of 30, which adds the wrapper's host work; and
+   the profiler's kernel time, ``device_ms``), its plain
    version's, the one-call PyTorch yardstick (``library_ms``, never
    used by the port, timed as the kernel), the card's bound, the share
    of it reached and the instantiation's registers and spills. Then
@@ -121,7 +123,7 @@ checkout's BN kernel by the same code (a parent commit's, say).
    a captured engine (every plain slice, speculative draft and verify
    and classic admission prefill a CUDA graph), greedy and sampled, in
    turns with an uncaptured engine (uncaptured, captured, captured
-   again, uncaptured): every captured stream equal to the uncaptured
+   again): every captured stream equal to the uncaptured
    engine's, one graph per ``engine_compile`` key of a captured
    program, no decode attention launched by a wrapper in the replayed
    pass and, in the engine mix, no wrapper launch at all, and no plain
@@ -238,6 +240,32 @@ checkout's BN kernel by the same code (a parent commit's, say).
    (``bn_stat_rows=32``, 3 warmup + 20 timed steps) and the CLI default
    (exact BN, 1 + 5). The first step's logits through the kernel are
    held against the plain BN, beside the bf16 floor.
+7b. The rest of the registry, each path's launches counted. BERT
+   (``train_bert``): the training loop's drain agreement on an nccl
+   group of one; the tpu-lm CLI at its defaults (bert-base, mlm) as the
+   pod command under ``launcher.launch`` with a one-process operator
+   env, 10 steps on a token shard (the loss falls); bert-base at full
+   width and depth, b32 × L128 with padded rows: the first step's
+   logits through the flash kernel within twice the bf16 floor of the
+   plain attention, 12 flash launches a forward, 10 mlm steps on the
+   fixed batch through the tpu-lm step (12 flash launches and 12 plain
+   gradient recomputes a step, the loss falls, peak < 80 GB), a profiled
+   step's split; one bert-large forward (24 launches) against the plain
+   attention. Vision (``train_vision``): ``run_benchmark`` (tpu-cnn) for
+   vit-b16 b64, inception-v3 b128, vgg16 b64 and alexnet b128 on a fixed
+   batch (12 flash launches a ViT forward, 94 BN an Inception forward,
+   the loss lower at the last step, peak < 80 GB; images/s and a
+   profiled run's split); the BN kernel at Inception-v3's 18 BN shapes
+   (ε = 1e-3) and one fp32 shape as in 5; the first step's logits of
+   ViT and Inception through the kernels against the plain twins within
+   twice their floors. Served vision (``serve_vision``): port exports of
+   vit-b16 and inception-v3 (with ``batch_stats``) through
+   ``load_version``, ``predict`` and ``classify`` bitwise equal to the
+   module applied. MoE (``train_moe``): tpu-lm steps of llama-moe-bench
+   and its dense twin at b8 × L1024 (4 flash a step, the loss falls,
+   the aux loss in the MoE's metrics), their tokens/s side by side;
+   llama-moe-bench served: a predict, a B = 1 greedy generate, and the
+   engine's four-slot streams against B = 1 (reported).
 8. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
@@ -259,9 +287,11 @@ import gc
 import io
 import itertools
 import json
+import logging
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -276,14 +306,16 @@ from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from kubeflow_tpu_torch.inference.engine import engine as engine_module
 from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
-from kubeflow_tpu_torch.models import resnet
+from kubeflow_tpu_torch.models.inception import InceptionV3
+from kubeflow_tpu_torch.models.vit import ViT
 from kubeflow_tpu_torch.models.convert import (
     init_params,
-    init_resnet,
+    init_vision,
     params_to_flax,
     unflatten_tree,
 )
 from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.models.layers import apply as apply_vision
 from kubeflow_tpu_torch.models.llama import LayerCache, apply, llama_test
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.ops import _build, bn_fused
@@ -327,12 +359,17 @@ from kubeflow_tpu_torch.training.benchmark import (
     synthetic_batch,
 )
 from kubeflow_tpu_torch.training.benchmark import main as benchmark_main
+from kubeflow_tpu_torch.training import launcher
 from kubeflow_tpu_torch.training.data import place_batch, synthetic_causal_lm
 from kubeflow_tpu_torch.training.finetune import make_lora_train_step
 from kubeflow_tpu_torch.training.lm import (
     causal_lm_loss,
+    create_lm_state,
     lm_forward_with_aux,
+    make_lm_train_step,
 )
+from kubeflow_tpu_torch.training.loop import agree_on_drain
+from kubeflow_tpu_torch.training.optim import adamw
 from kubeflow_tpu_torch.training.pretrain import main as pretrain_main
 from kubeflow_tpu_torch.training.train import (
     create_train_state,
@@ -505,7 +542,9 @@ def check_flash(kernels, name, b, l, h, hkv, d, dtype, causal, masked):
     v = torch.randn(b, l, hkv, d, device="cuda", generator=gen).to(dtype)
     mask = None
     if masked:
-        lengths = torch.tensor([[l * 3 // 4], [l]], device="cuda")[:b]
+        # Every other row padded to three quarters of its length.
+        lengths = torch.tensor([[l * 3 // 4 if i % 2 == 0 else l]
+                                for i in range(b)], device="cuda")
         mask = (torch.arange(l, device="cuda")[None, :] < lengths).to(
             torch.int32)
     run = functools.partial(flash_attention, q, k, v, causal=causal,
@@ -535,8 +574,13 @@ def check_flash(kernels, name, b, l, h, hkv, d, dtype, causal, masked):
     ms = time_ms(run, **KERNEL_TIMING)
     row = {"shape": name, "dtype": dt, "max_abs_err": err, "tol": tol,
            "ms": ms, "ms_one_call": time_ms(run),
+           # The profiler's kernel time: where a call's host work (the
+           # wrapper's checks, a mask's cast) outlasts its kernel, the
+           # 20-call time is the host's.
+           "device_ms": profiled_ms(run),
            "plain_ms": time_ms(plain, reps=20),
            "library_ms": time_ms(library, **KERNEL_TIMING),
+           "library_device_ms": profiled_ms(library),
            "bound_ms": bound, "bound_by": bound_by,
            "bound_share": bound / ms,
            **flash_instantiation(kernels, dtype, d)}
@@ -2343,17 +2387,18 @@ def serve_captured(card, registry, params, kwargs, *,
     admission prefill a CUDA graph, graphs.py), greedy and sampled,
     against an uncaptured engine of the same config, in turns:
     uncaptured, captured (its graphs captured on first use), captured
-    again (replays), uncaptured. Asserts every captured stream equal to
-    the uncaptured engine's, one graph per engine_compile key of a
-    captured program, and in the replayed pass no decode attention
-    launch from a wrapper (every decode step replayed) and, in the
-    engine mix, no wrapper launch at all; no plain twin called in any
-    pass. Reports inter-token ms of both engines, the graphs against the
-    distinct engine_compile keys and, in the engine mix: the device idle
-    share and each kernel's launches of the replayed pass and of one
-    captured 4-step slice replayed alone, and a classic admission
-    (the 512-token request alone, budget 1) on both engines, its device
-    ms beside its host-clock TTFT."""
+    again (replays) and, in the engine mix, uncaptured again. Asserts
+    every pass's streams equal to the first uncaptured pass's (in the
+    engine mix, so the uncaptured engine's across its two passes too),
+    one graph per engine_compile key of a captured program, and in the
+    replayed pass no decode attention launch from a wrapper (every
+    decode step replayed) and, in the engine mix, no wrapper launch at
+    all; no plain twin called in any pass. Reports inter-token ms of both
+    engines, the graphs against the distinct engine_compile keys and, in
+    the engine mix: the device idle share and each kernel's launches of
+    both second passes and of one captured 4-step slice replayed alone,
+    and a classic admission (the 512-token request alone, budget 1) on
+    both engines, its device ms beside its host-clock TTFT."""
     vocab = get_model(registry).num_classes_or_vocab
     kwargs = dict(kwargs, cache_size=cache_size)
     rng = np.random.default_rng(1)
@@ -2385,6 +2430,8 @@ def serve_captured(card, registry, params, kwargs, *,
                                          ("captured 1", graphs),
                                          ("captured 2", graphs),
                                          ("eager 2", eager)):
+                        if name == "eager 2" and mix != "engine":
+                            continue
                         zero_counts()
                         if mix == "engine" and name.endswith("2"):
                             (streams, ms), window = device_window(
@@ -4077,7 +4124,7 @@ def resnet50_bn_shapes(batch: int = RESNET_BATCH) -> list:
     return [(m, c, n) for (m, c), n in seen.items()]
 
 
-def check_bn(name, nhw, c, dtype, stat_rows=None, layers=0):
+def check_bn(name, nhw, c, dtype, stat_rows=None, layers=0, eps=1e-5):
     """The BN kernel vs its plain version on one [N·H·W, C] shape, with
     ``stat_rows`` leading rows feeding the statistics (all when None):
     y, the stats and the same bits on a second call; then the kernel's
@@ -4093,9 +4140,9 @@ def check_bn(name, nhw, c, dtype, stat_rows=None, layers=0):
     scale = torch.rand(c, device="cuda", generator=gen)
     bias = torch.randn(c, device="cuda", generator=gen)
     run = functools.partial(fused_bn_train_forward, x, scale, bias,
-                            stat_rows=stat_rows)
+                            eps=eps, stat_rows=stat_rows)
     plain = functools.partial(reference_bn_train_forward, x, scale, bias,
-                              stat_rows=stat_rows)
+                              eps=eps, stat_rows=stat_rows)
     y, mean, var = run()
     torch.cuda.synchronize()
     y_ref, mean_ref, var_ref = plain()
@@ -4121,7 +4168,7 @@ def check_bn(name, nhw, c, dtype, stat_rows=None, layers=0):
         nchw = x.view(n, h, w, c).permute(0, 3, 1, 2)  # channels-last
         library = functools.partial(
             F.batch_norm, nchw, None, None, weight=scale, bias=bias,
-            training=True, momentum=0.0, eps=1e-5)
+            training=True, momentum=0.0, eps=eps)
         library_ms = time_ms(library, **KERNEL_TIMING)
         library_device_ms = profiled_ms(library)
     bound = bn_bound(m, m if stat_rows is None else stat_rows, c, dtype)
@@ -4198,7 +4245,7 @@ def resnet_test_agreement():
     out = {}
     for device in ("cpu", "cuda"):
         model = get_model("resnet-test").make(dtype="float32")
-        params, stats = init_resnet(model, seed=0, device="cpu")
+        params, stats = init_vision(model, seed=0, device="cpu")
         state = create_train_state(
             model, sgd(0.1, 0.9), {k: v.to(device) for k, v in params.items()},
             {k: v.to(device) for k, v in stats.items()})
@@ -4245,7 +4292,7 @@ def resnet50_first_step_agreement(config, entry, params, stats):
                            ("fp64_stats", bn_fp64_stats)):
         model = entry.make(norm_fn=norm_fn, **config.model_kwargs)
         with torch.no_grad():
-            out = resnet.apply(model, params,
+            out = apply_vision(model, params,
                                {k: v.clone() for k, v in stats.items()},
                                batch["inputs"], train=True)
         logits[label] = out
@@ -4298,7 +4345,7 @@ def train_resnet50(card):
         if peak_gb >= 80:
             raise AssertionError(f"resnet50 {name}: peak {peak_gb} GB")
         if stat_rows:
-            params, stats = init_resnet(entry.make(), seed=0)
+            params, stats = init_vision(entry.make(), seed=0)
             resnet50_first_step_agreement(config, entry, params, stats)
             del params, stats
     return total
@@ -4332,6 +4379,619 @@ def bn_routes(shapes) -> None:
                              "the on-chip route")
 
 
+
+# -- the rest of the registry: BERT, vision, MoE ------------------------------
+
+#: tpu-lm's default model and objective (bert-base, mlm) at L128, and
+#: bert-large's one forward.
+BERT = "bert-base"
+BERT_LARGE = "bert-large"
+BERT_BATCH = 32
+BERT_SEQ = 128
+BERT_STEPS = 10
+BERT_LR = 1e-4
+BERT_LARGE_BATCH = 8
+#: The mask token and rate of the reference's mlm data.
+MASK_TOKEN = 103
+MASK_RATE = 0.15
+#: (model, batch, warmup, timed steps, lr, falls): the tpu-cnn path at
+#: each vision family's registry input size. On a fixed synthetic batch
+#: some of the benchmark's rates make the loss rise (port-only CPU
+#: probes at b8–b16: vit-b16 at SGD 0.1 2.6 → 79 in 5 steps;
+#: inception-v3 at 0.1 3.7 → 6.8; alexnet at its bench_lr 0.01 4.8 →
+#: 116), so each of those runs twice: at the benchmark's own rate (lr
+#: None: ``bench_lr``, else 0.1), where the loss is held finite, and at
+#: a rate whose loss falls there (vit-b16 0.003: 3.5 → 1.2; inception-v3
+#: 0.01: 6.6 → 4.7; alexnet 0.001: 6.6 → 4.8), where it is held lower
+#: at the last step; vgg16 once, at its bench_lr 0.01 (6.9 → 6.6).
+VISION_RUNS = (("vit-b16", 64, 1, 3, None, False),
+               ("vit-b16", 64, 1, 5, 0.003, True),
+               ("inception-v3", 128, 1, 3, None, False),
+               ("inception-v3", 128, 1, 5, 0.01, True),
+               ("vgg16", 64, 1, 3, None, True),
+               ("alexnet", 128, 1, 5, None, False),
+               ("alexnet", 128, 1, 5, 0.001, True))
+INCEPTION_BATCH = 128
+INCEPTION_BN_LAYERS = 94
+#: (model, batch): the first step's logits through the kernels against
+#: the plain twins.
+VISION_AGREEMENT = (("vit-b16", 64), ("inception-v3", 32))
+#: (model, image size): the served vision exports.
+SERVED_VISION = (("vit-b16", 224), ("inception-v3", 299))
+#: The MoE pricing pair: tpu-lm steps of each at b8 × L1024.
+MOE_MODELS = ("llama-moe-bench", "llama-moe-dense-twin")
+MOE_BATCH = 8
+MOE_SEQ = 1024
+MOE_STEPS = 8
+MOE_LR = 3e-4
+MOE_WARMUP = 2
+MOE_PROMPTS = (300, 512, 77, 410)
+MOE_NEW_TOKENS = 16
+
+
+def plain_attention(q, k, v, causal=False, kv_segment_valid=None,
+                    **kw):
+    """The second plain route, for the bf16 floor: softmax attention in
+    one piece (``dense_attention``) where the plain twin is the
+    kernel's online softmax over 64-key tiles."""
+    return dense_attention(q, k, v, causal=causal,
+                           kv_segment_valid=kv_segment_valid, **kw)
+
+
+def agreement(label, forwards):
+    """``forwards``: {"kernel", "plain", "floor"} → logits. The kernel's
+    logits against the plain twin's, relative RMS, within twice the bf16
+    floor (plain twin against the other plain route) measured beside
+    it."""
+    logits = {k: f() for k, f in forwards.items()}
+    if not all(torch.isfinite(v).all() for v in logits.values()):
+        raise AssertionError(f"{label}: logits are not finite")
+    err = rel_rms(logits["kernel"].float(), logits["plain"].float())
+    floor = rel_rms(logits["floor"].float(), logits["plain"].float())
+    row = {"logits_rel_rms": err, "floor_rel_rms": floor, "tol": 2 * floor}
+    log(f"{label}, kernel vs plain: {json.dumps(row)}")
+    if err > 2 * floor:
+        raise AssertionError(f"{label}: relative RMS {err} > twice the "
+                             f"floor {floor}")
+    return row
+
+
+def mlm_batch(b, l, vocab, seed, device):
+    """A BERT mlm batch with padded rows: row 0 full, the others valid
+    for a random length of at least l/2; 15% of the valid positions
+    masked."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, vocab, (b, l))
+    lengths = rng.integers(l // 2, l + 1, b)
+    lengths[0] = l
+    valid = np.arange(l)[None] < lengths[:, None]
+    masked = (rng.random((b, l)) < MASK_RATE) & valid
+    batch = {"input_ids": np.where(masked, MASK_TOKEN, ids),
+             "type_ids": np.zeros((b, l)), "valid": valid,
+             "mlm_labels": ids, "mlm_weights": masked}
+    return place_batch({k: v.astype(np.int32) for k, v in batch.items()},
+                       device)
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set for the block (a child process
+    the launcher starts inherits it)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_drain_agreement():
+    """An nccl group of one process on the card (a TCP rendezvous on
+    localhost): the training loop's drain agreement, an all-reduce MAX
+    on the card, gives each flag back."""
+    dist = torch.distributed
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        got = (agree_on_drain(True), agree_on_drain(False))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if got != (True, False) or backend != "nccl":
+        raise AssertionError(f"nccl drain agreement: {got} on {backend}")
+    log("nccl group of 1 on the card: drain agreement True/False held")
+
+
+def bert_cli_through_launcher(card):
+    """The tpu-lm CLI at its defaults (bert-base, mlm) as the pod command
+    under ``launcher.launch``, with the operator's env of a one-process
+    gang (no rendezvous: the reference's contract), on a token shard of
+    one repeated 128-token sequence masked anew each step; 10 steps, the
+    loss lower at the last."""
+    entry = get_model(BERT)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        shard = write_token_shard(tmp, BERT_SEQ, entry.num_classes_or_vocab,
+                                  seed=3, repeats=BERT_BATCH * 2)
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        root = logging.getLogger()
+        handlers, level = list(root.handlers), root.level
+        t0 = time.monotonic()
+        with environ(KFT_COORDINATOR_ADDRESS=f"localhost:{free_port()}",
+                     KFT_NUM_PROCESSES="1", KFT_PROCESS_ID="0",
+                     PYTHONPATH=ROOT):
+            rc = launcher.launch([
+                sys.executable, "-m", "kubeflow_tpu_torch.training.pretrain",
+                "--global_batch", str(BERT_BATCH), "--seq_len",
+                str(BERT_SEQ), "--steps", str(BERT_STEPS), "--log_every",
+                "1", "--warmup_steps", "2", "--data", shard,
+                "--metrics_path", metrics_path], env=os.environ)
+        wall_s = time.monotonic() - t0
+        for h in root.handlers[len(handlers):]:
+            root.removeHandler(h)
+        root.setLevel(level)
+        with open(metrics_path) as f:
+            records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records]
+    if rc != 0 or len(losses) != BERT_STEPS:
+        raise AssertionError(f"tpu-lm through the launcher: exit {rc}, "
+                             f"{len(losses)} logged steps")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"tpu-lm bert-base: the loss did not fall: "
+                             f"{losses}")
+    report = {"card": card, "exit_code": rc, "wall_s": wall_s,
+              "losses": losses,
+              "step_ms_each": [1e3 / r["steps_per_sec"] for r in records]}
+    log(f"tpu-lm CLI (bert-base, mlm) under the launcher: "
+        f"{json.dumps(report)}")
+
+
+def train_bert(card):
+    """BERT on the card: the drain agreement on an nccl group; the
+    tpu-lm CLI at its defaults under the launcher; then in process,
+    bert-base at full width and depth, bf16, fp32 masters, b32 × L128
+    with padded rows: the first step's logits through the kernel against
+    the plain attention (within twice the bf16 floor), 12 flash launches
+    a forward, 10 mlm steps on the fixed batch through the tpu-lm step
+    (the loss falls, 12 flash launches and 12 plain gradient recomputes
+    a step, no plain twin in a forward), peak < 80 GB, a profiled step's
+    split; then one bert-large forward against the plain attention.
+    Returns the in-process run's flash launches."""
+    nccl_drain_agreement()
+    bert_cli_through_launcher(card)
+    entry = get_model(BERT)
+    model = entry.make()
+    params = init_params(model, seed=0)
+    batch = mlm_batch(BERT_BATCH, BERT_SEQ, entry.num_classes_or_vocab, 1,
+                      resolve_device())
+    args = (batch["input_ids"], batch["type_ids"], batch["valid"])
+    variants = {"kernel": model,
+                "plain": entry.make(attention_fn=flash_attention_reference),
+                "floor": entry.make(attention_fn=plain_attention)}
+    layers = model.num_layers
+    with torch.no_grad():
+        zero_counts()
+        agreement(f"{BERT} b{BERT_BATCH} L{BERT_SEQ} padded, first-step "
+                  f"logits", {k: functools.partial(apply, m, params, *args)
+                              for k, m in variants.items()})
+        torch.cuda.synchronize()
+        if flash_attention.launches != layers:
+            raise AssertionError(f"{BERT} forward: "
+                                 f"{flash_attention.launches} flash "
+                                 f"launches, expected {layers}")
+    state, _ = create_lm_state(model, adamw(BERT_LR), params)
+    step = make_lm_train_step(objective="mlm")
+    want = {"flash_attention": layers, "rms_norm": 0,
+            "flash_backward": layers, "rms_norm_backward": 0,
+            "forward_plain": 0}
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    with counted_run(BERT, BERT_STEPS, want) as launches:
+        for _ in range(BERT_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        losses = [float(x) for x in losses]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{BERT}: the loss did not fall: {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"{BERT}: peak {peak_gb} GB")
+    # Step time on the warm step, outside the counted run's wrappers.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, metrics = step(state, batch)
+    float(metrics["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    state, profile = profiled_step(step, state, batch)
+    flops = lm_train_flops(model, BERT_BATCH, BERT_SEQ)
+    report = {"card": card, "model": BERT, "batch": BERT_BATCH,
+              "seq_len": BERT_SEQ, "losses": losses, "step_ms": step_ms,
+              "tokens_per_s": BERT_BATCH * BERT_SEQ / step_ms * 1e3,
+              "flops_per_step": flops,
+              "hfu_pct": flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+              * 100, "peak_memory_gb": peak_gb, "per_step": want,
+              "profiled_step": profile}
+    log(f"{BERT} mlm steps: {json.dumps(report)}")
+    del state, params, variants
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    entry = get_model(BERT_LARGE)
+    params = init_params(entry.make(), seed=0)
+    batch = mlm_batch(BERT_LARGE_BATCH, BERT_SEQ, entry.num_classes_or_vocab,
+                      2, resolve_device())
+    args = (batch["input_ids"], batch["type_ids"], batch["valid"])
+    with torch.no_grad():
+        zero_counts()
+        agreement(f"{BERT_LARGE} b{BERT_LARGE_BATCH} L{BERT_SEQ} padded "
+                  f"forward", {
+                      "kernel": functools.partial(apply, entry.make(),
+                                                  params, *args),
+                      "plain": functools.partial(apply, entry.make(
+                          attention_fn=flash_attention_reference), params,
+                          *args),
+                      "floor": functools.partial(apply, entry.make(
+                          attention_fn=plain_attention), params, *args)})
+        torch.cuda.synchronize()
+        layers = entry.make().num_layers
+        if flash_attention.launches != layers:
+            raise AssertionError(f"{BERT_LARGE} forward: "
+                                 f"{flash_attention.launches} flash "
+                                 f"launches, expected {layers}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["flash_attention"]
+
+
+def inception_bn_shapes(batch: int = INCEPTION_BATCH) -> list:
+    """``[(M, C, layers)]``: each distinct [M, C] Inception-v3's BN
+    layers hand the kernel in a training forward at ``batch``, 299², as
+    :func:`resnet50_bn_shapes` reads ResNet-50's."""
+    seen = {}
+
+    def record(x, scale, bias, eps=1e-5, stat_rows=None):
+        seen[tuple(x.shape)] = seen.get(tuple(x.shape), 0) + 1
+        c = x.shape[1]
+        return (torch.empty_like(x), x.new_empty(c, dtype=torch.float32),
+                x.new_empty(c, dtype=torch.float32))
+
+    entry = get_model("inception-v3")
+    model = entry.make(norm_fn=record)
+    for mod in model.modules():
+        if isinstance(mod, GhostBatchNorm):
+            mod.register_forward_pre_hook(lambda _, args: (
+                args[0].contiguous(memory_format=torch.channels_last),
+                *args[1:]))
+    x = torch.empty(batch, *entry.input_spec[0], device="meta")
+    with torch.no_grad():
+        model(x, train=True)
+    return [(m, c, n) for (m, c), n in seen.items()]
+
+
+def inception_bn_table():
+    """The BN kernel at every distinct BN shape of Inception-v3 at b128
+    (ε = 1e-3), bf16, and one fp32 shape, against its plain version and
+    ``F.batch_norm``, with the launch plan of each; the sums over the
+    94 layers of a step."""
+    shapes = inception_bn_shapes()
+    if sum(n for *_, n in shapes) != INCEPTION_BN_LAYERS:
+        raise AssertionError(f"inception-v3 BN shapes {shapes}")
+    lib = bn_fused._library()
+    coresident, slab = bn_fused.device_limits(
+        lib, torch.device("cuda", torch.cuda.current_device()), 1, 8)
+    rows = []
+    for m, c, n in shapes:
+        plan = bn_fused.launch_plan(m, c, 8, 2, coresident=coresident,
+                                    slab_bytes=slab)
+        log(f"bn plan inception [{m},{c}]: "
+            f"{json.dumps(dataclasses.asdict(plan))}")
+        side = math.isqrt(m // INCEPTION_BATCH)
+        rows.append(check_bn(f"inception [{m},{c}] bf16",
+                             (INCEPTION_BATCH, side, side), c,
+                             torch.bfloat16, layers=n, eps=1e-3))
+    rows.append(check_bn("inception [156800,288] fp32",
+                         (INCEPTION_BATCH, 35, 35), 288, torch.float32,
+                         eps=1e-3))
+    step = [r for r in rows if r["layers"]]
+    sums = {k: sum(r["layers"] * r[k] for r in step)
+            for k in ("ms", "device_ms", "bound_ms", "library_ms")}
+    log(f"bn per Inception-v3 b{INCEPTION_BATCH} step: Σ layers·ms "
+        f"{json.dumps(sums)} over {sum(r['layers'] for r in step)} layers")
+    return rows
+
+
+def vision_agreement(name, entry, params, stats, batch):
+    """The first step's train-mode logits through the kernels against
+    the plain twins: ViT's flash (floor: the other plain attention),
+    Inception's BN (floor: BN with fp64 statistics)."""
+    if isinstance(entry.make(), ViT):
+        variants = {"kernel": {}, "plain": {
+            "attention_fn": flash_attention_reference},
+            "floor": {"attention_fn": plain_attention}}
+    else:
+        variants = {"kernel": {}, "plain": {
+            "norm_fn": reference_bn_train_forward},
+            "floor": {"norm_fn": bn_fp64_stats}}
+
+    def forward(kw):
+        with torch.no_grad():
+            return apply_vision(entry.make(**kw), params,
+                                {k: v.clone() for k, v in stats.items()},
+                                batch["inputs"], train=True)
+
+    return agreement(f"{name} first step", {
+        k: functools.partial(forward, kw) for k, kw in variants.items()})
+
+
+def config_lr(name, lr):
+    """The rate ``run_benchmark`` trains ``name`` at for ``lr``."""
+    bench_lr = get_model(name).bench_lr
+    return lr if lr is not None else (bench_lr if bench_lr is not None
+                                      else 0.1)
+
+
+def train_vision(card):
+    """The tpu-cnn path (``run_benchmark``) for ViT-B/16, Inception-v3,
+    VGG-16 and AlexNet at full width and depth: each a fixed synthetic
+    batch, bf16, SGD-Nesterov, its launches counted (ViT: 12 flash a
+    forward; Inception: 94 BN a forward), the loss finite at the
+    benchmark's own rate and lower at the last step at the rate of a
+    ``falls`` run (VISION_RUNS), peak < 80 GB (asserted); images/s, step
+    ms and a profiled run's split (ViT and Inception) reported. Then the
+    BN kernel at Inception's shapes, and the first step's logits through
+    the kernels against the plain twins. Returns the flash and BN
+    launches of the last run of each path."""
+    launches = {}
+    for name, batch, warmup, steps, lr, falls in VISION_RUNS:
+        template = get_model(name).make()
+        profile = falls and isinstance(template, (ViT, InceptionV3))
+        with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+            config = BenchConfig(model=name, batch_size=batch, steps=steps,
+                                 warmup_steps=warmup, learning_rate=lr,
+                                 seed=0,
+                                 profile_dir=tmp if profile else None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            fused_bn_train_forward.launches = 0
+            result = run_benchmark(config)
+            torch.cuda.synchronize()
+            got = {"flash_attention": flash_attention.launches,
+                   "bn_forward": fused_bn_train_forward.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        forwards = max(warmup, 1) + steps
+        want = {"flash_attention": forwards * (
+                    template.num_layers if isinstance(template, ViT) else 0),
+                "bn_forward": forwards * bn_layers(template)}
+        losses = result.pop("losses")
+        rate = config_lr(name, lr)
+        result.update(card=card, peak_memory_gb=peak_gb, launches=got,
+                      losses=losses, learning_rate=rate)
+        log(f"{name} tpu-cnn: {json.dumps(result)}")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name} at lr {rate}: a loss is not "
+                                 f"finite: {losses}")
+        if falls and not losses[-1] < losses[0]:
+            raise AssertionError(f"{name} at lr {rate}: the loss did not "
+                                 f"fall on the fixed batch: {losses}")
+        if peak_gb >= 80:
+            raise AssertionError(f"{name}: peak {peak_gb} GB")
+        for k, v in got.items():
+            if v:
+                launches[k] = v
+    inception_rows = inception_bn_table()
+    for name, batch in VISION_AGREEMENT:
+        entry = get_model(name)
+        params, stats = init_vision(entry.make(), seed=0)
+        config = BenchConfig(model=name, batch_size=batch, seed=0)
+        data = synthetic_batch(config, entry.num_classes_or_vocab,
+                               entry.input_spec[0], resolve_device())
+        vision_agreement(name, entry, params, stats, data)
+        del params, stats, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, inception_rows
+
+
+def serve_vision(card):
+    """Port exports of vit-b16 (params) and inception-v3 (params and
+    ``batch_stats``, made non-trivial by two training forwards) through
+    ``load_version``: ``predict`` equal to the module applied to the same
+    images, and ``classify`` to the top 5 of its softmax, bit for bit;
+    12 flash launches a ViT predict (asserted)."""
+    x = np.random.default_rng(7).standard_normal(
+        (4, 299, 299, 3)).astype(np.float32)
+    for name, size in SERVED_VISION:
+        entry = get_model(name)
+        model = entry.make()
+        layers = model.num_layers if isinstance(model, ViT) else 0
+        params, stats = init_vision(model, seed=1)
+        images = torch.from_numpy(x[:, :size, :size]).to(resolve_device())
+        if stats:
+            with torch.no_grad():
+                for _ in range(2):
+                    apply_vision(model, params, stats, images, train=True)
+        tree = {"params": unflatten_tree(params_to_flax(params))}
+        if stats:
+            tree["batch_stats"] = unflatten_tree({
+                k.replace(".", "/"): v.cpu().numpy()
+                for k, v in stats.items()})
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix=".export-") as base:
+            out = {}
+            for version, method in ((1, "predict"), (2, "classify")):
+                classes = entry.num_classes_or_vocab
+                outputs = ({"logits": TensorSpec("float32", (-1, classes))}
+                           if method == "predict" else
+                           {"classes": TensorSpec("int32", (-1, 5)),
+                            "scores": TensorSpec("float32", (-1, 5))})
+                meta = ModelMetadata(
+                    model_name=name, registry_name=name, model_kwargs={},
+                    signatures={"serving_default": Signature(
+                        method=method, inputs={"images": TensorSpec(
+                            "float32", (-1, size, size, 3))},
+                        outputs=outputs)})
+                path = export_model(base, version, meta, tree)
+                t0 = time.monotonic()
+                loaded = load_version(str(path), max_batch=4)
+                load_s = time.monotonic() - t0
+                zero_counts()
+                t0 = time.monotonic()
+                out[method] = loaded.run({"images": np.ascontiguousarray(
+                    x[:, :size, :size])})
+                run_ms = (time.monotonic() - t0) * 1e3
+                flash = flash_attention.launches
+                log(f"served {name} {method}: load {load_s:.2f} s, a "
+                    f"[4, {size}, {size}, 3] request {run_ms:.1f} ms, flash "
+                    f"launches {flash}")
+                if flash != layers:
+                    raise AssertionError(f"served {name}: {flash} flash "
+                                         f"launches, expected {layers}")
+                del loaded
+        with torch.inference_mode():
+            logits = apply_vision(model, params, stats, images, train=False)
+            scores, classes = torch.topk(torch.softmax(logits.float(), -1),
+                                         5, dim=-1)
+        if not (np.array_equal(out["predict"]["logits"],
+                               logits.cpu().numpy())
+                and np.array_equal(out["classify"]["scores"],
+                                   scores.cpu().numpy())
+                and np.array_equal(out["classify"]["classes"],
+                                   classes.to(torch.int32).cpu().numpy())):
+            raise AssertionError(f"served {name} differs from its module")
+        log(f"served {name} ({'params and batch_stats' if stats else 'params'}"
+            f"): predict and classify equal to the module applied, bitwise "
+            f"({card})")
+        del params, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_pretrain(card, name):
+    """tpu-lm pretraining steps of one model of the MoE pricing pair at
+    b8 × L1024 (fp32 masters) on a token shard of one repeated sequence:
+    4 flash and 9 RMSNorm launches a step, the loss falls, an MoE model's
+    aux loss in its metrics (asserted); step ms and tokens/s."""
+    entry = get_model(name)
+    model = entry.make()
+    layers = model.num_layers
+    want = train_launch_formula(layers, remat=False, frozen_embed=False)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        shard = write_token_shard(tmp, MOE_SEQ, entry.num_classes_or_vocab,
+                                  seed=4, repeats=MOE_BATCH * 2)
+        metrics_path = os.path.join(tmp, "metrics.jsonl")
+        with counted_run(name, MOE_STEPS, want) as launches:
+            run_cli(pretrain_main, [
+                "--model", name, "--global_batch", str(MOE_BATCH),
+                "--seq_len", str(MOE_SEQ), "--steps", str(MOE_STEPS),
+                "--warmup_steps", str(MOE_WARMUP), "--learning_rate",
+                str(MOE_LR), "--log_every", "1", "--data", shard,
+                "--metrics_path", metrics_path])
+        with open(metrics_path) as f:
+            records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records]
+    aux = [r["aux_loss"] for r in records]
+    moe = getattr(model, "num_experts", 0) > 0
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    if moe != all(a > 0 for a in aux) or (not moe and any(aux)):
+        raise AssertionError(f"{name}: aux losses {aux}")
+    step_ms = statistics.median(1e3 / r["steps_per_sec"]
+                                for r in records[2:])
+    report = {"card": card, "model": name, "batch": MOE_BATCH,
+              "seq_len": MOE_SEQ, "losses": losses, "aux_losses": aux,
+              "step_ms": step_ms,
+              "tokens_per_s": MOE_BATCH * MOE_SEQ / step_ms * 1e3,
+              "flops_per_step": lm_train_flops(model, MOE_BATCH, MOE_SEQ),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{name} tpu-lm steps: {json.dumps(report)}")
+    return report, launches["flash_attention"]
+
+
+def moe_serving(card):
+    """llama-moe-bench served from seed 0 (bf16): a [2, 512] predict
+    (4 flash launches) and a B = 1 greedy generate through
+    ``LoadedModel.run``; then the engine's four-slot streams against
+    B = 1 ``generate``, reported and not asserted (the reference does
+    not pin engine == B=1 for MoE: capacity drops depend on the
+    group)."""
+    name = MOE_MODELS[0]
+    entry = get_model(name)
+    params = init_params(entry.make(dtype="bfloat16"), seed=0)
+    vocab = entry.num_classes_or_vocab
+    rng = np.random.default_rng(5)
+    predict = LoadedModel(dataclasses.replace(
+        llama_metadata("predict", 512, {"dtype": "bfloat16"}),
+        model_name=name, registry_name=name), 1, params, max_batch=2)
+    zero_counts()
+    logits = predict.run({"input_ids": rng.integers(0, vocab, (2, 512))
+                          .astype(np.int32)})["logits"]
+    flash = flash_attention.launches
+    if flash != predict._module.num_layers or not np.isfinite(logits).all():
+        raise AssertionError(f"{name} predict: {flash} flash launches, "
+                             f"finite {np.isfinite(logits).all()}")
+    config = {"max_new_tokens": MOE_NEW_TOKENS, "temperature": 0.0,
+              "engine_slots": 4, "engine_page_size": 16,
+              "engine_slice_tokens": 4}
+    gen = engine_model(name, params, {"dtype": "bfloat16", "cache_size":
+                                      max(MOE_PROMPTS) + MOE_NEW_TOKENS},
+                       max(MOE_PROMPTS), config, None)
+    prompt = rng.integers(0, vocab, (1, 300)).astype(np.int32)
+    t0 = time.monotonic()
+    tokens = gen.run({"input_ids": prompt})["tokens"]
+    gen_ms = (time.monotonic() - t0) * 1e3
+    if tokens.shape != (1, MOE_NEW_TOKENS):
+        raise AssertionError(f"{name} generate: {tokens.shape}")
+    engine = gen.ensure_engine()
+    requests = [(rng.integers(0, vocab, n).astype(np.int32), MOE_NEW_TOKENS,
+                 prng.PRNGKey(200 + i)) for i, n in enumerate(MOE_PROMPTS)]
+    streams, timing = run_engine(engine, requests)
+    equal = [np.array_equal(np.asarray(s), b1_reference(
+        gen, p, k, budget, {"temperature": 0.0}))
+        for s, (p, budget, k) in zip(streams, requests)]
+    gen.close()
+    log(f"{name} served ({card}): predict [2, 512] {flash} flash launches; "
+        f"B=1 greedy generate of {MOE_NEW_TOKENS} tokens {gen_ms:.1f} ms; "
+        f"engine four-slot streams equal to B=1: {sum(equal)} of "
+        f"{len(equal)} (reported, not asserted); engine "
+        f"{json.dumps(timing)}")
+    del params, predict, gen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_moe(card):
+    """The MoE pricing pair's tpu-lm steps, their tokens/s side by side,
+    then llama-moe-bench served. Returns the training runs' flash
+    launches."""
+    reports, flash = {}, 0
+    for name in MOE_MODELS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reports[name], got = moe_pretrain(card, name)
+        flash += got
+    moe, dense = (reports[n]["tokens_per_s"] for n in MOE_MODELS)
+    log(f"MoE pricing ({card}): {MOE_MODELS[0]} {moe:.0f} tokens/s vs "
+        f"{MOE_MODELS[1]} {dense:.0f} tokens/s, ratio {moe / dense:.3f}")
+    moe_serving(card)
+    return flash
+
+
 def environment() -> str:
     """The card's name and power limit, and the versions."""
     resolve_device()  # TF32 off for the fp32 head and the fp32 checks
@@ -4343,6 +5003,33 @@ def environment() -> str:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     return card
+
+
+#: The flash kernel at the rest of the registry's shapes (rows f and g).
+REGISTRY_FLASH_SHAPES = (
+    # ViT-B/16's training batch: 196 tokens, a 128-row q tile and a
+    # 68-row tail.
+    ("f: ViT-B16 B64 L196 H12 D64 non-causal", 64, 196, 12, 12, 64,
+     torch.bfloat16, False, False),
+    # BERT-base's tpu-lm batch, every other row padded.
+    ("g: BERT B32 L128 H12 D64 key mask", 32, 128, 12, 12, 64,
+     torch.bfloat16, False, True),
+)
+
+
+def registry_phases(card):
+    """The rest of the registry: ``train_bert``, ``train_vision``,
+    ``serve_vision`` and ``train_moe``, each path's counts zeroed just
+    before it and read just after. Returns BERT's flash launches, the
+    vision paths' launches, the Inception BN rows and the MoE's flash
+    launches."""
+    flash_bert = timed(train_bert, card)
+    vision, inception_rows = timed(train_vision, card)
+    timed(serve_vision, card)
+    flash_moe = timed(train_moe, card)
+    log(f"registry path launches: bert flash {flash_bert}, vision "
+        f"{vision}, moe flash {flash_moe}")
+    return flash_bert, vision, inception_rows, flash_moe
 
 
 def main() -> int:
@@ -4398,6 +5085,7 @@ def main() -> int:
         # steady rate.
         ("e: B1 L8192 H32/8 D128 causal", 1, 8192, 32, 8, 128, bf16, True,
          False),
+        *REGISTRY_FLASH_SHAPES,
     ]
     rows = [check_flash(kernels, *s) for s in shapes]
     flash_gradient_rows()
@@ -4418,6 +5106,11 @@ def main() -> int:
     resnet_test_agreement()
     launches["bn_forward"] = train_resnet50(card)
     log(f"resnet path launches: bn_forward {launches['bn_forward']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    (launches["flash_attention_bert"], vision, inception_rows,
+     launches["flash_attention_moe"]) = registry_phases(card)
 
     main_row = rows[0]
     # [802816, 256], exact BN: the row every PR has reported.
@@ -4430,6 +5123,9 @@ def main() -> int:
         "launches": launches["flash_attention"],
         "launches_prefill": launches.pop("flash_attention_prefill"),
         "launches_train": launches.pop("flash_attention_train"),
+        "launches_bert": launches.pop("flash_attention_bert"),
+        "launches_vit": vision["flash_attention"],
+        "launches_moe": launches.pop("flash_attention_moe"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -4476,13 +5172,16 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/csrc/bn_forward.cu",
         "replaces": "kubeflow_tpu/ops/bn_pallas.py:49",
         "launches": launches["bn_forward"],
-        "max_abs_err": max(r["max_abs_err"] for r in bn_rows),
+        "launches_inception": vision["bn_forward"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in bn_rows + inception_rows),
         "ms": bn_main["ms"],
         "plain_ms": bn_main["plain_ms"],
         "bound_ms": bn_main["bound_ms"],
         "bound_by": bn_main["bound_by"],
         "library_ms": bn_main["library_ms"],
     }]
+    log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Model zoo of the port: the registry, the dense Llama family and the
-ResNet family."""
+"""Model zoo of the port: the registry and every family the reference
+registers (Llama dense and MoE, BERT, ViT, ResNet, Inception-v3, VGG and
+AlexNet)."""
 
 from kubeflow_tpu_torch.models.registry import get_model, register_model  # noqa: F401

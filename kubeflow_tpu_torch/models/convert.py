@@ -20,9 +20,9 @@ Dtypes. Flax keeps every param in fp32 and casts it to the module's
 weight in the dtype its op consumes instead: bf16 everywhere for a bf16
 model, except ``lm_head``, which the reference runs in fp32. The
 arithmetic is the same — the cast happens once, here, instead of at
-every op — and the weights take half the memory. For training, the
-ResNet keeps fp32 master params, as Flax does, and casts at each conv.
-A param takes the dtype of the module's template.
+every op — and the weights take half the memory. BERT, ViT and the
+CNNs keep fp32 master params, as Flax does, and cast at each op
+(models/layers.py). A param takes the dtype of the module's template.
 
 Names. Flax's flat ``"/"``-keyed tree maps onto the port's parameter
 names one to one::
@@ -36,11 +36,20 @@ names one to one::
     stage{s}_block{b}/conv1/kernel      stage{s}_block{b}.conv1.weight
     stage{s}_block{b}/bn1/scale         stage{s}_block{b}.bn1.scale
     head/kernel, head/bias              head.weight, head.bias
+    tok_embed/embedding (BERT)          tok_embed.embedding
+    layer_{i}/attention/query/kernel    layers.{i}.attention.query.weight
+    layer_{i}/ln_attn/{scale,bias}      layers.{i}.ln_attn.{scale,bias}
+    layer_{i}/moe/router/kernel         layers.{i}.moe.router.weight
+    layer_{i}/moe/w_in, .../w_out       layers.{i}.moe.w_in, ....w_out
+    mlm_bias, pos_embed                 mlm_bias, pos_embed
+    mixed5b/b1x1/conv/kernel            mixed5b.b1x1.conv.weight
 
 and the ``batch_stats`` collection (``bn_init/mean``, ``…/bn1/var``)
 onto the BN modules' buffers of the same path. Kernels change layout:
 a Dense kernel is ``[in, out]`` in Flax and ``[out, in]`` in
-``nn.Linear``; a conv kernel is HWIO in Flax and OIHW in PyTorch.
+``nn.Linear``; a conv kernel is HWIO in Flax and OIHW in PyTorch. Every
+other leaf keeps its layout (an embedding table, the MoE experts' ``[E,
+d, f]`` and ``[E, f, d]``, a position table).
 
 LoRA adapters (``lora_rank > 0``) live in the reference's separate
 ``"lora"`` collection, ``layer_{i}/attention/{q,k,v,o}_proj/lora_a``
@@ -237,8 +246,8 @@ def init_params(config: nn.Module, seed: int = 0,
                 device: DeviceLike = None,
                 dtype: torch.dtype = None) -> Dict[str, torch.Tensor]:
     """Random params drawn on ``device`` from a ``torch.Generator``
-    seeded with ``seed``: norm scales are 1, every other weight is
-    N(0, 0.02), as the reference's initializers. An 8B model is made on
+    seeded with ``seed``: norm scales are 1, biases 0, every other
+    weight N(0, 0.02), as the reference's Llama and BERT initializers. An 8B model is made on
     the card in seconds. Each is drawn in the template's dtype and, given
     ``dtype``, cast to it at once (the reference's LoRA base:
     ``cast_floating`` of the fp32 init, one tensor at a time). LoRA
@@ -255,6 +264,8 @@ def init_params(config: nn.Module, seed: int = 0,
         t = torch.empty(template.shape, dtype=template.dtype, device=device)
         if name.endswith(".scale"):
             t.fill_(1.0)
+        elif name.endswith("bias"):
+            t.zero_()
         else:
             t.normal_(0.0, 0.02, generator=gen)
         out[name] = t if dtype is None else t.to(dtype)
@@ -437,13 +448,15 @@ def batch_stats_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def init_resnet(config: nn.Module, seed: int = 0, device: DeviceLike = None
+def init_vision(config: nn.Module, seed: int = 0, device: DeviceLike = None
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """Random ``(params, batch_stats)`` for a ResNet, drawn on
-    ``device`` from a ``torch.Generator`` seeded with ``seed``, by the
-    reference's initializers: lecun-normal (truncated) conv and head
-    kernels, zero head bias, BN scale 1 (0 where the template says so:
-    each block's ``bn3``) and bias 0, running mean 0 and var 1. All
+    """Random ``(params, batch_stats)`` for a vision model (ResNet,
+    Inception, VGG, AlexNet, ViT), drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``, by Flax's default
+    initializers: lecun-normal (truncated) conv and Dense kernels, zero
+    biases, norm scales 1 (0 where the template says so: each ResNet
+    block's ``bn3``), a ViT's position table N(0, 0.02), BN running mean
+    0 and var 1 (``batch_stats`` is empty for a model without BN). All
     fp32. (The numbers differ from ``jax.random``'s; to compare with the
     reference, carry its variables across instead.)"""
     device = resolve_device(device)
@@ -459,8 +472,10 @@ def init_resnet(config: nn.Module, seed: int = 0, device: DeviceLike = None
                                   generator=gen)
         elif name.endswith(".scale"):
             module = config.get_submodule(name.rsplit(".", 1)[0])
-            t.fill_(module.scale_init)
-        else:  # BN and head biases
+            t.fill_(getattr(module, "scale_init", 1.0))
+        elif name == "pos_embed":
+            t.normal_(0.0, 0.02, generator=gen)
+        else:  # norm, conv and Dense biases
             t.zero_()
         params[name] = t
     batch_stats = {

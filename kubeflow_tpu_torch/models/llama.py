@@ -14,7 +14,7 @@
 
 """Llama-family decoder (RMSNorm / RoPE / SwiGLU / GQA) in PyTorch.
 
-Port of ``kubeflow_tpu/models/llama.py`` (dense path). Parameter names
+Port of ``kubeflow_tpu/models/llama.py``, dense and MoE. Parameter names
 follow the Flax tree (``models/convert.py`` maps one onto the other).
 
 Modules are templates, as Flax modules are: the registry builds them on
@@ -88,6 +88,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
     prefill_attention,
 )
 from kubeflow_tpu_torch.ops.lora import LoRALinear
+from kubeflow_tpu_torch.ops.moe import MoE
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype
@@ -308,7 +309,8 @@ class LlamaBlock(nn.Module):
                  head_dim: int, mlp_dim: int, rope_theta: float,
                  dtype: torch.dtype, attention_fn: Optional[AttentionFn],
                  device=None, param_dtype: Optional[torch.dtype] = None,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 num_experts: int = 0, num_selected: int = 2):
         super().__init__()
         store = param_dtype or dtype
         self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device,
@@ -318,6 +320,12 @@ class LlamaBlock(nn.Module):
             attention_fn, device, store, lora_rank, lora_alpha)
         self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                 param_dtype=store)
+        if num_experts > 0:
+            # The reference's MoE FFN in place of SwiGLU (param "moe").
+            self.moe = MoE(d_model, num_experts, mlp_dim, num_selected,
+                           dtype=dtype, param_dtype=store, device=device)
+            return
+        self.moe = None
         self.gate_proj = _linear(d_model, mlp_dim, store, device)
         self.up_proj = _linear(d_model, mlp_dim, store, device)
         self.down_proj = _linear(mlp_dim, d_model, store, device)
@@ -328,6 +336,8 @@ class LlamaBlock(nn.Module):
         x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
                                cache, decode_positions)
         h = self.mlp_norm(x)
+        if self.moe is not None:
+            return x + self.moe(h)
         h = (F.silu(_project(self.gate_proj, h, route))
              * _project(self.up_proj, h, route))
         return x + _project(self.down_proj, h, route)
@@ -342,7 +352,10 @@ class Llama(nn.Module):
     ``param_dtype`` (default: serving storage, each weight in the dtype
     its op consumes) stores every weight in that dtype, cast at the op;
     ``lora_rank``/``lora_alpha`` add adapters on q/k/v/o; ``remat``
-    recomputes each block in the backward pass.
+    recomputes each block in the backward pass. ``num_experts > 0``
+    puts the MoE FFN (ops/moe.py, top-``num_selected`` routing) in
+    every block in place of SwiGLU; each forward sows its load-balance
+    loss (``ops.moe.collect_losses`` gathers them).
     """
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 32,
@@ -351,13 +364,10 @@ class Llama(nn.Module):
                  rope_theta: float = 10000.0, dtype="bfloat16",
                  attention_fn: Optional[AttentionFn] = None,
                  cache_size: int = 0, num_experts: int = 0,
+                 num_selected: int = 2,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  remat: bool = False, param_dtype=None, device="meta"):
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError(
-                "MoE Llama (num_experts > 0) is not ported yet (ROADMAP "
-                "A13)")
         if lora_rank < 0:
             raise ValueError(f"lora_rank must be >= 0, got {lora_rank}")
         if cache_size and attention_fn is not None:
@@ -376,6 +386,8 @@ class Llama(nn.Module):
         self.rope_theta = rope_theta
         self.dtype = dtype
         self.cache_size = cache_size
+        self.num_experts = num_experts
+        self.num_selected = num_selected
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
         self.remat = remat
@@ -384,7 +396,8 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, num_heads, num_kv_heads, self.head_dim,
                        mlp_dim, rope_theta, dtype, attention_fn, device,
-                       store, lora_rank, lora_alpha)
+                       store, lora_rank, lora_alpha, num_experts,
+                       num_selected)
             for _ in range(num_layers))
         self.final_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                   param_dtype=store)
@@ -502,6 +515,34 @@ def llama_test(**kw) -> Llama:
     return Llama(d_model=64, num_heads=4, num_kv_heads=2, mlp_dim=128, **kw)
 
 
+def llama_moe_test(**kw) -> Llama:
+    """Tiny MoE config for CI (4 experts, top-2)."""
+    kw.setdefault("vocab_size", 512)
+    kw.setdefault("num_experts", 4)
+    kw.setdefault("num_layers", 2)
+    return Llama(d_model=64, num_heads=4, num_kv_heads=2, mlp_dim=128, **kw)
+
+
+def llama_moe_bench(**kw) -> Llama:
+    """One-card MoE pricing config: 8 experts, top-2. Its active FLOPs a
+    token equal llama-moe-dense-twin's (2 selected experts × mlp 3584 =
+    the twin's dense mlp 7168), so the tokens/s ratio of the two prices
+    the router and the capacity dispatch."""
+    kw.setdefault("vocab_size", 8192)
+    kw.setdefault("num_experts", 8)
+    kw.setdefault("num_layers", 4)
+    return Llama(d_model=1024, num_heads=16, num_kv_heads=8, mlp_dim=3584,
+                 **kw)
+
+
+def llama_moe_dense_twin(**kw) -> Llama:
+    """FLOP-matched dense twin of :func:`llama_moe_bench`."""
+    kw.setdefault("vocab_size", 8192)
+    kw.setdefault("num_layers", 4)
+    return Llama(d_model=1024, num_heads=16, num_kv_heads=8, mlp_dim=7168,
+                 **kw)
+
+
 register_model(ModelEntry("llama2-7b", "language", llama2_7b,
                           ((2048,), "int32"), 32000, decoder=True))
 register_model(ModelEntry("llama2-13b", "language", llama2_13b,
@@ -510,3 +551,10 @@ register_model(ModelEntry("llama3-8b", "language", llama3_8b,
                           ((2048,), "int32"), 128256, decoder=True))
 register_model(ModelEntry("llama-test", "language", llama_test,
                           ((128,), "int32"), 512, decoder=True))
+register_model(ModelEntry("llama-moe-test", "language", llama_moe_test,
+                          ((128,), "int32"), 512, decoder=True))
+register_model(ModelEntry("llama-moe-bench", "language", llama_moe_bench,
+                          ((1024,), "int32"), 8192, decoder=True))
+register_model(ModelEntry("llama-moe-dense-twin", "language",
+                          llama_moe_dense_twin, ((1024,), "int32"), 8192,
+                          decoder=True))

@@ -54,8 +54,12 @@ def register_model(entry: ModelEntry) -> None:
 def _ensure_loaded() -> None:
     import importlib
 
-    for mod in ("kubeflow_tpu_torch.models.llama",
-                "kubeflow_tpu_torch.models.resnet"):
+    for mod in ("kubeflow_tpu_torch.models.resnet",
+                "kubeflow_tpu_torch.models.inception",
+                "kubeflow_tpu_torch.models.vit",
+                "kubeflow_tpu_torch.models.bert",
+                "kubeflow_tpu_torch.models.llama",
+                "kubeflow_tpu_torch.models.classic_cnn"):
         importlib.import_module(mod)
 
 
@@ -65,6 +69,10 @@ def get_model(name: str) -> ModelEntry:
         return _MODELS[name]
     except KeyError:
         raise KeyError(
-            f"unknown model {name!r}; available: {sorted(_MODELS)} (not "
-            f"ported yet: BERT and ViT, ROADMAP A12; the MoE configs, A13; "
-            f"the rest of vision, A11)") from None
+            f"unknown model {name!r}; available: {sorted(_MODELS)}"
+        ) from None
+
+
+def list_models() -> Dict[str, ModelEntry]:
+    _ensure_loaded()
+    return dict(_MODELS)

@@ -30,98 +30,29 @@ other).
 - Padding: Flax's ``SAME`` is asymmetric where the total is odd —
   (0, 1) for a 3×3/s2 conv or the 3×3/s2 max pool on an even size,
   (2, 3) for the 7×7/s2 stem on 224 — so odd totals are padded
-  explicitly (zeros for convs, −inf for the pool), never by PyTorch's
-  symmetric ``padding``.
+  explicitly (models/layers.py, shared with the other vision models).
 - A block has a projection shortcut when its stride is not 1 or its
   width changes: the shapes at which Flax's ``residual.shape !=
   y.shape`` holds for every input larger than 1×1 at a strided block.
 
 Modules are templates built on the meta device; weights travel as a
 ``params`` dict and the BN running statistics as a ``batch_stats`` dict,
-applied with :func:`apply`.
+applied with :func:`~kubeflow_tpu_torch.models.layers.apply`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.models.layers import Conv, max_pool_same
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm, TrainForward
 from kubeflow_tpu_torch.ops.bn_fused import fused_bn_train_forward
 from kubeflow_tpu_torch.utils.device import torch_dtype
-
-Padding = Tuple[Tuple[int, int], Tuple[int, int]]
-
-
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """XLA's ``SAME``: output ceil(size / stride), the odd pixel of the
-    total padding after the input."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad2d(x: torch.Tensor, padding: Padding, value: float = 0.0):
-    """Pad [N, C, H, W] by ((top, bottom), (left, right)), keeping
-    channels-last memory."""
-    (top, bottom), (left, right) = padding
-    return F.pad(x, (left, right, top, bottom), value=value)
-
-
-def _split_padding(padding: Padding):
-    """A symmetric padding the op takes itself, or None when x must be
-    padded first."""
-    (top, bottom), (left, right) = padding
-    if top == bottom and left == right:
-        return (top, left)
-    return None
-
-
-class Conv(nn.Module):
-    """``nn.Conv(use_bias=False)``: an fp32 OIHW kernel, cast to x's
-    dtype at the op. ``padding`` is "SAME" or ((top, bottom), (left,
-    right))."""
-
-    def __init__(self, in_features: int, features: int,
-                 kernel: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
-                 padding="SAME", device=None):
-        super().__init__()
-        self.strides = tuple(strides)
-        self.padding = padding
-        self.weight = nn.Parameter(torch.empty(
-            features, in_features, *kernel, dtype=torch.float32,
-            device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kh, kw = self.weight.shape[2:]
-        if self.padding == "SAME":
-            padding = (same_padding(x.shape[2], kh, self.strides[0]),
-                       same_padding(x.shape[3], kw, self.strides[1]))
-        else:
-            padding = self.padding
-        symmetric = _split_padding(padding)
-        if symmetric is None:
-            x = _pad2d(x, padding)
-            symmetric = (0, 0)
-        w = self.weight.to(dtype=x.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x, w, stride=self.strides, padding=symmetric)
-
-
-def max_pool_same(x: torch.Tensor, window: int = 3,
-                  stride: int = 2) -> torch.Tensor:
-    """``nn.max_pool(x, (w, w), (s, s), padding="SAME")``: −inf pads."""
-    padding = (same_padding(x.shape[2], window, stride),
-               same_padding(x.shape[3], window, stride))
-    symmetric = _split_padding(padding)
-    if symmetric is None:
-        x = _pad2d(x, padding, value=float("-inf"))
-        symmetric = (0, 0)
-    return F.max_pool2d(x, window, stride, padding=symmetric)
-
 
 class BottleneckBlock(nn.Module):
     """1x1 → 3x3 → 1x1 bottleneck with projection shortcut (v1.5: the
@@ -243,17 +174,6 @@ class ResNet(nn.Module):
             x = getattr(self, name)(x, train)
         x = x.float().mean((2, 3)).to(self.dtype)
         return self.head(x.float())
-
-
-def apply(model: nn.Module, params: Dict[str, torch.Tensor],
-          batch_stats: Dict[str, torch.Tensor], x: torch.Tensor,
-          train: bool = True) -> torch.Tensor:
-    """``model(x, train)`` with ``params`` as its weights and
-    ``batch_stats`` as its BN running statistics — the port's
-    ``model.apply({"params": ..., "batch_stats": ...}, x, train=...)``.
-    A training forward updates ``batch_stats`` in place."""
-    return torch.func.functional_call(model, {**params, **batch_stats},
-                                      (x,), {"train": train}, strict=True)
 
 
 def resnet50(num_classes: int = 1000, dtype="bfloat16", stem: str = "conv7",

@@ -190,6 +190,19 @@ def flash_attention_reference(
     return attention_finalize(o, l, q.dtype)
 
 
+def attention_flops(b: int, h: int, lq: int, lk: int, d: int,
+                    causal: bool = False, q_offset: int = 0) -> int:
+    """The products' FLOPs of one attention forward, QKᵀ and PV (2·D
+    each a (query, key) pair a head): over every pair, or under
+    causality the pairs with key ≤ query position."""
+    if causal:
+        full = max(0, min(lq, lk - q_offset))  # rows not clipped at lk
+        pairs = full * q_offset + full * (full + 1) // 2 + (lq - full) * lk
+    else:
+        pairs = lq * lk
+    return 4 * b * h * pairs * d
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_kft_bound", False):

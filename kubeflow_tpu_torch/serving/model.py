@@ -34,7 +34,12 @@ Port of ``kubeflow_tpu/serving/model.py``'s ``LoadedModel``:
 
 The model is built from a registry name and the params of
 ``models/convert.py``; :func:`load_version` reads an export directory
-(``serving/export.py``).
+(``serving/export.py``). Every family of the registry serves ``predict``
+and ``classify`` as the reference's ``module.apply(variables, x,
+train=False)``: a vision model on its params and ``batch_stats`` (BN at
+its running statistics), BERT on ``input_ids`` alone (``type_ids`` and
+``valid`` None), a Llama on ``input_ids``; the Llama family also serves
+``generate``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.generate import generate, prompt_bucket
 from kubeflow_tpu_torch.models import convert
+from kubeflow_tpu_torch.models.layers import apply as apply_vision
 from kubeflow_tpu_torch.models.llama import apply
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.serving.export import (
@@ -66,6 +72,9 @@ logger = logging.getLogger(__name__)
 
 _NP_DTYPES = {
     "float32": np.float32,
+    # numpy has no bfloat16: a bf16 input is taken as fp32 on the host
+    # (exact for bf16 values) and rounded to bf16 on the device.
+    "bfloat16": np.float32,
     "int32": np.int32,
     "int64": np.int64,
     "uint8": np.uint8,
@@ -90,12 +99,17 @@ class LoadedModel:
     top_k: int = 5
     #: ``None`` → cuda (raises without a GPU); ``"cpu"`` on request.
     device: DeviceLike = None
+    #: A BN model's running statistics (the ``batch_stats`` collection).
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         entry = get_model(self.metadata.registry_name)
+        self._family = entry.family
         self._module = entry.make(**self.metadata.model_kwargs)
         self.params = {k: v.to(self.device) for k, v in self.params.items()}
+        self.batch_stats = {k: v.to(self.device) for k, v in
+                            (self.batch_stats or {}).items()}
         self._gen_counter = 0  # per-request rng fold for sampling
         self._gen_lock = threading.Lock()
         # Continuous-batching decode engine (inference/engine/): built
@@ -147,10 +161,20 @@ class LoadedModel:
             n, max_len,
             self.metadata.generate_config.get("prompt_buckets"))
 
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """``module.apply(variables, x, train=False)``."""
+        if self._family == "vision":
+            return apply_vision(self._module, self.params, self.batch_stats,
+                                x, train=False)
+        return apply(self._module, self.params, x)
+
     def _forward(self, method: str, x: np.ndarray) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            ids = torch.from_numpy(x).to(self.device)
-            logits = apply(self._module, self.params, ids)
+            sig_dtype = next(iter(self.signature().inputs.values())).dtype
+            inputs = torch.from_numpy(x).to(self.device)
+            if sig_dtype == "bfloat16":
+                inputs = inputs.to(torch.bfloat16)
+            logits = self._logits(inputs)
             if method == "predict":
                 return {"logits": logits}
             probs = torch.softmax(logits.float(), dim=-1)
@@ -399,30 +423,36 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     """Load one version dir written by either package: its signature,
     then its Flax params, carried across to the port's layout and
     dtypes (``models/convert.py``) on ``device`` (``None`` → cuda).
-    Exports with a shard manifest (``metadata.sharding``) raise until
-    parallelism is ported (ROADMAP A14); so do collections besides
-    ``params`` (a vision model's ``batch_stats``: the port serves the
-    Llama family)."""
+    A vision export's ``batch_stats`` collection is carried across
+    beside its params; any other collection raises. Exports with a shard
+    manifest (``metadata.sharding``) raise until parallelism is ported
+    (ROADMAP A14)."""
     metadata = read_metadata(version_dir)
     if metadata.sharding and int(metadata.sharding.get("num_shards",
                                                        1)) > 1:
         raise NotImplementedError(
             "sharded exports are not ported yet (ROADMAP A14)")
     variables = read_variables(version_dir)
-    extra = sorted(set(variables) - {"params"})
+    extra = sorted(set(variables) - {"params", "batch_stats"})
     if extra:
         raise NotImplementedError(
             f"export {version_dir} carries collections {extra}; the "
-            f"port serves params-only (Llama) exports")
+            f"port serves params and batch_stats")
     template = get_model(metadata.registry_name).make(
         **metadata.model_kwargs)
     params = convert.params_from_flax(
         convert.flatten_tree(unbox(variables["params"])), template,
         device=device)
+    batch_stats = None
+    if "batch_stats" in variables or dict(template.named_buffers()):
+        batch_stats = convert.batch_stats_from_flax(
+            convert.flatten_tree(unbox(variables.get("batch_stats", {}))),
+            template, device=device)
     del variables
     version = int(os.path.basename(os.path.normpath(version_dir)))
     loaded = LoadedModel(metadata=metadata, version=version, params=params,
-                         max_batch=max_batch, top_k=top_k, device=device)
+                         max_batch=max_batch, top_k=top_k, device=device,
+                         batch_stats=batch_stats)
     if warmup:
         loaded.warmup()
     return loaded

@@ -32,10 +32,21 @@ Run::
     python -m kubeflow_tpu_torch.training.benchmark --model llama3-8b \\
         --lora_rank 16 --seq_len 1024
 
-Vision: ``flops_per_step`` is ``torch.utils.flop_counter``'s count of
-one step. LM and LoRA: ``flops_per_step`` is :func:`lm_train_flops`, a
-formula over the model's shapes, the same whatever implements attention
-(a FLOP counter sees the plain backward's ops but not a kernel launched
+Vision (every vision entry of the registry: ResNet, Inception and ViT
+at lr 0.1, VGG and AlexNet at their ``bench_lr``): ``flops_per_step`` is
+``torch.utils.flop_counter``'s count of one step. The counter sees
+ViT's attention only through its plain version: on the CPU its forward
+and backward; on the card, where the kernel forward (launched through
+ctypes) is hidden from it, the backward's plain recompute of the
+forward and that recompute's backward. Both are 3 ×
+:func:`~kubeflow_tpu_torch.ops.flash_attention.attention_flops` a layer
+(a forward, and a backward of twice its work), what a formula counts,
+so a step counts the same on either device (tests hold the card's count
+to the CPU's; a backward kernel would break that, and attention would
+then be counted by formula). LM and LoRA: ``flops_per_step`` is
+:func:`lm_train_flops`, a formula over the model's shapes (Llama dense
+and MoE, and BERT), the same whatever implements attention (a FLOP
+counter sees the plain backward's ops but not a kernel launched
 through ctypes, so its count would move with the implementation). It
 counts the work the step does, as the reference's XLA count does: the
 remat recompute and attention's full square, so ``mfu_pct`` over it is
@@ -61,7 +72,8 @@ from typing import Dict, Optional
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from kubeflow_tpu_torch.models.convert import init_params, init_resnet
+from kubeflow_tpu_torch.models.bert import Bert
+from kubeflow_tpu_torch.models.convert import init_params, init_vision
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.training.train import (
     create_train_state,
@@ -157,13 +169,18 @@ def run_benchmark(config: BenchConfig,
     if entry.family != "vision":
         raise ValueError(f"{config.model!r} is {entry.family}; the port's "
                          "benchmark trains vision models")
-    model = entry.make(**(config.model_kwargs or {}))
+    kwargs = dict(config.model_kwargs or {})
+    model = entry.make(**kwargs)
     input_shape = entry.input_spec[0]
     if config.image_size is not None:
         input_shape = (config.image_size, config.image_size, input_shape[-1])
+        if getattr(model, "SIZED_BY_IMAGE", False):
+            # ViT's position table and the classic CNNs' fc1 take their
+            # size from the image.
+            model = entry.make(image_size=config.image_size, **kwargs)
     lr = (config.learning_rate if config.learning_rate is not None
           else (entry.bench_lr if entry.bench_lr is not None else 0.1))
-    params, batch_stats = init_resnet(model, seed=config.seed, device=device)
+    params, batch_stats = init_vision(model, seed=config.seed, device=device)
     state = create_train_state(model, sgd(lr, config.momentum), params,
                                batch_stats)
     batch = synthetic_batch(config, entry.num_classes_or_vocab, input_shape,
@@ -200,16 +217,42 @@ def run_benchmark(config: BenchConfig,
 # -- LM pretraining and LoRA fine-tuning ------------------------------------
 
 
+def _ffn_flops(model, batch_size: int, seq_len: int) -> int:
+    """One forward's FFN FLOPs over every layer. Dense: ``2·T·d·f`` a
+    weight (gate/up/down for Llama, in/out for BERT). MoE: what the layer
+    runs, over its capacity slots (``n_groups·E·C``) rather than the
+    tokens, ``2·slots·d·f`` for each of ``w_in`` and ``w_out``, the
+    dispatch and combine products ``2·n·G·E·C·d`` each, and the router
+    ``2·T·d·E``."""
+    from kubeflow_tpu_torch.ops.moe import _fit_group_size, compute_capacity
+
+    d, f, tokens = model.d_model, model.mlp_dim, batch_size * seq_len
+    experts = getattr(model, "num_experts", 0)
+    if not experts:
+        return 2 * tokens * d * f * (2 if isinstance(model, Bert) else 3) * (
+            model.num_layers)
+    moe = model.layers[0].moe
+    group = _fit_group_size(tokens, moe.group_size)
+    cap = compute_capacity(group, experts, moe.num_selected,
+                           moe.capacity_factor)
+    slots = (tokens // group) * experts * cap
+    per_layer = (2 * slots * d * f * 2 + 2 * 2 * tokens * experts * cap * d
+                 + 2 * tokens * d * experts)
+    return per_layer * model.num_layers
+
+
 def lm_train_flops(model, batch_size: int, seq_len: int, *,
                    lora_rank: int = 0, remat: bool = False,
                    causal: bool = False) -> float:
-    """FLOPs of one Llama train step, by formula (each product 2·m·n·k):
+    """FLOPs of one LM train step (Llama dense or MoE, BERT), by formula
+    (each product 2·m·n·k):
 
-    - forward: the block projections ``2·T·P`` (T = batch·seq_len
-      tokens, P the q/k/v/o/gate/up/down weights of every layer), the
-      head ``2·T·d·V``, attention ``4·B·H·L²·D`` a layer (QKᵀ and PV over
-      the full square, as the usual count has it), and LoRA's adapters
-      ``2·T·r·(in + out)`` for each of q/k/v/o;
+    - forward: the attention projections ``2·T·P`` (T = batch·seq_len
+      tokens, P the q/k/v/o weights of every layer), the FFNs
+      (:func:`_ffn_flops`), the head ``2·T·d·V`` (BERT's tied head and
+      its ``mlm_transform``, ``2·T·d·(V + d)``), attention ``4·B·H·L²·D``
+      a layer (QKᵀ and PV over the full square, as the usual count has
+      it), and LoRA's adapters ``2·T·r·(in + out)`` for each of q/k/v/o;
     - backward: twice the forward, except that a frozen LoRA base and
       head take only their input gradient (once the forward's); attention
       twice its forward (dQ, dK, dV, dP);
@@ -224,9 +267,10 @@ def lm_train_flops(model, batch_size: int, seq_len: int, *,
     heads, hd = model.num_heads, model.head_dim
     kv = model.num_kv_heads * hd
     tokens = batch_size * seq_len
-    proj = layers * (2 * d * heads * hd + 2 * d * kv + 3 * d * model.mlp_dim)
-    f_proj = 2 * tokens * proj
-    f_head = 2 * tokens * d * model.vocab_size
+    proj = layers * (2 * d * heads * hd + 2 * d * kv)
+    f_proj = 2 * tokens * proj + _ffn_flops(model, batch_size, seq_len)
+    head = model.vocab_size + (d if hasattr(model, "mlm_transform") else 0)
+    f_head = 2 * tokens * d * head
     pairs = seq_len * (seq_len + 1) // 2 if causal else seq_len ** 2
     f_attn = 4 * batch_size * heads * pairs * hd * layers
     f_lora = 0
@@ -305,7 +349,7 @@ def _lm_result(config, model, device, elapsed, warmup_s, warmup_losses,
     step_time_s = elapsed / config.steps
     flops = lm_train_flops(model, b, l, lora_rank=lora_rank, remat=remat)
     model_flops = lm_train_flops(model, b, l, lora_rank=lora_rank,
-                                 causal=True)
+                                 causal=not isinstance(model, Bert))
     result = {
         "model": config.model,
         "device": (torch.cuda.get_device_name(device)
@@ -381,7 +425,8 @@ def run_lm_benchmark(config: LMBenchConfig,
     device = resolve_device(device)
     entry = get_model(config.model)
     kwargs = dict(config.model_kwargs or {})
-    kwargs.setdefault("param_dtype", "float32")
+    if entry.decoder:
+        kwargs.setdefault("param_dtype", "float32")  # BERT keeps fp32
     model = entry.make(**kwargs)
     state, _ = create_lm_state(model, adamw(config.learning_rate),
                                init_params(model, config.seed, device))
@@ -511,6 +556,11 @@ def main(argv=None) -> int:
                         help="vision sgd lr (default: 0.1, or the model's "
                              "registered bench_lr)")
     args = parser.parse_args(argv)
+    from kubeflow_tpu_torch.training.launcher import initialize_distributed
+
+    # A tpu-cnn pod command joins its gang itself (a no-op for one
+    # process, and where the launcher's fallthrough joined already).
+    initialize_distributed(device=args.device)
     try:
         entry = get_model(args.model)
     except KeyError as e:

@@ -36,9 +36,10 @@ JAX run's continuous tier. The reference's periodic tier is Orbax,
 which the port does not import; the port's (:class:`Checkpointer`,
 :class:`CheckpointConfig`) is the same writer at the periodic interval,
 synchronous by default, so the reference's ``ShardedCheckpointer``
-reads it too. The port writes as one host (a gang is ROADMAP A10); it
-reads a checkpoint of any host count (each leaf's pieces joined along
-its planned dim).
+reads it too. The port writes as one host (a gang's shards are ROADMAP
+A14, and ``fit`` refuses a checkpoint in a gang until then); it reads a
+checkpoint of any host count (each leaf's pieces joined along its
+planned dim).
 
 Background waits are bounded and on monotonic clocks, as the
 reference's.
@@ -111,7 +112,7 @@ class CheckpointConfig:
 class ContinuousCheckpointConfig(CheckpointConfig):
     """The continuous tier's knobs: the reference's, less those of a
     gang (host count and id, the shard plan, the commit barrier), which
-    is ROADMAP A10."""
+    are ROADMAP A14."""
 
     save_interval_steps: int = 10
     async_save: bool = True

@@ -15,9 +15,10 @@
 """Input pipeline: synthetic and file-backed batches, and the device
 prefetch.
 
-Port of ``kubeflow_tpu/training/data.py`` for one process (the per-host
-row split is the one-process case of :func:`host_shard_range`; a gang
-is ROADMAP A10). The generators use numpy's ``RandomState`` with the
+Port of ``kubeflow_tpu/training/data.py``. In a gang (a
+``torch.distributed`` group, ``training/launcher.py``) each process
+yields its rows of the global batch (:func:`host_shard_range`, the
+reference's arithmetic over rank and world size). The generators use numpy's ``RandomState`` with the
 reference's seed schedules, so their batches are the reference's to the
 bit. The LM generators yield numpy batches, as the reference's do;
 :class:`DevicePrefetcher` puts them on the device from a thread of its
@@ -31,7 +32,7 @@ import glob as _glob
 import os
 import queue
 import threading
-from typing import Any, Callable, Dict, Iterator, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +47,24 @@ Batch = Dict[str, torch.Tensor]
 HostBatch = Dict[str, np.ndarray]
 
 
-def host_shard_range(global_batch: int, process_index: int = 0,
-                     process_count: int = 1) -> range:
-    """This process's row range of the global batch (one process: all
-    of it; the gang's split is the reference's arithmetic)."""
+def process_index_and_count() -> Tuple[int, int]:
+    """This process's rank and the gang's size: the
+    ``torch.distributed`` group's, or (0, 1) without one (the
+    reference's ``jax.process_index()`` / ``process_count()``)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def host_shard_range(global_batch: int,
+                     process_index: Optional[int] = None,
+                     process_count: Optional[int] = None) -> range:
+    """This process's row range of the global batch (by default the
+    gang's rank and size, :func:`process_index_and_count`)."""
+    rank, world = process_index_and_count()
+    process_index = rank if process_index is None else process_index
+    process_count = world if process_count is None else process_count
     if global_batch % process_count:
         raise ValueError(f"global batch {global_batch} % hosts "
                          f"{process_count} != 0")
@@ -129,10 +144,14 @@ def synthetic_causal_lm(global_batch: int, seq_len: int = 2048,
 
 def mlm_mask_batches(source: Iterator[HostBatch], *, mask_rate: float = 0.15,
                      mask_token: int = 103, seed: int = 0,
-                     process_index: int = 0) -> Iterator[HostBatch]:
+                     process_index: Optional[int] = None
+                     ) -> Iterator[HostBatch]:
     """Dynamic BERT masking over a causal token stream: the mask is
-    redrawn every batch, seeded, and folds in the process index (0 for
-    one process) as the reference's does."""
+    redrawn every batch, seeded, and folds in the process index (by
+    default the gang's rank, 0 for one process) as the reference's
+    does."""
+    if process_index is None:
+        process_index = process_index_and_count()[0]
     for step, batch in enumerate(source):
         ids = np.asarray(batch["input_ids"])
         rng = np.random.RandomState(

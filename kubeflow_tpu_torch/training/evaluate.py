@@ -32,12 +32,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.models import llama
-from kubeflow_tpu_torch.models.resnet import apply
+from kubeflow_tpu_torch.models.layers import apply
 from kubeflow_tpu_torch.training.data import place_batch
 from kubeflow_tpu_torch.training.lm import (
+    apply_lm,
     lm_targets,
-    model_args,
     softmax_cross_entropy_with_integer_labels,
 )
 
@@ -72,8 +71,9 @@ def evaluate_vision(
     BN normalizes with the running statistics. Batches are the trainer's
     ``{"inputs", "labels"}`` dicts."""
     def sums(batch):
-        logits = apply(model, variables["params"], variables["batch_stats"],
-                       batch["inputs"], train=False)
+        logits = apply(model, variables["params"],
+                       variables.get("batch_stats"), batch["inputs"],
+                       train=False)
         labels = batch["labels"].long()
         return (F.cross_entropy(logits.float(), labels, reduction="sum"),
                 torch.tensor(float(labels.shape[0]), device=logits.device),
@@ -98,7 +98,7 @@ def _eval_sums(model: nn.Module, params: Dict[str, torch.Tensor],
     """(Σ weighted CE, Σ weights, Σ weighted correct) of one batch, as
     device scalars."""
     batch = place_batch(batch, next(iter(params.values())).device)
-    logits = llama.apply(model, params, *model_args(batch))
+    logits = apply_lm(model, params, batch)
     logits, targets, weights = lm_targets(logits, batch, objective)
     ce = softmax_cross_entropy_with_integer_labels(logits, targets)
     correct = (logits.argmax(-1) == targets).float()

@@ -38,7 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.models.llama import apply
+from kubeflow_tpu_torch.models.llama import Llama, apply
+from kubeflow_tpu_torch.ops.moe import collect_losses
 from kubeflow_tpu_torch.training.data import place_batch
 from kubeflow_tpu_torch.training.optim import (
     GradientTransformation,
@@ -86,14 +87,27 @@ def create_lm_state(model: nn.Module, tx: GradientTransformation,
                    model=model, tx=tx), None
 
 
-def model_args(batch: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor]:
-    """A batch's positional model inputs. A BERT batch (``type_ids``,
-    ``valid``) has no port model yet (ROADMAP A12)."""
+def model_args(batch: Mapping[str, torch.Tensor]) -> Tuple:
+    """A batch's positional model inputs, the reference's: a BERT batch
+    (``type_ids``, ``valid``) gives ``(input_ids, type_ids, valid)``, a
+    causal batch ``(input_ids,)``."""
     if "type_ids" in batch or "valid" in batch:
-        raise NotImplementedError(
-            "BERT batches (type_ids, valid) need the BERT model, which is "
-            "not ported yet (ROADMAP A12)")
+        return (batch["input_ids"], batch.get("type_ids"),
+                batch.get("valid"))
     return (batch["input_ids"],)
+
+
+def apply_lm(model: nn.Module, params: Params,
+             batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The model applied to a batch's :func:`model_args`. A Llama takes
+    the reference's Llama's positional meaning of them: the second is its
+    ``positions`` and the third its ``train`` flag, which it ignores (so
+    a BERT batch fed to a Llama, as ``--objective mlm`` with a Llama
+    does, runs as in the reference)."""
+    args = model_args(batch)
+    if isinstance(model, Llama):
+        args = args[:2]
+    return apply(model, params, *args)
 
 
 def lm_targets(logits: torch.Tensor, batch: Mapping[str, torch.Tensor],
@@ -179,12 +193,16 @@ LOSSES = {"mlm": mlm_loss, "causal": causal_lm_loss}
 def lm_forward_with_aux(model: nn.Module, params: Params, batch,
                         loss_fn, aux_loss_weight: float):
     """The forward both trainers share: ``(total_loss, (loss, accuracy,
-    aux))``. ``aux`` is the sum of the model's auxiliary losses (the
-    reference's MoE load-balance loss); a dense Llama has none, so it is
-    0 (MoE is ROADMAP A13)."""
-    logits = apply(model, params, *model_args(batch))
+    aux))``. ``aux`` is the sum of the auxiliary losses the forward sows
+    (the MoE load-balance loss of every MoE block, ops/moe.py: the
+    reference's ``"losses"`` collection); a model that sows none gives
+    0."""
+    with collect_losses() as sown:
+        logits = apply_lm(model, params, batch)
     loss, acc = loss_fn(logits, batch)
     aux = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    for term in sown:
+        aux = aux + term.to(loss.dtype)
     return loss + aux_loss_weight * aux, (loss, acc, aux)
 
 

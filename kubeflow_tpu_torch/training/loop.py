@@ -15,15 +15,23 @@
 
 """The training loop: resume → step → log → checkpoint → profile → drain.
 
-The port of ``kubeflow_tpu/training/loop.py``, for one process. On
-every start it restores the freshest checkpoint of either tier (a first
-start is a fresh one), so a restarted job resumes where it was and
+The port of ``kubeflow_tpu/training/loop.py``. On every start it
+restores the freshest checkpoint of either tier (a first start is a
+fresh one), so a restarted job resumes where it was and
 loses at most a save interval. A drain signal (SIGTERM by default) lets
 the in-flight step finish, force-saves, and raises
 :class:`DrainInterrupt`; entry points exit with :data:`DRAIN_EXIT_CODE`
 so an operator restarts the job without charging its restart budget.
-The multi-process drain agreement is the distributed bootstrap's
-(ROADMAP A10): more than one process raises.
+In a gang (a ``torch.distributed`` group of more than one process,
+``training/launcher.py``) the processes agree on the drain: every
+``drain_sync_steps`` steps each contributes its own drain flag to an
+all-reduce MAX (the reference's ``process_allgather`` + ``any``), and
+all drain at the same step if any saw the signal. A gang's ``fit`` steps
+each process's own state, as the reference's does with a step that has
+no mesh (the data-parallel step is ROADMAP A14). A gang's ``fit``
+refuses a checkpoint tier: the checkpointer writes as one host, so the
+processes' differing states would land in one step directory, the last
+writer's winning (the sharded gang save is ROADMAP A14).
 
 Metrics: every log window publishes ``kft_training_step_seconds``,
 ``kft_training_steps_per_sec`` and ``kft_training_steps_total`` through
@@ -45,6 +53,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import torch
 
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
+from kubeflow_tpu_torch.training.launcher import DRAIN_EXIT_CODE  # noqa: F401
 from kubeflow_tpu_torch.training.checkpoint import (
     CheckpointConfig,
     ContinuousCheckpointConfig,
@@ -54,8 +63,6 @@ from kubeflow_tpu_torch.utils.metrics import MetricsLogger
 
 logger = logging.getLogger(__name__)
 
-#: The exit code of a drained job (the reference's launcher's).
-DRAIN_EXIT_CODE = 77
 
 _T_STEP_SECONDS = obs_metrics.Histogram(
     "kft_training_step_seconds",
@@ -97,15 +104,29 @@ class LoopConfig:
     # Drain on any of these signals; installed only when fit runs on the
     # main thread (the signal API's rule). () disables.
     drain_signals: Tuple[int, ...] = (signal.SIGTERM,)
+    # A gang agrees on the drain every N steps (a collective save must
+    # not start on one process while its peers step on): up to N extra
+    # steps run inside the grace period, so keep N * step_time well
+    # under terminationGracePeriodSeconds.
+    drain_sync_steps: int = 5
 
 
-def _check_one_process() -> None:
+def _gang() -> bool:
     dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "fit across several processes needs the distributed bootstrap "
-            "and its drain agreement, not ported yet (ROADMAP A10)")
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def agree_on_drain(requested: bool) -> bool:
+    """Whether any process of the gang asked to drain: an all-reduce MAX
+    of each process's flag, on the card for an nccl group and on the
+    host for gloo. Every process must call it at the same steps."""
+    dist = torch.distributed
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    flag = torch.tensor([int(requested)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def _profiler(config: LoopConfig):
@@ -134,7 +155,11 @@ def fit(state: Any,
 
     ``hooks``: callables ``(step, state, metrics) -> None`` invoked at
     every log interval."""
-    _check_one_process()
+    if (config.checkpoint or config.continuous) and _gang():
+        raise NotImplementedError(
+            "checkpointing a gang's state is not ported yet (ROADMAP A14): "
+            "the checkpointer writes as one host, and each process of the "
+            "gang steps its own state")
     # Both tiers are the one sharded writer, each at its own interval.
     ckpt = (ShardedCheckpointer(config.checkpoint) if config.checkpoint
             else None)
@@ -179,13 +204,22 @@ def fit(state: Any,
         for sig in config.drain_signals:
             prev_handlers[sig] = signal.signal(sig, _on_drain)
 
+    gang = _gang()
     prof = None
     window_start = time.perf_counter()
     window_steps = 0
     metrics: Dict[str, torch.Tensor] = {}
     try:
         for step in range(start_step, config.total_steps):
-            if drain_requested.is_set():
+            if gang:
+                # Every process reaches these steps (same start step,
+                # same stride), so the collectives line up.
+                drain_now = (
+                    (step - start_step) % max(config.drain_sync_steps, 1)
+                    == 0 and agree_on_drain(drain_requested.is_set()))
+            else:
+                drain_now = drain_requested.is_set()
+            if drain_now:
                 drained_step = int(state.step)
                 for tier in tiers:
                     tier.save(drained_step, state, force=True)

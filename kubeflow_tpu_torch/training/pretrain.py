@@ -13,26 +13,34 @@
 # limitations under the License.
 
 
-"""tpu-lm: LM pretraining on one GPU (the causal Llama path).
+"""tpu-lm: LM pretraining on one GPU (BERT mlm, causal Llama).
 
 The port of ``kubeflow_tpu/training/pretrain.py``, the tpu-lm pod
 command, for one device. It keeps the reference's flags and final JSON
 line, and adds ``--device`` (``cuda`` unless ``--device cpu``)::
 
+    python -m kubeflow_tpu_torch.training.pretrain --global_batch 32 \\
+        --steps 100                       # bert-base, mlm: the default
     python -m kubeflow_tpu_torch.training.pretrain --model llama-test \\
         --global_batch 8 --seq_len 16 --steps 4 --device cpu \\
         --checkpoint_dir ckpt --save_every 2
 
-Flow: synthetic batches (the reference's seeded stream) or token shards
-(``--data``; every id checked against the vocabulary on the host, before
-it reaches the card, where a bad id would be a device-side assert) →
-:class:`~kubeflow_tpu_torch.training.data.DevicePrefetcher` → ``fit``
-with the reference's optimizer (``clip_by_global_norm(1.0)``, then
-``adamw(warmup_cosine_decay_schedule(0, lr, warmup, steps),
+Flow: the gang join from the operator's ``KFT_*`` env
+(``training/launcher.py``; nothing for one process) → synthetic batches
+(the reference's seeded streams: mlm with dynamic masking for ``bert*``,
+the objective's default, causal otherwise) or token shards (``--data``;
+every id checked against the vocabulary on the host, before it reaches
+the card, where a bad id would be a device-side assert; masked per batch
+for mlm) → :class:`~kubeflow_tpu_torch.training.data.DevicePrefetcher`
+→ ``fit`` with the reference's optimizer (``clip_by_global_norm(1.0)``,
+then ``adamw(warmup_cosine_decay_schedule(0, lr, warmup, steps),
 weight_decay=0.01)``) over fp32 master params, checkpoint/resume and the
-preemption drain. Not ported, each raising with its ROADMAP item: a
-``--mesh`` and a pipeline axis (A14), the mlm objective and BERT models
-(A12), a gang (A10).
+preemption drain (agreed across a gang's processes). Any model and
+objective the reference's CLI accepts without a mesh is accepted. Not
+ported: a ``--mesh`` and its pipeline axis (ROADMAP A14: raises); in a
+gang, each process trains its own state on its rows of the batch until
+the data-parallel step lands with A14, and ``--checkpoint_dir`` raises
+there (``fit`` refuses a gang's checkpoint until A14's sharded save).
 """
 
 from __future__ import annotations
@@ -115,6 +123,12 @@ def main(argv=None) -> int:
             "axis) is not ported yet (ROADMAP A14); the port trains on one "
             "device")
 
+    from kubeflow_tpu_torch.training.launcher import initialize_distributed
+
+    # The tpu-lm pod command joins its gang itself (the env travels to
+    # it; a launcher's own join would not).
+    initialize_distributed(device=args.device)
+
     from kubeflow_tpu_torch.models.convert import init_params
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.training import optim
@@ -124,8 +138,10 @@ def main(argv=None) -> int:
     )
     from kubeflow_tpu_torch.training.data import (
         DevicePrefetcher,
+        mlm_mask_batches,
         resolve_shards,
         synthetic_causal_lm,
+        synthetic_mlm,
         token_shard_batches,
     )
     from kubeflow_tpu_torch.training.lm import (
@@ -140,21 +156,18 @@ def main(argv=None) -> int:
     )
     from kubeflow_tpu_torch.utils.device import resolve_device
 
-    try:
-        entry = get_model(args.model)
-    except KeyError as e:
-        raise SystemExit(f"{e.args[0]}; BERT models are ROADMAP A12")
+    entry = get_model(args.model)
     objective = args.objective or (
         "mlm" if entry.name.startswith("bert") else "causal")
-    if objective != "causal" or entry.family != "language":
-        raise SystemExit(
-            f"--model {entry.name} --objective {objective}: the port "
-            "pretrains causal decoders (Llama); mlm and BERT are not ported "
-            "yet (ROADMAP A12)")
     device = resolve_device(args.device)
-    depth = {} if args.num_layers is None else {
-        "num_layers": args.num_layers}
-    model = entry.make(param_dtype="float32", remat=args.remat, **depth)
+    kwargs = {}
+    if entry.decoder:
+        kwargs["param_dtype"] = "float32"  # fp32 masters (BERT keeps them)
+    if args.remat:
+        kwargs["remat"] = True
+    if args.num_layers is not None:
+        kwargs["num_layers"] = args.num_layers
+    model = entry.make(**kwargs)
     vocab = entry.num_classes_or_vocab
 
     if args.data:
@@ -162,6 +175,11 @@ def main(argv=None) -> int:
             resolve_shards(args.data), args.global_batch, args.seq_len,
             seed=args.seed, bin_dtype=args.bin_dtype)
         gen = check_vocab(gen, vocab)
+        if objective == "mlm":
+            gen = mlm_mask_batches(gen, seed=args.seed)
+    elif objective == "mlm":
+        gen = synthetic_mlm(args.global_batch, args.seq_len, vocab,
+                            seed=args.seed)
     else:
         gen = synthetic_causal_lm(args.global_batch, args.seq_len, vocab,
                                   seed=args.seed)

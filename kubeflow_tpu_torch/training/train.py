@@ -35,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.models.resnet import apply
+from kubeflow_tpu_torch.models.layers import apply
 
 Batch = Dict[str, torch.Tensor]
 OptimizerFn = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]

@@ -16,7 +16,8 @@
 
 Reads the trace's device rows (kernels, memcpy, memset) and sums their
 time by class. A kernel that runs inside a GPU annotation span —
-``bn_backward_recompute`` (ops/bn_fused.py) or the optimizer's
+``bn_backward_recompute`` (ops/bn_fused.py), ViT's and BERT's
+``flash_backward_recompute`` (ops/flash_attention.py) or the optimizer's
 ``Optimizer.step`` — is charged to that span; any other is classed by
 its name. Annotation spans and host rows are never summed, so no time is
 counted twice. The idle share is 1 − device time / the caller's wall
@@ -32,6 +33,7 @@ from typing import Dict, Sequence, Tuple
 #: GPU annotation name prefix → class.
 ANNOTATIONS = (
     ("bn_backward_recompute", "bn_backward_recompute"),
+    ("flash_backward_recompute", "flash_backward_plain_recompute"),
     ("Optimizer.step", "optimizer"),
 )
 #: Substrings of a kernel's name → its class, first match wins.

@@ -29,11 +29,13 @@ import numpy as np
 from flax.traverse_util import flatten_dict
 
 from kubeflow_tpu.models.llama import llama_test as jax_llama_test
+from kubeflow_tpu.models.registry import get_model as jax_get_model
 from kubeflow_tpu.training.checkpoint import flatten_state as jax_flatten
 from kubeflow_tpu.training.finetune import LoRAState
 from kubeflow_tpu.training.lm import LMState
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.llama import llama_test
+from kubeflow_tpu_torch.models.registry import get_model as port_get_model
 
 VOCAB = 512
 
@@ -106,3 +108,39 @@ def assert_close_to_reference(port_state, ref_state, fields, tol):
         np.testing.assert_allclose(np.asarray(port[k], np.float64),
                                    np.asarray(v, np.float64), rtol=tol,
                                    atol=tol, err_msg=k)
+
+
+@functools.lru_cache(maxsize=None)
+def _registry_init(name, seed, shapes, kw):
+    model = jax_get_model(name).make(**dict(kw))
+    args = [None if s is None else jnp.zeros(s, dt) for s, dt in shapes]
+    train = {} if jax_get_model(name).family == "language" else {
+        "train": False}
+    init = jax.jit(lambda r: model.init(r, *args, **train))
+    return nn.meta.unbox(init(jax.random.PRNGKey(seed)))
+
+
+def reference_variables(name, shapes, seed=0, **kw):
+    """``(reference module, its variables)`` for registry model ``name``
+    built with ``kw``, initialised from ``seed`` over zero inputs of
+    ``shapes`` (``[(shape, dtype) or (None, None), ...]``, the positional
+    inputs), the init jitted once and cached. Only ``params`` and
+    ``batch_stats`` are kept (an init's sown losses are not state)."""
+    variables = _registry_init(name, seed, tuple(shapes),
+                               tuple(sorted(kw.items())))
+    keep = {k: v for k, v in variables.items()
+            if k in ("params", "batch_stats")}
+    return jax_get_model(name).make(**kw), keep
+
+
+def port_variables(name, variables, **kw):
+    """``(port module, params, batch_stats)`` for registry model
+    ``name`` built with ``kw``, the reference's variables carried
+    across on the CPU."""
+    model = port_get_model(name).make(**kw)
+    params = convert.params_from_flax(flat(variables["params"]), model,
+                                      device="cpu")
+    stats = convert.batch_stats_from_flax(
+        flat(variables.get("batch_stats", {})), model, device="cpu") if (
+        "batch_stats" in variables) else {}
+    return model, params, stats

@@ -1831,3 +1831,133 @@ def test_pretrain_cli_resumes_from_its_checkpoints_on_the_card(
     assert (ckpt / "step-00000004" / "manifest.json").is_file()
     resumed = run(tmp_path / "resumed.jsonl")
     assert resumed == {5: first[5], 6: first[6]}
+
+
+# -- the rest of the registry: ViT's and BERT's flash shapes, Inception's
+# BN shapes, a served ViT -----------------------------------------------------
+
+@pytest.mark.parametrize("name,b,l,masked", [
+    ("vit-b16", 4, 196, False),   # a 128-row q tile and a 68-row tail
+    ("bert-base", 4, 128, True),  # one q tile, padded keys
+])
+def test_flash_at_vit_and_bert_shapes_rows_are_width_free(cuda, name, b, l,
+                                                          masked):
+    """The kernel against its plain version at the model's [B, L, 12,
+    64], and each block of the first w query rows (w = 1 … 129) equal
+    to the same rows of the whole block, bit for bit: a row's bits do not
+    depend on how many rows share its launch."""
+    q, k, v = _qkv(cuda, b, l, l, 12, 12, 64, torch.bfloat16)
+    mask = None
+    if masked:
+        lengths = torch.tensor([l, l * 3 // 4, l // 2, 1], device=cuda)[:b]
+        mask = (torch.arange(l, device=cuda)[None] < lengths[:, None]).to(
+            torch.int32)
+    out = fa.flash_attention(q, k, v, kv_segment_valid=mask)
+    ref = fa.flash_attention_reference(q, k, v, kv_segment_valid=mask)
+    torch.cuda.synchronize()
+    assert float((out.float() - ref.float()).abs().max()) <= TOL[
+        torch.bfloat16]
+    for w in range(1, 130):
+        part = fa.flash_attention(q[:, :w].contiguous(), k, v,
+                                  kv_segment_valid=mask)
+        assert torch.equal(part, out[:, :w]), w
+
+
+def _inception_bn_shapes(batch):
+    """Each distinct [M, C] Inception-v3's BN layers hand the kernel in a
+    training forward at ``batch``, 299², from a meta-device forward."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    seen = {}
+
+    def record(x, scale, bias, eps=1e-5, stat_rows=None):
+        assert eps == 1e-3
+        seen[tuple(x.shape)] = seen.get(tuple(x.shape), 0) + 1
+        return (torch.empty_like(x), x.new_empty(x.shape[1]),
+                x.new_empty(x.shape[1]))
+
+    model = get_model("inception-v3").make(norm_fn=record)
+    for mod in model.modules():
+        if isinstance(mod, GhostBatchNorm):
+            mod.register_forward_pre_hook(lambda _, args: (
+                args[0].contiguous(memory_format=torch.channels_last),
+                *args[1:]))
+    with torch.no_grad():
+        model(torch.empty(batch, 299, 299, 3, device="meta"), train=True)
+    return seen
+
+
+def test_bn_kernel_at_every_inception_shape(cuda):
+    """The BN kernel against its plain version at each distinct BN shape
+    of Inception-v3 at b16 (ε = 1e-3; channel widths 32 … 448, many not
+    multiples of 128, and ragged row counts), bf16, and one fp32 shape."""
+    shapes = _inception_bn_shapes(16)
+    assert sum(shapes.values()) == 94
+    cases = [(m, c, torch.bfloat16) for m, c in shapes]
+    cases.append((16 * 35 * 35, 288, torch.float32))
+    for m, c, dtype in cases:
+        x, scale, bias = _bn_inputs(cuda, m, c, dtype)
+        y, mean, var = bn_fused.fused_bn_train_forward(x, scale, bias,
+                                                       eps=1e-3)
+        y_ref, mean_ref, var_ref = bn_fused.reference_bn_train_forward(
+            x, scale, bias, eps=1e-3)
+        torch.testing.assert_close(mean, mean_ref, atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(var, var_ref, atol=1e-4, rtol=1e-5)
+        diff = float((y.float() - y_ref.float()).abs().max())
+        assert diff <= BN_Y_TOL[dtype] * max(
+            1.0, float(y_ref.float().abs().max())), (m, c, dtype)
+
+
+def test_served_vit_equals_its_module(cuda, tmp_path):
+    """A port export of vit-test (bf16) through ``load_version`` serves
+    ``predict`` equal to the module applied to the same images, bit for
+    bit, through the flash kernel."""
+    from kubeflow_tpu_torch.models.convert import (
+        init_vision,
+        params_to_flax,
+        unflatten_tree,
+    )
+    from kubeflow_tpu_torch.models.layers import apply as apply_vision
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.export import export_model
+    from kubeflow_tpu_torch.serving.model import load_version
+    from kubeflow_tpu_torch.serving.signature import (
+        ModelMetadata,
+        Signature,
+        TensorSpec,
+    )
+
+    model = get_model("vit-test").make()
+    params, _ = init_vision(model, seed=0, device=cuda)
+    meta = ModelMetadata(
+        model_name="vit", registry_name="vit-test", model_kwargs={},
+        signatures={"serving_default": Signature(
+            method="predict",
+            inputs={"images": TensorSpec("float32", (-1, 32, 32, 3))},
+            outputs={"logits": TensorSpec("float32", (-1, 10))})})
+    export_model(str(tmp_path), 1, meta,
+                 {"params": unflatten_tree(params_to_flax(params))})
+    served = load_version(str(tmp_path / "1"), max_batch=4)
+    x = np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(
+        np.float32)
+    before = fa.flash_attention.launches
+    got = served.run({"images": x})["logits"]
+    assert fa.flash_attention.launches == before + 2  # one a layer
+    with torch.inference_mode():
+        want = apply_vision(model, params, None,
+                            torch.from_numpy(x).to(cuda), train=False)
+    assert np.array_equal(got, want.cpu().numpy())
+
+
+def test_vit_benchmark_counts_the_same_flops_on_the_card_and_the_cpu(cuda):
+    """``run_benchmark``'s FLOP counter sees ViT's attention as a forward
+    and its backward on either device (the CPU's plain version; the
+    card's plain recompute in the backward, the kernel forward hidden
+    from it), so a vit-test step counts the same FLOPs on both."""
+    from kubeflow_tpu_torch.training import benchmark
+
+    config = benchmark.BenchConfig(model="vit-test", batch_size=4, steps=1,
+                                   warmup_steps=1, image_size=32)
+    on_card = benchmark.run_benchmark(config, device=cuda)
+    on_cpu = benchmark.run_benchmark(config, device="cpu")
+    assert on_card["flops_per_step"] == on_cpu["flops_per_step"] > 0

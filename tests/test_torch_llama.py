@@ -158,8 +158,11 @@ def test_bf16_model_stores_bf16_weights_and_fp32_head():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        llama_test(num_experts=4)
+    # MoE is ported (tests/test_torch_moe.py): every block's FFN is the
+    # MoE layer, with no SwiGLU weights beside it.
+    moe_block = llama_test(num_experts=4).layers[0]
+    assert moe_block.moe.num_experts == 4 and moe_block.moe.num_selected == 2
+    assert not hasattr(moe_block, "gate_proj")
     # LoRA is ported (tests/test_torch_lora.py); a negative rank raises.
     assert llama_test(lora_rank=8).layers[0].attention.q_proj.rank == 8
     with pytest.raises(ValueError, match="lora_rank"):

@@ -38,6 +38,7 @@ from kubeflow_tpu_torch.training import data, finetune, lm, optim
 from kubeflow_tpu_torch.training.checkpoint import CheckpointConfig
 from kubeflow_tpu_torch.training.evaluate import evaluate_lm
 from kubeflow_tpu_torch.training.loop import (
+    agree_on_drain,
     DRAIN_EXIT_CODE,
     DrainInterrupt,
     LoopConfig,
@@ -212,12 +213,23 @@ def test_fit_drains_on_sigterm_and_profiles(tmp_path):
     assert resumed.step == 5
 
 
-def test_fit_refuses_several_processes(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        fit(_lm_state(), lm.make_lm_train_step(), iter(()),
-            LoopConfig(total_steps=1))
+def test_fit_agrees_on_the_drain_in_a_gang_of_one(tmp_path):
+    """A one-process gloo group is no gang: ``fit`` drains on its own
+    flag as before, and ``agree_on_drain`` over the group is the flag
+    (the two-process agreement: tests/test_torch_launcher.py)."""
+    dist = torch.distributed
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'rendezvous'}",
+        world_size=1, rank=0)
+    try:
+        assert agree_on_drain(True) is True
+        assert agree_on_drain(False) is False
+        state = fit(_lm_state(), lm.make_lm_train_step(),
+                    iter([{"input_ids": ids(0)}]),
+                    LoopConfig(total_steps=1, drain_signals=()))
+        assert state.step == 1
+    finally:
+        dist.destroy_process_group()
 
 
 # -- evaluation ------------------------------------------------------------------
@@ -349,12 +361,23 @@ def test_pretrain_num_layers_cuts_the_depth(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--model", "llama-test", "--mesh", "data=4,pipeline=2"], "A14"),
-    (["--model", "llama-test", "--objective", "mlm"], "A12"),
-    (["--model", "bert-test"], "A12"),
 ])
 def test_pretrain_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):
         pretrain_main(argv + ["--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("argv,objective", [
+    (["--model", "llama-test", "--objective", "mlm"], "mlm"),
+    (["--model", "bert-test"], "mlm"),
+    (["--model", "bert-test", "--objective", "causal"], "causal"),
+])
+def test_pretrain_runs_what_the_reference_accepts(argv, objective, capsys):
+    assert pretrain_main(argv + ["--device", "cpu", "--steps", "2",
+                                 "--global_batch", "4", "--seq_len", "16",
+                                 "--log_every", "1"]) == 0
+    out = _last_json(capsys)
+    assert out["objective"] == objective and out["final_step"] == 2
 
 
 def test_lm_trace_summary_classes(tmp_path):

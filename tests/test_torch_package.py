@@ -18,7 +18,8 @@
   ``kubeflow_tpu`` blocked, and no source line of the package or of its
   GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
   ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``,
-  ``scripts/manager_phase.py``, ``scripts/train_phase.py``) names
+  ``scripts/manager_phase.py``, ``scripts/train_phase.py``,
+  ``scripts/registry_phase.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -68,6 +69,7 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "decode_invariance.py")
     yield os.path.join(ROOT, "scripts", "manager_phase.py")
     yield os.path.join(ROOT, "scripts", "train_phase.py")
+    yield os.path.join(ROOT, "scripts", "registry_phase.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():
@@ -81,7 +83,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                  "serving.wire", "serving._native", "serving.remote",
                  "serving.faults", "serving.version_policy",
                  "serving.overload", "serving.tenancy", "obs.exposition",
-                 "scaling.policy", "scaling.endpoints"):
+                 "scaling.policy", "scaling.endpoints",
+                 # The rest of the registry and the pod launcher.
+                 "models.bert", "models.vit", "models.inception",
+                 "models.classic_cnn", "models.layers", "ops.moe",
+                 "training.launcher"):
         assert f"kubeflow_tpu_torch.{name}" in mods, name
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'msgpack',\n"

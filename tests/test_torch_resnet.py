@@ -38,7 +38,7 @@ from kubeflow_tpu.models.resnet import (
     space_to_depth as jax_space_to_depth,
     stem_kernel_to_s2d as jax_stem_kernel_to_s2d,
 )
-from kubeflow_tpu_torch.models import convert, resnet
+from kubeflow_tpu_torch.models import convert, layers, resnet
 from kubeflow_tpu_torch.models.registry import get_model
 
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -104,7 +104,7 @@ def test_resnet_test_logits_match_flax(flax_vars, train):
         ref = jax_model.apply(variables, jnp.asarray(x), train=False)
     model = get_model("resnet-test").make(dtype="float32")
     p, s = _port(model, params, stats)
-    out = resnet.apply(model, p, s, torch.from_numpy(x), train=train)
+    out = layers.apply(model, p, s, torch.from_numpy(x), train=train)
     assert out.dtype == torch.float32 and out.shape == (4, 10)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
     if train:
@@ -124,7 +124,7 @@ def test_same_padding_matches_flax_conv(size, kernel, stride):
     ref = nn.Conv(6, (kernel, kernel), (stride, stride), padding="SAME",
                   use_bias=False).apply({"params": {"kernel": w}},
                                         jnp.asarray(x))
-    conv = resnet.Conv(5, 6, (kernel, kernel), (stride, stride),
+    conv = layers.Conv(5, 6, (kernel, kernel), (stride, stride),
                        device="cpu")
     with torch.no_grad():
         conv.weight.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1)))
@@ -138,7 +138,7 @@ def test_same_padding_matches_flax_conv(size, kernel, stride):
 def test_max_pool_same_matches_flax(size):
     x = np.random.RandomState(size).randn(2, size, size, 4).astype(np.float32)
     ref = nn.max_pool(jnp.asarray(x), (3, 3), strides=(2, 2), padding="SAME")
-    out = resnet.max_pool_same(torch.from_numpy(x).permute(0, 3, 1, 2))
+    out = layers.max_pool_same(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_array_equal(out.permute(0, 2, 3, 1).numpy(),
                                   np.asarray(ref))
 
@@ -165,9 +165,9 @@ def test_s2d_stem_matches_flax_and_the_conv7_stem():
     w7 = torch.from_numpy(params["conv_init/kernel"])
     np.testing.assert_array_equal(resnet.stem_kernel_to_s2d(w7).numpy(),
                                   s2d_params["conv_init/kernel"])
-    out_s2d = resnet.apply(s2d, *_port(s2d, s2d_params, stats),
+    out_s2d = layers.apply(s2d, *_port(s2d, s2d_params, stats),
                            torch.from_numpy(x), train=False)
-    out_conv7 = resnet.apply(conv7, *_port(conv7, params, stats),
+    out_conv7 = layers.apply(conv7, *_port(conv7, params, stats),
                              torch.from_numpy(x), train=False)
     np.testing.assert_allclose(out_s2d.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_allclose(out_s2d.numpy(), out_conv7.numpy(), **TOL)
@@ -202,7 +202,7 @@ def test_conv_kernels_keep_their_spatial_taps(flax_vars):
 
 def test_init_resnet_follows_the_reference_initializers():
     model = get_model("resnet50").make()
-    params, stats = convert.init_resnet(model, seed=0, device="cpu")
+    params, stats = convert.init_vision(model, seed=0, device="cpu")
     assert len([n for n in stats if n.endswith(".mean")]) == 53
     assert sum(t.numel() for t in params.values()) == 25_557_032
     assert all(t.dtype == torch.float32 for t in params.values())

@@ -129,7 +129,7 @@ def test_learns_on_a_fixed_batch():
     # tests/test_engine.py's contract, on the port's own bf16 init: the
     # same batch three times, and the loss must fall.
     model = get_model("resnet-test").make()
-    params, stats = convert.init_resnet(model, seed=0, device="cpu")
+    params, stats = convert.init_vision(model, seed=0, device="cpu")
     state = create_train_state(model, sgd(0.1, 0.9), params, stats)
     batch = {k: torch.from_numpy(v)
              for k, v in _batch(seed=1, n=8, size=32).items()}
