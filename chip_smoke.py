@@ -266,7 +266,27 @@ checkout's BN kernel by the same code (a parent commit's, say).
    the aux loss in the MoE's metrics), their tokens/s side by side;
    llama-moe-bench served: a predict, a B = 1 greedy generate, and the
    engine's four-slot streams against B = 1 (reported).
-8. One JSON line of kernel numbers, then the result line.
+8. The measuring entry points (``measure_phases``; alone:
+   ``python3 scripts/measure_phase.py``). The decode sweep
+   (``inference.benchmark.run_decode_batch_sweep``) on llama3-8b, every
+   weight bf16, prompt 128, 128 new tokens, B = 1, 4, 8: each row's
+   tokens/s, ms a token beside the weights' bound, prefill ms and weight
+   GB/s printed; its launches by the formulas (4 prefill forwards and
+   254 decode steps a batch size), ``param_bytes`` = 2 × 8,030,261,248
+   and every rate under the card's 3,350 GB/s (asserted). The engine
+   legs of ``serving/benchmark.py`` at llama3-8b bf16 and their default
+   shapes (prefix, tiered prefix, speculative): every bitwise verdict
+   and every kernel launched (asserted), hit rates, the TTFT ratio,
+   acceptance and verifier forwards a token printed. The export-backed
+   legs at the reference's models: continuous batching (llama-test),
+   gRPC serving (inception-v3, 299²), mixed load and overload
+   (resnet-test; 2 s an offered-load phase): verdicts and completion
+   counts asserted, latencies
+   printed; the REST leg only where tornado imports. ``kft-export`` of
+   a llama-test checkpoint written there, loaded on the card: params
+   bit-equal and greedy tokens equal to the module's (asserted). Each
+   leg's peak memory and the phase's wall time are printed.
+9. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
 after; every kernel must have run on its path. The kernels line lists
@@ -340,6 +360,16 @@ from kubeflow_tpu_torch.ops.flash_attention import (
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.serving.export import export_model
+from kubeflow_tpu_torch.serving import benchmark as serving_bench
+from kubeflow_tpu_torch.serving import export_cli
+from kubeflow_tpu_torch.inference.benchmark import (
+    DecodeBenchConfig,
+    run_decode_batch_sweep,
+)
+from kubeflow_tpu_torch.training.checkpoint import (
+    CheckpointConfig,
+    Checkpointer,
+)
 from kubeflow_tpu_torch.serving import wire
 from kubeflow_tpu_torch.serving.manager import ModelManager, ServedModel
 from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
@@ -2319,6 +2349,13 @@ def serve_chunked(card, registry, params, kwargs, *,
 CAPTURED = ("decode_slice", "spec_draft", "spec_verify", "prefill")
 
 
+#: The modes whose passes run under the profiler for the device's idle
+#: share (``serve_captured``'s second passes, ``serve_manager``'s pass):
+#: greedy alone. A sampled pass runs the same kernels and the sampler's
+#: few; profiling it too cost ~70 s of the smoke's time limit.
+PROFILED_MODES = ("greedy",)
+
+
 def device_window(fn):
     """``fn()`` under the profiler's CUDA activity, then a synchronise:
     its result, and the window's wall ms (host clock), the device's busy
@@ -2396,9 +2433,10 @@ def serve_captured(card, registry, params, kwargs, *,
     all; no plain twin called in any pass. Reports inter-token ms of both
     engines, the graphs against the distinct engine_compile keys and, in
     the engine mix: the device idle share and each kernel's launches of
-    both second passes and of one captured 4-step slice replayed alone,
-    and a classic admission (the 512-token request alone, budget 1) on
-    both engines, its device ms beside its host-clock TTFT."""
+    both greedy second passes (``PROFILED_MODES``) and of one captured
+    4-step slice replayed alone, and a classic admission (the 512-token
+    request alone, budget 1) on both engines, its device ms beside its
+    host-clock TTFT."""
     vocab = get_model(registry).num_classes_or_vocab
     kwargs = dict(kwargs, cache_size=cache_size)
     rng = np.random.default_rng(1)
@@ -2433,7 +2471,8 @@ def serve_captured(card, registry, params, kwargs, *,
                         if name == "eager 2" and mix != "engine":
                             continue
                         zero_counts()
-                        if mix == "engine" and name.endswith("2"):
+                        if (mix == "engine" and name.endswith("2")
+                                and mode in PROFILED_MODES):
                             (streams, ms), window = device_window(
                                 functools.partial(run_mix, engine, mix,
                                                   requests, long_request))
@@ -3349,7 +3388,7 @@ def serve_manager(card, registry, params, kwargs, captured=None, *,
     carrying ``prompt_len``, resumed on ``a``: every case equal to the
     uninterrupted stream, with each resume's launches; no plain twin
     anywhere. Reported: load and warmup seconds, TTFT and inter-token ms
-    beside ``serve_captured``'s, a manager pass's device idle share,
+    beside ``serve_captured``'s, a greedy manager pass's idle share,
     ``batch_stats()`` and the ``kft_serving_*`` exposition. Then the
     batcher (``manager_batcher``), the REST/SSE server where tornado
     imports (``manager_http``) and the llama-test load path
@@ -3467,15 +3506,16 @@ def serve_manager(card, registry, params, kwargs, captured=None, *,
                                full[kill + 1:]))
             _, row["second_death"] = manager_resumes(a, second, vocab, bad)
             row["second_death"]["cases"] = len(second)
-            # Reported: one manager pass under the profiler, the
+            # Reported: one greedy manager pass under the profiler, the
             # batcher's and engine's stats, the serving families.
-            _, window = device_window(lambda: [
-                f.result(timeout=600) for f in [
-                    a.submit({"input_ids": p[None]}, None, None, None)
-                    for p, _, _ in requests]])
-            row["manager_pass_window"] = {
-                k: window[k] for k in ("wall_ms", "device_ms",
-                                       "idle_share")}
+            if mode in PROFILED_MODES:
+                _, window = device_window(lambda: [
+                    f.result(timeout=600) for f in [
+                        a.submit({"input_ids": p[None]}, None, None, None)
+                        for p, _, _ in requests]])
+                row["manager_pass_window"] = {
+                    k: window[k] for k in ("wall_ms", "device_ms",
+                                           "idle_share")}
             row["batch_stats"] = a.batch_stats()
             # No capture after the loads' warmups, on either model,
             # through every path above.
@@ -4992,6 +5032,311 @@ def train_moe(card):
     return flash
 
 
+# -- phase 8: the measuring entry points -------------------------------------
+
+#: The decode sweep (``inference/benchmark.py``): llama3-8b, every weight
+#: bf16, prompt 128, 128 new tokens, at B = 1, 4 and 8.
+MEASURE_SIZES = (1, 4, 8)
+MEASURE_PROMPT = 128
+MEASURE_NEW_TOKENS = 128
+#: llama3-8b's parameter count: the embedding and the head (128256 ×
+#: 4096 each), 32 layers of q/o (4096²), k/v (4096 × 1024), the three
+#: MLP products (4096 × 14336) and two norms, and the final norm.
+LLAMA3_8B_PARAMS = (2 * 128256 * 4096 + 32 * (2 * 4096 ** 2
+                                               + 2 * 4096 * 1024
+                                               + 3 * 4096 * 14336
+                                               + 2 * 4096) + 4096)
+#: The card's memory rate in GB/s: a weight-stream rate above it means
+#: a clock stopped before the device finished.
+HBM_PEAK_GBS = PEAK_BYTES / 1e9
+#: The engine legs at llama3-8b bf16, each at its own default shapes.
+ENGINE_LEGS = (("prefix", serving_bench.run_prefix_benchmark,
+                serving_bench.PrefixBenchConfig),
+               ("tiered", serving_bench.run_tiered_prefix_benchmark,
+                serving_bench.TieredPrefixBenchConfig),
+               ("speculative", serving_bench.run_speculative_benchmark,
+                serving_bench.SpeculativeBenchConfig))
+#: The overload leg's seconds an offered-load phase (the reference's
+#: 4.0 cut to 2.0: six phases are most of the leg, and the smoke's time
+#: limit is shared; a phase still fires ~800 requests at 2× capacity).
+OVERLOAD_PHASE_S = 2.0
+#: The kernels a Llama leg's path runs (a bf16 model's prefills run
+#: their projections on the prefill GEMM; an fp32 model's on cuBLAS).
+LLAMA_KERNELS = ("flash_attention", "decode_gemm", "rms_norm",
+                 "decode_attention")
+
+
+def fresh_leg():
+    """Free the previous leg's tensors and start this one's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def leg_memory(card, name):
+    log(f"  {name}: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"[{card}]")
+
+
+def check_verdicts(name, result):
+    verdicts = {k: v for k, v in result.items() if k.startswith("bitwise_")}
+    if not verdicts or not all(v is True for v in verdicts.values()):
+        raise AssertionError(f"{name}: bitwise verdicts {verdicts}")
+    log(f"  {name}: {verdicts}")
+
+
+def counted_leg(name, fn, kernels):
+    """Run ``fn`` with every count zeroed just before and read just
+    after; each of ``kernels`` must have run and no plain twin may
+    have."""
+    zero_counts()
+    with twin_calls() as twins:
+        out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing or any(twins.values()):
+        raise AssertionError(f"{name}: kernels not launched {missing}, "
+                             f"plain twins {twins}")
+    log(f"  {name} launches {counts}")
+    return out, counts
+
+
+def measure_decode(card):
+    """``run_decode_batch_sweep`` on llama3-8b: each batch size runs
+    two 128-token and two 1-token generates, so 4 prefill forwards and
+    254 decode steps, every one on the kernels (asserted by the launch
+    formulas); ``param_bytes`` twice the parameter count; each row's
+    weight-stream rate under the card's peak."""
+    fresh_leg()
+    sweep, counts = counted_leg(
+        "decode sweep", lambda: run_decode_batch_sweep(DecodeBenchConfig(
+            model=LLAMA, prompt_len=MEASURE_PROMPT,
+            max_new_tokens=MEASURE_NEW_TOKENS), MEASURE_SIZES),
+        tuple(COUNTERS))
+    forwards = 4 * len(MEASURE_SIZES)
+    steps = 2 * (MEASURE_NEW_TOKENS - 1) * len(MEASURE_SIZES)
+    if (not prefill_launches_ok(counts, forwards, steps)
+            or counts["rms_norm"]
+            != STEP_LAUNCHES["rms_norm"] * (forwards + steps)):
+        raise AssertionError(f"decode sweep launches {counts} for "
+                             f"{forwards} forwards and {steps} steps")
+    if sweep["param_bytes"] != 2 * LLAMA3_8B_PARAMS:
+        raise AssertionError(f"param_bytes {sweep['param_bytes']} != 2 × "
+                             f"{LLAMA3_8B_PARAMS}")
+    bound_ms = sweep["param_bytes"] / PEAK_BYTES * 1e3
+    for row in sweep["rows"]:
+        gbs = row["weight_stream_gb_per_sec"]
+        log(f"  decode sweep {LLAMA} B{row['batch_size']}: "
+            f"{row['decode_tokens_per_sec']:.1f} tokens/s, "
+            f"{row['per_token_ms']:.3f} ms/token (bound {bound_ms:.3f}), "
+            f"prefill {row['prefill_ms']:.2f} ms, weights {gbs:.1f} GB/s "
+            f"({gbs / HBM_PEAK_GBS:.1%} of {HBM_PEAK_GBS:.0f}), warmup "
+            f"{row['compile_plus_warmup_s']:.1f} s [{card}]")
+        if not 0 < gbs < HBM_PEAK_GBS:
+            raise AssertionError(f"B{row['batch_size']}: {gbs} GB/s is "
+                                 f"not under the card's peak: a run timed "
+                                 f"without its fence?")
+    log(f"  decode sweep speedup vs B1 {sweep['speedup_vs_b1']}")
+    leg_memory(card, "decode sweep")
+    return counts
+
+
+def measure_engine_legs(card):
+    """The prefix, tiered-prefix and speculative legs at llama3-8b bf16
+    (their default shapes): every bitwise verdict holds (asserted); hit
+    rates, the TTFT ratio, acceptance and verifier forwards per token
+    printed (the benchmark's to judge)."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for name, run, config in ENGINE_LEGS:
+        fresh_leg()
+        t0 = time.monotonic()
+        result, counts = counted_leg(
+            name, lambda: run(config(model=LLAMA, model_dtype="bfloat16")),
+            tuple(COUNTERS))
+        for k, v in counts.items():
+            total[k] += v
+        check_verdicts(name, result)
+        if name == "prefix":
+            log(f"  prefix: hit rate {result['hit_rate']}, mean TTFT cold "
+                f"{result['cold']['mean_ttft_ms']} / warm "
+                f"{result['warm']['mean_ttft_ms']} ms (ratio "
+                f"{result['mean_ttft_ratio']}), prefill-role hits "
+                f"{result['prefill_role_hits']}, cold request "
+                f"{result['cold_request_ms']} ms [{card}]")
+        elif name == "tiered":
+            log(f"  tiered: effective hit rate baseline "
+                f"{result['baseline']['effective_hit_rate']} / tiered "
+                f"{result['tiered']['effective_hit_rate']}, readopted "
+                f"{result['host_tier']['readopted_blocks']} (sampled "
+                f"{result['sampled_readopted_blocks']}), mean request "
+                f"{result['baseline']['mean_request_ms']} / "
+                f"{result['tiered']['mean_request_ms']} ms [{card}]")
+        else:
+            rows = result["rows"]
+            log(f"  speculative: strong acceptance "
+                f"{result['acceptance_rate']}, verifier forwards a token "
+                f"{result['verify_forwards_per_token']}, weak acceptance "
+                f"{rows['weak']['acceptance_rate']}, sampled acceptance "
+                f"{result['sampled_acceptance_rate']}, tokens/s vanilla "
+                f"{rows['vanilla']['tokens_per_s']} / strong "
+                f"{rows['strong']['tokens_per_s']} / weak "
+                f"{rows['weak']['tokens_per_s']} [{card}]")
+        leg_memory(card, f"{name} ({time.monotonic() - t0:.1f} s)")
+    return total
+
+
+def measure_served_legs(card):
+    """The export-backed legs at the reference's own models: continuous
+    batching (llama-test), gRPC serving (inception-v3 at 299²), mixed
+    load (resnet-test + llama-test) and overload (resnet-test). Their
+    verdicts and completion counts asserted; latencies printed. Each
+    leg is counted: a Llama leg launches every kernel of its path, and
+    no leg reaches a plain twin. The REST transport needs tornado,
+    which this machine may lack."""
+    fresh_leg()
+    config = serving_bench.ContinuousBenchConfig()
+    result, _ = counted_leg(
+        "continuous", lambda: serving_bench.run_continuous_benchmark(config),
+        LLAMA_KERNELS)
+    check_verdicts("continuous", result)
+    for row in result["rows"]:
+        for stack in ("static", "continuous"):
+            if row[stack]["completed"] != config.num_requests:
+                raise AssertionError(f"continuous {stack}: {row}")
+        log(f"  continuous x{row['offered_x']}: goodput ratio "
+            f"{row['goodput_ratio']}, p50 ratio {row['p50_ratio']}, "
+            f"p50 static {row['static']['p50_ms']} / continuous "
+            f"{row['continuous']['p50_ms']} ms [{card}]")
+    log(f"  continuous: TTFT short {result['ttft_short_ms']} ms vs long "
+        f"decode {result['long_decode_ms']} ms")
+    leg_memory(card, "continuous")
+
+    fresh_leg()
+    config = serving_bench.ServingBenchConfig(transport="grpc")
+    grpc, _ = counted_leg(
+        "gRPC serving", lambda: serving_bench.run_serving_benchmark(config),
+        ())
+    if grpc["requests"] != config.clients * config.requests_per_client:
+        raise AssertionError(f"gRPC serving: {grpc}")
+    log(f"  gRPC {config.model} {config.image_hw}²: p50 {grpc['p50_ms']} / "
+        f"p99 {grpc['p99_ms']} ms, {grpc['throughput_rps']} requests/s, "
+        f"direct {grpc['direct_model_ms']} ms, request "
+        f"{grpc['grpc_request_bytes']} bytes [{card}]")
+    leg_memory(card, "gRPC serving")
+
+    fresh_leg()
+    config = serving_bench.MixedLoadConfig()
+    mixed, _ = counted_leg(
+        "mixed", lambda: serving_bench.run_mixed_load_benchmark(config),
+        LLAMA_KERNELS)
+    for phase, per in (("generate_alone", config.generate_requests
+                        * config.generate_clients),
+                       ("classify_alone", config.classify_requests
+                        * config.classify_clients),
+                       ("classify_under_generate", config.classify_requests
+                        * config.classify_clients)):
+        if mixed[phase]["requests"] != per:
+            raise AssertionError(f"mixed load {phase}: {mixed[phase]}")
+    log(f"  mixed: classify p99 alone {mixed['classify_alone']['p99_ms']} / "
+        f"under generate {mixed['classify_under_generate']['p99_ms']} ms "
+        f"({mixed['classify_p99_degradation_x']}x), generate "
+        f"{mixed['generate_rps_under_mix']} requests/s under the mix "
+        f"[{card}]")
+    leg_memory(card, "mixed load")
+
+    fresh_leg()
+    overload, _ = counted_leg(
+        "overload", lambda: serving_bench.run_overload_benchmark(
+            serving_bench.OverloadBenchConfig(
+                phase_seconds=OVERLOAD_PHASE_S)), ())
+    for row in overload["phases"]:
+        if not row["never_dispatched_ok"] or row["sent"] != (
+                row["ok"] + row["shed"] + row["expired"]
+                + row["client_timeout"]):
+            raise AssertionError(f"overload phase {row}")
+        log(f"  overload x{row['offered_x']} shedding "
+            f"{'on' if row['shedding'] else 'off'}: sent {row['sent']}, ok "
+            f"{row['ok']}, shed {row['shed']}, expired {row['expired']}, "
+            f"timeouts {row['client_timeout']}, goodput "
+            f"{row['goodput_rps']} requests/s")
+    log(f"  overload: capacity {overload['capacity_rps']} requests/s, "
+        f"goodput at x2 on {overload['goodput_overload_on_vs_capacity']} / "
+        f"off {overload['goodput_overload_off_vs_capacity']} of the "
+        f"ceiling [{card}]")
+    leg_memory(card, "overload")
+    try:
+        import tornado  # noqa: F401
+    except ImportError:
+        log("  REST transport: not driven, tornado does not import here "
+            "(held against the reference on the CPU, "
+            "tests/test_torch_serving_bench.py)")
+    else:
+        rest = serving_bench.run_serving_benchmark(
+            serving_bench.ServingBenchConfig(transport="http"))
+        log(f"  REST: p50 {rest['p50_ms']} / p99 {rest['p99_ms']} ms")
+
+
+def measure_export(card):
+    """``kft-export`` round trip: a port checkpoint of llama-test (fp32,
+    seed 3) written here, exported by the CLI, loaded with
+    ``load_version`` on the card: its params the checkpoint's bit for
+    bit, and its greedy tokens equal to the module's own ``generate``
+    at the same shapes, both counted as one leg."""
+    counted_leg("kft-export", lambda: kft_export_round_trip(card),
+                LLAMA_KERNELS)
+
+
+def kft_export_round_trip(card):
+    model = llama_test(dtype="float32")
+    params = init_params(model, seed=3)
+    prompt = prng.randint(prng.PRNGKey(0), (2, 16), 0, 512)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".export-") as base:
+        ckpt = Checkpointer(CheckpointConfig(directory=f"{base}/ckpt"))
+        ckpt.save(0, {"step": 0, "params": params}, force=True)
+        ckpt.close()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            export_cli.main([
+                "--model", "llama-test", "--out", f"{base}/models",
+                "--checkpoint", f"{base}/ckpt", "--seq_len", "16",
+                "--generate", '{"max_new_tokens": 8}',
+                "--model_kwargs", '{"dtype": "float32"}'])
+        path = out.getvalue().strip().splitlines()[-1]
+        loaded = load_version(path, max_batch=2)
+        for name, t in params.items():
+            if not torch.equal(loaded.params[name], t):
+                raise AssertionError(f"kft-export: {name} changed")
+        tokens = loaded.run({"input_ids": prompt})["tokens"]
+        module = get_model("llama-test").make(**loaded.metadata.model_kwargs)
+        device = resolve_device()
+        want, _ = generate(module, params,
+                           torch.from_numpy(prompt).to(device),
+                           max_new_tokens=8, prompt_lengths=torch.full(
+                               (2,), 16, device=device))
+        if not np.array_equal(tokens, want.cpu().numpy()):
+            raise AssertionError(f"kft-export round trip: served {tokens} "
+                                 f"!= the module's {want}")
+        size = os.path.getsize(os.path.join(path, "params.msgpack"))
+        log(f"  kft-export round trip: {size} bytes, params bit-equal, "
+            f"2 × 8 greedy tokens equal [{card}]")
+
+
+def measure_phases(card):
+    """Phase 8: the port's measuring entry points, each leg's counts
+    zeroed just before it and read just after. Returns the launches of
+    the decode sweep and the engine legs, by kernel."""
+    t0 = time.monotonic()
+    decode = timed(measure_decode, card)
+    engines = timed(measure_engine_legs, card)
+    timed(measure_served_legs, card)
+    timed(measure_export, card)
+    fresh_leg()
+    log(f"phase measure: {time.monotonic() - t0:.1f} s [{card}]")
+    return {k: decode[k] + engines[k] for k in COUNTERS}
+
+
+
 def environment() -> str:
     """The card's name and power limit, and the versions."""
     resolve_device()  # TF32 off for the fp32 head and the fp32 checks
@@ -5111,6 +5456,7 @@ def main() -> int:
 
     (launches["flash_attention_bert"], vision, inception_rows,
      launches["flash_attention_moe"]) = registry_phases(card)
+    measure = measure_phases(card)
 
     main_row = rows[0]
     # [802816, 256], exact BN: the row every PR has reported.
@@ -5126,6 +5472,7 @@ def main() -> int:
         "launches_bert": launches.pop("flash_attention_bert"),
         "launches_vit": vision["flash_attention"],
         "launches_moe": launches.pop("flash_attention_moe"),
+        "launches_measure": measure["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -5149,6 +5496,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             **({"launches_train": rms_train} if name == "rms_norm" else {}),
+            "launches_measure": measure[name],
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             **{k: per_step(krows, k) for k in ("ms", "plain_ms",
                                                "bound_ms", "library_ms")},
@@ -5161,6 +5509,7 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/csrc/prefill_gemm.cu",
         "replaces": "kubeflow_tpu/models/llama.py:72",
         "launches": launches["prefill_gemm"],
+        "launches_measure": measure["prefill_gemm"],
         "max_abs_err": max(r["max_abs_err"] for r in prefill_rows),
         **{k: sum(r["launches_per_forward"] * r[k] for r in prefill_rows)
            for k in ("ms", "plain_ms", "bound_ms", "library_ms")},

@@ -27,9 +27,15 @@
 // kubeflow_tpu/models/llama.py's decode step).
 //
 // Design: one thread-block cluster per (row, kv head), of C CTAs, C and
-// each CTA's key range functions of S alone (C = min(8, ceil(S / 64)),
-// ranges of ceil(S / C) keys in rank order). A CTA holds the kv head's
-// H / Hkv query heads (GQA without copies of K and V) and:
+// each CTA's key range functions of S alone: ranges of
+// span = 64 * ceil(S / 512) keys in rank order (at least ceil(S / 8)),
+// C = ceil(S / span) <= 8. The ranges are whole 64-key blocks fixed by
+// S's 512-key band, not by S itself, so two caches of S in one band split
+// their common keys alike; a masked key adds exact zeros to every sum,
+// so a query's output does not depend on how far its cache is padded
+// within the band (a page size that divides 512 never moves S across a
+// band). A CTA holds the kv head's H / Hkv query heads (GQA without
+// copies of K and V) and:
 //   0. loads q and its keys' validity into shared memory;
 //   1. starts cp.async copies of its keys' V rows into shared memory
 //      (a masked key's row is zero-filled, never read) and, meanwhile,
@@ -54,19 +60,20 @@
 //      keeps every CTA's shared memory alive until all have read it.
 // Every sum is in an order fixed by S, D and compile-time constants,
 // never by B or by how full the grid is, so a row's output has the same
-// bits at every batch size. D is a template (16, 32, 64, 128, 256), and
+// bits at every batch size, and at every S of its band. D is a template (16, 32, 64, 128, 256), and
 // so is R, H / Hkv rounded up to a power of two (at most kMaxRep): the
 // loops over a CTA's heads run R heads without a branch (a padding head
 // has q = 0 and never reaches the output). A CTA's shared memory holds its
-// ceil(S / C) keys' scores a head, which bounds S (the wrapper raises
-// past it).
+// span's keys' scores a head, which bounds S (the wrapper raises past
+// it).
 //
 // What bounds it on the H100: it reads the valid keys' K and V once, two
 // operations per element, so bytes. llama3-8b at 4 slots and S = 544
 // reads at most 8.9 MB a layer (2.7 us at 3.35 TB/s). One block per
 // (row, kv head) would be 32 blocks at 4 slots on 132 SMs, each walking
-// all 544 keys; the clusters make 256 CTAs of the same rows, each walking
-// 68, and a CTA's time is its few round trips and barriers.
+// all 544 keys; the clusters make 160 CTAs of the same rows, each walking
+// at most 128 (a key a thread), and a CTA's time is its few round trips
+// and barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -81,18 +88,21 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = 8;     // query heads a kv head serves, at most
 constexpr int kMaxSplit = 8;   // CTAs a cluster (the portable cluster size)
-constexpr int kSplitKeys = 64; // one more CTA a 64 keys, up to kMaxSplit
+constexpr int kSplitKeys = 64; // a CTA's range is a whole number of these
 constexpr int kVStageBytes = 32768;  // V rows a stage holds, at most
 constexpr float kNegInf = -1e30f;
 
-__host__ __device__ __forceinline__ int splits(int s) {
-  const int c = (s + kSplitKeys - 1) / kSplitKeys;
-  return c < 1 ? 1 : (c > kMaxSplit ? kMaxSplit : c);
+// A CTA's keys: kSplitKeys per kMaxSplit * kSplitKeys keys of S, rounded
+// up (the band), so every S of a band has the same ranges.
+__host__ __device__ __forceinline__ int span(int s) {
+  const int band = (s + kMaxSplit * kSplitKeys - 1) / (kMaxSplit * kSplitKeys);
+  return kSplitKeys * (band < 1 ? 1 : band);
 }
 
-__host__ __device__ __forceinline__ int span(int s) {
-  const int c = splits(s);
-  return (s + c - 1) / c;
+// CTAs a cluster: the ranges that hold a key of S (at most kMaxSplit).
+__host__ __device__ __forceinline__ int splits(int s) {
+  const int c = (s + span(s) - 1) / span(s);
+  return c < 1 ? 1 : c;
 }
 
 // H / Hkv rounded up to a power of two: the heads a CTA's loops run.

@@ -12,4 +12,5 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Greedy KV-cache generation (port of the reference's inference/)."""
+"""KV-cache generation, the decode engine and the decode benchmark
+(port of the reference's inference/)."""

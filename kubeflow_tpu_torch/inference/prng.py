@@ -31,7 +31,10 @@ stream, so this module reproduces JAX's default PRNG exactly:
 - ``uniform``: the top 23 bits into the mantissa of a float in [1, 2),
   minus 1, scaled, and clamped below at ``minval``;
 - ``gumbel`` (``-log(-log(u))``, u uniform in [tiny, 1)) and
-  ``categorical`` (argmax of logits plus Gumbel noise).
+  ``categorical`` (argmax of logits plus Gumbel noise);
+- ``randint``: JAX's modulus method, two 32-bit draws from the key's
+  split and the span arithmetic in uint32 (8- and 16-bit types drawn at
+  32 bits and cast, as JAX does).
 
 Arithmetic is on int64 tensors holding uint32 values, masked after each
 add: torch's uint32 support is thin, and int64 wraps nothing. Keys are
@@ -177,3 +180,66 @@ def categorical(key: KeyLike, logits: torch.Tensor) -> torch.Tensor:
     ``logits.shape``; ``[B, 2]`` keys draw row b's noise from key b."""
     noise = gumbel(key, logits.shape, logits.device)
     return torch.argmax(noise + logits, dim=-1)
+
+
+#: ``randint``'s integer types: JAX without x64 has no 64-bit ones.
+_RANDINT_DTYPES = {np.dtype(t) for t in (np.int8, np.int16, np.int32,
+                                         np.uint8, np.uint16, np.uint32)}
+_INT32 = np.iinfo(np.int32)
+
+
+def randint(key: KeyLike, shape, minval, maxval,
+            dtype=np.int32) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval, dtype)`` (x64
+    off): a numpy array of ``dtype`` in ``[minval, maxval)``, bit for
+    bit. ``minval`` and ``maxval`` are int32 values or arrays that
+    broadcast to ``shape``.
+
+    JAX's algorithm: integer types narrower than 32 bits sample at
+    int32 with the bounds clipped to the narrow type's range (the upper
+    one to its max + 1) and cast at the end. At 32 bits, the key splits
+    into two, each draws 32-bit words, and with ``span = maxval -
+    minval`` as uint32 (1 where ``maxval <= minval``) the offset is
+    ``((hi % span) * m + lo % span) % span`` with ``m = ((2**16 %
+    span)**2) % span``, every product and sum wrapping in uint32 (so
+    ``m`` is 0 for a span above 2**16, as in JAX), added to
+    ``minval``."""
+    dtype = np.dtype(dtype)
+    if dtype not in _RANDINT_DTYPES:
+        raise TypeError(f"randint takes 8-, 16- or 32-bit integer types "
+                        f"(JAX without x64), not {dtype}")
+    shape = tuple(int(s) for s in shape)
+    lo = np.asarray(minval)
+    hi = np.asarray(maxval)
+    for v in (lo, hi):
+        if v.dtype.kind not in "iu" or (v.size and (
+                v.min() < _INT32.min or v.max() > _INT32.max)):
+            raise ValueError("randint bounds are int32 values")
+    lo, hi = lo.astype(np.int64), hi.astype(np.int64)
+    info = np.iinfo(dtype)
+    sampling = dtype
+    if info.bits < 32:
+        # Sampled at 32 bits: jnp.asarray(minval).astype('int32').clip(
+        # info.min, info.max), maxval's clip to info.max + 1.
+        sampling = np.dtype(np.int32)
+        lo = np.clip(lo, info.min, info.max)
+        hi = np.clip(hi, info.min, info.max + 1)
+    # _convert_and_clip_integer of the int32 bounds to the sampling type
+    # (uint32 clips to [0, 2**31 - 1]); maxval is never out of range.
+    s_info = np.iinfo(sampling)
+    lo = np.clip(lo, max(s_info.min, _INT32.min), min(s_info.max, _INT32.max))
+    hi = np.clip(hi, max(s_info.min, _INT32.min), min(s_info.max, _INT32.max))
+    lo = torch.from_numpy(np.broadcast_to(lo, shape).copy())
+    hi = torch.from_numpy(np.broadcast_to(hi, shape).copy())
+    k1, k2 = split(key, 2)
+    higher = random_bits(k1, shape, "cpu")
+    lower = random_bits(k2, shape, "cpu")
+    span = torch.where(hi <= lo, torch.ones_like(lo), (hi - lo) & _MASK)
+    multiplier = (2 ** 16) % span
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = ((higher % span) * multiplier) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    out = (lo + offset) & _MASK
+    if sampling.kind == "i":
+        out = torch.where(out >= 2 ** 31, out - 2 ** 32, out)
+    return out.numpy().astype(sampling).astype(dtype)

@@ -123,6 +123,12 @@ class Bert(nn.Module):
         self.mlm_bias = nn.Parameter(torch.empty(
             vocab_size, dtype=torch.float32, device=device))
 
+    def partitioned(self, key: str) -> bool:
+        """Whether the reference's BERT annotates the Flax param ``key``
+        with a partitioning (its exports store it boxed): every kernel
+        and the token embedding."""
+        return key.endswith("/kernel") or key == "tok_embed/embedding"
+
     def forward(self, input_ids: torch.Tensor,
                 type_ids: Optional[torch.Tensor] = None,
                 valid: Optional[torch.Tensor] = None,

@@ -74,6 +74,11 @@ class VGG(nn.Module):
         self.head = Dense(dense_width, num_classes, torch.float32,
                           device=device)
 
+    def partitioned(self, key: str) -> bool:
+        """The reference's VGG annotates no param with a partitioning:
+        its exports store every leaf unboxed."""
+        return False
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train  # no BN or dropout: train == eval
         x = nhwc_input(x, self.dtype)
@@ -111,6 +116,11 @@ class AlexNet(nn.Module):
         self.fc2 = Dense(dense_width, dense_width, self.dtype, device=device)
         self.head = Dense(dense_width, num_classes, torch.float32,
                           device=device)
+
+    def partitioned(self, key: str) -> bool:
+        """The reference's AlexNet annotates no param with a partitioning:
+        its exports store every leaf unboxed."""
+        return False
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train

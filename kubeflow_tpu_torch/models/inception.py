@@ -233,6 +233,11 @@ class InceptionV3(nn.Module):
             c = block.features
         self.head = Dense(c, num_classes, torch.float32, device=device)
 
+    def partitioned(self, key: str) -> bool:
+        """The reference's Inception-v3 annotates no param with a partitioning:
+        its exports store every leaf unboxed."""
+        return False
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = nhwc_input(x, self.dtype)
         x = self.stem3(self.stem2(self.stem1(x, train), train), train)

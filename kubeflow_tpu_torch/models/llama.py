@@ -405,6 +405,14 @@ class Llama(nn.Module):
         self.lm_head = _linear(d_model, vocab_size, store or torch.float32,
                                device)
 
+    def partitioned(self, key: str) -> bool:
+        """Whether the reference's Llama annotates the Flax param ``key``
+        with a partitioning (``nn.with_partitioning``), which its exports
+        store boxed: every kernel, the token embedding and the MoE
+        experts."""
+        return (key.endswith(("/kernel", "/w_in", "/w_out"))
+                or key == "tok_embed/embedding")
+
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 pad_lengths: Optional[torch.Tensor] = None,

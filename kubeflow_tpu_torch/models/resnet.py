@@ -163,6 +163,11 @@ class ResNet(nn.Module):
         self.head = nn.Linear(features, num_classes, dtype=torch.float32,
                               device=device)
 
+    def partitioned(self, key: str) -> bool:
+        """The reference's ResNet annotates no param with a partitioning:
+        its exports store every leaf unboxed."""
+        return False
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.stem == "s2d":

@@ -117,6 +117,13 @@ class ViT(nn.Module):
         self.head = Dense(d_model, num_classes, torch.float32,
                           device=device)
 
+    def partitioned(self, key: str) -> bool:
+        """Whether the reference's ViT annotates the Flax param ``key``
+        with a partitioning (its exports store it boxed): every kernel
+        but the head's, and the position table."""
+        return ((key.endswith("/kernel") and key != "head/kernel")
+                or key == "pos_embed")
+
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train  # no dropout in the benchmark config
         b, h, w, _ = x.shape

@@ -24,13 +24,17 @@ validity mask, with its constants (``NEG_INF``, the ``m_safe`` clamp,
 the ``max(l, 1e-30)`` normalizer) and its rounding points (fp32 scores
 and statistics, the global max first, P cast to V's dtype before an
 fp32 PV). One thread-block cluster per (row, kv head) splits the keys
-over ``C = min(8, ceil(S / 64))`` CTAs, each holding the kv head's
+into ranges of ``span = 64 * ceil(S / 512)`` keys over
+``C = ceil(S / span) <= 8`` CTAs, each holding the kv head's
 ``H / Hkv`` query heads (GQA without ``_repeat_kv`` copies), its keys'
 scores and V rows in shared memory; the CTAs exchange their maxima,
 partial normalizers and partial outputs through distributed shared
-memory and add them in rank order. Every sum is in an order fixed by S,
-D and the kernel's constants, never by B, so a row has the same bits at
-any batch size. One launch where the plain version is about twenty.
+memory and add them in rank order. Every sum is in an order fixed by
+S's 512-key band, D and the kernel's constants, never by B, so a row has
+the same bits at any batch size, and at any cache length of its band
+(a masked key adds exact zeros): a B = 1 ``generate`` on a cache of
+``max_prompt + new_tokens`` keys gives the bits of an engine whose slot
+rounds that up to whole pages, for any page size dividing 512. One launch where the plain version is about twenty.
 Bound by bytes (K and V read once).
 
 Dispatch. A CPU tensor goes to ``dense_attention`` itself, the plain
@@ -56,7 +60,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_REP = 8
 #: The kernel's warps a CTA.
 WARPS = 4
-#: CTAs a cluster at most, and keys a CTA before another is added.
+#: CTAs a cluster at most, and the keys a CTA's range is a multiple of.
 MAX_SPLIT, SPLIT_KEYS = 8, 64
 #: V rows a CTA stages in shared memory at once, in bytes at most.
 V_STAGE_BYTES = 32768
@@ -64,9 +68,15 @@ V_STAGE_BYTES = 32768
 STATIC_SMEM_BYTES = 4 * WARPS * MAX_REP
 
 
+def span(s: int) -> int:
+    """Keys a CTA's range at S keys: SPLIT_KEYS for each started band of
+    MAX_SPLIT × SPLIT_KEYS keys (the kernel's ``span``)."""
+    return SPLIT_KEYS * max(1, -(-s // (MAX_SPLIT * SPLIT_KEYS)))
+
+
 def splits(s: int) -> int:
     """CTAs a cluster at S keys (the kernel's ``splits``)."""
-    return min(MAX_SPLIT, max(1, -(-s // SPLIT_KEYS)))
+    return max(1, -(-s // span(s)))
 
 
 def padded_rep(rep: int) -> int:
@@ -83,11 +93,12 @@ def smem_bytes(h: int, hkv: int, s: int, d: int, elem_bytes: int) -> int:
     partial normalizer, then a validity byte a key (as the kernel's
     ``kft_decode_attention_smem_bytes``)."""
     r = padded_rep(h // hkv)
-    span = -(-s // splits(s))
+    keys_a_cta = span(s)
     row = d * elem_bytes
-    keys = min(span, V_STAGE_BYTES // row)
-    buffers = 2 if span > keys else 1
-    return buffers * keys * row + 4 * r * (2 * d + span + 3) + span
+    keys = min(keys_a_cta, V_STAGE_BYTES // row)
+    buffers = 2 if keys_a_cta > keys else 1
+    return (buffers * keys * row + 4 * r * (2 * d + keys_a_cta + 3)
+            + keys_a_cta)
 
 
 def _library() -> ctypes.CDLL:

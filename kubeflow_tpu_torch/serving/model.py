@@ -274,9 +274,14 @@ class LoadedModel:
 
     def shard_topology(self) -> Dict[str, Any]:
         """Healthz-facing layout summary, the reference's shape: the
-        port loads monolithic exports only (``load_version`` refuses
-        sharded ones), so one shard and no mesh."""
-        return {"num_shards": 1, "on_mesh": False}
+        manifest's shard count and mesh (``{"num_shards": 1}`` for a
+        monolithic export), and no mesh to serve on: the port reassembles
+        a sharded export on one device (ROADMAP A14 for a mesh)."""
+        from kubeflow_tpu_torch.serving.sharding import shard_topology
+
+        topo = shard_topology(self.metadata)
+        topo["on_mesh"] = False
+        return topo
 
     @property
     def engine(self):
@@ -424,15 +429,22 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     then its Flax params, carried across to the port's layout and
     dtypes (``models/convert.py``) on ``device`` (``None`` → cuda).
     A vision export's ``batch_stats`` collection is carried across
-    beside its params; any other collection raises. Exports with a shard
-    manifest (``metadata.sharding``) raise until parallelism is ported
-    (ROADMAP A14)."""
+    beside its params; any other collection raises. An export with a
+    shard manifest (``metadata.sharding``, ``serving/sharding.py``) is
+    reassembled on the host and then carried across as a monolithic
+    one: the reference's n = 1 read, for one card that holds the whole
+    model; a manifest this build cannot read raises. Loading each shard
+    onto its own device of a mesh is ROADMAP A14."""
     metadata = read_metadata(version_dir)
     if metadata.sharding and int(metadata.sharding.get("num_shards",
                                                        1)) > 1:
-        raise NotImplementedError(
-            "sharded exports are not ported yet (ROADMAP A14)")
-    variables = read_variables(version_dir)
+        from kubeflow_tpu_torch.serving.sharding import (
+            read_sharded_variables,
+        )
+
+        variables = read_sharded_variables(version_dir, None, metadata)
+    else:
+        variables = read_variables(version_dir)
     extra = sorted(set(variables) - {"params", "batch_stats"})
     if extra:
         raise NotImplementedError(

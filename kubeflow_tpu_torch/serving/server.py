@@ -1115,7 +1115,8 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default=None,
                         help="where models load: cuda (the default; "
                              "the server refuses to start without a "
-                             "GPU) or cpu, only when asked")
+                             "GPU) or cpu, only when asked: by this "
+                             "flag or by JAX_PLATFORMS=cpu in the env")
     args = parser.parse_args(argv)
     single = bool(args.model_name or args.model_base_path)
     if bool(args.model_config_file) == single:
@@ -1135,10 +1136,11 @@ def main(argv=None) -> int:
         datefmt="%Y-%m-%dT%H:%M:%S",
     )
     from kubeflow_tpu_torch.utils.device import resolve_device
+    from kubeflow_tpu_torch.utils.platform import default_device
 
     # Before any port opens: a GPU server on a machine without CUDA
     # fails here, never serves from the CPU unasked.
-    device = resolve_device(args.device)
+    device = resolve_device(default_device(args.device))
     if args.trace_tail_keep is not None:
         from kubeflow_tpu_torch.obs.tracing import TRACER
 

@@ -544,7 +544,8 @@ def main(argv=None) -> int:
                              "or globs; gs://-style fsspec paths download "
                              "into a local cache. Default: synthetic")
     parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
+                        help="cuda or cpu (default: cpu where the env has "
+                             "JAX_PLATFORMS=cpu, else cuda)")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler Chrome trace of the "
                              "timed steps under this dir, and a device-time "
@@ -557,6 +558,9 @@ def main(argv=None) -> int:
                              "registered bench_lr)")
     args = parser.parse_args(argv)
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
+    from kubeflow_tpu_torch.utils.platform import default_device
+
+    args.device = default_device(args.device)
 
     # A tpu-cnn pod command joins its gang itself (a no-op for one
     # process, and where the launcher's fallthrough joined already).

@@ -60,7 +60,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from kubeflow_tpu_torch.models.convert import state_from_flax, state_to_flax
+from kubeflow_tpu_torch.models.convert import (
+    state_from_flax,
+    state_to_flax,
+    unflatten_tree,
+)
 from kubeflow_tpu_torch.serving import flax_msgpack
 
 logger = logging.getLogger(__name__)
@@ -300,6 +304,37 @@ class ShardedCheckpointer:
             return restored
         logger.info("no checkpoint in %s; fresh start", self.root)
         return state
+
+    def restore_raw(self, step: Optional[int] = None) -> Optional[Dict]:
+        """The latest committed step, or ``step``, in the checkpoint's
+        own structure with no live state to fit: the nested dict of the
+        reference's tree paths (``{"step", "params": {...}, "opt_state":
+        {...}}``; numpy arrays in Flax's layout, bf16 leaves as CPU
+        tensors). ``kft-export``'s entry point, where only a subtree
+        (the params, the LoRA adapters) is wanted. None when no step is
+        committed. Reads the port's checkpoints and the reference's
+        sharded tier; an Orbax directory (the reference's periodic
+        tier) raises: the port reads no Orbax."""
+        self._refuse_orbax()
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return unflatten_tree(self._read_step(step))
+
+    def _refuse_orbax(self) -> None:
+        """Orbax's step dirs are bare integers (``<root>/3/``) where this
+        layout's are ``step-XXXXXXXX``: such a directory is raised on,
+        not guessed at."""
+        if not self.root.is_dir() or self.all_steps():
+            return
+        orbax = sorted(c.name for c in self.root.iterdir()
+                       if c.is_dir() and c.name.isdigit())
+        if orbax:
+            raise ValueError(
+                f"{self.root} holds Orbax step dirs {orbax[:3]}: the port "
+                f"reads no Orbax, only the sharded layout "
+                f"(step-XXXXXXXX/manifest.json) of its own checkpoints "
+                f"and of the reference's continuous tier")
 
     # -- lifecycle --------------------------------------------------------------
 

@@ -29,8 +29,10 @@ and, for a multi-slice job, ``MEGASCALE_NUM_SLICES`` /
 ``torch.distributed.init_process_group``: a TCP rendezvous at the
 coordinator address, world size ``KFT_NUM_PROCESSES``, rank
 ``KFT_PROCESS_ID``; nccl on the card (each process on card ``rank mod
-count``), gloo on the CPU. It does nothing for one process, and nothing
-if the group is already up. :func:`launch` runs the user command as a
+count``), gloo on the CPU. The device is the caller's, else the pod
+env's (``utils/platform.py``: ``JAX_PLATFORMS=cpu``, the operator's
+simulated mode, means the CPU). It does nothing for one process, and
+nothing if the group is already up. :func:`launch` runs the user command as a
 supervised child (the child joins the gang itself: the env travels to
 it, and the port's trainer CLIs call :func:`initialize_distributed`),
 or with no command joins here and runs the port's benchmark CLI in
@@ -48,6 +50,8 @@ import sys
 import time
 from datetime import timedelta
 from typing import List, Optional, Sequence
+
+from kubeflow_tpu_torch.utils.platform import device_from_env
 
 logger = logging.getLogger(__name__)
 
@@ -113,8 +117,10 @@ def slice_config(env=os.environ) -> Optional[dict]:
 def initialize_distributed(env=os.environ, device=None) -> bool:
     """``torch.distributed.init_process_group`` from the env; True if
     this process is in a gang of more than one. ``device``: ``"cpu"``
-    forms a gloo group; anything else (default: cuda) an nccl group,
-    with this process on card ``process_id mod device_count``.
+    forms a gloo group; ``"cuda"`` an nccl group, with this process on
+    card ``process_id mod device_count``; ``None`` takes the env's
+    (``platform.device_from_env``: the CPU under ``JAX_PLATFORMS=cpu``,
+    else the card).
     Idempotent: an initialized group is left as it is (the launcher's
     fallthrough joins, then runs a CLI that calls this again)."""
     config = distributed_config(env)
@@ -135,13 +141,16 @@ def initialize_distributed(env=os.environ, device=None) -> bool:
         logger.info("multi-slice gang: slice %d of %d (megascale "
                     "coordinator %s)", slices["slice_id"],
                     slices["num_slices"], slices["coordinator_address"])
-    cpu = device is not None and torch.device(device).type == "cpu"
+    if device is None:
+        device = device_from_env(env)
+    cpu = torch.device(device).type == "cpu"
     backend = "gloo" if cpu else "nccl"
     if not cpu:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; a gang on the card needs it. Pass "
-                "device='cpu' for a gloo gang on the CPU.")
+                "device='cpu', or set JAX_PLATFORMS=cpu in the env, for a "
+                "gloo gang on the CPU.")
         torch.cuda.set_device(config["process_id"]
                               % torch.cuda.device_count())
     logger.info("init_process_group(%s, tcp://%s, world_size=%d, rank=%d)",
@@ -182,11 +191,13 @@ def launch(argv: Optional[List[str]] = None, env=os.environ) -> int:
         rc = run_and_stream(argv)
     else:
         # No user program: the stock benchmark, in process, on the
-        # gang joined here (the CLI's own join is then a no-op).
-        initialize_distributed(env)
+        # gang joined here (the CLI's own join is then a no-op), on the
+        # device the pod env names.
+        device = device_from_env(env)
+        initialize_distributed(env, device=device)
         from kubeflow_tpu_torch.training.benchmark import main as bench_main
 
-        rc = bench_main([])
+        rc = bench_main(["--device", device])
     if rc == 0 and env.get(ENV_SLEEP, "").lower() in ("1", "true", "yes"):
         # The reference launcher's sleep-forever on success, for
         # operators that would restart a completed pod; off by default.

@@ -17,7 +17,8 @@
 
 The port of ``kubeflow_tpu/training/pretrain.py``, the tpu-lm pod
 command, for one device. It keeps the reference's flags and final JSON
-line, and adds ``--device`` (``cuda`` unless ``--device cpu``)::
+line, and adds ``--device`` (``cuda`` unless ``--device cpu`` or the
+env's ``JAX_PLATFORMS=cpu``, the operator's simulated mode)::
 
     python -m kubeflow_tpu_torch.training.pretrain --global_batch 32 \\
         --steps 100                       # bert-base, mlm: the default
@@ -94,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="interleaved pipeline stages (ROADMAP A14)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
-                   help="cuda (default) or cpu")
+                   help="cuda or cpu (default: cpu where the env has "
+                        "JAX_PLATFORMS=cpu, else cuda)")
     return p
 
 
@@ -124,7 +126,9 @@ def main(argv=None) -> int:
             "device")
 
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
+    from kubeflow_tpu_torch.utils.platform import default_device
 
+    args.device = default_device(args.device)
     # The tpu-lm pod command joins its gang itself (the env travels to
     # it; a launcher's own join would not).
     initialize_distributed(device=args.device)

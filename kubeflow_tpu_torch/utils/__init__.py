@@ -12,4 +12,5 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the pod env's
+say in it (:mod:`platform`)."""

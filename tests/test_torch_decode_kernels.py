@@ -154,12 +154,12 @@ def test_decode_attention_smem_bound_raises_past_shared_memory():
     q = torch.ones(1, 1, 32, 128)
     ok = torch.ones(1, 544, 8, 128)
     da._check_inputs(q, ok, ok, torch.ones(1, 544, dtype=torch.bool))
-    # Eight CTAs of 68 keys: the 68 bf16 V rows, then in fp32 q, the
-    # scores, the CTA's partial output and 3 statistics a head, then a
-    # validity byte a key.
-    assert da.splits(544) == 8
+    # Ranges of 128 keys (544 is in the second 512-key band), five CTAs:
+    # the 128 bf16 V rows, then in fp32 q, the scores, the CTA's partial
+    # output and 3 statistics a head, then a validity byte a key.
+    assert (da.span(544), da.splits(544)) == (128, 5)
     assert da.smem_bytes(32, 8, 544, 128, 2) == (
-        68 * 256 + 4 * 4 * (128 + 68 + 128 + 3) + 68)
+        128 * 256 + 4 * 4 * (128 + 128 + 128 + 3) + 128)
     # Past 32 KB of V rows a CTA, two stages of them in turn.
     assert da.smem_bytes(32, 8, 8192, 128, 2) == (
         2 * 128 * 256 + 4 * 4 * (128 + 1024 + 128 + 3) + 1024)
@@ -179,6 +179,18 @@ def test_decode_attention_smem_bound_raises_past_shared_memory():
 
 
 # -- the decode step's routing ---------------------------------------------
+
+
+@pytest.mark.parametrize("page", [1, 2, 4, 8, 16, 32, 64, 128, 256, 512])
+def test_decode_attention_ranges_do_not_move_when_a_page_pads_the_cache(
+        page):
+    # The kernel's key ranges are fixed by S's 512-key band: a cache
+    # rounded up to whole pages of a size that divides 512 keeps them.
+    for s in range(1, 8193):
+        padded = -(-s // page) * page
+        assert da.span(padded) == da.span(s), (s, padded)
+        assert da.splits(s) <= da.splits(padded) <= da.MAX_SPLIT
+        assert 1 <= s - (da.splits(s) - 1) * da.span(s) <= da.span(s)
 
 
 def test_decode_step_routes_through_the_three_wrappers(monkeypatch):

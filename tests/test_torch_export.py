@@ -220,7 +220,10 @@ def test_unported_exports_raise(tmp_path):
     path = tmp_path / "7"
     path.mkdir()
     (path / "signature.json").write_text(sharded.dumps())
-    with pytest.raises(NotImplementedError, match="A14"):
+    # Sharded exports are served since their read half is ported
+    # (tests/test_torch_sharded_read.py); a manifest this build cannot
+    # read raises, as the reference's does.
+    with pytest.raises(ValueError, match="manifest format 0"):
         load_version(str(path), device="cpu")
     # batch_stats is served since vision is ported
     # (tests/test_torch_vision.py); another collection still raises.

@@ -664,6 +664,31 @@ def test_decode_attention_smem_mirror_is_the_kernels(cuda):
         assert da.splits(s) == da.kernel_splits(s)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_bits_do_not_depend_on_the_padding_in_a_band(
+        cuda, dtype):
+    """A B = 1 cache of 1,032 keys, the engine's slot of 1,040 (65 pages
+    of 16) and 1,536, the band's end, over the same valid keys: the
+    same ranges and CTAs (span 192), and the padding, filled with
+    noise, is never read, so the outputs are bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = torch.randn(2, 1, 32, 128, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(2, 1536, 8, 128, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(2, 1536, 8, 128, device=cuda, generator=gen).to(dtype)
+    lengths = torch.tensor([[1031], [700]], device=cuda)
+    got = []
+    for s in (1032, 1040, 1536):
+        assert da.span(s) == 192
+        valid = torch.arange(s, device=cuda)[None] < lengths
+        got.append(da.decode_attention(q, k[:, :s], v[:, :s], valid))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    want = da.dense_attention(q, k[:, :1032], v[:, :1032],
+                              kv_segment_valid=torch.arange(
+                                  1032, device=cuda)[None] < lengths)
+    assert float((got[0].float() - want.float()).abs().max()) <= TOL[dtype]
+
+
 def _s_ceiling(h, hkv, d):
     """The longest bf16 cache whose CTA share fits."""
     lo, hi = 1, 1 << 20
@@ -1961,3 +1986,41 @@ def test_vit_benchmark_counts_the_same_flops_on_the_card_and_the_cpu(cuda):
     on_card = benchmark.run_benchmark(config, device=cuda)
     on_cpu = benchmark.run_benchmark(config, device="cpu")
     assert on_card["flops_per_step"] == on_cpu["flops_per_step"] > 0
+
+
+@pytest.mark.parametrize("sizes", [(1, 2)])
+def test_decode_sweep_launches_the_kernels_by_the_formula_on_the_card(
+        cuda, sizes):
+    """``inference.benchmark``'s sweep on the card, bf16: each batch
+    size runs two full generates and two one-token ones, every prefill
+    forward on flash (one launch a layer) and the prefill GEMM (7 a
+    layer) with its head row on the decode GEMM, every decode step on
+    the decode kernels (7 GEMMs a layer and the head, attention once a
+    layer); RMSNorm twice a layer and once more a forward either way.
+    The memory rate read stays under the card's peak."""
+    from kubeflow_tpu_torch.inference.benchmark import (
+        DecodeBenchConfig,
+        run_decode_batch_sweep,
+    )
+    from kubeflow_tpu_torch.ops import decode_attention as da_ops
+
+    new, layers = 8, 2
+    counters = (fa.flash_attention, pg.prefill_linear, dg.decode_linear,
+                rn.rms_norm, da_ops.decode_attention)
+    for fn in counters:
+        fn.launches = 0
+    sweep = run_decode_batch_sweep(DecodeBenchConfig(
+        model="llama-test", prompt_len=16, max_new_tokens=new), sizes)
+    torch.cuda.synchronize()
+    forwards = 4 * len(sizes)
+    steps = 2 * (new - 1) * len(sizes)
+    got = [fn.launches for fn in counters]
+    assert got == [layers * forwards, 7 * layers * forwards,
+                   (7 * layers + 1) * steps + forwards,
+                   (2 * layers + 1) * (forwards + steps), layers * steps]
+    model = llama_test()
+    assert sweep["param_bytes"] == 2 * sum(
+        p.numel() for p in model.parameters())
+    assert sweep["speedup_vs_b1"]["1"] == 1.0
+    for row in sweep["rows"]:
+        assert 0 < row["weight_stream_gb_per_sec"] < 3350

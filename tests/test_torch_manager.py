@@ -405,6 +405,10 @@ def test_batch_stats_tenancy_and_metric_families(engines, gen_dirs,
 def test_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch,
                                                          pred_dir):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # The server CLI takes the CPU from JAX_PLATFORMS=cpu (the pod env's
+    # simulated mode, utils/platform.py), as the test run sets it: this
+    # case is a pod with no such env.
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ModelManager()
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -19,7 +19,8 @@
   GPU scripts (``chip_smoke.py``, ``scripts/profile_torch_llama.py``,
   ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``,
   ``scripts/manager_phase.py``, ``scripts/train_phase.py``,
-  ``scripts/registry_phase.py``) names
+  ``scripts/registry_phase.py``, ``scripts/measure_phase.py``,
+  ``scripts/smoke_breakdown.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -70,6 +71,8 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "manager_phase.py")
     yield os.path.join(ROOT, "scripts", "train_phase.py")
     yield os.path.join(ROOT, "scripts", "registry_phase.py")
+    yield os.path.join(ROOT, "scripts", "measure_phase.py")
+    yield os.path.join(ROOT, "scripts", "smoke_breakdown.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():
@@ -87,7 +90,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                  # The rest of the registry and the pod launcher.
                  "models.bert", "models.vit", "models.inception",
                  "models.classic_cnn", "models.layers", "ops.moe",
-                 "training.launcher"):
+                 "training.launcher",
+                 # The measuring entry points and what they need.
+                 "utils.platform", "inference.benchmark",
+                 "serving.benchmark", "serving.export_cli",
+                 "serving.sharding"):
         assert f"kubeflow_tpu_torch.{name}" in mods, name
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'flax', 'msgpack',\n"

@@ -17,7 +17,8 @@
 Keys and bits are uint32 and must be equal; uniforms are built from the
 bits by exact float operations and must be bit-equal; Gumbel noise goes
 through two logs that torch and XLA may round differently, so it is held
-to 2e-6 absolute; categorical draws must pick the same tokens.
+to 2e-6 absolute; categorical draws must pick the same tokens; integers
+from ``randint`` must be equal, across shapes, seeds, ranges and types.
 """
 
 import jax
@@ -25,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from kubeflow_tpu_torch.inference import prng
 
@@ -134,3 +137,56 @@ def test_key_shape_is_checked():
         prng.split(np.zeros(3, np.uint32))
     with pytest.raises(ValueError, match="per-row keys"):
         prng.random_bits(np.zeros((3, 2), np.uint32), (4, 5))
+
+
+RANDINT_DTYPES = [np.int32, np.uint32, np.int16, np.uint16, np.int8,
+                  np.uint8]
+
+
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((8, 128), 0, 128256),      # the decode benchmark's prompt, B = 8
+    ((1, 128), 0, 32000),
+    ((2, 8), 0, 512),
+    ((5,), -2**31, 2**31 - 1),  # the widest int32 span
+    ((5,), 0, 2**16),           # the span where the multiplier wraps
+    ((3, 3), 7, 7),             # an empty range gives minval
+    ((3, 3), 9, -4),
+])
+def test_randint_equals_jax(shape, lo, hi):
+    key = jax.random.PRNGKey(0)
+    got = prng.randint(np.asarray(key), shape, lo, hi)
+    want = np.asarray(jax.random.randint(key, shape, lo, hi))
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_randint_broadcast_bounds_equal_jax():
+    key = jax.random.PRNGKey(5)
+    lo, hi = np.array([0, 10, -4, 100]), np.array([[5], [50], [1000]])
+    np.testing.assert_array_equal(
+        prng.randint(np.asarray(key), (3, 4), lo, hi),
+        np.asarray(jax.random.randint(key, (3, 4), lo, hi)))
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(-2**31, 2**32 - 1),
+       shape=st.sampled_from([(1,), (7,), (3, 5), (2, 3, 4)]),
+       lo=st.integers(-2**31, 2**31 - 1),
+       width=st.one_of(st.integers(-3, 300), st.integers(2**15, 2**17),
+                       st.integers(0, 2**32)),
+       dtype=st.sampled_from(RANDINT_DTYPES))
+def test_randint_equals_jax_across_seeds_ranges_and_types(seed, shape, lo,
+                                                          width, dtype):
+    hi = int(np.clip(lo + width, -2**31, 2**31 - 1))
+    key = jax.random.PRNGKey(seed)
+    got = prng.randint(np.asarray(key), shape, lo, hi, dtype)
+    want = np.asarray(jax.random.randint(key, shape, lo, hi, dtype))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_randint_refuses_what_jax_without_x64_lacks():
+    with pytest.raises(TypeError, match="32-bit"):
+        prng.randint(prng.PRNGKey(0), (2,), 0, 5, np.int64)
+    with pytest.raises(ValueError, match="int32"):
+        prng.randint(prng.PRNGKey(0), (2,), 0, 2**33)
