@@ -286,7 +286,24 @@ checkout's BN kernel by the same code (a parent commit's, say).
    a llama-test checkpoint written there, loaded on the card: params
    bit-equal and greedy tokens equal to the module's (asserted). Each
    leg's peak memory and the phase's wall time are printed.
-9. One JSON line of kernel numbers, then the result line.
+9. The gang (``gang_lm`` after the LM training, ``gang_vision`` after the
+   ResNet runs; alone: ``python3 scripts/gang_phase.py``), in a one-rank
+   nccl group: llama3-8b LoRA for two steps through
+   ``DevicePrefetcher(mesh)`` and ``make_lora_train_step(mesh)`` on
+   ``data=-1`` and on ``fsdp=-1``, loss, grad norm, adapters and moments
+   bitwise the unmeshed steps', with nccl all-reduces issued; the first
+   mesh's adapter state saved by two checkpointers (host ids 0 and 1)
+   and restored into one host bitwise; ``kft-export --shards tensor=2``
+   of llama3-8b at full width cut to two blocks beside the monolithic
+   export, its plan checked and its greedy tokens served equal; one
+   ResNet-50 b256 exact-BN step meshed (53 stats and 53 apply launches,
+   no fused one; loss and running statistics bitwise, grad norm and
+   params within 2**-7) against the unmeshed step; the BN sync route
+   (stats, the all-reduce, apply) against its twins and bit for bit
+   against the fused launch at [802816, 256] bf16 and at each ResNet-50
+   BN shape, with its times beside the fused launch's, the library's
+   and the bounds (asserted: all of it but the times).
+10. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
 after; every kernel must have run on its path. The kernels line lists
@@ -311,6 +328,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -346,7 +364,11 @@ from kubeflow_tpu_torch.ops import rms_norm as rn
 from kubeflow_tpu_torch.ops.attention import dense_attention
 from kubeflow_tpu_torch.ops.batch_norm import GhostBatchNorm
 from kubeflow_tpu_torch.ops.bn_fused import (
+    bn_apply,
+    bn_stats,
     fused_bn_train_forward,
+    reference_bn_apply,
+    reference_bn_stats,
     reference_bn_train_forward,
 )
 from kubeflow_tpu_torch.ops.flash_attention import (
@@ -359,7 +381,11 @@ from kubeflow_tpu_torch.ops.flash_attention import (
 )
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.tracing import TRACER
-from kubeflow_tpu_torch.serving.export import export_model
+from kubeflow_tpu_torch.serving.export import (
+    export_model,
+    read_metadata,
+    read_variables,
+)
 from kubeflow_tpu_torch.serving import benchmark as serving_bench
 from kubeflow_tpu_torch.serving import export_cli
 from kubeflow_tpu_torch.inference.benchmark import (
@@ -369,6 +395,8 @@ from kubeflow_tpu_torch.inference.benchmark import (
 from kubeflow_tpu_torch.training.checkpoint import (
     CheckpointConfig,
     Checkpointer,
+    ContinuousCheckpointConfig,
+    ShardedCheckpointer,
 )
 from kubeflow_tpu_torch.serving import wire
 from kubeflow_tpu_torch.serving.manager import ModelManager, ServedModel
@@ -390,8 +418,17 @@ from kubeflow_tpu_torch.training.benchmark import (
 )
 from kubeflow_tpu_torch.training.benchmark import main as benchmark_main
 from kubeflow_tpu_torch.training import launcher
-from kubeflow_tpu_torch.training.data import place_batch, synthetic_causal_lm
-from kubeflow_tpu_torch.training.finetune import make_lora_train_step
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from kubeflow_tpu_torch.serving import sharding
+from kubeflow_tpu_torch.training.data import (
+    DevicePrefetcher,
+    place_batch,
+    synthetic_causal_lm,
+)
+from kubeflow_tpu_torch.training.finetune import (
+    create_lora_state,
+    make_lora_train_step,
+)
 from kubeflow_tpu_torch.training.lm import (
     causal_lm_loss,
     create_lm_state,
@@ -404,6 +441,7 @@ from kubeflow_tpu_torch.training.pretrain import main as pretrain_main
 from kubeflow_tpu_torch.training.train import (
     create_train_state,
     make_train_step,
+    place_state,
     sgd,
 )
 from kubeflow_tpu_torch.utils.device import resolve_device
@@ -1544,6 +1582,9 @@ def serve_llama(card):
     train = timed(train_lm, card, params)
     launches["flash_attention_train"] = train["flash_attention"]
     launches["rms_norm_train"] = train["rms_norm"]
+    gang = timed(gang_lm, card, params)
+    launches["flash_attention_gang"] = gang["flash_attention"]
+    launches["rms_norm_gang"] = gang["rms_norm"]
     return launches
 
 
@@ -4420,6 +4461,426 @@ def bn_routes(shapes) -> None:
 
 
 
+# -- the gang: the batch axes (dcn_data, data, fsdp) on one card ---------------
+
+#: llama3-8b LoRA steps on each mesh, and unmeshed beside them.
+GANG_LORA_STEPS = 2
+GANG_MESHES = (("data=-1", MeshSpec(data=-1)), ("fsdp=-1", MeshSpec(fsdp=-1)))
+#: The sharded export: llama3-8b at full width, cut to this many blocks
+#: (two fp32 exports of the full depth would write 64 GB), served with
+#: greedy tokens of a [1, 16] prompt.
+GANG_EXPORT_LAYERS = 2
+GANG_EXPORT_PROMPT = 16
+GANG_EXPORT_TOKENS = 8
+#: The BN route's headline row (the row every PR has reported).
+BN_MAIN = (802816, 256)
+
+
+@contextlib.contextmanager
+def nccl_gang():
+    """An nccl group of one process on the card (a TCP rendezvous on
+    localhost), as a one-card gang forms: every collective of the mesh
+    trainers is a real nccl launch on it."""
+    dist = torch.distributed
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"gang backend {dist.get_backend()}")
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Counts the all-reduces, all-gathers and reduce-scatters issued on
+    the group while the block runs."""
+    dist = torch.distributed
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    counts = dict.fromkeys(names, 0)
+    real = {n: getattr(dist, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def gang_lora(card, params):
+    """llama3-8b LoRA (r 16, remat, b1 × L1024, ``adamw(1e-4)``) for two
+    steps unmeshed, then through ``DevicePrefetcher(mesh)`` and
+    ``make_lora_train_step(mesh)`` on ``MeshSpec(data=-1)`` and
+    ``MeshSpec(fsdp=-1)`` of the one-rank nccl group, from the same
+    served params and seed. Asserted, on each mesh: loss, accuracy and
+    grad norm of both steps, the adapters and the moments equal the
+    unmeshed run's bit for bit; the run launches the flash and RMSNorm
+    kernels as often as the unmeshed one and issues nccl collectives.
+    Returns (the data mesh's final state, the meshed runs' launches)."""
+    entry = get_model(LLAMA)
+    batches = list(itertools.islice(synthetic_causal_lm(
+        1, LORA_SEQ, entry.num_classes_or_vocab, seed=2), GANG_LORA_STEPS))
+    model = entry.make(lora_rank=LORA_RANK, remat=True)
+
+    def run(mesh):
+        state, _ = create_lora_state(model, adamw(LORA_LR), params, seed=0,
+                                     mesh=mesh, base_dtype=torch.bfloat16)
+        step = make_lora_train_step(mesh)
+        source = DevicePrefetcher(iter(batches), mesh, prefetch=1)
+        metrics = []
+        zero_counts()
+        try:
+            for batch in source:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            source.close()
+        torch.cuda.synchronize()
+        return state, metrics, {k: read_counts()[k] for k in TRAIN_KERNELS}
+
+    ref_state, ref_metrics, ref_launches = run(None)
+    launches = dict.fromkeys(TRAIN_KERNELS, 0)
+    kept = None
+    for name, spec in GANG_MESHES:
+        mesh = build_mesh(spec)
+        with counted_collectives() as collectives:
+            state, metrics, got = run(mesh)
+        if metrics != ref_metrics:
+            raise AssertionError(f"gang lora {name}: metrics {metrics} != "
+                                 f"unmeshed {ref_metrics}")
+        for k, v in ref_state.lora.items():
+            mu, nu = (state.opt_state[0].mu[k], state.opt_state[0].nu[k])
+            if not (torch.equal(state.lora[k], v)
+                    and torch.equal(mu, ref_state.opt_state[0].mu[k])
+                    and torch.equal(nu, ref_state.opt_state[0].nu[k])):
+                raise AssertionError(f"gang lora {name}: adapter {k} or its "
+                                     "moments differ from the unmeshed run")
+        if got != ref_launches or not all(got.values()) or not (
+                collectives["all_reduce"]):
+            raise AssertionError(f"gang lora {name}: launches {got} (unmeshed "
+                                 f"{ref_launches}), collectives {collectives}")
+        for k in launches:
+            launches[k] += got[k]
+        log(f"gang lora {name} {dict(mesh.shape)}: {GANG_LORA_STEPS} steps "
+            f"bitwise the unmeshed run's (losses "
+            f"{[m['loss'] for m in metrics]}), launches {got}, nccl "
+            f"collectives {collectives} [{card}]")
+        if kept is None:
+            kept = state
+        del state
+    return kept, launches
+
+
+def gang_checkpoint(card, state):
+    """The data mesh's LoRA training state (step, adapters, moments; the
+    frozen base is the served params) saved by two checkpointers, host ids
+    0 and 1 of a two-host gang, over one directory, then restored into a
+    one-host state: every leaf bit-equal, two shard files and the
+    manifest's host count and plan as the reference writes them."""
+    saved = {"step": state.step, "lora": state.lora,
+             "opt_state": state.opt_state}
+    fresh = {"step": 0,
+             "lora": {k: torch.zeros_like(v) for k, v in state.lora.items()},
+             "opt_state": adamw(LORA_LR).init(
+                 {k: torch.zeros_like(v) for k, v in state.lora.items()})}
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".ckpt-") as base:
+        hosts = [ShardedCheckpointer(ContinuousCheckpointConfig(
+            directory=base, num_hosts=2, host_id=h, save_interval_steps=1))
+            for h in range(2)]
+        for ckpt in hosts:
+            ckpt.save(state.step, saved, force=True)
+        for ckpt in hosts:
+            if not ckpt.wait(120.0):
+                raise AssertionError("gang checkpoint: a host's write hung")
+            ckpt.close()
+        step_dir = os.path.join(base, f"step-{state.step:08d}")
+        manifest = json.load(open(os.path.join(step_dir, "manifest.json")))
+        files = sorted(f for f in os.listdir(step_dir)
+                       if f.startswith("state.shard-"))
+        reader = ShardedCheckpointer(ContinuousCheckpointConfig(
+            directory=base, async_save=False))
+        restored = reader.restore(fresh)
+        reader.close()
+    if (manifest["num_hosts"] != 2 or len(files) != 2
+            or not manifest["plan"] or restored["step"] != state.step):
+        raise AssertionError(f"gang checkpoint: manifest {manifest}, "
+                             f"files {files}")
+    for k, v in state.lora.items():
+        if not (torch.equal(restored["lora"][k], v) and torch.equal(
+                restored["opt_state"][0].mu[k], state.opt_state[0].mu[k])
+                and torch.equal(restored["opt_state"][0].nu[k],
+                                state.opt_state[0].nu[k])):
+            raise AssertionError(f"gang checkpoint: {k} not restored bitwise")
+    log(f"gang checkpoint: 2 hosts wrote {files}, plan of "
+        f"{len(manifest['plan'])} leaves; restored into one host bitwise in "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+
+
+def gang_export(card):
+    """``kft-export --shards tensor=2`` of llama3-8b at full width, cut to
+    ``GANG_EXPORT_LAYERS`` blocks (fresh fp32 weights from seed 0, as the
+    CLI draws them), beside the monolithic export of the same weights;
+    the sharded manifest's plan is ``build_shard_plan`` of the monolithic
+    tree, its two shard files are there and ``params.msgpack`` is not;
+    both served on the card through ``load_version`` (the sharded one
+    joined by the read half): greedy tokens equal."""
+    kwargs = {"num_layers": GANG_EXPORT_LAYERS}
+    prompt = np.random.default_rng(4).integers(
+        0, get_model(LLAMA).num_classes_or_vocab, (1, GANG_EXPORT_PROMPT))
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".export-") as base:
+        free = shutil.disk_usage(base).free
+        paths = {}
+        for name, shards in (("mono", []), ("sharded", ["--shards",
+                                                        "tensor=2"])):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = export_cli.main([
+                    "--model", LLAMA, "--out", f"{base}/{name}",
+                    "--seq_len", str(GANG_EXPORT_PROMPT),
+                    "--generate", json.dumps(
+                        {"max_new_tokens": GANG_EXPORT_TOKENS}),
+                    "--model_kwargs", json.dumps(kwargs), *shards])
+            if rc != 0:
+                raise AssertionError(f"kft-export {name}: exit {rc}")
+            paths[name] = out.getvalue().strip().splitlines()[-1]
+        meta = read_metadata(paths["sharded"])
+        module = get_model(LLAMA).make(**kwargs)
+        spec = sharding.ShardSpec(tensor=2)
+        plan = sharding.build_shard_plan(read_variables(paths["mono"]), spec,
+                                         module)
+        listing = sorted(os.listdir(paths["sharded"]))
+        sizes = {f: os.path.getsize(os.path.join(paths["sharded"], f))
+                 for f in listing}
+        if (meta.sharding["num_shards"] != 2
+                or meta.sharding["mesh"] != {"tensor": 2, "fsdp": 1}
+                or meta.sharding["plan"] != plan
+                or listing != sorted(["signature.json",
+                                      *meta.sharding["shards"]])):
+            raise AssertionError(f"sharded export: {meta.sharding} files "
+                                 f"{listing}")
+        tokens = {}
+        for name, path in paths.items():
+            loaded = load_version(path, max_batch=1)
+            tokens[name] = loaded.run({"input_ids": prompt})["tokens"]
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+    if not np.array_equal(tokens["mono"], tokens["sharded"]):
+        raise AssertionError(f"sharded export served {tokens['sharded']} != "
+                             f"the monolithic export's {tokens['mono']}")
+    log(f"gang export: llama3-8b {GANG_EXPORT_LAYERS} blocks at full width, "
+        f"tensor=2 shards {sizes}, plan of {len(plan)} leaves (all "
+        f"{sorted({e['axis'] for e in plan.values()})}); greedy tokens equal "
+        f"the monolithic export's {tokens['mono'].tolist()}; {free} bytes "
+        f"free before; {time.monotonic() - t0:.1f} s [{card}]")
+
+
+def gang_lm(card, params):
+    """The gang phase's llama3-8b half in a one-rank nccl group: the
+    meshed LoRA steps, the two-host checkpoint of their state and the
+    sharded export. Returns the meshed runs' launches."""
+    with nccl_gang():
+        state, launches = timed(gang_lora, card, params)
+        timed(gang_checkpoint, card, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(gang_export, card)
+    return launches
+
+
+def gang_resnet50(card):
+    """One ResNet-50 training step at the bench batch (b256, exact BN,
+    SGD 0.1 nesterov, seed 0) unmeshed, then meshed on
+    ``MeshSpec(data=-1)`` of the one-rank nccl group, from the same
+    params and batch. Every BN layer of the meshed step takes the sync
+    route: 53 stats and 53 apply launches and no fused one. The stats
+    kernel keeps the fused launch's partial-sum order and apply its
+    arithmetic, so the forward is the unmeshed one's: the loss and the
+    running statistics bit for bit. The gradients recompute through each
+    route's own plain formula (the fused route's ``mean(0)``, the sync
+    route's Σ/count), so the grad norm and the updated params are held
+    within ``BN_Y_REL_TOL`` bf16 (2**-7, the tolerance ``check_bn``
+    holds the fused kernel's y to). Returns the sync launches."""
+    entry = get_model("resnet50")
+    config = BenchConfig(model="resnet50", batch_size=RESNET_BATCH, steps=1,
+                         warmup_steps=0, seed=0,
+                         model_kwargs={"bn_stat_rows": 0})
+    model = entry.make(bn_stat_rows=0)
+    params, stats = init_vision(model, seed=0)
+    batch = synthetic_batch(config, entry.num_classes_or_vocab,
+                            entry.input_spec[0], torch.device("cuda"))
+
+    def run(mesh):
+        state = create_train_state(
+            model, sgd(0.1, 0.9), {k: v.clone() for k, v in params.items()},
+            {k: v.clone() for k, v in stats.items()})
+        if mesh is not None:
+            state = place_state(mesh, state)
+        counters = (fused_bn_train_forward, bn_stats, bn_apply)
+        for fn in counters:
+            fn.launches = 0
+        state, m = make_train_step(mesh)(state, batch)
+        torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in m.items()}, [
+            fn.launches for fn in counters]
+
+    ref_state, ref, ref_launches = run(None)
+    with nccl_gang():
+        state, got, launches = run(build_mesh(MeshSpec(data=-1)))
+    tol = BN_Y_REL_TOL["bfloat16"]
+    stats_equal = all(torch.equal(state.batch_stats[k], v)
+                      for k, v in ref_state.batch_stats.items())
+    param_err = _max_abs(state.params, ref_state.params)
+    norm_err = abs(got["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    row = {"loss": got["loss"], "loss_unmeshed": ref["loss"],
+           "batch_stats_bitwise": stats_equal,
+           "grad_norm_rel_err": norm_err, "params_max_abs_err": param_err,
+           "tol": tol, "launches_fused_stats_apply": launches,
+           "unmeshed_launches": ref_launches}
+    log(f"gang resnet50 b256 exact BN, meshed vs unmeshed: "
+        f"{json.dumps(row)} [{card}]")
+    if (launches != [0, RESNET50_BN_LAYERS, RESNET50_BN_LAYERS]
+            or got["loss"] != ref["loss"] or not stats_equal
+            or norm_err > tol or param_err > tol):
+        raise AssertionError(f"gang resnet50: {row}")
+    return {"bn_stats": launches[1], "bn_apply": launches[2]}
+
+
+def stats_bound(m, c, dtype):
+    """The stats entry's least time: x read once, 2·C fp32 sums written;
+    a square and two adds an element in fp32."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (m * c * elem + 2 * c * 4) / PEAK_BYTES * 1e3
+    t_ops = 3.0 * m * c / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
+
+
+def apply_bound(m, c, dtype):
+    """The apply entry's least time: x read and y written once, sums,
+    scale and bias read, mean and var written; a subtract, a multiply
+    and an add an element in fp32."""
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = (2 * m * c * elem + 6 * c * 4) / PEAK_BYTES * 1e3
+    t_ops = 3.0 * m * c / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
+
+
+def check_bn_route(name, m, c, dtype, layers, full=False):
+    """The sync route at one [M, C] shape on the one-rank nccl group:
+    stats against its twin (the derived mean and var within
+    ``BN_STAT_TOL``), apply against its twin (y within ``BN_Y_REL_TOL``),
+    and stats + all-reduce + apply against the fused launch bit for bit.
+    Times (events, ``KERNEL_TIMING``): the route, the fused launch and
+    the route's device time from the profiler; with ``full``, also each
+    entry alone, its twin and its library counterpart
+    (``torch.batch_norm_stats`` / ``torch.batch_norm_elemt``, SyncBN's
+    split of the same work) and ``F.batch_norm``."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.5).to(dtype)
+    scale = torch.rand(c, device="cuda", generator=gen)
+    bias = torch.randn(c, device="cuda", generator=gen)
+
+    def route():
+        sums = bn_stats(x)
+        torch.distributed.all_reduce(sums)
+        return bn_apply(x, sums, m, scale, bias)
+
+    fused = functools.partial(fused_bn_train_forward, x, scale, bias)
+    sums = bn_stats(x)
+    want = reference_bn_stats(x)
+    stat_err = max(float((sums[0] / m - want[0] / m).abs().max()),
+                   float((sums[1] / m - want[1] / m).abs().max()))
+    y, mean, var = route()
+    y_ref, _, _ = reference_bn_apply(x, sums, m, scale, bias)
+    err = float((y.float() - y_ref.float()).abs().max())
+    y_tol = BN_Y_REL_TOL[str(dtype).replace("torch.", "")] * max(
+        1.0, float(y_ref.float().abs().max()))
+    bitwise = all(torch.equal(a, b) for a, b in zip((y, mean, var), fused()))
+    del y_ref
+    if stat_err > BN_STAT_TOL or err > y_tol or not bitwise:
+        raise AssertionError(f"bn route {name}: stats |Δ| {stat_err}, y |Δ| "
+                             f"{err} (tol {y_tol}), fused bits {bitwise}")
+    bound = bn_bound(m, m, c, dtype)
+    row = {"shape": name, "layers": layers, "stats_max_abs_err": stat_err,
+           "max_abs_err": err, "tol": y_tol, "fused_bitwise": bitwise,
+           "route_ms": time_ms(route, **KERNEL_TIMING),
+           "route_device_ms": profiled_ms(route),
+           "fused_ms": time_ms(fused, **KERNEL_TIMING),
+           "one_read_bound_ms": bound["bound_ms"],
+           "two_read_bound_ms": bound["two_read_ms"]}
+    if full:
+        nchw = x.view(m, 1, 1, c).permute(0, 3, 1, 2)
+        mean_l, invstd = torch.batch_norm_stats(nchw, 1e-5)
+        row.update(
+            stats_ms=time_ms(lambda: bn_stats(x), **KERNEL_TIMING),
+            stats_plain_ms=time_ms(lambda: reference_bn_stats(x), reps=3),
+            stats_library_ms=time_ms(
+                lambda: torch.batch_norm_stats(nchw, 1e-5), **KERNEL_TIMING),
+            apply_ms=time_ms(lambda: bn_apply(x, sums, m, scale, bias),
+                             **KERNEL_TIMING),
+            apply_plain_ms=time_ms(lambda: reference_bn_apply(
+                x, sums, m, scale, bias), reps=3),
+            apply_library_ms=time_ms(lambda: torch.batch_norm_elemt(
+                nchw, scale, bias, mean_l, invstd, 1e-5), **KERNEL_TIMING),
+            library_ms=time_ms(lambda: F.batch_norm(
+                nchw, None, None, weight=scale, bias=bias, training=True,
+                momentum=0.0, eps=1e-5), **KERNEL_TIMING),
+            library_device_ms=profiled_ms(lambda: F.batch_norm(
+                nchw, None, None, weight=scale, bias=bias, training=True,
+                momentum=0.0, eps=1e-5)),
+            fused_device_ms=profiled_ms(fused))
+        (row["stats_bound_ms"], row["stats_bound_by"]) = stats_bound(m, c,
+                                                                     dtype)
+        (row["apply_bound_ms"], row["apply_bound_by"]) = apply_bound(m, c,
+                                                                     dtype)
+    log(f"bn route {name}: {json.dumps(row)}")
+    return row
+
+
+def bn_route_table():
+    """The sync route at ``BN_MAIN`` bf16 (every figure) and at each of
+    ResNet-50's BN shapes at b256 (route, fused and the route's device
+    time), with the per-step sums over the 53 layers."""
+    m, c = BN_MAIN
+    rows = [check_bn_route(f"[{m},{c}] bf16", m, c, torch.bfloat16, 0,
+                           full=True)]
+    for m, c, n in resnet50_bn_shapes():
+        rows.append(check_bn_route(f"[{m},{c}] bf16", m, c, torch.bfloat16,
+                                   n))
+    step = [r for r in rows if r["layers"]]
+    sums = {k: sum(r["layers"] * r[k] for r in step) for k in (
+        "route_ms", "route_device_ms", "fused_ms", "one_read_bound_ms",
+        "two_read_bound_ms")}
+    log(f"bn route per ResNet-50 step: Σ layers·ms {json.dumps(sums)} over "
+        f"{sum(r['layers'] for r in step)} layers")
+    return rows
+
+
+def gang_vision(card):
+    """The gang phase's BN half: the meshed ResNet-50 step on the sync
+    route, then the route's rows in the one-rank nccl group. Returns the
+    step's stats and apply launches and the rows."""
+    launches = timed(gang_resnet50, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with nccl_gang():
+        rows = timed(bn_route_table)
+    return launches, rows
+
+
 # -- the rest of the registry: BERT, vision, MoE ------------------------------
 
 #: tpu-lm's default model and objective (bert-base, mlm) at L128, and
@@ -5453,6 +5914,10 @@ def main() -> int:
     log(f"resnet path launches: bn_forward {launches['bn_forward']}")
     gc.collect()
     torch.cuda.empty_cache()
+    gang_bn, route_rows = gang_vision(card)
+    log(f"gang resnet path launches: {gang_bn}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     (launches["flash_attention_bert"], vision, inception_rows,
      launches["flash_attention_moe"]) = registry_phases(card)
@@ -5469,6 +5934,7 @@ def main() -> int:
         "launches": launches["flash_attention"],
         "launches_prefill": launches.pop("flash_attention_prefill"),
         "launches_train": launches.pop("flash_attention_train"),
+        "launches_gang": launches.pop("flash_attention_gang"),
         "launches_bert": launches.pop("flash_attention_bert"),
         "launches_vit": vision["flash_attention"],
         "launches_moe": launches.pop("flash_attention_moe"),
@@ -5483,6 +5949,7 @@ def main() -> int:
     # The decode kernels: sums over one llama3-8b decode step's launches
     # at M = 4 (4 slots), each shape's figure times its launches a step.
     rms_train = launches.pop("rms_norm_train")
+    rms_gang = launches.pop("rms_norm_gang")
     for name, source, replaces, krows in (
             ("decode_gemm", "decode_gemm.cu",
              "kubeflow_tpu/models/llama.py:72", gemm_rows),
@@ -5495,7 +5962,8 @@ def main() -> int:
             "source": f"kubeflow_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": launches[name],
-            **({"launches_train": rms_train} if name == "rms_norm" else {}),
+            **({"launches_train": rms_train, "launches_gang": rms_gang}
+               if name == "rms_norm" else {}),
             "launches_measure": measure[name],
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             **{k: per_step(krows, k) for k in ("ms", "plain_ms",
@@ -5530,6 +5998,25 @@ def main() -> int:
         "bound_by": bn_main["bound_by"],
         "library_ms": bn_main["library_ms"],
     }]
+    # The sync route's two entries (phase 0 and phase 1 of the same TPU
+    # kernel, split around the all-reduce): the meshed ResNet-50 step's
+    # launches, the [802816, 256] bf16 row's figures.
+    route_main = route_rows[0]
+    for name in ("bn_stats", "bn_apply"):
+        part = name.split("_")[1]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "kubeflow_tpu_torch/csrc/bn_forward.cu",
+            "replaces": "kubeflow_tpu/ops/bn_pallas.py:49",
+            "launches": gang_bn[name],
+            "max_abs_err": max(r["stats_max_abs_err" if part == "stats"
+                                 else "max_abs_err"] for r in route_rows),
+            "ms": route_main[f"{part}_ms"],
+            "plain_ms": route_main[f"{part}_plain_ms"],
+            "bound_ms": route_main[f"{part}_bound_ms"],
+            "bound_by": route_main[f"{part}_bound_by"],
+            "library_ms": route_main[f"{part}_library_ms"],
+        })
     log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -77,6 +77,18 @@
 // from L2 by every thread, they would queue the whole grid on a few L2
 // lines (scripts/bn_phase_times.py times each phase).
 //
+// The sync route (a batch split over the ranks of a gang, sync batch
+// norm) splits this function around an all-reduce of the per-channel
+// sums, with two more entries (bn_stats_kernel, bn_apply_kernel):
+//  stats: phases (a) and (b) of the fused launch over the rank's stat
+//    rows, with the fused launch's plan and so its partial-sum order, but
+//    the finalize writes fp32 sum(x) and sum(x^2) (the double sums cast
+//    to float, as the fused finalize casts them before dividing);
+//  apply: phase (c) from given global sums and a global row count: each
+//    block derives its channels' mean, var and mul by the fused
+//    finalize's arithmetic, then normalizes its rows.
+// On one rank, stats + apply give the fused launch's bits.
+//
 // Same bits on every run: every sum is taken in an order fixed by the
 // plan (no floating-point atomics; the only shared counter is the grid
 // barrier's). Hierarchical sums (a thread's rows in fp32, the block tree
@@ -424,6 +436,149 @@ __global__ void __launch_bounds__(kThreads, 1)
   normalize_rows<T, VEC>(x, y, b0, 1, b1 - b0, c, c0, ty, nty, mu, k, b);
 }
 
+// The sync route's stats: phase (a) of the fused kernel with its plan,
+// the kept rows read from device memory in the order the fused kernel
+// sums them from shared memory, then phase (b)'s double sums over the
+// chunks, written as fp32 sums (sums[0:c] = sum x, sums[c:2c] = sum x^2).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+    bn_stats_kernel(const Params p, float* __restrict__ sums) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const int c = p.c;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int nty = blockDim.y;
+  const int tid = ty * blockDim.x + tx;
+  const int c_tile = blockIdx.x % p.c_tiles;
+  const int chunk = blockIdx.x / p.c_tiles;
+  const int c_base = c_tile * blockDim.x * VEC;
+  const int c0 = c_base + tx * VEC;
+  const bool active = c0 < c;
+
+  const long long a0 = min(p.m_stat, chunk * p.stat_per);
+  const long long a1 = min(p.m_stat, a0 + p.stat_per);
+  const long long keep = min(static_cast<long long>(p.keep), a1 - a0);
+  const long long streamed = a1 - a0 - keep;
+
+  float s[VEC], ss[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) s[i] = ss[i] = 0.f;
+  if (active) {
+    sum_rows<T, VEC>(x, a0, streamed, c, c0, ty, nty, s, ss);
+    sum_rows<T, VEC>(x, a1 - keep, keep, c, c0, ty, nty, s, ss);
+  }
+
+  float* red = reinterpret_cast<float*>(smem);
+  const int wf = blockDim.x * VEC;
+  float* red_s = red;
+  float* red_ss = red + (nty / 2) * wf;
+  for (int half = nty / 2; half > 0; half /= 2) {
+    if (ty >= half && ty < 2 * half) {
+      put<VEC>(red_s + (ty - half) * wf + tx * VEC, s);
+      put<VEC>(red_ss + (ty - half) * wf + tx * VEC, ss);
+    }
+    __syncthreads();
+    if (ty < half) {
+      add_from<VEC>(s, red_s + ty * wf + tx * VEC);
+      add_from<VEC>(ss, red_ss + ty * wf + tx * VEC);
+    }
+    __syncthreads();
+  }
+  float* partial = p.work;
+  if (ty == 0 && active) {
+    float* out = partial + static_cast<long long>(chunk) * 2 * c;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      out[c0 + i] = s[i];
+      out[c + c0 + i] = ss[i];
+    }
+  }
+
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+
+  const int blocks = gridDim.x;
+  const int cpb = (c + blocks - 1) / blocks;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ch_end = min(c, (static_cast<int>(blockIdx.x) + 1) * cpb);
+  for (int ch = blockIdx.x * cpb + warp; ch < ch_end; ch += kThreads / 32) {
+    double ds = 0.0, dss = 0.0;
+    for (int k = lane; k < p.chunks; k += 32) {
+      ds += __ldcg(partial + static_cast<long long>(k) * 2 * c + ch);
+      dss += __ldcg(partial + static_cast<long long>(k) * 2 * c + c + ch);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      ds += __shfl_xor_sync(0xffffffffu, ds, o);
+      dss += __shfl_xor_sync(0xffffffffu, dss, o);
+    }
+    if (lane == 0) {
+      sums[ch] = static_cast<float>(ds);
+      sums[c + ch] = static_cast<float>(dss);
+    }
+  }
+}
+
+// The sync route's apply: a plain grid, block (tile, chunk) normalizing
+// rows [chunk * stat_per, (chunk + 1) * stat_per) of its C tile with the
+// mean, var and mul the fused finalize would give for sums and a count
+// m_stat (block chunk 0 writes mean and var).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+    bn_apply_kernel(const Params p, const float* __restrict__ sums) {
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  T* __restrict__ y = static_cast<T*>(p.y);
+  const int c = p.c;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c_tile = blockIdx.x % p.c_tiles;
+  const int chunk = blockIdx.x / p.c_tiles;
+  const int c0 = c_tile * blockDim.x * VEC + tx * VEC;
+  if (c0 >= c) return;
+  const float n = static_cast<float>(p.m_stat);
+  float mu[VEC], k[VEC], b[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int ch = c0 + i;
+    const float mean = __fdiv_rn(sums[ch], n);
+    const float ex2 = __fdiv_rn(sums[c + ch], n);
+    const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
+    mu[i] = mean;
+    k[i] = __fmul_rn(rsqrtf(__fadd_rn(var, p.eps)), p.scale[ch]);
+    b[i] = p.bias[ch];
+    if (chunk == 0 && ty == 0) {
+      p.mean[ch] = mean;
+      p.var[ch] = var;
+    }
+  }
+  const long long r0 = min(p.m, chunk * p.stat_per);
+  const long long r1 = min(p.m, r0 + p.stat_per);
+  normalize_rows<T, VEC>(x, y, r0, 1, r1 - r0, c, c0, ty, blockDim.y, mu, k,
+                         b);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_stats(Params p, float* sums, int tx, int ty,
+                         cudaStream_t stream) {
+  if (tx * ty != kThreads || (VEC == 1 && p.keep != 0))
+    return cudaErrorInvalidValue;
+  void* args[] = {&p, &sums};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(bn_stats_kernel<T, VEC>),
+      dim3(p.c_tiles * p.chunks), dim3(tx, ty), args,
+      static_cast<size_t>((kThreads / 2) * VEC * 2 * sizeof(float)), stream);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+template <typename T, int VEC>
+cudaError_t launch_apply(const Params& p, const float* sums, int tx, int ty,
+                         cudaStream_t stream) {
+  if (tx * ty != kThreads) return cudaErrorInvalidValue;
+  bn_apply_kernel<T, VEC>
+      <<<p.c_tiles * p.chunks, dim3(tx, ty), 0, stream>>>(p, sums);
+  return cudaGetLastError();
+}
+
 // Bytes of dynamic shared memory a launch takes: the reduction tree's
 // scratch and `keep` rows of the widest C tile.
 template <typename T, int VEC>
@@ -544,6 +699,49 @@ int kft_bn_forward(const void* x, const float* scale, const float* bias,
     return launch<__nv_bfloat16, 1>(p, tx, ty, smem, s);
   if (g->dtype == 1 && g->vec == 8)
     return launch<__nv_bfloat16, 8>(p, tx, ty, smem, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The sync route's stats over x's rows [0, g->m_stat) with the fused
+// launch's geometry g: fp32 sums [2][c] (sum x, then sum x^2); work
+// holds the chunk partials [chunks][2][c].
+int kft_bn_stats(const void* x, float* sums, float* work, const Geometry* g,
+                 void* stream) {
+  const Params p{x,       nullptr,   nullptr,     nullptr,
+                 nullptr, nullptr,   work,        g->m,
+                 g->m_stat, g->stat_per, g->rest_per, g->c,
+                 g->c_tiles, g->chunks, g->keep,   0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g->dtype == 0 && g->vec == 1)
+    return launch_stats<float, 1>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 0 && g->vec == 4)
+    return launch_stats<float, 4>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 1 && g->vec == 1)
+    return launch_stats<__nv_bfloat16, 1>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 1 && g->vec == 8)
+    return launch_stats<__nv_bfloat16, 8>(p, sums, g->tx, g->ty, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The sync route's apply: y over x's g->m rows from global sums [2][c]
+// and the global stat-row count g->m_stat, in g->chunks row chunks of
+// g->stat_per rows; mean and var [c] out.
+int kft_bn_apply(const void* x, const float* sums, const float* scale,
+                 const float* bias, void* y, float* mean, float* var,
+                 const Geometry* g, float eps, void* stream) {
+  const Params p{x,    y,       scale,       bias,
+                 mean, var,     nullptr,     g->m,
+                 g->m_stat, g->stat_per, 0, g->c,
+                 g->c_tiles, g->chunks, 0, eps};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g->dtype == 0 && g->vec == 1)
+    return launch_apply<float, 1>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 0 && g->vec == 4)
+    return launch_apply<float, 4>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 1 && g->vec == 1)
+    return launch_apply<__nv_bfloat16, 1>(p, sums, g->tx, g->ty, s);
+  if (g->dtype == 1 && g->vec == 8)
+    return launch_apply<__nv_bfloat16, 8>(p, sums, g->tx, g->ty, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -37,7 +37,14 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 
-from kubeflow_tpu_torch.models.layers import Dense, Embed, LayerNorm, gelu
+from kubeflow_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    LayerNorm,
+    LogicalAxes,
+    gelu,
+    logical_axes_by_suffix,
+)
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.utils.device import torch_dtype
@@ -123,11 +130,28 @@ class Bert(nn.Module):
         self.mlm_bias = nn.Parameter(torch.empty(
             vocab_size, dtype=torch.float32, device=device))
 
+    #: The reference's ``nn.with_partitioning`` axes, by Flax key suffix.
+    LOGICAL_AXES = (
+        ("attention/query/kernel", ("embed", "heads")),
+        ("attention/key/kernel", ("embed", "heads")),
+        ("attention/value/kernel", ("embed", "heads")),
+        ("attention/out/kernel", ("heads", "embed")),
+        ("mlp_in/kernel", ("embed", "mlp")),
+        ("mlp_out/kernel", ("mlp", "embed")),
+        ("mlm_transform/kernel", (None, "embed")),
+        ("tok_embed/embedding", ("vocab", "embed")),
+    )
+
+    def logical_axes(self, key: str) -> LogicalAxes:
+        """The logical axes the reference's BERT gives the Flax param
+        ``key`` (``nn.with_partitioning``), or None."""
+        return logical_axes_by_suffix(self.LOGICAL_AXES, key)
+
     def partitioned(self, key: str) -> bool:
         """Whether the reference's BERT annotates the Flax param ``key``
         with a partitioning (its exports store it boxed): every kernel
         and the token embedding."""
-        return key.endswith("/kernel") or key == "tok_embed/embedding"
+        return self.logical_axes(key) is not None
 
     def forward(self, input_ids: torch.Tensor,
                 type_ids: Optional[torch.Tensor] = None,

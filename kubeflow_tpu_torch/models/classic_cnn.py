@@ -74,6 +74,11 @@ class VGG(nn.Module):
         self.head = Dense(dense_width, num_classes, torch.float32,
                           device=device)
 
+    def logical_axes(self, key: str) -> None:
+        """The reference's VGG names no logical axes: every param is
+        replicated by the rule table (fsdp shards it by shape)."""
+        return None
+
     def partitioned(self, key: str) -> bool:
         """The reference's VGG annotates no param with a partitioning:
         its exports store every leaf unboxed."""
@@ -116,6 +121,11 @@ class AlexNet(nn.Module):
         self.fc2 = Dense(dense_width, dense_width, self.dtype, device=device)
         self.head = Dense(dense_width, num_classes, torch.float32,
                           device=device)
+
+    def logical_axes(self, key: str) -> None:
+        """The reference's AlexNet names no logical axes: every param is
+        replicated by the rule table (fsdp shards it by shape)."""
+        return None
 
     def partitioned(self, key: str) -> bool:
         """The reference's AlexNet annotates no param with a partitioning:

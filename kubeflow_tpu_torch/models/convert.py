@@ -83,7 +83,7 @@ from kubeflow_tpu_torch.ops.lora import is_lora_name
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
-def _flax_key(name: str) -> str:
+def flax_key(name: str) -> str:
     """The Flax flat key of a port parameter name."""
     parts = name.split(".")
     if parts[0] == "layers":
@@ -105,6 +105,38 @@ def _kernel_to_torch(key: str, arr: np.ndarray) -> np.ndarray:
                      "PyTorch layout here (2: Dense, 4: conv HWIO)")
 
 
+_flax_key = flax_key
+
+
+#: A kernel's PyTorch dims as Flax dims: Dense [out, in] ← [in, out];
+#: conv OIHW ← HWIO.
+_TORCH_FROM_FLAX = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+
+def flax_dims(key: str, ndim: int) -> Tuple[int, ...]:
+    """For each dim of the port's tensor for Flax key ``key``, the Flax
+    dim it holds (a kernel is transposed, every other leaf is not)."""
+    if key.endswith("/kernel") and ndim in _TORCH_FROM_FLAX:
+        return _TORCH_FROM_FLAX[ndim]
+    return tuple(range(ndim))
+
+
+def flax_shape(key: str, shape) -> Tuple[int, ...]:
+    """The Flax shape of the port's tensor of shape ``shape``."""
+    dims = flax_dims(key, len(shape))
+    out = [0] * len(shape)
+    for tdim, fdim in enumerate(dims):
+        out[fdim] = shape[tdim]
+    return tuple(out)
+
+
+def torch_spec(key: str, spec: Tuple, ndim: int) -> Tuple:
+    """A Flax-layout PartitionSpec (one entry a leading dim) in the
+    port's layout of the same leaf."""
+    full = tuple(spec) + (None,) * (ndim - len(spec))
+    return tuple(full[f] for f in flax_dims(key, ndim))
+
+
 def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Port params from a flat ``"/"``-keyed dict of Flax params (as
@@ -118,7 +150,7 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
     for name, template in config.named_parameters():
         if is_lora_name(name):
             continue
-        key = _flax_key(name)
+        key = flax_key(name)
         if key not in flat:
             raise KeyError(f"Flax params have no {key!r} (for {name})")
         leaf = flat[key]
@@ -132,7 +164,7 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
                              f"{name} {tuple(template.shape)}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=template.dtype)
-    extra = set(flat) - {_flax_key(n) for n in out}
+    extra = set(flat) - {flax_key(n) for n in out}
     if extra:
         raise ValueError(f"Flax params the port model has no place for: "
                          f"{sorted(extra)[:5]}")
@@ -148,7 +180,7 @@ def params_to_flax(params: Mapping[str, torch.Tensor]
     back."""
     out = {}
     for name, t in params.items():
-        key = _flax_key(name)
+        key = flax_key(name)
         arr = t.detach().float().cpu().numpy()
         if key.endswith("/kernel"):
             arr = (arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0))
@@ -282,7 +314,7 @@ def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
     for name, template in config.named_parameters():
         if not is_lora_name(name):
             continue
-        key = _flax_key(name)
+        key = flax_key(name)
         if key not in flat:
             raise KeyError(f"the lora collection has no {key!r} (for {name})")
         arr = np.array(flat[key], dtype=np.float32)
@@ -290,7 +322,7 @@ def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
             raise ValueError(f"{key}: shape {arr.shape} does not fit "
                              f"{name} {tuple(template.shape)}")
         out[name] = torch.from_numpy(arr).to(device)
-    extra = set(flat) - {_flax_key(n) for n in out}
+    extra = set(flat) - {flax_key(n) for n in out}
     if extra:
         raise ValueError(f"lora leaves the port model has no place for: "
                          f"{sorted(extra)[:5]}")
@@ -300,7 +332,7 @@ def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
 def lora_to_flax(lora: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of :func:`lora_from_flax`: the flat ``lora``
     collection, fp32 numpy."""
-    return {_flax_key(name): t.detach().float().cpu().numpy()
+    return {flax_key(name): t.detach().float().cpu().numpy()
             for name, t in lora.items()}
 
 
@@ -318,7 +350,7 @@ def _state_children(node: Any):
     if isinstance(node, (tuple, list)):
         return [(str(i), v) for i, v in enumerate(node)]
     if isinstance(node, Mapping):
-        return [(_flax_key(k), v) for k, v in node.items()]
+        return [(flax_key(k), v) for k, v in node.items()]
     return None
 
 

@@ -233,6 +233,11 @@ class InceptionV3(nn.Module):
             c = block.features
         self.head = Dense(c, num_classes, torch.float32, device=device)
 
+    def logical_axes(self, key: str) -> None:
+        """The reference's Inception-v3 names no logical axes: every param is
+        replicated by the rule table (fsdp shards it by shape)."""
+        return None
+
     def partitioned(self, key: str) -> bool:
         """The reference's Inception-v3 annotates no param with a partitioning:
         its exports store every leaf unboxed."""

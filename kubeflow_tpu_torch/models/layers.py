@@ -34,13 +34,28 @@ average pool, −inf for the max pool), never by PyTorch's symmetric
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
+#: A param's logical axes, as the reference's ``nn.with_partitioning``
+#: names them (``("embed", "mlp")``), or None where it names none.
+LogicalAxes = Optional[Tuple[Optional[str], ...]]
+
+
+def logical_axes_by_suffix(table: Sequence[Tuple[str, LogicalAxes]],
+                           key: str) -> LogicalAxes:
+    """The axes of the first ``(suffix, axes)`` of ``table`` whose suffix
+    ends the Flax key ``key`` (a leading ``params/`` or ``lora/``
+    collection is dropped), or None."""
+    key = key.split("/", 1)[1] if key.startswith(("params/", "lora/")) else key
+    for suffix, axes in table:
+        if key == suffix or key.endswith("/" + suffix):
+            return axes
+    return None
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:

@@ -73,13 +73,14 @@ and backward launch flash twice a layer and RMSNorm twice a block norm.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from kubeflow_tpu_torch.models.layers import logical_axes_by_suffix
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
 from kubeflow_tpu_torch.ops.decode_gemm import decode_linear
@@ -405,13 +406,44 @@ class Llama(nn.Module):
         self.lm_head = _linear(d_model, vocab_size, store or torch.float32,
                                device)
 
+    #: The reference's ``nn.with_partitioning`` axes, by Flax key suffix.
+    LOGICAL_AXES = (
+        ("attention/q_proj/kernel", ("embed", "heads")),
+        ("attention/k_proj/kernel", ("embed", "kv")),
+        ("attention/v_proj/kernel", ("embed", "kv")),
+        ("attention/o_proj/kernel", ("heads", "embed")),
+        ("gate_proj/kernel", ("embed", "mlp")),
+        ("up_proj/kernel", ("embed", "mlp")),
+        ("down_proj/kernel", ("mlp", "embed")),
+        ("moe/router/kernel", ("embed", None)),
+        ("moe/w_in", ("expert", "embed", "mlp")),
+        ("moe/w_out", ("expert", "mlp", "embed")),
+        ("lm_head/kernel", ("embed", "vocab")),
+        ("tok_embed/embedding", ("vocab", "embed")),
+    )
+
+    def logical_axes(self, key: str) -> Optional[Tuple[Optional[str], ...]]:
+        """The logical axes the reference's Llama gives the Flax param
+        ``key`` (``nn.with_partitioning``), or None. A LoRA adapter of a
+        projection (``.../q_proj/lora_a``, the ``"lora"`` collection)
+        takes ``(in_axis, "lora")`` and ``lora_b`` ``("lora", out_axis)``
+        of its kernel's axes."""
+        for adapter in ("lora_a", "lora_b"):
+            if key.endswith("/" + adapter):
+                kernel = self.logical_axes(
+                    key[:-len(adapter)] + "kernel")
+                if kernel is None:
+                    return None
+                return ((kernel[0], "lora") if adapter == "lora_a"
+                        else ("lora", kernel[1]))
+        return logical_axes_by_suffix(self.LOGICAL_AXES, key)
+
     def partitioned(self, key: str) -> bool:
         """Whether the reference's Llama annotates the Flax param ``key``
         with a partitioning (``nn.with_partitioning``), which its exports
         store boxed: every kernel, the token embedding and the MoE
         experts."""
-        return (key.endswith(("/kernel", "/w_in", "/w_out"))
-                or key == "tok_embed/embedding")
+        return self.logical_axes(key) is not None
 
     def forward(self, input_ids: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,

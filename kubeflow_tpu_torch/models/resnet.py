@@ -163,6 +163,11 @@ class ResNet(nn.Module):
         self.head = nn.Linear(features, num_classes, dtype=torch.float32,
                               device=device)
 
+    def logical_axes(self, key: str) -> None:
+        """The reference's ResNet names no logical axes: every param is
+        replicated by the rule table (fsdp shards it by shape)."""
+        return None
+
     def partitioned(self, key: str) -> bool:
         """The reference's ResNet annotates no param with a partitioning:
         its exports store every leaf unboxed."""

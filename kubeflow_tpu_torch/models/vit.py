@@ -37,7 +37,9 @@ from kubeflow_tpu_torch.models.layers import (
     Conv,
     Dense,
     LayerNorm,
+    LogicalAxes,
     gelu,
+    logical_axes_by_suffix,
     nhwc_input,
 )
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
@@ -117,12 +119,28 @@ class ViT(nn.Module):
         self.head = Dense(d_model, num_classes, torch.float32,
                           device=device)
 
+    #: The reference's ``nn.with_partitioning`` axes, by Flax key suffix.
+    LOGICAL_AXES = (
+        ("query/kernel", ("embed", "heads")),
+        ("key/kernel", ("embed", "heads")),
+        ("value/kernel", ("embed", "heads")),
+        ("out/kernel", ("heads", "embed")),
+        ("mlp_in/kernel", ("embed", "mlp")),
+        ("mlp_out/kernel", ("mlp", "embed")),
+        ("patch_embed/kernel", (None, None, None, "embed")),
+        ("pos_embed", (None, "embed")),
+    )
+
+    def logical_axes(self, key: str) -> LogicalAxes:
+        """The logical axes the reference's ViT gives the Flax param
+        ``key`` (``nn.with_partitioning``), or None."""
+        return logical_axes_by_suffix(self.LOGICAL_AXES, key)
+
     def partitioned(self, key: str) -> bool:
         """Whether the reference's ViT annotates the Flax param ``key``
         with a partitioning (its exports store it boxed): every kernel
         but the head's, and the position table."""
-        return ((key.endswith("/kernel") and key != "head/kernel")
-                or key == "pos_embed")
+        return self.logical_axes(key) is not None
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         del train  # no dropout in the benchmark config

@@ -31,19 +31,59 @@ Parameters ``scale`` and ``bias`` are fp32; the running ``mean`` and
 ``batch_stats`` dict (the Flax collection of that name). Unlike the
 reference's functional collection, a training forward updates those
 tensors in place.
+
+Sync BN. Inside :func:`sync_batch_norm` (the vision trainer's meshed
+step enters it) every training forward takes
+:func:`~kubeflow_tpu_torch.ops.bn_fused.sync_bn_train_forward`: the
+statistics of the global batch, as the reference's BN has them on a
+batch-sharded mesh (XLA reduces them across devices). With
+``stat_rows > 0`` they are those of the global batch's first
+``stat_rows`` images, as the reference computes ``x[:stat_rows]`` of
+the global array: the ranks holding those images contribute their rows,
+the others none.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import contextvars
+from typing import Callable, Iterator, NamedTuple
 
 import torch
 import torch.nn as nn
 
-from kubeflow_tpu_torch.ops.bn_fused import fused_bn_train_forward
+from kubeflow_tpu_torch.ops.bn_fused import (
+    fused_bn_train_forward,
+    sync_bn_train_forward,
+)
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
 TrainForward = Callable[..., tuple]
+
+
+class SyncGroup(NamedTuple):
+    """The batch's split over ranks: ``reduce(t)`` sums a tensor in place
+    over them; this rank holds global images [index·n, (index + 1)·n) of
+    ``size``·n, n its own count."""
+
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    index: int
+    size: int
+
+
+_SYNC: contextvars.ContextVar = contextvars.ContextVar("sync_bn",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group: SyncGroup) -> Iterator[None]:
+    """Every ``GhostBatchNorm`` training forward in the block takes the
+    statistics of the batch over ``group``'s ranks (sync BN)."""
+    token = _SYNC.set(group)
+    try:
+        yield
+    finally:
+        _SYNC.reset(token)
 
 
 def rows_view(x: torch.Tensor) -> torch.Tensor:
@@ -100,7 +140,14 @@ class GhostBatchNorm(nn.Module):
         if x.dtype != self.dtype:
             raise ValueError(f"GhostBatchNorm({self.dtype}) got {x.dtype}")
         rows = rows_view(x)
-        if train:
+        sync = _SYNC.get() if train else None
+        if sync is not None:
+            y, mean, var = self._sync_forward(rows, x.shape[0], sync)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        elif train:
             n = x.shape[0]
             stat_rows = None
             if 0 < self.stat_rows < n:
@@ -121,3 +168,15 @@ class GhostBatchNorm(nn.Module):
             return y
         n, c, h, w = x.shape
         return y.view(n, h, w, c).permute(0, 3, 1, 2)
+
+    def _sync_forward(self, rows: torch.Tensor, n: int, sync: SyncGroup):
+        """The sync route: statistics over the global batch's first
+        ``stat_rows`` images (all when 0), whichever ranks hold them."""
+        per_image = rows.shape[0] // n
+        total = n * sync.size
+        stat_images = self.stat_rows if 0 < self.stat_rows < total else total
+        mine = min(max(stat_images - sync.index * n, 0), n)
+        return sync_bn_train_forward(
+            rows, self.scale, self.bias, eps=self.epsilon,
+            stat_rows=None if mine == n else mine * per_image,
+            count=stat_images * per_image, reduce=sync.reduce)

@@ -44,6 +44,22 @@ Dispatch. A CPU tensor goes to :func:`reference_bn_train_forward`, the
 plain PyTorch version. A CUDA tensor goes to the kernel, or the call
 raises: there is no fallback, and a grid too large to be co-resident
 raises too. ``fused_bn_train_forward.launches`` counts kernel launches.
+
+The sync route (:func:`sync_bn_train_forward`). On a batch-sharded mesh
+the reference's exact BN takes its statistics over the global batch
+(XLA reduces them across devices), and the fused launch leaves no point
+between its phases for a collective. So the same source has two more
+entries: :func:`bn_stats` (phase (a) and the finalize's sums, with the
+fused launch's plan, so its partial-sum order) writes the rank's fp32
+Σx and Σx² per channel; the 2·C sums are all-reduced over the batch
+axes; :func:`bn_apply` (phase (c)) normalizes from the global sums and
+the global row count, deriving mean, var and mul by the fused
+finalize's arithmetic. On one rank the route gives the fused launch's
+bits. Each has a plain twin (:func:`reference_bn_stats`,
+:func:`reference_bn_apply`), which a CPU tensor takes, so a gloo gang
+runs the same all-reduce. The gradient recomputes through the apply
+twin, with the gradient of the sums all-reduced too (sync BN's
+backward: the per-channel Σgy and Σgy·x̂ of every rank).
 """
 
 from __future__ import annotations
@@ -80,6 +96,27 @@ def reference_bn_train_forward(x: torch.Tensor, scale: torch.Tensor,
     var = torch.clamp(xs.square().mean(0) - mean.square(), min=0.0)
     mul = torch.rsqrt(var + eps) * scale.float()
     y = (xf - mean) * mul + bias.float()
+    return y.to(x.dtype), mean, var
+
+
+def reference_bn_stats(x: torch.Tensor,
+                       stat_rows: Optional[int] = None) -> torch.Tensor:
+    """The stats entry's function: ``[2, C]`` fp32, Σx and Σx² per
+    channel over the first ``stat_rows`` rows of x (all when None)."""
+    xs = x.float() if stat_rows is None else x[:stat_rows].float()
+    return torch.stack((xs.sum(0), xs.square().sum(0)))
+
+
+def reference_bn_apply(x: torch.Tensor, sums: torch.Tensor, count: int,
+                       scale: torch.Tensor, bias: torch.Tensor, *,
+                       eps: float = 1e-5) -> BNOutputs:
+    """The apply entry's function: mean = Σx / count, var = max(Σx² /
+    count − mean², 0), then ``GhostBatchNorm``'s op order, y = (x −
+    mean)·(rsqrt(var + eps)·scale) + bias, cast to x's dtype."""
+    mean = sums[0] / count
+    var = torch.clamp(sums[1] / count - mean.square(), min=0.0)
+    mul = torch.rsqrt(var + eps) * scale.float()
+    y = (x.float() - mean) * mul + bias.float()
     return y.to(x.dtype), mean, var
 
 
@@ -191,6 +228,11 @@ def _library() -> ctypes.CDLL:
         lib.kft_bn_limits.argtypes = [ctypes.c_int, ctypes.c_int] + [
             ctypes.c_void_p] * 3
         lib.kft_bn_limits.restype = ctypes.c_int
+        lib.kft_bn_stats.argtypes = [ctypes.c_void_p] * 5
+        lib.kft_bn_stats.restype = ctypes.c_int
+        lib.kft_bn_apply.argtypes = ([ctypes.c_void_p] * 8
+                                     + [ctypes.c_float, ctypes.c_void_p])
+        lib.kft_bn_apply.restype = ctypes.c_int
         lib._kft_bound = True
     return lib
 
@@ -247,6 +289,14 @@ def _fp32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _call(fn, dev, *args):
+    """``fn(*args)`` with card ``dev`` current."""
+    if dev == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
 def _launch(x, scale, bias, eps, stat_rows) -> BNOutputs:
     lib = _library()
     c = x.shape[1]
@@ -261,14 +311,192 @@ def _launch(x, scale, bias, eps, stat_rows) -> BNOutputs:
     args = (x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             stats.data_ptr(), ctypes.addressof(geometry), eps,
             torch._C._cuda_getCurrentRawStream(dev))
-    if dev == torch.cuda.current_device():
-        err = lib.kft_bn_forward(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.kft_bn_forward(*args)
+    err = _call(lib.kft_bn_forward, dev, *args)
     _build.check(lib, err, "bn_forward launch")
     fused_bn_train_forward.launches += 1
     return y, stats[0], stats[1]
+
+
+def _launch_stats(x, stat_rows) -> torch.Tensor:
+    lib = _library()
+    xs = x if stat_rows is None else x[:stat_rows]
+    dtype = _DTYPES[x.dtype]
+    # The fused launch's plan for these rows: its partial-sum order.
+    plan, geometry = _plan_for(lib, xs, dtype, vector_width(x), None)
+    sums = torch.empty((2, x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    work = torch.empty((2 * plan.chunks, x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    dev = x.device.index
+    err = _call(lib.kft_bn_stats, dev, xs.data_ptr(), sums.data_ptr(),
+                work.data_ptr(), ctypes.addressof(geometry),
+                torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(lib, err, "bn_stats launch")
+    bn_stats.launches += 1
+    return sums
+
+
+#: Apply geometries by (device, dtype code, vec, M, C, count).
+_apply_geometries: Dict[tuple, _Geometry] = {}
+
+
+def _apply_geometry(lib, x, dtype, vec, count) -> _Geometry:
+    key = (x.device.index, dtype, vec, *x.shape, count)
+    found = _apply_geometries.get(key)
+    if found is None:
+        m, c = x.shape
+        groups = -(-c // vec)
+        tx = min(TX_MAX, 1 << (groups - 1).bit_length())
+        ty = THREADS // tx
+        c_tiles = -(-groups // tx)
+        coresident, _ = device_limits(lib, x.device, dtype, vec)
+        # A few blocks an SM, each at least ty rows.
+        chunks = max(1, min(4 * coresident // c_tiles, -(-m // ty)))
+        per = -(-m // chunks)
+        chunks = -(-m // per)
+        found = _apply_geometries[key] = _Geometry(
+            m, count, per, 0, 0, dtype, vec, c, tx, ty, c_tiles, chunks, 0)
+    return found
+
+
+def _launch_apply(x, sums, count, scale, bias, eps) -> BNOutputs:
+    lib = _library()
+    c = x.shape[1]
+    scale, bias = _fp32(scale), _fp32(bias)
+    geometry = _apply_geometry(lib, x, _DTYPES[x.dtype], vector_width(x),
+                               count)
+    y = torch.empty_like(x)
+    stats = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    dev = x.device.index
+    err = _call(lib.kft_bn_apply, dev, x.data_ptr(), sums.data_ptr(),
+                scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                stats[0].data_ptr(), stats[1].data_ptr(),
+                ctypes.addressof(geometry), eps,
+                torch._C._cuda_getCurrentRawStream(dev))
+    _build.check(lib, err, "bn_apply launch")
+    bn_apply.launches += 1
+    return y, stats[0], stats[1]
+
+
+def _on_device(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the
+    twin); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+    return True
+
+
+def bn_stats(x: torch.Tensor, *,
+             stat_rows: Optional[int] = None) -> torch.Tensor:
+    """``[2, C]`` fp32 Σx and Σx² per channel over x's first
+    ``stat_rows`` rows (all when None): the stats kernel on a CUDA
+    tensor (with the fused launch's partial-sum order), the plain twin
+    on a CPU one. Not differentiable (the sync route's gradient is
+    :func:`sync_bn_train_forward`'s)."""
+    _check_inputs(x, x.new_empty(x.shape[1]), x.new_empty(x.shape[1]),
+                  stat_rows)
+    if not _on_device(x, "bn_stats"):
+        return reference_bn_stats(x, stat_rows)
+    return _launch_stats(x, stat_rows)
+
+
+def bn_apply(x: torch.Tensor, sums: torch.Tensor, count: int,
+             scale: torch.Tensor, bias: torch.Tensor, *,
+             eps: float = 1e-5) -> BNOutputs:
+    """(y, mean, var) of every row of x from per-channel sums ``[2, C]``
+    (fp32, contiguous) over ``count`` rows: the apply kernel on a CUDA
+    tensor, the plain twin on a CPU one. Not differentiable."""
+    _check_inputs(x, scale, bias, None)
+    c = x.shape[1]
+    if (tuple(sums.shape) != (2, c) or sums.dtype != torch.float32
+            or not sums.is_contiguous() or sums.device != x.device):
+        raise ValueError(f"sums must be contiguous fp32 [2, {c}] on x's "
+                         f"device; got {tuple(sums.shape)} {sums.dtype}")
+    if count < 1:
+        raise ValueError(f"count {count} < 1")
+    if not _on_device(x, "bn_apply"):
+        return reference_bn_apply(x, sums, count, scale, bias, eps=eps)
+    return _launch_apply(x, sums, count, scale, bias, eps)
+
+
+#: Kernel launches since the counts were last set to 0.
+bn_stats.launches = 0
+bn_apply.launches = 0
+
+
+class _SyncBNTrainForward(torch.autograd.Function):
+    """stats → all-reduce → apply; the backward recomputes through the
+    apply twin and all-reduces the gradient of the sums before it flows
+    into this rank's stat rows (every rank's backward reaches it at the
+    same layer, so the collectives line up)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, stat_rows, count, reduce):
+        ctx.set_materialize_grads(False)
+        if stat_rows == 0:
+            sums = torch.zeros((2, x.shape[1]), dtype=torch.float32,
+                               device=x.device)
+        else:
+            sums = bn_stats(x, stat_rows=stat_rows)
+        reduce(sums)
+        y, mean, var = bn_apply(x, sums, count, scale, bias, eps=eps)
+        ctx.save_for_backward(x, scale, bias, sums)
+        ctx.eps, ctx.stat_rows, ctx.count, ctx.reduce = (
+            eps, stat_rows, count, reduce)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        wanted = ctx.needs_input_grad[:3]
+        pairs = [(i, g) for i, g in enumerate((gy, gmean, gvar))
+                 if g is not None]
+        if not pairs or not any(wanted):
+            return (None,) * 7
+        x, scale, bias, sums = ctx.saved_tensors
+        with torch.enable_grad(), record_function("bn_backward_recompute"):
+            inputs = [t.detach().requires_grad_(w)
+                      for t, w in zip((x, scale, bias), wanted)]
+            total = sums.detach().requires_grad_(wanted[0])
+            outs = reference_bn_apply(inputs[0], total, ctx.count,
+                                      inputs[1], inputs[2], eps=ctx.eps)
+            leaves = [t for t, w in zip(inputs, wanted) if w]
+            if wanted[0]:
+                leaves.append(total)
+            got = list(torch.autograd.grad(
+                [outs[i] for i, _ in pairs], leaves,
+                [g for _, g in pairs], allow_unused=True))
+            grads = [got.pop(0) if w else None for w in wanted]
+            if wanted[0]:
+                # d(global sums)/d(this rank's stat rows), with the sums'
+                # gradient summed over every rank's loss.
+                g_sums = got.pop(0)
+                g_sums = (torch.zeros_like(sums) if g_sums is None
+                          else g_sums.contiguous())
+                ctx.reduce(g_sums)
+                if ctx.stat_rows != 0:
+                    xs = inputs[0]
+                    part = reference_bn_stats(xs, ctx.stat_rows)
+                    (g_x,) = torch.autograd.grad(part, xs, g_sums)
+                    grads[0] = g_x if grads[0] is None else grads[0] + g_x
+        return (*grads, None, None, None, None)
+
+
+def sync_bn_train_forward(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor, *, eps: float = 1e-5,
+                          stat_rows: Optional[int] = None, count: int,
+                          reduce) -> BNOutputs:
+    """Batch norm over a batch split across ranks: [M, C] x (this rank's
+    rows) → (y, mean, var) with the statistics of every rank's stat rows.
+    This rank's stat rows are its first ``stat_rows`` (all when None, 0
+    for none); ``count`` is the stat-row count over every rank;
+    ``reduce(t)`` sums a tensor in place over the ranks (an all-reduce
+    over the mesh's batch axes). A CUDA tensor runs the stats and apply
+    kernels, a CPU one their twins. Differentiable in x, scale and bias."""
+    _check_inputs(x, scale, bias, stat_rows or None)
+    return _SyncBNTrainForward.apply(x, scale, bias, eps, stat_rows, count,
+                                     reduce)
 
 
 class _BNTrainForward(torch.autograd.Function):

@@ -33,8 +33,10 @@ variables tree in Flax's layout and dtypes (fp32 masters for a fresh
 init, the checkpoint's own leaves otherwise), with Flax's partitioning
 boxes (``{"value": array}``) on the leaves the reference's modules
 annotate, so each package loads the other's exports. A vision model's
-``batch_stats`` travel with its params. ``--shards`` above one (a
-sharded export) needs the tensor-parallel rule table: ROADMAP A14.
+``batch_stats`` travel with its params. ``--shards`` above one writes
+the sharded layout (``serving/sharding.py``: one file per serving-mesh
+position, split by the rule table over the model's logical axes), as
+the reference's ``--shards`` does.
 The device the fresh weights are drawn on is ``--device``, else the
 env's (``utils/platform.py``); the writing is host work.
 """
@@ -341,12 +343,6 @@ def export_from_checkpoint(
         raise ValueError(
             "--generate config given but the signature is "
             f"{signature_kind!r}")
-    if shard_spec is not None and shard_spec.num_shards > 1:
-        raise NotImplementedError(
-            f"a sharded export ({shard_spec.to_json()}) needs the "
-            f"tensor-parallel rule table, not ported yet (ROADMAP A14); "
-            f"export the monolithic layout (--shards 1), which the "
-            f"server loads on one card")
 
     build_kwargs = dict(model_kwargs)
     if lora:
@@ -419,6 +415,11 @@ def export_from_checkpoint(
     metadata = _build_metadata(
         model_name or registry_name, registry_name, entry, seq_len,
         signature_kind, generate_config, model_kwargs)
+    if shard_spec is not None and shard_spec.num_shards > 1:
+        from kubeflow_tpu_torch.serving.sharding import export_model_sharded
+
+        return str(export_model_sharded(out, version, metadata, export_vars,
+                                        shard_spec, module))
     from kubeflow_tpu_torch.serving.export import export_model
 
     return str(export_model(out, version, metadata, export_vars))
@@ -457,8 +458,8 @@ def main(argv=None) -> int:
                         help="JSON kwargs for the model constructor")
     parser.add_argument("--shards", default=None,
                         help="sharded export: 'tensor=T,fsdp=F' or a bare "
-                             "tensor count; above 1 it raises (ROADMAP "
-                             "A14). Omitted/1 = the monolithic layout")
+                             "tensor count (one file per serving-mesh "
+                             "position). Omitted/1 = the monolithic layout")
     parser.add_argument("--device", default=None,
                         help="where fresh weights are drawn: cuda or cpu "
                              "(default: cpu where the env has "

@@ -276,7 +276,8 @@ class LoadedModel:
         """Healthz-facing layout summary, the reference's shape: the
         manifest's shard count and mesh (``{"num_shards": 1}`` for a
         monolithic export), and no mesh to serve on: the port reassembles
-        a sharded export on one device (ROADMAP A14 for a mesh)."""
+        a sharded export on one device (ROADMAP A18 for a mesh:
+        ``serving_mesh``)."""
         from kubeflow_tpu_torch.serving.sharding import shard_topology
 
         topo = shard_topology(self.metadata)
@@ -434,7 +435,8 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     reassembled on the host and then carried across as a monolithic
     one: the reference's n = 1 read, for one card that holds the whole
     model; a manifest this build cannot read raises. Loading each shard
-    onto its own device of a mesh is ROADMAP A14."""
+    onto its own device of a mesh (``load_sharded_variables``) is ROADMAP
+    A18."""
     metadata = read_metadata(version_dir)
     if metadata.sharding and int(metadata.sharding.get("num_shards",
                                                        1)) > 1:

@@ -12,9 +12,9 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Sharded serving exports: the read half.
+"""Sharded serving exports: the writer and the one-card read.
 
-The port of ``kubeflow_tpu/serving/sharding.py``'s reader. A sharded
+The port of ``kubeflow_tpu/serving/sharding.py``'s writer and reader. A sharded
 version dir holds ``signature.json``, whose ``sharding`` field is the
 shard manifest, and one variables file per serving-mesh position
 (``params.shard-00000-of-0000N.msgpack``): Flax msgpack dicts keyed by
@@ -24,26 +24,41 @@ along its ``dim`` over the ``tensor`` or ``fsdp`` axis; a leaf not in
 the plan is replicated and stored once, in shard 0. There is no
 monolithic ``params.msgpack`` in such a dir.
 
+:func:`export_model_sharded` writes one (byte for byte the
+reference's): :func:`build_shard_plan` splits each annotated leaf over
+``tensor`` where its logical axes map there under the rule table
+(``parallel/tensor_parallel.py``), else over ``fsdp``; the model's
+``logical_axes`` stand for the reference's boxed metadata.
 :func:`read_sharded_variables` is the reference's n = 1 read: it joins
 each planned leaf's slices on the host, which gives the monolithic
 bytes back exactly, so a sharded export serves on one card that holds
-the whole model (``serving/model.py`` ``load_version``). Writing a
-sharded export, and loading one onto several devices, need the
-tensor-parallel rule table and the device mesh (ROADMAP A14).
+the whole model (``serving/model.py`` ``load_version``). Loading one
+onto several devices (``serving_mesh``, ``load_sharded_variables``) is
+ROADMAP A18.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import tempfile
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.convert import flatten_tree, unflatten_tree
+from kubeflow_tpu_torch.parallel.tensor_parallel import DEFAULT_RULES
 from kubeflow_tpu_torch.serving import flax_msgpack
+from kubeflow_tpu_torch.serving.export import (
+    PARAMS_FILE,
+    SIGNATURE_FILE,
+    export_model,
+    unbox,
+)
 from kubeflow_tpu_torch.serving.signature import ModelMetadata
 
 SHARD_FILE_FMT = "params.shard-{i:05d}-of-{n:05d}.msgpack"
@@ -79,6 +94,167 @@ class ShardSpec:
     def from_json(obj: Dict[str, Any]) -> "ShardSpec":
         return ShardSpec(tensor=int(obj.get("tensor", 1)),
                          fsdp=int(obj.get("fsdp", 1)))
+
+
+def _flatten(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """The unboxed flat view, ``"/"``-joined path → leaf, in the
+    reference's order (Flax walks a dict's keys sorted): the shard files
+    carry plain tensors, the partitioning lives in the manifest."""
+    flat: Dict[str, Any] = {}
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, Mapping):
+            for k in sorted(node):
+                walk(f"{prefix}/{k}" if prefix else str(k), node[k])
+        else:
+            flat[prefix] = node if isinstance(node, torch.Tensor) else (
+                np.asarray(node))
+
+    walk("", unbox(tree))
+    return flat
+
+
+def _boxed(tree: Mapping[str, Any], prefix: str = "") -> set:
+    """The flat keys of ``tree``'s boxed leaves (``{"value": x}``, what
+    the reference's ``nn.Partitioned`` serializes to)."""
+    out = set()
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            if set(v) == {"value"} and not isinstance(v["value"], Mapping):
+                out.add(key)
+            else:
+                out |= _boxed(v, key)
+    return out
+
+
+def _logical_axes_flat(variables: Mapping[str, Any], model
+                       ) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Flat key → logical axis names of each partitioned leaf (the
+    reference's ``nn.get_partition_spec`` on the boxed tree): the
+    model's ``logical_axes`` of a boxed leaf's key within its
+    collection. Unannotated leaves are absent."""
+    out = {}
+    for key in _boxed(variables):
+        axes = model.logical_axes(key.split("/", 1)[1])
+        if axes:
+            out[key] = tuple(axes)
+    return out
+
+
+def build_shard_plan(variables: Mapping[str, Any], spec: ShardSpec, model,
+                     *, min_shard_size: int = 1024
+                     ) -> Dict[str, Dict[str, Any]]:
+    """Each leaf's split, the reference's rule: the first dim whose
+    logical name maps to ``tensor`` under the rule table splits over
+    tensor, else the first ``fsdp``-mapped dim over fsdp; an axis of
+    size 1 never claims a dim. Unannotated, indivisible or small
+    (``min_shard_size``) leaves replicate (absent from the plan)."""
+
+    def axis_for(name: Optional[str]) -> Optional[str]:
+        mapped = DEFAULT_RULES.get(name) if name else None
+        if isinstance(mapped, tuple):
+            mapped = next((a for a in mapped if a in SERVING_AXES), None)
+        return mapped if mapped in SERVING_AXES else None
+
+    flat = _flatten(variables)
+    axes = _logical_axes_flat(variables, model)
+    plan: Dict[str, Dict[str, Any]] = {}
+    for key, value in flat.items():
+        names = axes.get(key)
+        shape = tuple(value.shape)
+        if names is None or int(np.prod(shape)) < min_shard_size:
+            continue
+        best: Optional[Tuple[int, str, int]] = None
+        for dim, name in enumerate(names):
+            mesh_axis = axis_for(name)
+            if mesh_axis is None:
+                continue
+            parts = getattr(spec, mesh_axis)
+            if parts <= 1 or dim >= len(shape) or shape[dim] % parts:
+                continue
+            rank = 0 if mesh_axis == "tensor" else 1  # tp first
+            if best is None or rank < best[0]:
+                best = (rank, mesh_axis, dim)
+        if best is not None:
+            _, mesh_axis, dim = best
+            plan[key] = {"dim": dim, "axis": mesh_axis}
+    return plan
+
+
+def _axis_index(spec: ShardSpec, shard: int, axis: str) -> int:
+    """Which slice of ``axis`` shard file ``shard`` holds: shard ids run
+    over mesh positions tensor-fastest (fsdp outer, tensor inner)."""
+    if axis == "tensor":
+        return shard % spec.tensor
+    return shard // spec.tensor
+
+
+def export_model_sharded(base_path: str, version: int,
+                         metadata: ModelMetadata,
+                         variables: Dict[str, Any], spec: ShardSpec,
+                         model=None, *,
+                         plan: Optional[Dict[str, Dict[str, Any]]] = None
+                         ) -> Path:
+    """Write one version dir in the sharded layout, atomically (a temp
+    dir, then a rename: the watcher's contract). ``variables`` is the
+    export tree (``serving/export_cli.py``'s, boxes where the reference
+    boxes); ``model`` names each boxed leaf's logical axes (needed
+    unless ``plan`` is given). With ``spec.num_shards == 1`` it writes
+    the monolithic layout, which every server reads."""
+    if spec.num_shards == 1:
+        return export_model(base_path, version, metadata, variables)
+    if plan is None:
+        if model is None:
+            raise ValueError("a sharded export's plan needs the model's "
+                             "logical axes (model=...)")
+        plan = build_shard_plan(variables, spec, model)
+    flat = _flatten(variables)
+    n = spec.num_shards
+    shard_files = [SHARD_FILE_FMT.format(i=i, n=n) for i in range(n)]
+    manifest = {
+        "format": MANIFEST_FORMAT,
+        "num_shards": n,
+        "mesh": spec.to_json(),
+        "shards": shard_files,
+        "plan": plan,
+    }
+    metadata = dataclasses.replace(metadata, sharding=manifest)
+    base = Path(base_path)
+    base.mkdir(parents=True, exist_ok=True)
+    final = base / str(version)
+    if final.exists():
+        raise FileExistsError(f"version dir {final} already exists")
+    tmp = Path(tempfile.mkdtemp(dir=base, prefix=f".tmp-{version}-"))
+    try:
+        (tmp / SIGNATURE_FILE).write_text(metadata.dumps())
+        for shard in range(n):
+            part: Dict[str, Any] = {}
+            for key, value in flat.items():
+                entry = plan.get(key)
+                if entry is None:
+                    if shard == 0:  # replicated: stored once
+                        part[key] = value
+                    continue
+                dim, axis = entry["dim"], entry["axis"]
+                width = value.shape[dim] // getattr(spec, axis)
+                idx = _axis_index(spec, shard, axis)
+                sl = [slice(None)] * value.ndim
+                sl[dim] = slice(idx * width, (idx + 1) * width)
+                piece = value[tuple(sl)]
+                part[key] = (piece.contiguous()
+                             if isinstance(piece, torch.Tensor)
+                             else np.ascontiguousarray(piece))
+            (tmp / shard_files[shard]).write_bytes(flax_msgpack.dumps(part))
+        # No monolithic file in a sharded dir: a server that ignores the
+        # manifest fails at load instead of serving shard 0 as the model.
+        if (tmp / PARAMS_FILE).exists():
+            raise AssertionError("a sharded export holds params.msgpack")
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
 
 
 def _read_shard(version_dir: str, filename: str) -> Dict[str, Any]:

@@ -75,9 +75,15 @@ from torch.utils.flop_counter import FlopCounterMode
 from kubeflow_tpu_torch.models.bert import Bert
 from kubeflow_tpu_torch.models.convert import init_params, init_vision
 from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.mesh import Mesh, MeshSpec, build_mesh
+from kubeflow_tpu_torch.training.data import (
+    host_shard_range,
+    process_index_and_count,
+)
 from kubeflow_tpu_torch.training.train import (
     create_train_state,
     make_train_step,
+    place_state,
     sgd,
 )
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -103,6 +109,26 @@ class BenchConfig:
     seed: int = 0
     model_kwargs: Optional[Dict] = None  # e.g. {"bn_stat_rows": 32}
     profile_dir: Optional[str] = None  # torch.profiler trace of timed steps
+    # The gang's mesh (batch axes); None → all ranks on the data axis in
+    # a gang, no mesh alone.
+    mesh: Optional[MeshSpec] = None
+
+
+def bench_mesh(spec: Optional[MeshSpec], device) -> Optional[Mesh]:
+    """The benchmark's mesh, as the reference's ``build_mesh(config.
+    mesh)``: over the gang's ranks (the megascale env filling dcn_data),
+    or None for one process given no spec."""
+    if spec is None and process_index_and_count()[1] == 1:
+        return None
+    return build_mesh(spec, device)
+
+
+def _rank_rows(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]):
+    """This rank's rows of a global batch (all of it without a mesh)."""
+    if mesh is None:
+        return batch
+    rows = host_shard_range(next(iter(batch.values())).shape[0])
+    return {k: v[rows.start:rows.stop] for k, v in batch.items()}
 
 
 def synthetic_batch(config: BenchConfig, num_classes: int, input_shape,
@@ -180,14 +206,18 @@ def run_benchmark(config: BenchConfig,
             model = entry.make(image_size=config.image_size, **kwargs)
     lr = (config.learning_rate if config.learning_rate is not None
           else (entry.bench_lr if entry.bench_lr is not None else 0.1))
+    mesh = bench_mesh(config.mesh, device)
     params, batch_stats = init_vision(model, seed=config.seed, device=device)
     state = create_train_state(model, sgd(lr, config.momentum), params,
                                batch_stats)
-    batch = synthetic_batch(config, entry.num_classes_or_vocab, input_shape,
-                            device)
+    if mesh is not None:
+        state = place_state(mesh, state)
+    batch = _rank_rows(synthetic_batch(config, entry.num_classes_or_vocab,
+                                       input_shape, device), mesh)
 
     elapsed, warmup_s, losses, flops = _timed_steps(
-        make_train_step(), state, batch, config)
+        make_train_step(mesh), state, batch, config)
+    n_chips = mesh.size if mesh is not None else 1
     step_time_s = elapsed / config.steps
     images_per_sec = config.batch_size * config.steps / elapsed
     result = {
@@ -195,10 +225,10 @@ def run_benchmark(config: BenchConfig,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "global_batch_size": config.batch_size,
-        "n_chips": 1,
+        "n_chips": n_chips,
         "steps": config.steps,
         "images_per_sec": images_per_sec,
-        "images_per_sec_per_chip": images_per_sec,
+        "images_per_sec_per_chip": images_per_sec / n_chips,
         "step_time_ms": step_time_s * 1e3,
         "compile_plus_warmup_s": warmup_s,
         "final_loss": losses[-1],
@@ -344,7 +374,7 @@ def summarize_lm_trace(profile_dir: str, wall_ms: float) -> Dict:
 
 
 def _lm_result(config, model, device, elapsed, warmup_s, warmup_losses,
-               losses, *, lora_rank=0, remat=False) -> Dict:
+               losses, *, lora_rank=0, remat=False, mesh=None) -> Dict:
     b, l = config.batch_size, config.seq_len
     step_time_s = elapsed / config.steps
     flops = lm_train_flops(model, b, l, lora_rank=lora_rank, remat=remat)
@@ -356,7 +386,7 @@ def _lm_result(config, model, device, elapsed, warmup_s, warmup_losses,
                    if device.type == "cuda" else "cpu"),
         "global_batch_size": b,
         "seq_len": l,
-        "n_chips": 1,
+        "n_chips": mesh.size if mesh is not None else 1,
         "steps": config.steps,
         "step_time_ms": step_time_s * 1e3,
         "tokens_per_sec": b * l / step_time_s,
@@ -407,6 +437,7 @@ class LMBenchConfig:
     seed: int = 0
     profile_dir: Optional[str] = None  # torch.profiler trace of timed steps
     model_kwargs: Optional[Dict] = None  # e.g. {"num_layers": 4}
+    mesh: Optional[MeshSpec] = None  # as BenchConfig's
 
 
 def run_lm_benchmark(config: LMBenchConfig,
@@ -428,17 +459,18 @@ def run_lm_benchmark(config: LMBenchConfig,
     if entry.decoder:
         kwargs.setdefault("param_dtype", "float32")  # BERT keeps fp32
     model = entry.make(**kwargs)
+    mesh = bench_mesh(config.mesh, device)
     state, _ = create_lm_state(model, adamw(config.learning_rate),
-                               init_params(model, config.seed, device))
-    batch = _synthetic_lm_batch(config.batch_size, config.seq_len,
-                                entry.num_classes_or_vocab,
-                                config.objective, config.seed, device)
+                               init_params(model, config.seed, device), mesh)
+    batch = _rank_rows(_synthetic_lm_batch(
+        config.batch_size, config.seq_len, entry.num_classes_or_vocab,
+        config.objective, config.seed, device), mesh)
     _, elapsed, warmup_s, warmup_losses, losses = _timed_lm_steps(
-        make_lm_train_step(objective=config.objective), state, batch,
+        make_lm_train_step(mesh, objective=config.objective), state, batch,
         config.warmup_steps, config.steps, profile_dir=config.profile_dir)
     return _lm_result(config, model, device, elapsed, warmup_s,
                       warmup_losses, losses,
-                      remat=bool(kwargs.get("remat")))
+                      remat=bool(kwargs.get("remat")), mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -453,6 +485,7 @@ class LoRABenchConfig:
     seed: int = 0
     data_paths: Optional[tuple] = None  # token shards; None → synthetic
     profile_dir: Optional[str] = None  # torch.profiler trace of timed steps
+    mesh: Optional[MeshSpec] = None  # as BenchConfig's
 
 
 def run_lora_benchmark(config: LoRABenchConfig, device: DeviceLike = None,
@@ -490,21 +523,23 @@ def fine_tune_lora(config: LoRABenchConfig, device: DeviceLike = None,
     if params is None:
         params = init_params(entry.make(param_dtype="float32"), config.seed,
                              device, dtype=torch.bfloat16)
+    mesh = bench_mesh(config.mesh, device)
     state, _ = create_lora_state(model, adamw(config.learning_rate), params,
-                                 seed=config.seed,
+                                 seed=config.seed, mesh=mesh,
                                  base_dtype=torch.bfloat16)
     batch_iter = None
     try:
+        # The sources yield this rank's rows (host_shard_range).
         if config.data_paths:
             batch_iter = DevicePrefetcher(
                 token_shard_batches(list(config.data_paths), b, l,
                                     seed=config.seed),
-                prefetch=2, device=device)
+                mesh, prefetch=2, device=device)
             batch = next(batch_iter)
         else:
             batch = next(synthetic_causal_lm(b, l, vocab, seed=config.seed))
         state, elapsed, warmup_s, warmup_losses, losses = _timed_lm_steps(
-            make_lora_train_step(), state, batch, config.warmup_steps,
+            make_lora_train_step(mesh), state, batch, config.warmup_steps,
             config.steps, batch_iter=batch_iter,
             profile_dir=config.profile_dir)
     finally:
@@ -515,7 +550,7 @@ def fine_tune_lora(config: LoRABenchConfig, device: DeviceLike = None,
     n_lora = sum(t.numel() for t in state.lora.values())
     result = _lm_result(config, model, device, elapsed, warmup_s,
                         warmup_losses, losses, lora_rank=config.lora_rank,
-                        remat=True)
+                        remat=True, mesh=mesh)
     result.update(lora_rank=config.lora_rank, base_params=n_base,
                   trainable_params=n_lora,
                   trainable_pct=round(n_lora / max(n_base, 1) * 100, 4))

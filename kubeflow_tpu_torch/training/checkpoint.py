@@ -36,10 +36,18 @@ JAX run's continuous tier. The reference's periodic tier is Orbax,
 which the port does not import; the port's (:class:`Checkpointer`,
 :class:`CheckpointConfig`) is the same writer at the periodic interval,
 synchronous by default, so the reference's ``ShardedCheckpointer``
-reads it too. The port writes as one host (a gang's shards are ROADMAP
-A14, and ``fit`` refuses a checkpoint in a gang until then); it reads a
-checkpoint of any host count (each leaf's pieces joined along its
-planned dim).
+reads it too.
+
+A gang writes host shards, as the reference's does: each of
+``num_hosts`` writers (``host_id``, a gang's rank) writes its contiguous
+slice of every leaf the plan splits (the first dim divisible by the
+host count, on a leaf of at least ``min_shard_size`` elements; the rest
+whole in shard 0), and host 0 commits the manifest once every shard
+file of the step exists. A state held as a mesh's pieces (a trainer's
+``shardings``) is all-gathered first, at the same step on every rank,
+so the files are the reference's whatever the mesh. A restore joins
+each leaf's pieces along its planned dim, whatever host count wrote
+them, and cuts the live state's pieces from the whole.
 
 Background waits are bounded and on monotonic clocks, as the
 reference's.
@@ -60,11 +68,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+import torch
+
 from kubeflow_tpu_torch.models.convert import (
     state_from_flax,
     state_to_flax,
     unflatten_tree,
 )
+from kubeflow_tpu_torch.parallel import collectives
 from kubeflow_tpu_torch.serving import flax_msgpack
 
 logger = logging.getLogger(__name__)
@@ -102,36 +113,109 @@ SHARD_FILE_FMT = "state.shard-{i:05d}-of-{n:05d}.msgpack"
 
 @dataclasses.dataclass
 class CheckpointConfig:
-    """The periodic tier's knobs: the reference's (whose tier is Orbax).
-    Saves are synchronous unless ``async_save``: at this tier's interval
-    the device-to-host copy is most of a save's cost."""
+    """The periodic tier's knobs: the reference's (whose tier is Orbax),
+    with the continuous tier's gang knobs. Saves are synchronous unless
+    ``async_save``: at this tier's interval the device-to-host copy is
+    most of a save's cost. ``num_hosts``/``host_id``: the gang's size
+    and this writer's rank (``fit`` fills them in a gang); tests emulate
+    an N-host gang with N checkpointers over one directory.
+    ``mesh_shape`` is recorded in the manifest."""
 
     directory: str
     save_interval_steps: int = 1000
     keep: int = 3
     async_save: bool = False
+    num_hosts: int = 1
+    host_id: int = 0
+    commit_timeout_seconds: float = 30.0
+    min_shard_size: int = 1024
+    mesh_shape: Optional[Dict[str, int]] = None
 
 
 @dataclasses.dataclass
 class ContinuousCheckpointConfig(CheckpointConfig):
-    """The continuous tier's knobs: the reference's, less those of a
-    gang (host count and id, the shard plan, the commit barrier), which
-    are ROADMAP A14."""
+    """The continuous tier's knobs: the reference's."""
 
     save_interval_steps: int = 10
     async_save: bool = True
 
 
+def _shardings_of(state: Any) -> Dict[str, Any]:
+    """The live state's per-name shardings (a mesh trainer's state), or
+    {}: only leaves split over a live axis."""
+    found = getattr(state, "shardings", None) or {}
+    return {k: sh for k, sh in found.items() if not sh.replicated}
+
+
+def map_sharded(node: Any, shardings: Dict[str, Any], fn) -> Any:
+    """``node`` rebuilt with ``fn(name, tensor, sharding)`` in place of
+    each tensor held in a dict under a sharded param's name (the params
+    and every optimizer-state dict that mirrors them), walking what
+    ``state_to_flax`` walks."""
+    if not shardings:
+        return node
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return dataclasses.replace(node, **{
+            f.name: map_sharded(getattr(node, f.name), shardings, fn)
+            for f in dataclasses.fields(node)
+            if not f.metadata.get("static")})
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(map_sharded(v, shardings, fn) for v in node))
+    if isinstance(node, (tuple, list)):
+        return type(node)(map_sharded(v, shardings, fn) for v in node)
+    if isinstance(node, dict):
+        return {k: (fn(k, v, shardings[k]) if k in shardings
+                    and isinstance(v, torch.Tensor)
+                    else map_sharded(v, shardings, fn))
+                for k, v in node.items()}
+    return node
+
+
+def gathered_state(state: Any) -> Any:
+    """The state with every mesh piece all-gathered to its whole leaf (a
+    collective: every rank calls it at the same step)."""
+    return map_sharded(
+        state, _shardings_of(state),
+        lambda k, v, sh: collectives.gather_leaf(v.detach(), sh, sh.mesh))
+
+
+def _whole_template(state: Any) -> Any:
+    """The state with every mesh piece replaced by an uninitialized
+    tensor of its whole leaf's shape (a restore's target)."""
+    def whole(k, v, sh):
+        dim = collectives.fsdp_dim(sh)
+        shape = list(v.shape)
+        shape[dim] *= sh.mesh.shape["fsdp"]
+        return torch.empty(shape, dtype=v.dtype, device=v.device,
+                           requires_grad=v.requires_grad)
+    return map_sharded(state, _shardings_of(state), whole)
+
+
+def _pieces(restored: Any, live: Any) -> Any:
+    """The whole leaves of ``restored`` cut to the live state's pieces."""
+    def piece(k, v, sh):
+        return sh.shard(v.detach()).requires_grad_(v.requires_grad)
+    return map_sharded(restored, _shardings_of(live), piece)
+
+
 class ShardedCheckpointer:
-    """Shard writes of the full train state, the reference's continuous
-    layout and protocol (one host): a save takes the device-to-host
-    snapshot; the shard (temp + fsync + rename) and then the manifest
-    are written at once or, with ``async_save``, by a background writer,
+    """Per-host shard writes of the full train state, the reference's
+    continuous layout and protocol: a save takes the device-to-host
+    snapshot of this host's slice; the shard (temp + fsync + rename) is
+    written at once or, with ``async_save``, by a background writer,
     where a save handed over while the writer is still busy replaces any
-    snapshot not yet written (newest wins). ``restore`` walks committed
-    steps newest first and skips unreadable ones."""
+    snapshot not yet written (newest wins); host 0 then commits the
+    manifest once every host's shard of the step exists (bounded by
+    ``commit_timeout_seconds``: a step some host never wrote stays
+    uncommitted). ``restore`` walks committed steps newest first and
+    skips unreadable ones."""
 
     def __init__(self, config: CheckpointConfig):
+        if config.num_hosts < 1:
+            raise ValueError("num_hosts must be >= 1")
+        if not 0 <= config.host_id < config.num_hosts:
+            raise ValueError(f"host_id {config.host_id} outside "
+                             f"[0, {config.num_hosts})")
         self.config = config
         self.root = Path(config.directory).resolve()
         self.root.mkdir(parents=True, exist_ok=True)
@@ -143,10 +227,12 @@ class ShardedCheckpointer:
         self._idle.set()
         self._dropped = 0
         self._last_saved: Optional[int] = None
+        self._plans: Dict[int, Dict[str, Dict[str, int]]] = {}
         self._writer: Optional[threading.Thread] = None
         if config.async_save:
             self._writer = threading.Thread(
-                target=self._writer_loop, name="ckpt-writer-0",
+                target=self._writer_loop,
+                name=f"ckpt-writer-{config.host_id}",
                 daemon=True)
             self._writer.start()
 
@@ -154,6 +240,10 @@ class ShardedCheckpointer:
 
     def _step_dir(self, step: int) -> Path:
         return self.root / STEP_DIR_FMT.format(step=step)
+
+    def _shard_file(self, step: int, host: int) -> Path:
+        return self._step_dir(step) / SHARD_FILE_FMT.format(
+            i=host, n=self.config.num_hosts)
 
     def all_steps(self) -> List[int]:
         """Committed steps (manifest present), ascending."""
@@ -170,15 +260,55 @@ class ShardedCheckpointer:
 
     # -- save -----------------------------------------------------------------
 
+    def _plan(self, flat: Dict[str, Any]) -> Dict[str, Dict[str, int]]:
+        """Each leaf's split: the first dim divisible by ``num_hosts`` on
+        a leaf of at least ``min_shard_size`` elements; every other leaf
+        whole in shard 0. From shapes alone, so every host computes the
+        same plan with no collective."""
+        n = self.config.num_hosts
+        plan: Dict[str, Dict[str, int]] = {}
+        if n == 1:
+            return plan
+        for key, leaf in flat.items():
+            shape = tuple(getattr(leaf, "shape", ()))
+            size = int(np.prod(shape)) if shape else 1
+            if size < self.config.min_shard_size:
+                continue
+            for dim, width in enumerate(shape):
+                if width % n == 0 and width >= n:
+                    plan[key] = {"dim": dim}
+                    break
+        return plan
+
     def save(self, step: int, state: Any, *, force: bool = False) -> bool:
-        """Snapshot the state to the host and hand its write to the
-        writer; True if a save was scheduled."""
+        """Snapshot this host's slice of the state and hand its write to
+        the writer; True if a save was scheduled. Every rank of a gang
+        calls it at the same step (a state of mesh pieces is gathered
+        first)."""
         interval = max(1, int(self.config.save_interval_steps))
         if not force and step % interval != 0:
             return False
         if self._last_saved == step:
             return False
-        item = (step, state_to_flax(state))
+        flat = state_to_flax(gathered_state(state))
+        plan = self._plan(flat)
+        host, n = self.config.host_id, self.config.num_hosts
+        host_flat: Dict[str, Any] = {}
+        for key, value in flat.items():
+            entry = plan.get(key)
+            if entry is None:
+                if host == 0:
+                    host_flat[key] = value
+                continue
+            dim = entry["dim"]
+            width = value.shape[dim] // n
+            sl = [slice(None)] * value.ndim
+            sl[dim] = slice(host * width, (host + 1) * width)
+            piece = value[tuple(sl)]
+            host_flat[key] = (piece.contiguous()
+                              if isinstance(piece, torch.Tensor)
+                              else np.ascontiguousarray(piece))
+        item = (step, host_flat, plan)
         self._last_saved = step
         if self._writer is None:
             self._write_one(item)
@@ -215,23 +345,44 @@ class ShardedCheckpointer:
                     if self._slot is None:
                         self._idle.set()
 
-    def _write_one(self, item: Tuple[int, Dict[str, Any]]) -> None:
-        step, flat = item
+    def _write_one(self, item) -> None:
+        step, host_flat, plan = item
         step_dir = self._step_dir(step)
         step_dir.mkdir(parents=True, exist_ok=True)
-        atomic_write_bytes(step_dir / SHARD_FILE_FMT.format(i=0, n=1),
-                           flax_msgpack.dumps(flat))
-        self._commit(step)
+        atomic_write_bytes(self._shard_file(step, self.config.host_id),
+                           flax_msgpack.dumps(host_flat))
+        if self.config.host_id == 0:
+            self._plans[step] = plan
+            self._commit(step)
 
-    def _commit(self, step: int) -> None:
-        """The manifest, last (one host: its shard is durable)."""
+    def _commit(self, step: int,
+                plan: Optional[Dict[str, Dict[str, int]]] = None) -> None:
+        """The manifest, last, once every host's shard of the step is
+        durable (a barrier on the shared directory, bounded by
+        ``commit_timeout_seconds``). ``plan``: the step's, as its save
+        planned it unless given."""
+        if plan is None:
+            plan = self._plans.pop(step, {})
+        n = self.config.num_hosts
+        deadline = time.monotonic() + self.config.commit_timeout_seconds
+        while True:
+            missing = [h for h in range(n)
+                       if not self._shard_file(step, h).is_file()]
+            if not missing:
+                break
+            if time.monotonic() >= deadline or self._stop.is_set():
+                logger.warning("checkpoint step %d: shards %s never "
+                               "arrived; step left uncommitted", step,
+                               missing)
+                return
+            self._stop.wait(0.05)
         manifest = {
             "format": MANIFEST_FORMAT,
             "step": step,
-            "num_hosts": 1,
-            "mesh": {},
-            "plan": {},
-            "shards": [SHARD_FILE_FMT.format(i=0, n=1)],
+            "num_hosts": n,
+            "mesh": dict(self.config.mesh_shape or {}),
+            "plan": plan,
+            "shards": [SHARD_FILE_FMT.format(i=i, n=n) for i in range(n)],
         }
         atomic_write_bytes(
             self._step_dir(step) / MANIFEST_FILE,
@@ -289,7 +440,7 @@ class ShardedCheckpointer:
         ``step`` (raising if it is unreadable); ``state`` itself when no
         step is usable (a fresh start)."""
         if step is not None:
-            return state_from_flax(self._read_step(step), state)
+            return self._fill(self._read_step(step), state)
         for candidate in reversed(self.all_steps()):
             try:
                 flat = self._read_step(candidate)
@@ -298,12 +449,19 @@ class ShardedCheckpointer:
                                "trying the previous one", candidate,
                                exc_info=True)
                 continue
-            restored = state_from_flax(flat, state)
+            restored = self._fill(flat, state)
             logger.info("restored checkpoint step %d from %s",
                         candidate, self.root)
             return restored
         logger.info("no checkpoint in %s; fresh start", self.root)
         return state
+
+    @staticmethod
+    def _fill(flat: Dict[str, Any], state: Any) -> Any:
+        """The whole leaves into the live state's structure, then cut to
+        its mesh pieces (the reshard: any host count and mesh restores
+        onto the live one)."""
+        return _pieces(state_from_flax(flat, _whole_template(state)), state)
 
     def restore_raw(self, step: Optional[int] = None) -> Optional[Dict]:
         """The latest committed step, or ``step``, in the checkpoint's
@@ -352,7 +510,7 @@ class ShardedCheckpointer:
             self._idle.wait(timeout=0.05)
 
     def close(self) -> None:
-        self.wait(timeout=30.0)
+        self.wait(timeout=self.config.commit_timeout_seconds)
         self._stop.set()
         if self._writer is not None:
             self._writer.join(timeout=5.0)

@@ -340,7 +340,13 @@ class DevicePrefetcher:
     queued ahead of any work the caller then issues on the same stream);
     an exception in the source is raised by the ``__next__`` that
     reaches it; the iterator stops when the source ends; ``close()``
-    stops the thread. A mesh is ROADMAP A14."""
+    stops the thread. With a ``mesh`` (``parallel/mesh.py``) each batch
+    goes to the mesh's device: the source yields this rank's rows of the
+    global batch (every source here takes them by
+    :func:`host_shard_range`), which is the rank's piece of the
+    reference's ``batch_sharding`` (its multi-process prefetch assembles
+    the global array from each process's rows the same way; here one
+    process is one device, so the process count is the gang's size)."""
 
     _DONE = object()
 
@@ -348,11 +354,8 @@ class DevicePrefetcher:
                  prefetch: int = 2,
                  place: Optional[Callable[[Any], Any]] = None,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded prefetch is not ported yet (ROADMAP A14)")
         if place is None:
-            dev = resolve_device(device)
+            dev = mesh.device if mesh is not None else resolve_device(device)
             place = lambda b: place_batch(b, dev)  # noqa: E731
         self._place = place
         self._source = source

@@ -15,8 +15,12 @@
 
 """Parameter-efficient fine-tuning: a frozen base and trainable LoRA.
 
-The port of ``kubeflow_tpu/training/finetune.py``, for one device (a
-mesh raises: ROADMAP A14). The base contributes no gradient buffers and
+The port of ``kubeflow_tpu/training/finetune.py``, on one device or on
+a gang's mesh over the batch axes (``training/lm.py`` has the recipe:
+the base and the adapters are sharded by the rule table, the adapters
+``(in_axis, "lora")`` / ``("lora", out_axis)``; the frozen base is
+gathered for the forward and takes no gradient traffic; only the
+adapters' gradients are reduced). The base contributes no gradient buffers and
 no optimizer moments: every base tensor has ``requires_grad`` off, and
 the step takes ``torch.autograd.grad`` over the adapters alone, so
 autograd forms no dW for a frozen weight (the torch counterpart of the
@@ -31,7 +35,7 @@ bf16 (``base_dtype``) and the blocks rematerialised (the model's
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,14 +47,20 @@ from kubeflow_tpu_torch.training.lm import (
     STATIC,
     Batch,
     Params,
-    _mesh_unsupported,
+    Shardings,
     accumulated_value_and_grad,
+    check_mesh_model,
     lm_forward_with_aux,
+    mesh_value_and_grad,
     optimizer_step,
+    param_shardings,
 )
+from kubeflow_tpu_torch.parallel import collectives
+from kubeflow_tpu_torch.parallel.mesh import Mesh, check_batch_axes
 from kubeflow_tpu_torch.training.optim import (
     GradientTransformation,
     global_norm,
+    norm_over,
 )
 from kubeflow_tpu_torch.utils.trees import cast_floating
 
@@ -66,6 +76,10 @@ class LoRAState:
     model: nn.Module = dataclasses.field(repr=False, metadata=STATIC)
     tx: GradientTransformation = dataclasses.field(repr=False,
                                                    metadata=STATIC)
+    #: On a mesh: each base and adapter name's layout (base and
+    #: adapters are this rank's pieces); None on one device.
+    shardings: Optional[Shardings] = dataclasses.field(
+        default=None, repr=False, metadata=STATIC)
 
     def variables(self) -> Params:
         """Base and adapters together, as the model applies them."""
@@ -74,10 +88,13 @@ class LoRAState:
 
 def create_lora_state(model: nn.Module, tx: GradientTransformation,
                       params: Params, lora: Optional[Params] = None, *,
-                      seed: int = 0, mesh: Optional[object] = None,
-                      base_dtype: Optional[torch.dtype] = None
-                      ) -> Tuple[LoRAState, None]:
-    """``(state, None)`` for a ``lora_rank > 0`` model. ``params`` is the
+                      seed: int = 0, mesh: Optional[Mesh] = None,
+                      base_dtype: Optional[torch.dtype] = None,
+                      rules: Optional[Mapping[str, Any]] = None
+                      ) -> Tuple[LoRAState, Optional[Shardings]]:
+    """``(state, shardings)`` for a ``lora_rank > 0`` model (``shardings``
+    None without a mesh; on one, base and adapters are cut to this
+    rank's pieces by the rule table). ``params`` is the
     base (adapter entries in it are taken as ``lora``); ``lora`` defaults
     to :func:`~kubeflow_tpu_torch.ops.lora.init_lora` of ``model`` with
     ``seed`` on the base's device (B zero: step 0 is the base model).
@@ -85,7 +102,7 @@ def create_lora_state(model: nn.Module, tx: GradientTransformation,
     floating leaf (the reference's ``cast_floating``); a leaf already in
     it is kept, not copied."""
     if mesh is not None:
-        raise _mesh_unsupported("create_lora_state(mesh=...)")
+        check_mesh_model(model, mesh, "create_lora_state")
     base = {k: v for k, v in params.items() if not is_lora_name(k)}
     given = {k: v for k, v in params.items() if is_lora_name(k)}
     if lora is None:
@@ -95,22 +112,31 @@ def create_lora_state(model: nn.Module, tx: GradientTransformation,
         raise ValueError("the model has no LoRA adapters (lora_rank=0)")
     if base_dtype is not None:
         base = cast_floating(base, base_dtype)
+    shardings = None
+    if mesh is not None:
+        shardings = param_shardings(model, {**base, **lora}, mesh, rules)
+        base = collectives.shard_tree(base, shardings)
+        lora = collectives.shard_tree(lora, shardings)
     base = {k: v.detach() for k, v in base.items()}
     lora = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
     return LoRAState(step=0, base_params=base, lora=lora,
-                     opt_state=tx.init(lora), model=model, tx=tx), None
+                     opt_state=tx.init(lora), model=model, tx=tx,
+                     shardings=shardings), shardings
 
 
-def make_lora_train_step(mesh: Optional[object] = None, *,
+def make_lora_train_step(mesh: Optional[Mesh] = None, *,
                          objective: str = "causal",
                          aux_loss_weight: float = 0.01,
                          grad_accum: int = 1):
     """The step: gradients and updates over ``state.lora`` only, the
-    base read and never written. Metrics as the pretraining step's; a
-    ``mesh`` raises (ROADMAP A14)."""
-    if mesh is not None:
-        raise _mesh_unsupported("make_lora_train_step(mesh=...)")
+    base read and never written. Metrics as the pretraining step's. With
+    a ``mesh``, the state must be one :func:`create_lora_state` built on
+    it, and every rank calls the step with its rows."""
     loss_fn = LOSSES[objective]
+    if mesh is not None:
+        check_batch_axes(mesh, "make_lora_train_step")
+        return _mesh_lora_step(mesh, loss_fn, objective, aux_loss_weight,
+                               grad_accum)
 
     def step(state: LoRAState, batch: Batch):
         device = next(iter(state.lora.values())).device
@@ -126,6 +152,25 @@ def make_lora_train_step(mesh: Optional[object] = None, *,
                    "grad_norm": global_norm(grads)}
         state.opt_state = optimizer_step(state.tx, state.opt_state,
                                          state.lora, grads)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def _mesh_lora_step(mesh, loss_fn, objective, aux_loss_weight, grad_accum):
+    def step(state: LoRAState, batch: Batch):
+        check_mesh_model(state.model, mesh, "make_lora_train_step")
+        batch = place_batch(batch, next(iter(state.lora.values())).device)
+        shardings = state.shardings or {}
+        (loss, acc, aux), grads = mesh_value_and_grad(
+            mesh, state.model, state.lora, shardings, state.base_params,
+            batch, loss_fn, aux_loss_weight, grad_accum, objective)
+        with norm_over(collectives.norm_fn(shardings, mesh)):
+            metrics = {"loss": loss, "accuracy": acc, "aux_loss": aux,
+                       "grad_norm": global_norm(grads)}
+            state.opt_state = optimizer_step(state.tx, state.opt_state,
+                                             state.lora, grads)
         state.step += 1
         return state, metrics
 

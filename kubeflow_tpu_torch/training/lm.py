@@ -15,9 +15,22 @@
 
 """Language-model training: the state and the causal-LM train step.
 
-The port of ``kubeflow_tpu/training/lm.py``, for one device. The
-reference's mesh half (params sharded by the TP rule table, batches
-over ``(data, fsdp)``) is ROADMAP A14: a mesh raises.
+The port of ``kubeflow_tpu/training/lm.py``, on one device or on a
+gang's mesh (``parallel/mesh.py``) over the batch axes (dcn_data, data,
+fsdp). On a mesh each rank holds its rows of the global batch and its
+pieces of the params, sharded by the rule table
+(``parallel/tensor_parallel.py``: ``embed`` dims over fsdp), and the
+optimizer moments mirror them. A step all-gathers the sharded leaves,
+takes the gradient of its rows' share of the global loss (a masked loss
+divides by the global batch's token weight, all-reduced first, so
+unequal counts across ranks still give the reference's global mean),
+reduce-scatters the sharded leaves' gradients over fsdp and sums the
+rest over the batch axes, then runs the optimizer on its pieces, with
+the global norm taken over the shards (``optim.norm_over``). That is
+the step XLA derives from the reference's shardings. A mesh with a
+model axis above 1 raises (ROADMAP A18). On an nccl group of one rank
+every collective is still launched, and the meshed step gives the
+unmeshed step's bits.
 
 The step is eager PyTorch around the model's kernels: a forward
 through :func:`~kubeflow_tpu_torch.models.llama.apply`, the loss in
@@ -38,13 +51,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.models.convert import flax_key, torch_spec
 from kubeflow_tpu_torch.models.llama import Llama, apply
 from kubeflow_tpu_torch.ops.moe import collect_losses
+from kubeflow_tpu_torch.parallel import collectives
+from kubeflow_tpu_torch.parallel.mesh import Mesh, Sharding, check_batch_axes
+from kubeflow_tpu_torch.parallel.tensor_parallel import (
+    rules_for,
+    variables_sharding,
+)
 from kubeflow_tpu_torch.training.data import place_batch
 from kubeflow_tpu_torch.training.optim import (
     GradientTransformation,
     apply_updates,
     global_norm,
+    norm_over,
 )
 
 Batch = Dict[str, Union[np.ndarray, torch.Tensor]]
@@ -54,16 +75,16 @@ Params = Dict[str, torch.Tensor]
 STATIC = {"static": True}
 
 
-def _mesh_unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the sharded (mesh) trainer is not ported yet (ROADMAP "
-        "A14); the port trains on one device")
+Shardings = Dict[str, Sharding]
 
 
 @dataclasses.dataclass
 class LMState:
     """Step counter, params (leaf tensors that require grad), optimizer
-    state, and the model template and optimizer they go with."""
+    state, and the model template and optimizer they go with. On a
+    mesh, ``params`` and the moments are this rank's pieces and
+    ``shardings`` maps each param name to its layout (the port's tensor
+    layout); the moments mirror their params by name."""
 
     step: int
     params: Params
@@ -71,20 +92,49 @@ class LMState:
     model: nn.Module = dataclasses.field(repr=False, metadata=STATIC)
     tx: GradientTransformation = dataclasses.field(repr=False,
                                                    metadata=STATIC)
+    shardings: Optional[Shardings] = dataclasses.field(
+        default=None, repr=False, metadata=STATIC)
+
+
+def param_shardings(model: nn.Module, params: Mapping[str, torch.Tensor],
+                    mesh: Mesh, rules: Optional[Mapping[str, Any]] = None
+                    ) -> Shardings:
+    """Each port param's sharding by the rule table over the model's
+    ``logical_axes`` (the reference's ``sharded_collection_init``),
+    carried into the port's layout of the leaf (a kernel's dims are the
+    Flax kernel's, transposed)."""
+    keys = {name: flax_key(name) for name in params}
+    flax_sh = variables_sharding(mesh, model, keys.values(),
+                                 rules_for(mesh, rules))
+    return {n: Sharding(mesh, torch_spec(keys[n], flax_sh[keys[n]].spec,
+                                         t.dim()))
+            for n, t in params.items()}
+
+
+def _leaves(tree: Mapping[str, torch.Tensor]) -> Params:
+    return {k: v.detach().requires_grad_(True) for k, v in tree.items()}
 
 
 def create_lm_state(model: nn.Module, tx: GradientTransformation,
-                    params: Params, mesh: Optional[object] = None
-                    ) -> Tuple[LMState, None]:
-    """``(state, None)`` over ``params`` (e.g. ``models.convert.
-    init_params`` of a ``param_dtype="float32"`` model: fp32 masters),
-    each made a leaf tensor that requires grad. The ``None`` stands for
-    the reference's shardings."""
-    if mesh is not None:
-        raise _mesh_unsupported("create_lm_state(mesh=...)")
-    params = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+                    params: Params, mesh: Optional[Mesh] = None,
+                    rules: Optional[Mapping[str, Any]] = None
+                    ) -> Tuple[LMState, Optional[Shardings]]:
+    """``(state, shardings)`` over ``params`` (e.g. ``models.convert.
+    init_params`` of a ``param_dtype="float32"`` model: fp32 masters,
+    or params carried across from the reference), each made a leaf
+    tensor that requires grad. Without a mesh ``shardings`` is None; on
+    one, ``params`` (whole) are cut to this rank's pieces by
+    :func:`param_shardings` and the optimizer state is built over the
+    pieces."""
+    if mesh is None:
+        params = _leaves(params)
+        return LMState(step=0, params=params, opt_state=tx.init(params),
+                       model=model, tx=tx), None
+    check_mesh_model(model, mesh, "create_lm_state")
+    shardings = param_shardings(model, params, mesh, rules)
+    params = _leaves(collectives.shard_tree(params, shardings))
     return LMState(step=0, params=params, opt_state=tx.init(params),
-                   model=model, tx=tx), None
+                   model=model, tx=tx, shardings=shardings), shardings
 
 
 def model_args(batch: Mapping[str, torch.Tensor]) -> Tuple:
@@ -164,42 +214,48 @@ def softmax_cross_entropy_with_integer_labels(
     return ce.reshape(labels.shape)
 
 
-def _weighted_loss(logits, batch, objective):
+def _weighted_loss(logits, batch, objective, denom=None):
+    """(loss, accuracy) weighted by the batch's token weights, divided by
+    ``denom`` (default: the batch's own weight, at least 1; a mesh step
+    passes the global batch's)."""
     logits, targets, weights = lm_targets(logits, batch, objective)
     ce = softmax_cross_entropy_with_integer_labels(logits, targets)
-    denom = torch.clamp_min(weights.sum(), 1.0)
+    if denom is None:
+        denom = torch.clamp_min(weights.sum(), 1.0)
     loss = (ce * weights).sum() / denom
     correct = (logits.argmax(-1) == targets).float()
     acc = (correct * weights).sum() / denom
     return loss, acc
 
 
-def mlm_loss(logits: torch.Tensor, batch) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+def mlm_loss(logits: torch.Tensor, batch, denom=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked-LM loss: cross entropy where ``mlm_weights`` is 1."""
-    return _weighted_loss(logits, batch, "mlm")
+    return _weighted_loss(logits, batch, "mlm", denom)
 
 
-def causal_lm_loss(logits: torch.Tensor, batch) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
+def causal_lm_loss(logits: torch.Tensor, batch, denom=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Next-token loss. ``targets`` defaults to input_ids shifted left;
     ``loss_weights`` (optional) masks padding."""
-    return _weighted_loss(logits, batch, "causal")
+    return _weighted_loss(logits, batch, "causal", denom)
 
 
 LOSSES = {"mlm": mlm_loss, "causal": causal_lm_loss}
 
 
 def lm_forward_with_aux(model: nn.Module, params: Params, batch,
-                        loss_fn, aux_loss_weight: float):
+                        loss_fn, aux_loss_weight: float, denom=None):
     """The forward both trainers share: ``(total_loss, (loss, accuracy,
     aux))``. ``aux`` is the sum of the auxiliary losses the forward sows
     (the MoE load-balance loss of every MoE block, ops/moe.py: the
     reference's ``"losses"`` collection); a model that sows none gives
-    0."""
+    0. ``denom`` is the loss's divisor (the loss function's default when
+    None)."""
     with collect_losses() as sown:
         logits = apply_lm(model, params, batch)
-    loss, acc = loss_fn(logits, batch)
+    loss, acc = (loss_fn(logits, batch) if denom is None
+                 else loss_fn(logits, batch, denom))
     aux = torch.zeros((), dtype=loss.dtype, device=loss.device)
     for term in sown:
         aux = aux + term.to(loss.dtype)
@@ -209,7 +265,8 @@ def lm_forward_with_aux(model: nn.Module, params: Params, batch,
 def accumulated_value_and_grad(
         compute: Callable[[Batch], Tuple[torch.Tensor, Tuple]],
         trainable: Params, batch: Mapping[str, torch.Tensor], n: int,
-        objective: str = "causal"):
+        objective: str = "causal",
+        total_weight: Optional[torch.Tensor] = None):
     """``((loss, acc, aux), grads)`` over ``n`` sequential microbatches.
 
     ``compute(microbatch) -> (total_loss, (loss, acc, aux))`` applies
@@ -221,11 +278,15 @@ def accumulated_value_and_grad(
     about n-fold while the optimizer sees the exact full-batch gradient:
     each microbatch's CE is re-weighted by its share of the batch's
     token weight (:func:`lm_token_weight`), and the aux term averages
-    equally over microbatches."""
+    equally over microbatches. ``total_weight`` (a mesh step's: the
+    global batch's token weight, at least 1) replaces the batch's own as
+    the divisor, so each rank's gradient is its share of the global
+    loss's."""
     names = list(trainable)
     tensors = [trainable[k] for k in names]
     if n <= 1:
-        total, (loss, acc, aux) = compute(batch)
+        total, (loss, acc, aux) = (compute(batch) if total_weight is None
+                                   else compute(batch, total_weight))
         grads = torch.autograd.grad(total, tensors)
         return (loss.detach(), acc.detach(), aux.detach()), dict(
             zip(names, grads))
@@ -234,7 +295,8 @@ def accumulated_value_and_grad(
             raise ValueError(f"batch dim {v.shape[0]} not divisible by "
                              f"grad_accum={n}")
     rows = next(iter(batch.values())).shape[0] // n
-    total_w = torch.clamp_min(lm_token_weight(batch, objective), 1.0)
+    total_w = (torch.clamp_min(lm_token_weight(batch, objective), 1.0)
+               if total_weight is None else total_weight)
     acc_g = None
     loss_acc = acc_acc = aux_acc = 0.0
     for i in range(n):
@@ -265,7 +327,54 @@ def optimizer_step(tx: GradientTransformation, opt_state, params: Params,
     return opt_state
 
 
-def make_lm_train_step(mesh: Optional[object] = None, *,
+def check_mesh_model(model: nn.Module, mesh: Mesh, what: str) -> None:
+    """Raise where a mesh step cannot give the reference's result: a
+    live model axis, or an MoE model split over batch ranks (its
+    load-balance loss is a function of the global batch's routing, and
+    expert parallelism is not ported: ROADMAP A18)."""
+    check_batch_axes(mesh, what)
+    if getattr(model, "num_experts", 0) and mesh.size > 1:
+        raise NotImplementedError(
+            f"{what}: an MoE model on a mesh of {mesh.size} ranks (the "
+            f"load-balance loss over the global batch and expert "
+            f"parallelism are ROADMAP A18)")
+
+
+def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
+                        shardings: Mapping[str, Optional[Sharding]],
+                        fixed: Params, batch, loss_fn, aux_loss_weight,
+                        grad_accum: int, objective: str):
+    """A mesh step's forward and backward: ``((loss, acc, aux), grads)``
+    with the metrics of the global batch and each gradient this rank's
+    piece of the global batch's. Sharded ``trainable`` leaves are
+    all-gathered for the forward (a replicated one is used as it is);
+    ``fixed`` (frozen leaves) are gathered too and take no gradient."""
+    gathered = {k: collectives.gather_leaf(v.detach(), shardings.get(k),
+                                           mesh)
+                for k, v in fixed.items()}
+    full = {}
+    for k, v in trainable.items():
+        sh = shardings.get(k)
+        full[k] = v if collectives.fsdp_dim(sh) is None else (
+            collectives.gather_leaf(v.detach(), sh, mesh)
+            .requires_grad_(True))
+    total_w = torch.clamp_min(collectives.global_sum(
+        lm_token_weight(batch, objective), mesh), 1.0)
+
+    def compute(mb, denom=None):
+        return lm_forward_with_aux(model, {**gathered, **full}, mb, loss_fn,
+                                   aux_loss_weight, denom)
+
+    (loss, acc, aux), grads = accumulated_value_and_grad(
+        compute, full, batch, grad_accum, objective, total_w)
+    grads = {k: collectives.reduce_grad(g, shardings.get(k), mesh)
+             for k, g in grads.items()}
+    metrics = (collectives.global_sum(loss, mesh),
+               collectives.global_sum(acc, mesh), aux)
+    return metrics, grads
+
+
+def make_lm_train_step(mesh: Optional[Mesh] = None, *,
                        objective: str = "causal",
                        aux_loss_weight: float = 0.01,
                        grad_accum: int = 1):
@@ -276,10 +385,14 @@ def make_lm_train_step(mesh: Optional[object] = None, *,
     each batch into that many sequential microbatches
     (:func:`accumulated_value_and_grad`). Metrics: ``loss``,
     ``accuracy``, ``aux_loss`` and ``grad_norm`` (of the raw
-    gradients), device scalars. A ``mesh`` raises (ROADMAP A14)."""
-    if mesh is not None:
-        raise _mesh_unsupported("make_lm_train_step(mesh=...)")
+    gradients), device scalars. With a ``mesh`` the state must be one
+    :func:`create_lm_state` built on it, and every rank of the gang
+    calls the step with its rows of the global batch."""
     loss_fn = LOSSES[objective]
+    if mesh is not None:
+        check_batch_axes(mesh, "make_lm_train_step")
+        return _mesh_lm_step(mesh, loss_fn, objective, aux_loss_weight,
+                             grad_accum)
 
     def step(state: LMState, batch: Batch):
         batch = place_batch(batch, _device_of(state.params))
@@ -294,6 +407,25 @@ def make_lm_train_step(mesh: Optional[object] = None, *,
                    "grad_norm": global_norm(grads)}
         state.opt_state = optimizer_step(state.tx, state.opt_state,
                                          state.params, grads)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def _mesh_lm_step(mesh, loss_fn, objective, aux_loss_weight, grad_accum):
+    def step(state: LMState, batch: Batch):
+        check_mesh_model(state.model, mesh, "make_lm_train_step")
+        batch = place_batch(batch, _device_of(state.params))
+        shardings = state.shardings or {}
+        (loss, acc, aux), grads = mesh_value_and_grad(
+            mesh, state.model, state.params, shardings, {}, batch, loss_fn,
+            aux_loss_weight, grad_accum, objective)
+        with norm_over(collectives.norm_fn(shardings, mesh)):
+            metrics = {"loss": loss, "accuracy": acc, "aux_loss": aux,
+                       "grad_norm": global_norm(grads)}
+            state.opt_state = optimizer_step(state.tx, state.opt_state,
+                                             state.params, grads)
         state.step += 1
         return state, metrics
 

@@ -26,12 +26,13 @@ In a gang (a ``torch.distributed`` group of more than one process,
 ``training/launcher.py``) the processes agree on the drain: every
 ``drain_sync_steps`` steps each contributes its own drain flag to an
 all-reduce MAX (the reference's ``process_allgather`` + ``any``), and
-all drain at the same step if any saw the signal. A gang's ``fit`` steps
-each process's own state, as the reference's does with a step that has
-no mesh (the data-parallel step is ROADMAP A14). A gang's ``fit``
-refuses a checkpoint tier: the checkpointer writes as one host, so the
-processes' differing states would land in one step directory, the last
-writer's winning (the sharded gang save is ROADMAP A14).
+all drain at the same step if any saw the signal. A gang's ``fit``
+checkpoints as the reference's gang does: each tier's ``num_hosts`` and
+``host_id`` are the gang's size and this process's rank, every rank
+writes its host shard at the same steps, and each resumes from the
+step's shards (``training/checkpoint.py``). The step function decides
+what the gang computes: a mesh trainer's step (``training/lm.py``,
+``finetune.py``, ``train.py``) keeps one global state across the ranks.
 
 Metrics: every log window publishes ``kft_training_step_seconds``,
 ``kft_training_steps_per_sec`` and ``kft_training_steps_total`` through
@@ -117,6 +118,21 @@ def _gang() -> bool:
             and dist.get_world_size() > 1)
 
 
+def gang_config(config: CheckpointConfig) -> CheckpointConfig:
+    """A tier's config with the gang's size and this process's rank as
+    ``num_hosts`` and ``host_id`` (as the reference's CLIs pass
+    ``jax.process_count()`` and ``process_index()``); a config that
+    names another host count raises."""
+    dist = torch.distributed
+    if not _gang():
+        return config
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if config.num_hosts not in (1, world):
+        raise ValueError(f"checkpoint num_hosts={config.num_hosts} in a "
+                         f"gang of {world}")
+    return dataclasses.replace(config, num_hosts=world, host_id=rank)
+
+
 def agree_on_drain(requested: bool) -> bool:
     """Whether any process of the gang asked to drain: an all-reduce MAX
     of each process's flag, on the card for an nccl group and on the
@@ -155,15 +171,11 @@ def fit(state: Any,
 
     ``hooks``: callables ``(step, state, metrics) -> None`` invoked at
     every log interval."""
-    if (config.checkpoint or config.continuous) and _gang():
-        raise NotImplementedError(
-            "checkpointing a gang's state is not ported yet (ROADMAP A14): "
-            "the checkpointer writes as one host, and each process of the "
-            "gang steps its own state")
-    # Both tiers are the one sharded writer, each at its own interval.
-    ckpt = (ShardedCheckpointer(config.checkpoint) if config.checkpoint
-            else None)
-    cont = (ShardedCheckpointer(config.continuous)
+    # Both tiers are the one sharded writer, each at its own interval,
+    # writing this rank's host shard in a gang.
+    ckpt = (ShardedCheckpointer(gang_config(config.checkpoint))
+            if config.checkpoint else None)
+    cont = (ShardedCheckpointer(gang_config(config.continuous))
             if config.continuous else None)
     tiers = [t for t in (cont, ckpt) if t]
     owns_logger = metrics_logger is None

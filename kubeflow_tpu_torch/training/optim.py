@@ -53,9 +53,11 @@ every moment.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterator, NamedTuple, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -104,8 +106,28 @@ def _zeros_like(params: Params) -> Params:
     return {k: torch.zeros_like(p) for k, p in params.items()}
 
 
+_NORM: contextvars.ContextVar = contextvars.ContextVar("global_norm",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def norm_over(fn: Callable[[Params], torch.Tensor]) -> Iterator[None]:
+    """Inside the block :func:`global_norm` (and so
+    :func:`clip_by_global_norm`) is ``fn``: a mesh trainer's norm of
+    leaves held as shards (``parallel/collectives.py``)."""
+    token = _NORM.set(fn)
+    try:
+        yield
+    finally:
+        _NORM.reset(token)
+
+
 def global_norm(updates: Params) -> torch.Tensor:
-    """``sqrt(Σ_leaves Σ x²)``, a 0-d tensor on the leaves' device."""
+    """``sqrt(Σ_leaves Σ x²)``, a 0-d tensor on the leaves' device (or
+    the norm :func:`norm_over` sets)."""
+    sharded = _NORM.get()
+    if sharded is not None:
+        return sharded(updates)
     total = None
     for x in updates.values():
         s = (x * x).sum()

@@ -37,11 +37,13 @@ for mlm) → :class:`~kubeflow_tpu_torch.training.data.DevicePrefetcher`
 then ``adamw(warmup_cosine_decay_schedule(0, lr, warmup, steps),
 weight_decay=0.01)``) over fp32 master params, checkpoint/resume and the
 preemption drain (agreed across a gang's processes). Any model and
-objective the reference's CLI accepts without a mesh is accepted. Not
-ported: a ``--mesh`` and its pipeline axis (ROADMAP A14: raises); in a
-gang, each process trains its own state on its rows of the batch until
-the data-parallel step lands with A14, and ``--checkpoint_dir`` raises
-there (``fit`` refuses a gang's checkpoint until A14's sharded save).
+objective the reference's CLI accepts is accepted on the batch axes:
+``--mesh`` takes dcn_data, data and fsdp (``"data=2,fsdp=2"``; a gang
+with no ``--mesh`` trains data-parallel over every rank, the
+reference's all-data default), the megascale env fills dcn_data, and
+each rank writes its host shard of the checkpoints. A model axis
+(tensor, seq, expert, pipeline) and the pipeline schedule's flags
+raise (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning_rate", type=float, default=1e-4)
     p.add_argument("--warmup_steps", type=int, default=10)
     p.add_argument("--mesh", default=None,
-                   help="a device mesh (ROADMAP A14: raises; the port "
-                        "trains on one device)")
+                   help="e.g. data=2,fsdp=2 over the gang's ranks (the "
+                        "batch axes; a model axis is ROADMAP A18). "
+                        "Default: all-data in a gang, one device alone")
     p.add_argument("--data", default=None,
                    help="token shards (.npy / raw .bin): comma-separated "
                         "files, dirs, or globs; gs://-style fsspec paths "
@@ -90,9 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rematerialize blocks (llama only)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="pipeline schedule microbatch count (only with a "
-                        "pipeline mesh axis: ROADMAP A14)")
+                        "pipeline mesh axis: ROADMAP A18)")
     p.add_argument("--virtual_stages", type=int, default=1,
-                   help="interleaved pipeline stages (ROADMAP A14)")
+                   help="interleaved pipeline stages (ROADMAP A18)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda or cpu (default: cpu where the env has "
@@ -119,11 +122,20 @@ def main(argv=None) -> int:
         # A continuous tier with nowhere durable to land would restart
         # the run from step 0.
         parser.error("--continuous_every needs --checkpoint_dir")
-    if args.mesh:
+    from kubeflow_tpu_torch.parallel.mesh import (
+        MODEL_AXES,
+        build_mesh,
+        parse_mesh,
+    )
+
+    spec = parse_mesh(args.mesh)
+    model_axes = {a: getattr(spec, a) for a in MODEL_AXES
+                  if spec is not None and getattr(spec, a) != 1}
+    if model_axes:
         raise SystemExit(
-            f"--mesh {args.mesh}: the sharded trainer (and its pipeline "
-            "axis) is not ported yet (ROADMAP A14); the port trains on one "
-            "device")
+            f"--mesh {args.mesh}: the model axes {model_axes} (and the "
+            "pipeline schedule) are not ported yet (ROADMAP A18); the "
+            "port's trainers run dcn_data, data and fsdp")
 
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
     from kubeflow_tpu_torch.utils.platform import default_device
@@ -131,7 +143,8 @@ def main(argv=None) -> int:
     args.device = default_device(args.device)
     # The tpu-lm pod command joins its gang itself (the env travels to
     # it; a launcher's own join would not).
-    initialize_distributed(device=args.device)
+    gang = initialize_distributed(device=args.device)
+    mesh = build_mesh(spec, args.device) if (spec or gang) else None
 
     from kubeflow_tpu_torch.models.convert import init_params
     from kubeflow_tpu_torch.models.registry import get_model
@@ -201,21 +214,24 @@ def main(argv=None) -> int:
                 max(args.steps, args.warmup_steps + 1)),
             weight_decay=0.01))
     params = init_params(model, seed=args.seed, device=device)
-    state, _ = create_lm_state(model, tx, params)
-    step_fn = make_lm_train_step(objective=objective)
+    state, _ = create_lm_state(model, tx, params, mesh)
+    step_fn = make_lm_train_step(mesh, objective=objective)
 
     ckpt = continuous = None
+    mesh_shape = mesh.shape if mesh is not None else None
     if args.checkpoint_dir:
         ckpt = CheckpointConfig(directory=args.checkpoint_dir,
-                                save_interval_steps=args.save_every)
+                                save_interval_steps=args.save_every,
+                                mesh_shape=mesh_shape)
         if args.continuous_every > 0:
             continuous = ContinuousCheckpointConfig(
                 directory=str(Path(args.checkpoint_dir) / "continuous"),
-                save_interval_steps=args.continuous_every)
+                save_interval_steps=args.continuous_every,
+                mesh_shape=mesh_shape)
     config = LoopConfig(total_steps=args.steps, log_every=args.log_every,
                         checkpoint=ckpt, continuous=continuous,
                         metrics_path=args.metrics_path)
-    data = DevicePrefetcher(gen, device=device)
+    data = DevicePrefetcher(gen, mesh, device=device)
     try:
         state = fit(state, step_fn, data, config)
     except DrainInterrupt as drain:
@@ -229,7 +245,7 @@ def main(argv=None) -> int:
         "model": entry.name,
         "objective": objective,
         "final_step": int(state.step),
-        "mesh": {"data": 1},
+        "mesh": mesh.shape if mesh is not None else {"data": 1},
         "device": str(device),
     }))
     return 0

@@ -365,17 +365,19 @@ def test_export_rejects_incoherent_signatures(tmp_path):
             registry_name="llama-test", out=str(tmp_path / "b"),
             version=1, signature_kind="classify", seq_len=8,
             model_kwargs=F32, device="cpu")
-    # A sharded export needs the tensor-parallel rule table (A14); one
-    # shard is the monolithic layout.
-    with pytest.raises(NotImplementedError, match="A14"):
-        export_from_checkpoint(
-            registry_name="llama-test", out=str(tmp_path / "c"),
-            version=1, seq_len=8, model_kwargs=F32,
-            shard_spec=ShardSpec(tensor=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        main(["--model", "llama-test", "--out", str(tmp_path / "c"),
-              "--shards", "tensor=2", "--device", "cpu"])
-    assert not (tmp_path / "c").exists()
+    # A sharded export is the layout the shard spec names (its bytes:
+    # tests/test_torch_export_sharded.py); one shard is the monolithic
+    # layout.
+    sharded = export_from_checkpoint(
+        registry_name="llama-test", out=str(tmp_path / "c"),
+        version=1, seq_len=8, model_kwargs=F32,
+        shard_spec=ShardSpec(tensor=2), device="cpu")
+    assert load_version(sharded, device="cpu").shard_topology() == {
+        "num_shards": 2, "mesh": {"tensor": 2, "fsdp": 1},
+        "on_mesh": False}
+    assert main(["--model", "llama-test", "--out", str(tmp_path / "c"),
+                 "--version", "2", "--shards", "tensor=2",
+                 "--device", "cpu"]) == 0
     path = export_from_checkpoint(
         registry_name="llama-test", out=str(tmp_path / "d"), version=1,
         seq_len=8, model_kwargs=F32, shard_spec=ShardSpec(), device="cpu")

@@ -313,6 +313,49 @@ def test_bn_kernel_matches_plain_version(cuda, monkeypatch, route, dtype, m,
         1.0, float(y_ref.float().abs().max()))
 
 
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,c,stat_rows", [
+    (50176, 64, None), (12544, 2048, None), (20000, 256, 3136),
+    (10007, 99, None), (1, 8, None), (4099, 256, 17)])
+def test_bn_stats_and_apply_entries_match_their_twins(cuda, monkeypatch,
+                                                      route, dtype, m, c,
+                                                      stat_rows):
+    """The sync route's two entries against their plain twins, and on
+    one rank (all rows the stat rows) against the fused launch, bit for
+    bit: stats keeps the fused launch's partial-sum order and apply its
+    finalize's arithmetic."""
+    x, scale, bias = _bn_inputs(cuda, m, c, dtype)
+    _limit_slab(monkeypatch, x, ROUTES[route])
+    before = (bn_fused.bn_stats.launches, bn_fused.bn_apply.launches)
+    sums = bn_fused.bn_stats(x, stat_rows=stat_rows)
+    count = m if stat_rows is None else stat_rows
+    y, mean, var = bn_fused.bn_apply(x, sums, count, scale, bias)
+    torch.cuda.synchronize()
+    assert (bn_fused.bn_stats.launches, bn_fused.bn_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bn_fused.reference_bn_stats(x, stat_rows)
+    torch.testing.assert_close(sums, want, atol=1e-2,
+                               rtol=1e-5 * max(1.0, count / 1000))
+    y_ref, mean_ref, var_ref = bn_fused.reference_bn_apply(
+        x, sums, count, scale, bias)
+    # The twin divides by a Python count, which PyTorch on the card does
+    # as a multiply by its reciprocal: an ulp from the kernel's division.
+    torch.testing.assert_close(mean, mean_ref, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(var, var_ref, atol=1e-6, rtol=1e-6)
+    diff = (y.float() - y_ref.float()).abs()
+    assert float(diff.max()) <= BN_Y_TOL[dtype] * max(
+        1.0, float(y_ref.float().abs().max()))
+    if stat_rows is None:
+        fused = bn_fused.fused_bn_train_forward(x, scale, bias)
+        for a, b in zip((y, mean, var), fused):
+            assert torch.equal(a, b)
+        one_rank = bn_fused.sync_bn_train_forward(
+            x, scale, bias, count=m, reduce=lambda t: t)
+        for a, b in zip(one_rank, fused):
+            assert torch.equal(a, b)
+
+
 def test_bn_both_routes_run_at_the_test_shapes(cuda, monkeypatch):
     x, _, _ = _bn_inputs(cuda, 20000, 256, torch.bfloat16)
     routes = {}

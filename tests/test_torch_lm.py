@@ -40,6 +40,7 @@ from kubeflow_tpu.models.llama import llama_test as jax_llama_test
 from kubeflow_tpu.training import lm as jlm
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.llama import apply, llama_test
+from kubeflow_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from kubeflow_tpu_torch.training import lm, optim
 
 LOSS_RTOL = 1e-5
@@ -165,16 +166,22 @@ def test_remat_gives_the_same_gradients():
 
 
 def test_mesh_and_bert_batches_raise_with_their_roadmap_items():
-    """The mesh still raises (ROADMAP A14). A BERT batch (the mlm
+    """A mesh with a model axis raises (ROADMAP A18; the batch axes run:
+    tests/test_torch_gang_lm.py), and so does an MoE model on a mesh of
+    more than one rank. A BERT batch (the mlm
     objective's) on a Llama runs as the reference runs it: its type_ids
     are the Llama's positions, its valid mask the ignored train flag
     (BERT itself: tests/test_torch_bert.py; MoE:
     tests/test_torch_moe.py)."""
     ref_state, params, model = lm_pair(optax.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="A14"):
-        lm.create_lm_state(model, optim.sgd(0.1), params, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        lm.make_lm_train_step(object())
+    tensor = Mesh(MeshSpec(data=2, tensor=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="A18"):
+        lm.create_lm_state(model, optim.sgd(0.1), params, mesh=tensor)
+    with pytest.raises(NotImplementedError, match="A18"):
+        lm.make_lm_train_step(tensor)
+    with pytest.raises(NotImplementedError, match="A18"):
+        lm.create_lm_state(llama_test(num_experts=4), optim.sgd(0.1), {},
+                           mesh=Mesh(MeshSpec(data=2), device="cpu"))
     state, _ = lm.create_lm_state(model, optim.sgd(0.1), params)
     rng = np.random.default_rng(5)
     bert = {"input_ids": ids(0),

@@ -34,6 +34,7 @@ from _torch_training import ids, lm_pair, lora_pair
 from kubeflow_tpu.training import data as jdata
 from kubeflow_tpu.training.evaluate import evaluate_lm as jax_evaluate_lm
 from kubeflow_tpu_torch.obs import metrics as obs_metrics
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from kubeflow_tpu_torch.training import data, finetune, lm, optim
 from kubeflow_tpu_torch.training.checkpoint import CheckpointConfig
 from kubeflow_tpu_torch.training.evaluate import evaluate_lm
@@ -139,8 +140,12 @@ def test_prefetcher_places_propagates_errors_and_stops():
     next(it2)
     with pytest.raises(StopIteration):
         next(it2)
-    with pytest.raises(NotImplementedError, match="A14"):
-        data.DevicePrefetcher(short_gen(), mesh=object(), device="cpu")
+    # With a mesh, batches go to the mesh's device (each rank's rows:
+    # tests/test_torch_gang_lm.py).
+    it3 = data.DevicePrefetcher(
+        short_gen(), mesh=build_mesh(MeshSpec(data=-1), "cpu"))
+    assert next(it3)["x"].device.type == "cpu"
+    it3.close()
 
 
 # -- the loop ------------------------------------------------------------------
@@ -360,7 +365,8 @@ def test_pretrain_num_layers_cuts_the_depth(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "llama-test", "--mesh", "data=4,pipeline=2"], "A14"),
+    (["--model", "llama-test", "--mesh", "data=4,pipeline=2"], "A18"),
+    (["--model", "llama-test", "--mesh", "tensor=2"], "A18"),
 ])
 def test_pretrain_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -371,6 +377,9 @@ def test_pretrain_refuses_what_is_not_ported(argv, match):
     (["--model", "llama-test", "--objective", "mlm"], "mlm"),
     (["--model", "bert-test"], "mlm"),
     (["--model", "bert-test", "--objective", "causal"], "causal"),
+    # A mesh of one process (the batch axes; a gang's:
+    # tests/test_torch_launcher.py).
+    (["--model", "llama-test", "--mesh", "fsdp=-1"], "causal"),
 ])
 def test_pretrain_runs_what_the_reference_accepts(argv, objective, capsys):
     assert pretrain_main(argv + ["--device", "cpu", "--steps", "2",

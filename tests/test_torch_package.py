@@ -20,7 +20,7 @@
   ``scripts/bn_phase_times.py``, ``scripts/decode_invariance.py``,
   ``scripts/manager_phase.py``, ``scripts/train_phase.py``,
   ``scripts/registry_phase.py``, ``scripts/measure_phase.py``,
-  ``scripts/smoke_breakdown.py``) names
+  ``scripts/smoke_breakdown.py``, ``scripts/gang_phase.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -73,6 +73,7 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "registry_phase.py")
     yield os.path.join(ROOT, "scripts", "measure_phase.py")
     yield os.path.join(ROOT, "scripts", "smoke_breakdown.py")
+    yield os.path.join(ROOT, "scripts", "gang_phase.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():
@@ -122,6 +123,15 @@ def test_no_source_line_names_jax_flax_or_the_reference(path):
     with open(path) as f:
         hits = _FORBIDDEN.findall(f.read())
     assert not hits, f"{path}: {hits}"
+
+
+def test_no_source_names_the_done_parallelism_item():
+    """The batch axes of ROADMAP A14 are ported: no raise or note of the
+    package or of its GPU scripts still names A14; what is not ported of
+    parallelism names A18."""
+    named = [path for path in _sources()
+             if re.search(r"\bA14\b", open(path, encoding="utf-8").read())]
+    assert named == []
 
 
 def test_without_cuda_entry_points_raise(monkeypatch):

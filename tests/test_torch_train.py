@@ -46,6 +46,7 @@ from kubeflow_tpu.training.train import (
 )
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from kubeflow_tpu_torch.training import benchmark
 from kubeflow_tpu_torch.training.data import synthetic_images
 from kubeflow_tpu_torch.training.evaluate import evaluate_vision
@@ -145,8 +146,10 @@ def test_learns_on_a_fixed_batch():
 
 
 def test_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError):
-        make_train_step(mesh=object())
+    """A mesh with a model axis (ROADMAP A18); the batch axes run:
+    tests/test_torch_gang_vision.py."""
+    with pytest.raises(NotImplementedError, match="A18"):
+        make_train_step(mesh=Mesh(MeshSpec(data=2, tensor=2)))
 
 
 #: The keys of kubeflow_tpu/training/benchmark.py run_benchmark's result
