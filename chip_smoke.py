@@ -43,11 +43,14 @@ checkout's BN kernel by the same code (a parent commit's, say).
    ``autograd.Function`` against the plain version's, bf16 and fp32,
    causal and key-masked.
 3b. The decode step's kernels (decode GEMM at each llama3-8b decode
-   product, RMSNorm at [M, 4096], decode attention over a 544-slot
-   cache) against their plain twins at M = 1 and 4: one step of the
-   output type, the same bits on a second call, and every row at M in
-   (2, 3, 4, 8, 16, 20, 32) equal to the row computed alone (20: a
-   speculative verify's 4 slots × 5 tokens); times as the flash
+   product, RMSNorm's two entries at [M, 4096], decode attention over a
+   544-slot cache) against their plain twins at M = 1 and 4: one step of
+   the output type, the same bits on a second call, and every row at M
+   in (2, 3, 4, 8, 16, 20, 32) equal to the row computed alone (20: a
+   speculative verify's 4 slots × 5 tokens); RMSNorm also at M = 20,
+   512 and 8192 (L2-cold) and [4, 4096] fp32, its rows equal in 20-row
+   blocks, the fused entry's sum equal to torch's add and its norm to
+   the plain entry's, bit for bit; times as the flash
    kernel's (weights and caches cycled through copies larger than L2,
    as a decode step reads them), the profiler's device time, the bound,
    and the PyTorch call computing the same function (``F.linear``,
@@ -101,7 +104,9 @@ checkout's BN kernel by the same code (a parent commit's, say).
    keys, each row equal to B=1. Time to first token, inter-token ms,
    tokens/s, slices and peak memory are printed. Each generate decode
    step and each engine decode step must launch the decode GEMM 225
-   times and decode attention 32 times (RMSNorm 65), generate's prefill
+   times and decode attention 32 times (RMSNorm 65, 64 of them the
+   fused entry, which takes the residual add before the norm: every
+   forward 1 plain and 2·layers fused, asserted), generate's prefill
    the prefill GEMM 224 times and flash 32 times (one a layer for its
    [2, 512] block), and no CUDA tensor may reach a plain
    twin. Then the prefix lane (``engine_prefix_cache``, 4 slots, the
@@ -131,7 +136,8 @@ checkout's BN kernel by the same code (a parent commit's, say).
    the distinct keys, the device idle share and each kernel's launches
    of the replayed pass and of one 4-step slice replayed alone, and a
    classic admission's device ms beside its TTFT on both engines
-   (reported). Every engine phase that counts launches runs the engine
+   (reported; the slice's 260 norm kernels, 256 of them fused, and no
+   bf16 add kernel, asserted). Every engine phase that counts launches runs the engine
    a server builds (captured) and counts what the card ran
    (``served_launches``): the wrappers' launches, less each graph's
    capture (which records its warm-up's launches, asserted equal), plus
@@ -808,44 +814,105 @@ def decode_gemm_rows():
     return rows
 
 
+#: RMSNorm's shapes: llama3-8b's width at the main path's row counts
+#: (a decode step's 1 and 4, a speculative verify's 20, a prefill's 512
+#: and an 8192-token block, read L2-cold), bf16, and [4, 4096] fp32.
+NORM_SHAPES = tuple((torch.bfloat16, m) for m in (1, 4, 20, 512, 8192)) + (
+    (torch.float32, 4),)
+#: From this row count the inputs cycle through copies larger than L2.
+NORM_COLD_ROWS = 8192
+
+
 def rms_norm_rows():
-    """RMSNorm at the decode step's [M, 4096] (M = 1, 4) and the
-    prefill's [1024, 4096], bf16."""
+    """Both RMSNorm entries at NORM_SHAPES: within one step of the type
+    of the plain version, the same bits on a second call, every row
+    equal to the row in blocks of 20 rows (at M = 1 and 4, the decode
+    checks of hold_rows), the fused entry's s equal to torch's x + d
+    and its y to the plain entry's norm of it, bit for bit; timed
+    beside the plain version, the library (F.rms_norm; for the fused
+    entry the pair x + d, F.rms_norm) and the bound."""
     rows = []
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    x = (torch.randn(1024, 4096, device="cuda", generator=gen) * 2).to(
-        torch.bfloat16)
-    scale = (1 + 0.1 * torch.randn(4096, device="cuda", generator=gen)).to(
-        torch.bfloat16)
-    errs = hold_rows("rms_norm [M, 4096] bf16",
-                     lambda t, s: rn.rms_norm(t, s, 1e-5),
-                     lambda t, s: rn.rms_norm_reference(t, s, 1e-5),
-                     lambda m: (x[:m], scale), torch.bfloat16)
-    for m, per_step in ((1, 65), (4, 65), (1024, 0)):
-        xs = x[:m]
-        run = functools.partial(rn.rms_norm, xs, scale, 1e-5)
-        plain = functools.partial(rn.rms_norm_reference, xs, scale, 1e-5)
-        library = functools.partial(F.rms_norm, xs, (4096,), scale, 1e-5)
-        if m not in errs:
-            got, want = run(), plain()
+    d = 4096
+    # A decode step's launches of each entry: layer 0's attention norm
+    # plain, the other 64 fused with the residual add before them.
+    step_launches = {"plain": STEP_LAUNCHES["rms_norm"]
+                     - STEP_LAUNCHES["add_rms_norm"],
+                     "fused": STEP_LAUNCHES["add_rms_norm"]}
+    for dtype, m in NORM_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        n = max(m, CHECK_ROWS)
+        x = (torch.randn(n, d, device="cuda", generator=gen) * 2).to(dtype)
+        delta = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+        scale = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(
+            dtype)
+        name = f"[{m}, {d}] {str(dtype).replace('torch.', '')}"
+        entries = {
+            "plain": (lambda a, b: rn.rms_norm(a, scale, 1e-5),
+                      lambda a, b: rn.rms_norm_reference(a, scale, 1e-5),
+                      lambda a, b: F.rms_norm(a, (d,), scale, 1e-5)),
+            "fused": (lambda a, b: rn.add_rms_norm(a, b, scale, 1e-5)[1],
+                      lambda a, b: rn.add_rms_norm_reference(
+                          a, b, scale, 1e-5)[1],
+                      lambda a, b: F.rms_norm(a + b, (d,), scale, 1e-5))}
+        errs = {}
+        if m in (1, 4) and dtype == torch.bfloat16:
+            for entry, (run, plain, _) in entries.items():
+                errs[entry] = hold_rows(
+                    f"rms_norm {entry} [M, {d}] bf16", run, plain,
+                    lambda k: (x[:k], delta[:k]), dtype)
+        xs, ds = x[:m], delta[:m]
+        s, y = rn.add_rms_norm(xs, ds, scale, 1e-5)
+        if not (torch.equal(s, xs + ds)
+                and torch.equal(y, rn.rms_norm(xs + ds, scale, 1e-5))):
+            raise AssertionError(f"add_rms_norm {name}: not the add, then "
+                                 "the plain entry's norm, bit for bit")
+        copies = cold_cycle((xs, ds), 0 if m < NORM_COLD_ROWS else 256 << 20)
+        for entry, (run, plain, library) in entries.items():
+            got, want = run(xs, ds), plain(xs, ds)
             err = float((got.float() - want.float()).abs().max())
-            errs[m] = (err, DECODE_TOL[torch.bfloat16]
-                       * max(1.0, float(want.float().abs().max())))
-            if err > errs[m][1]:
-                raise AssertionError(f"rms_norm M={m}: max |Δ| {err}")
-        b_ms, b_by = bound((2 * m * 4096 + 4096) * 2, 4.0 * m * 4096,
-                           torch.bfloat16)
-        ms = time_ms(run, **KERNEL_TIMING)
-        row = {"shape": f"[{m}, 4096] bf16", "m": m,
-               "launches_per_step": per_step,
-               "max_abs_err": errs[m][0], "tol": errs[m][1], "ms": ms,
-               "device_ms": profiled_ms(run),
-               "plain_ms": time_ms(plain, **KERNEL_TIMING),
-               "library_ms": time_ms(library, **KERNEL_TIMING),
-               "library_device_ms": profiled_ms(library),
-               "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms}
-        log(f"rms_norm {json.dumps(row)}")
-        rows.append(row)
+            tol = DECODE_TOL[dtype] * max(1.0, float(want.float().abs().max()))
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"rms_norm {entry} {name}: max |Δ| "
+                                     f"{err} > {tol}")
+            blocks = torch.cat([run(xs[i:i + 20], ds[i:i + 20])
+                                for i in range(0, m, 20)])
+            if not (torch.equal(run(xs, ds), got)
+                    and torch.equal(blocks, got)):
+                raise AssertionError(f"rms_norm {entry} {name}: other bits "
+                                     "on a second call or in 20-row blocks")
+            err, tol = errs.get(entry, {}).get(m, (err, tol))
+
+            def turn(fn):
+                def call():
+                    a, b = next(copies)
+                    return fn(a, b)
+                return call
+
+            elem = x.element_size()
+            streams = 2 if entry == "plain" else 4
+            b_ms, b_by = bound((streams * m * d + d) * elem,
+                               (4.0 + (entry == "fused")) * m * d, dtype)
+            ms = time_ms(turn(run), **KERNEL_TIMING)
+            device = profiled_ms(turn(run))
+            row = {"entry": entry, "shape": name, "m": m,
+                   "cold": m >= NORM_COLD_ROWS,
+                   "launches_per_step": (step_launches[entry]
+                                         if dtype == torch.bfloat16
+                                         and m in (1, 4) else 0),
+                   "max_abs_err": err, "tol": tol, "ms": ms,
+                   "ms_one_call": time_ms(turn(run)),
+                   "device_ms": device,
+                   "plain_ms": time_ms(turn(plain), reps=5),
+                   "library_ms": time_ms(turn(library), **KERNEL_TIMING),
+                   "library_ms_one_call": time_ms(turn(library)),
+                   "library_device_ms": profiled_ms(turn(library)),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bound_share": b_ms / ms,
+                   "device_bound_share": b_ms / device}
+            log(f"rms_norm {json.dumps(row)}")
+            rows.append(row)
+        del x, delta, xs, ds, copies
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1205,12 +1272,15 @@ def per_step(rows, key):
 COUNTERS = {"flash_attention": flash_attention,
             "decode_gemm": dg.decode_linear,
             "rms_norm": rn.rms_norm,
+            "add_rms_norm": rn.add_rms_norm,
             "decode_attention": da.decode_attention,
             "prefill_gemm": pg.prefill_linear}
 #: llama3-8b's launches a decode step: 7 products a layer and the head;
-#: two norms a layer and the final one; attention once a layer.
+#: two norms a layer and the final one (rms_norm counts either entry),
+#: all but layer 0's attention norm fused with the residual add before
+#: it (add_rms_norm); attention once a layer.
 STEP_LAUNCHES = {"decode_gemm": 7 * 32 + 1, "rms_norm": 2 * 32 + 1,
-                 "decode_attention": 32}
+                 "add_rms_norm": 2 * 32, "decode_attention": 32}
 #: llama3-8b's prefill-GEMM launches a prefill forward: its 7 bf16
 #: projections a layer (the fp32 head stays cuBLAS).
 PREFILL_LAUNCHES = 7 * 32
@@ -1220,6 +1290,14 @@ PREFILL_ATTENTION_LAUNCHES = 32
 #: Decode-GEMM launches a prefill forward takes: its fp32 head at the
 #: one position a row its caller reads.
 PREFILL_HEAD_LAUNCHES = 1
+
+
+def fused_norms_ok(counts, layers: int = 32) -> bool:
+    """Every Llama forward of the run launched one plain norm (layer 0's
+    attention norm) and 2·layers fused ones (every other norm, the
+    residual add before it in the same launch), and some forward ran."""
+    plain = counts["rms_norm"] - counts["add_rms_norm"]
+    return plain > 0 and counts["add_rms_norm"] == 2 * layers * plain
 
 
 def prefills_on_flash(counts) -> bool:
@@ -1246,7 +1324,10 @@ KERNEL_NAMES = {"flash_attention": ("flash_fwd_kernel_wgmma",
                                     "flash_fwd_kernel_fma"),
                 "decode_gemm": ("decode_gemm_bf16_kernel",
                                 "decode_gemm_fp32_kernel"),
+                # Either entry's kernel: rms_norm_kernel<T, D> and
+                # add_rms_norm_kernel<T, D>.
                 "rms_norm": ("rms_norm_kernel",),
+                "add_rms_norm": ("add_rms_norm_kernel",),
                 "decode_attention": ("decode_attention_kernel",),
                 "prefill_gemm": ("prefill_gemm_kernel",)}
 
@@ -1473,6 +1554,7 @@ def serve_llama(card):
     in_generate = {k: launches[k] - before_generate[k] for k in launches}
     want = {k: steps * n for k, n in STEP_LAUNCHES.items()}
     want["rms_norm"] += STEP_LAUNCHES["rms_norm"]
+    want["add_rms_norm"] += STEP_LAUNCHES["add_rms_norm"]
     want["prefill_gemm"] = PREFILL_LAUNCHES
     want["flash_attention"] = PREFILL_ATTENTION_LAUNCHES
     want["decode_gemm"] += PREFILL_HEAD_LAUNCHES
@@ -1582,9 +1664,11 @@ def serve_llama(card):
     train = timed(train_lm, card, params)
     launches["flash_attention_train"] = train["flash_attention"]
     launches["rms_norm_train"] = train["rms_norm"]
+    launches["add_rms_norm_train"] = train["add_rms_norm"]
     gang = timed(gang_lm, card, params)
     launches["flash_attention_gang"] = gang["flash_attention"]
     launches["rms_norm_gang"] = gang["rms_norm"]
+    launches["add_rms_norm_gang"] = gang["add_rms_norm"]
     return launches
 
 
@@ -1762,14 +1846,14 @@ def serve_engine(card, registry, params, kwargs, *, prompts=ENGINE_PROMPTS,
         timing["launches"] = counts
         timing["decode_steps"] = steps
         want = {k: steps * n for k, n in STEP_LAUNCHES.items()
-                if k != "rms_norm"}
+                if k not in ("rms_norm", "add_rms_norm")}
         # One B=1 prefill an admission, its attention on flash.
         want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
         want["flash_attention"] = PREFILL_ATTENTION_LAUNCHES * len(requests)
         want["decode_gemm"] += PREFILL_HEAD_LAUNCHES * len(requests)
         if (any(counts[k] != n for k, n in want.items())
                 or counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"]
-                or any(twins.values())):
+                or not fused_norms_ok(counts) or any(twins.values())):
             raise AssertionError(f"engine {mode}: launches {counts} over "
                                  f"{steps} decode steps, expected {want}; "
                                  f"plain twins called {twins}")
@@ -1940,7 +2024,8 @@ def serve_prefix(card, registry, params, kwargs, *,
                 or counts["prefill_gemm"]
                 != PREFILL_LAUNCHES * PREFIX_REQUESTS
                 or counts["flash_attention"]
-                != PREFILL_ATTENTION_LAUNCHES * PREFIX_REQUESTS):
+                != PREFILL_ATTENTION_LAUNCHES * PREFIX_REQUESTS
+                or not fused_norms_ok(counts)):
             raise AssertionError(f"prefix {mode}: stats {stats}, launches "
                                  f"{counts}, plain twins called {twins}")
         results = cold + hits
@@ -2044,15 +2129,18 @@ def decode_step_launches(card, registry, params):
                 "wall_ms_profiled": wall}
 
     out = {"card": card, "port": count()}
-    saved = (llama.decode_linear, llama.rms_norm, llama.decode_attention)
+    saved = (llama.decode_linear, llama.rms_norm, llama.add_rms_norm,
+             llama.decode_attention)
     llama.decode_linear = F.linear
     llama.rms_norm = rn.rms_norm_reference
+    llama.add_rms_norm = rn.add_rms_norm_reference
     llama.decode_attention = lambda q, k, v, valid: dense_attention(
         q, k, v, kv_segment_valid=valid)
     try:
         out["plain_ops"] = count()
     finally:
-        llama.decode_linear, llama.rms_norm, llama.decode_attention = saved
+        (llama.decode_linear, llama.rms_norm, llama.add_rms_norm,
+         llama.decode_attention) = saved
     log(f"decode step launches (4 rows, cache {ENGINE_CACHE}): "
         f"{json.dumps(out)} (generate's decode profiled before the decode "
         f"kernels: ~3,400 a step)")
@@ -2236,8 +2324,8 @@ def serve_spec(card, registry, params, kwargs, vanilla, *,
                     or (draft is None and spec["acceptance_rate"] <= 0.5)
                     or not prefills_on_flash(counts) or any(twins.values())
                     or not all(counts[k] for k in (
-                        "decode_gemm", "rms_norm", "decode_attention",
-                        "prefill_gemm"))):
+                        "decode_gemm", "rms_norm", "add_rms_norm",
+                        "decode_attention", "prefill_gemm"))):
                 raise AssertionError(
                     f"spec {draft_name} {mode}: {row}, stats {stats}, "
                     f"plain twins called {twins}")
@@ -2342,8 +2430,8 @@ def serve_chunked(card, registry, params, kwargs, *,
                     != stats["total_pages"] or any(twins.values())
                     or not prefills_on_flash(counts)
                     or not all(counts[k] for k in (
-                        "decode_gemm", "rms_norm", "decode_attention",
-                        "prefill_gemm"))
+                        "decode_gemm", "rms_norm", "add_rms_norm",
+                        "decode_attention", "prefill_gemm"))
                     or stats.get("prefill_chunk") != extra.get(
                         "engine_prefill_chunk")):
                 raise AssertionError(f"{lane} {mode}: stats {stats}, "
@@ -2401,7 +2489,9 @@ def device_window(fn):
     """``fn()`` under the profiler's CUDA activity, then a synchronise:
     its result, and the window's wall ms (host clock), the device's busy
     ms (every kernel, copy and set it ran, summed), the idle share
-    1 - busy / wall, the device launches and each kernel's launches."""
+    1 - busy / wall, the device launches, each kernel's launches and
+    the bf16 elementwise adds (PyTorch's add kernel on bf16: a residual
+    add outside the fused norm would be one)."""
     from torch.autograd import DeviceType
 
     torch.cuda.synchronize()
@@ -2417,7 +2507,10 @@ def device_window(fn):
     return out, {"wall_ms": wall, "device_ms": busy,
                  "idle_share": max(0.0, 1.0 - busy / wall),
                  "launches": sum(r.count for r in rows),
-                 "kernels": kernel_counts(prof)}
+                 "kernels": kernel_counts(prof),
+                 "bf16_adds": sum(r.count for r in rows
+                                  if "CUDAFunctor_add" in r.key
+                                  and "BFloat16" in r.key)}
 
 
 def captured_mixes(vocab):
@@ -2569,16 +2662,22 @@ def serve_captured(card, registry, params, kwargs, *,
 def captured_engine_extras(eager, graphs, requests):
     """The engine mix's device windows: one captured 4-step slice
     replayed alone (each kernel's launches beside a 4-step slice's
-    STEP_LAUNCHES), and a classic admission (the 512-token request,
-    budget 1, alone on an idle engine) on each engine, its device ms
-    beside its host-clock TTFT."""
+    STEP_LAUNCHES; its norm kernels and no bf16 add asserted), and a
+    classic admission (the 512-token request, budget 1, alone on an idle
+    engine) on each engine, its device ms beside its host-clock TTFT."""
     out = {}
     program = graphs._graphs.programs[("decode_slice", "steps=4 slots=4")]
     _, out["slice_replay_window"] = device_window(program.graph.replay)
     # What the card ran, by kernel, beside a 4-step slice's launches.
-    out["slice_replay_window"]["kernels_expected"] = dict(
+    window = out["slice_replay_window"]
+    window["kernels_expected"] = dict(
         dict.fromkeys(KERNEL_NAMES, 0),
         **{k: 4 * n for k, n in STEP_LAUNCHES.items()})
+    # 65 norm kernels a step, 64 of them fused with the residual add
+    # before them, and no residual add of its own beside them.
+    if (any(window["kernels"][k] != window["kernels_expected"][k]
+            for k in ("rms_norm", "add_rms_norm")) or window["bf16_adds"]):
+        raise AssertionError(f"a replayed 4-step slice ran {window}")
     prompt, _, key = requests[1]
     for name, engine in (("uncaptured", eager), ("captured", graphs)):
         (_, timing), window = device_window(functools.partial(
@@ -2785,7 +2884,8 @@ def resume_launches_ok(counts, resumes, emitted, decode_steps):
             + (REPLAY_LAUNCHES["rms_norm"] + STEP_LAUNCHES["rms_norm"])
             * resumes
             and counts["decode_attention"]
-            == STEP_LAUNCHES["decode_attention"] * (decode_steps + emitted))
+            == STEP_LAUNCHES["decode_attention"] * (decode_steps + emitted)
+            and fused_norms_ok(counts))
 
 
 def serve_resume(card, registry, params, kwargs, *,
@@ -3465,7 +3565,7 @@ def serve_manager(card, registry, params, kwargs, captured=None, *,
                          for f in futures]
             steps = traced_decode_steps()
             want = {k: steps * n for k, n in STEP_LAUNCHES.items()
-                    if k != "rms_norm"}
+                    if k not in ("rms_norm", "add_rms_norm")}
             want["prefill_gemm"] = PREFILL_LAUNCHES * len(requests)
             want["flash_attention"] = \
                 PREFILL_ATTENTION_LAUNCHES * len(requests)
@@ -3481,6 +3581,7 @@ def serve_manager(card, registry, params, kwargs, captured=None, *,
                     engine.captured_keys() != warm,
                     any(counts[k] != n for k, n in want.items()),
                     counts["rms_norm"] < steps * STEP_LAUNCHES["rms_norm"],
+                    not fused_norms_ok(counts),
                     any(twins.values())]
             # 2. Streams with the mix's budgets: each the unary prefix.
             live = []
@@ -3623,17 +3724,19 @@ PRETRAIN_WARMUP = 2
 
 def train_launch_formula(layers: int, remat: bool, frozen_embed: bool):
     """Launches and plain recomputes one train step makes. Forward:
-    flash once a layer, RMSNorm twice a layer and once at the end; a
-    remat backward runs each block's forward again (flash and both
-    block norms once more). Backward: the flash gradient recomputes
-    through its plain version once a layer; a norm's gradient through
-    its plain formula wherever its input or scale wants one (all of
-    them, except the first block's attention norm when the embedding
-    is frozen, as in LoRA)."""
+    flash once a layer, RMSNorm twice a layer and once at the end, all
+    but layer 0's attention norm fused with the residual add before it;
+    a remat backward runs each block's forward again (flash and both
+    block norms once more, layer 0's attention norm a plain one).
+    Backward: the flash gradient recomputes through its plain version
+    once a layer; a norm's gradient through its plain formula wherever
+    its input or scale wants one (all of them, except the first block's
+    attention norm when the embedding is frozen, as in LoRA)."""
     again = 1 if remat else 0
     return {
         "flash_attention": layers * (1 + again),
         "rms_norm": 2 * layers + 1 + 2 * layers * again,
+        "add_rms_norm": 2 * layers + (2 * layers - 1) * again,
         "flash_backward": layers,
         "rms_norm_backward": 2 * layers + 1 - (1 if frozen_embed else 0),
         "forward_plain": 0,
@@ -3656,7 +3759,8 @@ def train_twins():
              (dg, "decode_linear_reference"): dg.decode_linear_reference,
              (pg, "prefill_linear_reference"): pg.prefill_linear_reference}
     backwards = {fa_mod._FlashAttention: fa_mod._FlashAttention.backward,
-                 rn._RMSNorm: rn._RMSNorm.backward}
+                 rn._RMSNorm: rn._RMSNorm.backward,
+                 rn._AddRMSNorm: rn._AddRMSNorm.backward}
 
     def counted(key, fn, backward_name):
         def wrapped(*a, **kw):
@@ -3691,7 +3795,7 @@ def train_twins():
             cls.backward = staticmethod(fn)
 
 
-TRAIN_KERNELS = ("flash_attention", "rms_norm")
+TRAIN_KERNELS = ("flash_attention", "rms_norm", "add_rms_norm")
 
 
 @contextlib.contextmanager
@@ -4113,6 +4217,7 @@ def verify_forward_launches(card, registry, params):
         f"{ENGINE_CACHE}): {json.dumps(out)}")
     want = {"decode_gemm": STEP_LAUNCHES["decode_gemm"],
             "rms_norm": STEP_LAUNCHES["rms_norm"],
+            "add_rms_norm": STEP_LAUNCHES["add_rms_norm"],
             "decode_attention": STEP_LAUNCHES["decode_attention"] * width,
             "prefill_gemm": 0, "flash_attention": 0}
     verify = out["verify"]
@@ -5092,7 +5197,7 @@ def train_bert(card):
                                  f"launches, expected {layers}")
     state, _ = create_lm_state(model, adamw(BERT_LR), params)
     step = make_lm_train_step(objective="mlm")
-    want = {"flash_attention": layers, "rms_norm": 0,
+    want = {"flash_attention": layers, "rms_norm": 0, "add_rms_norm": 0,
             "flash_backward": layers, "rms_norm_backward": 0,
             "forward_plain": 0}
     torch.cuda.reset_peak_memory_stats()
@@ -5579,7 +5684,9 @@ def measure_decode(card):
     steps = 2 * (MEASURE_NEW_TOKENS - 1) * len(MEASURE_SIZES)
     if (not prefill_launches_ok(counts, forwards, steps)
             or counts["rms_norm"]
-            != STEP_LAUNCHES["rms_norm"] * (forwards + steps)):
+            != STEP_LAUNCHES["rms_norm"] * (forwards + steps)
+            or counts["add_rms_norm"]
+            != STEP_LAUNCHES["add_rms_norm"] * (forwards + steps)):
         raise AssertionError(f"decode sweep launches {counts} for "
                              f"{forwards} forwards and {steps} steps")
     if sweep["param_bytes"] != 2 * LLAMA3_8B_PARAMS:
@@ -5948,28 +6055,48 @@ def main() -> int:
     }]
     # The decode kernels: sums over one llama3-8b decode step's launches
     # at M = 4 (4 slots), each shape's figure times its launches a step.
-    rms_train = launches.pop("rms_norm_train")
-    rms_gang = launches.pop("rms_norm_gang")
+    # RMSNorm's two entries, a line each with its own launches: the
+    # plain one (layer 0's attention norm, 1 a step) and the fused one
+    # (64). rms_norm's counter counts either entry's launches, so the
+    # plain entry's are that count less add_rms_norm's.
+    norm_train = {k: launches.pop(f"{k}_train")
+                  for k in ("rms_norm", "add_rms_norm")}
+    norm_gang = {k: launches.pop(f"{k}_gang")
+                 for k in ("rms_norm", "add_rms_norm")}
+
+    def own(counts, name):
+        return counts[name] - (counts["add_rms_norm"]
+                               if name == "rms_norm" else 0)
+
     for name, source, replaces, krows in (
             ("decode_gemm", "decode_gemm.cu",
              "kubeflow_tpu/models/llama.py:72", gemm_rows),
             ("rms_norm", "rms_norm.cu", "kubeflow_tpu/models/llama.py:46",
-             norm_rows),
+             [r for r in norm_rows if r["entry"] == "plain"]),
+            ("add_rms_norm", "rms_norm.cu",
+             "kubeflow_tpu/models/llama.py:267",
+             [r for r in norm_rows if r["entry"] == "fused"]),
             ("decode_attention", "decode_attention.cu",
              "kubeflow_tpu/ops/attention.py:57", attn_rows)):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[name],
-            **({"launches_train": rms_train, "launches_gang": rms_gang}
-               if name == "rms_norm" else {}),
-            "launches_measure": measure[name],
+            "launches": own(launches, name),
+            **({"launches_train": own(norm_train, name),
+                "launches_gang": own(norm_gang, name)}
+               if name in norm_train else {}),
+            "launches_measure": own(measure, name),
             "max_abs_err": max(r["max_abs_err"] for r in krows),
             **{k: per_step(krows, k) for k in ("ms", "plain_ms",
                                                "bound_ms", "library_ms")},
             "bound_by": "bytes",
         })
+    # No one PyTorch call adds and normalises: the fused entry's
+    # yardstick is a pair (x + d, then F.rms_norm), kept beside it.
+    fused_line = next(k for k in kernels if k["name"] == "add_rms_norm")
+    fused_line["library_pair_ms"] = fused_line["library_ms"]
+    fused_line["library_ms"] = None
     # The prefill GEMM: sums over one llama3-8b prefill forward at
     # M = 512, each shape's figure times its launches a forward.
     kernels.append({

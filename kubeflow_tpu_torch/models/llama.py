@@ -50,10 +50,16 @@ route, because cuBLAS's rows differ at narrow widths
 (scripts/decode_invariance.py, ``tail``); a prefill's callers ask for
 the one position a row they read (``logits_at``), so the head runs on
 B rows, not B·L.
-:func:`rms_norm` takes every norm on the card. On the CPU each is its
-plain version. The cache-free forward (predict, classify, training)
-keeps ``F.linear``: a plain large product, as the reference leaves it
-to XLA.
+Every norm runs on the RMSNorm kernel on the card: a block hands on its
+residual branch's output un-added, and the next norm adds it
+(:func:`add_rms_norm`, ``s = x + delta`` and the norm of ``s`` in one
+launch): block i's attention output with its ``mlp_norm``, its MLP (or
+MoE) output with block i + 1's ``attn_norm`` or, after the last block,
+``final_norm``. Layer 0's ``attn_norm`` alone takes :func:`rms_norm`, so
+a forward launches 1 plain and 2·layers fused norms and no residual add
+of its own. On the CPU each is its plain version. The cache-free
+forward (predict, classify, training) keeps ``F.linear``: a plain large
+product, as the reference leaves it to XLA.
 
 Training. ``param_dtype`` is the storage dtype of every weight; by
 default each weight is stored in the dtype its op consumes (serving).
@@ -65,9 +71,10 @@ fp32 ``lm_head``). In serving storage every such cast is a no-op.
 ``lora_rank > 0`` puts :class:`~kubeflow_tpu_torch.ops.lora.LoRALinear`
 adapters on q/k/v/o (the reference's ``LoRADense``); ``remat=True``
 recomputes each block in the backward pass
-(``torch.utils.checkpoint``, the reference's ``nn.remat``), so the
-block's flash and RMSNorm kernels launch again there: a remat forward
-and backward launch flash twice a layer and RMSNorm twice a block norm.
+(``torch.utils.checkpoint``, the reference's ``nn.remat``, its boundary
+carrying the stream and the pending residual), so the block's flash and
+RMSNorm kernels launch again there: a remat forward and backward launch
+flash twice a layer and RMSNorm twice a block norm.
 """
 
 from __future__ import annotations
@@ -91,7 +98,7 @@ from kubeflow_tpu_torch.ops.flash_attention import (
 from kubeflow_tpu_torch.ops.lora import LoRALinear
 from kubeflow_tpu_torch.ops.moe import MoE
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
-from kubeflow_tpu_torch.ops.rms_norm import rms_norm
+from kubeflow_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -120,6 +127,12 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.scale.to(self.dtype), self.eps)
+
+    def add(self, x: torch.Tensor,
+            delta: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(x + delta, norm(x + delta))`` from one launch: ``delta`` is
+        the residual branch's output still to be added."""
+        return add_rms_norm(x, delta, self.scale.to(self.dtype), self.eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -332,16 +345,23 @@ class LlamaBlock(nn.Module):
         self.down_proj = _linear(mlp_dim, d_model, store, device)
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
-                decode_positions=None):
+                decode_positions=None, pending=None):
+        """``(x, delta)``: the residual stream before this block's MLP
+        (or MoE) output ``delta`` is added, and ``delta``; the next norm
+        adds it. ``pending`` is the previous block's ``delta`` (None for
+        the first block), which this block's ``attn_norm`` adds."""
         route = _route(x, cache, decode_positions)
-        x = x + self.attention(self.attn_norm(x), positions, pad_lengths,
-                               cache, decode_positions)
-        h = self.mlp_norm(x)
+        if pending is None:
+            h = self.attn_norm(x)
+        else:
+            x, h = self.attn_norm.add(x, pending)
+        x, h = self.mlp_norm.add(x, self.attention(
+            h, positions, pad_lengths, cache, decode_positions))
         if self.moe is not None:
-            return x + self.moe(h)
+            return x, self.moe(h)
         h = (F.silu(_project(self.gate_proj, h, route))
              * _project(self.up_proj, h, route))
-        return x + _project(self.down_proj, h, route)
+        return x, _project(self.down_proj, h, route)
 
 
 class Llama(nn.Module):
@@ -488,16 +508,23 @@ class Llama(nn.Module):
         # Gather, then cast: the rows of Flax's cast-then-gather.
         x = self.tok_embed(input_ids).to(self.dtype)
         remat = self.remat and cache is None and torch.is_grad_enabled()
+        pending = None
         for i, layer in enumerate(self.layers):
             if remat:
-                x = _rematerialized(layer, x, positions)
+                x, pending = _rematerialized(layer, x, pending, positions)
             else:
-                x = layer(x, positions, pad_lengths,
-                          None if cache is None else cache[i],
-                          decode_positions)
+                x, pending = layer(x, positions, pad_lengths,
+                                   None if cache is None else cache[i],
+                                   decode_positions, pending)
         if logits_at is not None:
-            x = x[torch.arange(b, device=x.device), logits_at.long()][:, None]
-        x = self.final_norm(x).float()
+            rows = torch.arange(b, device=x.device), logits_at.long()
+            x = x[rows][:, None]
+            if pending is not None:
+                pending = pending[rows][:, None]
+        if pending is None:
+            x = self.final_norm(x).float()
+        else:
+            x = self.final_norm.add(x, pending)[1].float()
         head = self.lm_head.weight.float()
         if cache is None:
             return F.linear(x, head)
@@ -505,15 +532,18 @@ class Llama(nn.Module):
 
 
 def _rematerialized(layer: nn.Module, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """``layer(x, positions)``, its activations dropped and recomputed in
-    the backward pass. The recompute runs after :func:`apply` has put
-    the template's own (meta) parameters back, so it applies the
-    layer's weights of this call explicitly."""
+                    pending: Optional[torch.Tensor],
+                    positions: torch.Tensor):
+    """``layer(x, positions, pending=pending)``, its activations dropped
+    and recomputed in the backward pass (its fused norms launch again
+    there). The recompute runs after :func:`apply` has put the
+    template's own (meta) parameters back, so it applies the layer's
+    weights of this call explicitly."""
     weights = dict(layer.named_parameters())
     return torch.utils.checkpoint.checkpoint(
-        lambda h, pos: torch.func.functional_call(layer, weights, (h, pos)),
-        x, positions, use_reentrant=False, preserve_rng_state=False)
+        lambda h, p, pos: torch.func.functional_call(
+            layer, weights, (h, pos), {"pending": p}),
+        x, pending, positions, use_reentrant=False, preserve_rng_state=False)
 
 
 def apply(model: nn.Module, params: Dict[str, torch.Tensor], *args,

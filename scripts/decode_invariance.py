@@ -200,20 +200,23 @@ def truncate_parts(logits):
 @contextlib.contextmanager
 def today_routes():
     """Run the port's model on the ops it used before its decode
-    kernels: cuBLAS for every linear, the RMSNorm formula,
+    kernels: cuBLAS for every linear, the residual add and the RMSNorm
+    formula,
     ``dense_attention`` over the cache, one cumsum over the batch."""
-    saved = (llama.decode_linear, llama.rms_norm, llama.decode_attention,
-             gen._row_cumsum)
+    saved = (llama.decode_linear, llama.rms_norm, llama.add_rms_norm,
+             llama.decode_attention, gen._row_cumsum)
     llama.decode_linear = F.linear
     llama.rms_norm = lambda x, scale, eps: plain_rms_norm(x, scale)
+    llama.add_rms_norm = lambda x, delta, scale, eps: (
+        x + delta, plain_rms_norm(x + delta, scale))
     llama.decode_attention = lambda q, k, v, valid: dense_attention(
         q, k, v, kv_segment_valid=valid)
     gen._row_cumsum = lambda probs: torch.cumsum(probs, dim=-1)
     try:
         yield
     finally:
-        (llama.decode_linear, llama.rms_norm, llama.decode_attention,
-         gen._row_cumsum) = saved
+        (llama.decode_linear, llama.rms_norm, llama.add_rms_norm,
+         llama.decode_attention, gen._row_cumsum) = saved
 
 
 def decode_table(p, cfg, dev):

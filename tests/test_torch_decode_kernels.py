@@ -195,41 +195,66 @@ def test_decode_attention_ranges_do_not_move_when_a_page_pads_the_cache(
 
 def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     """llama-test generate: each decode step sends its 7 linears a layer
-    and the lm_head through decode_linear, its 2 norms a layer and the
-    final one through rms_norm, and its attention through
-    decode_attention; the prefill sends its attention once a layer, the
-    whole block at the cache's index, to prefill_attention (the flash
-    kernel on the card), none to decode_attention, and only its head, at
-    the one position a row generate reads, to decode_linear."""
-    calls = {"decode_linear": 0, "rms_norm": 0, "decode_attention": 0,
-             "prefill_attention": 0}
+    and the lm_head through decode_linear, its norms through the RMSNorm
+    kernel's two entries (layer 0's attention norm through rms_norm, the
+    other norm a layer and the final one through add_rms_norm, which
+    takes the residual add before it: no residual add runs outside it),
+    and its attention through decode_attention; the prefill sends its
+    attention once a layer, the whole block at the cache's index, to
+    prefill_attention (the flash kernel on the card), none to
+    decode_attention, and only its head, at the one position a row
+    generate reads, to decode_linear."""
+    calls = {"decode_linear": 0, "rms_norm": 0, "add_rms_norm": 0,
+             "decode_attention": 0, "prefill_attention": 0}
     offsets = []
+    inside_fused = [0]
+    model = llama.llama_test(dtype="float32", cache_size=32)
 
     def counting(name, fn):
         def wrapped(*a, **kw):
             calls[name] += 1
             if name == "prefill_attention":
                 offsets.append((a[3], a[0].shape[1]))
-            return fn(*a, **kw)
+            inside_fused[0] += name == "add_rms_norm"
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside_fused[0] -= name == "add_rms_norm"
         return wrapped
 
     for name in calls:
         monkeypatch.setattr(llama, name, counting(name, getattr(llama, name)))
-    model = llama.llama_test(dtype="float32", cache_size=32)
+    # A residual add: two float tensors of the stream's [B, L, d_model].
+    residual_adds = [0]
+    tensor_add = torch.Tensor.__add__
+
+    def add(a, b):
+        if (not inside_fused[0] and isinstance(b, torch.Tensor)
+                and a.is_floating_point() and a.dim() == 3
+                and a.shape[-1] == model.d_model and b.shape == a.shape):
+            residual_adds[0] += 1
+        return tensor_add(a, b)
+
+    monkeypatch.setattr(torch.Tensor, "__add__", add)
     params = init_params(model, seed=0, device="cpu")
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, 512, (2, 8)).astype(np.int32))
     layers = model.num_layers
     generate(model, params, ids, max_new_tokens=1)
-    assert calls == {"decode_linear": 1, "rms_norm": 5,
+    assert calls == {"decode_linear": 1, "rms_norm": 1,
+                     "add_rms_norm": 2 * layers,
                      "decode_attention": 0, "prefill_attention": layers}
+    assert calls["rms_norm"] + calls["add_rms_norm"] == 5
     assert offsets == [(0, 8)] * layers
     generate(model, params, ids, max_new_tokens=4)
     steps = 3
+    forwards = steps + 2
     assert calls == {"decode_linear": 2 + steps * (7 * layers + 1),
-                     "rms_norm": 5 * (steps + 2),
+                     "rms_norm": forwards,
+                     "add_rms_norm": 2 * layers * forwards,
                      "decode_attention": steps * layers,
                      "prefill_attention": 2 * layers}
+    assert residual_adds == [0]
     # A second block into the same cache: one launch a layer at the
     # cache's index, 8, where the first block ended.
     cache = init_cache(model, params, 2)
@@ -241,6 +266,7 @@ def test_decode_step_routes_through_the_three_wrappers(monkeypatch):
     assert offsets == [(0, 8)] * layers + [(8, 5)] * layers
     assert calls["prefill_attention"] == 4 * layers
     assert calls["decode_attention"] == steps * layers
+    assert residual_adds == [0]
 
 
 def test_row_cumsum_scans_each_row_as_one_cumsum():

@@ -665,6 +665,129 @@ def test_rms_norm_gradient_is_the_plain_versions(cuda):
         torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
 
 
+#: Row counts of the RMSNorm kernel's main path: a decode step's 1 and 4,
+#: a speculative verify's 20, a prefill's 512 and an 8192-token block.
+NORM_ROWS = (1, 4, 20, 512, 8192)
+
+
+def _norm_inputs(cuda, m, d, dtype, seed=4):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(m, d, device=cuda, generator=gen) * 2).to(dtype)
+    delta = torch.randn(m, d, device=cuda, generator=gen).to(dtype)
+    scale = (1 + 0.1 * torch.randn(d, device=cuda, generator=gen)).to(dtype)
+    return x, delta, scale
+
+
+def _each_row_alone(fn, *rows):
+    """fn on each row alone, the rows stacked: one launch a row."""
+    outs = [fn(*(t[i:i + 1] for t in rows)) for i in range(rows[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", rn.WIDTHS)
+def test_add_rms_norm_is_the_add_then_the_norm_bitwise(cuda, dtype, d):
+    """At every width the kernel is built for: s is torch's x + d bit for
+    bit, y the plain entry's norm of it, and both within one step of the
+    type of the plain composition."""
+    x, delta, scale = _norm_inputs(cuda, 20, d, dtype)
+    before = rn.rms_norm.launches, rn.add_rms_norm.launches
+    s, y = rn.add_rms_norm(x, delta, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert (rn.rms_norm.launches, rn.add_rms_norm.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(s, x + delta)
+    assert torch.equal(y, rn.rms_norm(x + delta, scale, 1e-5))
+    want_s, want_y = rn.add_rms_norm_reference(x, delta, scale, 1e-5)
+    _assert_within_a_step(y, want_y, dtype)
+    _assert_within_a_step(rn.rms_norm(x, scale, 1e-5),
+                          rn.rms_norm_reference(x, scale, 1e-5), dtype)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("m", NORM_ROWS)
+def test_rms_norm_rows_equal_the_row_alone_at_every_row_count(cuda, m,
+                                                              fused):
+    """Either entry at llama3-8b's width: every row of an M-row call
+    equal to the row alone, within a wave of CTAs and past it at 8192;
+    within one bf16 step of the plain version; the same bits on a second
+    call."""
+    x, delta, scale = _norm_inputs(cuda, m, 4096, torch.bfloat16)
+    if fused:
+        def fn(a, b):
+            return rn.add_rms_norm(a, b, scale, 1e-5)
+        args = (x, delta)
+        plain = rn.add_rms_norm_reference(x, delta, scale, 1e-5)[1]
+    else:
+        def fn(a):
+            return rn.rms_norm(a, scale, 1e-5)
+        args = (x,)
+        plain = rn.rms_norm_reference(x, scale, 1e-5)
+    whole = fn(*args)
+    torch.cuda.synchronize()
+    y = whole[1] if fused else whole
+    _assert_within_a_step(y, plain, torch.bfloat16)
+    again = fn(*args)
+    alone = _each_row_alone(fn, *args)
+    for got, second, one in zip(*(
+            (t if fused else (t,)) for t in (whole, again, alone))):
+        assert torch.equal(got, second)
+        assert torch.equal(got, one)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fused", [False, True])
+def test_rms_norm_takes_a_ragged_row_count_past_a_wave(cuda, dtype, fused):
+    """M past a wave of CTAs (the card holds about 800-1,800 of these at
+    once) and a multiple of neither 512 nor any wave: every row equals
+    the same row in 512-row blocks and is within one step of the plain
+    version."""
+    m = 3 * 4096 + 37
+    x, delta, scale = _norm_inputs(cuda, m, 4096, dtype, seed=5)
+    if fused:
+        got = rn.add_rms_norm(x, delta, scale, 1e-5)
+        blocks = [rn.add_rms_norm(x[i:i + 512], delta[i:i + 512], scale,
+                                  1e-5) for i in range(0, m, 512)]
+        want = tuple(torch.cat(b) for b in zip(*blocks))
+        plain = rn.add_rms_norm_reference(x, delta, scale, 1e-5)
+    else:
+        got = (rn.rms_norm(x, scale, 1e-5),)
+        want = (torch.cat([rn.rms_norm(x[i:i + 512], scale, 1e-5)
+                           for i in range(0, m, 512)]),)
+        plain = (rn.rms_norm_reference(x, scale, 1e-5),)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _assert_within_a_step(got[-1], plain[-1], dtype)
+
+
+def test_add_rms_norm_gradient_is_the_plain_compositions(cuda):
+    x, delta, scale = _norm_inputs(cuda, 8, 64, torch.float32, seed=6)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    gs, gy = (torch.randn(8, 64, device=cuda, generator=gen)
+              for _ in range(2))
+    grads = []
+    for fn in (rn.add_rms_norm, rn.add_rms_norm_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (x, delta, scale)]
+        s, y = fn(*leaves, 1e-5)
+        ((s * gs).sum() + (y * gy).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+def test_add_rms_norm_raises_on_what_the_kernel_does_not_take(cuda):
+    x, delta, scale = _norm_inputs(cuda, 4, 4096, torch.bfloat16)
+    for bad in ((x, delta.float(), scale), (x, delta, scale.float()),
+                (x, delta[:2], scale), (x, delta, scale[:2048]),
+                (x, delta.cpu(), scale), (x[:, :2048], delta[:, :2048],
+                                          scale[:2048])):
+        with pytest.raises(ValueError):
+            rn.add_rms_norm(*bad, 1e-5)
+
+
 @pytest.mark.parametrize("dtype,h,hkv,s,d", [
     (torch.bfloat16, 32, 8, 544, 128), (torch.bfloat16, 4, 2, 80, 16),
     (torch.float32, 8, 2, 200, 64), (torch.float32, 4, 4, 33, 16),
