@@ -333,8 +333,8 @@ import json
 import logging
 import math
 import os
+import pickle
 import re
-import shutil
 import socket
 import statistics
 import subprocess
@@ -353,6 +353,7 @@ from kubeflow_tpu_torch.inference.generate import _sample_logits, generate
 from kubeflow_tpu_torch.models.inception import InceptionV3
 from kubeflow_tpu_torch.models.vit import ViT
 from kubeflow_tpu_torch.models.convert import (
+    flax_key,
     init_params,
     init_vision,
     params_to_flax,
@@ -390,7 +391,6 @@ from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.serving.export import (
     export_model,
     read_metadata,
-    read_variables,
 )
 from kubeflow_tpu_torch.serving import benchmark as serving_bench
 from kubeflow_tpu_torch.serving import export_cli
@@ -404,7 +404,7 @@ from kubeflow_tpu_torch.training.checkpoint import (
     ContinuousCheckpointConfig,
     ShardedCheckpointer,
 )
-from kubeflow_tpu_torch.serving import wire
+from kubeflow_tpu_torch.serving import sharding, wire
 from kubeflow_tpu_torch.serving.manager import ModelManager, ServedModel
 from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
 from kubeflow_tpu_torch.serving.signature import (
@@ -425,7 +425,6 @@ from kubeflow_tpu_torch.training.benchmark import (
 from kubeflow_tpu_torch.training.benchmark import main as benchmark_main
 from kubeflow_tpu_torch.training import launcher
 from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
-from kubeflow_tpu_torch.serving import sharding
 from kubeflow_tpu_torch.training.data import (
     DevicePrefetcher,
     place_batch,
@@ -541,13 +540,19 @@ def profiled_ms(fn, calls: int = 20) -> float:
     its kernels."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total
-               for e in prof.key_averages()) / calls / 1e3
+    # A trace of calls that launch kernels but holds no device time lost
+    # its records (CUPTI); it is taken again, three times at most.
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / calls / 1e3
+    raise AssertionError("three profiler traces of a call that launches "
+                         "kernels recorded no device time")
 
 
 def compiler_report(report: str) -> dict:
@@ -770,10 +775,11 @@ def hold_rows(name, fn, plain, inputs, dtype, tol=None):
     return errs
 
 
-def decode_gemm_rows():
-    """The decode GEMM at each llama3-8b decode shape, M = 1 and 4."""
+def decode_gemm_rows(shapes=DECODE_GEMMS):
+    """The decode GEMM at each llama3-8b decode shape (``shapes``: a
+    tensor rank's with TENSOR_DECODE_GEMMS), M = 1 and 4."""
     rows = []
-    for name, k, n, dtype, per_step in DECODE_GEMMS:
+    for name, k, n, dtype, per_step in shapes:
         gen = torch.Generator(device="cuda").manual_seed(8)
         w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(dtype)
         x = torch.randn(CHECK_ROWS, 1, k, device="cuda", generator=gen).to(
@@ -916,17 +922,20 @@ def rms_norm_rows():
     return rows
 
 
-def decode_attention_rows():
-    """Decode attention at llama3-8b's heads over the engine's 544-slot
-    cache, bf16, rows at the engine mix's positions (M = 1, 4)."""
+def decode_attention_rows(heads=32, kv_heads=8, full_context=True):
+    """Decode attention at llama3-8b's heads (``heads`` over
+    ``kv_heads``: a tensor rank's 16 over 4 at tensor=2) over the
+    engine's 544-slot cache, bf16, rows at the engine mix's positions
+    (M = 1, 4); with ``full_context`` also one row at 8,192 keys."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(10)
     bf = torch.bfloat16
-    q = torch.randn(CHECK_ROWS, 1, 32, 128, device="cuda",
+    h, hkv = heads, kv_heads
+    q = torch.randn(CHECK_ROWS, 1, h, 128, device="cuda",
                     generator=gen).to(bf)
-    k = torch.randn(CHECK_ROWS, ENGINE_CACHE, 8, 128, device="cuda",
+    k = torch.randn(CHECK_ROWS, ENGINE_CACHE, hkv, 128, device="cuda",
                     generator=gen).to(bf)
-    v = torch.randn(CHECK_ROWS, ENGINE_CACHE, 8, 128, device="cuda",
+    v = torch.randn(CHECK_ROWS, ENGINE_CACHE, hkv, 128, device="cuda",
                     generator=gen).to(bf)
     pos = torch.tensor(DECODE_POSITIONS * (CHECK_ROWS // 4), device="cuda")
     valid = (torch.arange(ENGINE_CACHE, device="cuda")[None, :]
@@ -955,11 +964,12 @@ def decode_attention_rows():
                 attn_mask=ms_[:, None, None, :], enable_gqa=True)
 
         n_valid = int(ms_.sum())
-        nbytes = (2 * n_valid * 8 * 128 + 2 * m * 32 * 128) * 2 + ms_.numel()
-        b_ms, b_by = bound(nbytes, 4.0 * 128 * 32 * n_valid, bf)
+        nbytes = (2 * n_valid * hkv * 128 + 2 * m * h * 128) * 2 \
+            + ms_.numel()
+        b_ms, b_by = bound(nbytes, 4.0 * 128 * h * n_valid, bf)
         t = time_ms(run, **KERNEL_TIMING)
-        row = {"shape": f"B{m} S{ENGINE_CACHE} H32/8 D128 bf16", "m": m,
-               "launches_per_step": 32,
+        row = {"shape": f"B{m} S{ENGINE_CACHE} H{h}/{hkv} D128 bf16",
+               "m": m, "launches_per_step": 32,
                "max_abs_err": errs[m][0], "tol": errs[m][1], "ms": t,
                "device_ms": profiled_ms(run),
                "plain_ms": time_ms(plain, **KERNEL_TIMING),
@@ -968,6 +978,8 @@ def decode_attention_rows():
                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / t}
         log(f"decode_attention {json.dumps(row)}")
         rows.append(row)
+    if not full_context:
+        return rows
     # llama3-8b's full context, one row: the kernel at its S ceiling's
     # side of the main path (a CTA holds 1,024 keys of 8,192).
     s_long = 8192
@@ -1174,7 +1186,7 @@ MAIN_PATH_M = len(PROMPTS) * max(PROMPTS)
 PREFILL_WIDTHS = (1, 2, 20, 128, 140, 256, 512)
 
 
-def prefill_gemm_rows():
+def prefill_gemm_rows(shapes=PREFILL_GEMMS):
     """The prefill GEMM at each llama3-8b prefill shape, M = 512, bf16:
     within one bf16 step of ``F.linear`` (its plain version), the same
     bits on a second call, and the last and first M rows of the block
@@ -1188,7 +1200,7 @@ def prefill_gemm_rows():
     the bound the larger of the FLOPs at the bf16 peak and the bytes."""
     rows = []
     bf = torch.bfloat16
-    for name, k, n, per_forward in PREFILL_GEMMS:
+    for name, k, n, per_forward in shapes:
         gen = torch.Generator(device="cuda").manual_seed(11)
         w = (torch.randn(n, k, device="cuda", generator=gen) * 0.02).to(bf)
         x_main = torch.randn(MAIN_PATH_M, k, device="cuda",
@@ -1669,6 +1681,8 @@ def serve_llama(card):
     launches["flash_attention_gang"] = gang["flash_attention"]
     launches["rms_norm_gang"] = gang["rms_norm"]
     launches["add_rms_norm_gang"] = gang["add_rms_norm"]
+    tensor = timed(gang_tensor, card)
+    launches["tensor_ranks"] = tensor["launches"]
     return launches
 
 
@@ -4571,12 +4585,6 @@ def bn_routes(shapes) -> None:
 #: llama3-8b LoRA steps on each mesh, and unmeshed beside them.
 GANG_LORA_STEPS = 2
 GANG_MESHES = (("data=-1", MeshSpec(data=-1)), ("fsdp=-1", MeshSpec(fsdp=-1)))
-#: The sharded export: llama3-8b at full width, cut to this many blocks
-#: (two fp32 exports of the full depth would write 64 GB), served with
-#: greedy tokens of a [1, 16] prompt.
-GANG_EXPORT_LAYERS = 2
-GANG_EXPORT_PROMPT = 16
-GANG_EXPORT_TOKENS = 8
 #: The BN route's headline row (the row every PR has reported).
 BN_MAIN = (802816, 256)
 
@@ -4732,78 +4740,325 @@ def gang_checkpoint(card, state):
         f"{time.monotonic() - t0:.1f} s [{card}]")
 
 
-def gang_export(card):
-    """``kft-export --shards tensor=2`` of llama3-8b at full width, cut to
-    ``GANG_EXPORT_LAYERS`` blocks (fresh fp32 weights from seed 0, as the
-    CLI draws them), beside the monolithic export of the same weights;
-    the sharded manifest's plan is ``build_shard_plan`` of the monolithic
-    tree, its two shard files are there and ``params.msgpack`` is not;
-    both served on the card through ``load_version`` (the sharded one
-    joined by the read half): greedy tokens equal."""
-    kwargs = {"num_layers": GANG_EXPORT_LAYERS}
-    prompt = np.random.default_rng(4).integers(
-        0, get_model(LLAMA).num_classes_or_vocab, (1, GANG_EXPORT_PROMPT))
-    t0 = time.monotonic()
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".export-") as base:
-        free = shutil.disk_usage(base).free
-        paths = {}
-        for name, shards in (("mono", []), ("sharded", ["--shards",
-                                                        "tensor=2"])):
-            out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                rc = export_cli.main([
-                    "--model", LLAMA, "--out", f"{base}/{name}",
-                    "--seq_len", str(GANG_EXPORT_PROMPT),
-                    "--generate", json.dumps(
-                        {"max_new_tokens": GANG_EXPORT_TOKENS}),
-                    "--model_kwargs", json.dumps(kwargs), *shards])
-            if rc != 0:
-                raise AssertionError(f"kft-export {name}: exit {rc}")
-            paths[name] = out.getvalue().strip().splitlines()[-1]
-        meta = read_metadata(paths["sharded"])
-        module = get_model(LLAMA).make(**kwargs)
-        spec = sharding.ShardSpec(tensor=2)
-        plan = sharding.build_shard_plan(read_variables(paths["mono"]), spec,
-                                         module)
-        listing = sorted(os.listdir(paths["sharded"]))
-        sizes = {f: os.path.getsize(os.path.join(paths["sharded"], f))
-                 for f in listing}
-        if (meta.sharding["num_shards"] != 2
-                or meta.sharding["mesh"] != {"tensor": 2, "fsdp": 1}
-                or meta.sharding["plan"] != plan
-                or listing != sorted(["signature.json",
-                                      *meta.sharding["shards"]])):
-            raise AssertionError(f"sharded export: {meta.sharding} files "
-                                 f"{listing}")
-        tokens = {}
-        for name, path in paths.items():
-            loaded = load_version(path, max_batch=1)
-            tokens[name] = loaded.run({"input_ids": prompt})["tokens"]
-            del loaded
-            gc.collect()
-            torch.cuda.empty_cache()
-    if not np.array_equal(tokens["mono"], tokens["sharded"]):
-        raise AssertionError(f"sharded export served {tokens['sharded']} != "
-                             f"the monolithic export's {tokens['mono']}")
-    log(f"gang export: llama3-8b {GANG_EXPORT_LAYERS} blocks at full width, "
-        f"tensor=2 shards {sizes}, plan of {len(plan)} leaves (all "
-        f"{sorted({e['axis'] for e in plan.values()})}); greedy tokens equal "
-        f"the monolithic export's {tokens['mono'].tolist()}; {free} bytes "
-        f"free before; {time.monotonic() - t0:.1f} s [{card}]")
-
-
 def gang_lm(card, params):
     """The gang phase's llama3-8b half in a one-rank nccl group: the
-    meshed LoRA steps, the two-host checkpoint of their state and the
-    sharded export. Returns the meshed runs' launches."""
+    meshed LoRA steps and the two-host checkpoint of their state (the
+    sharded export is the tensor gang's, ``gang_tensor``). Returns the
+    meshed runs' launches."""
     with nccl_gang():
         state, launches = timed(gang_lora, card, params)
         timed(gang_checkpoint, card, state)
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    timed(gang_export, card)
     return launches
+
+
+# -- the tensor gang: the tensor axis on one card ------------------------------
+
+#: A tensor=2 rank's llama3-8b decode products: (name, K, N, dtype,
+#: launches a step). q, gate and up keep half their columns, o and down
+#: half their rows, k and v the rank's kv-head group (4 of 8 heads),
+#: the fp32 head half the vocabulary.
+TENSOR_DECODE_GEMMS = (
+    ("q_proj [4096→2048] bf16", 4096, 2048, torch.bfloat16, 32),
+    ("k_proj/v_proj [4096→512] bf16", 4096, 512, torch.bfloat16, 64),
+    ("o_proj [2048→4096] bf16", 2048, 4096, torch.bfloat16, 32),
+    ("gate_proj/up_proj [4096→7168] bf16", 4096, 7168, torch.bfloat16, 64),
+    ("down_proj [7168→4096] bf16", 7168, 4096, torch.bfloat16, 32),
+    ("lm_head [4096→64128] fp32", 4096, 64128, torch.float32, 1),
+)
+#: The same rank's prefill products at M = 512.
+TENSOR_PREFILL_GEMMS = tuple((name.rsplit(" ", 1)[0], k, n, per)
+                             for name, k, n, dtype, per in
+                             TENSOR_DECODE_GEMMS if dtype == torch.bfloat16)
+#: llama3-8b's depth in the tensor gang's export. At full width a block
+#: is 0.87 GB of fp32 export and the embedding and head 4.2 GB. The
+#: phase's time grows about 11 s a block, and the smoke's 1200 s limit,
+#: most of it spent before this phase, has no room for another (PERF.md
+#: §4 gives the phase's split and the smoke's total), so the depth is
+#: cut to 4 blocks.
+GANG_TENSOR_LAYERS = 4
+#: The engine's four requests: the engine mix's first four prompts, an
+#: 8-token budget each, keys PRNGKey(100 + i).
+GANG_TENSOR_PROMPTS = ENGINE_PROMPTS[:4]
+GANG_TENSOR_TOKENS = 8
+GANG_TENSOR_CONFIG = {"max_new_tokens": GANG_TENSOR_TOKENS,
+                      "engine_slots": 4, "engine_page_size": 16,
+                      "engine_slice_tokens": 4}
+GANG_TENSOR_MODES = {"greedy": {"temperature": 0.0}, "sampled": SAMPLING}
+#: The prefill's logits, gang vs the monolithic load: relative RMS (the
+#: bf16 Llama tolerance of ROADMAP's "held against").
+TENSOR_LOGITS_TOL = 3e-2
+#: Seconds a rank may take before the phase kills the gang and fails.
+GANG_TENSOR_TIMEOUT = 420
+#: The tensor gang's kernels: the Llama path's.
+TENSOR_KERNELS = ("flash_attention", "decode_gemm", "rms_norm",
+                  "add_rms_norm", "decode_attention", "prefill_gemm")
+
+
+def tensor_rows(kernels):
+    """Each kernel at a tensor=2 rank's llama3-8b shapes, held against
+    its plain version and timed as the one-rank rows are: the decode
+    GEMM at the rank's seven products and half the fp32 head, the
+    prefill GEMM at its bf16 ones (M = 512), decode attention at 16
+    query heads over 4 kv heads, flash at a [1, 512] causal block of
+    those heads. RMSNorm's width (4096) does not change."""
+    rows = {"decode_gemm": decode_gemm_rows(TENSOR_DECODE_GEMMS),
+            "prefill_gemm": prefill_gemm_rows(TENSOR_PREFILL_GEMMS),
+            "decode_attention": decode_attention_rows(16, 4, False),
+            "flash_attention": [check_flash(
+                kernels, "t: B1 L512 H16/4 D128 causal (tensor=2 rank)", 1,
+                512, 16, 4, 128, torch.bfloat16, True, False)]}
+    log(f"tensor=2 rank rows: "
+        f"{ {k: len(v) for k, v in rows.items()} } held")
+    return rows
+
+
+def spawn_gang(world, transport, case_path, out_dir):
+    """``world`` rank processes of ``scripts/tensor_gang.py``; each one's
+    results. A rank that fails fails the phase; a rank still running at
+    GANG_TENSOR_TIMEOUT is killed, with its peers, and fails it."""
+    script = os.path.join(ROOT, "scripts", "tensor_gang.py")
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--rank", str(r), "--world", str(world),
+         "--transport", transport, "--port", str(port), "--case", case_path,
+         "--out", os.path.join(out_dir, f"rank{r}.pkl")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    deadline = time.monotonic() + GANG_TENSOR_TIMEOUT
+    outputs = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, _ = proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(
+                    f"tensor gang: rank {r} still running after "
+                    f"{GANG_TENSOR_TIMEOUT} s; the gang was killed")
+            outputs.append(out)
+            for line in out.splitlines():
+                if line.startswith("[tensor_gang]"):
+                    log(line)
+            if proc.returncode != 0:
+                raise AssertionError(f"tensor gang: rank {r} exited "
+                                     f"{proc.returncode}:\n{out[-6000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [pickle.loads(open(os.path.join(out_dir, f"rank{r}.pkl"),
+                              "rb").read()) for r in range(world)]
+
+
+def gang_tensor(card, *, transport="gloo", world=2):
+    """``kft-export --shards tensor=world`` of llama3-8b at full width,
+    cut to GANG_TENSOR_LAYERS blocks (fp32 weights from seed 0, bf16
+    compute), served by a gang of ``world`` rank processes
+    (``scripts/tensor_gang.py``) that load it with ``load_version``, each
+    reading only its own shard file, and held against the same weights
+    loaded monolithically here. Asserted: the manifest's mesh, its shard
+    files and no ``params.msgpack``; the export joined on the host is the
+    weights kft-export drew, bitwise (so its monolithic export's, whose
+    tokens are then this load's), and the manifest's plan is
+    ``build_shard_plan`` of that tree; each rank opened its own shard
+    alone; the prefill's logits ([1, 512]) within TENSOR_LOGITS_TOL
+    relative RMS of the monolithic forward's; greedy tokens through
+    ``run`` and through the engine (four requests) equal to the
+    monolithic ``run``'s, or, at a step where they first differ, the
+    monolithic top-two margin there at most twice the step's max |Δ| of
+    logits between the two (their rounding can then explain it), the
+    step and margin logged; inside the gang, bitwise: every rank's
+    tokens equal, and each engine stream equal to the gang's B = 1
+    ``run`` of its request, greedy and sampled; every kernel of the path
+    launched on every rank. Returns the phase's figures."""
+    entry = get_model(LLAMA)
+    vocab = entry.num_classes_or_vocab
+    kwargs = {"num_layers": GANG_TENSOR_LAYERS, "dtype": "bfloat16"}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, vocab, n).astype(np.int32)
+               for n in GANG_TENSOR_PROMPTS]
+    keys = [np.asarray(prng.PRNGKey(100 + i), np.uint32)
+            for i in range(len(prompts))]
+    prefill = rng.integers(0, vocab, (1, max(GANG_TENSOR_PROMPTS))).astype(
+        np.int32)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tensor-") as base:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = export_cli.main([
+                "--model", LLAMA, "--out", f"{base}/export",
+                "--seq_len", str(max(GANG_TENSOR_PROMPTS)),
+                "--generate", json.dumps(GANG_TENSOR_CONFIG),
+                "--model_kwargs", json.dumps(kwargs),
+                "--shards", f"tensor={world}"])
+        if rc != 0:
+            raise AssertionError(f"kft-export --shards tensor={world}: "
+                                 f"exit {rc}")
+        path = out.getvalue().strip().splitlines()[-1]
+        export_s = time.monotonic() - t0
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        # The sharded layout: the manifest's mesh and shard files, and
+        # no params.msgpack (a server that ignored the manifest fails).
+        manifest = read_metadata(path).sharding
+        if (manifest["num_shards"] != world
+                or manifest["mesh"] != {"tensor": world, "fsdp": 1}
+                or sorted(sizes) != sorted(["signature.json",
+                                            *manifest["shards"]])):
+            raise AssertionError(f"sharded export: {manifest} files "
+                                 f"{sorted(sizes)}")
+        # The same weights on one device, joined on the host.
+        t1 = time.monotonic()
+        mono = load_version(path, max_batch=1)
+        forward = entry.make(**kwargs)
+        # The joined weights are those kft-export drew from seed 0, which
+        # its monolithic export carries: the sharded write and the joined
+        # read lose no bit, so the monolithic export's tokens are this
+        # load's. The manifest's plan is the reference's rule on them.
+        drawn = init_params(forward, seed=0)
+        lost = [k for k, v in drawn.items()
+                if not torch.equal(mono.params[k], v)]
+        del drawn
+        if lost:
+            raise AssertionError(f"sharded export joined: {lost[:5]} differ "
+                                 f"from the weights kft-export drew")
+        # The plan reads shapes alone: the joined leaves as views in
+        # Flax's layout, boxed where the reference boxes them.
+        views = {}
+        for name, t in mono.params.items():
+            key = flax_key(name)
+            leaf = t.T if key.endswith("/kernel") else t
+            views[key] = {"value": leaf} if forward.partitioned(key) else leaf
+        plan = sharding.build_shard_plan(
+            {"params": unflatten_tree(views)},
+            sharding.ShardSpec(tensor=world), forward)
+        if manifest["plan"] != plan:
+            raise AssertionError(f"sharded export's plan {manifest['plan']} "
+                                 f"!= build_shard_plan's {plan}")
+        with torch.inference_mode():
+            mono_logits = apply(forward, mono.params, torch.from_numpy(
+                prefill).cuda()).float().cpu()
+        mono_tokens, mono_s = [], []
+        for prompt, key in zip(prompts, keys):
+            t2 = time.monotonic()
+            mono_tokens.append(mono.run(
+                {"input_ids": prompt[None]},
+                row_rngs=np.asarray([key], np.uint32))["tokens"][0])
+            mono_s.append(time.monotonic() - t2)
+        fed_mono = []
+        with torch.inference_mode():
+            for prompt, tokens in zip(prompts, mono_tokens):
+                seq = np.concatenate([prompt, tokens[:-1]])[None]
+                step = apply(forward, mono.params,
+                             torch.from_numpy(seq).cuda())
+                fed_mono.append(step[0, len(prompt) - 1:].float().cpu())
+        mono_total = time.monotonic() - t1
+        del mono, forward
+        gc.collect()
+        torch.cuda.empty_cache()
+        case = {"export": path, "model": LLAMA,
+                "layers": GANG_TENSOR_LAYERS, "dtype": kwargs["dtype"],
+                "prefill": prefill, "prompts": prompts, "keys": keys,
+                "mono_tokens": mono_tokens, "modes": GANG_TENSOR_MODES}
+        case_path = os.path.join(base, "case.pkl")
+        with open(case_path, "wb") as f:
+            pickle.dump(case, f)
+        t1 = time.monotonic()
+        ranks = spawn_gang(world, transport, case_path, base)
+        gang_s = time.monotonic() - t1
+    shards = [f"params.shard-{r:05d}-of-{world:05d}.msgpack"
+              for r in range(world)]
+    for r, res in enumerate(ranks):
+        if res["opened"] != [shards[r]] or not res["topology"]["on_mesh"]:
+            raise AssertionError(f"tensor gang rank {r} opened "
+                                 f"{res['opened']}, topology "
+                                 f"{res['topology']}")
+        missing = [k for k in TENSOR_KERNELS if not res["launches"][k]]
+        if missing:
+            raise AssertionError(f"tensor gang rank {r}: {missing} never "
+                                 f"launched ({res['launches']})")
+    lead = ranks[0]
+    got = torch.from_numpy(lead["prefill_logits"])
+    err = rel_rms(got, mono_logits)
+    max_err = float((got - mono_logits).abs().max())
+    if not torch.isfinite(got).all() or err > TENSOR_LOGITS_TOL:
+        raise AssertionError(f"tensor gang prefill logits: relative RMS "
+                             f"{err} > {TENSOR_LOGITS_TOL} (max |Δ| "
+                             f"{max_err})")
+    divergences = []
+    for mode in GANG_TENSOR_MODES:
+        runs = lead[mode]
+        for r, res in enumerate(ranks[1:], start=1):
+            theirs = res[mode]
+            mine = [list(t) for t in runs["b1"]]
+            if ([list(x["tokens"][0]) for x in theirs["runs"]] != mine
+                    or theirs["engine"] != runs["engine"]):
+                raise AssertionError(f"tensor gang {mode}: rank {r}'s "
+                                     f"tokens differ from rank 0's")
+        for i, (stream, b1) in enumerate(zip(runs["streams"], runs["b1"])):
+            if not np.array_equal(stream, b1):
+                raise AssertionError(
+                    f"tensor gang {mode} request {i}: engine {stream} != "
+                    f"the gang's B=1 run {b1}")
+        if runs["stats"]["gang"]["capture_graphs"]:
+            raise AssertionError("a tensor gang's engine captured graphs")
+        if mode != "greedy":
+            continue
+        for i, (b1, want) in enumerate(zip(runs["b1"], mono_tokens)):
+            step = first_divergence(b1, want)
+            if step is None:
+                continue
+            mono_row = fed_mono[i][step]
+            top2 = torch.topk(mono_row, 2).values
+            margin = float(top2[0] - top2[1])
+            delta = float((torch.from_numpy(lead["fed_logits"][i][step])
+                           - mono_row).abs().max())
+            divergences.append({"request": i, "step": step,
+                                "margin": margin, "max_abs_delta": delta})
+            log(f"tensor gang greedy request {i}: first differs from the "
+                f"monolithic run at step {step}, top-two margin {margin}, "
+                f"max |Δ| logits {delta}")
+            if margin > 2 * delta:
+                raise AssertionError(
+                    f"tensor gang request {i} diverges at step {step} with "
+                    f"margin {margin} > 2 × max |Δ| {delta}: rounding "
+                    f"cannot explain it")
+    per_token = {"gang_ms": statistics.median(lead["greedy"]["b1_s"]) * 1e3
+                 / GANG_TENSOR_TOKENS,
+                 "one_rank_ms": statistics.median(mono_s) * 1e3
+                 / GANG_TENSOR_TOKENS}
+    figures = {
+        "card": card, "transport": transport, "ranks": world,
+        "layers": GANG_TENSOR_LAYERS, "plan_leaves": len(plan),
+        "export_s": export_s, "mono_s": mono_total,
+        "gang_s": gang_s, "load_s": [r["load_s"] for r in ranks],
+        "shard_bytes": sizes, "prefill_logits_rel_rms": err,
+        "prefill_logits_max_abs": max_err,
+        "greedy_divergences": divergences,
+        # B = 1 run's wall a new token (prefill included): the gang's
+        # ranks share one card, so this times its time-slicing, not
+        # tensor parallelism.
+        "b1_ms_per_token": per_token,
+        # The engine's four requests, submit to the last token.
+        "engine_s": {m: lead[m]["engine_s"] for m in GANG_TENSOR_MODES},
+        # Each rank's wall over the phase's main path, and the share of
+        # it its stream spent in collectives (CUDA events around each
+        # call on CUDA tensors, a wait for the peers included); the
+        # calls, control broadcasts included, and the host seconds of
+        # those on CPU tensors (gloo's object broadcasts).
+        "main_s": [r["main_s"] for r in ranks],
+        "collective_share": [r["collectives"]["device_s"] / r["main_s"]
+                             for r in ranks],
+        "collective_calls": [r["collectives"]["calls"] for r in ranks],
+        "collective_host_s": [r["collectives"]["host_s"] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+    }
+    log(f"tensor gang: {json.dumps(figures)}")
+    return figures
 
 
 def gang_resnet50(card):
@@ -6008,6 +6263,7 @@ def main() -> int:
     attn_rows = decode_attention_rows()
     prefill_attention_rows()
     prefill_rows = prefill_gemm_rows()
+    tensor_kernel_rows = tensor_rows(kernels)
     small_model_agreement()
     export_round_trip()
     launches = serve_llama(card)
@@ -6144,6 +6400,32 @@ def main() -> int:
             "bound_by": route_main[f"{part}_bound_by"],
             "library_ms": route_main[f"{part}_library_ms"],
         })
+    # The tensor gang's ranks (tensor=2, one card): each kernel's launches
+    # on each rank over the gang's main path, and its figures at a rank's
+    # shapes (sums over a decode step's or a prefill forward's launches,
+    # as the one-rank figures are).
+    tensor_launches = launches.pop("tensor_ranks")
+    for line in kernels:
+        krows = tensor_kernel_rows.get(line["name"])
+        if krows is None:
+            if line["name"] in ("rms_norm", "add_rms_norm"):
+                line["launches_tensor_ranks"] = [
+                    own(r, line["name"]) for r in tensor_launches]
+            continue
+        line["launches_tensor_ranks"] = [r[line["name"]]
+                                         for r in tensor_launches]
+        if line["name"] == "prefill_gemm":
+            figures = {k: sum(r["launches_per_forward"] * r[k] for r in krows)
+                       for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        elif line["name"] == "flash_attention":
+            figures = {k: krows[0][k] for k in ("ms", "plain_ms",
+                                                "bound_ms", "library_ms")}
+        else:
+            figures = {k: per_step(krows, k) for k in
+                       ("ms", "plain_ms", "bound_ms", "library_ms")}
+        line["tensor_rank"] = {
+            **figures,
+            "max_abs_err": max(r["max_abs_err"] for r in krows)}
     log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -456,6 +456,8 @@ class _Request:
     #: engine_request span, so a tier fetch is never mistaken for
     #: queue wait or decode time.
     kv_fetch_s: float = 0.0
+    #: A tensor gang's id of the request (its order of announcement).
+    gang_id: int = -1
 
 
 @dataclasses.dataclass
@@ -791,12 +793,27 @@ class DecodeEngine:
     (the comparison the GPU checks hold the captured engine to); a CPU
     engine always does. Prefix-lane and chunked prefills, a draft's
     prefill and a resume's replay run eagerly in either.
+
+    On a tensor gang (``gang``, a :class:`~kubeflow_tpu_torch.inference.
+    engine.gang.GangLink` over a tensor-parallel model's ranks) rank 0's
+    engine is the driver: it alone takes ``submit``, and at each lap,
+    before any device work, it broadcasts the requests it queued since
+    the last lap (prompt, step keys, budget, tenant) and the ones it
+    dropped (deadline, cancel); every other rank's engine applies them
+    and runs the same lap (:meth:`follow_lap`), so the ranks admit,
+    prefill and decode the same requests in the same order and issue
+    their collectives together. Sampling runs on the all-gathered logits
+    with the same keys on every rank, so the ranks agree on every token.
+    A gang's engine runs the plain lane, eagerly (CUDA-graph capture
+    with collectives inside is ROADMAP A18, as are the other lanes,
+    KV handoff and resume on a gang).
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
                  config: EngineConfig, *, name: str = "engine",
                  device: DeviceLike = None, draft_model: Any = None,
-                 draft_params: Any = None, capture_graphs: bool = True):
+                 draft_params: Any = None, capture_graphs: bool = True,
+                 gang: Any = None):
         if model.cache_size < config.max_prompt_len + \
                 config.max_new_tokens:
             raise ValueError(
@@ -842,6 +859,26 @@ class DecodeEngine:
             raise ValueError(
                 f"engine_host_cache_bytes {config.host_cache_bytes} "
                 f"< 0 (0 disables the host tier)")
+        if gang is not None:
+            lanes = [lane for lane, on in (
+                ("the prefix lane", config.prefix_cache),
+                ("speculative decoding", self._spec_on),
+                ("chunked prefill", config.prefill_chunk),
+                ("the host KV tier", config.host_cache_bytes > 0)) if on]
+            if lanes:
+                raise NotImplementedError(
+                    f"engine {name}: {lanes} on a tensor gang are not "
+                    f"ported (ROADMAP A18); a gang's engine runs the "
+                    f"plain lane")
+            capture_graphs = False
+        #: A tensor gang's control line (None alone), the requests rank
+        #: 0 queued and dropped since its last lap, and every request's
+        #: stream by gang id.
+        self._gang = gang
+        self._gang_new: List[_Request] = []
+        self._gang_drops: List[int] = []
+        self._gang_next = 0
+        self.gang_streams: Dict[int, GenerateStream] = {}
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The engine thread sets this device as its own current one.
@@ -1211,6 +1248,9 @@ class DecodeEngine:
         posted there (:meth:`_run_on_engine`); the prefix lane queues a
         slot-bound prefill-only request, chunked when ``prefill_chunk``
         is set, which hits and registers the prefix index."""
+        if self._gang is not None:
+            raise NotImplementedError(
+                "KV handoff on a tensor gang is not ported (ROADMAP A18)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
             raise ValueError(
@@ -1328,6 +1368,11 @@ class DecodeEngine:
         control sheds the request. ``kv_fetch_s`` is the fleet KV
         fetch the serving layer ran for this request, recorded in its
         ``engine_request`` span."""
+        if self._gang is not None and (handoff is not None
+                                       or step_keys is not None):
+            raise NotImplementedError(
+                "KV handoff and resume on a tensor gang are not ported "
+                "(ROADMAP A18)")
         if handoff is not None and step_keys is not None:
             raise ValueError("handoff and step_keys are mutually "
                              "exclusive (the handoff carries its own "
@@ -1478,7 +1523,14 @@ class DecodeEngine:
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is stopped")
-            self.scheduler.pending.append(req)
+            if self._gang is not None:
+                # Queued at rank 0's next lap, once announced.
+                req.gang_id = self._gang_next
+                self._gang_next += 1
+                self._gang_new.append(req)
+                self.gang_streams[req.gang_id] = stream
+            else:
+                self.scheduler.pending.append(req)
             self._cv.notify_all()
         self._ensure_thread()
         return stream
@@ -1575,9 +1627,10 @@ class DecodeEngine:
             # The graphs and their pool go with the engine thread.
             self._graphs = None
             self._prefill_cache = None
-        for req in list(self.scheduler.pending):
+        for req in list(self.scheduler.pending) + self._gang_new:
             req.stream._fail(err)
         self.scheduler.pending.clear()
+        self._gang_new = []
         if self.prefix is not None:
             if not still_running:
                 # Drain the cache so the pool releases cleanly (a
@@ -1651,6 +1704,10 @@ class DecodeEngine:
             }
         if self.config.prefill_chunk:
             out["prefill_chunk"] = self.config.prefill_chunk
+        if self._gang is not None:
+            # A tensor gang's engine runs eagerly (no CUDA graphs).
+            out["gang"] = {"ranks": self._gang.size,
+                           "capture_graphs": self._graphs is not None}
         if self.host_tier is not None:
             out["kv_tier"] = {
                 "host": self.host_tier.stats(),
@@ -1690,20 +1747,17 @@ class DecodeEngine:
                     return
                 if (not self.scheduler.pending
                         and not self.scheduler.active_slots()
-                        and not self._control):
+                        and not self._control and not self._gang_new):
                     self._cv.wait(timeout=0.05)
                     continue
             try:
                 self._drain_control()
-                self._expire()
-                self._admit()
-                self._advance_prefills()
-                if self.scheduler.decoding_slots():
-                    self._run_slice()
-                elif self.scheduler.prefilling_slots():
-                    # Prefill-only laps: work advanced, no nap.
-                    pass
+                if self._gang is not None:
+                    worked = self._lead_lap()
                 else:
+                    self._expire()
+                    worked = self._lap()
+                if not worked:
                     # Queued-but-unadmittable head with nothing
                     # decoding: bounded nap instead of a hot spin
                     # (only expiry/cancel can change the picture, and
@@ -1713,6 +1767,64 @@ class DecodeEngine:
                             self._cv.wait(timeout=0.05)
             except Exception as e:  # noqa: BLE001 — fail the streams,
                 # keep the engine alive for later requests.
+                logger.exception("engine slice failed")
+                for slot in self.scheduler.active_slots():
+                    self._retire(slot, "error", error=e)
+
+    def _lap(self) -> bool:
+        """Admit, advance prefills and run a slice where a slot decodes:
+        one lap's device work. False when it could not move (a queued
+        head that does not fit, nothing decoding or prefilling)."""
+        self._admit()
+        self._advance_prefills()
+        if self.scheduler.decoding_slots():
+            self._run_slice()
+            return True
+        # Prefill-only laps: work advanced, no nap.
+        return bool(self.scheduler.prefilling_slots())
+
+    def _lead_lap(self) -> bool:
+        """Rank 0's lap on a tensor gang: expire, then broadcast what
+        changed in the queue since the last lap, then the lap, all under
+        the gang's lock (a ``LoadedModel.run`` of rank 0 takes it too,
+        so the ranks see one order of work)."""
+        with self._gang.lock:
+            self._expire()
+            with self._cv:
+                new, self._gang_new = self._gang_new, []
+                drops, self._gang_drops = self._gang_drops, []
+                for req in new:
+                    self.scheduler.pending.append(req)
+            self._gang.send(("lap", [
+                (r.gang_id, r.prompt, r.step_keys, r.max_new_tokens,
+                 r.tenant, r.request_id) for r in new], drops))
+            return self._lap()
+
+    def follow_lap(self, new: Sequence[tuple], drops: Sequence[int]) -> None:
+        """A follower rank's lap on a tensor gang: rank 0's queued
+        requests appended in its order, its drops applied, then the same
+        lap (on the caller's thread, in the engine's device scope)."""
+        with self._device_scope():
+            now = time.monotonic()
+            for gid, prompt, keys, budget, tenant, request_id in new:
+                stream = GenerateStream(budget)
+                self.gang_streams[gid] = stream
+                self.scheduler.pending.append(_Request(
+                    prompt=prompt, step_keys=keys, max_new_tokens=budget,
+                    deadline=None, stream=stream, submitted_at=now,
+                    request_id=request_id, tenant=tenant, gang_id=gid))
+            gone = set(drops)
+            if gone:
+                for req in self.scheduler.pending.remove_if(
+                        lambda r: r.gang_id in gone):
+                    req.stream._fail(RuntimeError("dropped by rank 0"))
+                for slot in self.scheduler.active_slots():
+                    if slot.request.gang_id in gone:
+                        self._retire(slot, "cancelled", error=RuntimeError(
+                            "dropped by rank 0"))
+            try:
+                self._lap()
+            except Exception as e:  # noqa: BLE001 — as rank 0's loop does
                 logger.exception("engine slice failed")
                 for slot in self.scheduler.active_slots():
                     self._retire(slot, "error", error=e)
@@ -1803,6 +1915,13 @@ class DecodeEngine:
             expired = self.scheduler.expired_pending()
             dead = self.scheduler.pending.remove_if(
                 lambda r: r.stream.cancelled)
+        late = self.scheduler.expired_slots()
+        gone = [s for s in self.scheduler.active_slots()
+                if s not in late and s.request.stream.cancelled]
+        if self._gang is not None:
+            # Rank 0's drops, announced before its lap's device work.
+            self._gang_drops += [r.gang_id for r in expired + dead] + [
+                s.request.gang_id for s in late + gone]
         for req in expired:
             req.stream._fail(DeadlineExceededError(
                 "deadline expired while queued for a slot"))
@@ -1814,14 +1933,13 @@ class DecodeEngine:
             req.stream._fail(RuntimeError(
                 "stream cancelled by the client"))
             _M_RETIRED.labels(self.name, "cancelled_queued").inc()
-        for slot in self.scheduler.expired_slots():
+        for slot in late:
             self._retire(slot, "deadline", error=DeadlineExceededError(
                 f"deadline expired mid-decode after "
                 f"{slot.emitted} token(s)"))
-        for slot in self.scheduler.active_slots():
-            if slot.request.stream.cancelled:
-                self._retire(slot, "cancelled", error=RuntimeError(
-                    "stream cancelled by the client"))
+        for slot in gone:
+            self._retire(slot, "cancelled", error=RuntimeError(
+                "stream cancelled by the client"))
 
     def _admit(self) -> None:
         while True:

@@ -67,7 +67,9 @@ def init_cache(model: Any, params: Dict[str, torch.Tensor],
     """Zero KV caches for ``model`` (built with a ``cache_size``), one
     per layer, in the model's dtype on the params' device."""
     device = next(iter(params.values())).device
-    shape = (batch, model.cache_size, model.num_kv_heads, model.head_dim)
+    shape = (batch, model.cache_size,
+             getattr(model, "cache_kv_heads", model.num_kv_heads),
+             model.head_dim)
     return [LayerCache(torch.zeros(shape, dtype=model.dtype, device=device),
                        torch.zeros(shape, dtype=model.dtype, device=device))
             for _ in range(model.num_layers)]

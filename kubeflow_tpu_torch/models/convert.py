@@ -137,14 +137,41 @@ def torch_spec(key: str, spec: Tuple, ndim: int) -> Tuple:
     return tuple(full[f] for f in flax_dims(key, ndim))
 
 
+def _piece(config: nn.Module, key: str, leaf: Any,
+           local: Tuple[int, ...], mesh: Any) -> Any:
+    """This rank's piece of a Flax leaf (an array or a tensor) for a
+    model built on a tensor axis: cut on each dim the rule table splits
+    over ``tensor`` (a leaf already the rank's piece there, ``local``
+    wide, is kept), and with ``mesh`` over ``fsdp`` too."""
+    from kubeflow_tpu_torch.parallel.collectives import dims_by_axis
+    from kubeflow_tpu_torch.parallel.tensor_parallel import (
+        tensor_piece,
+        variables_sharding,
+    )
+
+    on = mesh if mesh is not None else getattr(config, "mesh", None)
+    if on is None or not hasattr(config, "logical_axes"):
+        return leaf
+    axes = ["tensor"] + (["fsdp"] if mesh is not None else [])
+    dim = dims_by_axis(variables_sharding(on, config, [key])[key]).get(
+        "tensor")
+    if dim is not None and leaf.shape[dim] == local[dim]:
+        axes.remove("tensor")  # given as the rank's piece already
+    return leaf[tensor_piece(config, key, leaf.shape, on, axes)]
+
+
 def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
-                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                     device: DeviceLike = None, mesh: Any = None
+                     ) -> Dict[str, torch.Tensor]:
     """Port params from a flat ``"/"``-keyed dict of Flax params (as
     ``flax.traverse_util.flatten_dict(params, sep="/")`` gives them).
     ``config`` is the port module the params are for (built on the meta
     device); every one of its parameters (its LoRA adapters aside: they
     are :func:`lora_from_flax`'s) must be present, and no other key may
-    be."""
+    be. For a model built on a tensor axis (``Llama(mesh=)``) each whole
+    leaf is cut to the rank's piece (a leaf given as that piece is
+    taken as it is); with ``mesh`` the result is the rank's piece over
+    every param axis of it (fsdp too), as a mesh trainer holds it."""
     device = resolve_device(device)
     out = {}
     for name, template in config.named_parameters():
@@ -153,13 +180,14 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
         key = flax_key(name)
         if key not in flat:
             raise KeyError(f"Flax params have no {key!r} (for {name})")
-        leaf = flat[key]
+        local = flax_shape(key, tuple(template.shape))
+        leaf = _piece(config, key, flat[key], local, mesh)
         if isinstance(leaf, torch.Tensor):  # a bf16 leaf of an export
             leaf = leaf.float().numpy()
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
         if key.endswith("/kernel"):
             arr = _kernel_to_torch(key, arr)
-        if tuple(arr.shape) != tuple(template.shape):
+        if mesh is None and tuple(arr.shape) != tuple(template.shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit "
                              f"{name} {tuple(template.shape)}")
         out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
@@ -308,7 +336,9 @@ def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Port adapters from the reference's flat ``"/"``-keyed ``lora``
     collection: every adapter of ``config`` must be present, fp32, in
-    the reference's layout, and no other key may be."""
+    the reference's layout, and no other key may be. A tensor-parallel
+    model's adapters are cut to the rank's pieces, as
+    :func:`params_from_flax` cuts params."""
     device = resolve_device(device)
     out = {}
     for name, template in config.named_parameters():
@@ -317,7 +347,9 @@ def lora_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
         key = flax_key(name)
         if key not in flat:
             raise KeyError(f"the lora collection has no {key!r} (for {name})")
-        arr = np.array(flat[key], dtype=np.float32)
+        arr = np.array(_piece(config, key, flat[key],
+                              tuple(template.shape), None),
+                        dtype=np.float32)
         if tuple(arr.shape) != tuple(template.shape):
             raise ValueError(f"{key}: shape {arr.shape} does not fit "
                              f"{name} {tuple(template.shape)}")

@@ -99,6 +99,20 @@ from kubeflow_tpu_torch.ops.lora import LoRALinear
 from kubeflow_tpu_torch.ops.moe import MoE
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
+from kubeflow_tpu_torch.parallel.collectives import (
+    copy_to_tensor,
+    gather_from_tensor,
+    reduce_from_tensor,
+)
+from kubeflow_tpu_torch.parallel.mesh import (
+    Mesh,
+    check_batch_axes,
+    tensor_rank,
+)
+from kubeflow_tpu_torch.parallel.tensor_parallel import (
+    kv_group,
+    kv_heads_split,
+)
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -164,22 +178,72 @@ def _linear(d_in: int, d_out: int, dtype, device, lora_rank: int = 0,
 DECODE, PREFILL = "decode", "prefill"
 
 
-def _project(layer: nn.Linear, x: torch.Tensor,
+def _product(x: torch.Tensor, weight: torch.Tensor,
              route: Optional[str]) -> torch.Tensor:
+    if route == DECODE:
+        return decode_linear(x, weight)
+    if route == PREFILL and weight.dtype == torch.bfloat16:
+        return prefill_linear(x, weight)
+    return F.linear(x, weight)
+
+
+def _lora_scale(layer: LoRALinear, dtype: torch.dtype) -> float:
+    return float(torch.tensor(layer.alpha / layer.rank, dtype=dtype))
+
+
+def _project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
+             mesh: Optional[Mesh] = None,
+             shared: bool = False) -> torch.Tensor:
     """``x·W`` with W cast to x's dtype at the op (a no-op in serving
     storage); in a decode step through :func:`decode_linear`, and a bf16
     layer in a prefill into the cache through :func:`prefill_linear`. A
-    LoRA layer adds its adapter's delta on any route."""
-    weight = layer.weight.to(x.dtype)
-    if route == DECODE:
-        y = decode_linear(x, weight)
-    elif route == PREFILL and weight.dtype == torch.bfloat16:
-        y = prefill_linear(x, weight)
-    else:
-        y = F.linear(x, weight)
+    LoRA layer adds its adapter's delta on any route.
+
+    On a tensor axis (``mesh``) this is a column-parallel product: W is
+    the rank's column slice and x the replicated input, so the adapter's
+    A, which every rank holds whole, has its gradient summed over the
+    tensor line; ``shared`` (a k/v kernel every rank holds whole and
+    reads a part of) sums W's and B's gradients too."""
+    weight = layer.weight
+    if shared:
+        weight = copy_to_tensor(weight, mesh)
+    y = _product(x, weight.to(x.dtype), route)
     if isinstance(layer, LoRALinear):
-        y = y + layer.delta(x)
+        if mesh is None:
+            return y + layer.delta(x)
+        a = copy_to_tensor(layer.lora_a, mesh).to(x.dtype)
+        b = layer.lora_b
+        if shared:
+            b = copy_to_tensor(b, mesh)
+        y = y + ((x @ a) @ b.to(x.dtype)) * _lora_scale(layer, x.dtype)
     return y
+
+
+def _row_project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
+                 mesh: Optional[Mesh]) -> torch.Tensor:
+    """A row-parallel product (o, down) on a tensor axis: x is the
+    rank's slice of the input features and W the matching rows, so the
+    product is a partial sum, finished by an all-reduce over the tensor
+    line before the next norm adds it. A LoRA adapter's ``x·A`` (A split
+    on its input rows) is all-reduced before B. Without a tensor axis,
+    :func:`_project`."""
+    if mesh is None:
+        return _project(layer, x, route)
+    y = reduce_from_tensor(_product(x, layer.weight.to(x.dtype), route),
+                           mesh)
+    if isinstance(layer, LoRALinear):
+        xa = reduce_from_tensor(x @ layer.lora_a.to(x.dtype), mesh)
+        y = y + (xa @ layer.lora_b.to(x.dtype)) * _lora_scale(layer,
+                                                              x.dtype)
+    return y
+
+
+def _tensor_axis(mesh: Optional[Mesh]) -> Tuple[Optional[Mesh], int, int]:
+    """``(mesh, size, rank)`` of a model's tensor axis; the mesh is None
+    when the axis is 1 (no tensor collective is issued)."""
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return None, 1, 0
+    return mesh, mesh.shape["tensor"], tensor_rank(mesh)
 
 
 def _route(x: torch.Tensor, cache, decode_positions=None) -> Optional[str]:
@@ -201,8 +265,20 @@ class LlamaAttention(nn.Module):
                  head_dim: int, rope_theta: float, dtype: torch.dtype,
                  attention_fn: Optional[AttentionFn] = None, device=None,
                  param_dtype: Optional[torch.dtype] = None,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
+        # On a tensor axis of T: this rank's H/T query heads, and its
+        # kv-head group where Hkv % T == 0, else every kv head, each
+        # query head reading its own (``kv_index``).
+        self.mesh, tensor, rank = _tensor_axis(mesh)
+        split = kv_heads_split(num_kv_heads, tensor)
+        self.kv_index = None if split else torch.tensor(
+            kv_group(num_heads, num_kv_heads, tensor, rank))
+        self.shared_kv = not split
+        num_heads //= tensor
+        if split:
+            num_kv_heads //= tensor
         self.num_heads = num_heads
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
@@ -224,11 +300,13 @@ class LlamaAttention(nn.Module):
                 cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
         route = _route(x, cache, decode_positions)
-        q = _project(self.q_proj, x, route).reshape(
+        mesh = self.mesh
+        x = copy_to_tensor(x, mesh)
+        q = _project(self.q_proj, x, route, mesh).reshape(
             b, l, self.num_heads, self.head_dim)
-        k = _project(self.k_proj, x, route).reshape(
+        k = _project(self.k_proj, x, route, mesh, self.shared_kv).reshape(
             b, l, self.num_kv_heads, self.head_dim)
-        v = _project(self.v_proj, x, route).reshape(
+        v = _project(self.v_proj, x, route, mesh, self.shared_kv).reshape(
             b, l, self.num_kv_heads, self.head_dim)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
@@ -251,15 +329,24 @@ class LlamaAttention(nn.Module):
                 valid = valid & (slots[None, :] >= pad_lengths[:, None])
             if route == DECODE:
                 # One query at ``start``: causality is the validity.
-                out = decode_attention(q, cache.k, cache.v, valid)
+                out = decode_attention(q, self._kv(cache.k),
+                                       self._kv(cache.v), valid)
             else:
-                out = prefill_attention(q, cache.k, cache.v, start, valid)
+                out = prefill_attention(q, self._kv(cache.k),
+                                        self._kv(cache.v), start, valid)
         elif self.attention_fn is not None:
-            out = self.attention_fn(q, k, v)
+            out = self.attention_fn(q, self._kv(k), self._kv(v))
         else:
-            out = flash_attention(q, k, v, causal=True)
-        return _project(self.o_proj, out.reshape(
-            b, l, self.num_heads * self.head_dim), route)
+            out = flash_attention(q, self._kv(k), self._kv(v), causal=True)
+        return _row_project(self.o_proj, out.reshape(
+            b, l, self.num_heads * self.head_dim), route, mesh)
+
+    def _kv(self, t: torch.Tensor) -> torch.Tensor:
+        """K or V ``[B, S, kv heads, D]`` as this rank's query heads read
+        it: as it is, or (every kv head held) one head a query head."""
+        if self.kv_index is None:
+            return t
+        return t[:, :, self.kv_index.to(t.device)]
 
     def _decode_rows(self, q, k, v, cache: LayerCache, start, pad_lengths):
         """The slot engine's decode step: every row sits at its own
@@ -295,8 +382,8 @@ class LlamaAttention(nn.Module):
             valid = pos <= (start + j)[:, None]
             if pad_lengths is not None:
                 valid = valid & (pos >= pad_lengths[:, None])
-            outs.append(decode_attention(q[:, j:j + 1], cache.k, cache.v,
-                                         valid))
+            outs.append(decode_attention(q[:, j:j + 1], self._kv(cache.k),
+                                         self._kv(cache.v), valid))
         return outs[0] if l == 1 else torch.cat(outs, dim=1)
 
     def _write_block(self, cache: LayerCache, k, v, start, rows):
@@ -324,14 +411,16 @@ class LlamaBlock(nn.Module):
                  dtype: torch.dtype, attention_fn: Optional[AttentionFn],
                  device=None, param_dtype: Optional[torch.dtype] = None,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 num_experts: int = 0, num_selected: int = 2):
+                 num_experts: int = 0, num_selected: int = 2,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         store = param_dtype or dtype
+        self.mesh, tensor, _ = _tensor_axis(mesh)
         self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                  param_dtype=store)
         self.attention = LlamaAttention(
             d_model, num_heads, num_kv_heads, head_dim, rope_theta, dtype,
-            attention_fn, device, store, lora_rank, lora_alpha)
+            attention_fn, device, store, lora_rank, lora_alpha, mesh)
         self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                 param_dtype=store)
         if num_experts > 0:
@@ -340,6 +429,9 @@ class LlamaBlock(nn.Module):
                            dtype=dtype, param_dtype=store, device=device)
             return
         self.moe = None
+        # Column-parallel gate and up, row-parallel down: mlp_dim / T a
+        # rank.
+        mlp_dim //= tensor
         self.gate_proj = _linear(d_model, mlp_dim, store, device)
         self.up_proj = _linear(d_model, mlp_dim, store, device)
         self.down_proj = _linear(mlp_dim, d_model, store, device)
@@ -349,7 +441,9 @@ class LlamaBlock(nn.Module):
         """``(x, delta)``: the residual stream before this block's MLP
         (or MoE) output ``delta`` is added, and ``delta``; the next norm
         adds it. ``pending`` is the previous block's ``delta`` (None for
-        the first block), which this block's ``attn_norm`` adds."""
+        the first block), which this block's ``attn_norm`` adds. On a
+        tensor axis both branch outputs are all-reduced where they are
+        made, so ``delta`` is whole before a norm adds it."""
         route = _route(x, cache, decode_positions)
         if pending is None:
             h = self.attn_norm(x)
@@ -359,9 +453,11 @@ class LlamaBlock(nn.Module):
             h, positions, pad_lengths, cache, decode_positions))
         if self.moe is not None:
             return x, self.moe(h)
-        h = (F.silu(_project(self.gate_proj, h, route))
-             * _project(self.up_proj, h, route))
-        return x, _project(self.down_proj, h, route)
+        mesh = self.mesh
+        h = copy_to_tensor(h, mesh)
+        h = (F.silu(_project(self.gate_proj, h, route, mesh))
+             * _project(self.up_proj, h, route, mesh))
+        return x, _row_project(self.down_proj, h, route, mesh)
 
 
 class Llama(nn.Module):
@@ -377,7 +473,22 @@ class Llama(nn.Module):
     puts the MoE FFN (ops/moe.py, top-``num_selected`` routing) in
     every block in place of SwiGLU; each forward sows its load-balance
     loss (``ops.moe.collect_losses`` gathers them).
+
+    ``mesh`` with a ``tensor`` axis of T > 1 builds this rank's
+    tensor-parallel slice (dense only; an MoE Llama raises, ROADMAP
+    A18), Megatron's layout written out: q, k, v, gate, up and the
+    ``lm_head`` column-parallel (the rank's H/T heads, its kv-head group
+    or every kv head, mlp/T, vocab/T), o and down row-parallel with
+    their partial sums all-reduced where the block makes them, the
+    token table split on vocab (each rank looks up the ids in its row
+    range, zeros elsewhere, and an all-reduce sums them: bitwise the
+    whole table's lookup) and the head's logits all-gathered. The
+    kernels run unchanged at the per-rank shapes; the widths, ``num_heads``
+    and ``num_kv_heads`` are the model's (a layer's are its rank's).
     """
+
+    #: The dense Llama runs the tensor axis (``parallel/mesh.py``).
+    TENSOR_PARALLEL = True
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 32,
                  d_model: int = 4096, num_heads: int = 32,
@@ -387,8 +498,19 @@ class Llama(nn.Module):
                  cache_size: int = 0, num_experts: int = 0,
                  num_selected: int = 2,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 remat: bool = False, param_dtype=None, device="meta"):
+                 remat: bool = False, param_dtype=None, device="meta",
+                 mesh: Optional[Mesh] = None):
         super().__init__()
+        if num_experts:
+            self.TENSOR_PARALLEL = False
+        tp_mesh, tensor, rank = _tensor_axis(mesh)
+        if tp_mesh is not None:
+            check_batch_axes(tp_mesh, "Llama", self)
+            for what, n in (("num_heads", num_heads), ("mlp_dim", mlp_dim),
+                            ("vocab_size", vocab_size)):
+                if n % tensor:
+                    raise ValueError(f"{what} {n} does not split over "
+                                     f"tensor={tensor}")
         if lora_rank < 0:
             raise ValueError(f"lora_rank must be >= 0, got {lora_rank}")
         if cache_size and attention_fn is not None:
@@ -412,19 +534,28 @@ class Llama(nn.Module):
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
         self.remat = remat
-        self.tok_embed = nn.Embedding(vocab_size, d_model,
+        self.mesh = tp_mesh
+        self.tensor = tensor
+        #: The rank's first vocab id (its rows of the token table and
+        #: its columns of the head).
+        self.vocab_start = rank * (vocab_size // tensor)
+        self.kv_split = kv_heads_split(num_kv_heads, tensor)
+        #: Kv heads a rank's KV cache holds.
+        self.cache_kv_heads = (num_kv_heads // tensor if self.kv_split
+                               else num_kv_heads)
+        self.tok_embed = nn.Embedding(vocab_size // tensor, d_model,
                                       dtype=store or dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, num_heads, num_kv_heads, self.head_dim,
                        mlp_dim, rope_theta, dtype, attention_fn, device,
                        store, lora_rank, lora_alpha, num_experts,
-                       num_selected)
+                       num_selected, tp_mesh)
             for _ in range(num_layers))
         self.final_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                   param_dtype=store)
         # fp32 head over an fp32-cast input, as the reference.
-        self.lm_head = _linear(d_model, vocab_size, store or torch.float32,
-                               device)
+        self.lm_head = _linear(d_model, vocab_size // tensor,
+                               store or torch.float32, device)
 
     #: The reference's ``nn.with_partitioning`` axes, by Flax key suffix.
     LOGICAL_AXES = (
@@ -457,6 +588,16 @@ class Llama(nn.Module):
                 return ((kernel[0], "lora") if adapter == "lora_a"
                         else ("lora", kernel[1]))
         return logical_axes_by_suffix(self.LOGICAL_AXES, key)
+
+    def split_axes(self, key: str) -> Optional[Tuple[Optional[str], ...]]:
+        """:meth:`logical_axes`, but a k/v kernel's (and its ``lora_b``'s)
+        ``kv`` dim is ``kv_heads`` where each tensor rank holds its
+        kv-head group (``parallel/tensor_parallel.py``)."""
+        axes = self.logical_axes(key)
+        if (axes and self.tensor > 1 and self.kv_split
+                and ("/k_proj/" in key or "/v_proj/" in key)):
+            axes = tuple("kv_heads" if a == "kv" else a for a in axes)
+        return axes
 
     def partitioned(self, key: str) -> bool:
         """Whether the reference's Llama annotates the Flax param ``key``
@@ -506,7 +647,7 @@ class Llama(nn.Module):
             positions = torch.arange(l, device=input_ids.device)[None].expand(
                 b, l)
         # Gather, then cast: the rows of Flax's cast-then-gather.
-        x = self.tok_embed(input_ids).to(self.dtype)
+        x = self._embed(input_ids).to(self.dtype)
         remat = self.remat and cache is None and torch.is_grad_enabled()
         pending = None
         for i, layer in enumerate(self.layers):
@@ -526,9 +667,23 @@ class Llama(nn.Module):
         else:
             x = self.final_norm.add(x, pending)[1].float()
         head = self.lm_head.weight.float()
+        x = copy_to_tensor(x, self.mesh)
         if cache is None:
-            return F.linear(x, head)
-        return decode_linear(x, head)
+            return gather_from_tensor(F.linear(x, head), self.mesh)
+        return gather_from_tensor(decode_linear(x, head), self.mesh)
+
+    def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The token rows; on a tensor axis each rank's rows of its vocab
+        range, zeros for the other ids, summed over the tensor line."""
+        if self.mesh is None:
+            return self.tok_embed(input_ids)
+        table = self.tok_embed.weight
+        local = input_ids - self.vocab_start
+        mine = (local >= 0) & (local < table.shape[0])
+        rows = F.embedding(torch.where(mine, local, 0), table)
+        rows = torch.where(mine[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+        return reduce_from_tensor(rows, self.mesh)
 
 
 def _rematerialized(layer: nn.Module, x: torch.Tensor,

@@ -12,8 +12,10 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""The gang's mesh and its shardings (the batch axes: dcn_data, data,
-fsdp). The model axes are ROADMAP A18."""
+"""The gang's mesh and its shardings: the batch axes (dcn_data, data,
+fsdp) and, for the dense Llama, the tensor axis (``collectives.py``'s
+Megatron pair, ``tensor_parallel.py``'s pieces). The other model axes
+are ROADMAP A18."""
 
 from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

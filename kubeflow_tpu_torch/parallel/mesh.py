@@ -197,6 +197,11 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    def __deepcopy__(self, memo) -> "Mesh":
+        # A model template holds its mesh; a copy of the template (the
+        # decode engine's) shares the mesh's process groups.
+        return self
+
     def __repr__(self) -> str:
         live = {k: v for k, v in self.shape.items() if v > 1}
         return f"Mesh({live or '1'}, rank={self.rank}, device={self.device})"
@@ -264,7 +269,10 @@ def build_mesh(spec: Optional[MeshSpec] = None,
 
     In a ``torch.distributed`` group the mesh spans its ranks, one
     device a rank: an nccl group on the card (``device`` is then this
-    process's card), a gloo group on the CPU. Without a process group it
+    process's card), a gloo group on the CPU, or a gloo group whose
+    ranks share one card (nccl refuses two ranks on one device; the
+    caller names the card as ``device``, and the tensor collectives
+    gather by all-reduce there). Without a process group it
     is a mesh of one on ``device``. The megascale env fills ``dcn_data``
     exactly as the reference's rules do, and a spec that contradicts it
     raises. ``device`` defaults as every entry point's: the card."""
@@ -280,13 +288,15 @@ def build_mesh(spec: Optional[MeshSpec] = None,
             raise ValueError(f"an nccl gang runs on the card, not {device}")
     else:
         dev = resolve_device(device if device is not None else "cpu")
-        if dev.type != "cpu":
+        if dev.type != "cpu" and backend != "gloo":
             raise ValueError(f"a {backend} gang runs on the CPU, not {dev}")
     from torch.distributed.device_mesh import init_device_mesh
 
     shape = tuple(spec.sizes()[a] for a in AXIS_ORDER)
-    device_mesh = init_device_mesh(dev.type, shape,
-                                   mesh_dim_names=AXIS_ORDER)
+    # A gloo group's subgroups are gloo's whatever device its ranks
+    # compute on; the device mesh only hands out those groups.
+    device_mesh = init_device_mesh("cuda" if backend == "nccl" else "cpu",
+                                   shape, mesh_dim_names=AXIS_ORDER)
     return Mesh(spec, rank, dev, device_mesh)
 
 
@@ -334,6 +344,16 @@ class Sharding:
             i = self.mesh.index(axes, rank)
             out[dim] = slice(i * width, (i + 1) * width)
         return tuple(out)
+
+    def only(self, axes: Sequence[str]) -> "Sharding":
+        """This layout with every mesh axis but ``axes`` taken out (the
+        dims those axes split become whole)."""
+        spec = []
+        for entry in self.spec:
+            kept = tuple(a for a in _members(entry) if a in axes)
+            spec.append(None if not kept else
+                        kept[0] if len(kept) == 1 else kept)
+        return Sharding(self.mesh, tuple(spec))
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of a whole leaf, a contiguous copy."""
@@ -414,13 +434,40 @@ def logical_sharding(mesh: Mesh, logical_axes: Mapping[str, Any],
             for k, axes in logical_axes.items()}
 
 
-def check_batch_axes(mesh: Mesh, what: str) -> None:
-    """Raise on a mesh with a model axis above 1: the trainers of this
-    port run the batch axes (dcn_data, data, fsdp) only."""
+def tensor_parallel_model(model: Any) -> bool:
+    """Whether ``model`` declares tensor-parallel layers (a class's
+    ``TENSOR_PARALLEL``; an instance may say no, as an MoE Llama does)."""
+    return bool(getattr(model, "TENSOR_PARALLEL", False))
+
+
+def check_batch_axes(mesh: Mesh, what: str, model: Any = None, *,
+                     tensor_ok: bool = False) -> None:
+    """Raise on a mesh with a model axis above 1 that the port does not
+    run: ``seq``, ``expert`` and ``pipeline`` always, and ``tensor``
+    unless ``model`` declares tensor-parallel layers
+    (:func:`tensor_parallel_model`: the dense Llama) or ``tensor_ok``
+    (a step built before its model is known checks it at its call)."""
     live = mesh.model_axes()
+    if live.get("tensor") and (tensor_ok or tensor_parallel_model(model)):
+        del live["tensor"]
     if live:
         raise NotImplementedError(
-            f"{what}: the model axes {live} (tensor-parallel products, "
-            f"ring/Ulysses attention, the pipeline schedule, expert "
-            f"parallelism) are not ported yet (ROADMAP A18); the port's "
-            f"mesh trainers run dcn_data, data and fsdp")
+            f"{what}: the model axes {live} are not ported yet for "
+            f"{type(model).__name__ if model is not None else 'this step'}"
+            f" (ROADMAP A18: ring/Ulysses attention on seq, the pipeline "
+            f"schedule, expert parallelism, tensor for BERT, ViT, the CNNs "
+            f"and MoE); the port runs dcn_data, data, fsdp and, for the "
+            f"dense Llama, tensor")
+
+
+def tensor_group(mesh: Mesh):
+    """The process group of this rank's ``tensor`` line, or None (no
+    process group, or a ``tensor`` axis of 1)."""
+    if mesh.shape["tensor"] == 1:
+        return None
+    return mesh.group(("tensor",))
+
+
+def tensor_rank(mesh: Mesh) -> int:
+    """This rank's position on the ``tensor`` axis."""
+    return mesh.coords()["tensor"]

@@ -36,9 +36,11 @@ The port's serving plane, module for module the reference's:
   version policy grammar and the fleet KV pull-through.
 
 - :mod:`export_cli`: ``kft-export``, a checkpoint into a version dir;
-  :mod:`sharding`: a sharded export's writer and its read half
-  (served on one card).
+  :mod:`sharding`: a sharded export's writer, its one-card read and its
+  gang's read (``tensor=T`` on T ranks, ``LoadedModel.follow``).
 - :mod:`benchmark`: the serving benchmark's legs.
 
-Not ported: a sharded export's mesh load (ROADMAP A18), the proxy, the client, and the benchmark's obs-overhead and SLO legs
-(A16); the reference's proxy fronts port replicas unchanged."""
+Not ported: a manager or server fronting a gang and an fsdp-sharded
+serving forward (ROADMAP A18), the proxy, the client, and the
+benchmark's obs-overhead and SLO legs (A16); the reference's proxy
+fronts port replicas unchanged."""

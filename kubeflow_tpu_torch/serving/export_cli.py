@@ -36,7 +36,9 @@ annotate, so each package loads the other's exports. A vision model's
 ``batch_stats`` travel with its params. ``--shards`` above one writes
 the sharded layout (``serving/sharding.py``: one file per serving-mesh
 position, split by the rule table over the model's logical axes), as
-the reference's ``--shards`` does.
+the reference's ``--shards`` does; a ``tensor=T`` export of a dense
+Llama loads onto a T-rank gang (``load_version``), each rank reading
+its own file.
 The device the fresh weights are drawn on is ``--device``, else the
 env's (``utils/platform.py``); the writing is host work.
 """

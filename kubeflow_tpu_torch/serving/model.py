@@ -40,6 +40,15 @@ train=False)``: a vision model on its params and ``batch_stats`` (BN at
 its running statistics), BERT on ``input_ids`` alone (``type_ids`` and
 ``valid`` None), a Llama on ``input_ids``; the Llama family also serves
 ``generate``.
+
+A gang of ranks serves a Llama on a ``tensor`` mesh (:func:`load_version`
+``mesh=``, or a ``tensor=T`` sharded export with a group of T ranks):
+each rank holds its tensor pieces and runs the tensor-parallel forward.
+Rank 0 drives: it alone takes ``run`` and the engine's requests, and
+broadcasts each unit of work before it runs it
+(``inference/engine/gang.py``); every other rank calls
+:meth:`LoadedModel.follow`, which does the same work until rank 0's
+:meth:`LoadedModel.close`.
 """
 
 from __future__ import annotations
@@ -55,11 +64,13 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.inference import prng
+from kubeflow_tpu_torch.inference.engine.gang import GangLink
 from kubeflow_tpu_torch.inference.generate import generate, prompt_bucket
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.layers import apply as apply_vision
 from kubeflow_tpu_torch.models.llama import apply
 from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.mesh import tensor_group
 from kubeflow_tpu_torch.serving.export import (
     read_metadata,
     read_variables,
@@ -101,12 +112,23 @@ class LoadedModel:
     device: DeviceLike = None
     #: A BN model's running statistics (the ``batch_stats`` collection).
     batch_stats: Optional[Dict[str, torch.Tensor]] = None
+    #: The serving mesh of a gang (``params`` are then this rank's
+    #: pieces); None on one device.
+    mesh: Any = None
+    #: The shard files this rank read (:func:`load_version`).
+    shard_files: Optional[List[str]] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         entry = get_model(self.metadata.registry_name)
         self._family = entry.family
-        self._module = entry.make(**self.metadata.model_kwargs)
+        kwargs = dict(self.metadata.model_kwargs)
+        self._gang = None
+        if self.mesh is not None and self.mesh.shape["tensor"] > 1:
+            kwargs["mesh"] = self.mesh
+            if tensor_group(self.mesh) is not None:
+                self._gang = GangLink(self.mesh)
+        self._module = entry.make(**kwargs)
         self.params = {k: v.to(self.device) for k, v in self.params.items()}
         self.batch_stats = {k: v.to(self.device) for k, v in
                             (self.batch_stats or {}).items()}
@@ -249,6 +271,17 @@ class LoadedModel:
             config = EngineConfig.from_generate_config(
                 self.metadata.generate_config, spec.shape[1],
                 queue_capacity=queue_capacity)
+            if self._gang is not None:
+                # A gang's engine: rank 0 announces it; no draft (the
+                # speculative lane on a gang is ROADMAP A18).
+                with self._gang.lock:
+                    if self._gang.leader:
+                        self._gang.send(("engine", name, queue_capacity))
+                    self._engine = DecodeEngine(
+                        self._module, self.params, config,
+                        name=name or self.metadata.model_name,
+                        device=self.device, gang=self._gang)
+                return self._engine
             draft_model, draft_params = self._load_draft()
             try:
                 self._engine = DecodeEngine(
@@ -275,13 +308,16 @@ class LoadedModel:
     def shard_topology(self) -> Dict[str, Any]:
         """Healthz-facing layout summary, the reference's shape: the
         manifest's shard count and mesh (``{"num_shards": 1}`` for a
-        monolithic export), and no mesh to serve on: the port reassembles
-        a sharded export on one device (ROADMAP A18 for a mesh:
-        ``serving_mesh``)."""
+        monolithic export), and ``on_mesh``: whether this model serves
+        on a gang's mesh (a sharded export reassembled on one device
+        does not)."""
         from kubeflow_tpu_torch.serving.sharding import shard_topology
 
         topo = shard_topology(self.metadata)
-        topo["on_mesh"] = False
+        topo["on_mesh"] = self.mesh is not None
+        if self.mesh is not None and not self.metadata.sharding:
+            topo["mesh"] = {"tensor": self.mesh.shape["tensor"],
+                            "fsdp": self.mesh.shape["fsdp"]}
         return topo
 
     @property
@@ -291,11 +327,51 @@ class LoadedModel:
 
     def close(self) -> None:
         """Release background resources (the decode engine's thread
-        and page pool). Idempotent."""
+        and page pool). Idempotent. On a gang, rank 0's close ends the
+        other ranks' :meth:`follow` (after its engine's last lap)."""
         with self._engine_lock:
             engine, self._engine = self._engine, None
         if engine is not None:
             engine.stop()
+        gang, self._gang = self._gang, None
+        if gang is not None and gang.leader:
+            with gang.lock:
+                gang.send(("close",))
+
+    def follow(self) -> Dict[str, Any]:
+        """A follower rank of a gang: run the work rank 0 broadcasts (its
+        ``run`` calls, its engine's build and laps) until rank 0 closes.
+        Returns what this rank computed: ``runs`` (each ``run``'s outputs,
+        or the error it raised, as rank 0's raised it too) and
+        ``engine`` (each engine request's tokens by gang id), which equal
+        rank 0's."""
+        gang = self._gang
+        if gang is None or gang.leader:
+            raise RuntimeError("follow() runs on a gang's ranks other than "
+                               "rank 0")
+        runs: List[Any] = []
+        while True:
+            message = gang.recv()
+            op = message[0]
+            if op == "run":
+                try:
+                    runs.append(self._run_here(*message[1:]))
+                except Exception as e:  # noqa: BLE001 — rank 0 raised too
+                    runs.append(e)
+            elif op == "engine":
+                self.ensure_engine(*message[1:])
+            elif op == "lap":
+                self._engine.follow_lap(*message[1:])
+            elif op == "close":
+                streams = {} if self._engine is None else \
+                    self._engine.gang_streams
+                tokens = {gid: s.tokens_so_far
+                          for gid, s in streams.items()}
+                self._gang = None
+                self.close()
+                return {"runs": runs, "engine": tokens}
+            else:
+                raise ValueError(f"unknown gang message {op!r}")
 
     def run(self, inputs: Dict[str, np.ndarray],
             signature_name: Optional[str] = None,
@@ -308,7 +384,26 @@ class LoadedModel:
         Generate-method extras (the batcher's coalescing contract):
         ``prompt_lengths`` [n] true token counts of LEFT-padded rows
         (None = every row is full-width), ``row_rngs`` [n, 2] per-row
-        sampling keys (None = mint fresh ones via request_rngs)."""
+        sampling keys (None = mint fresh ones via request_rngs). On a
+        gang, rank 0 broadcasts the call (its keys minted first) and the
+        other ranks' :meth:`follow` runs it with it."""
+        if self._gang is None:
+            return self._run_here(inputs, signature_name, method,
+                                  prompt_lengths, row_rngs)
+        if not self._gang.leader:
+            raise RuntimeError("on a gang only rank 0 takes requests; the "
+                               "other ranks follow()")
+        sig = self.signature(signature_name)
+        if (method or sig.method) == "generate" and row_rngs is None:
+            row_rngs = self.request_rngs(len(next(iter(inputs.values()))))
+        with self._gang.lock:
+            self._gang.send(("run", inputs, signature_name, method,
+                             prompt_lengths, row_rngs))
+            return self._run_here(inputs, signature_name, method,
+                                  prompt_lengths, row_rngs)
+
+    def _run_here(self, inputs, signature_name, method, prompt_lengths,
+                  row_rngs) -> Dict[str, np.ndarray]:
         sig = self.signature(signature_name)
         method = method or sig.method
         if (method == "generate") != (sig.method == "generate"):
@@ -335,12 +430,11 @@ class LoadedModel:
             outs: List[Dict[str, np.ndarray]] = []
             for i in range(0, n, self.max_batch):
                 sl = slice(i, i + self.max_batch)
-                outs.append(self.run(
+                outs.append(self._run_here(
                     {next(iter(sig.inputs)): x[sl]}, signature_name,
                     method,
-                    prompt_lengths=(None if prompt_lengths is None
-                                    else prompt_lengths[sl]),
-                    row_rngs=None if row_rngs is None else row_rngs[sl]))
+                    None if prompt_lengths is None else prompt_lengths[sl],
+                    None if row_rngs is None else row_rngs[sl]))
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
         bucket = _bucket(n, self.max_batch)
         if method == "generate":
@@ -404,6 +498,8 @@ class LoadedModel:
                 min(int(v), spec.shape[1])
                 for v in self.metadata.generate_config.get(
                     "prompt_buckets", ())} | {spec.shape[1]})
+        if self._gang is not None and not self._gang.leader:
+            return  # rank 0's warmup runs reach this rank's follow()
         bucket = 1
         while True:
             for length in lengths:
@@ -424,27 +520,43 @@ class LoadedModel:
 
 
 def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
-                 warmup: bool = False,
-                 device: DeviceLike = None) -> LoadedModel:
+                 warmup: bool = False, device: DeviceLike = None,
+                 mesh: Any = None) -> LoadedModel:
     """Load one version dir written by either package: its signature,
     then its Flax params, carried across to the port's layout and
     dtypes (``models/convert.py``) on ``device`` (``None`` → cuda).
     A vision export's ``batch_stats`` collection is carried across
     beside its params; any other collection raises. An export with a
-    shard manifest (``metadata.sharding``, ``serving/sharding.py``) is
-    reassembled on the host and then carried across as a monolithic
-    one: the reference's n = 1 read, for one card that holds the whole
-    model; a manifest this build cannot read raises. Loading each shard
-    onto its own device of a mesh (``load_sharded_variables``) is ROADMAP
-    A18."""
+    shard manifest (``metadata.sharding``, ``serving/sharding.py``)
+    loads onto a serving mesh, as the reference's does, when ``mesh`` is
+    given or the ``torch.distributed`` group has exactly ``num_shards``
+    ranks (``serving_mesh``): each rank reads its own shard file
+    (``load_sharded_variables``) and serves its tensor pieces, and every
+    rank must call this. Otherwise it is reassembled on the host and
+    carried across as a monolithic one: the reference's n = 1 read, for
+    one card that holds the whole model. A monolithic export given a
+    ``mesh`` is read whole and cut to the rank's pieces. A manifest this
+    build cannot read raises."""
     metadata = read_metadata(version_dir)
+    opened = None
     if metadata.sharding and int(metadata.sharding.get("num_shards",
                                                        1)) > 1:
-        from kubeflow_tpu_torch.serving.sharding import (
-            read_sharded_variables,
-        )
+        from kubeflow_tpu_torch.serving import sharding
 
-        variables = read_sharded_variables(version_dir, None, metadata)
+        # (A manifest this build cannot read raises in either read.)
+        spec = sharding.ShardSpec.from_json(
+            metadata.sharding.get("mesh") or {})
+        dist = torch.distributed
+        if mesh is None and dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() == spec.num_shards:
+            mesh = sharding.serving_mesh(spec, device)
+        if mesh is not None:
+            opened = []
+            variables = sharding.load_sharded_variables(
+                version_dir, None, metadata, mesh, opened)
+        else:
+            variables = sharding.read_sharded_variables(version_dir, None,
+                                                        metadata)
     else:
         variables = read_variables(version_dir)
     extra = sorted(set(variables) - {"params", "batch_stats"})
@@ -452,8 +564,10 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
         raise NotImplementedError(
             f"export {version_dir} carries collections {extra}; the "
             f"port serves params and batch_stats")
-    template = get_model(metadata.registry_name).make(
-        **metadata.model_kwargs)
+    kwargs = dict(metadata.model_kwargs)
+    if mesh is not None and mesh.shape["tensor"] > 1:
+        kwargs["mesh"] = mesh
+    template = get_model(metadata.registry_name).make(**kwargs)
     params = convert.params_from_flax(
         convert.flatten_tree(unbox(variables["params"])), template,
         device=device)
@@ -466,7 +580,8 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     version = int(os.path.basename(os.path.normpath(version_dir)))
     loaded = LoadedModel(metadata=metadata, version=version, params=params,
                          max_batch=max_batch, top_k=top_k, device=device,
-                         batch_stats=batch_stats)
+                         batch_stats=batch_stats, mesh=mesh,
+                         shard_files=opened)
     if warmup:
         loaded.warmup()
     return loaded

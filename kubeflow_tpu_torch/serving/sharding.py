@@ -12,7 +12,8 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Sharded serving exports: the writer and the one-card read.
+"""Sharded serving exports: the writer, the one-card read and the gang's
+read.
 
 The port of ``kubeflow_tpu/serving/sharding.py``'s writer and reader. A sharded
 version dir holds ``signature.json``, whose ``sharding`` field is the
@@ -32,9 +33,14 @@ reference's): :func:`build_shard_plan` splits each annotated leaf over
 :func:`read_sharded_variables` is the reference's n = 1 read: it joins
 each planned leaf's slices on the host, which gives the monolithic
 bytes back exactly, so a sharded export serves on one card that holds
-the whole model (``serving/model.py`` ``load_version``). Loading one
-onto several devices (``serving_mesh``, ``load_sharded_variables``) is
-ROADMAP A18.
+the whole model (``serving/model.py`` ``load_version``).
+:func:`serving_mesh` and :func:`load_sharded_variables` are the
+reference's mesh load on a gang of ranks, one device a rank: rank r of
+a ``tensor=T`` export reads shard file r alone (its pieces of every
+planned leaf); the leaves the plan keeps whole are stored once, in shard
+0, and rank 0 broadcasts them over the gang. A manifest with
+``fsdp > 1`` raises: the port has no fsdp-sharded serving forward
+(ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -382,6 +388,87 @@ def shard_topology(metadata: ModelMetadata) -> Dict[str, Any]:
         # A malformed manifest degrades; it never takes the status
         # endpoint down.
         return {"num_shards": 1, "malformed": True}
+
+
+def serving_mesh(spec: ShardSpec, device: Any = None):
+    """The serving mesh over the ``torch.distributed`` group's ranks
+    (``parallel/mesh.py`` ``build_mesh``; tensor innermost, as the
+    reference lays its devices out), one device a rank: ``device`` is
+    this rank's (the card by default). Raises when the group has fewer
+    ranks than ``spec.num_shards`` (the reference's message) and on
+    ``fsdp > 1``."""
+    from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    if spec.fsdp > 1:
+        raise NotImplementedError(
+            f"serving mesh {spec.to_json()}: an fsdp-sharded serving "
+            f"forward is not ported (ROADMAP A18); the port serves "
+            f"tensor=T exports on a T-rank gang")
+    dist = torch.distributed
+    ranks = (dist.get_world_size()
+             if dist.is_available() and dist.is_initialized() else 1)
+    if ranks < spec.num_shards:
+        raise ValueError(
+            f"serving mesh {spec.to_json()} needs {spec.num_shards} "
+            f"devices, have {ranks}")
+    return build_mesh(MeshSpec(tensor=spec.tensor, fsdp=spec.fsdp), device)
+
+
+def load_sharded_variables(version_dir: str,
+                           template: Optional[Mapping[str, Any]],
+                           metadata: ModelMetadata, mesh,
+                           opened: Optional[list] = None
+                           ) -> Dict[str, Any]:
+    """This rank's variables of a sharded export on ``mesh`` (a
+    :func:`serving_mesh`): each planned leaf's piece from this rank's
+    own shard file, which is the rank's tensor piece of the leaf by the
+    rule table, and each leaf the plan keeps whole from shard 0, read by
+    rank 0 alone and broadcast to the gang (a collective: every rank
+    calls it). Raises, as the reference does, when the mesh's size or
+    axes differ from the manifest's. ``opened`` collects the names of
+    the shard files this rank read. ``template``: see
+    :func:`_restore_tree` (leaf shapes are not checked: the pieces are
+    the model's per-rank shapes)."""
+    manifest = _manifest_of(metadata)
+    spec = ShardSpec.from_json(manifest["mesh"])
+    if mesh.size != spec.num_shards:
+        raise ValueError(
+            f"mesh has {mesh.size} devices but the manifest wants "
+            f"{spec.num_shards} shards")
+    for axis in SERVING_AXES:
+        if mesh.shape.get(axis, 1) != getattr(spec, axis):
+            raise ValueError(
+                f"mesh axis {axis}={mesh.shape.get(axis, 1)} != "
+                f"manifest {axis}={getattr(spec, axis)} — the load "
+                f"mesh must match the export topology")
+    if spec.fsdp > 1:
+        raise NotImplementedError(
+            "an fsdp-sharded serving forward is not ported (ROADMAP A18)")
+    plan: Dict[str, Dict[str, Any]] = manifest["plan"]
+    # Shard ids run tensor-fastest, as mesh ranks do.
+    mine = manifest["shards"][mesh.rank]
+    shard = _read_shard(version_dir, mine)
+    if opened is not None:
+        opened.append(mine)
+    flat = {k: v for k, v in shard.items() if k in plan}
+    whole = [{k: v for k, v in shard.items() if k not in plan}
+             if mesh.rank == 0 else None]
+    group = mesh.group(SERVING_AXES)
+    if group is not None:
+        torch.distributed.broadcast_object_list(whole, src=0, group=group)
+    flat.update(whole[0])
+    missing = set(plan) - set(flat)
+    if missing:
+        raise ValueError(f"shard {mine} lacks planned leaves "
+                         f"{sorted(missing)[:5]}")
+    if template is None:
+        return unflatten_tree(flat)
+    stored = unflatten_tree(flat)
+    absent = set(template) - set(stored) - {"cache"}
+    if absent:
+        raise ValueError(f"sharded export lacks collections "
+                         f"{sorted(absent)}; stored: {sorted(stored)}")
+    return {c: stored[c] for c in sorted(set(template) & set(stored))}
 
 
 def parse_shard_spec(raw: Optional[str]) -> ShardSpec:

@@ -127,7 +127,7 @@ def _rank_rows(batch: Dict[str, torch.Tensor], mesh: Optional[Mesh]):
     """This rank's rows of a global batch (all of it without a mesh)."""
     if mesh is None:
         return batch
-    rows = host_shard_range(next(iter(batch.values())).shape[0])
+    rows = host_shard_range(next(iter(batch.values())).shape[0], mesh=mesh)
     return {k: v[rows.start:rows.stop] for k, v in batch.items()}
 
 
@@ -533,11 +533,12 @@ def fine_tune_lora(config: LoRABenchConfig, device: DeviceLike = None,
         if config.data_paths:
             batch_iter = DevicePrefetcher(
                 token_shard_batches(list(config.data_paths), b, l,
-                                    seed=config.seed),
+                                    seed=config.seed, mesh=mesh),
                 mesh, prefetch=2, device=device)
             batch = next(batch_iter)
         else:
-            batch = next(synthetic_causal_lm(b, l, vocab, seed=config.seed))
+            batch = next(synthetic_causal_lm(b, l, vocab, seed=config.seed,
+                                             mesh=mesh))
         state, elapsed, warmup_s, warmup_losses, losses = _timed_lm_steps(
             make_lora_train_step(mesh), state, batch, config.warmup_steps,
             config.steps, batch_iter=batch_iter,

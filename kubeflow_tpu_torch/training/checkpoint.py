@@ -183,9 +183,9 @@ def _whole_template(state: Any) -> Any:
     """The state with every mesh piece replaced by an uninitialized
     tensor of its whole leaf's shape (a restore's target)."""
     def whole(k, v, sh):
-        dim = collectives.fsdp_dim(sh)
         shape = list(v.shape)
-        shape[dim] *= sh.mesh.shape["fsdp"]
+        for axis, dim in collectives.dims_by_axis(sh).items():
+            shape[dim] *= sh.mesh.shape[axis]
         return torch.empty(shape, dtype=v.dtype, device=v.device,
                            requires_grad=v.requires_grad)
     return map_sharded(state, _shardings_of(state), whole)

@@ -47,10 +47,17 @@ Batch = Dict[str, torch.Tensor]
 HostBatch = Dict[str, np.ndarray]
 
 
-def process_index_and_count() -> Tuple[int, int]:
+def process_index_and_count(mesh: Optional[Any] = None) -> Tuple[int, int]:
     """This process's rank and the gang's size: the
     ``torch.distributed`` group's, or (0, 1) without one (the
-    reference's ``jax.process_index()`` / ``process_count()``)."""
+    reference's ``jax.process_index()`` / ``process_count()``). Given
+    the gang's ``mesh`` (``parallel/mesh.py``), its position and count
+    over the batch axes instead: the ranks of one tensor line read the
+    same rows."""
+    if mesh is not None:
+        from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+
+        return mesh.index(BATCH_AXES), mesh.axes_size(BATCH_AXES)
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -59,10 +66,12 @@ def process_index_and_count() -> Tuple[int, int]:
 
 def host_shard_range(global_batch: int,
                      process_index: Optional[int] = None,
-                     process_count: Optional[int] = None) -> range:
+                     process_count: Optional[int] = None,
+                     mesh: Optional[Any] = None) -> range:
     """This process's row range of the global batch (by default the
-    gang's rank and size, :func:`process_index_and_count`)."""
-    rank, world = process_index_and_count()
+    gang's rank and size, or ``mesh``'s batch position:
+    :func:`process_index_and_count`)."""
+    rank, world = process_index_and_count(mesh)
     process_index = rank if process_index is None else process_index
     process_count = world if process_count is None else process_count
     if global_batch % process_count:
@@ -115,11 +124,15 @@ def _apply_mlm_mask(ids: np.ndarray, rng: np.random.RandomState,
 
 def synthetic_mlm(global_batch: int, seq_len: int = 128,
                   vocab_size: int = 30522, mask_rate: float = 0.15,
-                  mask_token: int = 103, seed: int = 0
-                  ) -> Iterator[HostBatch]:
+                  mask_token: int = 103, seed: int = 0,
+                  mesh: Optional[Any] = None) -> Iterator[HostBatch]:
     """Synthetic BERT pretraining batches with dynamic masking, drawn
-    over the global batch before the row split."""
-    rows = host_shard_range(global_batch)
+    over the global batch before the row split (this rank's rows:
+    :func:`host_shard_range` of ``mesh``)."""
+    rows = host_shard_range(global_batch, mesh=mesh)
+    # The generator's frame may outlive the gang (a prefetch thread's
+    # source): it keeps no reference to the mesh's process groups.
+    del mesh
     step = 0
     while True:
         rng = np.random.RandomState((seed * 2_000_003 + step) % (2 ** 31))
@@ -130,10 +143,12 @@ def synthetic_mlm(global_batch: int, seq_len: int = 128,
 
 
 def synthetic_causal_lm(global_batch: int, seq_len: int = 2048,
-                        vocab_size: int = 32000, seed: int = 0
-                        ) -> Iterator[HostBatch]:
-    """Synthetic decoder pretraining / fine-tune batches."""
-    rows = host_shard_range(global_batch)
+                        vocab_size: int = 32000, seed: int = 0,
+                        mesh: Optional[Any] = None) -> Iterator[HostBatch]:
+    """Synthetic decoder pretraining / fine-tune batches (this rank's
+    rows: :func:`host_shard_range` of ``mesh``)."""
+    rows = host_shard_range(global_batch, mesh=mesh)
+    del mesh  # see synthetic_mlm
     step = 0
     while True:
         rng = np.random.RandomState((seed * 3_000_017 + step) % (2 ** 31))
@@ -144,14 +159,15 @@ def synthetic_causal_lm(global_batch: int, seq_len: int = 2048,
 
 def mlm_mask_batches(source: Iterator[HostBatch], *, mask_rate: float = 0.15,
                      mask_token: int = 103, seed: int = 0,
-                     process_index: Optional[int] = None
-                     ) -> Iterator[HostBatch]:
+                     process_index: Optional[int] = None,
+                     mesh: Optional[Any] = None) -> Iterator[HostBatch]:
     """Dynamic BERT masking over a causal token stream: the mask is
     redrawn every batch, seeded, and folds in the process index (by
-    default the gang's rank, 0 for one process) as the reference's
-    does."""
+    default the gang's rank, or ``mesh``'s batch position, 0 for one
+    process) as the reference's does."""
     if process_index is None:
-        process_index = process_index_and_count()[0]
+        process_index = process_index_and_count(mesh)[0]
+    del mesh  # see synthetic_mlm
     for step, batch in enumerate(source):
         ids = np.asarray(batch["input_ids"])
         rng = np.random.RandomState(
@@ -267,9 +283,11 @@ def _locate(offsets, i: int):
 def token_shard_batches(paths: Sequence[str], global_batch: int,
                         seq_len: int, *, seed: int = 0,
                         epochs: Optional[int] = None, dtype: str = "int32",
-                        bin_dtype: str = "uint16") -> Iterator[HostBatch]:
+                        bin_dtype: str = "uint16",
+                        mesh: Optional[Any] = None) -> Iterator[HostBatch]:
     """Causal-LM batches ``{"input_ids": [batch, seq_len]}`` from flat
-    token shards: ``.npy`` (self-describing) or raw ``.bin`` read as
+    token shards (this rank's rows: :func:`host_shard_range` of
+    ``mesh``): ``.npy`` (self-describing) or raw ``.bin`` read as
     ``bin_dtype``. Shards are memory-mapped; the concatenated stream is
     cut into fixed ``seq_len`` chunks (a chunk may straddle shards), the
     chunk order is shuffled each epoch from ``seed``, and a tail that
@@ -292,7 +310,7 @@ def token_shard_batches(paths: Sequence[str], global_batch: int,
             f"{total} tokens / seq_len {seq_len} = {n_chunks} chunks "
             f"< global batch {global_batch}")
     offsets = np.cumsum([0] + [a.shape[0] for a in arrays])
-    rows = host_shard_range(global_batch)
+    rows = host_shard_range(global_batch, mesh=mesh)
     return _token_shard_iter(arrays, offsets, n_chunks, global_batch,
                              seq_len, seed, epochs, dtype, rows)
 

@@ -51,6 +51,7 @@ from kubeflow_tpu_torch.training.lm import (
     accumulated_value_and_grad,
     check_mesh_model,
     lm_forward_with_aux,
+    local_shapes,
     mesh_value_and_grad,
     optimizer_step,
     param_shardings,
@@ -115,8 +116,9 @@ def create_lora_state(model: nn.Module, tx: GradientTransformation,
     shardings = None
     if mesh is not None:
         shardings = param_shardings(model, {**base, **lora}, mesh, rules)
-        base = collectives.shard_tree(base, shardings)
-        lora = collectives.shard_tree(lora, shardings)
+        local = local_shapes(model)
+        base = collectives.shard_tree(base, shardings, local)
+        lora = collectives.shard_tree(lora, shardings, local)
     base = {k: v.detach() for k, v in base.items()}
     lora = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
     return LoRAState(step=0, base_params=base, lora=lora,
@@ -134,7 +136,7 @@ def make_lora_train_step(mesh: Optional[Mesh] = None, *,
     it, and every rank calls the step with its rows."""
     loss_fn = LOSSES[objective]
     if mesh is not None:
-        check_batch_axes(mesh, "make_lora_train_step")
+        check_batch_axes(mesh, "make_lora_train_step", tensor_ok=True)
         return _mesh_lora_step(mesh, loss_fn, objective, aux_loss_weight,
                                grad_accum)
 

@@ -27,8 +27,12 @@ unequal counts across ranks still give the reference's global mean),
 reduce-scatters the sharded leaves' gradients over fsdp and sums the
 rest over the batch axes, then runs the optimizer on its pieces, with
 the global norm taken over the shards (``optim.norm_over``). That is
-the step XLA derives from the reference's shardings. A mesh with a
-model axis above 1 raises (ROADMAP A18). On an nccl group of one rank
+the step XLA derives from the reference's shardings. On a ``tensor``
+axis (a dense Llama built on the mesh, ``Llama(mesh=)``) each rank also
+holds its tensor pieces, the model issues the tensor collectives
+itself, and the step gathers and reduce-scatters over fsdp alone; the
+loss runs on the all-gathered logits. The other model axes raise
+(ROADMAP A18). On an nccl group of one rank
 every collective is still launched, and the meshed step gives the
 unmeshed step's bits.
 
@@ -100,15 +104,22 @@ def param_shardings(model: nn.Module, params: Mapping[str, torch.Tensor],
                     mesh: Mesh, rules: Optional[Mapping[str, Any]] = None
                     ) -> Shardings:
     """Each port param's sharding by the rule table over the model's
-    ``logical_axes`` (the reference's ``sharded_collection_init``),
-    carried into the port's layout of the leaf (a kernel's dims are the
-    Flax kernel's, transposed)."""
+    ``logical_axes`` (the reference's ``sharded_collection_init``; a
+    tensor-parallel Llama's k/v kernels split by kv-head group, its
+    ``split_axes``), carried into the port's layout of the leaf (a
+    kernel's dims are the Flax kernel's, transposed)."""
     keys = {name: flax_key(name) for name in params}
     flax_sh = variables_sharding(mesh, model, keys.values(),
                                  rules_for(mesh, rules))
     return {n: Sharding(mesh, torch_spec(keys[n], flax_sh[keys[n]].spec,
                                          t.dim()))
             for n, t in params.items()}
+
+
+def local_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """Each parameter's shape in the model's template: a tensor-parallel
+    model's tensor pieces, whole over fsdp."""
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
 
 
 def _leaves(tree: Mapping[str, torch.Tensor]) -> Params:
@@ -132,7 +143,8 @@ def create_lm_state(model: nn.Module, tx: GradientTransformation,
                        model=model, tx=tx), None
     check_mesh_model(model, mesh, "create_lm_state")
     shardings = param_shardings(model, params, mesh, rules)
-    params = _leaves(collectives.shard_tree(params, shardings))
+    params = _leaves(collectives.shard_tree(params, shardings,
+                                            local_shapes(model)))
     return LMState(step=0, params=params, opt_state=tx.init(params),
                    model=model, tx=tx, shardings=shardings), shardings
 
@@ -329,15 +341,23 @@ def optimizer_step(tx: GradientTransformation, opt_state, params: Params,
 
 def check_mesh_model(model: nn.Module, mesh: Mesh, what: str) -> None:
     """Raise where a mesh step cannot give the reference's result: a
-    live model axis, or an MoE model split over batch ranks (its
-    load-balance loss is a function of the global batch's routing, and
-    expert parallelism is not ported: ROADMAP A18)."""
-    check_batch_axes(mesh, what)
+    live model axis the model does not run (``tensor`` runs on the dense
+    Llama, which must then be built on the mesh), or an MoE model split
+    over batch ranks (its load-balance loss is a function of the global
+    batch's routing, and expert parallelism is not ported: ROADMAP
+    A18)."""
+    check_batch_axes(mesh, what, model)
     if getattr(model, "num_experts", 0) and mesh.size > 1:
         raise NotImplementedError(
             f"{what}: an MoE model on a mesh of {mesh.size} ranks (the "
             f"load-balance loss over the global batch and expert "
             f"parallelism are ROADMAP A18)")
+    tensor = mesh.shape["tensor"]
+    if getattr(model, "tensor", 1) != tensor:
+        raise ValueError(
+            f"{what}: a mesh with tensor={tensor} needs the model built "
+            f"on it (Llama(mesh=...)); this one has tensor="
+            f"{getattr(model, 'tensor', 1)}")
 
 
 def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
@@ -348,15 +368,17 @@ def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
     with the metrics of the global batch and each gradient this rank's
     piece of the global batch's. Sharded ``trainable`` leaves are
     all-gathered for the forward (a replicated one is used as it is);
-    ``fixed`` (frozen leaves) are gathered too and take no gradient."""
+    ``fixed`` (frozen leaves) are gathered too and take no gradient.
+    Only fsdp pieces are gathered: a tensor piece is what the model
+    computes on."""
     gathered = {k: collectives.gather_leaf(v.detach(), shardings.get(k),
-                                           mesh)
+                                           mesh, ("fsdp",))
                 for k, v in fixed.items()}
     full = {}
     for k, v in trainable.items():
         sh = shardings.get(k)
         full[k] = v if collectives.fsdp_dim(sh) is None else (
-            collectives.gather_leaf(v.detach(), sh, mesh)
+            collectives.gather_leaf(v.detach(), sh, mesh, ("fsdp",))
             .requires_grad_(True))
     total_w = torch.clamp_min(collectives.global_sum(
         lm_token_weight(batch, objective), mesh), 1.0)
@@ -390,7 +412,7 @@ def make_lm_train_step(mesh: Optional[Mesh] = None, *,
     calls the step with its rows of the global batch."""
     loss_fn = LOSSES[objective]
     if mesh is not None:
-        check_batch_axes(mesh, "make_lm_train_step")
+        check_batch_axes(mesh, "make_lm_train_step", tensor_ok=True)
         return _mesh_lm_step(mesh, loss_fn, objective, aux_loss_weight,
                              grad_accum)
 

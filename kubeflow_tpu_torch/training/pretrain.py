@@ -41,9 +41,11 @@ objective the reference's CLI accepts is accepted on the batch axes:
 ``--mesh`` takes dcn_data, data and fsdp (``"data=2,fsdp=2"``; a gang
 with no ``--mesh`` trains data-parallel over every rank, the
 reference's all-data default), the megascale env fills dcn_data, and
-each rank writes its host shard of the checkpoints. A model axis
-(tensor, seq, expert, pipeline) and the pipeline schedule's flags
-raise (ROADMAP A18).
+each rank writes its host shard of the checkpoints. ``--mesh
+tensor=T`` (and ``fsdp=F,tensor=T``) runs a dense Llama
+tensor-parallel, from the whole model's init cut to each rank's pieces;
+tensor on another model, the other model axes (seq, expert, pipeline)
+and the pipeline schedule's flags raise (ROADMAP A18).
 """
 
 from __future__ import annotations
@@ -72,7 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=10)
     p.add_argument("--mesh", default=None,
                    help="e.g. data=2,fsdp=2 over the gang's ranks (the "
-                        "batch axes; a model axis is ROADMAP A18). "
+                        "batch axes, and tensor for a dense Llama; the "
+                        "other model axes are ROADMAP A18). "
                         "Default: all-data in a gang, one device alone")
     p.add_argument("--data", default=None,
                    help="token shards (.npy / raw .bin): comma-separated "
@@ -126,16 +129,27 @@ def main(argv=None) -> int:
         MODEL_AXES,
         build_mesh,
         parse_mesh,
+        tensor_parallel_model,
     )
 
     spec = parse_mesh(args.mesh)
     model_axes = {a: getattr(spec, a) for a in MODEL_AXES
-                  if spec is not None and getattr(spec, a) != 1}
+                  if spec is not None and getattr(spec, a) != 1
+                  and a != "tensor"}
     if model_axes:
         raise SystemExit(
             f"--mesh {args.mesh}: the model axes {model_axes} (and the "
             "pipeline schedule) are not ported yet (ROADMAP A18); the "
-            "port's trainers run dcn_data, data and fsdp")
+            "port's trainers run dcn_data, data, fsdp and, for a dense "
+            "Llama, tensor")
+    if spec is not None and spec.tensor != 1:
+        from kubeflow_tpu_torch.models.registry import get_model
+
+        if not tensor_parallel_model(get_model(args.model).make()):
+            raise SystemExit(
+                f"--mesh {args.mesh}: tensor for {args.model} is not "
+                f"ported yet (ROADMAP A18: tensor for BERT, ViT, the CNNs "
+                f"and MoE); the port runs it for a dense Llama")
 
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
     from kubeflow_tpu_torch.utils.platform import default_device
@@ -184,22 +198,28 @@ def main(argv=None) -> int:
         kwargs["remat"] = True
     if args.num_layers is not None:
         kwargs["num_layers"] = args.num_layers
-    model = entry.make(**kwargs)
+    # The init is the whole model's, so a tensor=T run starts from the
+    # weights a one-rank run draws; the trainer cuts them to the rank's
+    # pieces.
+    whole = entry.make(**kwargs)
+    model = whole
+    if spec is not None and spec.tensor != 1:
+        model = entry.make(**kwargs, mesh=mesh)
     vocab = entry.num_classes_or_vocab
 
     if args.data:
         gen = token_shard_batches(
             resolve_shards(args.data), args.global_batch, args.seq_len,
-            seed=args.seed, bin_dtype=args.bin_dtype)
+            seed=args.seed, bin_dtype=args.bin_dtype, mesh=mesh)
         gen = check_vocab(gen, vocab)
         if objective == "mlm":
-            gen = mlm_mask_batches(gen, seed=args.seed)
+            gen = mlm_mask_batches(gen, seed=args.seed, mesh=mesh)
     elif objective == "mlm":
         gen = synthetic_mlm(args.global_batch, args.seq_len, vocab,
-                            seed=args.seed)
+                            seed=args.seed, mesh=mesh)
     else:
         gen = synthetic_causal_lm(args.global_batch, args.seq_len, vocab,
-                                  seed=args.seed)
+                                  seed=args.seed, mesh=mesh)
 
     # The reference initializes from the stream's first batch and trains
     # from the second; the port draws its init from --seed, and skips
@@ -213,7 +233,7 @@ def main(argv=None) -> int:
                 0.0, args.learning_rate, args.warmup_steps,
                 max(args.steps, args.warmup_steps + 1)),
             weight_decay=0.01))
-    params = init_params(model, seed=args.seed, device=device)
+    params = init_params(whole, seed=args.seed, device=device)
     state, _ = create_lm_state(model, tx, params, mesh)
     step_fn = make_lm_train_step(mesh, objective=objective)
 

@@ -25,7 +25,8 @@ every BN layer on the sync route (``ops/batch_norm.py``
 BN has them on a batch-sharded mesh), takes the gradient of its rows'
 share of the global mean loss, reduce-scatters the sharded params'
 gradients over fsdp, sums the rest over the batch axes, and steps the
-optimizer on its pieces. A model axis above 1 raises (ROADMAP A18).
+optimizer on its pieces. A model axis above 1 raises (ROADMAP A18: the
+vision models have no tensor-parallel layers in the port).
 
 optax → torch.optim: ``optax.sgd(lr, momentum, nesterov=True)`` is
 ``torch.optim.SGD(lr=lr, momentum=momentum, nesterov=True,
@@ -227,13 +228,15 @@ def _mesh_train_step(mesh: Mesh, loss_fn) -> TrainStepFn:
 
 def _grad_norm(grads, shardings, mesh) -> torch.Tensor:
     """``torch.nn.utils.get_total_norm`` of gradients held as pieces:
-    each leaf's norm over its whole (squares summed over fsdp where it
-    is split), then the norm of the leaves' norms."""
+    each leaf's norm over its whole (squares summed over every axis it
+    is split on; a replicated leaf's norm is every rank's already), then
+    the norm of the leaves' norms."""
     norms = []
     for k, g in grads.items():
         n = torch.linalg.vector_norm(g)
-        if collectives.fsdp_dim(shardings.get(k)) is not None:
-            sq = collectives.all_reduce_sum(n * n, mesh, ("fsdp",))
+        axes = tuple(collectives.dims_by_axis(shardings.get(k)))
+        if axes:
+            sq = collectives.all_reduce_sum(n * n, mesh, axes)
             n = torch.sqrt(sq)
         norms.append(n)
     return torch.linalg.vector_norm(torch.stack(norms))

@@ -18,7 +18,8 @@ Builds the kernels, makes llama3-8b at full width from seed 0 (bf16, as
 the smoke serves it), then runs ``chip_smoke.gang_lm`` (the meshed LoRA
 steps on ``data=-1`` and ``fsdp=-1`` of a one-rank nccl group, bitwise
 against the unmeshed ones; the two-host checkpoint; the sharded export
-served) and ``chip_smoke.gang_vision`` (the meshed ResNet-50 step on the
+is the tensor gang's, ``scripts/tensor_gang.py``) and
+``chip_smoke.gang_vision`` (the meshed ResNet-50 step on the
 BN sync route; the route's rows and times), with every assert of the
 full smoke. Run from the repository root::
 

@@ -51,14 +51,17 @@ def environ(env):
                 os.environ[k] = v
 
 
-def make_model(case):
+def make_model(case, mesh=None):
     """The case's port model: a registry entry, or ``factory``
-    (``module:attr``) called with the kwargs."""
+    (``module:attr``) called with the kwargs; built on ``mesh`` where
+    its tensor axis is live (the tensor-parallel Llama)."""
+    kwargs = dict(case["kwargs"])
+    if mesh is not None and mesh.shape["tensor"] > 1:
+        kwargs["mesh"] = mesh
     if "factory" in case:
         module, attr = case["factory"].split(":")
-        return getattr(importlib.import_module(module), attr)(
-            **case["kwargs"])
-    return get_model(case["model"]).make(**case["kwargs"])
+        return getattr(importlib.import_module(module), attr)(**kwargs)
+    return get_model(case["model"]).make(**kwargs)
 
 
 def mesh_of(case):
@@ -66,8 +69,8 @@ def mesh_of(case):
         return build_mesh(MeshSpec(**case["spec"]), "cpu")
 
 
-def rows(batch):
-    r = host_shard_range(next(iter(batch.values())).shape[0])
+def rows(batch, mesh):
+    r = host_shard_range(next(iter(batch.values())).shape[0], mesh=mesh)
     return {k: v[r.start:r.stop] for k, v in batch.items()}
 
 
@@ -91,8 +94,14 @@ def lm_job(case):
         make_lm_train_step,
     )
 
+    from kubeflow_tpu_torch.parallel.mesh import mirror_param_shardings
+    from kubeflow_tpu_torch.training.checkpoint import (
+        ContinuousCheckpointConfig,
+        ShardedCheckpointer,
+    )
+
     mesh = mesh_of(case)
-    model = make_model(case)
+    model = make_model(case, mesh)
     params = convert.params_from_flax(case["params"], model, device="cpu")
     tx = TXS[case["tx"]]()
     if case.get("lora") is not None:
@@ -104,14 +113,42 @@ def lm_job(case):
         state, _ = create_lm_state(model, tx, params, mesh)
         step = make_lm_train_step(mesh, objective=case["objective"])
         trained = state.params
+    if case.get("restore_dir"):
+        # A one-rank run's checkpoint, cut to this rank's pieces.
+        reader = ShardedCheckpointer(ContinuousCheckpointConfig(
+            directory=case["restore_dir"], async_save=False))
+        state = reader.restore(state)
+        reader.close()
+        trained = state.lora if case.get("lora") is not None else \
+            state.params
     pieces = {k: tuple(v.shape) for k, v in trained.items()}
+    opt_paths = [k for k in convert.state_to_flax(state)
+                 if k.startswith("opt_state/")]
+    by_flax = {convert.flax_key(k): v for k, v in state.shardings.items()}
+    moments = {p: tuple(sh.spec) for p, sh in mirror_param_shardings(
+        opt_paths, by_flax, gathered_replicated(mesh)).items()}
     metrics = []
     for batch in case["batches"]:
-        state, m = step(state, rows(batch))
+        state, m = step(state, rows(batch, mesh))
         metrics.append({k: float(v) for k, v in m.items()})
+    if case.get("save_dir"):
+        writer = ShardedCheckpointer(ContinuousCheckpointConfig(
+            directory=case["save_dir"], async_save=False,
+            num_hosts=mesh.size, host_id=mesh.rank))
+        writer.save(state.step, state, force=True)
+        writer.close()
     flat = convert.state_to_flax(gathered_state(state))
     return {"metrics": metrics, "state": flat, "pieces": pieces,
-            "mesh": mesh.shape, "coords": mesh.coords()}
+            "mesh": mesh.shape, "coords": mesh.coords(),
+            "moments": moments,
+            "specs": {convert.flax_key(k): tuple(v.spec)
+                      for k, v in state.shardings.items()}}
+
+
+def gathered_replicated(mesh):
+    from kubeflow_tpu_torch.parallel.mesh import replicated
+
+    return replicated(mesh)
 
 
 def prefetch_job(case):
@@ -122,7 +159,8 @@ def prefetch_job(case):
 
     mesh = mesh_of(case)
     it = DevicePrefetcher(synthetic_causal_lm(case["global_batch"],
-                                              seq_len=8, vocab_size=64),
+                                              seq_len=8, vocab_size=64,
+                                              mesh=mesh),
                           mesh, prefetch=2)
     try:
         batch = next(it)
@@ -162,7 +200,8 @@ def vision_job(case):
     bn_fused.bn_stats = spy
     try:
         for batch in case["batches"]:
-            local = {k: torch.from_numpy(v) for k, v in rows(batch).items()}
+            local = {k: torch.from_numpy(v)
+                     for k, v in rows(batch, mesh).items()}
             state, m = step(state, local)
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
@@ -175,7 +214,67 @@ def vision_job(case):
                             for k, v in state.batch_stats.items()}}
 
 
-JOBS = {"lm": lm_job, "prefetch": prefetch_job, "vision": vision_job}
+def serve_job(case):
+    """Each export of the case loaded by the gang (a serving mesh of its
+    ranks, each reading its own shard), its forward's logits, then rank
+    0 drives ``run`` and the engine while the others ``follow()``."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.llama import apply
+    from kubeflow_tpu_torch.serving.model import load_version
+
+    out = {}
+    for name, path in case["exports"].items():
+        loaded = load_version(path, max_batch=4, device="cpu")
+        model = get_model("llama-test").make(dtype="float32",
+                                             mesh=loaded.mesh)
+        with torch.no_grad():
+            logits = apply(model, loaded.params,
+                           torch.from_numpy(case["ids"])).numpy()
+        got = {"topology": loaded.shard_topology(),
+               "opened": loaded.shard_files, "logits": logits,
+               "rank": dist.get_rank()}
+        if dist.get_rank() != 0:
+            got.update(loaded.follow())
+            out[name] = got
+            continue
+        got["run"] = loaded.run({"input_ids": case["run_prompts"]})["tokens"]
+        got["b1"] = [loaded.run({"input_ids": p[None]},
+                                row_rngs=np.asarray([k]))["tokens"][0]
+                     for p, k in zip(case["engine_prompts"], case["keys"])]
+        engine = loaded.ensure_engine()
+        streams = [engine.submit(p, rng=k) for p, k in
+                   zip(case["engine_prompts"], case["keys"])]
+        got["streams"] = [s.result(120.0) for s in streams]
+        got["stats"] = engine.stats()
+        got["engine"] = {gid: s.tokens_so_far
+                         for gid, s in engine.gang_streams.items()}
+        loaded.close()
+        out[name] = got
+    return out
+
+
+def tensor_sum_job(case):
+    """The tensor line's sum (``reduce_from_tensor``) of each rank's
+    rows, alone and in batches, and the gather of its pieces."""
+    from kubeflow_tpu_torch.parallel import collectives
+
+    mesh = mesh_of(case)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rows = torch.from_numpy(case["rows"][mesh.coords()["tensor"]]).to(
+            dtype)
+        name = str(dtype).replace("torch.", "")
+        out[name] = {b: collectives.reduce_from_tensor(
+            rows[:b].clone(), mesh).float().numpy() for b in (1, 4)}
+    out["gather"] = collectives.gather_from_tensor(
+        torch.from_numpy(case["rows"][mesh.coords()["tensor"]]), mesh
+    ).numpy()
+    return out
+
+
+JOBS = {"lm": lm_job, "prefetch": prefetch_job, "vision": vision_job,
+        "serve": serve_job, "tensor_sum": tensor_sum_job}
 
 
 def main():
