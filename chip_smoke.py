@@ -126,10 +126,10 @@ checkout's BN kernel by the same code (a parent commit's, say).
    the decoding neighbours' largest inter-token gap while the long
    prompt is admitted, chunked against one-shot. Then the four mixes on
    a captured engine (every plain slice, speculative draft and verify
-   and classic admission prefill a CUDA graph), greedy and sampled, in
-   turns with an uncaptured engine (uncaptured, captured, captured
-   again): every captured stream equal to the uncaptured
-   engine's, one graph per ``engine_compile`` key of a captured
+   and classic admission prefill a CUDA graph), greedy and sampled
+   (captured, captured again, and in the engine mix uncaptured): every
+   captured stream equal to the B=1 streams the mixes' phases held
+   their uncaptured engines to, one graph per ``engine_compile`` key of a captured
    program, no decode attention launched by a wrapper in the replayed
    pass and, in the engine mix, no wrapper launch at all, and no plain
    twin called (asserted); inter-token ms of both, the graphs against
@@ -308,7 +308,14 @@ checkout's BN kernel by the same code (a parent commit's, say).
    (stats, the all-reduce, apply) against its twins and bit for bit
    against the fused launch at [802816, 256] bf16 and at each ResNet-50
    BN shape, with its times beside the fused launch's, the library's
-   and the bounds (asserted: all of it but the times).
+   and the bounds (asserted: all of it but the times). After the Llama
+   slice, the seq and pipeline axes (``gang_axes``; alone: ``python3
+   scripts/axes_gang.py``): flash at a Ulysses rank's and a pipeline
+   stage's shapes, then two gloo ranks sharing the card run ring and
+   Ulysses attention at llama3-8b's and BERT-base's shapes (with
+   gradients), a 4-block llama3-8b forward with the ring, and GPipe and
+   interleaved steps of the depth-4 pretraining cell, each held against
+   the one-process run made first (asserted; times reported).
 10. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
@@ -441,6 +448,7 @@ from kubeflow_tpu_torch.training.lm import (
     make_lm_train_step,
 )
 from kubeflow_tpu_torch.training.loop import agree_on_drain
+from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.optim import adamw
 from kubeflow_tpu_torch.training.pretrain import main as pretrain_main
 from kubeflow_tpu_torch.training.train import (
@@ -1663,8 +1671,12 @@ def serve_llama(card):
                        decode_ms_b2=decode_ms)
     _, prefix_refs = timed(serve_prefix, card, LLAMA, params, kw)
     timed(serve_spec, card, LLAMA, params, kw, vanilla)
-    timed(serve_chunked, card, LLAMA, params, kw)
-    captured = timed(serve_captured, card, LLAMA, params, kw)
+    _, chunk_refs = timed(serve_chunked, card, LLAMA, params, kw)
+    # The B=1 streams serve_engine, serve_prefix and serve_chunked held
+    # their uncaptured engines to: the captured engines' yardstick.
+    b1_refs = {"engine": {m: vanilla[m][1] for m in vanilla},
+               "prefix": prefix_refs, "chunk": chunk_refs}
+    captured = timed(serve_captured, card, LLAMA, params, kw, b1_refs)
     timed(serve_handoff, card, LLAMA, params, kw, vanilla, prefix_refs)
     timed(serve_resume, card, LLAMA, params, kw)
     timed(serve_host_tier, card, LLAMA, params, kw, prefix_refs)
@@ -2414,6 +2426,7 @@ def serve_chunked(card, registry, params, kwargs, *,
                     LONG_BUDGET, prng.PRNGKey(400))
     kwargs = dict(kwargs, cache_size=cache_size)
     report = {"card": card, "chunk": PREFILL_CHUNK, "k": SPEC_K}
+    b1 = {}
     for mode, sampling in (("greedy", {"temperature": 0.0}),
                            ("sampled", SAMPLING)):
         runs = {}
@@ -2458,6 +2471,7 @@ def serve_chunked(card, registry, params, kwargs, *,
             loaded.close()
         refs = [b1_unpadded(loaded, p, k, b, sampling)
                 for p, b, k in requests + [long_request]]
+        b1[mode] = refs
         chunked, one_shot = runs["chunked"], runs["one_shot"]
         row = {
             "neighbour_max_gap_ms_chunked": chunked["gap_ms"],
@@ -2484,7 +2498,7 @@ def serve_chunked(card, registry, params, kwargs, *,
         if (row["streams_equal_one_shot"] != n or row["streams_equal_b1"]
                 != n or row["one_shot_streams_equal_b1"] != n):
             raise AssertionError(f"chunked {mode}: {row}")
-    return report
+    return report, b1
 
 
 #: The programs a captured engine runs as CUDA graphs, by engine_compile
@@ -2493,7 +2507,8 @@ CAPTURED = ("decode_slice", "spec_draft", "spec_verify", "prefill")
 
 
 #: The modes whose passes run under the profiler for the device's idle
-#: share (``serve_captured``'s second passes, ``serve_manager``'s pass):
+#: share (``serve_captured``'s replayed pass and its uncaptured pass,
+#: ``serve_manager``'s pass):
 #: greedy alone. A sampled pass runs the same kernels and the sampler's
 #: few; profiling it too cost ~70 s of the smoke's time limit.
 PROFILED_MODES = ("greedy",)
@@ -2565,25 +2580,28 @@ def run_mix(engine, mix, requests, long_request):
     return cold + rest, statistics.median(inter)
 
 
-def serve_captured(card, registry, params, kwargs, *,
+def serve_captured(card, registry, params, kwargs, refs, *,
                    cache_size=ENGINE_CACHE, device=None):
     """The engine, prefix, spec and chunk mixes on a captured engine
     (every plain slice, speculative draft and verify and classic
-    admission prefill a CUDA graph, graphs.py), greedy and sampled,
-    against an uncaptured engine of the same config, in turns:
-    uncaptured, captured (its graphs captured on first use), captured
-    again (replays) and, in the engine mix, uncaptured again. Asserts
-    every pass's streams equal to the first uncaptured pass's (in the
-    engine mix, so the uncaptured engine's across its two passes too),
-    one graph per engine_compile key of a captured program, and in the
-    replayed pass no decode attention launch from a wrapper (every
-    decode step replayed) and, in the engine mix, no wrapper launch at
-    all; no plain twin called in any pass. Reports inter-token ms of both
-    engines, the graphs against the distinct engine_compile keys and, in
-    the engine mix: the device idle share and each kernel's launches of
-    both greedy second passes (``PROFILED_MODES``) and of one captured
-    4-step slice replayed alone, and a classic admission (the 512-token
-    request alone, budget 1) on both engines, its device ms beside its
+    admission prefill a CUDA graph, graphs.py), greedy and sampled:
+    captured (its graphs captured on first use), captured again
+    (replays) and, in the engine mix, uncaptured. ``refs`` holds, by
+    mix and mode, the B=1 ``generate`` streams the earlier phases drew
+    and held their uncaptured engines to (``serve_engine``'s for the
+    engine and spec mixes, ``serve_prefix``'s for the prefix mix,
+    ``serve_chunked``'s, the long prompt's included, for the chunk
+    mix): every pass's streams must equal them, so each captured stream
+    equals the uncaptured engine's. Also asserted: one graph per
+    engine_compile key of a captured program, and in the replayed pass
+    no decode attention launch from a wrapper (every decode step
+    replayed) and, in the engine mix, no wrapper launch at all; no plain
+    twin called in any pass. Reports inter-token ms of both engines, the
+    graphs against the distinct engine_compile keys and, in the engine
+    mix: the device idle share and each kernel's launches of both
+    greedy second passes (``PROFILED_MODES``) and of one captured 4-step
+    slice replayed alone, and a classic admission (the 512-token request
+    alone, budget 1) on both engines, its device ms beside its
     host-clock TTFT."""
     vocab = get_model(registry).num_classes_or_vocab
     kwargs = dict(kwargs, cache_size=cache_size)
@@ -2596,6 +2614,9 @@ def serve_captured(card, registry, params, kwargs, *,
             loaded = engine_model(registry, params, kwargs, max_prompt,
                                   dict(config, **sampling), device)
             draft = (loaded._module, loaded.params) if strong else None
+            # The engine mix alone runs an uncaptured pass here (its
+            # profiled window); the other mixes' uncaptured streams are
+            # their phases'.
             engines = {
                 captured: (spec_engine(loaded, f"smoke-graphs-{mix}-{mode}",
                                        draft, capture_graphs=captured)
@@ -2607,19 +2628,19 @@ def serve_captured(card, registry, params, kwargs, *,
                                name=f"smoke-graphs-{mix}-{mode}",
                                device=loaded.device,
                                capture_graphs=captured))
-                for captured in (False, True)}
-            eager, graphs = engines[False], engines[True]
+                for captured in ((False, True) if mix == "engine"
+                                 else (True,))}
+            eager, graphs = engines.get(False), engines[True]
             try:
                 passes, inter, windows = {}, {}, {}
                 with twin_calls() as twins:
-                    for name, engine in (("eager 1", eager),
-                                         ("captured 1", graphs),
+                    for name, engine in (("captured 1", graphs),
                                          ("captured 2", graphs),
-                                         ("eager 2", eager)):
-                        if name == "eager 2" and mix != "engine":
+                                         ("eager", eager)):
+                        if engine is None:
                             continue
                         zero_counts()
-                        if (mix == "engine" and name.endswith("2")
+                        if (mix == "engine" and name != "captured 1"
                                 and mode in PROFILED_MODES):
                             (streams, ms), window = device_window(
                                 functools.partial(run_mix, engine, mix,
@@ -2630,7 +2651,7 @@ def serve_captured(card, registry, params, kwargs, *,
                                                   long_request)
                         passes[name] = (streams, read_counts())
                         inter[name] = ms
-                want = passes["eager 1"][0]
+                want = refs[{"spec": "engine"}.get(mix, mix)][mode]
                 equal = {name: sum(np.array_equal(g, w)
                                    for g, w in zip(streams, want))
                          for name, (streams, _) in passes.items()}
@@ -2638,7 +2659,7 @@ def serve_captured(card, registry, params, kwargs, *,
                 compiled = set(graphs._compile_seen)
                 replayed = passes["captured 2"][1]
                 row = {
-                    "streams_equal_uncaptured": equal,
+                    "streams_equal_b1": equal,
                     "inter_token_ms": inter,
                     "graphs": len(keys),
                     "engine_compile_keys": len(compiled),
@@ -2654,7 +2675,9 @@ def serve_captured(card, registry, params, kwargs, *,
                 report[f"{mix} {mode}"] = row
                 log(f"captured {mix} {mode}: {json.dumps(row)}")
                 bad = [
-                    any(n != len(want) for n in equal.values()),
+                    any(n != len(want) or len(streams) != len(want)
+                        for n, (streams, _) in zip(equal.values(),
+                                                   passes.values())),
                     keys != {k for k in compiled if k[0] in CAPTURED},
                     graphs.captured_keys() != keys,
                     replayed["decode_attention"] != 0,
@@ -2666,8 +2689,8 @@ def serve_captured(card, registry, params, kwargs, *,
                         f"captured {mix} {mode}: {row}; failed checks "
                         f"{[i for i, b in enumerate(bad) if b]}")
             finally:
-                eager.stop()
-                graphs.stop()
+                for engine in engines.values():
+                    engine.stop()
                 loaded.close()
     log(f"{registry} captured decode programs: {json.dumps(report)}")
     return report
@@ -3323,11 +3346,13 @@ def manager_batcher(card, registry, params, kwargs, device):
     same request alone."""
     vocab = get_model(registry).num_classes_or_vocab
     report = {}
+    # The batcher's models skip the bucket warmup: serve_manager's
+    # models ran the load path's warmups on the same params.
     served = manager_model("smoke-manager-predict", registry, "predict",
                            MANAGER_PREDICT_SEQ,
                            {k: v for k, v in kwargs.items()
                             if k != "cache_size"},  # the cache-free forward
-                           params, {}, device)
+                           params, {}, device, bucket_warmup=False)
     try:
         served.batch_window_s = 0.25
         loaded = served.get()
@@ -3375,7 +3400,7 @@ def manager_batcher(card, registry, params, kwargs, device):
                       **sampling)
         served = manager_model(f"smoke-manager-static-{mode}", registry,
                                "generate", max(ENGINE_PROMPTS), kwargs,
-                               params, config, device)
+                               params, config, device, bucket_warmup=False)
         try:
             served.batch_window_s = 0.25
             loaded = served.get()
@@ -4815,11 +4840,15 @@ def tensor_rows(kernels):
     return rows
 
 
-def spawn_gang(world, transport, case_path, out_dir):
-    """``world`` rank processes of ``scripts/tensor_gang.py``; each one's
+def spawn_gang(world, transport, case_path, out_dir, *,
+               script="tensor_gang.py", timeout=GANG_TENSOR_TIMEOUT,
+               tag="[tensor_gang]"):
+    """``world`` rank processes of ``scripts/<script>``; each one's
     results. A rank that fails fails the phase; a rank still running at
-    GANG_TENSOR_TIMEOUT is killed, with its peers, and fails it."""
-    script = os.path.join(ROOT, "scripts", "tensor_gang.py")
+    ``timeout`` seconds is killed, with its peers, and fails it. The
+    ranks' lines that start with ``tag`` are logged."""
+    name = script.split(".")[0].replace("_", " ")
+    script = os.path.join(ROOT, "scripts", script)
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, script, "--rank", str(r), "--world", str(world),
@@ -4827,7 +4856,7 @@ def spawn_gang(world, transport, case_path, out_dir):
          "--out", os.path.join(out_dir, f"rank{r}.pkl")],
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
-    deadline = time.monotonic() + GANG_TENSOR_TIMEOUT
+    deadline = time.monotonic() + timeout
     outputs = []
     try:
         for r, proc in enumerate(procs):
@@ -4836,14 +4865,14 @@ def spawn_gang(world, transport, case_path, out_dir):
                     timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 raise AssertionError(
-                    f"tensor gang: rank {r} still running after "
-                    f"{GANG_TENSOR_TIMEOUT} s; the gang was killed")
+                    f"{name}: rank {r} still running after {timeout} s; "
+                    f"the gang was killed")
             outputs.append(out)
             for line in out.splitlines():
-                if line.startswith("[tensor_gang]"):
+                if line.startswith(tag):
                     log(line)
             if proc.returncode != 0:
-                raise AssertionError(f"tensor gang: rank {r} exited "
+                raise AssertionError(f"{name}: rank {r} exited "
                                      f"{proc.returncode}:\n{out[-6000:]}")
     finally:
         for proc in procs:
@@ -5058,6 +5087,377 @@ def gang_tensor(card, *, transport="gloo", world=2):
         "launches": [r["launches"] for r in ranks],
     }
     log(f"tensor gang: {json.dumps(figures)}")
+    return figures
+
+
+# -- the seq and pipeline axes on one card (gang_axes) -------------------------
+
+#: Part (a): attention at llama3-8b's shape on seq=2 (4,096 positions a
+#: rank), and BERT-base's training batch with a key mask. (name, B, L,
+#: H, Hkv, D, causal, masked, gradients?)
+AXES_ATTENTION = (
+    ("llama3-8b B1 L8192 H32/8 D128 causal", 1, 8192, 32, 8, 128, True,
+     False, True),
+    ("bert-base B32 L128 H12 D64 key mask", 32, 128, 12, 12, 64, False,
+     True, False),
+)
+#: Query rows a block of the plain twin's gradient takes (its scores,
+#: [B, H, 1024, L] fp32, stay a few GB).
+AXES_GRAD_BLOCK = 1024
+#: Part (b): a cache-free llama3-8b forward, full width, 4 blocks, of
+#: [1, AXES_LLAMA_TOKENS] with the ring as its attention_fn.
+AXES_LLAMA_LAYERS = 4
+AXES_LLAMA_TOKENS = 4096
+#: Part (c): the pretraining cell (llama3-8b at depth 4, fp32 masters,
+#: bf16 compute, the tpu-lm chain) at batch 4 × L1024 from seed 0, two
+#: steps of GPipe (4 microbatches) and of the interleaved schedule (2
+#: virtual stages a rank). Depth 4 for the smoke's time limit (PERF.md
+#: §4), as the tensor gang's.
+AXES_PIPELINE = {"layers": 4, "batch": 4, "seq": 1024, "micro": 4,
+                 "steps": 2, "virtual": 2}
+#: The pipeline steps' grad norm, updated params and updates (each
+#: leaf's w - w0) against the unpipelined step's: relative, one bf16
+#: step. The first step's rate is 0, so the update is the second's.
+AXES_PARAM_TOL = 2.0 ** -7
+#: Seconds the gang may take before the phase kills it and fails.
+GANG_AXES_TIMEOUT = 300
+
+
+#: The flash kernel at the axes gang's shapes (PERF.md §6): a Ulysses
+#: rank's call (the whole sequence, its half of the heads) at
+#: llama3-8b's shape and BERT-base's, and one pipeline stage's block at
+#: a microbatch's rows.
+AXES_FLASH_SHAPES = (
+    ("u: Ulysses rank B1 L8192 H16/4 D128 causal (seq=2)", 1, 8192, 16, 4,
+     128, torch.bfloat16, True, False),
+    ("u2: Ulysses rank BERT B32 L128 H6 D64 key mask (seq=2)", 32, 128, 6,
+     6, 64, torch.bfloat16, False, True),
+    ("p: pipeline stage block B1 L1024 H32/8 D128 causal (a microbatch)",
+     1, 1024, 32, 8, 128, torch.bfloat16, True, False),
+)
+
+
+def axes_flash_rows(kernels):
+    """The flash kernel held against its plain version and timed at the
+    axes gang's shapes (AXES_FLASH_SHAPES)."""
+    return [check_flash(kernels, *shape) for shape in AXES_FLASH_SHAPES]
+
+
+def axes_qkv(shape, seed, device):
+    """q, k, v (and the output's cotangent) of an attention case, drawn
+    in fp32 from ``seed`` on ``device`` and cast to bf16: the parent and
+    every rank draw the same."""
+    _, b, l, h, hkv, d, _, masked, _ = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(heads):
+        return torch.randn((b, l, heads, d), generator=gen, device=device
+                           ).to(torch.bfloat16)
+
+    q, k, v, g = draw(h), draw(hkv), draw(hkv), draw(h)
+    mask = None
+    if masked:  # every other row padded past 3/4 of its keys
+        mask = torch.ones((b, l), dtype=torch.int32, device=device)
+        mask[1::2, 3 * l // 4:] = 0
+    return q, k, v, g, mask
+
+
+def plain_attention_grads(q, k, v, g, causal, mask, dtype, attention):
+    """``attention``'s output and gradients of ``sum(out · g)`` in
+    ``dtype`` (the plain twin, ``flash_attention_reference``, or the
+    dense route), a block of AXES_GRAD_BLOCK query rows at a time at
+    their offset (dq a block's own, dk and dv summed over the blocks)."""
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kk, vv = (t.detach().requires_grad_(True) for t in (k, v))
+    outs, dqs = [], []
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    for start in range(0, q.shape[1], AXES_GRAD_BLOCK):
+        qb = q[:, start:start + AXES_GRAD_BLOCK].detach().requires_grad_(
+            True)
+        with torch.enable_grad():
+            out = attention(qb, kk, vv, causal=causal, q_offset=start,
+                            kv_segment_valid=mask)
+            got = torch.autograd.grad(
+                out, (qb, kk, vv),
+                g[:, start:start + AXES_GRAD_BLOCK].to(dtype))
+        outs.append(out.detach())
+        dqs.append(got[0].float())
+        dk += got[1].float()
+        dv += got[2].float()
+    return torch.cat(outs, 1), (torch.cat(dqs, 1), dk, dv)
+
+
+def axes_attention_refs(device):
+    """Part (a)'s yardsticks in this process, for each case: the
+    one-process flash call's output (one launch) and the bf16 floor
+    (the plain twin, flash_attention_reference, in bf16 against the
+    dense route in fp32), and, for the llama3-8b case, the plain twin's
+    bf16 gradients (the flash gradient's own route: its backward
+    recomputes the plain twin) and their floor against the dense route's
+    fp32 gradients."""
+    refs = {}
+    for i, shape in enumerate(AXES_ATTENTION):
+        name, causal, masked, grads = shape[0], shape[6], shape[7], shape[8]
+        q, k, v, g, mask = axes_qkv(shape, 100 + i, device)
+        with torch.no_grad():
+            zero_counts()
+            flash = flash_attention(q, k, v, causal=causal,
+                                    kv_segment_valid=mask)
+            launches = read_counts()["flash_attention"]
+            plain = flash_attention_reference(q, k, v, causal=causal,
+                                              kv_segment_valid=mask)
+        ref = {"out": flash.cpu(), "launches": launches, "seed": 100 + i,
+               "shape": shape}
+        if grads:
+            _, bf16 = plain_attention_grads(q, k, v, g, causal, mask,
+                                            torch.bfloat16,
+                                            flash_attention_reference)
+            exact, fp32 = plain_attention_grads(q, k, v, g, causal, mask,
+                                                torch.float32,
+                                                dense_attention)
+            ref["grads"] = [t.cpu() for t in bf16]
+            ref["grad_floor"] = [rel_rms(a, b) for a, b in zip(bf16, fp32)]
+        else:
+            with torch.no_grad():
+                exact = dense_attention(q.float(), k.float(), v.float(),
+                                        causal=causal, kv_segment_valid=mask)
+        # The bf16 floor: the plain twin in bf16 against fp32.
+        ref["floor"] = rel_rms(plain.float(), exact.float())
+        refs[name] = ref
+        del q, k, v, g, mask, flash, plain, exact
+    return refs
+
+
+def axes_llama_refs(device):
+    """Part (b)'s yardstick: the one-process cache-free forward of
+    llama3-8b at AXES_LLAMA_LAYERS blocks (bf16 params from seed 0) on
+    ``[1, AXES_LLAMA_TOKENS]``, and the bf16 floor: its logits against
+    the same weights' forward in fp32 (dense attention)."""
+    entry = get_model(LLAMA)
+    kwargs = {"dtype": "bfloat16", "num_layers": AXES_LLAMA_LAYERS}
+    model = entry.make(**kwargs)
+    params = init_params(model, seed=0, device=device)
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, entry.num_classes_or_vocab, (1, AXES_LLAMA_TOKENS)).astype(
+            np.int32)).to(device)
+
+    with torch.inference_mode():
+        logits = apply(model, params, ids).cpu()
+        exact = entry.make(**dict(kwargs, dtype="float32"),
+                           attention_fn=functools.partial(dense_attention,
+                                                          causal=True))
+        wide = {k: v.float() for k, v in params.items()}
+        del params
+        floor = rel_rms(logits, apply(exact, wide, ids).cpu())
+    del wide
+    return {"kwargs": kwargs, "ids": ids.cpu().numpy(), "logits": logits,
+            "floor": floor}
+
+
+def axes_pipeline_config(name, cfg, mesh=None):
+    """(model, tx, batches) of part (c) for the registry model ``name``
+    and ``cfg`` (AXES_PIPELINE's keys): the tpu-lm chain at the
+    pretraining cell's rates; the batches' rows those of ``mesh``'s
+    batch position (all of them without one, in one process)."""
+    model = get_model(name).make(num_layers=cfg["layers"],
+                                 param_dtype="float32")
+    steps = cfg["steps"]
+    tx = optim.chain(
+        optim.clip_by_global_norm(1.0),
+        optim.adamw(optim.warmup_cosine_decay_schedule(
+            0.0, PRETRAIN_LR, PRETRAIN_WARMUP,
+            max(steps, PRETRAIN_WARMUP + 1)), weight_decay=0.01))
+    batches = list(itertools.islice(synthetic_causal_lm(
+        cfg["batch"], cfg["seq"], get_model(name).num_classes_or_vocab,
+        seed=0, mesh=mesh), steps))
+    return model, tx, batches
+
+
+def axes_pipeline_refs(device, base):
+    """Part (c)'s yardstick: the unpipelined step of the same model,
+    params, optimizer and batches, in this process, before the gang
+    (its fp32 state is ~31 GB; a pipeline=2 rank's ~24 GB). Each step's
+    loss and grad norm; the updated params written under ``base`` (one
+    raw fp32 file a leaf, for the ranks to read); whether the
+    cache-free forward's rows depend on its row count (its first
+    product at M = B·L against the first microbatch's rows); and each
+    leaf's update norm, ``|w - w0|``, that the ranks' updates are held
+    to."""
+    model, tx, batches = axes_pipeline_config(LLAMA, AXES_PIPELINE)
+    params = init_params(model, seed=0, device=device)
+    state, _ = create_lm_state(model, tx, params)
+    # The state's params share the init's storage: keep w0 apart.
+    initial = {k: v.detach().clone() for k, v in state.params.items()}
+    step = make_lm_train_step()
+    zero_counts()
+    metrics = []
+    for batch in batches:
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = read_counts()["flash_attention"]
+    files, update_norms = {}, {}
+    for name, t in state.params.items():
+        path = os.path.join(base, f"ref-{name}.f32")
+        t.detach().float().cpu().numpy().tofile(path)
+        files[name] = (path, tuple(t.shape))
+        update_norms[name] = float((t.detach().float()
+                                    - initial.pop(name).float()).norm())
+    # The row-count check: layer 0's q projection input (the first
+    # norm's rows) at the whole batch and at one microbatch's rows.
+    with torch.no_grad():
+        x = torch.randn((AXES_PIPELINE["batch"] * AXES_PIPELINE["seq"],
+                         model.d_model), generator=torch.Generator(
+            device=device).manual_seed(3), device=device).to(torch.bfloat16)
+        w = state.params["layers.0.attention.q_proj.weight"].to(
+            torch.bfloat16)
+        rows = x.shape[0] // AXES_PIPELINE["micro"]
+        row_delta = float((F.linear(x, w)[:rows].float()
+                           - F.linear(x[:rows], w).float()).abs().max())
+    del state, params
+    return {"metrics": metrics, "files": files, "launches": launches,
+            "update_norms": update_norms, "linear_row_delta": row_delta}
+
+
+def gang_axes(card, *, transport="gloo", world=2):
+    """The seq and pipeline axes on a gang of ``world`` rank processes
+    of ``scripts/axes_gang.py`` (two gloo ranks sharing the card, or one
+    nccl rank a card), held against the one-process runs made here
+    first. Asserted: (a) Ulysses and the ring at llama3-8b's attention
+    shape and at BERT-base's with a key mask, each within twice its
+    bf16 floor (relative RMS) of the one-process flash call (Ulysses
+    bitwise reported: the all-to-all moves bits and a flash row does not
+    depend on the head count), the llama3-8b case's dq, dk and dv within
+    twice their floor of the plain twin's, every rank's outputs equal,
+    and flash launched once a Ulysses call and never by the ring;
+    (b) the llama3-8b forward with the ring ``attention_fn`` within
+    twice its floor of the one-process forward, the ranks bitwise equal;
+    (c) two GPipe and two interleaved steps of the pretraining cell: the
+    step-0 loss equal to the unpipelined step's bit for bit where the
+    cache-free forward's rows do not depend on the row count (else its
+    max |Δ| printed beside the product's), each step's loss and grad
+    norm, the updated params and each leaf's update (w - w0) within
+    AXES_PARAM_TOL relative, the ranks' metrics equal, each rank's flash
+    launches its blocks × microbatches a step. Returns the phase's
+    figures."""
+    device = resolve_device()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".axes-") as base:
+        attention = axes_attention_refs(device)
+        llama_ref = axes_llama_refs(device)
+        pipe_ref = axes_pipeline_refs(device, base)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parent_s = time.monotonic() - t0
+        case = {"transport": transport, "model": LLAMA,
+                "attention": [r["shape"] for r in attention.values()],
+                "seeds": [r["seed"] for r in attention.values()],
+                "llama": {k: llama_ref[k] for k in ("kwargs", "ids")},
+                "pipeline": dict(AXES_PIPELINE, files=pipe_ref["files"],
+                                 update_norms=pipe_ref["update_norms"]),
+                "micro": (AXES_PIPELINE["micro"] if world == 2
+                          else AXES_PIPELINE["micro"] // 2)}
+        case_path = os.path.join(base, "case.pkl")
+        with open(case_path, "wb") as f:
+            pickle.dump(case, f)
+        t1 = time.monotonic()
+        ranks = spawn_gang(world, transport, case_path, base,
+                           script="axes_gang.py", timeout=GANG_AXES_TIMEOUT,
+                           tag="[axes_gang]")
+        gang_s = time.monotonic() - t1
+    figures = {"card": card, "transport": transport, "ranks": world,
+               "parent_s": parent_s, "gang_s": gang_s,
+               "main_s": [r["main_s"] for r in ranks], "attention": {}}
+    lead = ranks[0]
+    for name, ref in attention.items():
+        rows = {}
+        for strategy in ("ulysses", "ring"):
+            got = lead["attention"][name][strategy]
+            err = rel_rms(got["out"].float(), ref["out"].float())
+            row = {"rel_rms": err, "floor": ref["floor"],
+                   "bitwise": bool(torch.equal(got["out"], ref["out"])),
+                   "max_abs": float((got["out"].float()
+                                     - ref["out"].float()).abs().max()),
+                   "flash_launches": got["launches"], "ms": got["ms"]}
+            if "grads" in ref:
+                row["grad_rel_rms"] = [rel_rms(a.float(), b.float()) for a, b
+                                       in zip(got["grads"], ref["grads"])]
+                row["grad_floor"] = ref["grad_floor"]
+            rows[strategy] = row
+            want_launches = 1 if strategy == "ulysses" else 0
+            bad = [err > 2 * ref["floor"], got["launches"] != want_launches,
+                   any(not torch.equal(r["attention"][name][strategy]["out"],
+                                       got["out"]) for r in ranks[1:])]
+            if "grads" in ref:
+                bad += [e > 2 * f for e, f in zip(row["grad_rel_rms"],
+                                                  ref["grad_floor"])]
+            if strategy == "ulysses" and not row["bitwise"]:
+                log(f"axes gang {name}: Ulysses parts from the one-process "
+                    f"flash call by max |Δ| {row['max_abs']}")
+            if any(bad):
+                raise AssertionError(f"axes gang attention {name} "
+                                     f"{strategy}: {row}; failed checks "
+                                     f"{[i for i, b in enumerate(bad) if b]}")
+        figures["attention"][name] = rows
+    llama_row = lead["llama"]
+    err = rel_rms(llama_row["logits"], llama_ref["logits"])
+    figures["llama"] = {"rel_rms": err, "floor": llama_ref["floor"],
+                        "ms": llama_row["ms"],
+                        "fingerprints": [r["llama"]["fingerprint"]
+                                         for r in ranks]}
+    if (err > 2 * llama_ref["floor"]
+            or not torch.isfinite(llama_row["logits"]).all()
+            or len({r["llama"]["fingerprint"] for r in ranks}) != 1):
+        raise AssertionError(f"axes gang llama ring forward: "
+                             f"{figures['llama']}")
+    figures["pipeline"] = {"unpipelined": pipe_ref["metrics"],
+                           "linear_row_delta": pipe_ref["linear_row_delta"]}
+    blocks = AXES_PIPELINE["layers"] // 2  # pipeline=2 either way
+    for schedule in ("gpipe", "interleaved"):
+        got = lead["pipeline"][schedule]
+        ref_m = pipe_ref["metrics"]
+        delta0 = abs(got["metrics"][0]["loss"] - ref_m[0]["loss"])
+        row = {**got, "loss_delta_step0": delta0,
+               "rel": [{k: abs(g[k] / w[k] - 1) for k in ("loss", "grad_norm")}
+                       for g, w in zip(got["metrics"], ref_m)],
+               "param_rel_rms_max": max(max(r["pipeline"][schedule][
+                   "param_rel_rms"].values()) for r in ranks),
+               "update_rel_max": max(max(r["pipeline"][schedule][
+                   "update_rel"].values()) for r in ranks)}
+        per_step = blocks * case["micro"]
+        bad = [any(r["pipeline"][schedule]["metrics"] != got["metrics"]
+                   for r in ranks[1:]),
+               any(v > AXES_PARAM_TOL for e in row["rel"] for v in e.values()),
+               row["param_rel_rms_max"] > AXES_PARAM_TOL,
+               not row["update_rel_max"] <= AXES_PARAM_TOL,
+               any(r["pipeline"][schedule]["flash_launches"]
+                   != per_step * AXES_PIPELINE["steps"] for r in ranks)]
+        if pipe_ref["linear_row_delta"] == 0.0:
+            bad.append(delta0 != 0.0)
+        else:
+            log(f"axes gang {schedule}: step-0 loss parts from the "
+                f"unpipelined step's by {delta0}; the cache-free forward's "
+                f"F.linear (cuBLAS) rows depend on the row count: layer 0's "
+                f"q product at M = {AXES_PIPELINE['batch']} × "
+                f"{AXES_PIPELINE['seq']} against one microbatch's rows, max "
+                f"|Δ| {pipe_ref['linear_row_delta']}")
+        figures["pipeline"][schedule] = row
+        if any(bad):
+            raise AssertionError(f"axes gang pipeline {schedule}: {row}; "
+                                 f"failed checks "
+                                 f"{[i for i, b in enumerate(bad) if b]}")
+    figures["launches"] = [r["launches"] for r in ranks]
+    missing = [(i, k) for i, r in enumerate(ranks)
+               for k, n in r["launches"].items() if not n]
+    if missing:
+        raise AssertionError(f"axes gang: kernels never launched on a "
+                             f"rank's main path: {missing}")
+    figures["collective_share"] = [r["collectives"]["device_s"]
+                                   / r["main_s"] for r in ranks]
+    figures["collective_calls"] = [r["collectives"]["calls"] for r in ranks]
+    log(f"axes gang: {json.dumps(figures, default=str)}")
+    log(f"phase gang_axes: {time.monotonic() - t0:.1f} s [{card}]")
     return figures
 
 
@@ -6267,7 +6667,11 @@ def main() -> int:
     small_model_agreement()
     export_round_trip()
     launches = serve_llama(card)
-    gc.collect()  # the Llama params go before the ResNet's peak
+    gc.collect()  # the Llama params go before the axes gang and ResNet
+    torch.cuda.empty_cache()
+    axes_rows = axes_flash_rows(kernels)
+    axes = timed(gang_axes, card)
+    gc.collect()
     torch.cuda.empty_cache()
 
     bn_routes(resnet50_bn_shapes())
@@ -6426,6 +6830,19 @@ def main() -> int:
         line["tensor_rank"] = {
             **figures,
             "max_abs_err": max(r["max_abs_err"] for r in krows)}
+    # The axes gang's ranks (seq=2, then pipeline=2; one card): each
+    # kernel's launches on each rank over the phase's main path, and
+    # flash's figures at a Ulysses rank's and a pipeline stage's shapes.
+    for line in kernels:
+        if line["name"] in axes["launches"][0]:
+            line["launches_axes_ranks"] = [
+                own(r, line["name"]) if line["name"] in ("rms_norm",
+                                                         "add_rms_norm")
+                else r[line["name"]] for r in axes["launches"]]
+        if line["name"] == "flash_attention":
+            line["axes_rank"] = [{k: r[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for r in axes_rows]
     log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -63,7 +63,9 @@ and named tuples of tensors and ints) to the flat ``"/"``-keyed dict
 the reference's checkpoints hold: the reference's tree paths
 (``step``, ``params/layer_0/attention/q_proj/kernel``,
 ``opt_state/0/mu/...`` — a chain's members by index, a named tuple's
-fields by name, optax's), Flax's layouts and dtypes, ints as int32.
+fields by name, optax's), Flax's layouts and dtypes, ints as int32;
+a pipeline trainer's stacked ``stages/...`` kernels keep their leading
+stage dims and swap the last two.
 :func:`state_from_flax` is its inverse onto a live state of the same
 structure.
 """
@@ -386,6 +388,14 @@ def _state_children(node: Any):
     return None
 
 
+def _stacked_kernel(key: str) -> bool:
+    """A pipeline trainer's stacked Dense kernel (``stages/.../kernel``,
+    ``[S, L/S, in, out]`` or ``[v, n, L/S, in, out]`` in Flax): its last
+    two dims change places, whatever its rank."""
+    return key.endswith("/kernel") and (key.startswith("stages/")
+                                        or "/stages/" in key)
+
+
 def _leaf_to_flax(key: str, leaf: Any):
     if isinstance(leaf, bool) or not isinstance(leaf, (int, torch.Tensor,
                                                       np.ndarray)):
@@ -397,7 +407,9 @@ def _leaf_to_flax(key: str, leaf: Any):
     # A copy of its own, even of a CPU tensor: the optimizer updates
     # the live one in place while a checkpoint writer may still hold it.
     t = leaf.detach().to("cpu", copy=True)
-    if key.endswith("/kernel") and t.ndim in (2, 4):
+    if _stacked_kernel(key):
+        t = t.transpose(-1, -2)
+    elif key.endswith("/kernel") and t.ndim in (2, 4):
         t = t.T if t.ndim == 2 else t.permute(2, 3, 1, 0)
     t = t.contiguous()
     return t if t.dtype == torch.bfloat16 else t.numpy()
@@ -431,7 +443,9 @@ def _leaf_from_flax(key: str, value: Any, live: Any):
         t = value.detach().to("cpu")
     else:
         t = torch.from_numpy(np.array(value))
-    if key.endswith("/kernel") and t.ndim in (2, 4):
+    if _stacked_kernel(key):
+        t = t.transpose(-1, -2).contiguous()
+    elif key.endswith("/kernel") and t.ndim in (2, 4):
         t = _as_torch_kernel(t)
     if tuple(t.shape) != tuple(live.shape):
         raise ValueError(f"leaf {key!r}: checkpoint shape {tuple(t.shape)} "

@@ -13,9 +13,10 @@
 # limitations under the License.
 
 """The gang's mesh and its shardings: the batch axes (dcn_data, data,
-fsdp) and, for the dense Llama, the tensor axis (``collectives.py``'s
-Megatron pair, ``tensor_parallel.py``'s pieces). The other model axes
-are ROADMAP A18."""
+fsdp), for the dense Llama the tensor axis (``collectives.py``'s
+Megatron pair, ``tensor_parallel.py``'s pieces), the seq axis
+(``ring_attention.py``) and the pipeline axis (``pipeline.py``). The
+expert axis is ROADMAP A18."""
 
 from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

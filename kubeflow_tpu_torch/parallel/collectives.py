@@ -33,6 +33,17 @@ the one gloo collective documented for CUDA tensors beside
 the identity. On an nccl group of one rank each batch-axis collective
 is still launched: a one-rank sum is a copy, so the meshed step keeps
 the unmeshed step's bits. A tensor axis of 1 issues no collective.
+
+The seq and pipeline axes add the reference's shift and exchange
+(:func:`ppermute`: the ring's KV hop and the pipeline's stage hop, its
+gradient the shift the other way; :func:`all_to_all`: Ulysses's
+re-shard, its gradient the inverse exchange) and the sequence pair
+(:func:`scatter_to` takes a rank's piece and all-gathers its gradient,
+:func:`gather_from` joins the pieces and slices its gradient). Over
+gloo on the CPU a shift is ``send``/``recv`` and an exchange
+``all_to_all_single``; over nccl ``batch_isend_irecv`` and
+``all_to_all_single``; over gloo on CUDA each goes through an
+all-reduce of a zeroed buffer with n slots (n times the bytes).
 """
 
 from __future__ import annotations
@@ -42,11 +53,10 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_ORDER,
     BATCH_AXES,
     Mesh,
     Sharding,
-    tensor_group,
-    tensor_rank,
 )
 
 
@@ -72,15 +82,8 @@ def all_gather_dim(shard: torch.Tensor, mesh: Mesh, dim: int,
                    axis: str = "fsdp") -> torch.Tensor:
     """The whole leaf from each rank's piece along ``dim`` over
     ``axis``, in the axis's order."""
-    group = mesh.group((axis,))
-    parts = mesh.shape[axis]
-    if group is None or parts == 1:
-        return shard
-    front = shard.movedim(dim, 0).contiguous()
-    out = torch.empty((parts * front.shape[0], *front.shape[1:]),
-                      dtype=front.dtype, device=front.device)
-    _dist().all_gather_into_tensor(out, front, group=group)
-    return out.movedim(0, dim).contiguous()
+    line = _line(mesh, (axis,))
+    return shard if line is None else _gather_dim(shard, line, dim)
 
 
 def reduce_scatter_dim(full: torch.Tensor, mesh: Mesh, dim: int,
@@ -97,8 +100,9 @@ def reduce_scatter_dim(full: torch.Tensor, mesh: Mesh, dim: int,
     return out.movedim(0, dim).contiguous()
 
 
-#: The axes a param may be split over.
-PARAM_AXES = ("fsdp", "tensor")
+#: The axes a param may be split over (``pipeline``: a pipeline
+#: trainer's stacked stages).
+PARAM_AXES = ("fsdp", "pipeline", "tensor")
 
 
 def dims_by_axis(sharding: Optional[Sharding]) -> Dict[str, int]:
@@ -113,8 +117,8 @@ def dims_by_axis(sharding: Optional[Sharding]) -> Dict[str, int]:
         if len(axes) != 1 or axes[0] not in PARAM_AXES:
             raise NotImplementedError(
                 f"a leaf split over {axes}: the port's params split over "
-                f"fsdp and tensor, one axis a dim (the other model axes "
-                f"are ROADMAP A18)")
+                f"fsdp, pipeline and tensor, one axis a dim (expert "
+                f"parallelism is ROADMAP A18)")
         out[axes[0]] = dim
     return out
 
@@ -154,9 +158,10 @@ def reduce_grad(grad: torch.Tensor, sharding: Optional[Sharding],
 
 def norm_axes(mesh: Mesh) -> Tuple[str, ...]:
     """The axes a sharded norm sums its leaves' squares over: fsdp, and
-    tensor where it is live (a mesh without a tensor axis keeps the
-    fsdp line's group, and so its bits)."""
-    return PARAM_AXES if mesh.shape["tensor"] > 1 else ("fsdp",)
+    pipeline and tensor where they are live (a mesh without either keeps
+    the fsdp line's group, and so its bits)."""
+    return ("fsdp",) + tuple(a for a in ("pipeline", "tensor")
+                             if mesh.shape[a] > 1)
 
 
 def counts_here(sharding: Optional[Sharding], mesh: Mesh) -> bool:
@@ -231,92 +236,91 @@ def shard_tree(tree: Mapping[str, torch.Tensor],
     return out
 
 
-# -- the tensor axis ------------------------------------------------------------
+# -- lines of the mesh ----------------------------------------------------------
 
-def _tensor_line(mesh: Optional[Mesh]):
-    """``(group, size, rank)`` of this rank's tensor line, or None where
-    no tensor collective is issued (no mesh, a tensor axis of 1, or no
-    process group)."""
+def _line(mesh: Optional[Mesh], axes: Sequence[str]):
+    """``(group, size, position)`` of this rank's mesh line over ``axes``
+    (taken in :data:`AXIS_ORDER`, the first major), or None where no
+    collective is issued (no mesh, the axes of size 1, or no process
+    group)."""
     if mesh is None:
         return None
-    group = tensor_group(mesh)
+    axes = tuple(a for a in AXIS_ORDER if a in axes)
+    size = mesh.axes_size(axes)
+    if size == 1:
+        return None
+    group = mesh.group(axes)
     if group is None:
         return None
-    return group, mesh.shape["tensor"], tensor_rank(mesh)
+    return group, size, mesh.index(axes)
 
 
-def _sum_in_place(t: torch.Tensor, group) -> torch.Tensor:
+def _gloo_cuda(t: torch.Tensor, group) -> bool:
+    """Ranks sharing a card run gloo, whose documented CUDA collectives
+    are ``all_reduce`` and ``broadcast``: the other collectives of a
+    CUDA tensor go through an all-reduce of a zeroed buffer there."""
+    return t.is_cuda and _dist().get_backend(group) == "gloo"
+
+
+def _gather_dim(x: torch.Tensor, line, dim: int) -> torch.Tensor:
+    """The line's pieces of ``x`` joined along ``dim`` in rank order. Over
+    gloo on CUDA each rank writes its piece into a zeroed ``[n, ...]``
+    buffer and the all-reduce is the gather (x + 0 is x)."""
+    group, n, pos = line
+    x = x.contiguous()
+    if _gloo_cuda(x, group):
+        buf = torch.zeros((n, *x.shape), dtype=x.dtype, device=x.device)
+        buf[pos] = x
+        _dist().all_reduce(buf, group=group)
+    else:
+        buf = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        _dist().all_gather_into_tensor(buf, x, group=group)
+        buf = buf.view(n, *x.shape)
+    dim %= x.dim()
+    return buf.movedim(0, dim).reshape(
+        *x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+
+
+# -- the tensor axis ------------------------------------------------------------
+
+def _sum_in_place(t: torch.Tensor, line) -> torch.Tensor:
     """``t`` summed over the tensor line, in place. Two ranks' sum is an
     all-reduce (a + b is b + a). Over more, an all-reduce's order of
     additions follows how the library splits the buffer, which depends
     on its size, so a row summed in a batch of 4 could differ from the
     same row alone; the pieces are gathered instead and added in rank
     order, which gives every rank, and every batch, the same bits."""
-    size = _dist().get_world_size(group)
+    group, size, _ = line
     if size <= 2:
         _dist().all_reduce(t, group=group)
         return t
-    parts = _gather_last(t.unsqueeze(-1), group, size,
-                         _dist().get_rank(group))
+    parts = _gather_dim(t.unsqueeze(-1), line, -1)
     total = parts[..., 0]
     for i in range(1, size):
         total = total + parts[..., i]
     return t.copy_(total)
 
 
-def _gather_last(x: torch.Tensor, group, size: int, rank: int
-                 ) -> torch.Tensor:
-    """The tensor line's pieces of ``x`` joined on its last dim, in
-    rank order."""
-    x = x.contiguous()
-    if x.is_cuda and _dist().get_backend(group) == "gloo":
-        # Ranks sharing a card run gloo, whose documented CUDA
-        # collectives are all_reduce and broadcast: each rank writes its
-        # piece into a zeroed [T, ...] buffer and the sum is the gather
-        # (x + 0 is x).
-        buf = torch.zeros((size, *x.shape), dtype=x.dtype, device=x.device)
-        buf[rank] = x
-        _dist().all_reduce(buf, group=group)
-    else:
-        buf = torch.empty((size * x.shape[0], *x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        _dist().all_gather_into_tensor(buf, x, group=group)
-        buf = buf.view(size, *x.shape)
-    return buf.movedim(0, -2).reshape(*x.shape[:-1], size * x.shape[-1])
-
-
 class _CopyToTensor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, line):
+        ctx.line = line
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return _sum_in_place(grad.contiguous().clone(), ctx.group), None
+        return _sum_in_place(grad.contiguous().clone(), ctx.line), None
 
 
 class _ReduceFromTensor(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _sum_in_place(x.contiguous().clone(), group)
+    def forward(ctx, x, line):
+        return _sum_in_place(x.contiguous().clone(), line)
 
     @staticmethod
     def backward(ctx, grad):
         return grad, None
-
-
-class _GatherFromTensor(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, size, rank):
-        ctx.size, ctx.rank = size, rank
-        return _gather_last(x, group, size, rank)
-
-    @staticmethod
-    def backward(ctx, grad):
-        piece = grad.shape[-1] // ctx.size
-        return (grad[..., ctx.rank * piece:(ctx.rank + 1) * piece]
-                .contiguous(), None, None, None)
 
 
 def _recorded(x: torch.Tensor) -> bool:
@@ -327,10 +331,10 @@ def copy_to_tensor(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The input of a column-parallel product (or a weight every tensor
     rank holds whole but uses a part of): the identity forward, its
     gradient summed over the tensor line backward."""
-    line = _tensor_line(mesh)
+    line = _line(mesh, ("tensor",))
     if line is None or not _recorded(x):
         return x
-    return _CopyToTensor.apply(x, line[0])
+    return _CopyToTensor.apply(x, line)
 
 
 def reduce_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]
@@ -339,22 +343,209 @@ def reduce_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]
     embedding's rows, zeros off the rank's range) summed over the tensor
     line; the gradient passes through. Outside autograd the sum is taken
     in place."""
-    line = _tensor_line(mesh)
+    line = _line(mesh, ("tensor",))
     if line is None:
         return x
     if not _recorded(x):
         return _sum_in_place(x if x.is_contiguous() else x.contiguous(),
-                             line[0])
-    return _ReduceFromTensor.apply(x, line[0])
+                             line)
+    return _ReduceFromTensor.apply(x, line)
 
 
 def gather_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]
                        ) -> torch.Tensor:
     """The tensor line's pieces joined on the last dim (the vocab-split
     head's logits); the gradient of this rank's piece is its slice."""
-    line = _tensor_line(mesh)
+    return gather_from(x, mesh, ("tensor",), -1)
+
+
+# -- the seq and pipeline axes --------------------------------------------------
+
+def _shift(t: torch.Tensor, line, shift: int, circular: bool
+           ) -> torch.Tensor:
+    """What this rank receives when each rank of the line sends ``t`` to
+    the position ``shift`` ahead: the piece of the rank ``shift`` behind
+    (wrapping round where ``circular``; zeros where no rank is there).
+    Over gloo on CUDA it is an all-reduce of a zeroed ``[n, ...]``
+    buffer with each rank's piece at its destination's slot: n times
+    the bytes a send moves."""
+    group, n, pos = line
+    dst, src = pos + shift, pos - shift
+    if circular:
+        dst, src = dst % n, src % n
+    t = t.contiguous()
+    if _gloo_cuda(t, group):
+        buf = torch.zeros((n, *t.shape), dtype=t.dtype, device=t.device)
+        if 0 <= dst < n:
+            buf[dst] = t
+        _dist().all_reduce(buf, group=group)
+        return buf[pos].clone()
+    out = torch.zeros_like(t)
+    ops = []
+    dist = _dist()
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, t,
+                              dist.get_global_rank(group, dst), group))
+    if 0 <= src < n:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, src), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, line, shift, circular, *tensors):
+        ctx.line, ctx.shift, ctx.circular = line, shift, circular
+        out = tuple(_shift(t, line, shift, circular) for t in tensors)
+        ctx.mark_non_differentiable(*(o for o in out
+                                      if not o.is_floating_point()))
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None, *(
+            _shift(g, ctx.line, -ctx.shift, ctx.circular) if want else None
+            for g, want in zip(grads, ctx.needs_input_grad[3:])))
+
+
+def ppermute(tensors, mesh: Optional[Mesh], axis: str, shift: int = 1,
+             circular: bool = True):
+    """The reference's ``lax.ppermute`` by ``shift`` positions along
+    ``axis``: each rank sends its tensors to the rank ``shift`` ahead on
+    the axis and gets those of the rank ``shift`` behind; ``circular``
+    wraps round (the ring's ``(j, j + 1) % n``), else the first ranks
+    get zeros and the last ones' tensors go nowhere (the pipeline's
+    ``(i, i + 1)``). ``tensors`` is a tensor or a tuple of them, sent in
+    one node of the graph; the gradient is the shift the other way. An
+    axis of 1 (or no process group) is the identity where circular,
+    zeros where not."""
+    single = isinstance(tensors, torch.Tensor)
+    items = (tensors,) if single else tuple(tensors)
+    line = _line(mesh, (axis,))
+    if line is None:
+        out = items if circular else tuple(torch.zeros_like(t)
+                                           for t in items)
+    elif any(_recorded(t) for t in items):
+        out = _PPermute.apply(line, shift, circular, *items)
+    else:
+        out = tuple(_shift(t, line, shift, circular) for t in items)
+    return out[0] if single else out
+
+
+def _all_to_all(x: torch.Tensor, line, split_dim: int, concat_dim: int
+                ) -> torch.Tensor:
+    group, n, pos = line
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    if _gloo_cuda(send, group):
+        # [source, destination, ...] with this rank's row filled: n
+        # times the bytes of the exchange.
+        buf = torch.zeros((n, *send.shape), dtype=send.dtype,
+                          device=send.device)
+        buf[pos] = send
+        _dist().all_reduce(buf, group=group)
+        recv = buf[:, pos]
+    else:
+        recv = torch.empty_like(send)
+        _dist().all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, split_dim, concat_dim):
+        ctx.line, ctx.dims = line, (split_dim, concat_dim)
+        return _all_to_all(x, line, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(grad, ctx.line, concat_dim, split_dim), None,
+                None, None)
+
+
+def all_to_all(x: torch.Tensor, mesh: Optional[Mesh], axis: str,
+               split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The reference's tiled ``lax.all_to_all`` over ``axis``: ``x``'s
+    ``split_dim`` cut into n chunks, chunk j sent to the axis's rank j,
+    and the chunks received joined along ``concat_dim`` in the senders'
+    order. A dim that does not split over the axis raises. The gradient
+    is the inverse all-to-all."""
+    line = _line(mesh, (axis,))
     if line is None:
         return x
-    if not _recorded(x):
-        return _gather_last(x, *line)
-    return _GatherFromTensor.apply(x, *line)
+    if _recorded(x):
+        return _AllToAll.apply(x, line, split_dim, concat_dim)
+    return _all_to_all(x, line, split_dim, concat_dim)
+
+
+def _piece(x: torch.Tensor, line, dim: int) -> torch.Tensor:
+    _, n, pos = line
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    width = x.shape[dim] // n
+    return x.narrow(dim, pos * width, width).contiguous()
+
+
+class _ScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _piece(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.line, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, line, dim):
+        ctx.line, ctx.dim = line, dim
+        return _gather_dim(x, line, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _piece(grad, ctx.line, ctx.dim), None, None
+
+
+def scatter_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
+               dim: int) -> torch.Tensor:
+    """This rank's piece of ``x`` (whole on every rank of the line over
+    ``axes``) along ``dim``; the gradient, each rank's piece's, is
+    all-gathered back to the whole."""
+    line = _line(mesh, axes)
+    if line is None:
+        return x
+    if _recorded(x):
+        return _ScatterTo.apply(x, line, dim)
+    return _piece(x, line, dim)
+
+
+def gather_from(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str],
+                dim: int) -> torch.Tensor:
+    """The line's pieces along ``dim`` joined in rank order (the whole on
+    every rank); the gradient of this rank's piece is its slice of the
+    whole's."""
+    line = _line(mesh, axes)
+    if line is None:
+        return x
+    if _recorded(x):
+        return _GatherFrom.apply(x, line, dim)
+    return _gather_dim(x, line, dim)
+
+
+def broadcast_from(t: torch.Tensor, mesh: Optional[Mesh], axis: str,
+                   position: int) -> torch.Tensor:
+    """``t`` of the rank at ``position`` on ``axis``, on every rank of
+    the line (in place)."""
+    line = _line(mesh, (axis,))
+    if line is not None:
+        _dist().broadcast(t, _dist().get_global_rank(line[0], position),
+                          group=line[0])
+    return t

@@ -61,7 +61,7 @@ AXIS_ORDER: Tuple[str, ...] = (
     "dcn_data", "data", "fsdp", "pipeline", "seq", "expert", "tensor")
 #: The axes a batch's rows split over, outermost first.
 BATCH_AXES: Tuple[str, ...] = ("dcn_data", "data", "fsdp")
-#: The axes that change how a layer computes (ROADMAP A18).
+#: The axes that change how a layer computes.
 MODEL_AXES: Tuple[str, ...] = ("pipeline", "seq", "expert", "tensor")
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -441,23 +441,33 @@ def tensor_parallel_model(model: Any) -> bool:
 
 
 def check_batch_axes(mesh: Mesh, what: str, model: Any = None, *,
-                     tensor_ok: bool = False) -> None:
-    """Raise on a mesh with a model axis above 1 that the port does not
-    run: ``seq``, ``expert`` and ``pipeline`` always, and ``tensor``
-    unless ``model`` declares tensor-parallel layers
-    (:func:`tensor_parallel_model`: the dense Llama) or ``tensor_ok``
-    (a step built before its model is known checks it at its call)."""
+                     tensor_ok: bool = False,
+                     pipeline_ok: bool = False) -> None:
+    """Raise on a mesh with a model axis above 1 that the step does not
+    run. ``seq`` runs on every trainer as a replicated axis (the
+    reference's rule table maps it to activations alone: each seq rank
+    holds the whole params and batch and computes the unmeshed step).
+    ``expert`` always raises; ``pipeline`` unless ``pipeline_ok`` (the
+    pipeline trainer, ``training/pipeline_lm.py``); ``tensor`` unless
+    ``model`` declares tensor-parallel layers
+    (:func:`tensor_parallel_model`: the dense Llama) or ``tensor_ok`` (a
+    step built before its model is known checks it at its call)."""
     live = mesh.model_axes()
+    live.pop("seq", None)
     if live.get("tensor") and (tensor_ok or tensor_parallel_model(model)):
         del live["tensor"]
+    if pipeline_ok:
+        live.pop("pipeline", None)
     if live:
+        name = type(model).__name__ if model is not None else "this step"
         raise NotImplementedError(
-            f"{what}: the model axes {live} are not ported yet for "
-            f"{type(model).__name__ if model is not None else 'this step'}"
-            f" (ROADMAP A18: ring/Ulysses attention on seq, the pipeline "
-            f"schedule, expert parallelism, tensor for BERT, ViT, the CNNs "
-            f"and MoE); the port runs dcn_data, data, fsdp and, for the "
-            f"dense Llama, tensor")
+            f"{what}: the model axes {live} do not run for {name}: expert "
+            f"parallelism (with tensor for an MoE Llama) and tensor for "
+            f"BERT and ViT are ROADMAP A18, and the CNNs have no tensor "
+            f"layers; pipeline runs in the pipeline LM trainer "
+            f"(training/pipeline_lm.py, tpu-lm --mesh pipeline=N); the "
+            f"port's other trainers run dcn_data, data, fsdp, seq and, for "
+            f"the dense Llama, tensor")
 
 
 def tensor_group(mesh: Mesh):

@@ -31,8 +31,11 @@ the step XLA derives from the reference's shardings. On a ``tensor``
 axis (a dense Llama built on the mesh, ``Llama(mesh=)``) each rank also
 holds its tensor pieces, the model issues the tensor collectives
 itself, and the step gathers and reduce-scatters over fsdp alone; the
-loss runs on the all-gathered logits. The other model axes raise
-(ROADMAP A18). On an nccl group of one rank
+loss runs on the all-gathered logits. ``seq`` is a replicated axis:
+each seq rank holds the whole params and its batch position's rows and
+takes the unmeshed step (no gradient is summed over seq). ``pipeline``
+runs on the pipeline trainer (``training/pipeline_lm.py``) and
+``expert`` raises (ROADMAP A18). On an nccl group of one rank
 every collective is still launched, and the meshed step gives the
 unmeshed step's bits.
 
@@ -342,16 +345,16 @@ def optimizer_step(tx: GradientTransformation, opt_state, params: Params,
 def check_mesh_model(model: nn.Module, mesh: Mesh, what: str) -> None:
     """Raise where a mesh step cannot give the reference's result: a
     live model axis the model does not run (``tensor`` runs on the dense
-    Llama, which must then be built on the mesh), or an MoE model split
+    Llama, which must then be built on the mesh; ``pipeline`` on the
+    pipeline trainer; ``expert`` nowhere yet), or an MoE model split
     over batch ranks (its load-balance loss is a function of the global
-    batch's routing, and expert parallelism is not ported: ROADMAP
-    A18)."""
+    batch's routing, and expert parallelism is ROADMAP A18)."""
     check_batch_axes(mesh, what, model)
     if getattr(model, "num_experts", 0) and mesh.size > 1:
         raise NotImplementedError(
             f"{what}: an MoE model on a mesh of {mesh.size} ranks (the "
-            f"load-balance loss over the global batch and expert "
-            f"parallelism are ROADMAP A18)")
+            f"load-balance loss over the global batch with expert "
+            f"parallelism is ROADMAP A18)")
     tensor = mesh.shape["tensor"]
     if getattr(model, "tensor", 1) != tensor:
         raise ValueError(

@@ -43,9 +43,15 @@ with no ``--mesh`` trains data-parallel over every rank, the
 reference's all-data default), the megascale env fills dcn_data, and
 each rank writes its host shard of the checkpoints. ``--mesh
 tensor=T`` (and ``fsdp=F,tensor=T``) runs a dense Llama
-tensor-parallel, from the whole model's init cut to each rank's pieces;
-tensor on another model, the other model axes (seq, expert, pipeline)
-and the pipeline schedule's flags raise (ROADMAP A18).
+tensor-parallel, from the whole model's init cut to each rank's pieces.
+``seq`` is a replicated axis (each seq rank takes the unmeshed step).
+``--mesh pipeline=N`` (with the batch axes: ``data=2,pipeline=2``)
+runs a causal Llama on the pipeline trainer (``training/
+pipeline_lm.py``): ``--microbatches`` a step, ``--virtual_stages`` > 1
+for the interleaved schedule, each rank holding and checkpointing its
+own stages; another model or objective raises, as the reference's
+guard does. Tensor on another model and ``expert`` raise (ROADMAP
+A18).
 """
 
 from __future__ import annotations
@@ -74,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=10)
     p.add_argument("--mesh", default=None,
                    help="e.g. data=2,fsdp=2 over the gang's ranks (the "
-                        "batch axes, and tensor for a dense Llama; the "
-                        "other model axes are ROADMAP A18). "
+                        "batch axes; seq, replicated; pipeline=N for a "
+                        "causal Llama; tensor for a dense Llama; expert "
+                        "is ROADMAP A18). "
                         "Default: all-data in a gang, one device alone")
     p.add_argument("--data", default=None,
                    help="token shards (.npy / raw .bin): comma-separated "
@@ -96,9 +103,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rematerialize blocks (llama only)")
     p.add_argument("--microbatches", type=int, default=4,
                    help="pipeline schedule microbatch count (only with a "
-                        "pipeline mesh axis: ROADMAP A18)")
+                        "pipeline mesh axis)")
     p.add_argument("--virtual_stages", type=int, default=1,
-                   help="interleaved pipeline stages (ROADMAP A18)")
+                   help="virtual stages a device for the interleaved "
+                        "(circular) pipeline schedule; 1 = GPipe")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="cuda or cpu (default: cpu where the env has "
@@ -126,30 +134,43 @@ def main(argv=None) -> int:
         # the run from step 0.
         parser.error("--continuous_every needs --checkpoint_dir")
     from kubeflow_tpu_torch.parallel.mesh import (
-        MODEL_AXES,
         build_mesh,
         parse_mesh,
         tensor_parallel_model,
     )
 
-    spec = parse_mesh(args.mesh)
-    model_axes = {a: getattr(spec, a) for a in MODEL_AXES
-                  if spec is not None and getattr(spec, a) != 1
-                  and a != "tensor"}
-    if model_axes:
-        raise SystemExit(
-            f"--mesh {args.mesh}: the model axes {model_axes} (and the "
-            "pipeline schedule) are not ported yet (ROADMAP A18); the "
-            "port's trainers run dcn_data, data, fsdp and, for a dense "
-            "Llama, tensor")
-    if spec is not None and spec.tensor != 1:
-        from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.models.llama import Llama
+    from kubeflow_tpu_torch.models.registry import get_model
 
-        if not tensor_parallel_model(get_model(args.model).make()):
+    entry = get_model(args.model)
+    objective = args.objective or (
+        "mlm" if entry.name.startswith("bert") else "causal")
+    spec = parse_mesh(args.mesh)
+    sizes = spec.sizes() if spec is not None else {}
+    if sizes.get("expert", 1) != 1:
+        raise SystemExit(
+            f"--mesh {args.mesh}: expert parallelism is not ported yet "
+            f"(ROADMAP A18); the port's trainers run dcn_data, data, fsdp, "
+            f"seq, pipeline (a causal Llama) and tensor (a dense Llama)")
+    pipeline = sizes.get("pipeline", 1) != 1
+    if pipeline and (objective != "causal"
+                     or not isinstance(entry.make(), Llama)):
+        # The reference's guard: a non-decoder tree has no blocks to
+        # stage.
+        raise SystemExit(
+            "a pipeline mesh axis needs a causal decoder (Llama) model "
+            f"(got {entry.name!r}, objective={objective!r})")
+    if sizes.get("tensor", 1) != 1:
+        if pipeline:
+            raise SystemExit(
+                f"--mesh {args.mesh}: the pipeline trainer's blocks are "
+                f"whole; tensor with pipeline is not a preset")
+        if not tensor_parallel_model(entry.make()):
             raise SystemExit(
                 f"--mesh {args.mesh}: tensor for {args.model} is not "
-                f"ported yet (ROADMAP A18: tensor for BERT, ViT, the CNNs "
-                f"and MoE); the port runs it for a dense Llama")
+                f"ported yet (ROADMAP A18: tensor for BERT and ViT, and "
+                f"for an MoE Llama with expert parallelism; the CNNs have "
+                f"no tensor layers); the port runs it for a dense Llama")
 
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
     from kubeflow_tpu_torch.utils.platform import default_device
@@ -161,7 +182,6 @@ def main(argv=None) -> int:
     mesh = build_mesh(spec, args.device) if (spec or gang) else None
 
     from kubeflow_tpu_torch.models.convert import init_params
-    from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.training import optim
     from kubeflow_tpu_torch.training.checkpoint import (
         CheckpointConfig,
@@ -187,9 +207,6 @@ def main(argv=None) -> int:
     )
     from kubeflow_tpu_torch.utils.device import resolve_device
 
-    entry = get_model(args.model)
-    objective = args.objective or (
-        "mlm" if entry.name.startswith("bert") else "causal")
     device = resolve_device(args.device)
     kwargs = {}
     if entry.decoder:
@@ -234,8 +251,24 @@ def main(argv=None) -> int:
                 max(args.steps, args.warmup_steps + 1)),
             weight_decay=0.01))
     params = init_params(whole, seed=args.seed, device=device)
-    state, _ = create_lm_state(model, tx, params, mesh)
-    step_fn = make_lm_train_step(mesh, objective=objective)
+    if pipeline:
+        # The pipeline trainer (training/pipeline_lm.py): the blocks
+        # staged over the pipeline axis, GPipe or the interleaved
+        # schedule; each rank keeps its own stages.
+        from kubeflow_tpu_torch.training.pipeline_lm import (
+            create_pipeline_lm_state,
+            make_pipeline_lm_train_step,
+        )
+
+        state, _ = create_pipeline_lm_state(
+            model, tx, params, mesh, n_virtual=args.virtual_stages)
+        step_fn = make_pipeline_lm_train_step(
+            mesh, model, n_microbatches=args.microbatches,
+            objective=objective, n_virtual=args.virtual_stages)
+    else:
+        state, _ = create_lm_state(model, tx, params, mesh)
+        step_fn = make_lm_train_step(mesh, objective=objective)
+    del params
 
     ckpt = continuous = None
     mesh_shape = mesh.shape if mesh is not None else None

@@ -25,8 +25,10 @@ every BN layer on the sync route (``ops/batch_norm.py``
 BN has them on a batch-sharded mesh), takes the gradient of its rows'
 share of the global mean loss, reduce-scatters the sharded params'
 gradients over fsdp, sums the rest over the batch axes, and steps the
-optimizer on its pieces. A model axis above 1 raises (ROADMAP A18: the
-vision models have no tensor-parallel layers in the port).
+optimizer on its pieces. ``seq`` is a replicated axis (each seq rank
+takes the unmeshed step); ``tensor``, ``pipeline`` and ``expert`` raise
+(ROADMAP A18: the vision models have no tensor-parallel layers in the
+port; the pipeline trainer stages a Llama's blocks).
 
 optax → torch.optim: ``optax.sgd(lr, momentum, nesterov=True)`` is
 ``torch.optim.SGD(lr=lr, momentum=momentum, nesterov=True,

@@ -17,10 +17,12 @@
 Wraps every function of ``chip_smoke`` so that each call adds its
 inclusive wall seconds to that function's total (a function's own
 recursive calls are counted once), builds the kernels, makes llama3-8b
-at full width from seed 0, and runs ``serve_captured`` and then
-``serve_manager`` on it, as the smoke does. Prints each phase's wall and
-its functions by total time, and writes them as JSON. The phases' own
-asserts hold as in the smoke. Run from the repository root::
+at full width from seed 0, and runs ``serve_engine``, ``serve_prefix``
+and ``serve_chunked`` (whose B=1 streams ``serve_captured`` holds its
+captured engines to), ``serve_captured`` and then ``serve_manager`` on
+it, as the smoke does. Prints each phase's wall and its functions by
+total time, and writes them as JSON. The phases' own asserts hold as in
+the smoke. Run from the repository root::
 
     python3 scripts/smoke_breakdown.py [--out breakdown.json]
 
@@ -96,13 +98,24 @@ def main() -> int:
     torch.cuda.synchronize()
     kw = {"dtype": "bfloat16"}
     report = {"card": card}
-    captured = None
-    for phase in ("serve_captured", "serve_manager"):
+    captured = refs = None
+    for phase in ("serve_engine", "serve_prefix", "serve_chunked",
+                  "serve_captured", "serve_manager"):
         TOTAL.clear()
         CALLS.clear()
         t0 = time.monotonic()
-        if phase == "serve_captured":
-            captured = smoke.serve_captured(card, smoke.LLAMA, params, kw)
+        if phase == "serve_engine":
+            _, vanilla = smoke.serve_engine(card, smoke.LLAMA, params, kw)
+            refs = {"engine": {m: vanilla[m][1] for m in vanilla}}
+        elif phase == "serve_prefix":
+            _, refs["prefix"] = smoke.serve_prefix(card, smoke.LLAMA,
+                                                   params, kw)
+        elif phase == "serve_chunked":
+            _, refs["chunk"] = smoke.serve_chunked(card, smoke.LLAMA,
+                                                   params, kw)
+        elif phase == "serve_captured":
+            captured = smoke.serve_captured(card, smoke.LLAMA, params, kw,
+                                            refs)
         else:
             smoke.serve_manager(card, smoke.LLAMA, params, kw, captured)
         wall = time.monotonic() - t0

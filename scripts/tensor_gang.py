@@ -58,35 +58,41 @@ def log(msg: str) -> None:
     print(f"[tensor_gang] {msg}", flush=True)
 
 
-def timed_collectives():
-    """Count this rank's collectives (all_reduce, the all-gather,
-    broadcast, and the broadcasts inside ``broadcast_object_list``: the
-    gang's control messages) and time them. A call on CUDA tensors is
-    timed on the card, by CUDA events on the current stream around it:
-    an nccl call only enqueues its work, and the stream then waits for
-    it, so the gap between the events is the collective on the device's
-    clock, its wait for the peers included. A call on CPU tensors
-    (gloo's object broadcasts) is timed by the host clock. Returns a
-    function that synchronizes the card and gives the totals."""
+COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "broadcast")
+
+
+def timed_collectives(names=COLLECTIVES):
+    """Count this rank's collectives (by default all_reduce, the
+    all-gather, broadcast, and the broadcasts inside
+    ``broadcast_object_list``: the gang's control messages) and time
+    them. A call on CUDA tensors is timed on the card, by CUDA events on
+    the current stream around it: an nccl call only enqueues its work,
+    and the stream then waits for it, so the gap between the events is
+    the collective on the device's clock, its wait for the peers
+    included. A call on CPU tensors (gloo's object broadcasts) is timed
+    by the host clock. ``batch_isend_irecv`` is timed by its first op's
+    tensor. Returns a function that synchronizes the card and gives the
+    totals so far."""
     c10d = torch.distributed.distributed_c10d
     spent = {"calls": 0, "host_s": 0.0}
     events = []
-    for name in ("all_reduce", "all_gather_into_tensor", "broadcast"):
+    for name in names:
         real = getattr(c10d, name)
 
-        def call(tensor, *args, _real=real, **kw):
+        def call(first, *args, _real=real, **kw):
             spent["calls"] += 1
+            tensor = first[0].tensor if isinstance(first, list) else first
             if tensor.is_cuda:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                out = _real(tensor, *args, **kw)
+                out = _real(first, *args, **kw)
                 end.record()
                 events.append((start, end))
                 return out
             t0 = time.monotonic()
             try:
-                return _real(tensor, *args, **kw)
+                return _real(first, *args, **kw)
             finally:
                 spent["host_s"] += time.monotonic() - t0
 
@@ -96,7 +102,8 @@ def timed_collectives():
         setattr(torch.distributed, name, call)
 
     def totals():
-        torch.cuda.synchronize()
+        if events:
+            torch.cuda.synchronize()
         device_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
         return dict(spent, device_s=device_s, device_calls=len(events))
 

@@ -26,6 +26,7 @@ import os
 import pickle
 import sys
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -76,6 +77,7 @@ def rows(batch, mesh):
 
 TXS = {
     "adamw": lambda: optim.adamw(1e-3),
+    "adamw5e-3": lambda: optim.adamw(5e-3),
     "sgd": lambda: optim.sgd(0.1),
     "pretrain_chain": lambda: optim.chain(
         optim.clip_by_global_norm(1.0),
@@ -273,8 +275,186 @@ def tensor_sum_job(case):
     return out
 
 
+def _t(a, grad=False):
+    return torch.from_numpy(np.asarray(a)).requires_grad_(grad)
+
+
+def seq_job(case):
+    """The sequence-parallel attention of a case on its mesh (every rank
+    given the whole tensors): the output and, for ``grad``, the
+    gradients of ``sum(out²)`` in q, k, v; a BERT forward with the ring
+    as its ``attention_fn``; or an LM step on a seq mesh (``lm_job``)."""
+    from kubeflow_tpu_torch.models.llama import apply
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        make_sequence_parallel_attention,
+    )
+
+    if case["kind"] == "lm":
+        return lm_job(case)
+    mesh = mesh_of(case)
+    if case["kind"] == "bert":
+        fn = make_sequence_parallel_attention(mesh, strategy="ring",
+                                              head_axis=None)
+        model = get_model("bert-test").make(**case["kwargs"],
+                                            attention_fn=fn)
+        params = convert.params_from_flax(case["params"], model,
+                                          device="cpu")
+        valid = None if case["valid"] is None else _t(case["valid"])
+        with torch.no_grad():
+            out = apply(model, params, _t(case["ids"]), None, valid)
+        return {"out": out.float().numpy()}
+    fn = make_sequence_parallel_attention(
+        mesh, strategy=case["strategy"], causal=case["causal"],
+        head_axis=case["head_axis"])
+    q, k, v = (_t(case[n], True) for n in "qkv")
+    mask = None if case["mask"] is None else _t(case["mask"])
+    out = fn(q, k, v, kv_segment_valid=mask)
+    grads = torch.autograd.grad((out ** 2).sum(), (q, k, v))
+    return {"out": out.detach().numpy(),
+            "grads": [g.numpy() for g in grads]}
+
+
+def pipeline_job(case):
+    """A case of ``tests/test_pipeline.py`` on the case's mesh: the
+    pipeline's output on this rank's rows and, for ``grad``, the whole
+    stacked params' gradient of ``sum(out²)`` (each pipeline rank's own
+    stages' summed over the pipeline line)."""
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.parallel.pipeline import (
+        spmd_pipeline,
+        spmd_pipeline_interleaved,
+    )
+
+    mesh = mesh_of(case)
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    stacked = {k: _t(v, case["grad"]) for k, v in case["stacked"].items()}
+    x = _t(case["x"])
+    if case.get("batch_axis"):
+        x = rows({"x": x}, mesh)["x"]
+    kw = dict(mesh=mesh, n_microbatches=case["n_micro"])
+    if case["n_virtual"]:
+        out = spmd_pipeline_interleaved(stage_fn, stacked, x,
+                                        n_virtual=case["n_virtual"], **kw)
+    else:
+        out = spmd_pipeline(stage_fn, stacked, x, **kw)
+    got = {"out": out.detach().numpy()}
+    if case.get("gpipe_too"):
+        # The same stages on GPipe (the [1, n, ...] layout's stage dim).
+        got["gpipe"] = spmd_pipeline(
+            stage_fn, {k: t[0] for k, t in stacked.items()}, x,
+            **kw).detach().numpy()
+    if case["grad"]:
+        grads = torch.autograd.grad((out ** 2).sum(), list(stacked.values()))
+        got["grads"] = {k: collectives.all_reduce_sum(
+            g.clone(), mesh, ("pipeline",)).numpy()
+            for k, g in zip(stacked, grads)}
+    return got
+
+
+def pipeline_lm_job(case):
+    """A case of ``tests/test_pipeline_lm.py``: the staged forward's
+    logits (and, under remat, its gradients' finiteness), or the
+    pipeline trainer's steps: each step's metrics, then the whole state
+    (gathered over the pipeline line)."""
+    from kubeflow_tpu_torch.models.llama import Llama
+    from kubeflow_tpu_torch.training.pipeline_lm import (
+        create_pipeline_lm_state,
+        make_pipeline_lm_train_step,
+        partition_llama_params,
+        staged_llama_forward,
+    )
+    from kubeflow_tpu_torch.training.checkpoint import (
+        ContinuousCheckpointConfig,
+        ShardedCheckpointer,
+    )
+
+    mesh = mesh_of(case)
+    model = Llama(**case["kwargs"])
+    params = convert.params_from_flax(case["params"], model, device="cpu")
+    v = case.get("n_virtual", 1)
+    if case["kind"] == "forward":
+        staged = {k: t.requires_grad_(True) for k, t in
+                  partition_llama_params(params, case["stages"]).items()}
+        ids = rows({"ids": _t(case["ids"])}, mesh)["ids"]
+        logits = staged_llama_forward(model, staged, ids, mesh=mesh,
+                                      n_microbatches=case["n_micro"],
+                                      n_virtual=v)
+        grads = torch.autograd.grad((logits ** 2).mean(),
+                                    list(staged.values()))
+        return {"logits": logits.detach().numpy(),
+                "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
+    tx = TXS[case["tx"]]()
+    state, _ = create_pipeline_lm_state(model, tx, params, mesh,
+                                        n_virtual=v)
+    step = make_pipeline_lm_train_step(mesh, model,
+                                       n_microbatches=case["n_micro"],
+                                       n_virtual=v)
+    pieces = {k: tuple(t.shape) for k, t in state.params.items()}
+    metrics = []
+    for i, batch in enumerate(case["batches"]):
+        if case.get("save_dir") and i == case["save_at"]:
+            writer = ShardedCheckpointer(ContinuousCheckpointConfig(
+                directory=case["save_dir"], async_save=False,
+                num_hosts=mesh.size, host_id=mesh.rank))
+            writer.save(state.step, state, force=True)
+            writer.close()
+            dist.barrier()  # rank 0 has committed the manifest
+            # A fresh state (from the same init) restored from it takes
+            # the remaining steps.
+            fresh, _ = create_pipeline_lm_state(
+                model, tx, convert.params_from_flax(case["params"], model,
+                                                    device="cpu"),
+                mesh, n_virtual=v)
+            reader = ShardedCheckpointer(ContinuousCheckpointConfig(
+                directory=case["save_dir"], async_save=False))
+            restored = reader.restore(fresh)
+            reader.close()
+            same = all(torch.equal(restored.params[k], t)
+                       for k, t in state.params.items())
+            state = restored
+            metrics.append({"restored_bitwise": same,
+                            "restored_step": state.step})
+        state, m = step(state, rows(batch, mesh))
+        metrics.append({k: float(val) for k, val in m.items()})
+    return {"metrics": metrics, "pieces": pieces,
+            "state": convert.state_to_flax(gathered_state(state))}
+
+
+def cli_job(case):
+    """tpu-lm (``pretrain.main``) in the gang with the case's argv, its
+    init carried across from the reference's; the metrics it wrote."""
+    import contextlib
+    import io
+    import json
+
+    from kubeflow_tpu_torch.training.pretrain import main as pretrain_main
+
+    carried = case["params"]
+    real = convert.init_params
+    convert.init_params = (lambda model, seed=0, device=None, dtype=None:
+                           convert.params_from_flax(carried, model,
+                                                    device=device))
+    path = os.path.join(case["out"], f"metrics{dist.get_rank()}.jsonl")
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = pretrain_main(case["argv"] + ["--metrics_path", path])
+    finally:
+        convert.init_params = real
+    with open(path) as f:
+        lines = [json.loads(x) for x in f if x.strip()]
+    return {"rc": rc, "final": json.loads(out.getvalue().strip()
+                                          .splitlines()[-1]),
+            "metrics": lines}
+
+
 JOBS = {"lm": lm_job, "prefetch": prefetch_job, "vision": vision_job,
-        "serve": serve_job, "tensor_sum": tensor_sum_job}
+        "serve": serve_job, "tensor_sum": tensor_sum_job, "seq": seq_job,
+        "pipeline": pipeline_job, "pipeline_lm": pipeline_lm_job,
+        "cli": cli_job}
 
 
 def main():

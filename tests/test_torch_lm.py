@@ -167,19 +167,20 @@ def test_remat_gives_the_same_gradients():
 
 def test_mesh_and_bert_batches_raise_with_their_roadmap_items():
     """A mesh with a model axis the port does not run raises (ROADMAP
-    A18; the batch axes run: tests/test_torch_gang_lm.py, the tensor
-    axis on a dense Llama: tests/test_torch_tensor_train.py), and so
+    A18: expert; the batch axes run: tests/test_torch_gang_lm.py, the
+    tensor axis on a dense Llama: tests/test_torch_tensor_train.py, seq:
+    tests/test_torch_seq_attention.py), and so
     does an MoE model on a mesh of more than one rank. A BERT batch (the mlm
     objective's) on a Llama runs as the reference runs it: its type_ids
     are the Llama's positions, its valid mask the ignored train flag
     (BERT itself: tests/test_torch_bert.py; MoE:
     tests/test_torch_moe.py)."""
     ref_state, params, model = lm_pair(optax.sgd(0.1))
-    seq = Mesh(MeshSpec(data=2, seq=2), device="cpu")
+    expert = Mesh(MeshSpec(data=2, expert=2), device="cpu")
     with pytest.raises(NotImplementedError, match="A18"):
-        lm.create_lm_state(model, optim.sgd(0.1), params, mesh=seq)
+        lm.create_lm_state(model, optim.sgd(0.1), params, mesh=expert)
     with pytest.raises(NotImplementedError, match="A18"):
-        lm.make_lm_train_step(seq)
+        lm.make_lm_train_step(expert)
     with pytest.raises(NotImplementedError, match="A18"):
         lm.create_lm_state(llama_test(num_experts=4), optim.sgd(0.1), {},
                            mesh=Mesh(MeshSpec(data=2), device="cpu"))

@@ -365,8 +365,14 @@ def test_pretrain_num_layers_cuts_the_depth(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "llama-test", "--mesh", "data=4,pipeline=2"], "A18"),
+    (["--model", "llama-test", "--mesh", "data=4,expert=2"], "A18"),
     (["--model", "bert-test", "--mesh", "tensor=2"], "A18"),
+    (["--model", "bert-test", "--mesh", "data=4,pipeline=2"],
+     "causal decoder"),
+    (["--model", "llama-test", "--objective", "mlm", "--mesh",
+      "pipeline=2"], "causal decoder"),
+    (["--model", "llama-test", "--mesh", "pipeline=2,tensor=2"],
+     "tensor with pipeline"),
 ])
 def test_pretrain_refuses_what_is_not_ported(argv, match):
     with pytest.raises(SystemExit, match=match):
