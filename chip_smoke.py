@@ -315,7 +315,16 @@ checkout's BN kernel by the same code (a parent commit's, say).
    Ulysses attention at llama3-8b's and BERT-base's shapes (with
    gradients), a 4-block llama3-8b forward with the ring, and GPipe and
    interleaved steps of the depth-4 pretraining cell, each held against
-   the one-process run made first (asserted; times reported).
+   the one-process run made first (asserted; times reported). Then the
+   expert axis and BERT's tensor axis (``gang_expert``; alone:
+   ``python3 scripts/expert_gang.py``): flash at an MoE block's and a
+   BERT tensor rank's shapes, then two gloo ranks sharing the card take
+   two tpu-lm steps of llama-moe-bench at its full config on
+   ``expert=2`` and on ``data=2`` and of bert-base mlm on ``tensor=2``,
+   each held against the one-process steps made first (metrics, every
+   updated leaf and its update, each rank's own experts or heads, the
+   launches; asserted), with the MoE layer's device ms beside the dense
+   twin's MLP (reported).
 10. One JSON line of kernel numbers, then the result line.
 
 Each path's launch counts are zeroed just before it and read just
@@ -434,6 +443,7 @@ from kubeflow_tpu_torch.training import launcher
 from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from kubeflow_tpu_torch.training.data import (
     DevicePrefetcher,
+    host_shard_range,
     place_batch,
     synthetic_causal_lm,
 )
@@ -5461,6 +5471,374 @@ def gang_axes(card, *, transport="gloo", world=2):
     return figures
 
 
+# -- the expert axis and BERT's tensor axis on one card (gang_expert) --------
+
+#: Part (a): llama-moe-bench at its registered config, nothing cut (4
+#: layers, d 1024, 16/8 heads, 8 experts top-2, mlp 3584, vocab 8192),
+#: fp32 masters, bf16 compute, b8 × L1024 from seed 0 at the MoE pricing
+#: runs' rates (MOE_LR, MOE_WARMUP): two steps on ``expert=2`` (4
+#: experts a rank), then two on ``data=2``. Part (b): bert-base mlm at
+#: tpu-lm's defaults (lr 1e-4, warmup 10), B32 × L128 with padded rows,
+#: two steps on ``tensor=2`` (6 heads a rank).
+EXPERT_RUNS = (
+    ("moe expert=2", "moe", {"expert": 2}),
+    ("moe data=2", "moe", {"data": 2}),
+    ("bert tensor=2", "bert", {"tensor": 2}),
+)
+EXPERT_STEPS = 2
+#: Each run's step metrics, updated params and updates (w - w0) against
+#: the one-process step's: relative, one bf16 step. The first step's
+#: rate is 0, so the update is the second's. Where another valid order
+#: of the one-process steps (two microbatches) already moves a leaf
+#: past it (bert-base's zero-initialised biases and LayerNorm vectors,
+#: whose adam step at a rate of 1e-5 follows gradients near their
+#: rounding), the params and updates are held to twice that floor
+#: (``order_floor``).
+EXPERT_PARAM_TOL = 2.0 ** -7
+#: Seconds the gang may take before the phase kills it and fails.
+GANG_EXPERT_TIMEOUT = 300
+#: Leaves whose gradient is 0 in exact arithmetic: BERT's key bias (a
+#: softmax over keys is invariant to a shift of every key's score by the
+#: query's dot product with it). Adam moves them by its step on the sign
+#: of rounding noise, in any run, so they are held to the size of that
+#: step and not to the one-process run's elements.
+ZERO_GRADIENT_LEAVES = (".attention.key.bias",)
+
+#: The flash kernel at the expert gang's shapes (PERF.md §6): a
+#: llama-moe-bench block's call (the batch whole on an expert=2 rank) and
+#: a BERT-base tensor=2 rank's (its 6 of 12 heads).
+EXPERT_FLASH_SHAPES = (
+    ("x: llama-moe-bench block B8 L1024 H16/8 D64 causal", 8, 1024, 16, 8,
+     64, torch.bfloat16, True, False),
+    ("xb: BERT tensor=2 rank B32 L128 H6 D64 key mask", 32, 128, 6, 6, 64,
+     torch.bfloat16, False, True),
+)
+
+
+def expert_flash_rows(kernels):
+    """The flash kernel held against its plain version and timed at the
+    expert gang's shapes (EXPERT_FLASH_SHAPES)."""
+    return [check_flash(kernels, *shape) for shape in EXPERT_FLASH_SHAPES]
+
+
+def expert_rates(kind):
+    """A run's tpu-lm rate and warmup: the MoE pricing runs' for
+    llama-moe-bench, tpu-lm's defaults for bert-base."""
+    return (MOE_LR, MOE_WARMUP) if kind == "moe" else (1e-4, 10)
+
+
+def expert_lr_sum(kind):
+    """The sum of the schedule's rates over a run's steps: adam moves no
+    element (of a leaf without weight decay's pull, as a zero-initialised
+    bias) by more than about this."""
+    lr, warmup = expert_rates(kind)
+    sched = optim.warmup_cosine_decay_schedule(
+        0.0, lr, warmup, max(EXPERT_STEPS, warmup + 1))
+    return sum(float(sched(t)) for t in range(EXPERT_STEPS))
+
+
+def tpu_lm_chain(lr, warmup, steps):
+    """tpu-lm's optimizer: ``clip_by_global_norm(1.0)``, then adamw over
+    ``warmup_cosine_decay_schedule(0, lr, warmup, ...)`` with weight
+    decay 0.01."""
+    return optim.chain(
+        optim.clip_by_global_norm(1.0),
+        optim.adamw(optim.warmup_cosine_decay_schedule(
+            0.0, lr, warmup, max(steps, warmup + 1)), weight_decay=0.01))
+
+
+def expert_config(kind, mesh=None):
+    """(whole model, model, tx, batches, objective) of a run of
+    ``kind`` ("moe" or "bert"): the model built on ``mesh`` where given
+    (its rank's pieces), the whole one to draw the init from (seed 0)
+    and the batches this mesh position reads (every row without a mesh,
+    in one process)."""
+    steps, device = EXPERT_STEPS, resolve_device()
+    on = {} if mesh is None else {"mesh": mesh}
+    if kind == "moe":
+        name = MOE_MODELS[0]
+        whole = get_model(name).make(param_dtype="float32")
+        model = get_model(name).make(param_dtype="float32", **on)
+        batches = list(itertools.islice(synthetic_causal_lm(
+            MOE_BATCH, MOE_SEQ, get_model(name).num_classes_or_vocab,
+            seed=0, mesh=mesh), steps))
+        return (whole, model, tpu_lm_chain(*expert_rates(kind), steps),
+                [place_batch(b, device) for b in batches], "causal")
+    entry = get_model(BERT)
+    whole, model = entry.make(), entry.make(**on)
+    rows = host_shard_range(BERT_BATCH, mesh=mesh)
+    batches = [{k: v[rows.start:rows.stop] for k, v in mlm_batch(
+        BERT_BATCH, BERT_SEQ, entry.num_classes_or_vocab, seed,
+        device).items()} for seed in range(1, steps + 1)]
+    return (whole, model, tpu_lm_chain(*expert_rates(kind), steps),
+            batches, "mlm")
+
+
+def expert_launches(kind, model):
+    """One train step's launches and plain recomputes (the formula of
+    every LM run: BERT has no RMSNorm)."""
+    if kind == "moe":
+        return train_launch_formula(model.num_layers, remat=False,
+                                    frozen_embed=False)
+    layers = model.num_layers
+    return {"flash_attention": layers, "rms_norm": 0, "add_rms_norm": 0,
+            "flash_backward": layers, "rms_norm_backward": 0,
+            "forward_plain": 0}
+
+
+def expert_refs(device, base):
+    """Each kind's yardstick: the one-process run of the same model,
+    params, optimizer and batches, in this process before the gang.
+    Each step's metrics and the updated params (one raw fp32 file a
+    leaf under ``base``, for the ranks to read)."""
+    refs = {}
+    for kind in ("moe", "bert"):
+        whole, _, tx, batches, objective = expert_config(kind)
+        params = init_params(whole, seed=0, device=device)
+        state, _ = create_lm_state(whole, tx, params)
+        step = make_lm_train_step(objective=objective)
+        metrics = []
+        with counted_run(f"{kind} one process", EXPERT_STEPS,
+                         expert_launches(kind, whole)):
+            for batch in batches:
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+        files = {}
+        for name, t in state.params.items():
+            path = os.path.join(base, f"{kind}-{name}.f32")
+            t.detach().float().cpu().numpy().tofile(path)
+            files[name] = (path, tuple(t.shape))
+        refs[kind] = {"metrics": metrics, "files": files, "floor": None}
+        if kind == "bert":
+            refs[kind]["floor"] = order_floor(state, objective, tx, batches,
+                                              whole, device)
+        else:
+            refs[kind]["linear_row_delta"] = linear_row_delta(
+                state.params["layers.0.attention.q_proj.weight"], device)
+        del state, params, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def linear_row_delta(weight, device):
+    """Whether the cache-free forward's ``F.linear`` rows depend on the
+    row count: the max |Δ| of layer 0's q product's first half of rows
+    at M = B·L against the same rows alone (a data=2 rank's M)."""
+    with torch.no_grad():
+        x = torch.randn((MOE_BATCH * MOE_SEQ, weight.shape[1]),
+                        generator=torch.Generator(device=device).manual_seed(
+                            3), device=device).to(torch.bfloat16)
+        w = weight.to(torch.bfloat16)
+        rows = x.shape[0] // 2
+        return float((F.linear(x, w)[:rows].float()
+                      - F.linear(x[:rows], w).float()).abs().max())
+
+
+def order_floor(state, objective, tx, batches, model, device):
+    """How far another valid order of the same one-process steps moves
+    each leaf: the run again with each batch as two microbatches (the
+    reference's gradient accumulation), every leaf's ``|w - w_ref|``
+    over ``|w_ref|`` and over its update ``|w_ref - w0|``; the largest
+    of each, and the leaves that reach them. A gang's split sums are
+    another such order, so where this floor passes EXPERT_PARAM_TOL the
+    run is held to twice it."""
+    params = init_params(model, seed=0, device=device)
+    initial = {k: v.detach().clone() for k, v in params.items()}
+    other, _ = create_lm_state(model, tx, params)
+    step = make_lm_train_step(objective=objective, grad_accum=2)
+    for batch in batches:
+        other, _ = step(other, batch)
+    param_rel, update_rel = {}, {}
+    for key, ref in state.params.items():
+        if key.endswith(ZERO_GRADIENT_LEAVES):
+            continue
+        ref = ref.detach().float()
+        diff = float((other.params[key].detach().float() - ref).norm())
+        param_rel[key] = diff / float(ref.norm())
+        moved = float((ref - initial[key].float()).norm())
+        update_rel[key] = diff / moved if moved else 0.0
+    worst = {name: sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+             for name, rel in (("param_rel", param_rel),
+                               ("update_rel", update_rel))}
+    return {"param_rel": worst["param_rel"][0][1],
+            "update_rel": worst["update_rel"][0][1], "worst": worst,
+            "over_tol": sum(v > EXPERT_PARAM_TOL
+                            for v in update_rel.values()),
+            "leaves": len(update_rel)}
+
+
+def layer_ms(fn, x, reps=5):
+    """Device ms of ``fn(x)`` forward and backward (CUDA events around
+    each of ``reps`` calls after one warm call; the median)."""
+    x = x.detach().requires_grad_(True)
+    g = torch.randn_like(x)
+    times = []
+    for i in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.backward(fn(x), g)
+        end.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def moe_layer_rows(device, mesh=None):
+    """llama-moe-bench's MoE layer (8 experts top-2, mlp 3584, built on
+    ``mesh`` where given) forward and backward at b8 × L1024 bf16, device
+    ms; without a mesh also the dense twin's SwiGLU MLP (mlp 7168) at the
+    same rows, the reference's pricing pair."""
+    from kubeflow_tpu_torch.ops.moe import MoE
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    d = 1024
+    x = torch.randn((MOE_BATCH, MOE_SEQ, d), generator=gen, device=device
+                    ).to(torch.bfloat16)
+    moe = MoE(d, 8, 3584, 2, dtype=torch.bfloat16,
+              param_dtype=torch.float32, device=device, mesh=mesh)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    rows = {"moe_ms": layer_ms(moe, x)}
+    if mesh is None:
+        w = [torch.randn(shape, generator=gen, device=device) * 0.02
+             for shape in ((7168, d), (7168, d), (d, 7168))]
+        for t in w:
+            t.requires_grad_(True)
+
+        def dense(h):
+            h = h.to(torch.bfloat16)
+            return F.linear(F.silu(F.linear(h, w[0].to(h.dtype)))
+                            * F.linear(h, w[1].to(h.dtype)),
+                            w[2].to(h.dtype))
+
+        rows["dense_twin_mlp_ms"] = layer_ms(dense, x)
+    return rows
+
+
+def gang_expert(card, *, transport="gloo", world=2):
+    """The expert axis and BERT's tensor axis on a gang of ``world``
+    rank processes of ``scripts/expert_gang.py`` (two gloo ranks sharing
+    the card, or one nccl rank a card), held against the one-process
+    runs made here first. Asserted for each run of EXPERT_RUNS (a)
+    llama-moe-bench on ``expert=2`` and on ``data=2`` and (b) bert-base
+    mlm on ``tensor=2``: each step's loss, aux loss (the global batch's)
+    and grad norm (the MoE's step-0 loss bit for bit where the forward's
+    ``F.linear`` rows do not depend on the row count, checked here), and
+    every updated leaf (``|w - w_ref|`` over ``|w_ref|`` and over the
+    update ``|w_ref - w0|``) within
+    EXPERT_PARAM_TOL, the leaves at twice the one-process run's order
+    floor where that floor passes it (bert-base's); the ranks' metrics
+    equal; each rank holding only its experts' ``w_in`` and ``w_out``
+    or its heads; and, on each rank, every step's flash and RMSNorm
+    launches the one-process step's, each flash gradient through its
+    plain recompute and no plain twin in a forward. Reported: whether
+    BERT's step-0 loss is bitwise, step s, the collectives' share, and the
+    MoE layer's device ms on an expert=2 rank beside the one-process
+    layer's and the dense twin's MLP. Returns the phase's figures."""
+    device = resolve_device()
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".expert-") as base:
+        refs = expert_refs(device, base)
+        layer = moe_layer_rows(device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        parent_s = time.monotonic() - t0
+        case = {"transport": transport, "runs": EXPERT_RUNS,
+                "files": {k: r["files"] for k, r in refs.items()}}
+        case_path = os.path.join(base, "case.pkl")
+        with open(case_path, "wb") as f:
+            pickle.dump(case, f)
+        t1 = time.monotonic()
+        ranks = spawn_gang(world, transport, case_path, base,
+                           script="expert_gang.py",
+                           timeout=GANG_EXPERT_TIMEOUT, tag="[expert_gang]")
+        gang_s = time.monotonic() - t1
+    figures = {"card": card, "transport": transport, "ranks": world,
+               "parent_s": parent_s, "gang_s": gang_s,
+               "main_s": [r["main_s"] for r in ranks], "runs": {},
+               "moe_layer": {**layer,
+                             "expert_rank_ms": [r["moe_layer_ms"]
+                                                for r in ranks]}}
+    lead = ranks[0]
+    failed = {}
+    for name, kind, spec in EXPERT_RUNS:
+        got = lead["runs"][name]
+        want = refs[kind]["metrics"]
+        rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                for k in ("loss", "aux_loss", "grad_norm")}
+               for g, w in zip(got["metrics"], want)]
+        worst = {}
+        for key in ("param_rel", "update_rel"):
+            merged = {}
+            for r in ranks:
+                for leaf, v in r["runs"][name][key].items():
+                    merged[leaf] = max(merged.get(leaf, 0.0), v)
+            worst[key] = sorted(merged.items(), key=lambda kv: -kv[1])[:4]
+        noise = {leaf: v for r in ranks
+                 for leaf, v in r["runs"][name]["noise_moves"].items()}
+        floor = refs[kind]["floor"]
+        tol = {k: EXPERT_PARAM_TOL if floor is None
+               else max(EXPERT_PARAM_TOL, 2 * floor[k])
+               for k in ("param_rel", "update_rel")}
+        row = {"metrics": got["metrics"], "reference": want, "rel": rel,
+               "tol": tol, "order_floor": floor,
+               "step0_loss_bitwise": got["metrics"][0]["loss"]
+               == want[0]["loss"],
+               "step_s": got["step_s"],
+               "collective_share": got["collective_share"],
+               "pieces": got["pieces"], "worst": worst,
+               "zero_gradient_moves": noise,
+               "param_rel_max": worst["param_rel"][0][1],
+               "update_rel_max": worst["update_rel"][0][1]}
+        bad = [any(r["runs"][name]["metrics"] != got["metrics"]
+                   for r in ranks[1:]),
+               any(v > EXPERT_PARAM_TOL for e in rel for v in e.values()),
+               not row["param_rel_max"] <= tol["param_rel"],
+               not row["update_rel_max"] <= tol["update_rel"],
+               not all(r["runs"][name]["own_pieces"] for r in ranks),
+               # A leaf whose gradient is 0 in exact arithmetic moves by
+               # adam's step on the sign of rounding noise in either run:
+               # no element by more than the steps' rates allow.
+               any(max(a, b) > 1.5 * expert_lr_sum(kind)
+                   for a, b in noise.values())]
+        if kind == "moe":
+            bad.append(not all(m["aux_loss"] > 0 for m in got["metrics"]))
+            # The MoE's dispatch and combine are the whole layer's on
+            # every rank: without a tensor axis (whose row pieces' sums
+            # are split), where a product's rows do not depend on M (a
+            # data=2 rank's half batch), the step-0 loss is the one
+            # process's bit for bit.
+            row["linear_row_delta"] = refs[kind]["linear_row_delta"]
+            if (row["linear_row_delta"] == 0.0
+                    and spec.get("tensor", 1) == 1):
+                bad.append(not row["step0_loss_bitwise"])
+        if not row["step0_loss_bitwise"]:
+            log(f"expert gang {name}: step-0 loss parts from the "
+                f"one-process step's by "
+                f"{got['metrics'][0]['loss'] - want[0]['loss']}")
+        figures["runs"][name] = row
+        if any(bad):
+            failed[name] = [i for i, b in enumerate(bad) if b]
+    figures["launches"] = [r["launches"] for r in ranks]
+    missing = [(i, k) for i, r in enumerate(ranks)
+               for k, n in r["launches"].items() if not n]
+    if missing:
+        raise AssertionError(f"expert gang: kernels never launched on a "
+                             f"rank's main path: {missing}")
+    figures["collective_share"] = [r["collectives"]["device_s"]
+                                   / r["main_s"] for r in ranks]
+    figures["collective_calls"] = [r["collectives"]["calls"] for r in ranks]
+    log(f"expert gang: {json.dumps(figures, default=str)}")
+    if failed:
+        raise AssertionError(f"expert gang: failed checks by run {failed}")
+    log(f"phase gang_expert: {time.monotonic() - t0:.1f} s [{card}]")
+    return figures
+
+
 def gang_resnet50(card):
     """One ResNet-50 training step at the bench batch (b256, exact BN,
     SGD 0.1 nesterov, seed 0) unmeshed, then meshed on
@@ -6673,6 +7051,10 @@ def main() -> int:
     axes = timed(gang_axes, card)
     gc.collect()
     torch.cuda.empty_cache()
+    expert_rows = expert_flash_rows(kernels)
+    expert = timed(gang_expert, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     bn_routes(resnet50_bn_shapes())
     bn_rows = bn_kernel_table()
@@ -6843,6 +7225,20 @@ def main() -> int:
             line["axes_rank"] = [{k: r[k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for r in axes_rows]
+    # The expert gang's ranks (the MoE on expert=2 and data=2, BERT on
+    # tensor=2; one card): each kernel's launches on each rank over the
+    # phase's main path, and flash's figures at an MoE block's and a
+    # BERT tensor rank's shapes.
+    for line in kernels:
+        if line["name"] in expert["launches"][0]:
+            line["launches_expert_ranks"] = [
+                own(r, line["name"]) if line["name"] in ("rms_norm",
+                                                         "add_rms_norm")
+                else r[line["name"]] for r in expert["launches"]]
+        if line["name"] == "flash_attention":
+            line["expert_rank"] = [{k: r[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")} for r in expert_rows]
     log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,11 @@ from kubeflow_tpu_torch.models.layers import (
 )
 from kubeflow_tpu_torch.models.registry import ModelEntry, register_model
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.parallel.collectives import (
+    copy_to_tensor,
+    gather_from_tensor,
+)
+from kubeflow_tpu_torch.parallel.mesh import check_batch_axes, tensor_axis
 from kubeflow_tpu_torch.utils.device import torch_dtype
 
 AttentionFn = Callable[..., torch.Tensor]
@@ -54,44 +59,60 @@ AttentionFn = Callable[..., torch.Tensor]
 
 class SelfAttention(nn.Module):
     """q/k/v/out Dense layers with biases around one attention call;
-    ``mask`` is passed as the attention's ``kv_segment_valid``."""
+    ``mask`` is passed as the attention's ``kv_segment_valid``. On a
+    tensor axis of T, q/k/v are column pieces (the rank's H/T heads),
+    the attention runs on those heads and ``out`` is the row piece whose
+    partial sums are added over the tensor line."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype,
-                 attention_fn: Optional[AttentionFn] = None, device=None):
+                 attention_fn: Optional[AttentionFn] = None, device=None,
+                 mesh=None):
         super().__init__()
-        self.num_heads = num_heads
+        self.mesh, tensor, _ = tensor_axis(mesh)
+        if num_heads % tensor:
+            raise ValueError(f"num_heads {num_heads} does not split over "
+                             f"tensor={tensor}")
+        self.num_heads = num_heads // tensor
+        self.head_dim = d_model // num_heads
         self.attention_fn = attention_fn
-        self.query = Dense(d_model, d_model, dtype, device=device)
-        self.key = Dense(d_model, d_model, dtype, device=device)
-        self.value = Dense(d_model, d_model, dtype, device=device)
-        self.out = Dense(d_model, d_model, dtype, device=device)
+        column = dict(device=device, mesh=mesh, split="column")
+        self.query = Dense(d_model, d_model, dtype, **column)
+        self.key = Dense(d_model, d_model, dtype, **column)
+        self.value = Dense(d_model, d_model, dtype, **column)
+        self.out = Dense(d_model, d_model, dtype, device=device, mesh=mesh,
+                         split="row")
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
-        b, l, d = x.shape
+        b, l, _ = x.shape
+        x = copy_to_tensor(x, self.mesh)
 
         def split(t):
-            return t.reshape(b, l, self.num_heads, d // self.num_heads)
+            return t.reshape(b, l, self.num_heads, self.head_dim)
 
         attn = self.attention_fn or flash_attention
         out = attn(split(self.query(x)), split(self.key(x)),
                    split(self.value(x)), kv_segment_valid=mask)
-        return self.out(out.reshape(b, l, d))
+        return self.out(out.reshape(b, l, self.num_heads * self.head_dim))
 
 
 class BertLayer(nn.Module):
     def __init__(self, d_model: int, num_heads: int, mlp_dim: int,
-                 dtype: torch.dtype, attention_fn=None, device=None):
+                 dtype: torch.dtype, attention_fn=None, device=None,
+                 mesh=None):
         super().__init__()
+        self.mesh, _, _ = tensor_axis(mesh)
         self.attention = SelfAttention(d_model, num_heads, dtype,
-                                       attention_fn, device)
+                                       attention_fn, device, mesh)
         self.ln_attn = LayerNorm(d_model, dtype, device=device)
-        self.mlp_in = Dense(d_model, mlp_dim, dtype, device=device)
-        self.mlp_out = Dense(mlp_dim, d_model, dtype, device=device)
+        self.mlp_in = Dense(d_model, mlp_dim, dtype, device=device,
+                            mesh=mesh, split="column")
+        self.mlp_out = Dense(mlp_dim, d_model, dtype, device=device,
+                             mesh=mesh, split="row")
         self.ln_mlp = LayerNorm(d_model, dtype, device=device)
 
     def forward(self, x: torch.Tensor, valid) -> torch.Tensor:
         x = self.ln_attn(x + self.attention(x, valid))
-        h = self.mlp_out(gelu(self.mlp_in(x)))
+        h = self.mlp_out(gelu(self.mlp_in(copy_to_tensor(x, self.mesh))))
         return self.ln_mlp(x + h)
 
 
@@ -99,15 +120,31 @@ class Bert(nn.Module):
     """BERT encoder + MLM head: ``forward(input_ids, type_ids=None,
     valid=None, train=True)`` → fp32 MLM logits ``[B, L, vocab]``.
     ``valid`` is the ``[B, L]`` 0/1 attention mask. Built on the meta
-    device unless ``device`` is given."""
+    device unless ``device`` is given.
+
+    ``mesh`` with a ``tensor`` axis of T > 1 builds this rank's
+    tensor-parallel slice by the reference's rule table: q/k/v and
+    ``mlp_in`` column pieces and ``out`` and ``mlp_out`` row pieces
+    (``models/layers.py`` ``Dense(split=)``), the flash call on the
+    rank's H/T heads with the key mask, the token table split on vocab
+    (a lookup summed over the tensor line; the tied head's fp32 logits
+    the rank's vocab columns, all-gathered); ``mlm_transform`` (``(None,
+    "embed")``), the position and segment tables, the norms, every bias
+    and ``mlm_bias`` are whole on every rank, as the table keeps them."""
+
+    #: The model axes its layers split over (``parallel/mesh.py``).
+    PARALLEL_AXES = ("tensor",)
 
     def __init__(self, vocab_size: int = 30522, num_layers: int = 12,
                  d_model: int = 768, num_heads: int = 12,
                  mlp_dim: int = 3072, max_len: int = 512,
                  num_segments: int = 2, dtype="bfloat16",
                  attention_fn: Optional[AttentionFn] = None,
-                 device="meta"):
+                 device="meta", mesh=None):
         super().__init__()
+        if mesh is not None:
+            check_batch_axes(mesh, "Bert", self)
+        self.mesh, self.tensor, _ = tensor_axis(mesh)
         dtype = torch_dtype(dtype)
         self.vocab_size = vocab_size
         self.num_layers = num_layers
@@ -117,13 +154,14 @@ class Bert(nn.Module):
         self.head_dim = d_model // num_heads
         self.mlp_dim = mlp_dim
         self.dtype = dtype
-        self.tok_embed = Embed(vocab_size, d_model, dtype, device=device)
+        self.tok_embed = Embed(vocab_size, d_model, dtype, device=device,
+                               mesh=self.mesh)
         self.pos_embed = Embed(max_len, d_model, dtype, device=device)
         self.seg_embed = Embed(num_segments, d_model, dtype, device=device)
         self.ln_embed = LayerNorm(d_model, dtype, device=device)
         self.layers = nn.ModuleList(
             BertLayer(d_model, num_heads, mlp_dim, dtype, attention_fn,
-                      device)
+                      device, self.mesh)
             for _ in range(num_layers))
         self.mlm_transform = Dense(d_model, d_model, dtype, device=device)
         self.mlm_ln = LayerNorm(d_model, dtype, device=device)
@@ -169,7 +207,9 @@ class Bert(nn.Module):
         for layer in self.layers:
             x = layer(x, valid)
         h = self.mlm_ln(gelu(self.mlm_transform(x)))
-        return self.tok_embed.attend(h.float()).float() + self.mlm_bias
+        logits = gather_from_tensor(self.tok_embed.attend(h.float()),
+                                    self.mesh)
+        return logits.float() + self.mlm_bias
 
 
 def bert_base(**kw) -> Bert:

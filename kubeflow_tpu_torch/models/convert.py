@@ -142,23 +142,27 @@ def torch_spec(key: str, spec: Tuple, ndim: int) -> Tuple:
 def _piece(config: nn.Module, key: str, leaf: Any,
            local: Tuple[int, ...], mesh: Any) -> Any:
     """This rank's piece of a Flax leaf (an array or a tensor) for a
-    model built on a tensor axis: cut on each dim the rule table splits
-    over ``tensor`` (a leaf already the rank's piece there, ``local``
-    wide, is kept), and with ``mesh`` over ``fsdp`` too."""
-    from kubeflow_tpu_torch.parallel.collectives import dims_by_axis
+    model built on a mesh: cut on each dim the rule table splits over
+    ``expert`` or ``tensor`` (a leaf already the rank's piece there,
+    ``local`` wide, is kept), and with ``mesh`` over ``fsdp`` too."""
+    from kubeflow_tpu_torch.parallel.collectives import (
+        MODEL_PARAM_AXES,
+        dims_by_axis,
+    )
     from kubeflow_tpu_torch.parallel.tensor_parallel import (
         tensor_piece,
         variables_sharding,
     )
 
-    on = mesh if mesh is not None else getattr(config, "mesh", None)
+    on = mesh if mesh is not None else (getattr(config, "mesh", None)
+                                        or getattr(config, "moe_mesh", None))
     if on is None or not hasattr(config, "logical_axes"):
         return leaf
-    axes = ["tensor"] + (["fsdp"] if mesh is not None else [])
-    dim = dims_by_axis(variables_sharding(on, config, [key])[key]).get(
-        "tensor")
-    if dim is not None and leaf.shape[dim] == local[dim]:
-        axes.remove("tensor")  # given as the rank's piece already
+    dims = dims_by_axis(variables_sharding(on, config, [key])[key])
+    axes = [a for a in MODEL_PARAM_AXES
+            if a in dims and leaf.shape[dims[a]] != local[dims[a]]]
+    if mesh is not None:
+        axes.append("fsdp")
     return leaf[tensor_piece(config, key, leaf.shape, on, axes)]
 
 
@@ -170,10 +174,11 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
     ``config`` is the port module the params are for (built on the meta
     device); every one of its parameters (its LoRA adapters aside: they
     are :func:`lora_from_flax`'s) must be present, and no other key may
-    be. For a model built on a tensor axis (``Llama(mesh=)``) each whole
-    leaf is cut to the rank's piece (a leaf given as that piece is
-    taken as it is); with ``mesh`` the result is the rank's piece over
-    every param axis of it (fsdp too), as a mesh trainer holds it."""
+    be. For a model built on a mesh (``Llama(mesh=)``, ``Bert(mesh=)``)
+    each whole leaf is cut to the rank's expert and tensor piece (a leaf
+    given as that piece is taken as it is); with ``mesh`` the result is
+    the rank's piece over every param axis of it (fsdp too), as a mesh
+    trainer holds it."""
     device = resolve_device(device)
     out = {}
     for name, template in config.named_parameters():

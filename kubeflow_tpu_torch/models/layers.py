@@ -34,11 +34,17 @@ average pool, −inf for the max pool), never by PyTorch's symmetric
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from kubeflow_tpu_torch.parallel.collectives import (
+    copy_to_tensor,
+    reduce_from_tensor,
+)
+from kubeflow_tpu_torch.parallel.mesh import tensor_axis
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 #: A param's logical axes, as the reference's ``nn.with_partitioning``
@@ -161,45 +167,111 @@ def spatial_mean(x: torch.Tensor) -> torch.Tensor:
     return x.float().mean((2, 3)).to(x.dtype)
 
 
+def _part(n: int, parts: int) -> int:
+    """A rank's share of ``n`` over ``parts`` ranks; an uneven split
+    raises, as the reference's sharded init does."""
+    if n % parts:
+        raise ValueError(f"{n} does not split over tensor={parts}")
+    return n // parts
+
+
 class Dense(nn.Module):
     """``nn.Dense``: an fp32 ``[out, in]`` weight and bias, x and both
-    cast to ``dtype`` at the op."""
+    cast to ``dtype`` at the op.
+
+    On a ``mesh`` with a tensor axis of T > 1, ``split`` makes it one of
+    Megatron's pair. ``"column"``: this rank's ``out / T`` rows of the
+    weight; x is the replicated input, which the caller passes through
+    :func:`copy_to_tensor` once for every column piece that reads it
+    (its gradient summed over the tensor line), and the output is the
+    rank's columns. ``"row"``: this rank's ``in / T`` columns; x is the
+    rank's slice of the input features, and the partial products, taken
+    in fp32 on the compute dtype's values, are summed over the tensor
+    line in fp32 (:func:`reduce_from_tensor`) and rounded once, as the
+    whole product's sum is. The bias carries no partitioning in the
+    reference, so its rule table keeps it whole on every rank: a column
+    piece adds its own slice of it (the slice's gradient summed over the
+    line, as every rank holds the whole bias), a row piece adds it once,
+    after the sum."""
 
     def __init__(self, in_features: int, features: int, dtype: torch.dtype,
-                 bias: bool = True, device=None):
+                 bias: bool = True, device=None, mesh: Any = None,
+                 split: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
+        self.split = split
+        if split not in (None, "column", "row"):
+            raise ValueError(f"split is column, row or None, not {split!r}")
+        self.mesh, tensor, rank = tensor_axis(mesh if split else None)
+        whole = features
+        if split == "column":
+            features = _part(features, tensor)
+        elif split == "row":
+            in_features = _part(in_features, tensor)
+        #: This rank's first output column of the whole layer.
+        self.start = rank * features if split == "column" else 0
         self.weight = nn.Parameter(torch.empty(
             features, in_features, dtype=torch.float32, device=device))
-        self.bias = (nn.Parameter(torch.empty(features, dtype=torch.float32,
+        self.bias = (nn.Parameter(torch.empty(whole, dtype=torch.float32,
                                               device=device))
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+        bias = self.bias
+        if self.mesh is not None and self.split == "row":
+            # fp32 partials on the compute dtype's values, added over the
+            # line and rounded once: one rank's fp32 sum rounded once.
+            partial = F.linear(x.to(self.dtype).float(),
+                               self.weight.to(self.dtype).float())
+            y = reduce_from_tensor(partial, self.mesh).to(self.dtype)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            if self.mesh is not None and bias is not None:
+                bias = copy_to_tensor(bias, self.mesh)[
+                    self.start:self.start + y.shape[-1]]
+        if bias is not None:
+            y = y + bias.to(self.dtype)
         return y
 
 
 class Embed(nn.Module):
     """``nn.Embed``: an fp32 ``[num, features]`` table, gathered then
-    cast to ``dtype`` (the rows of Flax's cast-then-gather)."""
+    cast to ``dtype`` (the rows of Flax's cast-then-gather).
+
+    On a ``mesh`` with a tensor axis of T > 1 the table is split on its
+    rows (the reference's ``("vocab", "embed")``): this rank holds rows
+    ``[start, start + num / T)``; a lookup gives its rows for the ids in
+    that range and zeros for the others, summed over the tensor line
+    (bitwise the whole table's lookup), and :meth:`attend` gives the
+    rank's columns of the logits."""
 
     def __init__(self, num_embeddings: int, features: int,
-                 dtype: torch.dtype, device=None):
+                 dtype: torch.dtype, device=None, mesh: Any = None):
         super().__init__()
         self.dtype = dtype
+        self.mesh, tensor, rank = tensor_axis(mesh)
+        num_embeddings = _part(num_embeddings, tensor)
+        #: This rank's first row of the whole table.
+        self.start = rank * num_embeddings
         self.embedding = nn.Parameter(torch.empty(
             num_embeddings, features, dtype=torch.float32, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        if self.mesh is None:
+            return F.embedding(ids.long(), self.embedding).to(self.dtype)
+        local = ids.long() - self.start
+        mine = (local >= 0) & (local < self.embedding.shape[0])
+        rows = F.embedding(torch.where(mine, local, 0),
+                           self.embedding).to(self.dtype)
+        rows = torch.where(mine[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
+        return reduce_from_tensor(rows, self.mesh)
 
     def attend(self, query: torch.Tensor) -> torch.Tensor:
         """``Embed.attend``: the query and the table both promoted to
-        ``dtype``, their product in it."""
-        return F.linear(query.to(self.dtype),
+        ``dtype``, their product in it (on a tensor axis, this rank's
+        columns; the query's gradient summed over the tensor line)."""
+        return F.linear(copy_to_tensor(query, self.mesh).to(self.dtype),
                         self.embedding.to(self.dtype))
 
 

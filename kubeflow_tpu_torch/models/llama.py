@@ -107,7 +107,7 @@ from kubeflow_tpu_torch.parallel.collectives import (
 from kubeflow_tpu_torch.parallel.mesh import (
     Mesh,
     check_batch_axes,
-    tensor_rank,
+    tensor_axis,
 )
 from kubeflow_tpu_torch.parallel.tensor_parallel import (
     kv_group,
@@ -238,14 +238,6 @@ def _row_project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
     return y
 
 
-def _tensor_axis(mesh: Optional[Mesh]) -> Tuple[Optional[Mesh], int, int]:
-    """``(mesh, size, rank)`` of a model's tensor axis; the mesh is None
-    when the axis is 1 (no tensor collective is issued)."""
-    if mesh is None or mesh.shape["tensor"] == 1:
-        return None, 1, 0
-    return mesh, mesh.shape["tensor"], tensor_rank(mesh)
-
-
 def _route(x: torch.Tensor, cache, decode_positions=None) -> Optional[str]:
     """A cache forward given per-row ``decode_positions`` (the decode
     engine's step, and its speculative verify of l tokens a row) is a
@@ -271,7 +263,7 @@ class LlamaAttention(nn.Module):
         # On a tensor axis of T: this rank's H/T query heads, and its
         # kv-head group where Hkv % T == 0, else every kv head, each
         # query head reading its own (``kv_index``).
-        self.mesh, tensor, rank = _tensor_axis(mesh)
+        self.mesh, tensor, rank = tensor_axis(mesh)
         split = kv_heads_split(num_kv_heads, tensor)
         self.kv_index = None if split else torch.tensor(
             kv_group(num_heads, num_kv_heads, tensor, rank))
@@ -415,7 +407,7 @@ class LlamaBlock(nn.Module):
                  mesh: Optional[Mesh] = None):
         super().__init__()
         store = param_dtype or dtype
-        self.mesh, tensor, _ = _tensor_axis(mesh)
+        self.mesh, tensor, _ = tensor_axis(mesh)
         self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                  param_dtype=store)
         self.attention = LlamaAttention(
@@ -424,9 +416,11 @@ class LlamaBlock(nn.Module):
         self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                 param_dtype=store)
         if num_experts > 0:
-            # The reference's MoE FFN in place of SwiGLU (param "moe").
+            # The reference's MoE FFN in place of SwiGLU (param "moe"),
+            # on a mesh this rank's experts and hidden columns.
             self.moe = MoE(d_model, num_experts, mlp_dim, num_selected,
-                           dtype=dtype, param_dtype=store, device=device)
+                           dtype=dtype, param_dtype=store, device=device,
+                           mesh=mesh)
             return
         self.moe = None
         # Column-parallel gate and up, row-parallel down: mlp_dim / T a
@@ -443,7 +437,8 @@ class LlamaBlock(nn.Module):
         adds it. ``pending`` is the previous block's ``delta`` (None for
         the first block), which this block's ``attn_norm`` adds. On a
         tensor axis both branch outputs are all-reduced where they are
-        made, so ``delta`` is whole before a norm adds it."""
+        made, so ``delta`` is whole before a norm adds it; so is an MoE's
+        output (its experts' outputs joined over the expert line)."""
         route = _route(x, cache, decode_positions)
         if pending is None:
             h = self.attn_norm(x)
@@ -474,9 +469,12 @@ class Llama(nn.Module):
     every block in place of SwiGLU; each forward sows its load-balance
     loss (``ops.moe.collect_losses`` gathers them).
 
-    ``mesh`` with a ``tensor`` axis of T > 1 builds this rank's
-    tensor-parallel slice (dense only; an MoE Llama raises, ROADMAP
-    A18), Megatron's layout written out: q, k, v, gate, up and the
+    ``mesh`` builds this rank's slice of the model on a gang's mesh. An
+    MoE Llama built on it routes the global batch and runs this rank's
+    experts (``ops/moe.py``, ``MoE(mesh=)``: E/X experts on an
+    ``expert`` axis of X, their hidden width split over ``tensor``); a
+    ``tensor`` axis of T > 1 splits the rest in Megatron's layout,
+    written out: q, k, v, gate, up and the
     ``lm_head`` column-parallel (the rank's H/T heads, its kv-head group
     or every kv head, mlp/T, vocab/T), o and down row-parallel with
     their partial sums all-reduced where the block makes them, the
@@ -487,8 +485,10 @@ class Llama(nn.Module):
     and ``num_kv_heads`` are the model's (a layer's are its rank's).
     """
 
-    #: The dense Llama runs the tensor axis (``parallel/mesh.py``).
-    TENSOR_PARALLEL = True
+    #: The model axes its layers split over (``parallel/mesh.py``):
+    #: tensor, and expert for an MoE Llama (a dense one has no param on
+    #: it, so there it is a replicated axis).
+    PARALLEL_AXES = ("tensor", "expert")
 
     def __init__(self, vocab_size: int = 32000, num_layers: int = 32,
                  d_model: int = 4096, num_heads: int = 32,
@@ -501,11 +501,10 @@ class Llama(nn.Module):
                  remat: bool = False, param_dtype=None, device="meta",
                  mesh: Optional[Mesh] = None):
         super().__init__()
-        if num_experts:
-            self.TENSOR_PARALLEL = False
-        tp_mesh, tensor, rank = _tensor_axis(mesh)
+        if mesh is not None:
+            check_batch_axes(mesh, "Llama", self)
+        tp_mesh, tensor, rank = tensor_axis(mesh)
         if tp_mesh is not None:
-            check_batch_axes(tp_mesh, "Llama", self)
             for what, n in (("num_heads", num_heads), ("mlp_dim", mlp_dim),
                             ("vocab_size", vocab_size)):
                 if n % tensor:
@@ -535,6 +534,9 @@ class Llama(nn.Module):
         self.lora_alpha = lora_alpha
         self.remat = remat
         self.mesh = tp_mesh
+        #: The mesh an MoE Llama routes and splits its experts on (None
+        #: for a dense one, or without a mesh).
+        self.moe_mesh = mesh if num_experts else None
         self.tensor = tensor
         #: The rank's first vocab id (its rows of the token table and
         #: its columns of the head).
@@ -549,7 +551,7 @@ class Llama(nn.Module):
             LlamaBlock(d_model, num_heads, num_kv_heads, self.head_dim,
                        mlp_dim, rope_theta, dtype, attention_fn, device,
                        store, lora_rank, lora_alpha, num_experts,
-                       num_selected, tp_mesh)
+                       num_selected, mesh)
             for _ in range(num_layers))
         self.final_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                   param_dtype=store)

@@ -40,6 +40,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_tensor,
+    gather_from,
+    reduce_from,
+    reduce_from_tensor,
+    scatter_to,
+)
+from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+
 _COLLECTORS = threading.local()
 
 
@@ -139,27 +149,59 @@ class MoE(nn.Module):
     (``[E, D]``, the Flax ``router/kernel [D, E]`` transposed), ``w_in
     [E, D, F]`` and ``w_out [E, F, D]``, stored in ``param_dtype`` and
     cast at the op (the router to fp32, the experts to ``dtype``).
+
+    ``mesh`` (a gang's, ``parallel/mesh.py``) builds this rank's part of
+    the layout the reference's shardings give GSPMD: tokens split over
+    the batch axes and whole over ``expert`` and ``tensor``; the experts
+    split over ``expert`` (``w_in``, ``w_out``: this rank's E/X
+    experts) and their hidden width over ``tensor`` (F/T); the router
+    whole. Each rank routes and dispatches its batch position's tokens,
+    runs its own experts' FFN on its F/T columns (the ``w_out``
+    product's partial sums added over the tensor line), and the experts'
+    outputs are all-gathered over the expert line for the whole combine
+    (:meth:`_experts`): every rank of the line then holds the whole
+    router gradient, which no line sums again, so the aux term is
+    counted once. Routing groups are the global batch's, taken
+    row-major over the global ``[B, S]``: where a group lies within a
+    rank's rows (its tokens a multiple of the group) each rank routes
+    its own groups; where groups straddle batch ranks, the tokens and
+    their router probabilities are all-gathered over the batch line and
+    every rank routes the whole batch and keeps its rows. The
+    load-balance loss is the global batch's: the two means of Switch
+    eq. 4 summed over the batch axes before their product.
     """
 
     def __init__(self, d_model: int, num_experts: int, mlp_dim: int,
                  num_selected: int = 2, capacity_factor: float = 1.25,
                  group_size: int = 512, dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype = None, device=None):
+                 param_dtype: torch.dtype = None, device=None, mesh=None):
         super().__init__()
         self.num_experts = num_experts
         self.num_selected = num_selected
         self.capacity_factor = capacity_factor
         self.group_size = group_size
         self.dtype = dtype
+        self.mesh = mesh
+        experts, width = num_experts, mlp_dim
+        if mesh is not None:
+            x, t = mesh.shape["expert"], mesh.shape["tensor"]
+            for what, n, parts in (("num_experts", num_experts, x),
+                                   ("mlp_dim", mlp_dim, t)):
+                if n % parts:
+                    raise ValueError(f"{what} {n} does not split over "
+                                     f"{parts} ranks")
+            experts, width = num_experts // x, mlp_dim // t
         store = param_dtype or dtype
         self.router = nn.Linear(d_model, num_experts, bias=False,
                                 dtype=store, device=device)
         self.w_in = nn.Parameter(torch.empty(
-            num_experts, d_model, mlp_dim, dtype=store, device=device))
+            experts, d_model, width, dtype=store, device=device))
         self.w_out = nn.Parameter(torch.empty(
-            num_experts, mlp_dim, d_model, dtype=store, device=device))
+            experts, width, d_model, dtype=store, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._meshed(x)
         b, s, d = x.shape
         tokens = b * s
         group = _fit_group_size(tokens, self.group_size)
@@ -172,14 +214,81 @@ class MoE(nn.Module):
                                            capacity)
         sow(self.num_experts * torch.sum(fraction.mean(0)
                                          * probs.mean((0, 1))))
+        return self._experts(grouped, combine).reshape(b, s, d)
+
+    def _experts(self, grouped: torch.Tensor,
+                 combine: torch.Tensor) -> torch.Tensor:
+        """The experts' FFN of ``grouped [n, G, d]`` tokens under
+        ``combine [n, G, E, C]``. On a mesh every rank of an expert line
+        holds the same tokens: each dispatches all of them, runs its own
+        E/X experts on its F/T hidden columns (the ``w_out`` product's
+        partial sums taken in fp32 and added over the tensor line), and
+        the experts' outputs are joined over the expert line before the
+        combine. The dispatch and the combine are the whole layer's
+        products, so on an expert axis alone a row's output and the
+        router's gradient are the unmeshed layer's; each rank's expert
+        pieces take their own gradients (the join's gradient is each
+        rank's slice, the split's the whole)."""
+        mesh = self.mesh
         dispatch = (combine > 0).to(self.dtype)  # [n, G, E, C]
         expert_in = torch.einsum("ngec,ngd->necd", dispatch,
                                  grouped.to(self.dtype))
+        expert_in = copy_to_tensor(
+            scatter_to(expert_in, mesh, ("expert",), 1), mesh)
         h = torch.einsum("necd,edf->necf", expert_in,
                          self.w_in.to(self.dtype))
         h = F.gelu(h, approximate="tanh")
-        expert_out = torch.einsum("necf,efd->necd", h,
-                                  self.w_out.to(self.dtype))
-        y = torch.einsum("ngec,necd->ngd", combine.to(self.dtype),
-                         expert_out)
+        w_out = self.w_out.to(self.dtype)
+        if mesh is not None and mesh.shape["tensor"] > 1:
+            # The partial sums of the rank's hidden columns, in fp32 on
+            # the compute dtype's values, added over the tensor line and
+            # rounded once, as the whole product rounds its sum once.
+            expert_out = reduce_from_tensor(torch.einsum(
+                "necf,efd->necd", h.float(), w_out.float()), mesh).to(
+                    self.dtype)
+        else:
+            expert_out = torch.einsum("necf,efd->necd", h, w_out)
+        expert_out = gather_from(expert_out, mesh, ("expert",), 1)
+        return torch.einsum("ngec,necd->ngd", combine.to(self.dtype),
+                            expert_out)
+
+    def _meshed(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self.mesh
+        b, s, d = x.shape
+        local = b * s
+        ranks = mesh.axes_size(BATCH_AXES)
+        tokens = local * ranks
+        group = _fit_group_size(tokens, self.group_size)
+        capacity = compute_capacity(group, self.num_experts,
+                                    self.num_selected, self.capacity_factor)
+        flat = x.reshape(local, d)
+        probs = torch.softmax(F.linear(flat.float(),
+                                       self.router.weight.float()), dim=-1)
+        straddle = local % group != 0
+        if straddle:
+            # A group holds rows of more than one batch rank: route the
+            # global batch on every rank and keep this rank's rows (the
+            # gathers' gradients are this rank's slices).
+            flat = gather_from(flat, mesh, BATCH_AXES, 0)
+            probs = gather_from(probs, mesh, BATCH_AXES, 0)
+        n = flat.shape[0] // group
+        probs = probs.reshape(n, group, self.num_experts)
+        combine, fraction = top_k_dispatch(probs, self.num_selected,
+                                           capacity)
+        if straddle or ranks == 1:
+            aux = torch.sum(fraction.mean(0) * probs.mean((0, 1)))
+        else:
+            # Switch eq. 4 over the global batch: each mean's sum over
+            # the batch line before the product (the fraction takes no
+            # gradient; the probabilities' sum passes its gradient
+            # through to each rank's own rows).
+            frac = all_reduce_sum(fraction.sum(0).detach(), mesh)
+            mass = reduce_from(probs.sum((0, 1)), mesh, BATCH_AXES)
+            aux = torch.sum((frac / (tokens // group)) * (mass / tokens))
+        sow(self.num_experts * aux)
+        y = self._experts(flat.reshape(n, group, d), combine)
+        y = y.reshape(n * group, d)
+        if straddle:
+            start = mesh.index(BATCH_AXES) * local
+            y = y[start:start + local]
         return y.reshape(b, s, d)

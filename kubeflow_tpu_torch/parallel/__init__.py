@@ -13,10 +13,10 @@
 # limitations under the License.
 
 """The gang's mesh and its shardings: the batch axes (dcn_data, data,
-fsdp), for the dense Llama the tensor axis (``collectives.py``'s
-Megatron pair, ``tensor_parallel.py``'s pieces), the seq axis
-(``ring_attention.py``) and the pipeline axis (``pipeline.py``). The
-expert axis is ROADMAP A18."""
+fsdp), the tensor axis for the Llama and BERT and the expert axis for
+an MoE Llama (``collectives.py``'s Megatron pair, ``tensor_parallel.py``'s
+pieces), the seq axis (``ring_attention.py``) and the pipeline axis
+(``pipeline.py``)."""
 
 from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,

@@ -17,9 +17,11 @@
 Where the reference lets XLA insert them, the port calls these: a sum
 over the batch axes (the gradient all-reduce, the global token count of
 a masked loss), an all-gather and reduce-scatter of one leaf along its
-sharded dims, the global norm of sharded leaves, and the tensor axis's
-Megatron pair (:func:`copy_to_tensor` before a column-parallel product,
-:func:`reduce_from_tensor` after a row-parallel one) with
+sharded dims, the global norm of sharded leaves, and Megatron's pair
+on a line of model axes (:func:`copy_to` before the
+work a rank does a part of, :func:`reduce_from` after it: on the tensor
+line before a column-parallel product and after a row-parallel one,
+on the expert and tensor lines around an MoE's experts) with
 :func:`gather_from_tensor` for the vocab-split head. A leaf may be
 split over several axes at once (a q kernel on ``fsdp=2, tensor=2``:
 its embed dim over fsdp, its heads over tensor); :func:`dims_by_axis`
@@ -32,7 +34,7 @@ the one gloo collective documented for CUDA tensors beside
 ``broadcast``. On a mesh with no process group (a mesh of one) each is
 the identity. On an nccl group of one rank each batch-axis collective
 is still launched: a one-rank sum is a copy, so the meshed step keeps
-the unmeshed step's bits. A tensor axis of 1 issues no collective.
+the unmeshed step's bits. A model axis of 1 issues no collective.
 
 The seq and pipeline axes add the reference's shift and exchange
 (:func:`ppermute`: the ring's KV hop and the pipeline's stage hop, its
@@ -101,15 +103,20 @@ def reduce_scatter_dim(full: torch.Tensor, mesh: Mesh, dim: int,
 
 
 #: The axes a param may be split over (``pipeline``: a pipeline
-#: trainer's stacked stages).
-PARAM_AXES = ("fsdp", "pipeline", "tensor")
+#: trainer's stacked stages; ``expert``: an MoE layer's experts).
+PARAM_AXES = ("fsdp", "pipeline", "expert", "tensor")
+#: The model axes whose pieces a model computes on (a trainer gathers
+#: fsdp alone and keeps these).
+MODEL_PARAM_AXES = ("expert", "tensor")
 
 
 def dims_by_axis(sharding: Optional[Sharding]) -> Dict[str, int]:
     """A leaf's split dims by mesh axis (``{"fsdp": 1, "tensor": 0}``
-    for a q kernel in the port's layout on ``fsdp=2, tensor=2``); empty
-    for a replicated leaf. A dim split over two axes at once, or over a
-    model axis the port does not run, raises."""
+    for a q kernel in the port's layout on ``fsdp=2, tensor=2``;
+    ``{"expert": 0, "fsdp": 1, "tensor": 2}`` for an MoE ``w_in`` on
+    ``fsdp=2, expert=2, tensor=2``); empty for a replicated leaf. A dim
+    split over two axes at once, or over an axis no param splits over
+    (``seq``, the batch axes but fsdp), raises."""
     if sharding is None:
         return {}
     out = {}
@@ -117,8 +124,7 @@ def dims_by_axis(sharding: Optional[Sharding]) -> Dict[str, int]:
         if len(axes) != 1 or axes[0] not in PARAM_AXES:
             raise NotImplementedError(
                 f"a leaf split over {axes}: the port's params split over "
-                f"fsdp, pipeline and tensor, one axis a dim (expert "
-                f"parallelism is ROADMAP A18)")
+                f"fsdp, pipeline, expert and tensor, one axis a dim")
         out[axes[0]] = dim
     return out
 
@@ -144,11 +150,16 @@ def gather_leaf(shard: torch.Tensor, sharding: Optional[Sharding],
 def reduce_grad(grad: torch.Tensor, sharding: Optional[Sharding],
                 mesh: Mesh) -> torch.Tensor:
     """A leaf's gradient from this rank's rows (whole over fsdp, this
-    rank's piece over tensor) → the gradient of the global batch for
-    this rank's piece: reduce-scattered over fsdp and summed over the
-    other batch axes for an fsdp leaf, summed over every batch axis for
-    one whole over fsdp. The tensor pieces' gradients are their own
-    (the model's collectives have summed what the tensor ranks share)."""
+    rank's piece over expert and tensor) → the gradient of the global
+    batch for this rank's piece: reduce-scattered over fsdp and summed
+    over the other batch axes for an fsdp leaf, summed over every batch
+    axis for one whole over fsdp. Nothing is summed over a model axis:
+    an expert or tensor piece's gradient is its own, and a leaf
+    replicated over expert or tensor (the router, a norm) already holds
+    the whole gradient on every rank of the line, because the model's
+    Megatron pairs (:func:`copy_to`) summed what the line's ranks share
+    where the activations entered their pieces. Summing it again would
+    count the MoE's load-balance term once a rank of the line."""
     dim = fsdp_dim(sharding)
     if dim is None:
         return all_reduce_sum(grad, mesh)
@@ -158,9 +169,9 @@ def reduce_grad(grad: torch.Tensor, sharding: Optional[Sharding],
 
 def norm_axes(mesh: Mesh) -> Tuple[str, ...]:
     """The axes a sharded norm sums its leaves' squares over: fsdp, and
-    pipeline and tensor where they are live (a mesh without either keeps
-    the fsdp line's group, and so its bits)."""
-    return ("fsdp",) + tuple(a for a in ("pipeline", "tensor")
+    pipeline, expert and tensor where they are live (a mesh without any
+    keeps the fsdp line's group, and so its bits)."""
+    return ("fsdp",) + tuple(a for a in ("pipeline", "expert", "tensor")
                              if mesh.shape[a] > 1)
 
 
@@ -212,10 +223,10 @@ def shard_tree(tree: Mapping[str, torch.Tensor],
                local: Optional[Mapping[str, Sequence[int]]] = None
                ) -> Dict[str, torch.Tensor]:
     """This rank's pieces of a tree (a leaf without a sharding is kept
-    as it is). ``local`` (a tensor-parallel model's parameter shapes:
-    the rank's tensor piece, whole over fsdp) lets a leaf be given as
-    its tensor piece, or as its piece over every axis, and be cut only
-    where it is still whole."""
+    as it is). ``local`` (a model's parameter shapes: the rank's expert
+    and tensor piece, whole over fsdp) lets a leaf be given as that
+    piece, or as its piece over every axis, and be cut only where it is
+    still whole."""
     out = {}
     for k, v in tree.items():
         sh = shardings.get(k)
@@ -227,7 +238,8 @@ def shard_tree(tree: Mapping[str, torch.Tensor],
         for axis, dim in dims_by_axis(sh).items():
             parts = sh.mesh.shape[axis]
             if shape is not None and (
-                    (axis == "tensor" and v.shape[dim] == shape[dim])
+                    (axis in MODEL_PARAM_AXES
+                     and v.shape[dim] == shape[dim])
                     or (axis == "fsdp"
                         and v.shape[dim] * parts == shape[dim])):
                 continue
@@ -282,10 +294,10 @@ def _gather_dim(x: torch.Tensor, line, dim: int) -> torch.Tensor:
         *x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
 
 
-# -- the tensor axis ------------------------------------------------------------
+# -- the Megatron pair on a model line -----------------------------------------
 
 def _sum_in_place(t: torch.Tensor, line) -> torch.Tensor:
-    """``t`` summed over the tensor line, in place. Two ranks' sum is an
+    """``t`` summed over the line, in place. Two ranks' sum is an
     all-reduce (a + b is b + a). Over more, an all-reduce's order of
     additions follows how the library splits the buffer, which depends
     on its size, so a row summed in a batch of 4 could differ from the
@@ -302,7 +314,7 @@ def _sum_in_place(t: torch.Tensor, line) -> torch.Tensor:
     return t.copy_(total)
 
 
-class _CopyToTensor(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, line):
         ctx.line = line
@@ -313,7 +325,7 @@ class _CopyToTensor(torch.autograd.Function):
         return _sum_in_place(grad.contiguous().clone(), ctx.line), None
 
 
-class _ReduceFromTensor(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, line):
         return _sum_in_place(x.contiguous().clone(), line)
@@ -327,29 +339,48 @@ def _recorded(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def copy_to_tensor(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The input of a column-parallel product (or a weight every tensor
-    rank holds whole but uses a part of): the identity forward, its
-    gradient summed over the tensor line backward."""
-    line = _line(mesh, ("tensor",))
+def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+            ) -> torch.Tensor:
+    """The first of Megatron's pair on the mesh line over ``axes``: the
+    identity forward, the gradient summed over the line backward. It
+    marks where a tensor every rank of the line holds whole enters work
+    that each rank does a part of (a column-parallel product's input,
+    an MoE's tokens and combine weights before a rank's own experts), so
+    every rank's gradient of it is the whole one."""
+    line = _line(mesh, axes)
     if line is None or not _recorded(x):
         return x
-    return _CopyToTensor.apply(x, line)
+    return _CopyTo.apply(x, line)
 
 
-def reduce_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]
-                       ) -> torch.Tensor:
-    """A row-parallel product's partial sums (or the vocab-split
-    embedding's rows, zeros off the rank's range) summed over the tensor
-    line; the gradient passes through. Outside autograd the sum is taken
-    in place."""
-    line = _line(mesh, ("tensor",))
+def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes: Sequence[str]
+                ) -> torch.Tensor:
+    """The second of the pair: partial sums (a row-parallel product's, a
+    rank's experts' share of an MoE's output, the vocab-split
+    embedding's rows, zeros off the rank's range) summed over the mesh
+    line over ``axes``; the gradient passes through. Outside autograd
+    the sum is taken in place."""
+    line = _line(mesh, axes)
     if line is None:
         return x
     if not _recorded(x):
         return _sum_in_place(x if x.is_contiguous() else x.contiguous(),
                              line)
-    return _ReduceFromTensor.apply(x, line)
+    return _ReduceFrom.apply(x, line)
+
+
+def copy_to_tensor(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """:func:`copy_to` on the tensor line: the input of a column-parallel
+    product (or a weight every tensor rank holds whole but uses a part
+    of)."""
+    return copy_to(x, mesh, ("tensor",))
+
+
+def reduce_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]
+                       ) -> torch.Tensor:
+    """:func:`reduce_from` on the tensor line: a row-parallel product's
+    partial sums, or the vocab-split embedding's rows."""
+    return reduce_from(x, mesh, ("tensor",))
 
 
 def gather_from_tensor(x: torch.Tensor, mesh: Optional[Mesh]

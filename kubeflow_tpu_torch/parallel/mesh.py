@@ -28,6 +28,9 @@ Axis names (the reference's):
 - ``data``: data parallelism within a slice.
 - ``fsdp``: parameter sharding (ZeRO-3), also a batch axis.
 - ``pipeline``, ``seq``, ``expert``, ``tensor``: the model axes.
+  ``expert`` splits an MoE layer's experts; a model with no param on
+  ``expert`` or ``tensor`` runs either as a replicated axis, as every
+  trainer runs ``seq`` (:func:`check_batch_axes`).
 
 A sharding is a :class:`Sharding`: the reference's ``PartitionSpec``
 (for each leading tensor dim, None, a mesh axis or a tuple of them) on a
@@ -434,40 +437,66 @@ def logical_sharding(mesh: Mesh, logical_axes: Mapping[str, Any],
             for k, axes in logical_axes.items()}
 
 
-def tensor_parallel_model(model: Any) -> bool:
-    """Whether ``model`` declares tensor-parallel layers (a class's
-    ``TENSOR_PARALLEL``; an instance may say no, as an MoE Llama does)."""
-    return bool(getattr(model, "TENSOR_PARALLEL", False))
+def runs_axis(model: Any, axis: str) -> bool:
+    """Whether ``model`` declares layers that split over the model axis
+    ``axis`` (its ``PARALLEL_AXES``: ``tensor`` for the Llama and BERT,
+    ``expert`` for an MoE Llama)."""
+    return axis in getattr(model, "PARALLEL_AXES", ())
+
+
+def param_axes(model: Any) -> set:
+    """The mesh axes any of ``model``'s params maps to under the
+    reference's rule table (its ``logical_axes`` of each Flax key); a
+    model without logical axes (the CNNs) maps to none."""
+    from kubeflow_tpu_torch.models.convert import flax_key
+    from kubeflow_tpu_torch.parallel.tensor_parallel import DEFAULT_RULES
+
+    logical = getattr(model, "logical_axes", None)
+    if logical is None:
+        return set()
+    out = set()
+    for name, _ in model.named_parameters():
+        for n in logical(flax_key(name)) or ():
+            axes = DEFAULT_RULES.get(n) if n else None
+            out.update((axes,) if isinstance(axes, str) else axes or ())
+    return out
 
 
 def check_batch_axes(mesh: Mesh, what: str, model: Any = None, *,
-                     tensor_ok: bool = False,
-                     pipeline_ok: bool = False) -> None:
+                     deferred: bool = False, pipeline_ok: bool = False,
+                     replicated_ok: Sequence[str] = ()) -> None:
     """Raise on a mesh with a model axis above 1 that the step does not
     run. ``seq`` runs on every trainer as a replicated axis (the
     reference's rule table maps it to activations alone: each seq rank
-    holds the whole params and batch and computes the unmeshed step).
-    ``expert`` always raises; ``pipeline`` unless ``pipeline_ok`` (the
-    pipeline trainer, ``training/pipeline_lm.py``); ``tensor`` unless
-    ``model`` declares tensor-parallel layers
-    (:func:`tensor_parallel_model`: the dense Llama) or ``tensor_ok`` (a
-    step built before its model is known checks it at its call)."""
+    holds the whole params and batch and computes the unmeshed step);
+    so do ``tensor`` and ``expert`` for a ``model`` none of whose params
+    the rule table maps to them (``expert`` on a dense Llama or BERT),
+    and the axes in ``replicated_ok`` (a trainer that lays its params
+    out by fsdp alone, as the vision trainer does). ``tensor`` and
+    ``expert`` run for a model that declares layers split over them
+    (:func:`runs_axis`), or where ``deferred`` (a step built before its
+    model is known checks it at its call). ``pipeline`` runs only where
+    ``pipeline_ok`` (the pipeline trainer, ``training/pipeline_lm.py``)."""
     live = mesh.model_axes()
     live.pop("seq", None)
-    if live.get("tensor") and (tensor_ok or tensor_parallel_model(model)):
-        del live["tensor"]
+    for axis in replicated_ok:
+        live.pop(axis, None)
     if pipeline_ok:
         live.pop("pipeline", None)
+    for axis in ("tensor", "expert"):
+        if axis in live and (deferred or (model is not None and (
+                runs_axis(model, axis) or axis not in param_axes(model)))):
+            del live[axis]
     if live:
         name = type(model).__name__ if model is not None else "this step"
         raise NotImplementedError(
-            f"{what}: the model axes {live} do not run for {name}: expert "
-            f"parallelism (with tensor for an MoE Llama) and tensor for "
-            f"BERT and ViT are ROADMAP A18, and the CNNs have no tensor "
-            f"layers; pipeline runs in the pipeline LM trainer "
-            f"(training/pipeline_lm.py, tpu-lm --mesh pipeline=N); the "
-            f"port's other trainers run dcn_data, data, fsdp, seq and, for "
-            f"the dense Llama, tensor")
+            f"{what}: the model axes {live} do not run for {name}: "
+            f"pipeline runs in the pipeline LM trainer "
+            f"(training/pipeline_lm.py, tpu-lm --mesh pipeline=N); tensor "
+            f"and expert run in the LM trainers (the Llama, its MoE and "
+            f"BERT), and as replicated axes for a model with no param "
+            f"on them and in the vision trainer; seq runs everywhere as a "
+            f"replicated axis")
 
 
 def tensor_group(mesh: Mesh):
@@ -481,3 +510,25 @@ def tensor_group(mesh: Mesh):
 def tensor_rank(mesh: Mesh) -> int:
     """This rank's position on the ``tensor`` axis."""
     return mesh.coords()["tensor"]
+
+
+def tensor_axis(mesh: Optional[Mesh]) -> Tuple[Optional[Mesh], int, int]:
+    """``(mesh, size, rank)`` of a layer's tensor axis; the mesh is None
+    where there is none or it is 1 (the layer is whole and issues no
+    tensor collective)."""
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return None, 1, 0
+    return mesh, mesh.shape["tensor"], tensor_rank(mesh)
+
+
+def expert_group(mesh: Mesh):
+    """The process group of this rank's ``expert`` line, or None (no
+    process group, or an ``expert`` axis of 1)."""
+    if mesh.shape["expert"] == 1:
+        return None
+    return mesh.group(("expert",))
+
+
+def expert_rank(mesh: Mesh) -> int:
+    """This rank's position on the ``expert`` axis."""
+    return mesh.coords()["expert"]

@@ -21,9 +21,10 @@ name each param's axes logically (the reference's
 ``logical_axes(key)`` gives the same tuple for a Flax key) and a rule
 table maps the names to mesh axes. The whole table is ported: the
 sharded export's writer (``serving/sharding.py``) plans with it, and
-the trainers and the tensor-parallel Llama split by it over ``fsdp``
-and ``tensor``. Where the reference lets GSPMD derive the collectives,
-the port's Llama issues them itself (``parallel/collectives.py``).
+the trainers and the models built on a mesh (the Llama, its MoE and
+BERT) split by it over ``fsdp``, ``expert`` and ``tensor``. Where the
+reference lets GSPMD derive the collectives, the port's models issue
+them themselves (``parallel/collectives.py``).
 
 One split is the port's own. The table maps ``kv`` to None, so the
 reference keeps k_proj and v_proj whole; a tensor rank needs only the kv
@@ -156,7 +157,10 @@ def tensor_piece(model: Any, key: str, shape: Sequence[int], mesh: Mesh,
                  axes: Sequence[str] = ("tensor",)) -> Tuple[slice, ...]:
     """This rank's piece of a model's Flax leaf ``key`` of Flax
     ``shape`` over ``axes`` of ``mesh`` (default: the tensor axis alone),
-    by the rule table; a leaf the table keeps whole takes every index."""
+    by the rule table; a leaf the table keeps whole takes every index.
+    A leaf split over several axes is cut on each of its dims: an MoE's
+    ``w_in [E, D, F]`` (``("expert", "embed", "mlp")``) over ``expert``
+    on dim 0, ``fsdp`` on dim 1 and ``tensor`` on dim 2. A dim that does
+    not split evenly raises, as the reference's sharded init does."""
     sh = variables_sharding(mesh, model, [key])[key]
     return sh.only(axes).index(tuple(shape))
-

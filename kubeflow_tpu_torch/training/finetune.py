@@ -136,7 +136,7 @@ def make_lora_train_step(mesh: Optional[Mesh] = None, *,
     it, and every rank calls the step with its rows."""
     loss_fn = LOSSES[objective]
     if mesh is not None:
-        check_batch_axes(mesh, "make_lora_train_step", tensor_ok=True)
+        check_batch_axes(mesh, "make_lora_train_step", deferred=True)
         return _mesh_lora_step(mesh, loss_fn, objective, aux_loss_weight,
                                grad_accum)
 

@@ -28,14 +28,20 @@ reduce-scatters the sharded leaves' gradients over fsdp and sums the
 rest over the batch axes, then runs the optimizer on its pieces, with
 the global norm taken over the shards (``optim.norm_over``). That is
 the step XLA derives from the reference's shardings. On a ``tensor``
-axis (a dense Llama built on the mesh, ``Llama(mesh=)``) each rank also
-holds its tensor pieces, the model issues the tensor collectives
-itself, and the step gathers and reduce-scatters over fsdp alone; the
-loss runs on the all-gathered logits. ``seq`` is a replicated axis:
-each seq rank holds the whole params and its batch position's rows and
-takes the unmeshed step (no gradient is summed over seq). ``pipeline``
-runs on the pipeline trainer (``training/pipeline_lm.py``) and
-``expert`` raises (ROADMAP A18). On an nccl group of one rank
+axis (a Llama or BERT built on the mesh, ``Llama(mesh=)``,
+``Bert(mesh=)``) each rank also holds its tensor pieces, the model
+issues the tensor collectives itself, and the step gathers and
+reduce-scatters over fsdp alone; the loss runs on the all-gathered
+logits. An MoE Llama built on the mesh holds its ``expert`` pieces (its
+E/X experts) the same way, routes the global batch and sows the global
+batch's load-balance loss (``ops/moe.py``), so the ``aux_loss`` metric
+is the global batch's; with grad accumulation its microbatches are the
+reference's, runs of the global batch (:func:`global_microbatches`).
+``seq``, and ``tensor`` or ``expert`` on a model with no param on them,
+are replicated axes: each such rank holds the whole params and its
+batch position's rows and takes the unmeshed step (no gradient is
+summed over them). ``pipeline`` runs on the pipeline trainer
+(``training/pipeline_lm.py``). On an nccl group of one rank
 every collective is still launched, and the meshed step gives the
 unmeshed step's bits.
 
@@ -62,7 +68,13 @@ from kubeflow_tpu_torch.models.convert import flax_key, torch_spec
 from kubeflow_tpu_torch.models.llama import Llama, apply
 from kubeflow_tpu_torch.ops.moe import collect_losses
 from kubeflow_tpu_torch.parallel import collectives
-from kubeflow_tpu_torch.parallel.mesh import Mesh, Sharding, check_batch_axes
+from kubeflow_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    Mesh,
+    Sharding,
+    check_batch_axes,
+    runs_axis,
+)
 from kubeflow_tpu_torch.parallel.tensor_parallel import (
     rules_for,
     variables_sharding,
@@ -344,23 +356,50 @@ def optimizer_step(tx: GradientTransformation, opt_state, params: Params,
 
 def check_mesh_model(model: nn.Module, mesh: Mesh, what: str) -> None:
     """Raise where a mesh step cannot give the reference's result: a
-    live model axis the model does not run (``tensor`` runs on the dense
-    Llama, which must then be built on the mesh; ``pipeline`` on the
-    pipeline trainer; ``expert`` nowhere yet), or an MoE model split
-    over batch ranks (its load-balance loss is a function of the global
-    batch's routing, and expert parallelism is ROADMAP A18)."""
+    live model axis the model does not run (``tensor`` runs on the Llama
+    and BERT, ``expert`` on an MoE Llama, each as a replicated axis on a
+    model with no param on it; ``pipeline`` on the pipeline trainer), a
+    model with a live ``tensor`` axis not built on it, or an MoE model on
+    a mesh of more than one rank not built on it (its routing groups and
+    load-balance loss are the global batch's, ``MoE(mesh=)``)."""
     check_batch_axes(mesh, what, model)
     if getattr(model, "num_experts", 0) and mesh.size > 1:
-        raise NotImplementedError(
-            f"{what}: an MoE model on a mesh of {mesh.size} ranks (the "
-            f"load-balance loss over the global batch with expert "
-            f"parallelism is ROADMAP A18)")
+        built = getattr(model, "moe_mesh", None)
+        if built is None or built.shape != mesh.shape:
+            raise ValueError(
+                f"{what}: an MoE model on a mesh of {mesh.size} ranks needs "
+                f"the model built on it (Llama(mesh=...))")
     tensor = mesh.shape["tensor"]
-    if getattr(model, "tensor", 1) != tensor:
+    if runs_axis(model, "tensor") and getattr(model, "tensor", 1) != tensor:
         raise ValueError(
             f"{what}: a mesh with tensor={tensor} needs the model built "
-            f"on it (Llama(mesh=...)); this one has tensor="
-            f"{getattr(model, 'tensor', 1)}")
+            f"on it ({type(model).__name__}(mesh=...)); this one has "
+            f"tensor={getattr(model, 'tensor', 1)}")
+
+
+def global_microbatches(batch: Mapping[str, torch.Tensor], mesh: Mesh,
+                        n: int) -> Dict[str, torch.Tensor]:
+    """This rank's rows of each of the reference's ``n`` microbatches,
+    in microbatch order: the reference splits the *global* batch into
+    ``n`` runs of rows, so microbatch i is global rows ``[i·B/n,
+    (i+1)·B/n)``, of which this batch rank takes its share. An MoE's
+    routing groups and load-balance loss are functions of a microbatch's
+    tokens, so its microbatches must be the reference's; a dense model's
+    losses are per token and need no exchange. The rows are all-gathered
+    over the batch line (ids and masks: a few bytes a token)."""
+    ranks = mesh.axes_size(BATCH_AXES)
+    pos = mesh.index(BATCH_AXES)
+    out = {}
+    for k, v in batch.items():
+        whole = collectives.gather_from(v, mesh, BATCH_AXES, 0)
+        size = whole.shape[0]
+        if size % (n * ranks):
+            raise ValueError(f"global batch {size} does not split into "
+                             f"{n} microbatches over {ranks} batch ranks")
+        share = size // (n * ranks)
+        out[k] = whole.reshape(n, ranks, share, *whole.shape[1:])[
+            :, pos].reshape(n * share, *whole.shape[1:])
+    return out
 
 
 def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
@@ -383,6 +422,9 @@ def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
         full[k] = v if collectives.fsdp_dim(sh) is None else (
             collectives.gather_leaf(v.detach(), sh, mesh, ("fsdp",))
             .requires_grad_(True))
+    if (grad_accum > 1 and getattr(model, "num_experts", 0)
+            and mesh.axes_size(BATCH_AXES) > 1):
+        batch = global_microbatches(batch, mesh, grad_accum)
     total_w = torch.clamp_min(collectives.global_sum(
         lm_token_weight(batch, objective), mesh), 1.0)
 
@@ -394,6 +436,8 @@ def mesh_value_and_grad(mesh: Mesh, model: nn.Module, trainable: Params,
         compute, full, batch, grad_accum, objective, total_w)
     grads = {k: collectives.reduce_grad(g, shardings.get(k), mesh)
              for k, g in grads.items()}
+    # The aux loss is the global batch's on every rank already (an MoE
+    # sums its statistics over the batch line, ops/moe.py).
     metrics = (collectives.global_sum(loss, mesh),
                collectives.global_sum(acc, mesh), aux)
     return metrics, grads
@@ -415,7 +459,7 @@ def make_lm_train_step(mesh: Optional[Mesh] = None, *,
     calls the step with its rows of the global batch."""
     loss_fn = LOSSES[objective]
     if mesh is not None:
-        check_batch_axes(mesh, "make_lm_train_step", tensor_ok=True)
+        check_batch_axes(mesh, "make_lm_train_step", deferred=True)
         return _mesh_lm_step(mesh, loss_fn, objective, aux_loss_weight,
                              grad_accum)
 

@@ -204,8 +204,15 @@ def pipeline_state_shardings(mesh: Mesh, params: Mapping[str, Any],
 
 def check_pipeline_mesh(mesh: Mesh, model: nn.Module, what: str) -> None:
     """Raise where the pipeline trainer cannot run ``model`` on ``mesh``:
-    an unported model axis, or a model that is not a dense Llama."""
+    an unported model axis (it runs the batch axes, seq and pipeline; an
+    ``expert`` axis beside the stages is ROADMAP A18's pipeline item,
+    with tensor), or a model that is not a dense Llama."""
     check_batch_axes(mesh, what, model, pipeline_ok=True)
+    if mesh.shape["expert"] > 1:
+        raise NotImplementedError(
+            f"{what}: expert with pipeline is not ported (ROADMAP A18); "
+            f"the pipeline trainer runs dcn_data, data, fsdp, seq and "
+            f"pipeline")
     if not isinstance(model, Llama):
         raise ValueError(f"{what}: the pipeline trainer stages a Llama's "
                          f"blocks, not a {type(model).__name__}")

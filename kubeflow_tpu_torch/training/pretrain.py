@@ -42,16 +42,19 @@ objective the reference's CLI accepts is accepted on the batch axes:
 with no ``--mesh`` trains data-parallel over every rank, the
 reference's all-data default), the megascale env fills dcn_data, and
 each rank writes its host shard of the checkpoints. ``--mesh
-tensor=T`` (and ``fsdp=F,tensor=T``) runs a dense Llama
-tensor-parallel, from the whole model's init cut to each rank's pieces.
-``seq`` is a replicated axis (each seq rank takes the unmeshed step).
+tensor=T`` (and ``fsdp=F,tensor=T``) runs a Llama or BERT
+tensor-parallel, and ``--mesh expert=X`` (with the batch axes and
+tensor: ``data=2,expert=2``) an MoE Llama's experts split over X ranks,
+each from the whole model's init cut to each rank's pieces. ``seq`` is a
+replicated axis (each seq rank takes the unmeshed step), as are
+``tensor`` and ``expert`` for a model with no param on them (``expert``
+on a dense Llama or BERT).
 ``--mesh pipeline=N`` (with the batch axes: ``data=2,pipeline=2``)
 runs a causal Llama on the pipeline trainer (``training/
 pipeline_lm.py``): ``--microbatches`` a step, ``--virtual_stages`` > 1
 for the interleaved schedule, each rank holding and checkpointing its
 own stages; another model or objective raises, as the reference's
-guard does. Tensor on another model and ``expert`` raise (ROADMAP
-A18).
+guard does, and so does an MoE model there.
 """
 
 from __future__ import annotations
@@ -81,8 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", default=None,
                    help="e.g. data=2,fsdp=2 over the gang's ranks (the "
                         "batch axes; seq, replicated; pipeline=N for a "
-                        "causal Llama; tensor for a dense Llama; expert "
-                        "is ROADMAP A18). "
+                        "causal Llama; tensor for a Llama or BERT; expert "
+                        "for an MoE Llama, replicated elsewhere). "
                         "Default: all-data in a gang, one device alone")
     p.add_argument("--data", default=None,
                    help="token shards (.npy / raw .bin): comma-separated "
@@ -133,11 +136,7 @@ def main(argv=None) -> int:
         # A continuous tier with nowhere durable to land would restart
         # the run from step 0.
         parser.error("--continuous_every needs --checkpoint_dir")
-    from kubeflow_tpu_torch.parallel.mesh import (
-        build_mesh,
-        parse_mesh,
-        tensor_parallel_model,
-    )
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh, parse_mesh
 
     from kubeflow_tpu_torch.models.llama import Llama
     from kubeflow_tpu_torch.models.registry import get_model
@@ -147,11 +146,6 @@ def main(argv=None) -> int:
         "mlm" if entry.name.startswith("bert") else "causal")
     spec = parse_mesh(args.mesh)
     sizes = spec.sizes() if spec is not None else {}
-    if sizes.get("expert", 1) != 1:
-        raise SystemExit(
-            f"--mesh {args.mesh}: expert parallelism is not ported yet "
-            f"(ROADMAP A18); the port's trainers run dcn_data, data, fsdp, "
-            f"seq, pipeline (a causal Llama) and tensor (a dense Llama)")
     pipeline = sizes.get("pipeline", 1) != 1
     if pipeline and (objective != "causal"
                      or not isinstance(entry.make(), Llama)):
@@ -160,17 +154,10 @@ def main(argv=None) -> int:
         raise SystemExit(
             "a pipeline mesh axis needs a causal decoder (Llama) model "
             f"(got {entry.name!r}, objective={objective!r})")
-    if sizes.get("tensor", 1) != 1:
-        if pipeline:
-            raise SystemExit(
-                f"--mesh {args.mesh}: the pipeline trainer's blocks are "
-                f"whole; tensor with pipeline is not a preset")
-        if not tensor_parallel_model(entry.make()):
-            raise SystemExit(
-                f"--mesh {args.mesh}: tensor for {args.model} is not "
-                f"ported yet (ROADMAP A18: tensor for BERT and ViT, and "
-                f"for an MoE Llama with expert parallelism; the CNNs have "
-                f"no tensor layers); the port runs it for a dense Llama")
+    if sizes.get("tensor", 1) != 1 and pipeline:
+        raise SystemExit(
+            f"--mesh {args.mesh}: the pipeline trainer's blocks are "
+            f"whole; tensor with pipeline is not a preset")
 
     from kubeflow_tpu_torch.training.launcher import initialize_distributed
     from kubeflow_tpu_torch.utils.platform import default_device
@@ -215,12 +202,16 @@ def main(argv=None) -> int:
         kwargs["remat"] = True
     if args.num_layers is not None:
         kwargs["num_layers"] = args.num_layers
-    # The init is the whole model's, so a tensor=T run starts from the
-    # weights a one-rank run draws; the trainer cuts them to the rank's
-    # pieces.
+    # The init is the whole model's, so a tensor=T or expert=X run
+    # starts from the weights a one-rank run draws; the trainer cuts them
+    # to the rank's pieces. A model runs on the mesh built on it where
+    # its tensor axis is live, and an MoE model wherever the gang has
+    # more than one rank (it routes the global batch).
     whole = entry.make(**kwargs)
     model = whole
-    if spec is not None and spec.tensor != 1:
+    if mesh is not None and not pipeline and (
+            mesh.shape["tensor"] > 1
+            or (getattr(whole, "num_experts", 0) and mesh.size > 1)):
         model = entry.make(**kwargs, mesh=mesh)
     vocab = entry.num_classes_or_vocab
 

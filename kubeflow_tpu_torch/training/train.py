@@ -25,10 +25,12 @@ every BN layer on the sync route (``ops/batch_norm.py``
 BN has them on a batch-sharded mesh), takes the gradient of its rows'
 share of the global mean loss, reduce-scatters the sharded params'
 gradients over fsdp, sums the rest over the batch axes, and steps the
-optimizer on its pieces. ``seq`` is a replicated axis (each seq rank
-takes the unmeshed step); ``tensor``, ``pipeline`` and ``expert`` raise
-(ROADMAP A18: the vision models have no tensor-parallel layers in the
-port; the pipeline trainer stages a Llama's blocks).
+optimizer on its pieces. ``seq``, ``tensor`` and ``expert`` are
+replicated axes (each such rank takes the unmeshed step on its batch
+position's rows), as in the reference, whose vision trainer lays its
+params out by fsdp alone (``state_sharding``) and splits the batch over
+(dcn_data, data, fsdp), so no param or row is split over them;
+``pipeline`` raises (the pipeline trainer stages a Llama's blocks).
 
 optax → torch.optim: ``optax.sgd(lr, momentum, nesterov=True)`` is
 ``torch.optim.SGD(lr=lr, momentum=momentum, nesterov=True,
@@ -62,6 +64,9 @@ from kubeflow_tpu_torch.parallel.mesh import (
 from kubeflow_tpu_torch.training import data
 
 Batch = Dict[str, torch.Tensor]
+#: The model axes the vision trainer runs as replicated axes (beside
+#: ``seq``): its params are laid out by fsdp alone.
+REPLICATED_AXES = ("tensor", "expert")
 OptimizerFn = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 TrainStepFn = Callable[["TrainState", Batch],
                        Tuple["TrainState", Dict[str, torch.Tensor]]]
@@ -125,7 +130,7 @@ def place_state(mesh: Mesh, state: TrainState) -> TrainState:
     :func:`state_sharding` (the optimizer, rebuilt over the pieces,
     starts with no momentum, as a fresh state's), statistics whole, on
     the mesh's device."""
-    check_batch_axes(mesh, "place_state")
+    check_batch_axes(mesh, "place_state", replicated_ok=REPLICATED_AXES)
     shardings = state_sharding(mesh, state.params)
     pieces = collectives.shard_tree(
         {k: v.detach().to(mesh.device) for k, v in state.params.items()},
@@ -167,7 +172,8 @@ def make_train_step(
     state must be one :func:`place_state` placed, and every rank calls
     the step with its rows of the global batch."""
     if mesh is not None:
-        check_batch_axes(mesh, "make_train_step")
+        check_batch_axes(mesh, "make_train_step",
+                         replicated_ok=REPLICATED_AXES)
         return _mesh_train_step(mesh, loss_fn)
 
     def step(state: TrainState, batch: Batch):

@@ -55,14 +55,18 @@ def environ(env):
 def make_model(case, mesh=None):
     """The case's port model: a registry entry, or ``factory``
     (``module:attr``) called with the kwargs; built on ``mesh`` where
-    its tensor axis is live (the tensor-parallel Llama)."""
+    its tensor axis is live (the tensor-parallel Llama and BERT), and an
+    MoE model on any mesh of more than one rank."""
     kwargs = dict(case["kwargs"])
-    if mesh is not None and mesh.shape["tensor"] > 1:
-        kwargs["mesh"] = mesh
     if "factory" in case:
         module, attr = case["factory"].split(":")
-        return getattr(importlib.import_module(module), attr)(**kwargs)
-    return get_model(case["model"]).make(**kwargs)
+        make = getattr(importlib.import_module(module), attr)
+    else:
+        make = get_model(case["model"]).make
+    if mesh is not None and (mesh.shape["tensor"] > 1 or (
+            getattr(make(**kwargs), "num_experts", 0) and mesh.size > 1)):
+        kwargs["mesh"] = mesh
+    return make(**kwargs)
 
 
 def mesh_of(case):
@@ -123,28 +127,88 @@ def lm_job(case):
         reader.close()
         trained = state.lora if case.get("lora") is not None else \
             state.params
+        restored = convert.state_to_flax(gathered_state(state))
     pieces = {k: tuple(v.shape) for k, v in trained.items()}
     opt_paths = [k for k in convert.state_to_flax(state)
                  if k.startswith("opt_state/")]
     by_flax = {convert.flax_key(k): v for k, v in state.shardings.items()}
     moments = {p: tuple(sh.spec) for p, sh in mirror_param_shardings(
         opt_paths, by_flax, gathered_replicated(mesh)).items()}
+    if case.get("grad_accum", 1) > 1:
+        step = make_lm_train_step(mesh, objective=case["objective"],
+                                  grad_accum=case["grad_accum"])
+    own = {k: v.detach().clone() for k, v in trained.items()}
     metrics = []
-    for batch in case["batches"]:
+    save_at = case.get("save_at", len(case["batches"]))
+    for i, batch in enumerate(case["batches"]):
+        if i == save_at:
+            flat = _save(case, mesh, state)
         state, m = step(state, rows(batch, mesh))
         metrics.append({k: float(v) for k, v in m.items()})
+    if save_at == len(case["batches"]):
+        flat = _save(case, mesh, state)
+    out = {"metrics": metrics, "state": flat, "pieces": pieces,
+           "own": {convert.flax_key(k): v.numpy() for k, v in own.items()},
+            "mesh": mesh.shape, "coords": mesh.coords(),
+            "moments": moments,
+            "specs": {convert.flax_key(k): tuple(v.spec)
+                      for k, v in state.shardings.items()}}
+    if case.get("restore_dir"):
+        out["restored"] = restored
+    return out
+
+
+def _save(case, mesh, state):
+    """The state's host-sharded checkpoint (where the case asks for
+    one), each rank a host, and the whole state, gathered."""
+    from kubeflow_tpu_torch.training.checkpoint import (
+        ContinuousCheckpointConfig,
+        ShardedCheckpointer,
+    )
+
     if case.get("save_dir"):
         writer = ShardedCheckpointer(ContinuousCheckpointConfig(
             directory=case["save_dir"], async_save=False,
             num_hosts=mesh.size, host_id=mesh.rank))
         writer.save(state.step, state, force=True)
         writer.close()
-    flat = convert.state_to_flax(gathered_state(state))
-    return {"metrics": metrics, "state": flat, "pieces": pieces,
-            "mesh": mesh.shape, "coords": mesh.coords(),
-            "moments": moments,
-            "specs": {convert.flax_key(k): tuple(v.spec)
-                      for k, v in state.shardings.items()}}
+    return convert.state_to_flax(gathered_state(state))
+
+
+def moe_job(case):
+    """An MoE layer built on the case's mesh over this rank's rows of the
+    case's tokens: its output rows, the aux loss it sows and the
+    gradients of ``sum(out²) + 0.01·aux`` (the reference's
+    ``test_moe_gradients_flow_and_aux_loss_sown`` loss) summed over the
+    batch line, as a trainer sums them: the router's whole, the experts'
+    this rank's pieces."""
+    from kubeflow_tpu_torch.ops.moe import MoE, collect_losses
+    from kubeflow_tpu_torch.parallel import collectives
+
+    mesh = mesh_of(case)
+    moe = MoE(**case["kwargs"], dtype=torch.float32, device="meta",
+              mesh=mesh)
+    params = {"router.weight": _t(case["router"].T)}
+    for name in ("w_in", "w_out"):
+        shape = tuple(getattr(moe, name).shape)
+        full = case[name]
+        piece = full[mesh.coords()["expert"] * shape[0]:][:shape[0]]
+        dim = 2 if name == "w_in" else 1
+        t = mesh.coords()["tensor"]
+        piece = np.take(piece, range(t * shape[dim], (t + 1) * shape[dim]),
+                        axis=dim)
+        params[name] = _t(np.ascontiguousarray(piece))
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    x = rows({"x": _t(case["x"])}, mesh)["x"]
+    with collect_losses() as sown:
+        out = torch.func.functional_call(moe, params, (x,))
+    aux = sown[0]
+    grads = torch.autograd.grad((out ** 2).sum() + 0.01 * aux,
+                                list(params.values()))
+    return {"out": out.detach().numpy(), "aux": float(aux),
+            "pieces": {k: tuple(v.shape) for k, v in params.items()},
+            "grads": {k: collectives.all_reduce_sum(g.clone(), mesh).numpy()
+                      for k, g in zip(params, grads)}}
 
 
 def gathered_replicated(mesh):
@@ -451,7 +515,7 @@ def cli_job(case):
             "metrics": lines}
 
 
-JOBS = {"lm": lm_job, "prefetch": prefetch_job, "vision": vision_job,
+JOBS = {"lm": lm_job, "moe": moe_job, "prefetch": prefetch_job, "vision": vision_job,
         "serve": serve_job, "tensor_sum": tensor_sum_job, "seq": seq_job,
         "pipeline": pipeline_job, "pipeline_lm": pipeline_lm_job,
         "cli": cli_job}
@@ -464,7 +528,7 @@ def main():
                             world_size=int(world), rank=int(rank))
     try:
         cases = pickle.loads(open(cases_path, "rb").read())
-        results = {c["name"]: JOBS[job](c) for c in cases}
+        results = {c["name"]: JOBS[c.get("job", job)](c) for c in cases}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:

@@ -166,24 +166,31 @@ def test_remat_gives_the_same_gradients():
 
 
 def test_mesh_and_bert_batches_raise_with_their_roadmap_items():
-    """A mesh with a model axis the port does not run raises (ROADMAP
-    A18: expert; the batch axes run: tests/test_torch_gang_lm.py, the
-    tensor axis on a dense Llama: tests/test_torch_tensor_train.py, seq:
-    tests/test_torch_seq_attention.py), and so
-    does an MoE model on a mesh of more than one rank. A BERT batch (the mlm
-    objective's) on a Llama runs as the reference runs it: its type_ids
-    are the Llama's positions, its valid mask the ignored train flag
-    (BERT itself: tests/test_torch_bert.py; MoE:
-    tests/test_torch_moe.py)."""
+    """The model axes of ROADMAP A18's first items run now: ``expert`` on
+    a dense Llama is a replicated axis (each rank holds the whole
+    params; the MoE's expert split: tests/test_torch_expert.py), and a
+    step built before its model is known takes any model axis and checks
+    it at its call. What still raises: an MoE model on a mesh of more
+    than one rank that was not built on it (its routing groups and
+    load-balance loss are the global batch's), and a tensor mesh with a
+    model not built on it. A BERT batch (the mlm objective's) on a Llama
+    runs as the reference runs it: its type_ids are the Llama's
+    positions, its valid mask the ignored train flag (BERT itself:
+    tests/test_torch_bert.py; MoE: tests/test_torch_moe.py)."""
     ref_state, params, model = lm_pair(optax.sgd(0.1))
     expert = Mesh(MeshSpec(data=2, expert=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        lm.create_lm_state(model, optim.sgd(0.1), params, mesh=expert)
-    with pytest.raises(NotImplementedError, match="A18"):
-        lm.make_lm_train_step(expert)
-    with pytest.raises(NotImplementedError, match="A18"):
+    meshed, shardings = lm.create_lm_state(model, optim.sgd(0.1), params,
+                                           mesh=expert)
+    assert all(sh.replicated for sh in shardings.values())
+    for k, v in params.items():
+        assert torch.equal(meshed.params[k], v)
+    assert callable(lm.make_lm_train_step(expert))
+    with pytest.raises(ValueError, match="built on it"):
         lm.create_lm_state(llama_test(num_experts=4), optim.sgd(0.1), {},
                            mesh=Mesh(MeshSpec(data=2), device="cpu"))
+    with pytest.raises(ValueError, match="built on it"):
+        lm.create_lm_state(model, optim.sgd(0.1), params,
+                           mesh=Mesh(MeshSpec(tensor=2), device="cpu"))
     state, _ = lm.create_lm_state(model, optim.sgd(0.1), params)
     rng = np.random.default_rng(5)
     bert = {"input_ids": ids(0),

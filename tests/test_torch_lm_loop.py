@@ -365,8 +365,6 @@ def test_pretrain_num_layers_cuts_the_depth(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--model", "llama-test", "--mesh", "data=4,expert=2"], "A18"),
-    (["--model", "bert-test", "--mesh", "tensor=2"], "A18"),
     (["--model", "bert-test", "--mesh", "data=4,pipeline=2"],
      "causal decoder"),
     (["--model", "llama-test", "--objective", "mlm", "--mesh",
@@ -386,6 +384,10 @@ def test_pretrain_refuses_what_is_not_ported(argv, match):
     # A mesh of one process (the batch axes; a gang's:
     # tests/test_torch_launcher.py).
     (["--model", "llama-test", "--mesh", "fsdp=-1"], "causal"),
+    # expert and tensor pass the CLI's checks (a gang's runs:
+    # tests/test_torch_expert.py, tests/test_torch_tensor_bert.py).
+    (["--model", "llama-moe-test", "--mesh", "expert=-1"], "causal"),
+    (["--model", "bert-test", "--mesh", "tensor=-1"], "mlm"),
 ])
 def test_pretrain_runs_what_the_reference_accepts(argv, objective, capsys):
     assert pretrain_main(argv + ["--device", "cpu", "--steps", "2",

@@ -268,11 +268,38 @@ def test_placements_are_shard_or_replicate_per_mesh_axis():
 
 
 def test_model_axes_raise_naming_a18():
+    """What still raises among the model axes, now that ROADMAP A18's
+    expert and tensor items run: a step whose model is not known (and
+    not checked at its call) refuses tensor; ``pipeline`` runs only in
+    the pipeline trainer. ``expert`` and ``tensor`` on a model with no
+    param on them are replicated axes, and the Llama and BERT run both
+    (``tests/test_torch_expert.py``, ``tests/test_torch_tensor_bert.py``)."""
+    from kubeflow_tpu_torch.models.bert import bert_test
+    from kubeflow_tpu_torch.models.llama import llama_test
+
     _, spec = _pair(dict(data=2, fsdp=2, tensor=2))
-    with pytest.raises(NotImplementedError, match="A18"):
-        pmesh.check_batch_axes(pmesh.Mesh(spec), "a step")
+    mesh = pmesh.Mesh(spec)
+    with pytest.raises(NotImplementedError, match="do not run"):
+        pmesh.check_batch_axes(mesh, "a step")
+    pmesh.check_batch_axes(mesh, "a step", deferred=True)
+    pmesh.check_batch_axes(mesh, "a step", llama_test())
     _, spec = _pair(dict(data=2, fsdp=4))
     pmesh.check_batch_axes(pmesh.Mesh(spec), "a step")
+    _, spec = _pair(dict(data=2, expert=2, tensor=2))
+    mesh = pmesh.Mesh(spec, rank=5)
+    for model in (llama_test(), llama_test(num_experts=4), bert_test()):
+        pmesh.check_batch_axes(mesh, "a step", model)
+    assert pmesh.param_axes(llama_test(num_experts=4)) >= {"expert",
+                                                           "tensor"}
+    assert "expert" not in pmesh.param_axes(llama_test())
+    assert "expert" not in pmesh.param_axes(bert_test())
+    assert pmesh.expert_rank(mesh) == 0 and pmesh.tensor_rank(mesh) == 1
+    assert pmesh.expert_group(mesh) is None  # no process group
+    spec = pmesh.MeshSpec(data=2, pipeline=2)
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        pmesh.check_batch_axes(pmesh.Mesh(spec), "a step", llama_test())
+    pmesh.check_batch_axes(pmesh.Mesh(spec), "a step", llama_test(),
+                           pipeline_ok=True)
 
 
 def test_the_benchmarks_build_their_mesh_from_the_config():

@@ -21,7 +21,8 @@
   ``scripts/manager_phase.py``, ``scripts/train_phase.py``,
   ``scripts/registry_phase.py``, ``scripts/measure_phase.py``,
   ``scripts/smoke_breakdown.py``, ``scripts/gang_phase.py``,
-  ``scripts/tensor_gang.py``, ``scripts/axes_gang.py``) names
+  ``scripts/tensor_gang.py``, ``scripts/axes_gang.py``,
+  ``scripts/expert_gang.py``) names
   them: the GPU machine has no ``msgpack``, so the export reader is the
   port's own.
 - Without CUDA, an entry point called without ``device="cpu"`` raises.
@@ -77,6 +78,7 @@ def _sources():
     yield os.path.join(ROOT, "scripts", "gang_phase.py")
     yield os.path.join(ROOT, "scripts", "tensor_gang.py")
     yield os.path.join(ROOT, "scripts", "axes_gang.py")
+    yield os.path.join(ROOT, "scripts", "expert_gang.py")
 
 
 def test_every_module_imports_without_jax_or_the_reference():

@@ -146,10 +146,14 @@ def test_learns_on_a_fixed_batch():
 
 
 def test_train_step_refuses_a_mesh():
-    """A mesh with a model axis (ROADMAP A18); the batch axes run:
-    tests/test_torch_gang_vision.py."""
-    with pytest.raises(NotImplementedError, match="A18"):
-        make_train_step(mesh=Mesh(MeshSpec(data=2, tensor=2)))
+    """The vision trainer runs ``tensor`` and ``expert`` as replicated
+    axes, as the reference's does (a gang's run against it:
+    tests/test_torch_tensor_bert.py; the batch axes:
+    tests/test_torch_gang_vision.py), and refuses ``pipeline``."""
+    assert callable(make_train_step(mesh=Mesh(MeshSpec(data=2, tensor=2))))
+    assert callable(make_train_step(mesh=Mesh(MeshSpec(expert=2))))
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        make_train_step(mesh=Mesh(MeshSpec(data=2, pipeline=2)))
 
 
 #: The keys of kubeflow_tpu/training/benchmark.py run_benchmark's result
