@@ -550,6 +550,11 @@ def time_ms(fn, reps: int = 30, warmup: int = 3, calls: int = 1) -> float:
 KERNEL_TIMING = {"reps": 7, "calls": 20}
 
 
+#: The profiled figures that CUDA events had to stand in for: one entry
+#: a call whose three traces held no device time.
+PROFILER_FALLBACKS = []
+
+
 def profiled_ms(fn, calls: int = 20) -> float:
     """Device time per call from the profiler's kernel records (CUPTI):
     the kernels that ``calls`` calls of fn launch, summed, over calls.
@@ -559,18 +564,29 @@ def profiled_ms(fn, calls: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     # A trace of calls that launch kernels but holds no device time lost
-    # its records (CUPTI); it is taken again, three times at most.
+    # its records (CUPTI): it is taken again, three times at most. On
+    # some machines CUPTI stops recording a process's kernels for good
+    # (the traces of a call that had one minutes before come back empty);
+    # then ``calls`` back-to-back calls between CUDA events stand in, the
+    # host's launch work overlapping the device's, and the call is listed
+    # in PROFILER_FALLBACKS and logged.
     for _ in range(3):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages())
+        events = prof.key_averages()
+        total = sum(e.self_device_time_total for e in events)
         if total > 0:
             return total / calls / 1e3
-    raise AssertionError("three profiler traces of a call that launches "
-                         "kernels recorded no device time")
+    ms = time_ms(fn, reps=KERNEL_TIMING["reps"], calls=calls)
+    name = getattr(fn, "func", fn)
+    name = getattr(name, "__qualname__", repr(name))
+    PROFILER_FALLBACKS.append(name)
+    log(f"profiler: three traces of {name} held no device time ({len(events)} "
+        f"event kinds in the last); CUDA events instead: {ms} ms a call")
+    return ms
 
 
 def compiler_report(report: str) -> dict:
@@ -4826,10 +4842,31 @@ GANG_TENSOR_MODES = {"greedy": {"temperature": 0.0}, "sampled": SAMPLING}
 #: bf16 Llama tolerance of ROADMAP's "held against").
 TENSOR_LOGITS_TOL = 3e-2
 #: Seconds a rank may take before the phase kills the gang and fails.
-GANG_TENSOR_TIMEOUT = 420
+GANG_TENSOR_TIMEOUT = 720
 #: The tensor gang's kernels: the Llama path's.
 TENSOR_KERNELS = ("flash_attention", "decode_gemm", "rms_norm",
                   "add_rms_norm", "decode_attention", "prefill_gemm")
+#: The engine lanes the gang runs on its own load, each greedy and
+#: sampled: the plain lane (its B = 1 runs, resumes and handoffs), the
+#: prefix lane, chunked prefill (chunks of 64) and speculative decoding
+#: (k = SPEC_K, with ``weak_draft`` loaded whole on every rank).
+GANG_LANES = {"plain": {}, "prefix": {"engine_prefix_cache": True},
+              "chunk": {"engine_prefix_cache": True,
+                        "engine_prefill_chunk": PREFILL_CHUNK},
+              "spec": {"engine_draft_tokens": SPEC_K}}
+#: The prefix mix: request 1's prompt, one sharing its first 360 tokens
+#: and 100 of its own, then request 1's again.
+GANG_PREFIX_SHARED = 360
+GANG_PREFIX_TAIL = 100
+#: Resumes of request 0 after 1, 4 and 7 of its 8 tokens.
+GANG_RESUME_CUTS = (1, GANG_TENSOR_TOKENS // 2, GANG_TENSOR_TOKENS - 1)
+#: The handoffs' request: the engine mix's 77-token prompt.
+GANG_HANDOFF_REQUEST = 2
+#: The fsdp=2 load's greedy run: request 0's first 3 tokens (the prefill
+#: and two decode steps). Every forward of that load gathers its 4.9 GB of
+#: weights through gloo's host path on the shared card, 5.5 s a forward
+#: (measured on one H100): 8 tokens took 44 s of the smoke's limit.
+GANG_FSDP_TOKENS = 3
 
 
 def tensor_rows(kernels):
@@ -4893,26 +4930,127 @@ def spawn_gang(world, transport, case_path, out_dir, *,
                               "rb").read()) for r in range(world)]
 
 
+def gang_manager_bases(export, base, modes):
+    """A base path a mode for the gang's ``ModelManager``: version 1 is
+    the sharded export's shard files (linked, not copied) under a
+    signature whose generate config asks for the mode's sampling with
+    deterministic keys (so ``ServedModel.submit`` and the version's B = 1
+    ``run`` draw the same key)."""
+    meta = read_metadata(export)
+    bases = {}
+    for mode, sampling in modes.items():
+        version = os.path.join(base, f"manager-{mode}", "1")
+        os.makedirs(version)
+        for name in meta.sharding["shards"]:
+            os.symlink(os.path.join(export, name),
+                       os.path.join(version, name))
+        config = dict(meta.generate_config, **sampling, deterministic=True,
+                      seed=5)
+        with open(os.path.join(version, "signature.json"), "w") as f:
+            f.write(dataclasses.replace(meta,
+                                        generate_config=config).dumps())
+        bases[mode] = os.path.dirname(version)
+    return bases
+
+
+def flax_views(params, model, *, boxed=True):
+    """Port params as the Flax tree's leaves (kernels back to ``[in,
+    out]``; the same tensors, no copy), boxed where the reference boxes
+    them."""
+    views = {}
+    for name, t in params.items():
+        key = flax_key(name)
+        leaf = t.T if key.endswith("/kernel") else t
+        views[key] = ({"value": leaf} if boxed and model.partitioned(key)
+                      else leaf)
+    return {"params": unflatten_tree(views)}
+
+
+def gang_fsdp_export(base, meta, params, model, world):
+    """The ``fsdp=world`` export of ``params`` (the monolithic load's: every
+    weight in the dtype the load keeps it in, so a load of this export
+    holds the same bits) under ``meta``, its generate budget cut to
+    GANG_FSDP_TOKENS, by the reference's plan."""
+    host = {k: v.cpu() for k, v in params.items()}
+    variables = flax_views(host, model)
+    spec = sharding.ShardSpec(fsdp=world)
+    plan = sharding.build_shard_plan(variables, spec, model)
+    config = dict(meta.generate_config, max_new_tokens=GANG_FSDP_TOKENS)
+    path = sharding.export_model_sharded(
+        os.path.join(base, "fsdp"), 1, dataclasses.replace(
+            meta, sharding=None, generate_config=config),
+        variables, spec, plan=plan)
+    return str(path), plan
+
+
+def gang_draft_export(base, meta, cache_size):
+    """``weak_draft`` as an export (bf16, as it serves) that a gang's
+    engine loads whole on every rank (``engine_draft_export``)."""
+    draft, params = weak_draft(LLAMA, cache_size)
+    dmeta = dataclasses.replace(
+        meta, model_name="draft", registry_name=LLAMA, sharding=None,
+        model_kwargs={"num_layers": 1, "dtype": "bfloat16",
+                      "cache_size": cache_size})
+    host = {k: v.to(torch.bfloat16).cpu() for k, v in params.items()}
+    del params
+    path = export_model(os.path.join(base, "draft"), 1, dmeta,
+                        flax_views(host, draft, boxed=False))
+    return str(path)
+
+
+def handoff_kv_rel_rms(blob, ref):
+    """The largest relative RMS over a handoff's layers, k and v, of its
+    cache against another's of the same prompt (every KV head, in head
+    order: a wrong order gives errors of order 1)."""
+    a = wire.decode_kv_handoff(blob, model="llama", version=1)
+    b = wire.decode_kv_handoff(ref, model="llama", version=1)
+    return max(rel_rms(getattr(x, n).float(), getattr(y, n).float())
+               for x, y in zip(a.cache, b.cache) for n in ("k", "v"))
+
+
 def gang_tensor(card, *, transport="gloo", world=2):
     """``kft-export --shards tensor=world`` of llama3-8b at full width,
     cut to GANG_TENSOR_LAYERS blocks (fp32 weights from seed 0, bf16
     compute), served by a gang of ``world`` rank processes
-    (``scripts/tensor_gang.py``) that load it with ``load_version``, each
-    reading only its own shard file, and held against the same weights
-    loaded monolithically here. Asserted: the manifest's mesh, its shard
-    files and no ``params.msgpack``; the export joined on the host is the
-    weights kft-export drew, bitwise (so its monolithic export's, whose
-    tokens are then this load's), and the manifest's plan is
+    (``scripts/tensor_gang.py``), each reading only its own shard file,
+    and held against the same weights loaded monolithically here.
+    Asserted: the manifest's mesh, its shard files and no
+    ``params.msgpack``; the export joined on the host is the weights
+    kft-export drew, bitwise, and the manifest's plan is
     ``build_shard_plan`` of that tree; each rank opened its own shard
-    alone; the prefill's logits ([1, 512]) within TENSOR_LOGITS_TOL
-    relative RMS of the monolithic forward's; greedy tokens through
-    ``run`` and through the engine (four requests) equal to the
-    monolithic ``run``'s, or, at a step where they first differ, the
-    monolithic top-two margin there at most twice the step's max |Δ| of
-    logits between the two (their rounding can then explain it), the
-    step and margin logged; inside the gang, bitwise: every rank's
-    tokens equal, and each engine stream equal to the gang's B = 1
-    ``run`` of its request, greedy and sampled; every kernel of the path
+    alone. The gang, in turn:
+
+    - a ``ModelManager`` on rank 0 (a model a mode, loaded onto the gang
+      by its poll) with a gRPC server, ``ModelManager.follow()`` on the
+      others: the engine mix through ``ServedModel.submit``,
+      ``submit_stream`` and a gRPC Predict equal to the version's B = 1
+      ``run``, bitwise, greedy and sampled; the followers loaded and
+      closed both versions;
+    - on its own load: the prefill's logits ([1, 512]) within
+      TENSOR_LOGITS_TOL relative RMS of the monolithic forward's; greedy
+      tokens of ``run`` equal to the monolithic ``run``'s, or, at a step
+      where they first differ, the monolithic top-two margin there at
+      most twice the step's max |Δ| of logits between the two; and
+      bitwise inside the gang, greedy and sampled: every lane's engine
+      streams equal to the gang's B = 1 ``run``; the prefix mix's hits
+      equal their cold runs; speculative decoding with ``weak_draft``
+      (an export loaded whole on every rank) equal to vanilla; chunked
+      prefill equal to one-shot; three resumes (at 1, the middle and
+      budget - 1) equal to the uninterrupted stream; the gang's own
+      handoff blob adopted by the gang equal to its local stream;
+    - a handoff each way with the monolithic load here (its engine's
+      blob adopted by the gang, the gang's by its engine): each blob's
+      cache, every KV head in head order, within TENSOR_LOGITS_TOL of
+      the other side's own prefill of the prompt, and the adopted
+      streams' agreement with the other side's reported (the tensor
+      split's bf16 sums part the two loads);
+    - the ``fsdp=2`` export of the same weights: each rank reads its
+      own shard, holds half of the weights at rest, and gives the
+      prefill's logits and request 0's first GANG_FSDP_TOKENS greedy
+      tokens bitwise the monolithic load's; each rank's peak memory and the fsdp gathers'
+      share of a prefill and of a ``run`` reported.
+
+    Every rank's tokens equal rank 0's; every kernel of the path
     launched on every rank. Returns the phase's figures."""
     entry = get_model(LLAMA)
     vocab = entry.num_classes_or_vocab
@@ -4924,6 +5062,12 @@ def gang_tensor(card, *, transport="gloo", world=2):
             for i in range(len(prompts))]
     prefill = rng.integers(0, vocab, (1, max(GANG_TENSOR_PROMPTS))).astype(
         np.int32)
+    shared = np.concatenate([prompts[1][:GANG_PREFIX_SHARED], rng.integers(
+        0, vocab, GANG_PREFIX_TAIL)]).astype(np.int32)
+    mix = [prompts[1], shared, prompts[1]]
+    mix_keys = [keys[1], np.asarray(prng.PRNGKey(200), np.uint32), keys[1]]
+    hand_prompt, hand_key = prompts[GANG_HANDOFF_REQUEST], np.asarray(
+        prng.PRNGKey(300), np.uint32)
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tensor-") as base:
         out = io.StringIO()
@@ -4943,7 +5087,8 @@ def gang_tensor(card, *, transport="gloo", world=2):
                  for f in sorted(os.listdir(path))}
         # The sharded layout: the manifest's mesh and shard files, and
         # no params.msgpack (a server that ignored the manifest fails).
-        manifest = read_metadata(path).sharding
+        meta = read_metadata(path)
+        manifest = meta.sharding
         if (manifest["num_shards"] != world
                 or manifest["mesh"] != {"tensor": world, "fsdp": 1}
                 or sorted(sizes) != sorted(["signature.json",
@@ -4965,15 +5110,9 @@ def gang_tensor(card, *, transport="gloo", world=2):
         if lost:
             raise AssertionError(f"sharded export joined: {lost[:5]} differ "
                                  f"from the weights kft-export drew")
-        # The plan reads shapes alone: the joined leaves as views in
-        # Flax's layout, boxed where the reference boxes them.
-        views = {}
-        for name, t in mono.params.items():
-            key = flax_key(name)
-            leaf = t.T if key.endswith("/kernel") else t
-            views[key] = {"value": leaf} if forward.partitioned(key) else leaf
+        # The plan reads shapes alone.
         plan = sharding.build_shard_plan(
-            {"params": unflatten_tree(views)},
+            flax_views(mono.params, forward),
             sharding.ShardSpec(tensor=world), forward)
         if manifest["plan"] != plan:
             raise AssertionError(f"sharded export's plan {manifest['plan']} "
@@ -4995,20 +5134,59 @@ def gang_tensor(card, *, transport="gloo", world=2):
                 step = apply(forward, mono.params,
                              torch.from_numpy(seq).cuda())
                 fed_mono.append(step[0, len(prompt) - 1:].float().cpu())
+        # The card's side of the handoffs: its classic engine a mode,
+        # its own stream of the handoff request and its blob.
+        card_engines, card_local, card_blobs = {}, {}, {}
+        for mode, sampling in GANG_TENSOR_MODES.items():
+            (_, spec), = meta.signatures["serving_default"].inputs.items()
+            # Eager: capture is not what the handoffs hold.
+            engine = card_engines[mode] = DecodeEngine(
+                mono._module, mono.params, EngineConfig.from_generate_config(
+                    dict(meta.generate_config, **sampling), spec.shape[1]),
+                name=f"gang-card-{mode}", capture_graphs=False)
+            card_local[mode] = engine.submit(hand_prompt,
+                                             rng=hand_key).result(600.0)
+            card_blobs[mode] = wire.encode_kv_handoff(
+                "llama", 1, engine.run_prefill(hand_prompt, rng=hand_key))
+        t2 = time.monotonic()
+        fsdp_path, fsdp_plan = gang_fsdp_export(base, meta, mono.params,
+                                                forward, world)
+        draft_path = gang_draft_export(base, meta,
+                                       meta.model_kwargs["cache_size"])
+        bases = gang_manager_bases(path, base, GANG_TENSOR_MODES)
+        extra_export_s = time.monotonic() - t2
         mono_total = time.monotonic() - t1
-        del mono, forward
+        del forward
         gc.collect()
         torch.cuda.empty_cache()
+        lanes = dict(GANG_LANES, spec=dict(GANG_LANES["spec"],
+                                           engine_draft_export=draft_path))
         case = {"export": path, "model": LLAMA,
                 "layers": GANG_TENSOR_LAYERS, "dtype": kwargs["dtype"],
                 "prefill": prefill, "prompts": prompts, "keys": keys,
-                "mono_tokens": mono_tokens, "modes": GANG_TENSOR_MODES}
+                "mono_tokens": mono_tokens, "modes": GANG_TENSOR_MODES,
+                "lanes": lanes, "cuts": GANG_RESUME_CUTS,
+                "prefix_prompts": mix, "prefix_keys": mix_keys,
+                "handoff_prompt": hand_prompt, "handoff_key": hand_key,
+                "incoming": card_blobs, "manager_bases": bases,
+                "fsdp_export": fsdp_path}
         case_path = os.path.join(base, "case.pkl")
         with open(case_path, "wb") as f:
             pickle.dump(case, f)
         t1 = time.monotonic()
         ranks = spawn_gang(world, transport, case_path, base)
         gang_s = time.monotonic() - t1
+        # The gang's blobs adopted by the card's engines.
+        card_adopted, kv_err = {}, {}
+        for mode, engine in card_engines.items():
+            blob = ranks[0][mode, "plain"]["blob"]
+            card_adopted[mode] = engine.submit(handoff=wire.decode_kv_handoff(
+                blob, model="llama", version=1)).result(600.0)
+            kv_err[mode] = handoff_kv_rel_rms(blob, card_blobs[mode])
+            engine.stop()
+        del card_engines, mono
+        gc.collect()
+        torch.cuda.empty_cache()
     shards = [f"params.shard-{r:05d}-of-{world:05d}.msgpack"
               for r in range(world)]
     for r, res in enumerate(ranks):
@@ -5028,62 +5206,48 @@ def gang_tensor(card, *, transport="gloo", world=2):
         raise AssertionError(f"tensor gang prefill logits: relative RMS "
                              f"{err} > {TENSOR_LOGITS_TOL} (max |Δ| "
                              f"{max_err})")
-    divergences = []
+    gang_manager_ok(ranks, lead)
+    divergences = gang_lanes_ok(ranks, lead, mono_tokens, fed_mono)
+    handoffs = {}
     for mode in GANG_TENSOR_MODES:
-        runs = lead[mode]
-        for r, res in enumerate(ranks[1:], start=1):
-            theirs = res[mode]
-            mine = [list(t) for t in runs["b1"]]
-            if ([list(x["tokens"][0]) for x in theirs["runs"]] != mine
-                    or theirs["engine"] != runs["engine"]):
-                raise AssertionError(f"tensor gang {mode}: rank {r}'s "
-                                     f"tokens differ from rank 0's")
-        for i, (stream, b1) in enumerate(zip(runs["streams"], runs["b1"])):
-            if not np.array_equal(stream, b1):
-                raise AssertionError(
-                    f"tensor gang {mode} request {i}: engine {stream} != "
-                    f"the gang's B=1 run {b1}")
-        if runs["stats"]["gang"]["capture_graphs"]:
-            raise AssertionError("a tensor gang's engine captured graphs")
-        if mode != "greedy":
-            continue
-        for i, (b1, want) in enumerate(zip(runs["b1"], mono_tokens)):
-            step = first_divergence(b1, want)
-            if step is None:
-                continue
-            mono_row = fed_mono[i][step]
-            top2 = torch.topk(mono_row, 2).values
-            margin = float(top2[0] - top2[1])
-            delta = float((torch.from_numpy(lead["fed_logits"][i][step])
-                           - mono_row).abs().max())
-            divergences.append({"request": i, "step": step,
-                                "margin": margin, "max_abs_delta": delta})
-            log(f"tensor gang greedy request {i}: first differs from the "
-                f"monolithic run at step {step}, top-two margin {margin}, "
-                f"max |Δ| logits {delta}")
-            if margin > 2 * delta:
-                raise AssertionError(
-                    f"tensor gang request {i} diverges at step {step} with "
-                    f"margin {margin} > 2 × max |Δ| {delta}: rounding "
-                    f"cannot explain it")
-    per_token = {"gang_ms": statistics.median(lead["greedy"]["b1_s"]) * 1e3
-                 / GANG_TENSOR_TOKENS,
+        plain = lead[mode, "plain"]
+        kv = max(kv_err[mode], handoff_kv_rel_rms(card_blobs[mode],
+                                                  plain["blob"]))
+        if kv > TENSOR_LOGITS_TOL:
+            raise AssertionError(f"tensor gang {mode} handoff: the two "
+                                 f"loads' caches part by {kv} relative RMS")
+        handoffs[mode] = {
+            "kv_rel_rms": kv,
+            "card_to_gang_first_differs": first_divergence(
+                plain["adopted"], card_local[mode]),
+            "gang_to_card_first_differs": first_divergence(
+                card_adopted[mode], card_local[mode])}
+    fsdp = gang_fsdp_ok(ranks, world, mono_logits, mono_tokens)
+    per_token = {"gang_ms": statistics.median(lead["greedy", "plain"]["b1_s"])
+                 * 1e3 / GANG_TENSOR_TOKENS,
                  "one_rank_ms": statistics.median(mono_s) * 1e3
                  / GANG_TENSOR_TOKENS}
     figures = {
         "card": card, "transport": transport, "ranks": world,
         "layers": GANG_TENSOR_LAYERS, "plan_leaves": len(plan),
-        "export_s": export_s, "mono_s": mono_total,
-        "gang_s": gang_s, "load_s": [r["load_s"] for r in ranks],
+        "fsdp_plan_leaves": len(fsdp_plan),
+        "export_s": export_s, "extra_exports_s": extra_export_s,
+        "mono_s": mono_total, "gang_s": gang_s,
+        "load_s": [r["load_s"] for r in ranks],
+        "manager_load_s": lead["manager"]["load_s"],
+        "manager_s": [r["manager_s"] for r in ranks],
+        "lanes_s": [r["lanes_s"] for r in ranks],
+        "fsdp_s": [r["fsdp_s"] for r in ranks],
+        "lane_s": {f"{m}/{lane}": lead[m, lane]["s"]
+                   for m in GANG_TENSOR_MODES for lane in GANG_LANES},
         "shard_bytes": sizes, "prefill_logits_rel_rms": err,
         "prefill_logits_max_abs": max_err,
-        "greedy_divergences": divergences,
+        "greedy_divergences": divergences, "handoffs": handoffs,
+        "fsdp": fsdp,
         # B = 1 run's wall a new token (prefill included): the gang's
         # ranks share one card, so this times its time-slicing, not
         # tensor parallelism.
         "b1_ms_per_token": per_token,
-        # The engine's four requests, submit to the last token.
-        "engine_s": {m: lead[m]["engine_s"] for m in GANG_TENSOR_MODES},
         # Each rank's wall over the phase's main path, and the share of
         # it its stream spent in collectives (CUDA events around each
         # call on CUDA tensors, a wait for the peers included); the
@@ -5098,6 +5262,131 @@ def gang_tensor(card, *, transport="gloo", world=2):
     }
     log(f"tensor gang: {json.dumps(figures)}")
     return figures
+
+
+def gang_manager_ok(ranks, lead):
+    """The manager part: each mode's unary, streamed and gRPC tokens
+    equal the version's B = 1 ``run``; greedy equal the gang's own B = 1
+    runs of the lanes; the followers loaded and closed each version."""
+    for mode in GANG_TENSOR_MODES:
+        got = lead["manager"][mode]
+        if got["topology"]["mesh"] != {"tensor": len(ranks), "fsdp": 1}:
+            raise AssertionError(f"gang manager {mode}: {got['topology']}")
+        for what in ("unary", "streamed"):
+            for i, (a, b) in enumerate(zip(got[what], got["b1"])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"gang manager {mode} request {i}: {what} {a} != "
+                        f"B=1 run {b}")
+        if not np.array_equal(got["grpc"], got["b1"][0]):
+            raise AssertionError(f"gang manager {mode}: gRPC "
+                                 f"{got['grpc']} != B=1 {got['b1'][0]}")
+        if mode == "greedy":
+            for i, (a, b) in enumerate(zip(got["b1"],
+                                           lead[mode, "plain"]["b1"])):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"gang manager greedy request {i}: "
+                                         f"{a} != the lanes' B=1 {b}")
+    keys = [(mode, 1) for mode in GANG_TENSOR_MODES]
+    for r, res in enumerate(ranks[1:], start=1):
+        if res["manager"] != {"loaded": keys, "closed": keys}:
+            raise AssertionError(f"gang manager rank {r} followed "
+                                 f"{res['manager']}")
+
+
+def gang_lanes_ok(ranks, lead, mono_tokens, fed_mono):
+    """Every lane bitwise inside the gang (its docstring's list), the
+    followers' tokens equal rank 0's, and the greedy B = 1 runs against
+    the monolithic ones. Returns the greedy divergences."""
+    for mode in GANG_TENSOR_MODES:
+        for lane in GANG_LANES:
+            mine = lead[mode, lane]
+            for r, res in enumerate(ranks[1:], start=1):
+                theirs = res[mode, lane]
+                if theirs["engine"] != mine["engine"] or not theirs["laps"]:
+                    raise AssertionError(f"tensor gang {mode} {lane}: rank "
+                                         f"{r}'s tokens differ from rank 0's")
+                if lane == "plain" and [list(x["tokens"][0]) for x in
+                                        theirs["runs"]] != [
+                        list(t) for t in mine["b1"]]:
+                    raise AssertionError(f"tensor gang {mode}: rank {r}'s "
+                                         f"B=1 runs differ from rank 0's")
+            if mine["stats"]["gang"]["capture_graphs"]:
+                raise AssertionError("a tensor gang's engine captured "
+                                     "graphs")
+        plain = lead[mode, "plain"]
+        checks = [(f"request {i}", s, b) for i, (s, b) in enumerate(
+            zip(plain["streams"], plain["b1"]))]
+        checks += [(f"spec request {i}", s, b) for i, (s, b) in enumerate(
+            zip(lead[mode, "spec"]["streams"], plain["streams"]))]
+        checks += [(f"resume at {cut}", r, plain["streams"][0][cut:])
+                   for cut, r in zip(GANG_RESUME_CUTS, plain["resumes"])]
+        checks += [("own handoff", plain["own_adopted"], plain["local"])]
+        prefix, chunk = lead[mode, "prefix"], lead[mode, "chunk"]
+        checks += [(f"prefix hit {i}", w, c) for i, (w, c) in enumerate(
+            zip(prefix["warm"], prefix["cold"]))]
+        checks += [(f"chunked {what} {i}", a, b) for what in ("cold", "warm")
+                   for i, (a, b) in enumerate(zip(chunk[what],
+                                                  prefix[what]))]
+        for what, a, b in checks:
+            if not np.array_equal(a, b):
+                raise AssertionError(f"tensor gang {mode} {what}: {a} != "
+                                     f"{b}")
+        if prefix["stats"]["prefix_cache"]["hits"] < 2:
+            raise AssertionError(f"tensor gang {mode} prefix: "
+                                 f"{prefix['stats']['prefix_cache']}")
+        if not lead[mode, "spec"]["stats"]["spec"]["rounds"]:
+            raise AssertionError(f"tensor gang {mode}: no speculative round")
+    divergences = []
+    for i, (b1, want) in enumerate(zip(lead["greedy", "plain"]["b1"],
+                                       mono_tokens)):
+        step = first_divergence(b1, want)
+        if step is None:
+            continue
+        mono_row = fed_mono[i][step]
+        top2 = torch.topk(mono_row, 2).values
+        margin = float(top2[0] - top2[1])
+        delta = float((torch.from_numpy(lead["fed_logits"][i][step])
+                       - mono_row).abs().max())
+        divergences.append({"request": i, "step": step, "margin": margin,
+                            "max_abs_delta": delta})
+        log(f"tensor gang greedy request {i}: first differs from the "
+            f"monolithic run at step {step}, top-two margin {margin}, "
+            f"max |Δ| logits {delta}")
+        if margin > 2 * delta:
+            raise AssertionError(
+                f"tensor gang request {i} diverges at step {step} with "
+                f"margin {margin} > 2 × max |Δ| {delta}: rounding cannot "
+                f"explain it")
+    return divergences
+
+
+def gang_fsdp_ok(ranks, world, mono_logits, mono_tokens):
+    """The fsdp=2 load: each rank's own shard, half the weights at rest,
+    logits and greedy tokens bitwise the monolithic load's. Returns its
+    figures."""
+    shards = [f"params.shard-{r:05d}-of-{world:05d}.msgpack"
+              for r in range(world)]
+    lead = ranks[0]["fsdp"]
+    for r, res in enumerate(ranks):
+        got = res["fsdp"]
+        if got["opened"] != [shards[r]] or got["topology"]["mesh"] != {
+                "tensor": 1, "fsdp": world}:
+            raise AssertionError(f"fsdp gang rank {r}: {got['opened']} "
+                                 f"{got['topology']}")
+        tokens = got["tokens"] if r == 0 else got["runs"][0]["tokens"][0]
+        want = mono_tokens[0][:GANG_FSDP_TOKENS]
+        if not np.array_equal(tokens, want):
+            raise AssertionError(f"fsdp gang rank {r}: tokens {tokens} != "
+                                 f"the monolithic run's {want}")
+    if not torch.equal(torch.from_numpy(lead["prefill_logits"]),
+                       mono_logits):
+        raise AssertionError(
+            f"fsdp gang prefill logits differ from the monolithic load's "
+            f"(max |Δ| {float((torch.from_numpy(lead['prefill_logits']) - mono_logits).abs().max())})")
+    return {k: [r["fsdp"][k] for r in ranks]
+            for k in ("load_s", "held_bytes", "peak_bytes", "prefill_s",
+                      "prefill_gather_s", "run_s", "run_gather_s")}
 
 
 # -- the seq and pipeline axes on one card (gang_axes) -------------------------
@@ -7239,6 +7528,8 @@ def main() -> int:
             line["expert_rank"] = [{k: r[k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms")} for r in expert_rows]
+    log(f"profiled figures timed with CUDA events instead: "
+        f"{PROFILER_FALLBACKS or 'none'}")
     log(f"smoke wall: {time.monotonic() - t0:.1f} s from the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

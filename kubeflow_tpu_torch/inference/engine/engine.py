@@ -456,7 +456,7 @@ class _Request:
     #: engine_request span, so a tier fetch is never mistaken for
     #: queue wait or decode time.
     kv_fetch_s: float = 0.0
-    #: A tensor gang's id of the request (its order of announcement).
+    #: A gang's id of the request (its order of announcement).
     gang_id: int = -1
 
 
@@ -755,12 +755,6 @@ def _prefill_ctx(model, params, token_block: torch.Tensor,
     return cache, first, done
 
 
-def _host_cache(cache: List[LayerCache]) -> List[LayerCache]:
-    """A B=1 cache copied to the host (a handoff's)."""
-    return [LayerCache(c.k.to("cpu", copy=True), c.v.to("cpu", copy=True),
-                       c.index) for c in cache]
-
-
 class DecodeEngine:
     """Slot-based continuous-batching decode over one model.
 
@@ -794,19 +788,34 @@ class DecodeEngine:
     engine always does. Prefix-lane and chunked prefills, a draft's
     prefill and a resume's replay run eagerly in either.
 
-    On a tensor gang (``gang``, a :class:`~kubeflow_tpu_torch.inference.
-    engine.gang.GangLink` over a tensor-parallel model's ranks) rank 0's
-    engine is the driver: it alone takes ``submit``, and at each lap,
-    before any device work, it broadcasts the requests it queued since
-    the last lap (prompt, step keys, budget, tenant) and the ones it
-    dropped (deadline, cancel); every other rank's engine applies them
-    and runs the same lap (:meth:`follow_lap`), so the ranks admit,
-    prefill and decode the same requests in the same order and issue
-    their collectives together. Sampling runs on the all-gathered logits
-    with the same keys on every rank, so the ranks agree on every token.
-    A gang's engine runs the plain lane, eagerly (CUDA-graph capture
-    with collectives inside is ROADMAP A18, as are the other lanes,
-    KV handoff and resume on a gang).
+    On a gang (``gang``, a channel of the serving mesh's control line,
+    :mod:`~kubeflow_tpu_torch.inference.engine.gang`, over a sharded
+    model's ranks) rank 0's engine is the driver: it alone takes
+    ``submit`` and the calls that touch the pool, and at each lap, before
+    any device work, it broadcasts the requests it queued since the last
+    lap (prompt, step keys, budget, tenant, a handoff, a resume's
+    replay, a prefill-only flag), the ones it dropped (deadline, cancel),
+    the pool operations callers posted (a handoff's classic prefill, a
+    fleet export or import of prefix blocks, a clear of the index), the
+    tenants' fair-queue weights the lap admits by, and a digest of its
+    pool (free, reserved and retained pages, live slots, queued
+    requests, indexed pages, the host tier's bytes). Every other rank
+    applies them and runs the same lap (:meth:`follow_lap`), raising if
+    its own digest differs, so a gang that drifts apart fails loudly
+    instead of pairing its collectives wrongly. Every host decision
+    (admission, prefix match, eviction, spill, chunk schedule, a
+    speculative round's accept length) is then a function of the same
+    inputs and of the all-gathered logits, sampled with the same keys,
+    so the ranks agree on every token. Each rank's pool, prefix index
+    and host tier hold its own KV heads (its tensor piece; the heads
+    split evenly, so the byte budgets decide alike); a speculative draft
+    is whole on every rank and runs no collective. A handoff's cache and
+    an exported block carry every KV head in the reference's layout
+    (the ranks' pieces gathered in head order), so a blob passes between
+    a gang and a one-card engine of the same export either way; each
+    rank adopts its own heads of one. A gang's engine runs eagerly
+    (CUDA-graph capture with collectives inside is ROADMAP A18's next
+    item).
     """
 
     def __init__(self, model: Any, params: Dict[str, torch.Tensor],
@@ -860,25 +869,32 @@ class DecodeEngine:
                 f"engine_host_cache_bytes {config.host_cache_bytes} "
                 f"< 0 (0 disables the host tier)")
         if gang is not None:
-            lanes = [lane for lane, on in (
-                ("the prefix lane", config.prefix_cache),
-                ("speculative decoding", self._spec_on),
-                ("chunked prefill", config.prefill_chunk),
-                ("the host KV tier", config.host_cache_bytes > 0)) if on]
-            if lanes:
-                raise NotImplementedError(
-                    f"engine {name}: {lanes} on a tensor gang are not "
-                    f"ported (ROADMAP A18); a gang's engine runs the "
-                    f"plain lane")
+            # Eager: no CUDA graph holds a gloo collective.
             capture_graphs = False
-        #: A tensor gang's control line (None alone), the requests rank
-        #: 0 queued and dropped since its last lap, and every request's
-        #: stream by gang id.
+        #: A gang's control line (None alone), the requests rank 0
+        #: queued and dropped since its last lap, the pool operations
+        #: posted for its next lap, and every request's stream by gang
+        #: id.
         self._gang = gang
         self._gang_new: List[_Request] = []
         self._gang_drops: List[int] = []
+        self._gang_ops: List[tuple] = []
         self._gang_next = 0
         self.gang_streams: Dict[int, GenerateStream] = {}
+        #: Laps run on the gang (a follower holds each to rank 0's pool
+        #: digest first).
+        self.gang_laps = 0
+        #: Rank 0's live tenant-weight lookup on a gang: each lap admits
+        #: by a snapshot of it that the lap carries to every rank.
+        self._weight_of: Optional[Callable[[str], float]] = None
+        #: ``(mesh, ranks, position)`` of the tensor line whose ranks
+        #: each hold a 1/ranks slice of the KV heads; None where the pool
+        #: holds every head.
+        self._head_line = None
+        if getattr(model, "kv_split", False) and getattr(model, "tensor",
+                                                         1) > 1:
+            self._head_line = (model.mesh, model.tensor,
+                               model.mesh.coords()["tensor"])
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # The engine thread sets this device as its own current one.
@@ -926,10 +942,10 @@ class DecodeEngine:
                 self.prefix.set_host_tier(self.host_tier)
                 self.prefix.set_spill(self._spill_entry)
         # Per-page host leaf shapes ([page_size, heads, dim] a KV leaf,
-        # kv_leaf_order): the gate every fleet-fetched block must pass
-        # before it can be spliced.
+        # kv_leaf_order; every head, a gang's too): the gate every
+        # fleet-fetched block must pass before it can be spliced.
         self._kv_leaf_shapes = [
-            tuple(getattr(self.kv.physical[i], n).shape[1:])
+            self._all_heads_shape(getattr(self.kv.physical[i], n).shape[1:])
             for i, n in kv_leaf_order(len(self.kv.physical))]
         # Fleet pull-through accounting (GIL-consistent ints; the
         # serving layer counts through note_kv_fetch).
@@ -1034,8 +1050,57 @@ class DecodeEngine:
                            ) -> None:
         """Install the tenant-quota weight lookup the fair admission
         queue drains by (idempotent; safe while traffic flows: the
-        queue reads it per scheduling decision)."""
+        queue reads it per scheduling decision; on a gang each lap reads
+        it once, and every rank admits by that snapshot)."""
+        if self._gang is not None:
+            self._weight_of = weight_of
+            return
         self.scheduler.pending.weight_of = weight_of
+
+    # -- a gang's KV heads ------------------------------------------------
+
+    def _all_heads_shape(self, shape) -> tuple:
+        """A pool leaf's ``[..., heads, dim]`` shape with every KV head
+        (a gang rank's pool holds its slice of them)."""
+        shape = tuple(shape)
+        if self._head_line is None:
+            return shape
+        return shape[:-2] + (shape[-2] * self._head_line[1], shape[-1])
+
+    def _all_heads(self, tensors: Sequence[torch.Tensor],
+                   dim: int) -> List[torch.Tensor]:
+        """Host copies of ``tensors`` (this rank's KV heads on ``dim``)
+        with every head, the tensor line's slices joined in head order
+        (a collective: every rank of the line calls it); the tensors
+        themselves, copied to the host, where the pool holds every
+        head."""
+        if self._head_line is None:
+            return [t.to("cpu", copy=True) for t in tensors]
+        from kubeflow_tpu_torch.parallel.collectives import all_gather_dim
+
+        stacked = torch.stack([torch.as_tensor(t).to(self.device)
+                               for t in tensors])
+        joined = all_gather_dim(stacked, self._head_line[0], dim + 1,
+                                "tensor")
+        return list(joined.to("cpu").unbind(0))
+
+    def _own_heads(self, tensor: Any, dim: int) -> Any:
+        """This rank's slice of a tensor carrying every KV head on
+        ``dim`` (a handoff's cache leaf, an imported block's leaf)."""
+        if self._head_line is None:
+            return tensor
+        _, ranks, position = self._head_line
+        tensor = torch.as_tensor(tensor)
+        width = tensor.shape[dim] // ranks
+        return tensor.narrow(dim, position * width, width).contiguous()
+
+    def _handoff_cache(self, cache: List[LayerCache]) -> List[LayerCache]:
+        """A B=1 cache as a handoff carries it: on the host, every head."""
+        n = len(cache)
+        leaves = self._all_heads([c.k for c in cache] +
+                                 [c.v for c in cache], 2)
+        return [LayerCache(leaves[i], leaves[n + i], c.index)
+                for i, c in enumerate(cache)]
 
     def _next_key(self) -> np.ndarray:
         base = prng.PRNGKey(self.config.seed)
@@ -1164,6 +1229,50 @@ class DecodeEngine:
             raise box["error"]
         return box.get("result")
 
+    def _gang_call(self, op: tuple, timeout_s: float) -> Any:
+        """Rank 0 of a gang: post the pool operation ``op`` for the
+        engine's next lap, which announces it to every rank and runs it
+        (:meth:`_apply_op`) before the lap's admissions, and return rank
+        0's result (bounded wait)."""
+        done = threading.Event()
+        box: dict = {}
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("engine is stopped")
+            self._gang_ops.append((op, box, done))
+            self._cv.notify_all()
+        self._ensure_thread()
+        if not done.wait(timeout_s):
+            raise TimeoutError(f"engine {self.name} gang op {op[0]!r} "
+                               f"timed out after {timeout_s:.1f}s")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def _apply_op(self, op: tuple) -> Any:
+        """One pool operation of a gang's lap, on every rank (engine
+        thread or a follower's lap): a clear of the prefix index, a
+        fleet import or export of prefix blocks, or a classic-lane
+        handoff prefill."""
+        kind = op[0]
+        if kind == "clear":
+            return self.prefix.clear() if self.prefix is not None else 0
+        if kind == "import":
+            return self._import_blocks(op[1])
+        if kind == "export":
+            return self._export_blocks(op[1])
+        if kind == "prefill":
+            return self._handoff_prefill(*op[1:])
+        raise ValueError(f"unknown gang op {kind!r}")
+
+    def _export_blocks(self, tokens: np.ndarray) -> List[tuple]:
+        """Every resident full block of ``tokens``, chain order, as
+        ``(block_tokens, layers)`` with every KV head (engine thread)."""
+        return [(block, self._all_heads(
+            self.kv.read_page_layers(entry.page) if is_hbm
+            else list(entry.layers), 1))
+            for block, entry, is_hbm in self.prefix.chain_blocks(tokens)]
+
     def export_prefix_blocks(self, prompt: np.ndarray, *,
                              timeout_s: float = 5.0) -> List[tuple]:
         """Owner side of the fleet pull-through: every resident FULL
@@ -1175,15 +1284,11 @@ class DecodeEngine:
         if self.prefix is None:
             return []
         tokens = np.asarray(prompt, np.int32).reshape(-1)
-
-        def walk() -> List[tuple]:
-            return [(block, self.kv.read_page_layers(entry.page)
-                     if is_hbm else list(entry.layers))
-                    for block, entry, is_hbm in self.prefix.chain_blocks(
-                        tokens)]
-
         try:
-            return self._run_on_engine(walk, timeout_s=timeout_s)
+            if self._gang is not None:
+                return self._gang_call(("export", tokens), timeout_s)
+            return self._run_on_engine(lambda: self._export_blocks(tokens),
+                                       timeout_s=timeout_s)
         except Exception:  # noqa: BLE001 — best-effort export
             logger.warning("engine %s: prefix-block export failed; peer "
                            "will prefill cold", self.name, exc_info=True)
@@ -1195,9 +1300,15 @@ class DecodeEngine:
         carried tokens (never the peer's hashes), after a shape gate
         against this engine's pool. Import stops at the first malformed
         block: a chain is only as good as its prefix. Thread-safe (the
-        host tier locks). Returns the blocks inserted."""
+        host tier locks; on a gang it rides rank 0's next lap, every rank
+        keeping its own heads). Returns the blocks inserted."""
         if self.host_tier is None:
             return 0
+        if self._gang is not None:
+            return self._gang_call(("import", list(blocks)), 60.0)
+        return self._import_blocks(blocks)
+
+    def _import_blocks(self, blocks: Sequence[tuple]) -> int:
         p = self.config.page_size
         parent = _ROOT
         imported = 0
@@ -1208,7 +1319,9 @@ class DecodeEngine:
             if [tuple(a.shape) for a in layers] != self._kv_leaf_shapes:
                 break
             key = _block_key(parent, block)
-            if self.host_tier.put(key, block, layers, imported=True):
+            if self.host_tier.put(key, block,
+                                  [self._own_heads(a, 1) for a in layers],
+                                  imported=True):
                 imported += 1
             parent = key
         return imported
@@ -1232,8 +1345,12 @@ class DecodeEngine:
         list immediately; pinned ones when their slot retires).
         QUIESCED callers only — warmup teardown and tests: the index
         is engine-thread state, and this must not race a live
-        admission."""
-        return self.prefix.clear() if self.prefix is not None else 0
+        admission. On a gang it rides rank 0's next lap."""
+        if self.prefix is None:
+            return 0
+        if self._gang is not None:
+            return self._gang_call(("clear",), 60.0)
+        return self.prefix.clear()
 
     def run_prefill(self, prompt: np.ndarray, *,
                     rng: Optional[np.ndarray] = None,
@@ -1247,10 +1364,9 @@ class DecodeEngine:
         the classic lane's left-padded prefill at the bucket width is
         posted there (:meth:`_run_on_engine`); the prefix lane queues a
         slot-bound prefill-only request, chunked when ``prefill_chunk``
-        is set, which hits and registers the prefix index."""
-        if self._gang is not None:
-            raise NotImplementedError(
-                "KV handoff on a tensor gang is not ported (ROADMAP A18)")
+        is set, which hits and registers the prefix index. On a gang
+        either lane rides rank 0's laps, and the handoff's cache carries
+        every KV head."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if not 1 <= prompt.shape[0] <= self.config.max_prompt_len:
             raise ValueError(
@@ -1290,7 +1406,7 @@ class DecodeEngine:
             with self._cv:
                 if self._closed:
                     raise RuntimeError("engine is stopped")
-                self.scheduler.pending.append(req)
+                self._enqueue(req)
                 self._cv.notify_all()
             self._ensure_thread()
             stream.result(timeout=timeout_s)  # raises on engine error
@@ -1303,25 +1419,31 @@ class DecodeEngine:
         pad = width - length
         padded = np.zeros((1, width), np.int32)
         padded[0, pad:] = prompt
-
-        def prefill() -> PrefillHandoff:
+        op = ("prefill", padded, pad, step_keys, length, budget)
+        if self._gang is not None:
+            handoff = self._gang_call(op, timeout_s)
+        else:
             # On the engine thread: apply() swaps weights into the
             # engine's module, which a caller's thread must not touch.
-            cache, first, done = self._classic_prefill(
-                padded, pad, step_keys[0:1], length)
-            handoff = PrefillHandoff(
-                cache=_host_cache(cache), first_token=int(first[0]),
-                done=bool(done[0]), prompt_len=length, prompt_width=width,
-                max_new_tokens=budget, step_keys=step_keys)
-            self._note_compile("prefill", f"tokens[1,{width}]", t0,
-                               time.monotonic() - t0,
-                               link=span_args(obs_ctx))
-            return handoff
-
-        self._ensure_thread()
-        handoff = self._run_on_engine(prefill, timeout_s=timeout_s)
+            self._ensure_thread()
+            handoff = self._run_on_engine(lambda: self._apply_op(op),
+                                          timeout_s=timeout_s)
+        self._note_compile("prefill", f"tokens[1,{width}]", t0,
+                           time.monotonic() - t0, link=span_args(obs_ctx))
         note_span()
         return handoff
+
+    def _handoff_prefill(self, padded: np.ndarray, pad: int,
+                         step_keys: np.ndarray, length: int,
+                         budget: int) -> PrefillHandoff:
+        """The classic lane's prefill-role prefill (engine thread)."""
+        cache, first, done = self._classic_prefill(
+            padded, pad, step_keys[0:1], length)
+        return PrefillHandoff(
+            cache=self._handoff_cache(cache), first_token=int(first[0]),
+            done=bool(done[0]), prompt_len=length,
+            prompt_width=padded.shape[1], max_new_tokens=budget,
+            step_keys=step_keys)
 
     def submit(self, prompt: Optional[np.ndarray] = None, *,
                rng: Optional[np.ndarray] = None,
@@ -1368,11 +1490,6 @@ class DecodeEngine:
         control sheds the request. ``kv_fetch_s`` is the fleet KV
         fetch the serving layer ran for this request, recorded in its
         ``engine_request`` span."""
-        if self._gang is not None and (handoff is not None
-                                       or step_keys is not None):
-            raise NotImplementedError(
-                "KV handoff and resume on a tensor gang are not ported "
-                "(ROADMAP A18)")
         if handoff is not None and step_keys is not None:
             raise ValueError("handoff and step_keys are mutually "
                              "exclusive (the handoff carries its own "
@@ -1523,17 +1640,21 @@ class DecodeEngine:
         with self._cv:
             if self._closed:
                 raise RuntimeError("engine is stopped")
-            if self._gang is not None:
-                # Queued at rank 0's next lap, once announced.
-                req.gang_id = self._gang_next
-                self._gang_next += 1
-                self._gang_new.append(req)
-                self.gang_streams[req.gang_id] = stream
-            else:
-                self.scheduler.pending.append(req)
+            self._enqueue(req)
             self._cv.notify_all()
         self._ensure_thread()
         return stream
+
+    def _enqueue(self, req: _Request) -> None:
+        """Queue ``req`` (under ``_cv``): on a gang at rank 0's next lap,
+        once announced."""
+        if self._gang is None:
+            self.scheduler.pending.append(req)
+            return
+        req.gang_id = self._gang_next
+        self._gang_next += 1
+        self._gang_new.append(req)
+        self.gang_streams[req.gang_id] = req.stream
 
     def _check_handoff(self, handoff: PrefillHandoff,
                        max_new_tokens: Optional[int]):
@@ -1570,8 +1691,8 @@ class DecodeEngine:
             raise ValueError(
                 f"handoff carries {len(handoff.step_keys)} step keys "
                 f"for a {budget}-token budget")
-        want = [(1, self.kv.cache_size) + tuple(c.k.shape[2:])
-                for c in self.kv.physical]
+        want = [(1, self.kv.cache_size) + self._all_heads_shape(
+            c.k.shape[2:]) for c in self.kv.physical]
         got = [tuple(c.k.shape) for c in handoff.cache]
         if got != want or any(tuple(c.v.shape) != tuple(c.k.shape)
                               for c in handoff.cache):
@@ -1588,8 +1709,10 @@ class DecodeEngine:
         return prompt, budget
 
     def _carried_cache(self, handoff: PrefillHandoff) -> List[LayerCache]:
-        """A handoff's host cache on the engine's device."""
-        return [LayerCache(c.k.to(self.device), c.v.to(self.device),
+        """A handoff's host cache on the engine's device (a gang rank's
+        own KV heads of it)."""
+        return [LayerCache(self._own_heads(c.k, 2).to(self.device),
+                           self._own_heads(c.v, 2).to(self.device),
                            c.index) for c in handoff.cache]
 
     def _ensure_thread(self) -> None:
@@ -1631,6 +1754,10 @@ class DecodeEngine:
             req.stream._fail(err)
         self.scheduler.pending.clear()
         self._gang_new = []
+        for _, box, done in self._gang_ops:
+            box["error"] = err
+            done.set()
+        self._gang_ops = []
         if self.prefix is not None:
             if not still_running:
                 # Drain the cache so the pool releases cleanly (a
@@ -1705,7 +1832,7 @@ class DecodeEngine:
         if self.config.prefill_chunk:
             out["prefill_chunk"] = self.config.prefill_chunk
         if self._gang is not None:
-            # A tensor gang's engine runs eagerly (no CUDA graphs).
+            # A gang's engine runs eagerly (no CUDA graphs).
             out["gang"] = {"ranks": self._gang.size,
                            "capture_graphs": self._graphs is not None}
         if self.host_tier is not None:
@@ -1747,7 +1874,8 @@ class DecodeEngine:
                     return
                 if (not self.scheduler.pending
                         and not self.scheduler.active_slots()
-                        and not self._control and not self._gang_new):
+                        and not self._control and not self._gang_new
+                        and not self._gang_ops):
                     self._cv.wait(timeout=0.05)
                     continue
             try:
@@ -1783,36 +1911,84 @@ class DecodeEngine:
         # Prefill-only laps: work advanced, no nap.
         return bool(self.scheduler.prefilling_slots())
 
+    def pool_digest(self) -> tuple:
+        """What every rank of a gang must agree on before a lap: free,
+        reserved and retained pages, live slots, queued requests,
+        indexed pages and the host tier's bytes."""
+        alloc = self.kv.allocator
+        return (alloc.free_pages, alloc.reserved_pages,
+                alloc.retained_pages, self.scheduler.occupancy(),
+                self.scheduler.queue_depth(),
+                self.prefix.resident_pages() if self.prefix else 0,
+                self.host_tier.resident_bytes() if self.host_tier else 0)
+
+    def _lap_weights(self, new: Sequence[_Request]
+                     ) -> Optional[Dict[str, float]]:
+        """Rank 0: the fair queue's weight of each queued tenant for
+        this lap (None unweighted), installed here as on every rank."""
+        if self._weight_of is None:
+            return None
+        weights = {}
+        for tenant in {r.tenant for r in list(self.scheduler.pending)
+                       + list(new)}:
+            try:
+                weights[tenant] = float(self._weight_of(tenant))
+            except Exception:  # noqa: BLE001 — as FairQueue degrades
+                logger.exception("tenant weight lookup failed for %r",
+                                 tenant)
+                weights[tenant] = 1.0
+        self._set_lap_weights(weights)
+        return weights
+
+    def _set_lap_weights(self, weights: Optional[Dict[str, float]]) -> None:
+        self.scheduler.pending.weight_of = (
+            None if weights is None
+            else lambda tenant: weights.get(tenant, 1.0))
+
     def _lead_lap(self) -> bool:
-        """Rank 0's lap on a tensor gang: expire, then broadcast what
-        changed in the queue since the last lap, then the lap, all under
-        the gang's lock (a ``LoadedModel.run`` of rank 0 takes it too,
-        so the ranks see one order of work)."""
+        """Rank 0's lap on a gang: expire, then broadcast what changed
+        since the last lap (new requests, drops, posted pool operations,
+        the lap's tenant weights, the pool's digest), then run the
+        operations and the lap, all under the line's lock (a
+        ``LoadedModel.run`` of rank 0 takes it too, so the ranks see one
+        order of work)."""
         with self._gang.lock:
             self._expire()
             with self._cv:
                 new, self._gang_new = self._gang_new, []
                 drops, self._gang_drops = self._gang_drops, []
-                for req in new:
-                    self.scheduler.pending.append(req)
+                ops, self._gang_ops = self._gang_ops, []
+            digest = self.pool_digest()
+            weights = self._lap_weights(new)
             self._gang.send(("lap", [
                 (r.gang_id, r.prompt, r.step_keys, r.max_new_tokens,
-                 r.tenant, r.request_id) for r in new], drops))
+                 r.tenant, r.request_id, r.handoff, r.replay,
+                 r.prefill_only) for r in new], drops,
+                [op for op, _, _ in ops], weights, digest))
+            self.gang_laps += 1
+            for op, box, done in ops:
+                try:
+                    box["result"] = self._apply_op(op)
+                except Exception as e:  # noqa: BLE001 — carried back
+                    box["error"] = e
+                finally:
+                    done.set()
+            with self._cv:
+                for req in new:
+                    self.scheduler.pending.append(req)
             return self._lap()
 
-    def follow_lap(self, new: Sequence[tuple], drops: Sequence[int]) -> None:
-        """A follower rank's lap on a tensor gang: rank 0's queued
-        requests appended in its order, its drops applied, then the same
-        lap (on the caller's thread, in the engine's device scope)."""
+    def follow_lap(self, new: Sequence[tuple], drops: Sequence[int],
+                   ops: Sequence[tuple] = (),
+                   weights: Optional[Dict[str, float]] = None,
+                   digest: Optional[tuple] = None) -> None:
+        """A follower rank's lap on a gang: rank 0's drops applied, its
+        digest checked against this rank's (a mismatch raises), its pool
+        operations run, its queued requests appended in its order, then
+        the same lap by the same tenant weights (on the caller's thread,
+        in the engine's device scope)."""
         with self._device_scope():
             now = time.monotonic()
-            for gid, prompt, keys, budget, tenant, request_id in new:
-                stream = GenerateStream(budget)
-                self.gang_streams[gid] = stream
-                self.scheduler.pending.append(_Request(
-                    prompt=prompt, step_keys=keys, max_new_tokens=budget,
-                    deadline=None, stream=stream, submitted_at=now,
-                    request_id=request_id, tenant=tenant, gang_id=gid))
             gone = set(drops)
             if gone:
                 for req in self.scheduler.pending.remove_if(
@@ -1822,6 +1998,32 @@ class DecodeEngine:
                     if slot.request.gang_id in gone:
                         self._retire(slot, "cancelled", error=RuntimeError(
                             "dropped by rank 0"))
+            mine = self.pool_digest()
+            if digest is not None and tuple(digest) != mine:
+                raise RuntimeError(
+                    f"engine {self.name}: this rank's pool {mine} differs "
+                    f"from rank 0's {tuple(digest)} (free, reserved and "
+                    f"retained pages, live slots, queued, indexed pages, "
+                    f"host-tier bytes): the gang drifted apart")
+            self.gang_laps += 1
+            for op in ops:
+                try:
+                    self._apply_op(op)
+                except Exception:  # noqa: BLE001 — rank 0's raised too
+                    logger.exception("gang op %r failed", op[0])
+            for (gid, prompt, keys, budget, tenant, request_id, handoff,
+                 replay, prefill_only) in new:
+                stream = GenerateStream(budget)
+                self.gang_streams[gid] = stream
+                self.scheduler.pending.append(_Request(
+                    prompt=prompt, step_keys=keys, max_new_tokens=budget,
+                    deadline=None, stream=stream, submitted_at=now,
+                    request_id=request_id, tenant=tenant, gang_id=gid,
+                    handoff=handoff, replay=replay,
+                    prefill_only=prefill_only,
+                    prefill_box={"handoff": None} if prefill_only
+                    else None))
+            self._set_lap_weights(weights)
             try:
                 self._lap()
             except Exception as e:  # noqa: BLE001 — as rank 0's loop does
@@ -2440,7 +2642,7 @@ class DecodeEngine:
         page_row = self.kv.tables[slot.index, :slot.allocated_pages].tolist()
         cache = self.kv.gather_prefix_cache(page_row, length)
         req.prefill_box["handoff"] = PrefillHandoff(
-            cache=_host_cache(cache), first_token=first, done=done,
+            cache=self._handoff_cache(cache), first_token=first, done=done,
             prompt_len=length, prompt_width=length,
             max_new_tokens=req.max_new_tokens,
             step_keys=np.asarray(req.step_keys), layout="right",

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
+import warnings
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -95,16 +96,30 @@ def flax_key(name: str) -> str:
     return "/".join(parts)
 
 
-def _kernel_to_torch(key: str, arr: np.ndarray) -> np.ndarray:
-    """A Flax kernel in PyTorch's layout: Dense ``[in, out]`` →
+def _kernel_to_torch(key: str, t: torch.Tensor) -> torch.Tensor:
+    """A Flax kernel in PyTorch's layout (a view): Dense ``[in, out]`` →
     ``[out, in]``; conv HWIO → OIHW. Any other rank raises: reversing
     all axes would swap a conv's spatial taps unseen."""
-    if arr.ndim == 2:
-        return arr.T
-    if arr.ndim == 4:
-        return arr.transpose(3, 2, 0, 1)
-    raise ValueError(f"{key}: a rank-{arr.ndim} kernel {arr.shape} has no "
-                     "PyTorch layout here (2: Dense, 4: conv HWIO)")
+    if t.dim() == 2:
+        return t.t()
+    if t.dim() == 4:
+        return t.permute(3, 2, 0, 1)
+    raise ValueError(f"{key}: a rank-{t.dim()} kernel {tuple(t.shape)} has "
+                     "no PyTorch layout here (2: Dense, 4: conv HWIO)")
+
+
+def _leaf_tensor(leaf: Any, device: torch.device) -> torch.Tensor:
+    """A Flax leaf (an array, or a bf16 tensor of an export) in fp32 on
+    ``device``, moved there as it is: a kernel's transpose and the cast
+    to the param's dtype then run on the device, where a large leaf's
+    strided copy on the host takes seconds."""
+    if not isinstance(leaf, torch.Tensor):
+        with warnings.catch_warnings():
+            # An export's leaves view its read-only bytes; nothing here
+            # writes to them.
+            warnings.simplefilter("ignore", UserWarning)
+            leaf = torch.from_numpy(np.asarray(leaf))
+    return leaf.to(device).to(torch.float32)
 
 
 _flax_key = flax_key
@@ -143,8 +158,10 @@ def _piece(config: nn.Module, key: str, leaf: Any,
            local: Tuple[int, ...], mesh: Any) -> Any:
     """This rank's piece of a Flax leaf (an array or a tensor) for a
     model built on a mesh: cut on each dim the rule table splits over
-    ``expert`` or ``tensor`` (a leaf already the rank's piece there,
-    ``local`` wide, is kept), and with ``mesh`` over ``fsdp`` too."""
+    ``expert`` or ``tensor``, and over ``fsdp`` for a model that holds
+    its fsdp pieces (``Llama(fsdp_pieces=True)``) (a leaf already the
+    rank's piece there, ``local`` wide, is kept), and with ``mesh`` over
+    ``fsdp`` too."""
     from kubeflow_tpu_torch.parallel.collectives import (
         MODEL_PARAM_AXES,
         dims_by_axis,
@@ -154,12 +171,14 @@ def _piece(config: nn.Module, key: str, leaf: Any,
         variables_sharding,
     )
 
+    held = getattr(config, "fsdp_mesh", None)
     on = mesh if mesh is not None else (getattr(config, "mesh", None)
-                                        or getattr(config, "moe_mesh", None))
+                                        or getattr(config, "moe_mesh", None)
+                                        or held)
     if on is None or not hasattr(config, "logical_axes"):
         return leaf
     dims = dims_by_axis(variables_sharding(on, config, [key])[key])
-    axes = [a for a in MODEL_PARAM_AXES
+    axes = [a for a in MODEL_PARAM_AXES + (("fsdp",) if held else ())
             if a in dims and leaf.shape[dims[a]] != local[dims[a]]]
     if mesh is not None:
         axes.append("fsdp")
@@ -188,17 +207,16 @@ def params_from_flax(flat: Mapping[str, np.ndarray], config: nn.Module,
         if key not in flat:
             raise KeyError(f"Flax params have no {key!r} (for {name})")
         local = flax_shape(key, tuple(template.shape))
-        leaf = _piece(config, key, flat[key], local, mesh)
-        if isinstance(leaf, torch.Tensor):  # a bf16 leaf of an export
-            leaf = leaf.float().numpy()
-        arr = np.array(leaf, dtype=np.float32)  # a writable copy
+        t = _leaf_tensor(_piece(config, key, flat[key], local, mesh),
+                         device)
         if key.endswith("/kernel"):
-            arr = _kernel_to_torch(key, arr)
-        if mesh is None and tuple(arr.shape) != tuple(template.shape):
-            raise ValueError(f"{key}: shape {arr.shape} does not fit "
+            t = _kernel_to_torch(key, t)
+        if mesh is None and tuple(t.shape) != tuple(template.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} does not fit "
                              f"{name} {tuple(template.shape)}")
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=device, dtype=template.dtype)
+        # One copy into the param's layout and dtype (a rounding cast).
+        out[name] = torch.empty(tuple(t.shape), dtype=template.dtype,
+                                device=device).copy_(t)
     extra = set(flat) - {flax_key(n) for n in out}
     if extra:
         raise ValueError(f"Flax params the port model has no place for: "

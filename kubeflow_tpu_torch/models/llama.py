@@ -100,6 +100,7 @@ from kubeflow_tpu_torch.ops.moe import MoE
 from kubeflow_tpu_torch.ops.prefill_gemm import prefill_linear
 from kubeflow_tpu_torch.ops.rms_norm import add_rms_norm, rms_norm
 from kubeflow_tpu_torch.parallel.collectives import (
+    all_gather_dim,
     copy_to_tensor,
     gather_from_tensor,
     reduce_from_tensor,
@@ -191,20 +192,34 @@ def _lora_scale(layer: LoRALinear, dtype: torch.dtype) -> float:
     return float(torch.tensor(layer.alpha / layer.rank, dtype=dtype))
 
 
+def _whole(weight: torch.Tensor, fsdp: Optional[Mesh],
+           dim: int) -> torch.Tensor:
+    """``weight`` whole over the fsdp line: a serving rank's fsdp piece
+    gathered along ``dim`` (its ``embed`` dim) just before the op that
+    reads it, and dropped with the op's inputs; as it is without one.
+    The gather joins the pieces' bytes, so the op then runs on exactly
+    the weight a rank without the fsdp split holds."""
+    if fsdp is None:
+        return weight
+    return all_gather_dim(weight, fsdp, dim, "fsdp")
+
+
 def _project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
              mesh: Optional[Mesh] = None,
-             shared: bool = False) -> torch.Tensor:
+             shared: bool = False,
+             fsdp: Optional[Mesh] = None) -> torch.Tensor:
     """``x·W`` with W cast to x's dtype at the op (a no-op in serving
     storage); in a decode step through :func:`decode_linear`, and a bf16
     layer in a prefill into the cache through :func:`prefill_linear`. A
-    LoRA layer adds its adapter's delta on any route.
+    LoRA layer adds its adapter's delta on any route. ``fsdp``: W is the
+    rank's fsdp piece on its input features, gathered first.
 
     On a tensor axis (``mesh``) this is a column-parallel product: W is
     the rank's column slice and x the replicated input, so the adapter's
     A, which every rank holds whole, has its gradient summed over the
     tensor line; ``shared`` (a k/v kernel every rank holds whole and
     reads a part of) sums W's and B's gradients too."""
-    weight = layer.weight
+    weight = _whole(layer.weight, fsdp, 1)
     if shared:
         weight = copy_to_tensor(weight, mesh)
     y = _product(x, weight.to(x.dtype), route)
@@ -220,17 +235,21 @@ def _project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
 
 
 def _row_project(layer: nn.Linear, x: torch.Tensor, route: Optional[str],
-                 mesh: Optional[Mesh]) -> torch.Tensor:
+                 mesh: Optional[Mesh],
+                 fsdp: Optional[Mesh] = None) -> torch.Tensor:
     """A row-parallel product (o, down) on a tensor axis: x is the
     rank's slice of the input features and W the matching rows, so the
     product is a partial sum, finished by an all-reduce over the tensor
     line before the next norm adds it. A LoRA adapter's ``x·A`` (A split
     on its input rows) is all-reduced before B. Without a tensor axis,
-    :func:`_project`."""
-    if mesh is None:
+    :func:`_project`. ``fsdp``: W is the rank's fsdp piece on its output
+    features, gathered first."""
+    if mesh is None and fsdp is None:
         return _project(layer, x, route)
-    y = reduce_from_tensor(_product(x, layer.weight.to(x.dtype), route),
-                           mesh)
+    y = _product(x, _whole(layer.weight, fsdp, 0).to(x.dtype), route)
+    if mesh is None:
+        return y
+    y = reduce_from_tensor(y, mesh)
     if isinstance(layer, LoRALinear):
         xa = reduce_from_tensor(x @ layer.lora_a.to(x.dtype), mesh)
         y = y + (xa @ layer.lora_b.to(x.dtype)) * _lora_scale(layer,
@@ -258,7 +277,8 @@ class LlamaAttention(nn.Module):
                  attention_fn: Optional[AttentionFn] = None, device=None,
                  param_dtype: Optional[torch.dtype] = None,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None,
+                 fsdp: Optional[Mesh] = None):
         super().__init__()
         # On a tensor axis of T: this rank's H/T query heads, and its
         # kv-head group where Hkv % T == 0, else every kv head, each
@@ -279,27 +299,30 @@ class LlamaAttention(nn.Module):
         self.attention_fn = attention_fn
         store = param_dtype or dtype
         lora = (lora_rank, lora_alpha)
-        self.q_proj = _linear(d_model, num_heads * head_dim, store, device,
+        # With ``fsdp`` each kernel's embed dim holds the rank's piece.
+        self.fsdp = fsdp
+        embed = d_model // (1 if fsdp is None else fsdp.shape["fsdp"])
+        self.q_proj = _linear(embed, num_heads * head_dim, store, device,
                               *lora)
-        self.k_proj = _linear(d_model, num_kv_heads * head_dim, store,
+        self.k_proj = _linear(embed, num_kv_heads * head_dim, store,
                               device, *lora)
-        self.v_proj = _linear(d_model, num_kv_heads * head_dim, store,
+        self.v_proj = _linear(embed, num_kv_heads * head_dim, store,
                               device, *lora)
-        self.o_proj = _linear(num_heads * head_dim, d_model, store, device,
+        self.o_proj = _linear(num_heads * head_dim, embed, store, device,
                               *lora)
 
     def forward(self, x, positions, pad_lengths=None,
                 cache: Optional[LayerCache] = None, decode_positions=None):
         b, l, _ = x.shape
         route = _route(x, cache, decode_positions)
-        mesh = self.mesh
+        mesh, fsdp = self.mesh, self.fsdp
         x = copy_to_tensor(x, mesh)
-        q = _project(self.q_proj, x, route, mesh).reshape(
+        q = _project(self.q_proj, x, route, mesh, fsdp=fsdp).reshape(
             b, l, self.num_heads, self.head_dim)
-        k = _project(self.k_proj, x, route, mesh, self.shared_kv).reshape(
-            b, l, self.num_kv_heads, self.head_dim)
-        v = _project(self.v_proj, x, route, mesh, self.shared_kv).reshape(
-            b, l, self.num_kv_heads, self.head_dim)
+        k = _project(self.k_proj, x, route, mesh, self.shared_kv,
+                     fsdp).reshape(b, l, self.num_kv_heads, self.head_dim)
+        v = _project(self.v_proj, x, route, mesh, self.shared_kv,
+                     fsdp).reshape(b, l, self.num_kv_heads, self.head_dim)
         q = rope(q, positions, self.rope_theta)
         k = rope(k, positions, self.rope_theta)
         if cache is not None and decode_positions is not None:
@@ -331,7 +354,7 @@ class LlamaAttention(nn.Module):
         else:
             out = flash_attention(q, self._kv(k), self._kv(v), causal=True)
         return _row_project(self.o_proj, out.reshape(
-            b, l, self.num_heads * self.head_dim), route, mesh)
+            b, l, self.num_heads * self.head_dim), route, mesh, fsdp)
 
     def _kv(self, t: torch.Tensor) -> torch.Tensor:
         """K or V ``[B, S, kv heads, D]`` as this rank's query heads read
@@ -404,15 +427,16 @@ class LlamaBlock(nn.Module):
                  device=None, param_dtype: Optional[torch.dtype] = None,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  num_experts: int = 0, num_selected: int = 2,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, fsdp: Optional[Mesh] = None):
         super().__init__()
         store = param_dtype or dtype
         self.mesh, tensor, _ = tensor_axis(mesh)
+        self.fsdp = fsdp
         self.attn_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                  param_dtype=store)
         self.attention = LlamaAttention(
             d_model, num_heads, num_kv_heads, head_dim, rope_theta, dtype,
-            attention_fn, device, store, lora_rank, lora_alpha, mesh)
+            attention_fn, device, store, lora_rank, lora_alpha, mesh, fsdp)
         self.mlp_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                 param_dtype=store)
         if num_experts > 0:
@@ -426,9 +450,10 @@ class LlamaBlock(nn.Module):
         # Column-parallel gate and up, row-parallel down: mlp_dim / T a
         # rank.
         mlp_dim //= tensor
-        self.gate_proj = _linear(d_model, mlp_dim, store, device)
-        self.up_proj = _linear(d_model, mlp_dim, store, device)
-        self.down_proj = _linear(mlp_dim, d_model, store, device)
+        embed = d_model // (1 if fsdp is None else fsdp.shape["fsdp"])
+        self.gate_proj = _linear(embed, mlp_dim, store, device)
+        self.up_proj = _linear(embed, mlp_dim, store, device)
+        self.down_proj = _linear(mlp_dim, embed, store, device)
 
     def forward(self, x, positions, pad_lengths=None, cache=None,
                 decode_positions=None, pending=None):
@@ -448,11 +473,11 @@ class LlamaBlock(nn.Module):
             h, positions, pad_lengths, cache, decode_positions))
         if self.moe is not None:
             return x, self.moe(h)
-        mesh = self.mesh
+        mesh, fsdp = self.mesh, self.fsdp
         h = copy_to_tensor(h, mesh)
-        h = (F.silu(_project(self.gate_proj, h, route, mesh))
-             * _project(self.up_proj, h, route, mesh))
-        return x, _row_project(self.down_proj, h, route, mesh)
+        h = (F.silu(_project(self.gate_proj, h, route, mesh, fsdp=fsdp))
+             * _project(self.up_proj, h, route, mesh, fsdp=fsdp))
+        return x, _row_project(self.down_proj, h, route, mesh, fsdp)
 
 
 class Llama(nn.Module):
@@ -483,6 +508,19 @@ class Llama(nn.Module):
     whole table's lookup) and the head's logits all-gathered. The
     kernels run unchanged at the per-rank shapes; the widths, ``num_heads``
     and ``num_kv_heads`` are the model's (a layer's are its rank's).
+
+    ``fsdp_pieces`` (serving, on a mesh whose ``fsdp`` axis is F > 1):
+    every weight with an ``embed`` dim holds the rank's 1/F piece of it
+    at rest, cut by the rule table as a sharded export's fsdp plan cuts
+    it, and all-gathers it over the fsdp line just before the op that
+    reads it (the token table, each block's projections, the head),
+    dropping the whole leaf after the op; the norms stay whole. The
+    gather rebuilds the piece the rank would otherwise hold, so the same
+    kernels run at the same shapes and the logits are bitwise those of a
+    rank without the fsdp split. Every rank of a serving mesh runs the
+    same rows (the reference's serving mesh has no batch axis). A
+    trainer's fsdp mesh leaves it off: the trainer gathers its pieces
+    itself (``parallel/collectives.py`` ``gather_leaf``).
     """
 
     #: The model axes its layers split over (``parallel/mesh.py``):
@@ -499,10 +537,21 @@ class Llama(nn.Module):
                  num_selected: int = 2,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  remat: bool = False, param_dtype=None, device="meta",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, fsdp_pieces: bool = False):
         super().__init__()
         if mesh is not None:
             check_batch_axes(mesh, "Llama", self)
+        #: The mesh whose fsdp pieces this rank holds (``fsdp_pieces``).
+        self.fsdp_mesh = (mesh if fsdp_pieces and mesh is not None
+                          and mesh.shape["fsdp"] > 1 else None)
+        if self.fsdp_mesh is not None:
+            if num_experts or lora_rank:
+                raise ValueError(
+                    "fsdp_pieces serves a dense Llama without adapters "
+                    "(an MoE's experts and LoRA adapters are not cut)")
+            if d_model % mesh.shape["fsdp"]:
+                raise ValueError(f"d_model {d_model} does not split over "
+                                 f"fsdp={mesh.shape['fsdp']}")
         tp_mesh, tensor, rank = tensor_axis(mesh)
         if tp_mesh is not None:
             for what, n in (("num_heads", num_heads), ("mlp_dim", mlp_dim),
@@ -545,18 +594,20 @@ class Llama(nn.Module):
         #: Kv heads a rank's KV cache holds.
         self.cache_kv_heads = (num_kv_heads // tensor if self.kv_split
                                else num_kv_heads)
-        self.tok_embed = nn.Embedding(vocab_size // tensor, d_model,
+        embed = d_model // (1 if self.fsdp_mesh is None
+                            else mesh.shape["fsdp"])
+        self.tok_embed = nn.Embedding(vocab_size // tensor, embed,
                                       dtype=store or dtype, device=device)
         self.layers = nn.ModuleList(
             LlamaBlock(d_model, num_heads, num_kv_heads, self.head_dim,
                        mlp_dim, rope_theta, dtype, attention_fn, device,
                        store, lora_rank, lora_alpha, num_experts,
-                       num_selected, mesh)
+                       num_selected, mesh, self.fsdp_mesh)
             for _ in range(num_layers))
         self.final_norm = RMSNorm(d_model, dtype=dtype, device=device,
                                   param_dtype=store)
         # fp32 head over an fp32-cast input, as the reference.
-        self.lm_head = _linear(d_model, vocab_size // tensor,
+        self.lm_head = _linear(embed, vocab_size // tensor,
                                store or torch.float32, device)
 
     #: The reference's ``nn.with_partitioning`` axes, by Flax key suffix.
@@ -668,7 +719,7 @@ class Llama(nn.Module):
             x = self.final_norm(x).float()
         else:
             x = self.final_norm.add(x, pending)[1].float()
-        head = self.lm_head.weight.float()
+        head = _whole(self.lm_head.weight, self.fsdp_mesh, 1).float()
         x = copy_to_tensor(x, self.mesh)
         if cache is None:
             return gather_from_tensor(F.linear(x, head), self.mesh)
@@ -677,9 +728,9 @@ class Llama(nn.Module):
     def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The token rows; on a tensor axis each rank's rows of its vocab
         range, zeros for the other ids, summed over the tensor line."""
+        table = _whole(self.tok_embed.weight, self.fsdp_mesh, 1)
         if self.mesh is None:
-            return self.tok_embed(input_ids)
-        table = self.tok_embed.weight
+            return F.embedding(input_ids, table)
         local = input_ids - self.vocab_start
         mine = (local >= 0) & (local < table.shape[0])
         rows = F.embedding(torch.where(mine, local, 0), table)

@@ -37,10 +37,14 @@ The port's serving plane, module for module the reference's:
 
 - :mod:`export_cli`: ``kft-export``, a checkpoint into a version dir;
   :mod:`sharding`: a sharded export's writer, its one-card read and its
-  gang's read (``tensor=T`` on T ranks, ``LoadedModel.follow``).
+  gang's read (``fsdp=F, tensor=T`` on F·T ranks).
+- A gang: :mod:`server` started with the launcher's gang env serves on
+  rank 0 (its ``ModelManager`` announces each load on the serving
+  mesh's control line, ``inference/engine/gang.py``) while every other
+  rank runs ``ModelManager.follow()``; every eager engine lane runs on
+  it.
 - :mod:`benchmark`: the serving benchmark's legs.
 
-Not ported: a manager or server fronting a gang and an fsdp-sharded
-serving forward (ROADMAP A18), the proxy, the client, and the
-benchmark's obs-overhead and SLO legs (A16); the reference's proxy
-fronts port replicas unchanged."""
+Not ported: CUDA-graph capture of a gang's engine (ROADMAP A18), the
+proxy, the client, and the benchmark's obs-overhead and SLO legs (A16);
+the reference's proxy fronts port replicas unchanged."""

@@ -37,7 +37,19 @@ Overload control (:mod:`overload`): queue entries carry the request's
 deadline; admission sheds at enqueue when the estimated queue wait
 (batch-latency EWMA × queued batches) exceeds the remaining budget,
 and the batcher evicts already-expired entries before each dispatch,
-so abandoned requests never reach the card."""
+so abandoned requests never reach the card.
+
+On a gang (``ModelManager(gang=)``, a
+:class:`~kubeflow_tpu_torch.inference.engine.gang.GangLink` over the
+group's ranks) rank 0's manager is the whole server: it alone polls
+versions and takes requests, and its admission, tenancy, overload
+shedding and micro-batcher run as on one card. A version whose shard
+manifest spans the gang is announced on the line before rank 0 loads
+it (``load_version`` builds its serving mesh; each rank reads its own
+shard), and its device work then rides that version's channel; its
+swap or unload is its ``close``. Every other rank runs
+:meth:`ModelManager.follow`, which loads the same versions onto the
+same mesh and runs each channel's work until rank 0's manager stops."""
 
 from __future__ import annotations
 
@@ -55,6 +67,7 @@ from kubeflow_tpu_torch.obs import metrics as obs_metrics
 from kubeflow_tpu_torch.obs.tracing import TRACER
 from kubeflow_tpu_torch.scaling import policy as scaling_policy
 from kubeflow_tpu_torch.serving import _native, remote, tenancy
+from kubeflow_tpu_torch.serving.export import read_metadata
 from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
 from kubeflow_tpu_torch.serving.overload import (
     DeadlineExceededError,
@@ -162,6 +175,22 @@ def _combine_streams(streams, future: Future) -> None:
         cb()  # already-finished stream (raced the set_notify)
 
 
+def version_dir(base_path: str, version: int) -> str:
+    """A version's local dir: an object store's is pulled into the local
+    cache first (they cannot be mmapped or listed), then loaded through
+    the ordinary local path."""
+    if remote.is_remote(base_path):
+        return remote.materialize(base_path, version)
+    return f"{base_path}/{version}"
+
+
+def _spans_gang(path: str, gang: Any) -> bool:
+    """Whether the version at ``path`` loads onto the gang: its shard
+    manifest has one shard a rank."""
+    sharding = read_metadata(path).sharding or {}
+    return int(sharding.get("num_shards", 1)) == gang.size > 1
+
+
 def _local_versions(base_path: str) -> List[int]:
     """All numeric version dirs under a POSIX base path, ascending."""
     import os
@@ -184,8 +213,10 @@ class ServedModel:
                  continuous_batching: bool = False,
                  tenancy_registry: Optional[
                      tenancy.TenantRegistry] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, gang: Any = None):
         self.name = name
+        #: The gang's control line (rank 0's), or None on one card.
+        self.gang = gang
         #: Where versions load: ``None`` → cuda (raises without a
         #: GPU), ``"cpu"`` only on request.
         self.device = resolve_device(device)
@@ -278,21 +309,27 @@ class ServedModel:
         return _local_versions(self.base_path)
 
     def _version_dir(self, version: int) -> str:
-        if remote.is_remote(self.base_path):
-            # Object stores can't be mmapped/opendir'd: pull the
-            # version dir into the local cache first, then load it
-            # through the ordinary local path.
-            return remote.materialize(self.base_path, version)
-        return f"{self.base_path}/{version}"
+        return version_dir(self.base_path, version)
 
     def _load(self, version: int) -> LoadedModel:
         logger.info("model %s: loading version %d from %s",
                     self.name, version, self.base_path)
-        # warmup=True: every batch bucket runs once during load (health
-        # stays 503), so no request pays a first-run cost.
-        loaded = load_version(self._version_dir(version),
-                              max_batch=self.max_batch, warmup=True,
-                              device=self.device)
+        path = self._version_dir(version)
+        if self.gang is not None and _spans_gang(path, self.gang):
+            # Announced first: every rank loads it (a collective), under
+            # the line's lock so no other model's work interleaves.
+            with self.gang.lock:
+                self.gang.send(("load", self.name, self.base_path, version,
+                                self.max_batch))
+                loaded = load_version(
+                    path, max_batch=self.max_batch, device=self.device,
+                    gang=self.gang.channel((self.name, version)))
+            loaded.warmup()
+        else:
+            # warmup=True: every batch bucket runs once during load
+            # (health stays 503), so no request pays a first-run cost.
+            loaded = load_version(path, max_batch=self.max_batch,
+                                  warmup=True, device=self.device)
         # Warmup timed one post-compile full-bucket execution: install
         # it as the admission controller's latency prior, so the first
         # overload burst after a cold start is shed correctly instead
@@ -1323,12 +1360,15 @@ class ServedModel:
 
 
 class ModelManager:
-    """All served models + the version-poll thread."""
+    """All served models + the version-poll thread. ``gang``: the
+    control line of a gang of ranks (rank 0's manager serves; the
+    others :meth:`follow`)."""
 
     def __init__(self, poll_interval_s: float = 5.0,
                  tenancy_registry: Optional[
                      tenancy.TenantRegistry] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, gang: Any = None):
+        self.gang = gang
         self._models: Dict[str, ServedModel] = {}
         self._poll_interval_s = poll_interval_s
         #: One registry per PROCESS, shared by every model: quotas
@@ -1354,7 +1394,7 @@ class ModelManager:
                             queue_capacity=queue_capacity,
                             continuous_batching=continuous_batching,
                             tenancy_registry=self.tenancy,
-                            device=self.device)
+                            device=self.device, gang=self.gang)
         if initial_poll and not model.poll_versions():
             logger.warning("model %s: no versions found yet under %s",
                            name, base_path)
@@ -1385,12 +1425,60 @@ class ModelManager:
             self._poller.start()
 
     def stop(self) -> None:
+        """Stop polling and every model; on a gang, then end the other
+        ranks' :meth:`follow` (each version's close went first)."""
         self._stop.set()
         if self._poller is not None:
             self._poller.join(timeout=5)
             self._poller = None
         for model in self._models.values():
             model.stop()
+        if self.gang is not None and self.gang.leader:
+            with self.gang.lock:
+                self.gang.send(("stop",))
+
+    def follow(self) -> Dict[str, Any]:
+        """A gang rank other than rank 0: load each version rank 0's
+        manager announces onto the same mesh (``load_version``, this
+        rank reading its own shard) and run each version's work
+        (:meth:`LoadedModel.follow_step`) until rank 0's manager stops.
+        Returns the ``(name, version)`` keys it ``loaded`` and the ones
+        rank 0 ``closed`` (a swap's old version, an unload, the stop)."""
+        gang = self.gang
+        if gang is None or gang.leader:
+            raise RuntimeError("follow() runs on a gang's ranks other than "
+                               "rank 0")
+        held: Dict[Any, LoadedModel] = {}
+        loaded: List[Any] = []
+        closed: List[Any] = []
+        while True:
+            channel, message = gang.recv()
+            if channel is not None:
+                if held[channel].follow_step(message) is not None:
+                    del held[channel]
+                    closed.append(channel)
+            elif message[0] == "load":
+                _, name, base_path, version, max_batch = message
+                logger.info("gang follower: loading %s version %d", name,
+                            version)
+                try:
+                    held[(name, version)] = load_version(
+                        version_dir(base_path, version), max_batch=max_batch,
+                        device=self.device,
+                        gang=gang.channel((name, version)))
+                except Exception:  # noqa: BLE001 — rank 0's failed too;
+                    # its next poll announces the version again.
+                    logger.exception("gang follower: %s version %d failed "
+                                     "to load", name, version)
+                    continue
+                loaded.append((name, version))
+            elif message[0] == "stop":
+                for key, model in held.items():
+                    model.close()
+                    closed.append(key)
+                return {"loaded": loaded, "closed": closed}
+            else:
+                raise ValueError(f"unknown gang message {message[0]!r}")
 
     def _poll_loop(self) -> None:
         # Poll immediately on start (covers deferred initial loads),

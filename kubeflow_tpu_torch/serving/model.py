@@ -41,14 +41,17 @@ its running statistics), BERT on ``input_ids`` alone (``type_ids`` and
 ``valid`` None), a Llama on ``input_ids``; the Llama family also serves
 ``generate``.
 
-A gang of ranks serves a Llama on a ``tensor`` mesh (:func:`load_version`
-``mesh=``, or a ``tensor=T`` sharded export with a group of T ranks):
-each rank holds its tensor pieces and runs the tensor-parallel forward.
-Rank 0 drives: it alone takes ``run`` and the engine's requests, and
-broadcasts each unit of work before it runs it
+A gang of ranks serves a Llama on a serving mesh (:func:`load_version`
+``mesh=``, or an ``fsdp=F, tensor=T`` sharded export with a group of
+F·T ranks): each rank holds its tensor pieces, and with F > 1 its fsdp
+pieces, and runs the sharded forward. Rank 0 drives: it alone takes
+``run`` and the engine's requests, and broadcasts each unit of work
+before it runs it on the version's channel of the mesh's control line
 (``inference/engine/gang.py``); every other rank calls
 :meth:`LoadedModel.follow`, which does the same work until rank 0's
-:meth:`LoadedModel.close`.
+:meth:`LoadedModel.close` (a ``ModelManager``'s follower runs
+:meth:`LoadedModel.follow_step` for each of its messages instead). A
+gang's engine runs every lane, eagerly.
 """
 
 from __future__ import annotations
@@ -65,12 +68,12 @@ import torch
 
 from kubeflow_tpu_torch.inference import prng
 from kubeflow_tpu_torch.inference.engine.gang import GangLink
+from kubeflow_tpu_torch.serving.sharding import SERVING_AXES
 from kubeflow_tpu_torch.inference.generate import generate, prompt_bucket
 from kubeflow_tpu_torch.models import convert
 from kubeflow_tpu_torch.models.layers import apply as apply_vision
-from kubeflow_tpu_torch.models.llama import apply
+from kubeflow_tpu_torch.models.llama import Llama, apply
 from kubeflow_tpu_torch.models.registry import get_model
-from kubeflow_tpu_torch.parallel.mesh import tensor_group
 from kubeflow_tpu_torch.serving.export import (
     read_metadata,
     read_variables,
@@ -117,18 +120,22 @@ class LoadedModel:
     mesh: Any = None
     #: The shard files this rank read (:func:`load_version`).
     shard_files: Optional[List[str]] = None
+    #: The gang's channel for this version (a ``ModelManager``'s line);
+    #: None builds one on the mesh's own line.
+    gang: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         entry = get_model(self.metadata.registry_name)
         self._family = entry.family
-        kwargs = dict(self.metadata.model_kwargs)
+        self._module = entry.make(**model_kwargs(self.metadata, self.mesh))
         self._gang = None
-        if self.mesh is not None and self.mesh.shape["tensor"] > 1:
-            kwargs["mesh"] = self.mesh
-            if tensor_group(self.mesh) is not None:
-                self._gang = GangLink(self.mesh)
-        self._module = entry.make(**kwargs)
+        if self.mesh is not None and self.mesh.axes_size(SERVING_AXES) > 1 \
+                and self.mesh.group(SERVING_AXES) is not None:
+            self._gang = self.gang or GangLink(self.mesh).channel(
+                (self.metadata.model_name, self.version))
+        #: A follower's ``run`` outputs (or the errors they raised).
+        self._followed: List[Any] = []
         self.params = {k: v.to(self.device) for k, v in self.params.items()}
         self.batch_stats = {k: v.to(self.device) for k, v in
                             (self.batch_stats or {}).items()}
@@ -233,7 +240,9 @@ class LoadedModel:
         if not path or not int(cfg.get("engine_draft_tokens", 0) or 0):
             return None, None
         try:
-            draft = load_version(path, device=self.device)
+            # Whole on every rank of a gang, as the reference loads it on
+            # one device: its forward issues no collective.
+            draft = load_version(path, device=self.device, whole=True)
             return draft._module, draft.params
         except Exception as e:  # noqa: BLE001 — degrade, never fail
             logger.warning(
@@ -251,8 +260,11 @@ class LoadedModel:
         ``engine_num_pages``, plus ``engine_prefix_cache`` for the
         prefix lane, ``engine_prefill_chunk`` for sliced long-prompt
         admission, and ``engine_draft_tokens`` / ``engine_draft_export``
-        for speculative decoding). The host KV tier is not ported and
-        raises."""
+        for speculative decoding, ``engine_host_cache_bytes`` for the
+        host KV tier). On a gang rank 0 announces the build and every
+        rank builds the same engine, the draft loaded whole on each; the
+        engine runs eagerly (CUDA-graph capture with collectives inside
+        is ROADMAP A18)."""
         with self._engine_lock:
             if self._engine is not None:
                 return self._engine
@@ -271,24 +283,18 @@ class LoadedModel:
             config = EngineConfig.from_generate_config(
                 self.metadata.generate_config, spec.shape[1],
                 queue_capacity=queue_capacity)
-            if self._gang is not None:
-                # A gang's engine: rank 0 announces it; no draft (the
-                # speculative lane on a gang is ROADMAP A18).
+            if self._gang is not None and self._gang.leader:
+                # Rank 0 announces the build; every rank then builds the
+                # same engine (the draft's load and its fallback alike).
                 with self._gang.lock:
-                    if self._gang.leader:
-                        self._gang.send(("engine", name, queue_capacity))
-                    self._engine = DecodeEngine(
-                        self._module, self.params, config,
-                        name=name or self.metadata.model_name,
-                        device=self.device, gang=self._gang)
-                return self._engine
+                    self._gang.send(("engine", name, queue_capacity))
             draft_model, draft_params = self._load_draft()
             try:
                 self._engine = DecodeEngine(
                     self._module, self.params, config,
                     name=name or self.metadata.model_name,
                     device=self.device, draft_model=draft_model,
-                    draft_params=draft_params)
+                    draft_params=draft_params, gang=self._gang)
             except ValueError:
                 if draft_model is None:
                     raise
@@ -302,7 +308,7 @@ class LoadedModel:
                 self._engine = DecodeEngine(
                     self._module, self.params, config,
                     name=name or self.metadata.model_name,
-                    device=self.device)
+                    device=self.device, gang=self._gang)
             return self._engine
 
     def shard_topology(self) -> Dict[str, Any]:
@@ -340,38 +346,47 @@ class LoadedModel:
 
     def follow(self) -> Dict[str, Any]:
         """A follower rank of a gang: run the work rank 0 broadcasts (its
-        ``run`` calls, its engine's build and laps) until rank 0 closes.
-        Returns what this rank computed: ``runs`` (each ``run``'s outputs,
-        or the error it raised, as rank 0's raised it too) and
-        ``engine`` (each engine request's tokens by gang id), which equal
-        rank 0's."""
+        ``run`` calls, its engine's build and laps) until rank 0 closes,
+        one :meth:`follow_step` a message. Returns what this rank
+        computed: ``runs`` (each ``run``'s outputs, or the error it
+        raised, as rank 0's raised it too), ``engine`` (each engine
+        request's tokens by gang id), which equal rank 0's, and ``laps``
+        (the engine laps it ran, each held to rank 0's pool digest)."""
         gang = self._gang
         if gang is None or gang.leader:
             raise RuntimeError("follow() runs on a gang's ranks other than "
                                "rank 0")
-        runs: List[Any] = []
         while True:
-            message = gang.recv()
-            op = message[0]
-            if op == "run":
-                try:
-                    runs.append(self._run_here(*message[1:]))
-                except Exception as e:  # noqa: BLE001 — rank 0 raised too
-                    runs.append(e)
-            elif op == "engine":
-                self.ensure_engine(*message[1:])
-            elif op == "lap":
-                self._engine.follow_lap(*message[1:])
-            elif op == "close":
-                streams = {} if self._engine is None else \
-                    self._engine.gang_streams
-                tokens = {gid: s.tokens_so_far
-                          for gid, s in streams.items()}
-                self._gang = None
-                self.close()
-                return {"runs": runs, "engine": tokens}
-            else:
-                raise ValueError(f"unknown gang message {op!r}")
+            done = self.follow_step(gang.recv())
+            if done is not None:
+                return done
+
+    def follow_step(self, message: tuple) -> Optional[Dict[str, Any]]:
+        """One message of rank 0's on this version's channel, run on a
+        follower: a ``run``, the engine's build, an engine lap, or the
+        close. Returns None, or at the close what :meth:`follow`
+        returns."""
+        op = message[0]
+        if op == "run":
+            try:
+                self._followed.append(self._run_here(*message[1:]))
+            except Exception as e:  # noqa: BLE001 — rank 0 raised too
+                self._followed.append(e)
+        elif op == "engine":
+            self.ensure_engine(*message[1:])
+        elif op == "lap":
+            self._engine.follow_lap(*message[1:])
+        elif op == "close":
+            engine = self._engine
+            streams = {} if engine is None else engine.gang_streams
+            tokens = {gid: s.tokens_so_far for gid, s in streams.items()}
+            laps = 0 if engine is None else engine.gang_laps
+            self._gang = None
+            self.close()
+            return {"runs": self._followed, "engine": tokens, "laps": laps}
+        else:
+            raise ValueError(f"unknown gang message {op!r}")
+        return None
 
     def run(self, inputs: Dict[str, np.ndarray],
             signature_name: Optional[str] = None,
@@ -519,9 +534,29 @@ class LoadedModel:
         self.warmup_batch_seconds = time.monotonic() - t0
 
 
+def model_kwargs(metadata: ModelMetadata, mesh: Any) -> Dict[str, Any]:
+    """The registry kwargs of a version's model on ``mesh``: the
+    export's, and the mesh where a model axis or fsdp splits it (fsdp as
+    held pieces: the serving forward, ``Llama(fsdp_pieces=True)``)."""
+    kwargs = dict(metadata.model_kwargs)
+    if mesh is None:
+        return kwargs
+    if mesh.shape["fsdp"] > 1:
+        if not isinstance(get_model(metadata.registry_name).make(**kwargs),
+                          Llama):
+            raise ValueError(
+                f"an fsdp={mesh.shape['fsdp']} serving mesh serves the "
+                f"Llama family; {metadata.registry_name!r} is not one")
+        kwargs["fsdp_pieces"] = True
+    if mesh.shape["tensor"] > 1 or mesh.shape["fsdp"] > 1:
+        kwargs["mesh"] = mesh
+    return kwargs
+
+
 def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
                  warmup: bool = False, device: DeviceLike = None,
-                 mesh: Any = None) -> LoadedModel:
+                 mesh: Any = None, whole: bool = False,
+                 gang: Any = None) -> LoadedModel:
     """Load one version dir written by either package: its signature,
     then its Flax params, carried across to the port's layout and
     dtypes (``models/convert.py``) on ``device`` (``None`` → cuda).
@@ -535,10 +570,15 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     rank must call this. Otherwise it is reassembled on the host and
     carried across as a monolithic one: the reference's n = 1 read, for
     one card that holds the whole model. A monolithic export given a
-    ``mesh`` is read whole and cut to the rank's pieces. A manifest this
-    build cannot read raises."""
+    ``mesh`` is read whole and cut to the rank's pieces. ``whole``: read
+    the export whole onto ``device`` whatever the group (a gang's
+    speculative draft, on every rank). ``gang``: the version's channel
+    on a ``ModelManager``'s control line. A manifest this build cannot
+    read raises."""
     metadata = read_metadata(version_dir)
     opened = None
+    if whole:
+        mesh = None
     if metadata.sharding and int(metadata.sharding.get("num_shards",
                                                        1)) > 1:
         from kubeflow_tpu_torch.serving import sharding
@@ -547,7 +587,8 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
         spec = sharding.ShardSpec.from_json(
             metadata.sharding.get("mesh") or {})
         dist = torch.distributed
-        if mesh is None and dist.is_available() and dist.is_initialized() \
+        if mesh is None and not whole and dist.is_available() \
+                and dist.is_initialized() \
                 and dist.get_world_size() == spec.num_shards:
             mesh = sharding.serving_mesh(spec, device)
         if mesh is not None:
@@ -564,10 +605,8 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
         raise NotImplementedError(
             f"export {version_dir} carries collections {extra}; the "
             f"port serves params and batch_stats")
-    kwargs = dict(metadata.model_kwargs)
-    if mesh is not None and mesh.shape["tensor"] > 1:
-        kwargs["mesh"] = mesh
-    template = get_model(metadata.registry_name).make(**kwargs)
+    template = get_model(metadata.registry_name).make(
+        **model_kwargs(metadata, mesh))
     params = convert.params_from_flax(
         convert.flatten_tree(unbox(variables["params"])), template,
         device=device)
@@ -581,7 +620,7 @@ def load_version(version_dir: str, *, max_batch: int = 64, top_k: int = 5,
     loaded = LoadedModel(metadata=metadata, version=version, params=params,
                          max_batch=max_batch, top_k=top_k, device=device,
                          batch_stats=batch_stats, mesh=mesh,
-                         shard_files=opened)
+                         shard_files=opened, gang=gang)
     if warmup:
         loaded.warmup()
     return loaded

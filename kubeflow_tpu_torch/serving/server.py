@@ -48,7 +48,17 @@ A stream's ``resume`` event (minted when the caller asks with
 ``emit_resume``) carries the reference's token; a stream that was
 itself resumed adds its original prompt's length (``prompt_len``), so
 its next resume is split at the same point (wire.py
-``encode_resume_token``)."""
+``encode_resume_token``).
+
+A gang: started with the launcher's gang env (``KFT_COORDINATOR_ADDRESS``
+``host:port``, ``KFT_NUM_PROCESSES``, ``KFT_PROCESS_ID``), every process
+joins the group (``training/launcher.py`` ``initialize_distributed``:
+gloo with ``--device cpu``, nccl on the cards, a card a rank). Rank 0
+is the server: its manager, REST and gRPC listeners, and a sharded
+export spanning the gang loads onto the serving mesh. Every other rank
+opens no port and runs ``ModelManager.follow()``, loading the same
+versions and running their device work, and exits 0 once rank 0 shuts
+down."""
 
 from __future__ import annotations
 
@@ -1055,6 +1065,33 @@ def load_model_config(path: str):
     return entries
 
 
+def _join_gang(device):
+    """The gang's control line, once this process has joined the gang
+    its env describes; None for one process."""
+    from kubeflow_tpu_torch.training.launcher import initialize_distributed
+
+    if not initialize_distributed(device=device.type):
+        return None
+    from kubeflow_tpu_torch.inference.engine.gang import GangLink
+
+    gang = GangLink()
+    logger.info("gang of %d ranks: this process is %s", gang.size,
+                "the server" if gang.leader else "a follower")
+    return gang
+
+
+def _follow(gang, device) -> int:
+    """A follower rank's whole life: rank 0's loads and their work,
+    until rank 0's manager stops."""
+    import torch.distributed as dist
+
+    summary = ModelManager(device=device, gang=gang).follow()
+    logger.info("gang follower %d: rank 0 stopped; loaded %s, closed %s",
+                dist.get_rank(), summary["loaded"], summary["closed"])
+    dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="kft-model-server")
     # --port is the gRPC port, exactly like tensorflow_model_server
@@ -1163,8 +1200,12 @@ def main(argv=None) -> int:
             parser.error(f"--tenant_policy {args.tenant_policy}: {e}")
         registry = TenantRegistry(TenantPolicySource(
             args.tenant_policy, initial=initial))
+    gang = _join_gang(device)
+    if gang is not None and not gang.leader:
+        return _follow(gang, device)
     manager = ModelManager(poll_interval_s=args.poll_interval,
-                           tenancy_registry=registry, device=device)
+                           tenancy_registry=registry, device=device,
+                           gang=gang)
     # Defer the (slow) first model loads to the poll thread: the ports
     # open immediately and /healthz answers 503 until loaded, so
     # kubelet probes see a live-but-not-ready pod instead of a dead one.

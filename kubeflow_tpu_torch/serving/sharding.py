@@ -36,11 +36,13 @@ bytes back exactly, so a sharded export serves on one card that holds
 the whole model (``serving/model.py`` ``load_version``).
 :func:`serving_mesh` and :func:`load_sharded_variables` are the
 reference's mesh load on a gang of ranks, one device a rank: rank r of
-a ``tensor=T`` export reads shard file r alone (its pieces of every
-planned leaf); the leaves the plan keeps whole are stored once, in shard
-0, and rank 0 broadcasts them over the gang. A manifest with
-``fsdp > 1`` raises: the port has no fsdp-sharded serving forward
-(ROADMAP A18).
+an ``fsdp=F, tensor=T`` export reads shard file r alone (its pieces of
+every planned leaf: a tensor-planned leaf's tensor piece, an
+fsdp-planned leaf's fsdp piece); the leaves the plan keeps whole are
+stored once, in shard 0, and rank 0 broadcasts them over the gang. With
+``fsdp > 1`` the model holds each leaf's fsdp piece at rest and gathers
+it just before the op that reads it (``models/llama.py``, ``Llama(mesh=,
+fsdp_pieces=True)``).
 """
 
 from __future__ import annotations
@@ -395,15 +397,9 @@ def serving_mesh(spec: ShardSpec, device: Any = None):
     (``parallel/mesh.py`` ``build_mesh``; tensor innermost, as the
     reference lays its devices out), one device a rank: ``device`` is
     this rank's (the card by default). Raises when the group has fewer
-    ranks than ``spec.num_shards`` (the reference's message) and on
-    ``fsdp > 1``."""
+    ranks than ``spec.num_shards`` (the reference's message)."""
     from kubeflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
-    if spec.fsdp > 1:
-        raise NotImplementedError(
-            f"serving mesh {spec.to_json()}: an fsdp-sharded serving "
-            f"forward is not ported (ROADMAP A18); the port serves "
-            f"tensor=T exports on a T-rank gang")
     dist = torch.distributed
     ranks = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
@@ -421,8 +417,8 @@ def load_sharded_variables(version_dir: str,
                            ) -> Dict[str, Any]:
     """This rank's variables of a sharded export on ``mesh`` (a
     :func:`serving_mesh`): each planned leaf's piece from this rank's
-    own shard file, which is the rank's tensor piece of the leaf by the
-    rule table, and each leaf the plan keeps whole from shard 0, read by
+    own shard file, which is the rank's tensor or fsdp piece of the leaf
+    by the rule table, and each leaf the plan keeps whole from shard 0, read by
     rank 0 alone and broadcast to the gang (a collective: every rank
     calls it). Raises, as the reference does, when the mesh's size or
     axes differ from the manifest's. ``opened`` collects the names of
@@ -441,18 +437,17 @@ def load_sharded_variables(version_dir: str,
                 f"mesh axis {axis}={mesh.shape.get(axis, 1)} != "
                 f"manifest {axis}={getattr(spec, axis)} — the load "
                 f"mesh must match the export topology")
-    if spec.fsdp > 1:
-        raise NotImplementedError(
-            "an fsdp-sharded serving forward is not ported (ROADMAP A18)")
     plan: Dict[str, Dict[str, Any]] = manifest["plan"]
-    # Shard ids run tensor-fastest, as mesh ranks do.
-    mine = manifest["shards"][mesh.rank]
+    # Shard ids run tensor-fastest (fsdp outer, tensor inner), as the
+    # mesh's positions do.
+    position = mesh.index(SERVING_AXES)
+    mine = manifest["shards"][position]
     shard = _read_shard(version_dir, mine)
     if opened is not None:
         opened.append(mine)
     flat = {k: v for k, v in shard.items() if k in plan}
     whole = [{k: v for k, v in shard.items() if k not in plan}
-             if mesh.rank == 0 else None]
+             if position == 0 else None]
     group = mesh.group(SERVING_AXES)
     if group is not None:
         torch.distributed.broadcast_object_list(whole, src=0, group=group)

@@ -29,6 +29,12 @@ the smoke. Run from the repository root::
 A function's total includes the functions it calls, so the rows
 overlap; ``device_window`` is the profiler's window and the work run
 inside it.
+
+``--whole`` runs the whole smoke (``chip_smoke.main``, its result lines
+included) with every function timed the same way, and reports each
+function's total over the run: where the smoke's 1,200 s go::
+
+    python3 scripts/smoke_breakdown.py --whole [--out breakdown.json]
 """
 
 import argparse
@@ -86,11 +92,15 @@ def instrument():
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--out", default="")
+    parser.add_argument("--whole", action="store_true",
+                        help="time every function over the whole smoke")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("smoke_breakdown: CUDA is not available", file=sys.stderr)
         return 1
     instrument()
+    if args.whole:
+        return whole(args.out)
     card = smoke.environment()
     smoke._build.build_all()
     params = smoke.init_params(
@@ -130,6 +140,25 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     return 0
+
+
+def whole(out: str) -> int:
+    """The smoke end to end, then each function's total seconds."""
+    t0 = time.monotonic()
+    sys.argv = [sys.argv[0]]
+    rc = smoke.main()
+    wall = time.monotonic() - t0
+    rows = sorted(TOTAL.items(), key=lambda kv: -kv[1])
+    smoke.log(f"breakdown: the smoke {wall:.1f} s, exit {rc}")
+    for name, seconds in rows[:60]:
+        smoke.log(f"  {name}: {seconds:.2f} s in {CALLS[name]} calls")
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"wall_s": wall, "rc": rc, "functions": [
+                [name, seconds, CALLS[name]] for name, seconds in rows]},
+                f, indent=1)
+    return rc
 
 
 if __name__ == "__main__":

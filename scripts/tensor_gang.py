@@ -31,17 +31,23 @@ as an all-reduce of a zeroed buffer there. ``--transport nccl --world
 4`` (four cards, one rank each) runs the same gang over nccl at
 ``tensor=4``.
 
-As a rank (``--rank R``), the script joins the gang, loads the export
-with ``load_version`` (rank r reads shard r), and writes what it
-computed to ``--out``: the shard files it opened, its kernel launches
-over the phase's main path, the prefill's logits and the logits of each
-request's tokens fed back (rank 0), and the tokens of ``run`` and of
-the engine, greedy and sampled (rank 0 drives, the others
-``follow()``).
+As a rank (``--rank R``), the script joins the gang and writes what it
+computed to ``--out``, rank 0 driving and the others following: first a
+``ModelManager`` (rank 0: a model a mode, loaded onto the gang by its
+poll, a gRPC server, the engine mix through ``ServedModel``; the others:
+``ModelManager.follow()``); then the export loaded with ``load_version``
+(rank r reads shard r): the shard files it opened, the prefill's logits
+and the logits of each request's tokens fed back (rank 0), and each
+engine lane's tokens, greedy and sampled (``LoadedModel.follow()`` on
+the others); then the ``fsdp=world`` export of the same weights: its
+files, the bytes held at rest, the peak memory, the prefill's logits and
+a greedy ``run``, each timed beside its collectives. Its kernel
+launches over the whole path.
 """
 
 import argparse
 import dataclasses
+import gc
 import os
 import pickle
 import sys
@@ -110,6 +116,177 @@ def timed_collectives(names=COLLECTIVES):
     return totals
 
 
+def _variant(loaded, device, **config):
+    """``loaded``'s params on its mesh under an export config changed by
+    ``config`` (a lane's engine knobs, a mode's sampling): a version of
+    its own on the gang's line (rank 0 drives it, the others follow)."""
+    from kubeflow_tpu_torch.serving.model import LoadedModel
+
+    meta = loaded.metadata
+    return LoadedModel(
+        metadata=dataclasses.replace(
+            meta, generate_config=dict(meta.generate_config, **config)),
+        version=loaded.version, params=loaded.params, max_batch=1,
+        device=device, mesh=loaded.mesh)
+
+
+def _results(streams, timeout=600.0):
+    return [s.result(timeout) for s in streams]
+
+
+def _lane(model, case, mode, lane):
+    """Rank 0's requests of one lane (the other ranks follow): the
+    tokens it streamed, its engine's stats and every request's tokens
+    by gang id."""
+    from kubeflow_tpu_torch.inference import prng
+    from kubeflow_tpu_torch.serving import wire
+
+    engine = model.ensure_engine()
+    prompts, keys = case["prompts"], case["keys"]
+    got = {}
+    t0 = time.monotonic()
+    if lane in ("plain", "spec"):
+        got["streams"] = _results([engine.submit(p, rng=k)
+                                   for p, k in zip(prompts, keys)])
+    if lane == "plain":
+        # Three resumes of request 0: at 1, the middle and budget - 1.
+        full = got["streams"][0]
+        steps = prng.split(np.asarray(keys[0], np.uint32), len(full))
+        got["resumes"] = [engine.submit(
+            np.concatenate([prompts[0], full[:cut]]), step_keys=steps[cut:],
+            prompt_len=len(prompts[0])).result(600.0)
+            for cut in case["cuts"]]
+        # KV handoff: the gang's own blob adopted here (its heads
+        # gathered, then cut again), the gang's blob for the parent's
+        # one-card load, and the parent's adopted here.
+        p, k = case["handoff_prompt"], case["handoff_key"]
+        got["local"] = engine.submit(p, rng=k).result(600.0)
+        handoff = engine.run_prefill(p, rng=k)
+        got["blob"] = wire.encode_kv_handoff("llama", 1, handoff)
+        got["own_adopted"] = engine.submit(handoff=wire.decode_kv_handoff(
+            got["blob"], model="llama", version=1)).result(600.0)
+        got["adopted"] = engine.submit(handoff=wire.decode_kv_handoff(
+            case["incoming"][mode], model="llama", version=1)).result(600.0)
+    if lane in ("prefix", "chunk"):
+        # Each prompt of the prefix mix cold (the index cleared after
+        # it), then the mix in one pass, where the later ones hit.
+        mix, mix_keys = case["prefix_prompts"], case["prefix_keys"]
+        got["cold"] = []
+        for p, k in zip(mix, mix_keys):
+            got["cold"].append(engine.submit(p, rng=k).result(600.0))
+            engine.clear_prefix_cache()
+        got["warm"] = [engine.submit(p, rng=k).result(600.0)
+                       for p, k in zip(mix, mix_keys)]
+    got["s"] = time.monotonic() - t0
+    got["stats"] = engine.stats()
+    got["engine"] = {gid: s.tokens_so_far
+                     for gid, s in engine.gang_streams.items()}
+    return got
+
+
+def manager_part(case, device):
+    """Rank 0: a ``ModelManager`` over the export, a model a mode (each
+    loading onto the gang as its first poll), and a gRPC server; the
+    engine mix through ``ServedModel.submit``, ``submit_stream`` and one
+    gRPC Predict, beside the version's B = 1 ``run``. The other ranks:
+    ``ModelManager.follow()`` until rank 0's manager stops."""
+    from kubeflow_tpu_torch.inference.engine.gang import GangLink
+    from kubeflow_tpu_torch.serving import wire
+    from kubeflow_tpu_torch.serving.manager import ModelManager
+
+    gang = GangLink()
+    manager = ModelManager(poll_interval_s=3600, device=device, gang=gang)
+    if not gang.leader:
+        return manager.follow()
+    import grpc
+
+    from kubeflow_tpu_torch.serving.grpc_server import make_server
+
+    out = {}
+    t0 = time.monotonic()
+    for mode, base in case["manager_bases"].items():
+        manager.add_model(mode, base, max_batch=1, continuous_batching=True)
+    out["load_s"] = time.monotonic() - t0
+    server, port = make_server(manager, 0)
+    server.start()
+    try:
+        for mode in case["manager_bases"]:
+            served = manager.get_model(mode)
+            loaded = served.get()
+            rows = [{"input_ids": p[None]} for p in case["prompts"]]
+            t0 = time.monotonic()
+            futures = [served.submit(r, None, None, None) for r in rows]
+            unary = [f.result(600.0)["tokens"][0] for f in futures]
+            streamed = [_results(served.submit_stream(r, None, None)[1])[0]
+                        for r in rows]
+            with grpc.insecure_channel(f"127.0.0.1:{port}") as channel:
+                reply = channel.unary_unary(
+                    "/tensorflow.serving.PredictionService/Predict")(
+                    wire.encode_predict_request(mode, rows[0]),
+                    timeout=600.0)
+            grpc_tokens = wire.decode_predict_response(reply)[1]["tokens"]
+            served_s = time.monotonic() - t0
+            b1 = [loaded.run(r)["tokens"][0] for r in rows]
+            out[mode] = {"unary": unary, "streamed": streamed,
+                         "grpc": grpc_tokens[0], "b1": b1,
+                         "served_s": served_s,
+                         "topology": loaded.shard_topology()}
+    finally:
+        server.stop(grace=None)
+        manager.stop()
+    return out
+
+
+def fsdp_part(case, device, collectives):
+    """The ``fsdp=2`` export of the same weights: each rank reads its
+    own shard and holds half of every kernel and table at rest, its
+    peak memory, the [1, 512] prefill's logits (rank 0) and request 0's
+    greedy tokens through ``run`` (rank 0 drives; the export's budget),
+    each timed beside
+    the collectives' device time in it (the fsdp gathers)."""
+    from kubeflow_tpu_torch.models.llama import apply
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.model import load_version
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    loaded = load_version(case["fsdp_export"], max_batch=1, device=device)
+    out = {"load_s": time.monotonic() - t0, "opened": loaded.shard_files,
+           "topology": loaded.shard_topology(),
+           "held_bytes": sum(t.numel() * t.element_size()
+                             for t in loaded.params.values())}
+    forward = get_model(case["model"]).make(
+        dtype=case["dtype"], num_layers=case["layers"], mesh=loaded.mesh,
+        fsdp_pieces=True)
+    with torch.inference_mode():
+        before = collectives()
+        t0 = time.monotonic()
+        logits = apply(forward, loaded.params,
+                       torch.from_numpy(case["prefill"]).to(device))
+        torch.cuda.synchronize()
+        after = collectives()
+        out["prefill_s"] = time.monotonic() - t0
+        out["prefill_gather_s"] = after["device_s"] - before["device_s"]
+        if torch.distributed.get_rank() == 0:
+            out["prefill_logits"] = logits.float().cpu().numpy()
+        del logits
+    before = collectives()
+    t0 = time.monotonic()
+    if torch.distributed.get_rank() == 0:
+        out["tokens"] = loaded.run({"input_ids": case["prompts"][0][None]})[
+            "tokens"][0]
+        loaded.close()
+    else:
+        out.update(loaded.follow())
+    torch.cuda.synchronize()
+    after = collectives()
+    out["run_s"] = time.monotonic() - t0
+    out["run_gather_s"] = after["device_s"] - before["device_s"]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def rank_main(args) -> int:
     from kubeflow_tpu_torch.models.llama import apply
     from kubeflow_tpu_torch.models.registry import get_model
@@ -118,7 +295,7 @@ def rank_main(args) -> int:
     from kubeflow_tpu_torch.ops import prefill_gemm as pg
     from kubeflow_tpu_torch.ops import rms_norm as rn
     from kubeflow_tpu_torch.ops.flash_attention import flash_attention
-    from kubeflow_tpu_torch.serving.model import LoadedModel, load_version
+    from kubeflow_tpu_torch.serving.model import load_version
 
     case = pickle.loads(open(args.case, "rb").read())
     # Ranks sharing one card all compute on it.
@@ -137,8 +314,16 @@ def rank_main(args) -> int:
                 "add_rms_norm": rn.add_rms_norm,
                 "decode_attention": da.decode_attention,
                 "prefill_gemm": pg.prefill_linear}
+    lead = args.rank == 0
     out = {"rank": args.rank}
     try:
+        collectives = timed_collectives()
+        for fn in counters.values():
+            fn.launches = 0
+        t_main = time.monotonic()
+        t0 = time.monotonic()
+        out["manager"] = manager_part(case, device)
+        out["manager_s"] = time.monotonic() - t0
         t0 = time.monotonic()
         loaded = load_version(case["export"], max_batch=1, device=device)
         out["load_s"] = time.monotonic() - t0
@@ -147,14 +332,10 @@ def rank_main(args) -> int:
         forward = get_model(case["model"]).make(
             dtype=case["dtype"], num_layers=case["layers"],
             mesh=loaded.mesh)
-        collectives = timed_collectives()
-        for fn in counters.values():
-            fn.launches = 0
-        t_main = time.monotonic()
         with torch.inference_mode():
             ids = torch.from_numpy(case["prefill"]).to(device)
             logits = apply(forward, loaded.params, ids)
-            if args.rank == 0:
+            if lead:
                 out["prefill_logits"] = logits.float().cpu().numpy()
             # Each request's tokens fed back: the logits of each step,
             # where the monolithic run's tokens are the context.
@@ -164,36 +345,33 @@ def rank_main(args) -> int:
                 step = apply(forward, loaded.params,
                              torch.from_numpy(seq).to(device))
                 fed.append(step[0, len(prompt) - 1:].float().cpu().numpy())
-            if args.rank == 0:
+            if lead:
                 out["fed_logits"] = fed
         for mode, sampling in case["modes"].items():
-            meta = loaded.metadata
-            config = dict(meta.generate_config, **sampling)
-            model = LoadedModel(
-                metadata=dataclasses.replace(meta, generate_config=config),
-                version=loaded.version, params=loaded.params, max_batch=1,
-                device=device, mesh=loaded.mesh)
-            if args.rank != 0:
-                out[mode] = model.follow()
-                continue
-            got = {"b1": [], "b1_s": []}
-            for prompt, key in zip(case["prompts"], case["keys"]):
-                t0 = time.monotonic()
-                got["b1"].append(model.run(
-                    {"input_ids": prompt[None]},
-                    row_rngs=np.asarray([key], np.uint32))["tokens"][0])
-                got["b1_s"].append(time.monotonic() - t0)
-            engine = model.ensure_engine()
-            t0 = time.monotonic()
-            streams = [engine.submit(p, rng=k) for p, k in
-                       zip(case["prompts"], case["keys"])]
-            got["streams"] = [s.result(600.0) for s in streams]
-            got["engine_s"] = time.monotonic() - t0
-            got["engine"] = {gid: s.tokens_so_far
-                             for gid, s in engine.gang_streams.items()}
-            got["stats"] = engine.stats()
-            model.close()
-            out[mode] = got
+            for lane, knobs in case["lanes"].items():
+                model = _variant(loaded, device, **sampling, **knobs)
+                if not lead:
+                    out[mode, lane] = model.follow()
+                    continue
+                got = _lane(model, case, mode, lane)
+                if lane == "plain":
+                    got["b1"], got["b1_s"] = [], []
+                    for prompt, key in zip(case["prompts"], case["keys"]):
+                        t0 = time.monotonic()
+                        got["b1"].append(model.run(
+                            {"input_ids": prompt[None]},
+                            row_rngs=np.asarray([key], np.uint32))[
+                                "tokens"][0])
+                        got["b1_s"].append(time.monotonic() - t0)
+                model.close()
+                out[mode, lane] = got
+        out["lanes_s"] = time.monotonic() - t_main - out["manager_s"]
+        del loaded, forward
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        out["fsdp"] = fsdp_part(case, device, collectives)
+        out["fsdp_s"] = time.monotonic() - t0
         out["collectives"] = collectives()
         out["launches"] = {k: fn.launches for k, fn in counters.items()}
         out["main_s"] = time.monotonic() - t_main
@@ -202,7 +380,8 @@ def rank_main(args) -> int:
     with open(args.out, "wb") as f:
         pickle.dump(out, f)
     log(f"rank {args.rank}: launches {out['launches']}, collectives "
-        f"{out['collectives']}")
+        f"{out['collectives']}, manager {out['manager_s']:.1f} s, lanes "
+        f"{out['lanes_s']:.1f} s, fsdp {out['fsdp_s']:.1f} s")
     return 0
 
 

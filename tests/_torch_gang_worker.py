@@ -320,6 +320,155 @@ def serve_job(case):
     return out
 
 
+def _lane_engine(loaded, sampling, knobs):
+    """A copy of ``loaded`` (the same params on the same mesh and
+    channel) whose export asks for ``sampling`` and the lane's
+    ``knobs``, and its engine."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.serving.model import LoadedModel
+
+    meta = loaded.metadata
+    model = LoadedModel(
+        metadata=dataclasses.replace(meta, generate_config=dict(
+            meta.generate_config, **sampling, **knobs)),
+        version=loaded.version, params=loaded.params, max_batch=4,
+        device="cpu", mesh=loaded.mesh)
+    return model
+
+
+def _streams(engine, prompts, keys):
+    streams = [engine.submit(p, rng=k) for p, k in zip(prompts, keys)]
+    return [s.result(120.0) for s in streams]
+
+
+def _cold_then_warm(engine, prompts, keys):
+    """Each prompt cold (the index cleared after it), then the same
+    prompts again in one pass, where the later ones hit the earlier."""
+    cold = []
+    for p, k in zip(prompts, keys):
+        cold.append(engine.submit(p, rng=k).result(120.0))
+        engine.clear_prefix_cache()
+    warm = [engine.submit(p, rng=k).result(120.0)
+            for p, k in zip(prompts, keys)]
+    return cold, warm
+
+
+def lanes_job(case):
+    """Every eager engine lane of a ``tensor=2`` export on the gang:
+    rank 0 drives each lane's requests through a ``LoadedModel`` over
+    the gang's params, the other ranks ``follow()``."""
+    from kubeflow_tpu_torch.inference import prng
+    from kubeflow_tpu_torch.serving import wire
+    from kubeflow_tpu_torch.serving.model import load_version
+
+    loaded = load_version(case["export"], max_batch=4, device="cpu")
+    lead = dist.get_rank() == 0
+    prompts, keys = case["prompts"], case["keys"]
+    out = {"opened": loaded.shard_files}
+    for mode, sampling in case["modes"].items():
+        for lane, knobs in case["lanes"].items():
+            model = _lane_engine(loaded, sampling, knobs)
+            if not lead:
+                out[mode, lane] = model.follow()
+                continue
+            engine = model.ensure_engine()
+            got = {}
+            if lane == "plain":
+                got["streams"] = _streams(engine, prompts, keys)
+                got["b1"] = [model.run({"input_ids": p[None]},
+                                       row_rngs=np.asarray([k]))["tokens"][0]
+                             for p, k in zip(prompts, keys)]
+                steps = prng.split(np.asarray(keys[0], np.uint32),
+                                   len(got["streams"][0]))
+                got["resumes"] = [engine.submit(
+                    np.concatenate([prompts[0], got["streams"][0][:cut]]),
+                    step_keys=steps[cut:], prompt_len=len(prompts[0])
+                ).result(120.0) for cut in case["cuts"]]
+            elif lane == "spec":
+                got["streams"] = _streams(engine, prompts, keys)
+            elif lane in ("prefix", "chunk"):
+                got["cold"], got["warm"] = _cold_then_warm(
+                    engine, case["prefix_prompts"], case["prefix_keys"])
+            elif lane == "tier":
+                seq = case["tier_prompts"]
+                tkeys = case["tier_keys"]
+                got["streams"] = [engine.submit(p, rng=k).result(120.0)
+                                  for p, k in zip(seq, tkeys)]
+            if lane in ("plain", "prefix"):
+                # KV handoff both ways: this gang's blob for a
+                # one-process engine, and a one-process engine's here.
+                p, k = case["handoff_prompt"], case["handoff_key"]
+                got["local"] = engine.submit(p, rng=k).result(120.0)
+                got["blob"] = wire.encode_kv_handoff(
+                    "sharded", 1, engine.run_prefill(p, rng=k))
+                carried = wire.decode_kv_handoff(
+                    case["incoming"][mode, lane], model="sharded",
+                    version=1)
+                got["adopted"] = engine.submit(
+                    handoff=carried).result(120.0)
+            if lane == "prefix":
+                # Fleet blocks: this gang's export of a prompt's blocks
+                # (every KV head), and an import of a one-process
+                # engine's into a tiered lane below.
+                got["blocks"] = wire.encode_kv_blocks(
+                    "sharded", 1, engine.config.page_size,
+                    engine.export_prefix_blocks(case["prefix_prompts"][0]))
+            if lane == "tier":
+                blocks = wire.decode_kv_blocks(
+                    case["incoming_blocks"][mode], model="sharded",
+                    version=1, page_size=engine.config.page_size)
+                got["imported"] = engine.import_prefix_blocks(blocks)
+                p = case["prefix_prompts"][0]
+                got["imported_stream"] = engine.submit(
+                    p, rng=case["prefix_keys"][0]).result(120.0)
+            got["stats"] = engine.stats()
+            got["engine"] = {gid: s.tokens_so_far
+                             for gid, s in engine.gang_streams.items()}
+            got["laps"] = engine.gang_laps
+            model.close()
+            out[mode, lane] = got
+    return out
+
+
+def fsdp_job(case):
+    """Each fsdp export of the case on the gang's serving mesh: the
+    files each rank opened, what it holds at rest, the cache-free
+    logits, the same ranks' tensor-only forward (params whole over
+    fsdp), and greedy tokens through ``run`` (rank 0 drives)."""
+    from kubeflow_tpu_torch.models.llama import apply
+    from kubeflow_tpu_torch.serving.model import load_version
+
+    out = {}
+    ids = torch.from_numpy(case["ids"])
+    for name, path in case["exports"].items():
+        loaded = load_version(path, max_batch=2, device="cpu")
+        model = get_model("llama-test").make(
+            dtype="float32", mesh=loaded.mesh, fsdp_pieces=True)
+        with torch.no_grad():
+            logits = apply(model, loaded.params, ids).numpy()
+        got = {"opened": loaded.shard_files,
+               "topology": loaded.shard_topology(), "logits": logits,
+               "shapes": {k: tuple(v.shape)
+                          for k, v in loaded.params.items()}}
+        if loaded.mesh.shape["tensor"] > 1:
+            tensor_only = get_model("llama-test").make(dtype="float32",
+                                                       mesh=loaded.mesh)
+            params = convert.params_from_flax(case["flat"], tensor_only,
+                                              device="cpu")
+            with torch.no_grad():
+                got["tensor_logits"] = apply(tensor_only, params,
+                                             ids).numpy()
+        if dist.get_rank() == 0:
+            got["tokens"] = loaded.run(
+                {"input_ids": case["prompt"]})["tokens"]
+            loaded.close()
+        else:
+            got.update(loaded.follow())
+        out[name] = got
+    return out
+
+
 def tensor_sum_job(case):
     """The tensor line's sum (``reduce_from_tensor``) of each rank's
     rows, alone and in batches, and the gather of its pieces."""
@@ -518,7 +667,7 @@ def cli_job(case):
 JOBS = {"lm": lm_job, "moe": moe_job, "prefetch": prefetch_job, "vision": vision_job,
         "serve": serve_job, "tensor_sum": tensor_sum_job, "seq": seq_job,
         "pipeline": pipeline_job, "pipeline_lm": pipeline_lm_job,
-        "cli": cli_job}
+        "cli": cli_job, "lanes": lanes_job, "fsdp": fsdp_job}
 
 
 def main():
